@@ -1,0 +1,105 @@
+"""User-facing Column DSL (counterpart of `spark_tpu/api/column.py`, the
+operators whose expressions are ported)."""
+
+from __future__ import annotations
+
+from typing import Any
+
+from ..expr import expressions as E
+from ..types import DataType
+
+
+def _expr(v: Any) -> E.Expression:
+    if isinstance(v, Column):
+        return v.expr
+    if isinstance(v, E.Expression):
+        return v
+    return E.Literal(v)
+
+
+class Column:
+    def __init__(self, expr: E.Expression):
+        self.expr = expr
+
+    def alias(self, name: str) -> "Column":
+        return Column(E.Alias(self.expr, name))
+
+    def cast(self, to: DataType) -> "Column":
+        return Column(E.Cast(self.expr, to))
+
+    # --- arithmetic -------------------------------------------------------
+    def __add__(self, o):
+        return Column(E.Add(self.expr, _expr(o)))
+
+    def __radd__(self, o):
+        return Column(E.Add(_expr(o), self.expr))
+
+    def __sub__(self, o):
+        return Column(E.Subtract(self.expr, _expr(o)))
+
+    def __rsub__(self, o):
+        return Column(E.Subtract(_expr(o), self.expr))
+
+    def __mul__(self, o):
+        return Column(E.Multiply(self.expr, _expr(o)))
+
+    def __rmul__(self, o):
+        return Column(E.Multiply(_expr(o), self.expr))
+
+    def __truediv__(self, o):
+        return Column(E.Divide(self.expr, _expr(o)))
+
+    def __rtruediv__(self, o):
+        return Column(E.Divide(_expr(o), self.expr))
+
+    # --- comparisons ------------------------------------------------------
+    def __eq__(self, o):  # type: ignore[override]
+        return Column(E.EqualTo(self.expr, _expr(o)))
+
+    def __ne__(self, o):  # type: ignore[override]
+        return Column(E.NotEqualTo(self.expr, _expr(o)))
+
+    def __lt__(self, o):
+        return Column(E.LessThan(self.expr, _expr(o)))
+
+    def __le__(self, o):
+        return Column(E.LessThanOrEqual(self.expr, _expr(o)))
+
+    def __gt__(self, o):
+        return Column(E.GreaterThan(self.expr, _expr(o)))
+
+    def __ge__(self, o):
+        return Column(E.GreaterThanOrEqual(self.expr, _expr(o)))
+
+    # --- boolean ----------------------------------------------------------
+    def __and__(self, o):
+        return Column(E.And(self.expr, _expr(o)))
+
+    def __rand__(self, o):
+        return Column(E.And(_expr(o), self.expr))
+
+    def __or__(self, o):
+        return Column(E.Or(self.expr, _expr(o)))
+
+    def __ror__(self, o):
+        return Column(E.Or(_expr(o), self.expr))
+
+    def __invert__(self):
+        return Column(E.Not(self.expr))
+
+    # --- predicates -------------------------------------------------------
+    def isNull(self):
+        return Column(E.IsNull(self.expr))
+
+    def isNotNull(self):
+        return Column(E.IsNotNull(self.expr))
+
+    def __hash__(self):
+        return id(self)
+
+    def __repr__(self):
+        return f"Column<{self.expr.simple_string()}>"
+
+    def __bool__(self):
+        raise ValueError(
+            "Cannot convert Column to bool: use '&' for AND, '|' for OR")

@@ -1,0 +1,114 @@
+"""DataFrame API (counterpart of `spark_tpu/api/dataframe.py`, the slice's
+subset): a lazy wrapper over a logical plan bound to a session."""
+
+from __future__ import annotations
+
+import pyarrow as pa
+
+from ..errors import NotPortedError
+from ..exec.query_execution import QueryExecution
+from ..expr import expressions as E
+from ..plan import logical as L
+from .column import Column, _expr
+
+
+class Row(dict):
+    """Dict-backed row with attribute access."""
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+
+    def __repr__(self):
+        inner = ", ".join(f"{k}={v!r}" for k, v in self.items())
+        return f"Row({inner})"
+
+
+def _to_expr_list(cols, allow_str=True) -> list[E.Expression]:
+    out = []
+    for c in cols:
+        if isinstance(c, Column):
+            out.append(c.expr)
+        elif isinstance(c, E.Expression):
+            out.append(c)
+        elif isinstance(c, str) and allow_str:
+            out.append(E.UnresolvedStar() if c == "*"
+                       else E.UnresolvedAttribute(c.split(".")))
+        else:
+            out.append(E.Literal(c))
+    return out
+
+
+class DataFrame:
+    def __init__(self, session, plan: L.LogicalPlan):
+        self.session = session
+        self.plan = plan
+        self._qe: QueryExecution | None = None
+
+    def _with(self, plan: L.LogicalPlan) -> "DataFrame":
+        return DataFrame(self.session, plan)
+
+    @property
+    def query_execution(self) -> QueryExecution:
+        if self._qe is None:
+            self._qe = QueryExecution(self.session, self.plan)
+        return self._qe
+
+    # --- transformations ----------------------------------------------
+    def select(self, *cols) -> "DataFrame":
+        return self._with(L.Project(_to_expr_list(cols or ("*",)), self.plan))
+
+    def filter(self, condition) -> "DataFrame":
+        if isinstance(condition, str):
+            raise NotPortedError("string filter conditions (the SQL parser)")
+        return self._with(L.Filter(_expr(condition), self.plan))
+
+    def withColumn(self, name: str, col: Column) -> "DataFrame":
+        exprs: list[E.Expression] = []
+        replaced = False
+        for a in self.query_execution.analyzed.output:
+            if a.name == name:
+                exprs.append(E.Alias(_expr(col), name))
+                replaced = True
+            else:
+                exprs.append(a)
+        if not replaced:
+            exprs.append(E.Alias(_expr(col), name))
+        return self._with(L.Project(exprs, self.plan))
+
+    def repartition(self, num_or_col, *cols) -> "DataFrame":
+        if isinstance(num_or_col, int):
+            return self._with(L.Repartition(num_or_col, True,
+                                            _to_expr_list(cols), self.plan))
+        return self._with(L.Repartition(
+            None, True, _to_expr_list((num_or_col,) + cols), self.plan))
+
+    def groupBy(self, *cols) -> "GroupedData":
+        return GroupedData(self, _to_expr_list(cols))
+
+    def agg(self, *cols) -> "DataFrame":
+        return GroupedData(self, []).agg(*cols)
+
+    # --- actions -------------------------------------------------------
+    def toArrow(self) -> pa.Table:
+        return self.query_execution.to_arrow()
+
+    def collect(self) -> list[Row]:
+        t = self.toArrow()
+        return [Row(zip(t.column_names, vals))
+                for vals in zip(*[c.to_pylist() for c in t.columns])] \
+            if t.num_columns else []
+
+
+class GroupedData:
+    """Role of RelationalGroupedDataset."""
+
+    def __init__(self, df: DataFrame, grouping: list[E.Expression]):
+        self.df = df
+        self.grouping = grouping
+
+    def agg(self, *cols) -> DataFrame:
+        out = list(self.grouping) + _to_expr_list(cols, allow_str=False)
+        return self.df._with(L.Aggregate(self.grouping, out, self.df.plan))

@@ -1,0 +1,52 @@
+"""Column functions (counterpart of `spark_tpu/api/functions.py`, the slice's
+subset): col, lit and the aggregates sum, count, min, max, avg."""
+
+from __future__ import annotations
+
+from typing import Any
+
+from ..expr import expressions as E
+from .column import Column, _expr
+
+
+def col(name: str) -> Column:
+    if name == "*":
+        return Column(E.UnresolvedStar())
+    return Column(E.UnresolvedAttribute(name.split(".")))
+
+
+def lit(v: Any) -> Column:
+    if isinstance(v, Column):
+        return v
+    return Column(E.Literal(v))
+
+
+def _c(v) -> E.Expression:
+    if isinstance(v, str):
+        return E.UnresolvedAttribute(v.split("."))
+    return _expr(v)
+
+
+def sum(c) -> Column:  # noqa: A001
+    return Column(E.Sum(_c(c)))
+
+
+def count(c) -> Column:
+    e = _c(c)
+    if isinstance(e, E.UnresolvedAttribute) and e.name == "*":
+        e = None
+    if isinstance(e, E.UnresolvedStar):
+        e = None
+    return Column(E.Count(e))
+
+
+def avg(c) -> Column:
+    return Column(E.Average(_c(c)))
+
+
+def min(c) -> Column:  # noqa: A001
+    return Column(E.Min(_c(c)))
+
+
+def max(c) -> Column:  # noqa: A001
+    return Column(E.Max(_c(c)))

@@ -1,0 +1,93 @@
+"""Arrow <-> ColumnarBatch interchange (counterpart of
+`spark_tpu/columnar/arrow.py`): Arrow slices are padded to a capacity bucket
+and copied to the session's device; collect concatenates each tile's live
+rows back into one table."""
+
+from __future__ import annotations
+
+from typing import Iterable, Iterator
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+from ..types import (
+    BooleanType, DataType, DateType, StructField, StructType, from_arrow_type,
+)
+from .batch import Column, ColumnarBatch, bucket_capacity
+
+__all__ = ["schema_from_arrow", "table_to_batches", "batches_to_table",
+           "record_batch_to_columnar"]
+
+
+def schema_from_arrow(aschema: pa.Schema) -> StructType:
+    return StructType([
+        StructField(f.name, from_arrow_type(f.type), f.nullable)
+        for f in aschema
+    ])
+
+
+def _chunked_to_numpy(arr: pa.ChunkedArray | pa.Array, dt: DataType):
+    """-> (data ndarray in the type's host dtype, validity ndarray | None)."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    validity = None
+    if arr.null_count:
+        validity = np.asarray(arr.is_valid())
+    if isinstance(dt, DateType):
+        data = np.asarray(arr.fill_null(0)).astype("datetime64[D]") \
+            .astype(np.int32)
+    elif isinstance(dt, BooleanType):
+        data = np.asarray(arr.fill_null(False)).astype(bool)
+    else:
+        data = np.asarray(arr.fill_null(0)).astype(dt.numpy_dtype)
+    return data, validity
+
+
+def record_batch_to_columnar(rb: pa.RecordBatch | pa.Table,
+                             schema: StructType, capacity: int,
+                             device: torch.device | str,
+                             num_rows: int | None = None) -> ColumnarBatch:
+    """Ingest one Arrow slice into a device tile of `capacity` rows."""
+    n = num_rows if num_rows is not None else rb.num_rows
+    cols = []
+    for i, f in enumerate(schema.fields):
+        data, validity = _chunked_to_numpy(rb.column(i), f.dataType)
+        pad = np.zeros(capacity, dtype=f.dataType.numpy_dtype)
+        pad[:n] = data[:capacity]
+        v = None
+        if validity is not None:
+            vm = np.zeros(capacity, dtype=bool)
+            vm[:n] = validity[:capacity]
+            v = torch.from_numpy(vm).to(device)
+        cols.append(Column(f.dataType, torch.from_numpy(pad).to(device), v))
+    mask = torch.zeros(capacity, dtype=torch.bool, device=device)
+    mask[:n] = True
+    return ColumnarBatch(schema, cols, mask, num_rows=n)
+
+
+def table_to_batches(table: pa.Table, rows_per_batch: int,
+                     schema: StructType | None = None,
+                     device: torch.device | str = "cpu"
+                     ) -> Iterator[ColumnarBatch]:
+    """Slice an Arrow table into fixed-capacity ColumnarBatches."""
+    if schema is None:
+        schema = schema_from_arrow(table.schema)
+    n = table.num_rows
+    if n == 0:
+        yield ColumnarBatch.empty(schema, device)
+        return
+    for start in range(0, n, rows_per_batch):
+        chunk_rows = min(rows_per_batch, n - start)
+        # size the tile to the DATA (power-of-two bucket), not the maximum
+        yield record_batch_to_columnar(
+            table.slice(start, rows_per_batch), schema,
+            bucket_capacity(chunk_rows), device, num_rows=chunk_rows)
+
+
+def batches_to_table(batches: Iterable[ColumnarBatch]) -> pa.Table:
+    tables = [b.to_arrow() for b in batches]
+    if not tables:
+        raise ValueError("no batches")
+    # an all-empty result keeps one empty table for its schema
+    return pa.concat_tables([t for t in tables if t.num_rows] or tables[:1])

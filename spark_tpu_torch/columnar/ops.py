@@ -1,0 +1,72 @@
+"""Batch-level structural operations: concat, gather, compact (counterpart
+of `spark_tpu/columnar/ops.py`). All planes stay on the batch's device."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..types import StructType
+from .batch import Column, ColumnarBatch, bucket_capacity
+
+
+def _pad(t: torch.Tensor, cap: int) -> torch.Tensor:
+    if t.shape[0] >= cap:
+        return t
+    return torch.cat([t, torch.zeros(cap - t.shape[0], dtype=t.dtype,
+                                     device=t.device)])
+
+
+def concat_batches(batches: Sequence[ColumnarBatch],
+                   schema: StructType | None = None) -> ColumnarBatch:
+    """Concatenate batches (same schema) into one larger-capacity batch."""
+    if not batches:
+        raise ValueError("concat_batches needs at least one batch")
+    if len(batches) == 1:
+        return batches[0]
+    schema = schema or batches[0].schema
+    cap = bucket_capacity(sum(b.capacity for b in batches))
+    cols: list[Column] = []
+    for i, f in enumerate(schema.fields):
+        parts = [b.columns[i] for b in batches]
+        data = _pad(torch.cat([p.data for p in parts]), cap)
+        validity = None
+        if any(p.validity is not None for p in parts):
+            vs = [p.validity if p.validity is not None
+                  else torch.ones(p.data.shape[0], dtype=torch.bool,
+                                  device=p.data.device) for p in parts]
+            validity = _pad(torch.cat(vs), cap)
+        cols.append(Column(f.dataType, data, validity))
+    mask = _pad(torch.cat([b.row_mask for b in batches]), cap)
+    nrows = None
+    if all(b._num_rows is not None for b in batches):
+        nrows = sum(b._num_rows for b in batches)
+    return ColumnarBatch(schema, cols, mask, num_rows=nrows)
+
+
+def gather_batch(batch: ColumnarBatch, indices: torch.Tensor,
+                 out_mask: torch.Tensor,
+                 schema: StructType | None = None) -> ColumnarBatch:
+    """Row-gather a batch by device `indices` with live-row `out_mask`."""
+    schema = schema or batch.schema
+    cols = []
+    for f, c in zip(schema.fields, batch.columns):
+        validity = None if c.validity is None else c.validity[indices]
+        cols.append(Column(f.dataType, c.data[indices], validity))
+    return ColumnarBatch(schema, cols, out_mask, num_rows=None)
+
+
+def compact_batch(batch: ColumnarBatch, target_capacity: int | None = None
+                  ) -> ColumnarBatch:
+    """Drop dead rows: move live rows to the front and cut to a smaller
+    capacity bucket. Syncs the live count to the host."""
+    n = batch.num_rows()
+    cap = target_capacity or bucket_capacity(max(n, 1))
+    if cap >= batch.capacity:
+        return batch
+    perm = torch.sort((~batch.row_mask).to(torch.int8), stable=True)[1][:cap]
+    mask = torch.arange(cap, device=batch.device) < n
+    out = gather_batch(batch, perm, mask)
+    out._num_rows = n
+    return out

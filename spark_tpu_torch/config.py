@@ -1,0 +1,87 @@
+"""Typed configuration (the port's copy of `spark_tpu/config.py`: the
+`ConfigEntry` registry and `SQLConf`, with the keys the port reads).
+
+Keys shared with the JAX package keep its names, so one conf dict drives
+both engines in a differential test. `spark.torch.device` is the port's
+own: where the session runs.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable
+
+
+@dataclass(frozen=True)
+class ConfigEntry:
+    key: str
+    default: Any
+    doc: str = ""
+    value_type: Callable[[str], Any] = str
+
+
+_REGISTRY: dict[str, ConfigEntry] = {}
+
+
+def _register(entry: ConfigEntry) -> ConfigEntry:
+    _REGISTRY[entry.key] = entry
+    return entry
+
+
+SHUFFLE_PARTITIONS = _register(ConfigEntry(
+    "spark.sql.shuffle.partitions", 8,
+    "Default number of partitions for exchanges.", int))
+
+BATCH_CAPACITY = _register(ConfigEntry(
+    "spark.tpu.batch.capacity", 1 << 16,
+    "Largest row capacity of a ColumnarBatch tile; tiles are sized to a "
+    "power-of-two bucket of their rows.", int))
+
+AGG_BLOCK_ROWS = _register(ConfigEntry(
+    "spark.tpu.agg.blockRows", 1 << 22,
+    "A grouped aggregate over more tile rows than this folds chunk by "
+    "chunk: partial-aggregate each chunk, then merge the partials.", int))
+
+DEVICE = _register(ConfigEntry(
+    "spark.torch.device", "cuda",
+    "torch device the session runs on: 'cuda' (default; raises when no "
+    "card is present) or 'cpu'. There is no fallback between them.", str))
+
+
+class SQLConf:
+    """Session-local config with string overrides over typed defaults.
+
+    Thread-safe; `get` accepts either a ConfigEntry or a string key.
+    """
+
+    def __init__(self, overrides: dict[str, Any] | None = None):
+        self._lock = threading.RLock()
+        self._values: dict[str, Any] = dict(overrides or {})
+
+    def set(self, key: str | ConfigEntry, value: Any) -> "SQLConf":
+        k = key.key if isinstance(key, ConfigEntry) else key
+        with self._lock:
+            self._values[k] = value
+        return self
+
+    def get(self, key: str | ConfigEntry, default: Any = None) -> Any:
+        entry = key if isinstance(key, ConfigEntry) else _REGISTRY.get(key)
+        k = entry.key if entry else key
+        with self._lock:
+            if k in self._values:
+                raw = self._values[k]
+                if entry is not None and isinstance(raw, str):
+                    return entry.value_type(raw)
+                return raw
+        if entry is not None:
+            return entry.default
+        return default
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return int(self.get(SHUFFLE_PARTITIONS))
+
+    @property
+    def batch_capacity(self) -> int:
+        return int(self.get(BATCH_CAPACITY))

@@ -1,0 +1,172 @@
+"""Shuffle: redistribute rows across partitions (counterpart of
+`spark_tpu/exec/shuffle.py`, the device path of the hash and round-robin
+exchanges).
+
+Partition ids are computed on the device for a whole batch, rows are
+grouped by pid with one stable sort, and the grouped columns are sliced into
+per-reducer buffers. The JAX package pulls the grouped columns to the host
+for slicing; here they stay on the device: one gather per column, the
+per-partition counts (from the histogram kernel) cross to the host, and
+each reducer's slices are concatenated into tiles on the device. Spilling
+to disk and the map-side column stats that seed the JAX package's
+dense-range memo are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..columnar.batch import Column, ColumnarBatch, bucket_capacity
+from ..exec.context import ExecContext
+from ..types import StructType
+
+Partition = list
+
+
+class _OutBuffer:
+    """Accumulates device row slices for one reducer partition."""
+
+    def __init__(self, schema: StructType):
+        self.schema = schema
+        self.chunks: list[list] = []  # per append: [(data, validity), ...]
+        self._chunk_rows: list[int] = []
+
+    def append(self, cols: list, n: int):
+        if not n:
+            return
+        self.chunks.append(cols)
+        self._chunk_rows.append(n)
+
+    def _build_tile(self, chunks: list[list], device) -> ColumnarBatch:
+        """Merge a group of chunks into one device tile."""
+        n = sum(c[0][0].shape[0] for c in chunks) if chunks else 0
+        cap = bucket_capacity(max(n, 1))
+        cols = []
+        for i, f in enumerate(self.schema.fields):
+            data = torch.zeros(cap, dtype=f.dataType.device_dtype,
+                               device=device)
+            if n:
+                data[:n] = torch.cat([c[i][0] for c in chunks])
+            validity = None
+            if any(c[i][1] is not None for c in chunks):
+                validity = torch.zeros(cap, dtype=torch.bool, device=device)
+                validity[:n] = torch.cat([
+                    c[i][1] if c[i][1] is not None
+                    else torch.ones(c[i][0].shape[0], dtype=torch.bool,
+                                    device=device) for c in chunks])
+            cols.append(Column(f.dataType, data, validity))
+        mask = torch.arange(cap, device=device) < n
+        return ColumnarBatch(self.schema, cols, mask, num_rows=n)
+
+    def build(self, tile_capacity: int, device) -> Partition:
+        """Rebuild tiles of at most `tile_capacity` rows, split at exact
+        tile boundaries."""
+        if not self.chunks:
+            return [ColumnarBatch.empty(self.schema, device)]
+        batches: Partition = []
+        pend: list[list] = []
+        pend_rows = 0
+        for chunk, n in zip(self.chunks, self._chunk_rows):
+            off = 0
+            while n - off > 0:
+                take = min(n - off, tile_capacity - pend_rows)
+                if off == 0 and take == n:
+                    pend.append(chunk)
+                else:
+                    pend.append([
+                        (d[off:off + take],
+                         None if v is None else v[off:off + take])
+                        for d, v in chunk])
+                pend_rows += take
+                off += take
+                if pend_rows >= tile_capacity:
+                    batches.append(self._build_tile(pend, device))
+                    pend, pend_rows = [], 0
+        if pend or not batches:
+            batches.append(self._build_tile(pend, device))
+        return batches
+
+
+def _pull_sorted(batch: ColumnarBatch, perm: torch.Tensor,
+                 counts: torch.Tensor) -> tuple[list, list[int]]:
+    """Gather columns by perm on the device; counts cross to the host."""
+    host_counts = counts.tolist()
+    live = perm[: sum(host_counts)]
+    gathered = []
+    for c in batch.columns:
+        gathered.append((c.data[live],
+                         None if c.validity is None else c.validity[live]))
+    return gathered, host_counts
+
+
+def hash_partition_batch(batch: ColumnarBatch, key_positions: Sequence[int],
+                         num_out: int, seed: int) -> tuple[list, list[int]]:
+    """Partition ONE batch by key hash; returns the pid-grouped columns +
+    per-partition counts."""
+    from ..ops.partition import hash_partition
+
+    keys = [batch.columns[i] for i in key_positions]
+    pr = hash_partition([c.eq_keys() for c in keys],
+                        [c.validity for c in keys], batch.row_mask,
+                        num_out, seed=seed)
+    return _pull_sorted(batch, pr.perm, pr.counts)
+
+
+def rr_partition_batch(batch: ColumnarBatch, num_out: int,
+                       start: int) -> tuple[list, list[int]]:
+    """Round-robin-partition one batch; `start` is the running live-row
+    offset of the exchange."""
+    from ..ops.partition import round_robin_partition
+
+    pr = round_robin_partition(batch.row_mask, num_out, start % num_out)
+    return _pull_sorted(batch, pr.perm, pr.counts)
+
+
+def shuffle_hash(partitions: list[Partition], key_positions: Sequence[int],
+                 num_out: int, schema: StructType, ctx: ExecContext,
+                 seed: int = 42) -> list[Partition]:
+    bufs = [_OutBuffer(schema) for _ in range(num_out)]
+    for part in partitions:
+        for batch in part:
+            gathered, counts = hash_partition_batch(
+                batch, key_positions, num_out, seed)
+            ctx.launches.add("shuffle_hash")
+            _slice_into(bufs, gathered, counts)
+    return _finish(bufs, ctx)
+
+
+def shuffle_round_robin(partitions: list[Partition], num_out: int,
+                        schema: StructType, ctx: ExecContext) -> list[Partition]:
+    bufs = [_OutBuffer(schema) for _ in range(num_out)]
+    start = 0
+    for part in partitions:
+        for batch in part:
+            gathered, counts = rr_partition_batch(batch, num_out, start)
+            ctx.launches.add("shuffle_rr")
+            _slice_into(bufs, gathered, counts)
+            start += sum(counts)
+    return _finish(bufs, ctx)
+
+
+def gather_single(partitions: list[Partition]) -> list[Partition]:
+    """AllTuples: concatenate every partition into one."""
+    merged: Partition = []
+    for p in partitions:
+        merged.extend(p)
+    return [merged]
+
+
+def _slice_into(bufs: list[_OutBuffer], gathered: list, counts: list[int]):
+    lo = 0
+    for p, n in enumerate(counts):
+        hi = lo + n
+        if n:
+            bufs[p].append([(d[lo:hi], None if v is None else v[lo:hi])
+                            for d, v in gathered], n)
+        lo = hi
+
+
+def _finish(bufs: list[_OutBuffer], ctx: ExecContext) -> list[Partition]:
+    return [b.build(ctx.conf.batch_capacity, ctx.device) for b in bufs]

@@ -1,0 +1,75 @@
+"""Aggregate lowering: logical aggregate functions -> buffer ops + final
+expressions (counterpart of `spark_tpu/physical/aggregates.py`, for sum,
+count, min, max and avg). Merge ops are the partial ops' associative
+counterparts, so one kernel serves map-side partial and reduce-side final
+aggregation."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..errors import NotPortedError
+from ..expr.expressions import (
+    AggregateFunction, Alias, AttributeReference, Average, Count, Divide,
+    Expression, Max, Min, Sum, cast_if,
+)
+from ..types import DataType, IntegralType, float64, int64
+
+# primitive ops the kernels implement
+PARTIAL_TO_MERGE = {
+    "sum": "sum", "count": "sum", "countstar": "sum",
+    "min": "min", "max": "max", "first": "first",
+}
+
+
+def _buffer_dtype(op: str, in_dtype: DataType | None) -> DataType:
+    if op in ("count", "countstar"):
+        return int64
+    if op == "sum":
+        return int64 if isinstance(in_dtype, IntegralType) else float64
+    return in_dtype  # min/max preserve type
+
+
+@dataclass
+class AggSpec:
+    """One aggregate function lowered to buffer columns + a finishing expr."""
+
+    func: AggregateFunction
+    input_expr: Expression | None          # argument (None for count(*))
+    ops: list[str]                         # primitive op per buffer column
+    buffer_attrs: list[AttributeReference]  # schema of partial output
+    result_alias: Alias                    # final output (over buffer attrs)
+    mergeable: bool = True
+    param: float | None = None
+
+
+def lower_aggregate_function(func: AggregateFunction, out_name: str,
+                             out_id: int) -> AggSpec:
+    child = func.child
+
+    def battr(i: int, op: str) -> AttributeReference:
+        dt = _buffer_dtype(op, child.dtype if child is not None else None)
+        nullable = op not in ("count", "countstar")
+        return AttributeReference(f"{out_name}#buf{i}", dt, nullable)
+
+    if isinstance(func, Sum):
+        b = battr(0, "sum")
+        return AggSpec(func, child, ["sum"], [b],
+                       Alias(cast_if(b, func.dtype), out_name, out_id))
+    if isinstance(func, Count):
+        if func.distinct:
+            raise NotPortedError("count(distinct)")
+        op = "count" if child is not None else "countstar"
+        b = battr(0, op)
+        return AggSpec(func, child, [op], [b], Alias(b, out_name, out_id))
+    if isinstance(func, (Min, Max)):
+        op = "min" if isinstance(func, Min) else "max"
+        b = battr(0, op)
+        return AggSpec(func, child, [op], [b], Alias(b, out_name, out_id))
+    if isinstance(func, Average):
+        bs = battr(0, "sum")
+        bc = battr(1, "count")
+        return AggSpec(func, child, ["sum", "count"], [bs, bc],
+                       Alias(cast_if(Divide(bs, bc), func.dtype), out_name,
+                             out_id))
+    raise NotPortedError(f"aggregate {type(func).__name__}")

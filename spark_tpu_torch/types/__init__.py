@@ -1,0 +1,241 @@
+"""SQL data types and schemas (the port's copy of `spark_tpu/types`).
+
+Only the numeric, boolean and date types are ported. Each type carries its
+device representation as a `torch.dtype` (`device_dtype`) with the widths the
+JAX package uses under x64, plus the numpy dtype of its host planes
+(`numpy_dtype`). Dates are int32 days since the epoch. Strings, binary,
+decimals, timestamps and nested types raise `NotPortedError` where a schema
+would hold them.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..errors import NotPortedError
+
+__all__ = [
+    "DataType", "NumericType", "IntegralType", "FractionalType",
+    "BooleanType", "ByteType", "ShortType", "IntegerType", "LongType",
+    "FloatType", "DoubleType", "DateType", "NullType",
+    "StructField", "StructType",
+    "boolean", "int8", "int16", "int32", "int64", "float32", "float64",
+    "date", "null_type", "common_type", "from_arrow_type", "to_arrow_type",
+    "infer_type",
+]
+
+
+@dataclass(frozen=True)
+class DataType:
+    """Base SQL type. Subclasses are singletons."""
+
+    _numpy = np.dtype(np.int32)
+    _torch = torch.int32
+
+    def simple_string(self) -> str:
+        return type(self).__name__.replace("Type", "").lower()
+
+    @property
+    def device_dtype(self) -> torch.dtype:
+        """torch dtype of the on-device representation."""
+        return self._torch
+
+    @property
+    def numpy_dtype(self) -> np.dtype:
+        """numpy dtype of the host representation (Arrow ingest/collect)."""
+        return self._numpy
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return self.simple_string()
+
+
+class NullType(DataType):
+    pass
+
+
+class NumericType(DataType):
+    pass
+
+
+class IntegralType(NumericType):
+    pass
+
+
+class FractionalType(NumericType):
+    pass
+
+
+class BooleanType(DataType):
+    _numpy = np.dtype(np.bool_)
+    _torch = torch.bool
+
+
+class ByteType(IntegralType):
+    _numpy = np.dtype(np.int8)
+    _torch = torch.int8
+
+
+class ShortType(IntegralType):
+    _numpy = np.dtype(np.int16)
+    _torch = torch.int16
+
+
+class IntegerType(IntegralType):
+    pass
+
+
+class LongType(IntegralType):
+    _numpy = np.dtype(np.int64)
+    _torch = torch.int64
+
+
+class FloatType(FractionalType):
+    _numpy = np.dtype(np.float32)
+    _torch = torch.float32
+
+
+class DoubleType(FractionalType):
+    _numpy = np.dtype(np.float64)
+    _torch = torch.float64
+
+
+class DateType(DataType):
+    """Days since 1970-01-01 (matches Arrow date32)."""
+
+
+boolean = BooleanType()
+int8 = ByteType()
+int16 = ShortType()
+int32 = IntegerType()
+int64 = LongType()
+float32 = FloatType()
+float64 = DoubleType()
+date = DateType()
+null_type = NullType()
+
+
+@dataclass(frozen=True)
+class StructField:
+    name: str
+    dataType: DataType
+    nullable: bool = True
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"{self.name}:{self.dataType.simple_string()}"
+
+
+@dataclass(frozen=True)
+class StructType(DataType):
+    fields: tuple[StructField, ...] = ()
+
+    def __init__(self, fields=()):
+        object.__setattr__(self, "fields", tuple(fields))
+
+    @property
+    def names(self) -> list[str]:
+        return [f.name for f in self.fields]
+
+    def simple_string(self) -> str:
+        inner = ",".join(f"{f.name}:{f.dataType.simple_string()}" for f in self.fields)
+        return f"struct<{inner}>"
+
+
+# ---------------------------------------------------------------------------
+# Type coercion lattice (reference: sqlcat/analysis/TypeCoercion.scala)
+# ---------------------------------------------------------------------------
+
+_NUMERIC_ORDER: list[DataType] = [int8, int16, int32, int64, float32, float64]
+
+
+def _numeric_rank(dt: DataType) -> int:
+    for i, t in enumerate(_NUMERIC_ORDER):
+        if type(dt) is type(t):
+            return i
+    return -1
+
+
+def common_type(a: DataType, b: DataType) -> DataType | None:
+    """Tightest common type both sides can be cast to, or None."""
+    if a == b:
+        return a
+    if isinstance(a, NullType):
+        return b
+    if isinstance(b, NullType):
+        return a
+    ra, rb = _numeric_rank(a), _numeric_rank(b)
+    if ra >= 0 and rb >= 0:
+        return _NUMERIC_ORDER[max(ra, rb)]
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Arrow mapping
+# ---------------------------------------------------------------------------
+
+def from_arrow_type(at) -> DataType:
+    import pyarrow as pa
+
+    if pa.types.is_boolean(at):
+        return boolean
+    if pa.types.is_int8(at):
+        return int8
+    if pa.types.is_int16(at):
+        return int16
+    if pa.types.is_int32(at):
+        return int32
+    if pa.types.is_int64(at):
+        return int64
+    if pa.types.is_float32(at):
+        return float32
+    if pa.types.is_float64(at):
+        return float64
+    if pa.types.is_date32(at):
+        return date
+    if pa.types.is_null(at):
+        return null_type
+    raise NotPortedError(f"Arrow type {at} (column type)")
+
+
+def to_arrow_type(dt: DataType):
+    import pyarrow as pa
+
+    if isinstance(dt, BooleanType):
+        return pa.bool_()
+    if isinstance(dt, ByteType):
+        return pa.int8()
+    if isinstance(dt, ShortType):
+        return pa.int16()
+    if isinstance(dt, IntegerType):
+        return pa.int32()
+    if isinstance(dt, LongType):
+        return pa.int64()
+    if isinstance(dt, FloatType):
+        return pa.float32()
+    if isinstance(dt, DoubleType):
+        return pa.float64()
+    if isinstance(dt, DateType):
+        return pa.date32()
+    if isinstance(dt, NullType):
+        return pa.null()
+    raise NotPortedError(f"type {dt.simple_string()}")
+
+
+def infer_type(value) -> DataType:
+    """Infer a DataType from a Python literal value."""
+    if value is None:
+        return null_type
+    if isinstance(value, bool):
+        return boolean
+    if isinstance(value, int):
+        return int32 if -(2**31) <= value < 2**31 else int64
+    if isinstance(value, float):
+        return float64
+    if isinstance(value, datetime.datetime):
+        raise NotPortedError("timestamp literals")
+    if isinstance(value, datetime.date):
+        return date
+    raise NotPortedError(f"literal of type {type(value).__name__}")
