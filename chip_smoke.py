@@ -9,22 +9,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build every CUDA source of the port with nvcc (one process per source,
      all started together) and print the build time;
   3. hold each hand-written kernel against its plain PyTorch version on the
-     card, at the main path's shapes, with its time, the plain version's
-     time, the time of one PyTorch call computing the same function
-     (torch.bincount with weights; a yardstick the port never calls) and
-     the least time the card could take (the bytes this input needs moved:
-     every mask byte, the key and value of each live row, every output,
-     over 3.35 TB/s);
+     card, at the main path's shapes, at each switch point of the kernels'
+     paths and on misaligned views, with its device time alone (device_ms:
+     CUDA events around 100 launches of the C entry point on buffers
+     allocated once, queued behind a sleep kernel so host dispatch is
+     hidden), the wrapper's time per call (call_ms), the plain
+     version's device time, the device time of one PyTorch call computing
+     the same function (torch.bincount with weights, from torch.profiler;
+     a yardstick the port never calls) and the least time the card could
+     take (the bytes this input needs moved: every mask byte, the key and
+     value of each live row, every output, over 3.35 TB/s);
   4. the main path through the DataFrame API at the source's size: 2e7 rows,
      k uniform in [0, 2^20), v uniform in [0, 1000) (numpy seed 42),
      filter + project + repartition(8) + groupBy(k).agg(sum, count, min,
      max, avg) with 8 shuffle partitions and 2^22-row tiles; every group is
      checked against a numpy oracle, the plan must hold both exchanges and
      both aggregate modes, the dense path must be taken, and the histogram
-     kernel's launch count must rise during the query; then a cold run, the
-     median of 3 warm runs, and where one warm run's time goes (each
-     operator's exclusive wall time; the device-busy share and heaviest
-     kernels from torch.profiler);
+     kernel must launch MAIN_HISTOGRAMS times during the query; then a cold
+     run, the median of 3 warm runs, and where one warm run's time goes (each
+     operator's exclusive wall time; the device-busy share, the heaviest
+     kernels and the calls of each kernel of the port's CUDA source from
+     torch.profiler);
   5. a JSON line with every kernel's numbers, then, last, the result line
      {"ok": true, "device": {...}}.
 """
@@ -44,6 +49,16 @@ ROWS = 20_000_000
 KEYS = 1 << 20
 TILE = 1 << 22
 PARTITIONS = 8
+REG_BUCKETS = 16                # the float32 sums' register-path limit
+SMEM_BUCKETS = 57344            # the kernels' shared-memory bucket limit
+# histogram wrapper calls of one main query: 5 round-robin input tiles + 8
+# hash-exchange inputs + 8 partial tiles x 1 (every partial op weighs rows
+# by the row mask) + 8 final tiles x 5 (the row mask and the validities of
+# sum(v2), min, max and avg's sum); each call issues two CUDA kernels
+MAIN_HISTOGRAMS = 5 + 8 + 8 * 1 + 8 * 5
+# the kernels of spark_tpu_torch/csrc/scatter_kernels.cu, by name
+SOURCE_KERNELS = ("scatter_shared", "sum_registers", "merge_partials",
+                  "zero_output", "scatter_global")
 
 
 def fail(msg: str) -> None:
@@ -61,7 +76,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Per-call time of `fn` as its caller pays it: CUDA events around
+    back-to-back calls. Where the device work is a few microseconds this
+    times the host path of each call (checks, allocation, dispatch)."""
     import torch
 
     for _ in range(warmup):
@@ -77,23 +95,135 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 100, warmup: int = 5) -> float:
+    """Device time per call of `fn`, with host dispatch hidden: a sleep
+    kernel holds the stream while the host enqueues `iters` calls, then
+    CUDA events around those calls time the device running them back to
+    back. The device's queue of pending launches is about a thousand deep
+    and a full queue stalls the host, so a call of many kernels gets fewer
+    iterations. Fails if the host did not finish enqueuing before the sleep
+    ended (then host gaps would be timed too) even after longer sleeps with
+    fewer calls. `fn` must not synchronise with the host."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 50_000_000          # about 25 ms at the H100's clock
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()   # the sleep still held the stream
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+        iters = max(iters // 2, 10)
+    fail("device_ms: the host could not enqueue ahead of the device")
+
+
+def device_kernels(prof) -> list:
+    """(self device us, name, calls) of every device op a torch.profiler
+    run recorded, heaviest first."""
+    kernels = []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue    # host ops; their kernels are listed on their own
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            kernels.append((dev_us, ev.key, ev.count))
+    return sorted(kernels, reverse=True)
+
+
+def profiled_ms(fn, iters: int = 50):
+    """Summed device time of the kernels and memsets of one call of `fn`,
+    from torch.profiler: for calls that synchronise with the host
+    (torch.bincount reads its input's max), where `device_ms` cannot hold
+    the stream. Gaps between kernels are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    if not kernels:
+        return "not measured"
+    return sum(k[0] for k in kernels) / 1e3 / iters
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / H100_BYTES_PER_S * 1e3
 
 
+def bare_launch(torch, sk, keys, mask, n_out, values=None):
+    """(launch, out): `launch()` runs the kernel's C entry point once on the
+    current stream into `out` and a scratch buffer, both allocated here
+    once, with no checks and no launch count; for timing the kernel alone.
+    Takes contiguous int32 keys, a bool mask and float32 values (None: the
+    histogram) on the current device."""
+    weighted = values is not None
+    out = torch.empty(n_out, device=keys.device,
+                      dtype=torch.float32 if weighted else torch.int32)
+    scratch, rows = sk._scratch(weighted, keys.shape[0], n_out, out)
+    if weighted:
+        def launch():
+            return sk._group_sum_call(keys, values, mask, n_out, out,
+                                      scratch, rows)
+    else:
+        def launch():
+            return sk._histogram_call(keys, mask, n_out, out, scratch, rows)
+    if launch() != 0:
+        fail(f"the bare launch at n_out={n_out} failed")
+    torch.cuda.synchronize()
+    return launch, out
+
+
 def check_kernels(torch, sk):
-    """Phase 3: each kernel against its plain version on the card."""
+    """Phase 3: each kernel against its plain version on the card, then
+    its times: device_ms (the bare kernel alone), call_ms (the wrapper per
+    call), the plain version's device_ms, torch.bincount's profiled device
+    time, and the bound."""
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     rows = []
 
-    def hist_case(label, n, buckets, live_frac, key_hi=None):
+    def on_card(arr, off):
+        # a view `off` elements into its storage: off > 0 leaves the
+        # data pointer off 16-byte alignment
+        full = np.concatenate([np.zeros(off, arr.dtype), arr])
+        return torch.from_numpy(full).to(dev)[off:]
+
+    def timed(row, launch, wrapper, plain, library):
+        row.update({
+            "device_ms": device_ms(launch),
+            "call_ms": call_ms(wrapper),
+            "plain_ms": device_ms(plain, iters=30),
+            "library_ms": profiled_ms(library),
+        })
+        row["ms"] = row["device_ms"]
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        return row
+
+    def hist_case(label, n, buckets, live_frac, key_hi=None, key_off=0,
+                  mask_off=0):
         keys = rng.integers(0, key_hi or buckets, n).astype(np.int32)
         mask = rng.random(n) < live_frac
-        k = torch.from_numpy(keys).to(dev)
-        m = torch.from_numpy(mask).to(dev)
+        k, m = on_card(keys, key_off), on_card(mask, mask_off)
         got = sk.partition_histogram(k, m, buckets)
         exp = sk.partition_histogram_plain(k, m, buckets)
         torch.cuda.synchronize()
@@ -101,62 +231,83 @@ def check_kernels(torch, sk):
         # keys >= buckets clip into the padded tail and are dropped
         if err != 0 or int(got.sum()) != int((mask & (keys < buckets)).sum()):
             fail(f"partition_histogram {label}: max abs err {err}")
+        launch, bare = bare_launch(torch, sk, k, m, buckets)
+        if not torch.equal(bare, exp):
+            fail(f"partition_histogram {label}: the bare launch differs")
         w = m.to(torch.float32)
-        row = {
-            "kernel": "partition_histogram", "shape": label,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: sk.partition_histogram(k, m, buckets)),
-            "plain_ms": cuda_ms(
-                lambda: sk.partition_histogram_plain(k, m, buckets)),
-            "library_ms": cuda_ms(
-                lambda: torch.bincount(k, weights=w, minlength=buckets)),
-            # each mask byte, the key of each live row, each output
-            "bound_ms": bound_ms(n + int(mask.sum()) * 4 + buckets * 4),
-        }
-        rows.append(row)
-        return row
+        return timed(
+            {"kernel": "partition_histogram", "shape": label,
+             "max_abs_err": err,
+             # each mask byte, the key of each live row, each output
+             "bound_ms": bound_ms(n + int(mask.sum()) * 4 + buckets * 4)},
+            launch, lambda: sk.partition_histogram(k, m, buckets),
+            lambda: sk.partition_histogram_plain(k, m, buckets),
+            lambda: torch.bincount(k, weights=w, minlength=buckets))
 
-    def sum_case(label, n, groups):
+    def sum_case(label, n, groups, off=0):
         keys = rng.integers(0, groups, n).astype(np.int32)
         vals = rng.random(n).astype(np.float32)
         mask = rng.random(n) < 0.9
-        k = torch.from_numpy(keys).to(dev)
-        v = torch.from_numpy(vals).to(dev)
-        m = torch.from_numpy(mask).to(dev)
+        k, v, m = on_card(keys, off), on_card(vals, off), on_card(mask, off)
         got = sk.dense_group_sum_f32(k, v, m, groups)
         exp = sk.dense_group_sum_f32_plain(k, v, m, groups)
         torch.cuda.synchronize()
         diff = (got - exp).abs()
+        # float32 sums added in another order: relative 1e-4 covers the
+        # rounding of up to half a million float32 adds per group
         rel = float((diff / exp.abs().clamp_min(1.0)).max())
         if not rel <= 1e-4:
             fail(f"dense_group_sum_f32 {label}: relative error {rel}")
+        launch, bare = bare_launch(torch, sk, k, m, groups, v)
+        if not float(((bare - exp).abs() / exp.abs().clamp_min(1.0))
+                     .max()) <= 1e-4:
+            fail(f"dense_group_sum_f32 {label}: the bare launch differs")
         wv = torch.where(m, v, torch.zeros_like(v))
-        row = {
-            "kernel": "dense_group_sum_f32", "shape": label,
-            "max_abs_err": float(diff.max()), "rel_err": rel,
-            "ms": cuda_ms(lambda: sk.dense_group_sum_f32(k, v, m, groups)),
-            "plain_ms": cuda_ms(
-                lambda: sk.dense_group_sum_f32_plain(k, v, m, groups)),
-            "library_ms": cuda_ms(
-                lambda: torch.bincount(k, weights=wv, minlength=groups)),
-            # each mask byte, key and value of each live row, each output
-            "bound_ms": bound_ms(n + int(mask.sum()) * 8 + groups * 4),
-        }
-        rows.append(row)
-        return row
+        return timed(
+            {"kernel": "dense_group_sum_f32", "shape": label,
+             "max_abs_err": float(diff.max()), "rel_err": rel,
+             # each mask byte, key and value of each live row, each output
+             "bound_ms": bound_ms(n + int(mask.sum()) * 8 + groups * 4)},
+            launch, lambda: sk.dense_group_sum_f32(k, v, m, groups),
+            lambda: sk.dense_group_sum_f32_plain(k, v, m, groups),
+            lambda: torch.bincount(k, weights=wv, minlength=groups))
 
     n = 1 << 22
+    big = 1 << 21
+    # the exchanges' P; the counts take shared memory up to SMEM_BUCKETS,
+    # then global atomics (P = 16 to 33 match rows of PERF.md's table)
     hist_case("2^22 rows, P=8", n, 8, 0.97)
+    hist_case("2^22 rows, P=16", n, 16, 0.97)
+    hist_case("2^22 rows, P=17", n, 17, 0.97)
+    hist_case("2^22 rows, P=32", n, 32, 0.97)
+    hist_case("2^22 rows, P=33", n, 33, 0.97)
     hist_case("2^22 rows, P=200", n, 200, 0.97)
-    main_hist = hist_case("2^22 rows, 2^21 buckets", n, 1 << 21, 0.58,
-                          key_hi=1 << 20)
+    hist_case(f"2^22 rows, P={SMEM_BUCKETS}", n, SMEM_BUCKETS, 0.97)
+    hist_case(f"2^22 rows, P={SMEM_BUCKETS + 1}", n, SMEM_BUCKETS + 1, 0.97)
+    # the dense aggregate's `present` at the share of live rows a partial
+    # tile holds (2.4M rows in a 2^22 tile), then 0% and 100% live
+    main_hist = hist_case("2^22 rows, 2^21 buckets, 58% live", n, big,
+                          0.58, key_hi=1 << 20)
+    hist_case("2^22 rows, 2^21 buckets, 0% live", n, big, 0.0,
+              key_hi=1 << 20)
+    hist_case("2^22 rows, 2^21 buckets, 100% live", n, big, 1.0,
+              key_hi=1 << 20)
     # ragged edge, and keys past the last bucket (clip to the padded
     # bucket round_up(P,128)-1 >= P, which is dropped)
     hist_case("1,000,003 rows, P=200, keys up to 300", 1_000_003, 200, 0.5,
               key_hi=300)
-    hist_case("2^22 rows, all masked", n, 200, 0.0)
+    hist_case("2^22 rows, P=200, all masked", n, 200, 0.0)
+    hist_case("2^22 rows, P=8, keys[1:] mask[3:]", n, 8, 0.97, key_off=1,
+              mask_off=3)
+    hist_case("2^22 rows, 2^21 buckets, keys[1:] mask[1:]", n, big, 0.58,
+              key_hi=1 << 20, key_off=1, mask_off=1)
+    # the float32 sums switch registers -> shared memory at REG_BUCKETS
+    sum_case("2^22 rows, 8 groups", n, 8)
+    sum_case(f"2^22 rows, {REG_BUCKETS} groups", n, REG_BUCKETS)
+    sum_case(f"2^22 rows, {REG_BUCKETS + 1} groups", n, REG_BUCKETS + 1)
     sum_case("2^22 rows, 300 groups", n, 300)
     main_sum = sum_case("2^22 rows, 2^20 groups", n, 1 << 20)
+    sum_case("2^22 rows, 300 groups, all inputs [1:]", n, 300, off=1)
     for r in rows:
         print("kernel " + json.dumps(r), flush=True)
     return main_hist, main_sum
@@ -202,8 +353,10 @@ def main_path(torch, sk, card: str):
     launches = dict(sk.LAUNCHES)
     print(f"main path launches {json.dumps(launches)}; operator dispatches "
           f"{json.dumps(spark.launches.snapshot())}", flush=True)
-    if launches["partition_histogram"] <= 0:
-        fail("the main path never launched the histogram kernel")
+    if launches["partition_histogram"] != MAIN_HISTOGRAMS:
+        fail(f"the main path launched the histogram kernel "
+             f"{launches['partition_histogram']} times, not "
+             f"{MAIN_HISTOGRAMS}")
     if spark.metrics.get("agg.dense_fast_path", 0) <= 0:
         fail("the main path did not take the dense aggregate")
 
@@ -296,23 +449,22 @@ def breakdown(torch, df) -> dict:
         df.toArrow()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue    # host ops; their kernels are listed on their own
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            kernels.append((dev_us, ev.key, ev.count))
+    kernels = device_kernels(prof)
     busy_s = sum(k[0] for k in kernels) / 1e6
-    kernels.sort(reverse=True)
     out["profiled_wall_s"] = wall
     out["device_busy_s"] = busy_s if kernels else "not measured"
     out["device_idle_share"] = 1 - busy_s / wall if kernels \
         else "not measured"
     out["top_device_ops"] = [{"op": k[1][:60], "device_ms": k[0] / 1e3,
                               "calls": k[2]} for k in kernels[:12]]
+    source = {}
+    for dev_us, key, calls in kernels:
+        for name in SOURCE_KERNELS:
+            if name in key:
+                row = source.setdefault(name, {"calls": 0, "device_ms": 0.0})
+                row["calls"] += calls
+                row["device_ms"] += dev_us / 1e3
+    out["source_kernels"] = source if kernels else "not measured"
     return out
 
 
@@ -349,6 +501,7 @@ def run() -> None:
                 "source": "spark_tpu_torch/csrc/scatter_kernels.cu",
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "device_ms": row["device_ms"], "call_ms": row["call_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": "bytes", "library_ms": row["library_ms"],
                 "shape": row["shape"]}

@@ -215,42 +215,53 @@ def apply_group_ops(layout: GroupLayout, ops: Sequence[str], val_datas,
     return bufs
 
 
-def _dense_count(seg: torch.Tensor, weights: torch.Tensor,
-                 out_cap: int) -> torch.Tensor:
-    """Live rows per dense segment, through the histogram kernel."""
-    return partition_histogram(seg, weights, out_cap).to(torch.int64)
-
-
 def apply_dense_ops(seg, out_cap: int, cap: int, ops: Sequence[str],
-                    val_datas, val_valids, live_mask):
+                    val_datas, val_valids, live_mask, present=None):
     """Direct scatter reduce keyed by precomputed segment ids (dense-range
     fast path; `live_mask` is the row mask after filters). Returns
-    [(buffer, validity | None)] per op."""
+    [(buffer, validity | None)] per op.
+
+    Counts go through the histogram kernel once per distinct weight
+    tensor: `present` (the caller's count of `live_mask` rows, if it has
+    one) serves every op whose weights are the row mask itself, and ops
+    that share a validity tensor share its count."""
     seg32 = seg.to(torch.int32).contiguous()   # histogram kernel keys
     seg = seg.to(torch.int64)                  # index_add_/scatter index
+    counts: dict = {}   # id(validity) (None: the row mask) -> int64 counts
+    if present is not None:
+        counts[None] = present.to(torch.int64)
+
+    def count(vv, w):
+        key = None if vv is None else id(vv)
+        if key not in counts:
+            counts[key] = partition_histogram(seg32, w, out_cap) \
+                .to(torch.int64)
+        return counts[key]
+
     bufs = []
     for op, vd, vv in zip(ops, val_datas, val_valids):
         w = live_mask if vv is None else (live_mask & vv)
-        if op in ("count", "countstar"):
-            bufs.append((_dense_count(seg32, live_mask if op == "countstar"
-                                      else w, out_cap), None))
+        if op == "countstar":
+            bufs.append((count(None, live_mask), None))
+        elif op == "count":
+            bufs.append((count(vv, w), None))
         elif op == "sum":
             x = vd.to(_acc_dtype(vd))
             total = _segment_sum(
                 torch.where(w, x, torch.zeros((), dtype=x.dtype,
                                               device=x.device)),
                 seg, out_cap)
-            bufs.append((total, _dense_count(seg32, w, out_cap) > 0))
+            bufs.append((total, count(vv, w) > 0))
         elif op == "min":
             m = _segment_extreme(
                 torch.where(w, vd, torch.full_like(vd, _max_ident(vd.dtype))),
                 seg, out_cap, "amin")
-            bufs.append((m, _dense_count(seg32, w, out_cap) > 0))
+            bufs.append((m, count(vv, w) > 0))
         elif op == "max":
             m = _segment_extreme(
                 torch.where(w, vd, torch.full_like(vd, _min_ident(vd.dtype))),
                 seg, out_cap, "amax")
-            bufs.append((m, _dense_count(seg32, w, out_cap) > 0))
+            bufs.append((m, count(vv, w) > 0))
         elif op == "first":
             pos = torch.arange(cap, device=seg.device)
             p = torch.where(w, pos, torch.full_like(pos, cap))

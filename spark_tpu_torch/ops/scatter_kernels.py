@@ -13,13 +13,17 @@
 
 Each wrapper takes its plain PyTorch version (`*_plain`, `index_add_` at the
 clipped keys) only for tensors on the CPU. Given CUDA tensors it launches
-the kernel or raises; it never drops to the plain version. `LAUNCHES` counts
-the kernel launches of each wrapper.
+the kernel or raises; it never drops to the plain version. `LAUNCHES`
+counts the wrapper calls that launched the kernel, one per call. Each such
+call issues two CUDA kernels of the source: the scatter kernel and either
+the merge of its block partials or, ahead of it, the kernel that zeroes
+the output (see the source's note).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,7 +31,7 @@ from ..utils import cuda_build
 
 SOURCE = "scatter_kernels"
 
-# kernel launches per wrapper (incremented only where a kernel launches)
+# wrapper calls that launched the kernel (incremented only where it launches)
 LAUNCHES: dict[str, int] = {"partition_histogram": 0,
                             "dense_group_sum_f32": 0}
 
@@ -79,9 +83,13 @@ def _lib():
     if _bound is None:
         lib = cuda_build.load(SOURCE)
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.spark_scatter_count_i32.argtypes = [p, p, i64, i32, i32, p, p]
+        lib.spark_scatter_scratch_rows.argtypes = [i32, i64, i32]
+        lib.spark_scatter_scratch_rows.restype = ctypes.c_int
+        lib.spark_scatter_count_i32.argtypes = [p, p, i64, i32, i32, p, p,
+                                                i64, p]
         lib.spark_scatter_count_i32.restype = ctypes.c_int
-        lib.spark_scatter_sum_f32.argtypes = [p, p, p, i64, i32, i32, p, p]
+        lib.spark_scatter_sum_f32.argtypes = [p, p, p, i64, i32, i32, p, p,
+                                              i64, p]
         lib.spark_scatter_sum_f32.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -100,20 +108,69 @@ def _check_inputs(keys: torch.Tensor, mask: torch.Tensor,
             raise ValueError("scatter kernel inputs must share one shape")
     if keys.dim() != 1:
         raise ValueError("scatter kernels take 1-D inputs")
+    if dev == "cuda" and keys.shape[0] >= 1 << 31:
+        raise ValueError("the CUDA scatter kernels take at most 2^31 - 1 rows")
     return dev
 
 
-def _prepare_cuda(keys, mask, values=None):
-    keys = keys.to(torch.int32).contiguous()
-    mask = mask.to(torch.bool).contiguous()
-    if values is not None:
-        values = values.to(torch.float32).contiguous()
-    return keys, mask, values
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
 
 
 def _raise_on(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_rows(weighted: bool, n: int, n_out: int, device: int) -> int:
+    """Blocks of a launch with these sizes on `device` (the current device),
+    one scratch row each; 0 for the global path, which writes none. The
+    grid depends only on these, so it is asked of the C side once."""
+    return _lib().spark_scatter_scratch_rows(int(weighted), n, n_out)
+
+
+def _scratch(weighted: bool, n: int, n_out: int, out: torch.Tensor):
+    """(buffer, rows): a fresh [rows, n_out] buffer for the blocks' partial
+    histograms, or (None, 0) where the launch writes none."""
+    rows = _scratch_rows(weighted, n, n_out, out.device.index)
+    if rows == 0:
+        return None, 0
+    return torch.empty(rows * n_out, dtype=out.dtype, device=out.device), rows
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device as a raw pointer, without the
+    Stream object torch.cuda.current_stream() builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _histogram_call(keys, mask, n_out, out, scratch, rows) -> int:
+    """One launch of the histogram kernel on the current stream (with its
+    zeroing or merge kernel), one block per scratch row; returns the CUDA
+    error code. Takes int32 keys and a bool mask, contiguous, on the
+    current device, and does no check."""
+    return _lib().spark_scatter_count_i32(
+        keys.data_ptr(), mask.data_ptr(), keys.shape[0], n_out,
+        _padded_last(n_out), out.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), rows, _stream(keys))
+
+
+def _group_sum_call(keys, values, mask, n_out, out, scratch, rows) -> int:
+    return _lib().spark_scatter_sum_f32(
+        keys.data_ptr(), values.data_ptr(), mask.data_ptr(), keys.shape[0],
+        n_out, _padded_last(n_out), out.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), rows, _stream(keys))
+
+
+def _on_device(device: torch.device, fn):
+    """fn() with `device` current; enters no context when it already is."""
+    if device.index == torch.cuda.current_device():
+        return fn()
+    with torch.cuda.device(device):
+        return fn()
 
 
 def partition_histogram(pids: torch.Tensor, mask: torch.Tensor,
@@ -123,17 +180,17 @@ def partition_histogram(pids: torch.Tensor, mask: torch.Tensor,
     at or past P are dropped."""
     if _check_inputs(pids, mask) == "cpu":
         return partition_histogram_plain(pids, mask, num_partitions)
-    keys, m, _ = _prepare_cuda(pids, mask)
-    out = torch.zeros(num_partitions, dtype=torch.int32, device=keys.device)
+    keys, m = _as(pids, torch.int32), _as(mask, torch.bool)
     n = keys.shape[0]
-    if n == 0:
-        return out
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        code = _lib().spark_scatter_count_i32(
-            keys.data_ptr(), m.data_ptr(), n, num_partitions,
-            _padded_last(num_partitions), out.data_ptr(), stream)
-    _raise_on(code, "partition_histogram")
+    out = torch.empty(num_partitions, dtype=torch.int32, device=keys.device)
+    if n == 0 or num_partitions == 0:
+        return out.zero_()
+
+    def launch():
+        scratch, rows = _scratch(False, n, num_partitions, out)
+        return _histogram_call(keys, m, num_partitions, out, scratch, rows)
+
+    _raise_on(_on_device(keys.device, launch), "partition_histogram")
     LAUNCHES["partition_histogram"] += 1
     return out
 
@@ -141,20 +198,23 @@ def partition_histogram(pids: torch.Tensor, mask: torch.Tensor,
 def dense_group_sum_f32(keys: torch.Tensor, values: torch.Tensor,
                         mask: torch.Tensor, num_groups: int) -> torch.Tensor:
     """Grouped float32 sum over dense int keys in [0, num_groups); masked
-    rows add nothing. Atomics add in a varying order, so sums agree with
-    the plain version to float32 rounding, not bit for bit."""
+    rows add nothing. Up to 16 groups the sums add in a fixed order and
+    repeat bit for bit; above that shared-memory or global atomics add in a
+    varying order, so sums agree with the plain version to float32
+    rounding, not bit for bit."""
     if _check_inputs(keys, mask, values) == "cpu":
         return dense_group_sum_f32_plain(keys, values, mask, num_groups)
-    k, m, v = _prepare_cuda(keys, mask, values)
-    out = torch.zeros(num_groups, dtype=torch.float32, device=k.device)
+    k, m = _as(keys, torch.int32), _as(mask, torch.bool)
+    v = _as(values, torch.float32)
     n = k.shape[0]
-    if n == 0:
-        return out
-    with torch.cuda.device(k.device):
-        stream = torch.cuda.current_stream(k.device).cuda_stream
-        code = _lib().spark_scatter_sum_f32(
-            k.data_ptr(), v.data_ptr(), m.data_ptr(), n, num_groups,
-            _padded_last(num_groups), out.data_ptr(), stream)
-    _raise_on(code, "dense_group_sum_f32")
+    out = torch.empty(num_groups, dtype=torch.float32, device=k.device)
+    if n == 0 or num_groups == 0:
+        return out.zero_()
+
+    def launch():
+        scratch, rows = _scratch(True, n, num_groups, out)
+        return _group_sum_call(k, v, m, num_groups, out, scratch, rows)
+
+    _raise_on(_on_device(k.device, launch), "dense_group_sum_f32")
     LAUNCHES["dense_group_sum_f32"] += 1
     return out

@@ -203,7 +203,8 @@ def _dense_group_kernel(ops: tuple[str, ...], cap: int, out_cap: int,
     a capacity bucket aggregates by DIRECT scatter keyed by `key - kmin`,
     with no sort. NULL keys and inactive rows park in the last slot,
     out_cap - 1; its `present` count and every count buffer go through the
-    histogram kernel."""
+    histogram kernel, once per distinct weight tensor (`present` is also
+    the count of every op whose weights are the row mask)."""
     seg = key.to(torch.int64) - kmin
     parked = torch.full_like(seg, out_cap - 1)
     if key_valid is not None:
@@ -212,7 +213,7 @@ def _dense_group_kernel(ops: tuple[str, ...], cap: int, out_cap: int,
 
     present = partition_histogram(seg, row_mask, out_cap)
     bufs = G.apply_dense_ops(seg, out_cap, cap, ops, val_datas, val_valids,
-                             row_mask)
+                             row_mask, present)
 
     dev = row_mask.device
     out_keys = kmin + torch.arange(out_cap, dtype=torch.int64, device=dev)
