@@ -30,7 +30,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      operator's exclusive wall time; the device-busy share, the heaviest
      kernels and the calls of each kernel of the port's CUDA source from
      torch.profiler);
-  5. a JSON line with every kernel's numbers, then, last, the result line
+  5. five more paths through the DataFrame API, each the same way (its
+     physical plan asserted, a cold run, the median of 3 warm runs, a numpy
+     oracle, the exact number of histogram calls, the breakdown); after
+     each path, the main one too, one more run keeps the inputs of every
+     histogram call of a new shape, and phase 3 holds each against the
+     plain version and times it there:
+       join:       bench.py's bench_join, 2e7 store_sales rows joined to the
+                   73,049-row date_dim and summed by year (broadcast, dense
+                   direct-address build), 1 shuffle partition;
+       sort:       bench.py's bench_sort, orderBy over 1e8 int64 keys in one
+                   2^27-row tile;
+       range_sort: the main table, repartition(8).orderBy(k, desc(v))
+                   through a range exchange;
+       topk:       the main table, orderBy(desc(v), k).limit(100);
+       q78:        TPC-DS q78's first CTE shape: 2e7 store_sales LEFT JOIN
+                   2e6 store_returns on (ticket, item), rows with no return
+                   counted and summed by store (shuffled, sorted probe);
+  6. a JSON line with every kernel's numbers, then, last, the result line
      {"ok": true, "device": {...}}.
 """
 
@@ -59,6 +76,56 @@ MAIN_HISTOGRAMS = 5 + 8 + 8 * 1 + 8 * 5
 # the kernels of spark_tpu_torch/csrc/scatter_kernels.cu, by name
 SOURCE_KERNELS = ("scatter_shared", "sum_registers", "merge_partials",
                   "zero_output", "scatter_global")
+
+# the legs after the main path
+DATE0 = 2450816                 # first d_date_sk of TPC-DS date_dim
+DATES = 73049                   # date_dim rows
+SORT_ROWS = 100_000_000
+SORT_TILE = 1 << 27
+Q78_RETURNS = 2_000_000
+Q78_ITEMS = 102_000             # SF10's item and store counts
+Q78_STORES = 102
+TOPK = 100
+
+
+def tiles(rows: int, tile: int) -> int:
+    return -(-rows // tile)
+
+
+def leg_calls(leg: str) -> int:
+    """Histogram wrapper calls of one leg, derived from the code as
+    MAIN_HISTOGRAMS is; `t` is the fact or sales scan's tile count and `p`
+    the shuffle partitions."""
+    t, p = tiles(ROWS, TILE), PARTITIONS
+    return {
+        # the dense join build's `present` (1: one probe partition); the
+        # partial aggregate folds its one partition tile by tile (t chunks
+        # x 1: the row mask; the price has no nulls) and merges the chunk
+        # partials (x 2: the row mask and the sum buffer's validity); no
+        # exchange: one shuffle partition satisfies the final aggregate's
+        # clustering
+        "join": 1 + t + 2,
+        # sorts, limits and the gather to one partition count nothing
+        "sort": 0,
+        "topk": 0,
+        # round-robin input tiles + one range-exchange input per partition
+        "range_sort": t + p,
+        # round-robin input tiles + p hash-exchange inputs for the sales
+        # side + 1 returns tile + p partial tiles x 1 (the row mask; the
+        # paid column comes from the probe side and has no nulls) + p
+        # hash-exchange inputs + p final tiles x 2 (the row mask and the
+        # sum buffer's validity)
+        "q78": t + p + 1 + p + p + p * 2,
+    }[leg]
+
+
+# device-kernel name fragments (lower case) whose share of a leg's profiled
+# kernel time the breakdown reports: torch.sort's radix and bitonic sorts;
+# the join probe's binary searches (match ranges and the expansion); scans
+# (the expansion's cumsum, the limits' live ranks); the index_add_ sums of
+# the dense aggregate
+KERNEL_SHARES = {"sort": ("sort",), "searchsorted": ("searchsorted",),
+                 "scan (cumsum)": ("scan",), "index_add_": ("indexfunc",)}
 
 
 def fail(msg: str) -> None:
@@ -190,16 +257,92 @@ def bare_launch(torch, sk, keys, mask, n_out, values=None):
     return launch, out
 
 
+def timed(row, launch, wrapper, plain, library) -> dict:
+    """`row` with the times of one kernel case: device_ms (the bare kernel
+    alone), call_ms (the wrapper per call), the plain version's device_ms,
+    torch.bincount's profiled device time, and the share of the bound."""
+    row.update({
+        "device_ms": device_ms(launch),
+        "call_ms": call_ms(wrapper),
+        "plain_ms": device_ms(plain, iters=30),
+        "library_ms": profiled_ms(library),
+    })
+    row["ms"] = row["device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    print("kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def hist_row(torch, sk, label: str, k, m, buckets: int) -> dict:
+    """partition_histogram on the card tensors `k` (int32 keys) and `m`
+    (bool mask) held against its plain version, the bare launch too, then
+    timed; fails on any difference."""
+    got = sk.partition_histogram(k, m, buckets)
+    exp = sk.partition_histogram_plain(k, m, buckets)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
+    if err != 0:
+        fail(f"partition_histogram {label}: max abs err {err}")
+    launch, bare = bare_launch(torch, sk, k, m, buckets)
+    if not torch.equal(bare, exp):
+        fail(f"partition_histogram {label}: the bare launch differs")
+    w = m.to(torch.float32)
+    live = int(m.sum())
+    return timed(
+        {"kernel": "partition_histogram", "shape": label, "rows": k.shape[0],
+         "buckets": buckets, "live_rows": live, "max_abs_err": err,
+         # each mask byte, the key of each live row, each output
+         "bound_ms": bound_ms(k.shape[0] + live * 4 + buckets * 4)},
+        launch, lambda: sk.partition_histogram(k, m, buckets),
+        lambda: sk.partition_histogram_plain(k, m, buckets),
+        lambda: torch.bincount(k, weights=w, minlength=buckets))
+
+
+# the modules that call the histogram wrapper, each under its own name
+HIST_CALLERS = ("spark_tpu_torch.ops.grouping", "spark_tpu_torch.ops.partition",
+                "spark_tpu_torch.physical.operators")
+
+
+def path_histograms(torch, sk, label: str, df) -> list:
+    """Phase 3 at a path's own inputs: one more run of `df` keeps a copy of
+    the inputs of each histogram call with a new (rows, buckets, live share
+    to 1%), then each copy is held against the plain version and timed as
+    the kernel phase's cases are. Outside the counted run: the copies sync
+    with the host."""
+    import importlib
+
+    mods = [importlib.import_module(name) for name in HIST_CALLERS]
+    seen, inputs = set(), []
+
+    def keep(pids, mask, buckets):
+        n, live = pids.shape[0], int(mask.sum())
+        shape = (n, buckets, round(live / max(n, 1), 2))
+        if shape not in seen:
+            seen.add(shape)
+            inputs.append((pids.to(torch.int32, copy=True).contiguous(),
+                           mask.to(torch.bool, copy=True).contiguous(),
+                           buckets, live))
+        return sk.partition_histogram(pids, mask, buckets)
+
+    for mod in mods:
+        mod.partition_histogram = keep
+    try:
+        df.toArrow()
+    finally:
+        for mod in mods:
+            mod.partition_histogram = sk.partition_histogram
+    return [hist_row(torch, sk,
+                     f"{label}: {k.shape[0]:,} rows, P={p:,}, {live:,} live",
+                     k, m, p) for k, m, p, live in inputs]
+
+
 def check_kernels(torch, sk):
     """Phase 3: each kernel against its plain version on the card, then
-    its times: device_ms (the bare kernel alone), call_ms (the wrapper per
-    call), the plain version's device_ms, torch.bincount's profiled device
-    time, and the bound."""
+    its times (see `timed`) and the bound."""
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    rows = []
 
     def on_card(arr, off):
         # a view `off` elements into its storage: off > 0 leaves the
@@ -207,42 +350,16 @@ def check_kernels(torch, sk):
         full = np.concatenate([np.zeros(off, arr.dtype), arr])
         return torch.from_numpy(full).to(dev)[off:]
 
-    def timed(row, launch, wrapper, plain, library):
-        row.update({
-            "device_ms": device_ms(launch),
-            "call_ms": call_ms(wrapper),
-            "plain_ms": device_ms(plain, iters=30),
-            "library_ms": profiled_ms(library),
-        })
-        row["ms"] = row["device_ms"]
-        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
-        rows.append(row)
-        return row
-
     def hist_case(label, n, buckets, live_frac, key_hi=None, key_off=0,
                   mask_off=0):
         keys = rng.integers(0, key_hi or buckets, n).astype(np.int32)
         mask = rng.random(n) < live_frac
         k, m = on_card(keys, key_off), on_card(mask, mask_off)
-        got = sk.partition_histogram(k, m, buckets)
-        exp = sk.partition_histogram_plain(k, m, buckets)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
         # keys >= buckets clip into the padded tail and are dropped
-        if err != 0 or int(got.sum()) != int((mask & (keys < buckets)).sum()):
-            fail(f"partition_histogram {label}: max abs err {err}")
-        launch, bare = bare_launch(torch, sk, k, m, buckets)
-        if not torch.equal(bare, exp):
-            fail(f"partition_histogram {label}: the bare launch differs")
-        w = m.to(torch.float32)
-        return timed(
-            {"kernel": "partition_histogram", "shape": label,
-             "max_abs_err": err,
-             # each mask byte, the key of each live row, each output
-             "bound_ms": bound_ms(n + int(mask.sum()) * 4 + buckets * 4)},
-            launch, lambda: sk.partition_histogram(k, m, buckets),
-            lambda: sk.partition_histogram_plain(k, m, buckets),
-            lambda: torch.bincount(k, weights=w, minlength=buckets))
+        got = sk.partition_histogram(k, m, buckets)
+        if int(got.sum()) != int((mask & (keys < buckets)).sum()):
+            fail(f"partition_histogram {label}: the counts do not add up")
+        return hist_row(torch, sk, label, k, m, buckets)
 
     def sum_case(label, n, groups, off=0):
         keys = rng.integers(0, groups, n).astype(np.int32)
@@ -308,41 +425,22 @@ def check_kernels(torch, sk):
     sum_case("2^22 rows, 300 groups", n, 300)
     main_sum = sum_case("2^22 rows, 2^20 groups", n, 1 << 20)
     sum_case("2^22 rows, 300 groups, all inputs [1:]", n, 300, off=1)
-    for r in rows:
-        print("kernel " + json.dumps(r), flush=True)
     return main_hist, main_sum
 
 
-def main_path(torch, sk, card: str):
-    """Phase 4: the 2e7-row query through the DataFrame API."""
-    import numpy as np
-    import pyarrow as pa
-
-    from spark_tpu_torch import TorchSession
-    import spark_tpu_torch.api.functions as F
-
-    rng = np.random.default_rng(42)
-    k = rng.integers(0, KEYS, ROWS, dtype=np.int64)
-    v = rng.integers(0, 1000, ROWS, dtype=np.int64)
-    table = pa.table({"k": k, "v": v})
-
-    spark = TorchSession("chip_smoke", {
-        "spark.sql.shuffle.partitions": PARTITIONS,
-        "spark.tpu.batch.capacity": TILE})
-    df = (spark.createDataFrame(table)
-          .filter(F.col("v") > 25)
-          .withColumn("v2", F.col("v") * 3)
-          .repartition(PARTITIONS)
-          .groupBy("k")
-          .agg(F.sum("v2"), F.count("*"), F.min("v"), F.max("v"),
-               F.avg("v")))
+def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
+          histograms: int, check) -> dict:
+    """One path through the DataFrame API: assert the physical plan holds
+    each of `plan_parts`, run it cold with the launch counts set to 0 just
+    before and read just after (the histogram wrapper must count exactly
+    `histograms` calls), hold the result to the oracle `check(table)`, then
+    time 3 warm runs, print the breakdown, and hold the histogram kernel at
+    the path's own inputs (`path_histograms`). Returns the launch counts."""
     plan = df.query_execution.physical.tree_string()
-    print(plan, flush=True)
-    for part in (f"Exchange[UnknownPartitioning({PARTITIONS})]",
-                 f"Exchange[HashPartitioning({PARTITIONS})]",
-                 "HashAggregate[partial]", "HashAggregate[final]"):
+    print(f"{label} plan:\n{plan}", flush=True)
+    for part in plan_parts:
         if part not in plan:
-            fail(f"physical plan lacks {part}")
+            fail(f"{label}: the physical plan lacks {part}")
 
     torch.cuda.synchronize()
     sk.reset_launch_counts()
@@ -351,45 +449,12 @@ def main_path(torch, sk, card: str):
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
-    print(f"main path launches {json.dumps(launches)}; operator dispatches "
-          f"{json.dumps(spark.launches.snapshot())}", flush=True)
-    if launches["partition_histogram"] != MAIN_HISTOGRAMS:
-        fail(f"the main path launched the histogram kernel "
-             f"{launches['partition_histogram']} times, not "
-             f"{MAIN_HISTOGRAMS}")
-    if spark.metrics.get("agg.dense_fast_path", 0) <= 0:
-        fail("the main path did not take the dense aggregate")
-
-    # numpy oracle
-    live = v > 25
-    kk, vv = k[live], v[live]
-    cnt = np.bincount(kk, minlength=KEYS)
-    s2 = np.bincount(kk, weights=vv * 3, minlength=KEYS).astype(np.int64)
-    s1 = np.bincount(kk, weights=vv, minlength=KEYS).astype(np.int64)
-    mn = np.full(KEYS, np.iinfo(np.int64).max)
-    mx = np.full(KEYS, np.iinfo(np.int64).min)
-    np.minimum.at(mn, kk, vv)
-    np.maximum.at(mx, kk, vv)
-    present = np.nonzero(cnt)[0]
-    got = out.sort_by("k")
-    gk = got.column("k").to_numpy()
-    if not np.array_equal(gk, present):
-        fail(f"group keys differ: {len(gk)} groups vs {len(present)}")
-    checks = {
-        "sum(v2)": s2[present], "count(1)": cnt[present],
-        "min(v)": mn[present], "max(v)": mx[present],
-    }
-    for name, exp in checks.items():
-        col = got.column(name).to_numpy()
-        if not np.array_equal(col, exp):
-            fail(f"{name} differs from the numpy oracle")
-    avg = got.column("avg(v)").to_numpy()
-    exp_avg = s1[present] / cnt[present]
-    rel = float(np.max(np.abs(avg - exp_avg) / np.abs(exp_avg)))
-    if not rel <= 1e-12:
-        fail(f"avg(v) relative error {rel}")
-    print(f"main path: {out.num_rows} groups equal to the numpy oracle "
-          f"(integers exact, avg rel err {rel:.3e})", flush=True)
+    print(f"{label} launches {json.dumps(launches)}; operator dispatches "
+          f"{json.dumps(df.session.launches.snapshot())}", flush=True)
+    if launches["partition_histogram"] != histograms:
+        fail(f"{label} launched the histogram kernel "
+             f"{launches['partition_histogram']} times, not {histograms}")
+    print(f"{label}: {check(out)}", flush=True)
 
     warm = []
     for _ in range(3):
@@ -398,12 +463,295 @@ def main_path(torch, sk, card: str):
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     warm_s = statistics.median(warm)
-    timing = {"rows": ROWS, "cold_s": cold_s, "warm_median_s": warm_s,
-              "warm_s": warm, "cold_rows_per_s": ROWS / cold_s,
-              "warm_rows_per_s": ROWS / warm_s, "card": card}
-    print("main path timing " + json.dumps(timing), flush=True)
-    print("main path breakdown " + json.dumps(breakdown(torch, df)),
+    timing = {"rows": rows, "cold_s": cold_s, "warm_median_s": warm_s,
+              "warm_s": warm, "cold_rows_per_s": rows / cold_s,
+              "warm_rows_per_s": rows / warm_s,
+              "histogram_calls": launches["partition_histogram"],
+              "card": card}
+    print(f"{label} timing " + json.dumps(timing), flush=True)
+    print(f"{label} breakdown " + json.dumps(breakdown(torch, df)),
           flush=True)
+    path_histograms(torch, sk, label, df)
+    return launches
+
+
+def session(conf: dict):
+    from spark_tpu_torch import TorchSession
+
+    return TorchSession("chip_smoke", dict(conf))
+
+
+def main_table():
+    """The main path's table: ROWS rows, k uniform in [0, KEYS), v uniform
+    in [0, 1000), numpy seed 42."""
+    import numpy as np
+
+    rng = np.random.default_rng(42)
+    k = rng.integers(0, KEYS, ROWS, dtype=np.int64)
+    v = rng.integers(0, 1000, ROWS, dtype=np.int64)
+    return k, v
+
+
+def main_path(torch, sk, card: str, k, v):
+    """Phase 4: the 2e7-row query through the DataFrame API."""
+    import numpy as np
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+
+    spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
+                     "spark.tpu.batch.capacity": TILE})
+    df = (spark.createDataFrame(pa.table({"k": k, "v": v}))
+          .filter(F.col("v") > 25)
+          .withColumn("v2", F.col("v") * 3)
+          .repartition(PARTITIONS)
+          .groupBy("k")
+          .agg(F.sum("v2"), F.count("*"), F.min("v"), F.max("v"),
+               F.avg("v")))
+
+    def check(out):
+        if spark.metrics.get("agg.dense_fast_path", 0) <= 0:
+            fail("the main path did not take the dense aggregate")
+        live = v > 25
+        kk, vv = k[live], v[live]
+        cnt = np.bincount(kk, minlength=KEYS)
+        s2 = np.bincount(kk, weights=vv * 3, minlength=KEYS).astype(np.int64)
+        s1 = np.bincount(kk, weights=vv, minlength=KEYS).astype(np.int64)
+        mn = np.full(KEYS, np.iinfo(np.int64).max)
+        mx = np.full(KEYS, np.iinfo(np.int64).min)
+        np.minimum.at(mn, kk, vv)
+        np.maximum.at(mx, kk, vv)
+        present = np.nonzero(cnt)[0]
+        got = out.sort_by("k")
+        gk = got.column("k").to_numpy()
+        if not np.array_equal(gk, present):
+            fail(f"group keys differ: {len(gk)} groups vs {len(present)}")
+        checks = {
+            "sum(v2)": s2[present], "count(1)": cnt[present],
+            "min(v)": mn[present], "max(v)": mx[present],
+        }
+        for name, exp in checks.items():
+            col = got.column(name).to_numpy()
+            if not np.array_equal(col, exp):
+                fail(f"{name} differs from the numpy oracle")
+        avg = got.column("avg(v)").to_numpy()
+        exp_avg = s1[present] / cnt[present]
+        rel = float(np.max(np.abs(avg - exp_avg) / np.abs(exp_avg)))
+        if not rel <= 1e-12:
+            fail(f"avg(v) relative error {rel}")
+        return (f"{out.num_rows} groups equal to the numpy oracle "
+                f"(integers exact, avg rel err {rel:.3e})")
+
+    launches = drive(torch, sk, card, "main path", df, ROWS,
+                     (f"Exchange[UnknownPartitioning({PARTITIONS})]",
+                      f"Exchange[HashPartitioning({PARTITIONS})]",
+                      "HashAggregate[partial]", "HashAggregate[final]"),
+                     MAIN_HISTOGRAMS, check)
+    spark.stop()
+    return launches
+
+
+def rel_err(got, exp) -> float:
+    import numpy as np
+
+    return float(np.max(np.abs(got - exp) / np.maximum(np.abs(exp), 1e-300)))
+
+
+def join_leg(torch, sk, card: str) -> dict:
+    """bench.py's bench_join (BASELINE config 3): store_sales joined to
+    date_dim, summed by year; the dim side is broadcast and takes the dense
+    direct-address build."""
+    import numpy as np
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+
+    rng = np.random.default_rng(3)
+    sold = rng.integers(DATE0, DATE0 + DATES, ROWS)
+    price = rng.random(ROWS)
+    dsk = np.arange(DATE0, DATE0 + DATES)
+    spark = session({"spark.sql.shuffle.partitions": 1,
+                     "spark.tpu.batch.capacity": TILE})
+    f = spark.createDataFrame(pa.table({"ss_sold_date_sk": sold,
+                                        "ss_ext_sales_price": price}))
+    d = spark.createDataFrame(pa.table({
+        "d_date_sk": dsk, "d_year": 1998 + (dsk - DATE0) // 365}))
+    df = (f.join(d, f["ss_sold_date_sk"] == d["d_date_sk"])
+          .groupBy("d_year").agg(F.sum("ss_ext_sales_price")))
+
+    def check(out):
+        if spark.metrics.get("join.dense_fast_path", 0) <= 0:
+            fail("join: the dense join build was not taken")
+        year = (sold - DATE0) // 365
+        sums = np.bincount(year, weights=price)
+        present = np.nonzero(np.bincount(year))[0]
+        got = out.sort_by("d_year")
+        if not np.array_equal(got.column("d_year").to_numpy(),
+                              1998 + present):
+            fail("join: the years differ from the numpy oracle")
+        # float64 sums added in atomic order, not the oracle's
+        rel = rel_err(got.column("sum(ss_ext_sales_price)").to_numpy(),
+                      sums[present])
+        if not rel <= 1e-9:
+            fail(f"join: sum relative error {rel}")
+        return (f"{out.num_rows} years equal to the numpy oracle (sum rel "
+                f"err {rel:.3e})")
+
+    launches = drive(torch, sk, card, "join leg", df, ROWS + DATES,
+                     ("BroadcastExchange", "BroadcastHashJoin[inner]"),
+                     leg_calls("join"), check)
+    spark.stop()
+    return launches
+
+
+def sort_leg(torch, sk, card: str) -> dict:
+    """bench.py's bench_sort (BASELINE config 2): a global orderBy over 1e8
+    int64 keys uniform over the whole int64 range, one 2^27-row tile."""
+    import numpy as np
+    import pyarrow as pa
+
+    info = np.iinfo(np.int64)
+    k = np.random.default_rng(7).integers(info.min, info.max, SORT_ROWS,
+                                          dtype=np.int64, endpoint=True)
+    spark = session({"spark.sql.shuffle.partitions": 1,
+                     "spark.tpu.batch.capacity": SORT_TILE})
+    df = spark.createDataFrame(pa.table({"k": k})).orderBy("k")
+
+    def check(out):
+        got = out.column("k").to_numpy()
+        if not np.array_equal(got, np.sort(k)):
+            fail("sort: the keys differ from np.sort")
+        return f"{out.num_rows} keys equal to np.sort"
+
+    launches = drive(torch, sk, card, "sort leg", df, SORT_ROWS,
+                     ("Sort[k#",), leg_calls("sort"), check)
+    spark.stop()
+    return launches
+
+
+def range_sort_leg(torch, sk, card: str, k, v) -> dict:
+    """The main table through a round-robin and a range exchange, then a
+    sort of each partition: orderBy(k, desc(v))."""
+    import numpy as np
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+
+    spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
+                     "spark.tpu.batch.capacity": TILE})
+    df = (spark.createDataFrame(pa.table({"k": k, "v": v}))
+          .repartition(PARTITIONS).orderBy("k", F.desc("v")))
+
+    def check(out):
+        order = np.lexsort((-v, k))
+        for name, col in (("k", k), ("v", v)):
+            if not np.array_equal(out.column(name).to_numpy(), col[order]):
+                fail(f"range_sort: column {name} differs from the "
+                     f"np.lexsort order")
+        return f"{out.num_rows} rows in the np.lexsort order"
+
+    launches = drive(torch, sk, card, "range_sort leg", df, ROWS,
+                     (f"Exchange[RangePartitioning({PARTITIONS})]",
+                      "Sort[k#"), leg_calls("range_sort"), check)
+    spark.stop()
+    return launches
+
+
+def topk_leg(torch, sk, card: str, k, v) -> dict:
+    """ORDER BY + LIMIT over the main table: a local sort and limit, a
+    gather to one partition, a final sort and limit."""
+    import numpy as np
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+
+    spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
+                     "spark.tpu.batch.capacity": TILE})
+    df = (spark.createDataFrame(pa.table({"k": k, "v": v}))
+          .orderBy(F.desc("v"), "k").limit(TOPK))
+
+    def check(out):
+        order = np.lexsort((k, -v))[:TOPK]
+        for name, col in (("k", k), ("v", v)):
+            if not np.array_equal(out.column(name).to_numpy(), col[order]):
+                fail(f"topk: column {name} differs from the oracle")
+        return f"{out.num_rows} rows equal to the np.lexsort top {TOPK}"
+
+    launches = drive(torch, sk, card, "topk leg", df, ROWS,
+                     ("LimitExec(is_global=True", "LimitExec(is_global=False",
+                      "Exchange[SinglePartition(1)]"),
+                     leg_calls("topk"), check)
+    spark.stop()
+    return launches
+
+
+def q78_leg(torch, sk, card: str) -> dict:
+    """TPC-DS q78's first CTE shape: store_sales LEFT JOIN store_returns on
+    (ticket, item) where the return is null, counted and summed by store.
+    The build side (2e6 rows x 16 bytes after pruning) is over the 10 MB
+    broadcast threshold, so both sides are hash-shuffled and the two-key
+    join takes the sorted probe."""
+    import numpy as np
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+    from spark_tpu_torch.physical.exchange import ShuffleExchangeExec
+    from spark_tpu_torch.physical.operators import HashJoinExec
+    from spark_tpu_torch.physical.partitioning import HashPartitioning
+
+    rng = np.random.default_rng(11)
+    ticket = np.arange(ROWS) // 10
+    item = rng.integers(1, Q78_ITEMS + 1, ROWS)
+    store = rng.integers(1, Q78_STORES + 1, ROWS)
+    paid = rng.random(ROWS) * 100
+    idx = rng.choice(ROWS, Q78_RETURNS, replace=False)
+    amt = rng.random(Q78_RETURNS) * 50
+    spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
+                     "spark.tpu.batch.capacity": TILE})
+    s = spark.createDataFrame(pa.table({
+        "ss_ticket_number": ticket, "ss_item_sk": item,
+        "ss_store_sk": store, "ss_net_paid": paid}))
+    r = spark.createDataFrame(pa.table({
+        "sr_ticket_number": ticket[idx], "sr_item_sk": item[idx],
+        "sr_return_amt": amt}))
+    cond = (s["ss_ticket_number"] == r["sr_ticket_number"]) & \
+        (s["ss_item_sk"] == r["sr_item_sk"])
+    df = (s.repartition(PARTITIONS).join(r, cond, "left_outer")
+          .filter(F.col("sr_ticket_number").isNull())
+          .groupBy("ss_store_sk").agg(F.count("*"), F.sum("ss_net_paid")))
+    def check(out):
+        joins = [n for n in df.query_execution.physical.iter_nodes()
+                 if isinstance(n, HashJoinExec)]
+        if len(joins) != 1 or any(
+                not (isinstance(c, ShuffleExchangeExec)
+                     and isinstance(c.partitioning, HashPartitioning))
+                for c in joins[0].children):
+            fail("q78: the join is not fed by a hash exchange on each side")
+        if spark.metrics.get("join.sorted_probe", 0) <= 0 or \
+                spark.metrics.get("join.dense_fast_path", 0) > 0:
+            fail("q78: the join did not take the sorted probe")
+        code = ticket * (1 << 17) + item
+        kept = ~np.isin(code, code[idx])
+        cnt = np.bincount(store[kept], minlength=Q78_STORES + 1)
+        sums = np.bincount(store[kept], weights=paid[kept],
+                           minlength=Q78_STORES + 1)
+        present = np.nonzero(cnt)[0]
+        got = out.sort_by("ss_store_sk")
+        if not np.array_equal(got.column("ss_store_sk").to_numpy(), present):
+            fail("q78: the stores differ from the numpy oracle")
+        if not np.array_equal(got.column("count(1)").to_numpy(),
+                              cnt[present]):
+            fail("q78: the counts differ from the numpy oracle")
+        rel = rel_err(got.column("sum(ss_net_paid)").to_numpy(),
+                      sums[present])
+        if not rel <= 1e-9:
+            fail(f"q78: sum relative error {rel}")
+        return (f"{out.num_rows} stores, {int(kept.sum())} rows with no "
+                f"return; counts exact, sum rel err {rel:.3e}")
+
+    launches = drive(torch, sk, card, "q78 leg", df, ROWS + Q78_RETURNS,
+                     ("ShuffledHashJoin[left_outer]",),
+                     leg_calls("q78"), check)
     spark.stop()
     return launches
 
@@ -457,6 +805,15 @@ def breakdown(torch, df) -> dict:
         else "not measured"
     out["top_device_ops"] = [{"op": k[1][:60], "device_ms": k[0] / 1e3,
                               "calls": k[2]} for k in kernels[:12]]
+    # shares of kernel time: copies (Memcpy, Memset) left out
+    kernel_s = sum(k[0] for k in kernels
+                   if not k[1].startswith(("Memcpy", "Memset"))) / 1e6
+    out["device_kernel_s"] = kernel_s if kernels else "not measured"
+    out["kernel_shares"] = {
+        label: sum(k[0] for k in kernels
+                   if any(f in k[1].lower() for f in frags)) / 1e6 / kernel_s
+        for label, frags in KERNEL_SHARES.items()} if kernel_s \
+        else "not measured"
     source = {}
     for dev_us, key, calls in kernels:
         for name in SOURCE_KERNELS:
@@ -494,12 +851,21 @@ def run() -> None:
         print(f"--- nvcc {name} ---\n{text.strip()}", flush=True)
 
     main_hist, main_sum = check_kernels(torch, sk)
-    launches = main_path(torch, sk, card)
+    k, v = main_table()
+    launches = main_path(torch, sk, card, k, v)
+    by_path = {
+        "join": join_leg(torch, sk, card),
+        "sort": sort_leg(torch, sk, card),
+        "range_sort": range_sort_leg(torch, sk, card, k, v),
+        "topk": topk_leg(torch, sk, card, k, v),
+        "q78": q78_leg(torch, sk, card),
+    }
 
     def entry(name, row, replaces):
         return {"name": name, "route": "cuda",
                 "source": "spark_tpu_torch/csrc/scatter_kernels.cu",
                 "replaces": replaces, "launches": launches[name],
+                "launches_by_path": {p: n[name] for p, n in by_path.items()},
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "device_ms": row["device_ms"], "call_ms": row["call_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

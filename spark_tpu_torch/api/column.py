@@ -94,6 +94,25 @@ class Column:
     def isNotNull(self):
         return Column(E.IsNotNull(self.expr))
 
+    # --- sort orders ------------------------------------------------------
+    def asc(self):
+        return Column(E.SortOrder(self.expr, True))
+
+    def desc(self):
+        return Column(E.SortOrder(self.expr, False))
+
+    def asc_nulls_first(self):
+        return Column(E.SortOrder(self.expr, True, True))
+
+    def asc_nulls_last(self):
+        return Column(E.SortOrder(self.expr, True, False))
+
+    def desc_nulls_first(self):
+        return Column(E.SortOrder(self.expr, False, True))
+
+    def desc_nulls_last(self):
+        return Column(E.SortOrder(self.expr, False, False))
+
     def __hash__(self):
         return id(self)
 

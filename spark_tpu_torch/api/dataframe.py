@@ -1,11 +1,11 @@
-"""DataFrame API (counterpart of `spark_tpu/api/dataframe.py`, the slice's
+"""DataFrame API (counterpart of `spark_tpu/api/dataframe.py`, the port's
 subset): a lazy wrapper over a logical plan bound to a session."""
 
 from __future__ import annotations
 
 import pyarrow as pa
 
-from ..errors import NotPortedError
+from ..errors import AnalysisException, NotPortedError, UnresolvedColumnError
 from ..exec.query_execution import QueryExecution
 from ..expr import expressions as E
 from ..plan import logical as L
@@ -56,6 +56,22 @@ class DataFrame:
             self._qe = QueryExecution(self.session, self.plan)
         return self._qe
 
+    @property
+    def columns(self) -> list[str]:
+        return [a.name for a in self.query_execution.analyzed.output]
+
+    def __getitem__(self, item):
+        if isinstance(item, str):
+            for a in self.query_execution.analyzed.output:
+                if a.name == item:
+                    return Column(a)
+            raise UnresolvedColumnError(item, self.columns[:5])
+        if isinstance(item, (list, tuple)):
+            return self.select(*item)
+        if isinstance(item, Column):
+            return self.filter(item)
+        raise TypeError(f"cannot index DataFrame with {type(item)}")
+
     # --- transformations ----------------------------------------------
     def select(self, *cols) -> "DataFrame":
         return self._with(L.Project(_to_expr_list(cols or ("*",)), self.plan))
@@ -85,6 +101,54 @@ class DataFrame:
         return self._with(L.Repartition(
             None, True, _to_expr_list((num_or_col,) + cols), self.plan))
 
+    def limit(self, n: int) -> "DataFrame":
+        return self._with(L.Limit(n, self.plan))
+
+    def offset(self, n: int) -> "DataFrame":
+        return self._with(L.Offset(n, self.plan))
+
+    def sort(self, *cols, ascending=None) -> "DataFrame":
+        exprs = _to_expr_list(cols)
+        if ascending is None:
+            asc_list = [True] * len(exprs)
+        elif isinstance(ascending, bool):
+            asc_list = [ascending] * len(exprs)
+        else:
+            asc_list = list(ascending)
+        orders = [e if isinstance(e, E.SortOrder) else E.SortOrder(e, a)
+                  for e, a in zip(exprs, asc_list)]
+        return self._with(L.Sort(orders, True, self.plan))
+
+    orderBy = sort
+
+    def sortWithinPartitions(self, *cols) -> "DataFrame":
+        orders = [e if isinstance(e, E.SortOrder) else E.SortOrder(e, True)
+                  for e in _to_expr_list(cols)]
+        return self._with(L.Sort(orders, False, self.plan))
+
+    def join(self, other: "DataFrame", on=None,
+             how: str = "inner") -> "DataFrame":
+        if on is None or isinstance(on, Column):
+            cond = None if on is None else on.expr
+            return self._with(L.Join(self.plan, other.plan, how, cond))
+        if isinstance(on, str):
+            on = [on]
+        cond = None
+        for name in on:
+            c = E.EqualTo(_resolve_using(self, name),
+                          _resolve_using(other, name))
+            cond = c if cond is None else E.And(cond, c)
+        # USING semantics: the output keeps each key column once (the
+        # left side's)
+        df = self._with(L.Join(self.plan, other.plan, how, cond))
+        drop_ids = {_resolve_using(other, name).expr_id for name in on}
+        keep = [a for a in df.query_execution.analyzed.output
+                if a.expr_id not in drop_ids]
+        return df._with(L.Project(keep, df.query_execution.analyzed))
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return self._with(L.Join(self.plan, other.plan, "cross", None))
+
     def groupBy(self, *cols) -> "GroupedData":
         return GroupedData(self, _to_expr_list(cols))
 
@@ -100,6 +164,13 @@ class DataFrame:
         return [Row(zip(t.column_names, vals))
                 for vals in zip(*[c.to_pylist() for c in t.columns])] \
             if t.num_columns else []
+
+
+def _resolve_using(df: DataFrame, name: str) -> E.AttributeReference:
+    for a in df.query_execution.analyzed.output:
+        if a.name.lower() == name.lower():
+            return a
+    raise AnalysisException(f"USING column {name} not found")
 
 
 class GroupedData:

@@ -1,5 +1,6 @@
-"""Column functions (counterpart of `spark_tpu/api/functions.py`, the slice's
-subset): col, lit and the aggregates sum, count, min, max, avg."""
+"""Column functions (counterpart of `spark_tpu/api/functions.py`, the port's
+subset): col, lit, the sort orders asc and desc, and the aggregates sum,
+count, min, max, avg."""
 
 from __future__ import annotations
 
@@ -50,3 +51,11 @@ def min(c) -> Column:  # noqa: A001
 
 def max(c) -> Column:  # noqa: A001
     return Column(E.Max(_c(c)))
+
+
+def asc(c) -> Column:
+    return Column(E.SortOrder(_c(c), True))
+
+
+def desc(c) -> Column:
+    return Column(E.SortOrder(_c(c), False))

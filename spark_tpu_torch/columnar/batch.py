@@ -50,6 +50,13 @@ class Column:
             return self.data.to(torch.int32)
         return self.data
 
+    def sort_keys(self) -> torch.Tensor:
+        """Tensor whose numeric order is SQL ORDER BY order (booleans as
+        int32: the card's sort takes no bool keys)."""
+        if isinstance(self.dtype, BooleanType):
+            return self.data.to(torch.int32)
+        return self.data
+
 
 class ColumnarBatch:
     """A fixed-capacity tile of rows. `num_rows` is the host-known live

@@ -47,12 +47,18 @@ def concat_batches(batches: Sequence[ColumnarBatch],
 
 def gather_batch(batch: ColumnarBatch, indices: torch.Tensor,
                  out_mask: torch.Tensor,
-                 schema: StructType | None = None) -> ColumnarBatch:
-    """Row-gather a batch by device `indices` with live-row `out_mask`."""
+                 schema: StructType | None = None,
+                 extra_invalid: torch.Tensor | None = None) -> ColumnarBatch:
+    """Row-gather a batch by device `indices` (every index in range) with
+    live-row `out_mask`. `extra_invalid`: bool[out_cap] marking rows whose
+    gathered values must read as NULL (outer-join null extension)."""
     schema = schema or batch.schema
     cols = []
     for f, c in zip(schema.fields, batch.columns):
         validity = None if c.validity is None else c.validity[indices]
+        if extra_invalid is not None:
+            validity = ~extra_invalid if validity is None \
+                else validity & ~extra_invalid
         cols.append(Column(f.dataType, c.data[indices], validity))
     return ColumnarBatch(schema, cols, out_mask, num_rows=None)
 

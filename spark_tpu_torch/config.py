@@ -43,6 +43,10 @@ AGG_BLOCK_ROWS = _register(ConfigEntry(
     "A grouped aggregate over more tile rows than this folds chunk by "
     "chunk: partial-aggregate each chunk, then merge the partials.", int))
 
+AUTO_BROADCAST_THRESHOLD = _register(ConfigEntry(
+    "spark.sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
+    "Max estimated build-side bytes for a broadcast hash join.", int))
+
 DEVICE = _register(ConfigEntry(
     "spark.torch.device", "cuda",
     "torch device the session runs on: 'cuda' (default; raises when no "

@@ -1,6 +1,6 @@
 """Shuffle: redistribute rows across partitions (counterpart of
-`spark_tpu/exec/shuffle.py`, the device path of the hash and round-robin
-exchanges).
+`spark_tpu/exec/shuffle.py`, the device path of the hash, round-robin
+and range exchanges; range keys are numeric).
 
 Partition ids are computed on the device for a whole batch, rows are
 grouped by pid with one stable sort, and the grouped columns are sliced into
@@ -124,6 +124,19 @@ def rr_partition_batch(batch: ColumnarBatch, num_out: int,
     return _pull_sorted(batch, pr.perm, pr.counts)
 
 
+def range_partition_batch(batch: ColumnarBatch, key_position: int,
+                          bounds: torch.Tensor, descending: bool,
+                          nulls_first: bool,
+                          num_out: int) -> tuple[list, list[int]]:
+    """Range-partition one batch against sampled bounds (numeric keys)."""
+    from ..ops.partition import range_partition
+
+    col = batch.columns[key_position]
+    pr = range_partition(col.sort_keys(), bounds, batch.row_mask, num_out,
+                         descending, col.validity, nulls_first)
+    return _pull_sorted(batch, pr.perm, pr.counts)
+
+
 def shuffle_hash(partitions: list[Partition], key_positions: Sequence[int],
                  num_out: int, schema: StructType, ctx: ExecContext,
                  seed: int = 42) -> list[Partition]:
@@ -147,6 +160,22 @@ def shuffle_round_robin(partitions: list[Partition], num_out: int,
             ctx.launches.add("shuffle_rr")
             _slice_into(bufs, gathered, counts)
             start += sum(counts)
+    return _finish(bufs, ctx)
+
+
+def shuffle_range(partitions: list[Partition], key_position: int,
+                  bounds, descending: bool, nulls_first: bool, num_out: int,
+                  schema: StructType, ctx: ExecContext) -> list[Partition]:
+    """Range shuffle for a global sort. `bounds` is a host array of
+    boundary values in the sort-key domain."""
+    bufs = [_OutBuffer(schema) for _ in range(num_out)]
+    b = torch.as_tensor(bounds, device=ctx.device)
+    for part in partitions:
+        for batch in part:
+            gathered, counts = range_partition_batch(
+                batch, key_position, b, descending, nulls_first, num_out)
+            ctx.launches.add("shuffle_range")
+            _slice_into(bufs, gathered, counts)
     return _finish(bufs, ctx)
 
 

@@ -5,8 +5,8 @@ Each expression keeps the JAX package's class name, type rules, null
 semantics and `simple_string`, with one `eval(ctx)` written on torch
 tensors: attributes, literals, aliases, casts between the ported types,
 `+ - * /` (plain ops wrap on integral overflow; the try_ variants give NULL;
-x/0 gives NULL), the comparisons, Kleene and/or/not, is [not] null, and the
-aggregate functions sum, count, min, max and avg.
+x/0 gives NULL), sort orders, the comparisons, Kleene and/or/not, is [not]
+null, and the aggregate functions sum, count, min, max and avg.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from .eval import EvalCtx, Val
 
 __all__ = [
     "Expression", "Literal", "AttributeReference", "UnresolvedAttribute",
-    "UnresolvedStar", "Alias", "Cast", "cast_if",
+    "UnresolvedStar", "Alias", "SortOrder", "Cast", "cast_if",
     "Add", "Subtract", "Multiply", "Divide", "TryAdd", "TrySubtract",
     "TryMultiply", "EqualTo", "NotEqualTo", "LessThan", "LessThanOrEqual",
     "GreaterThan", "GreaterThanOrEqual", "And", "Or", "Not", "IsNull",
@@ -134,6 +134,10 @@ class AttributeReference(Expression):
     def _data_args(self) -> tuple:
         return (("expr_id", self.expr_id),)
 
+    def with_nullability(self, nullable: bool) -> "AttributeReference":
+        return AttributeReference(self.name, self._dtype, nullable,
+                                  self.expr_id)
+
     def simple_string(self) -> str:
         return f"{self.name}#{self.expr_id}"
 
@@ -193,6 +197,31 @@ class Alias(Expression):
 
     def simple_string(self) -> str:
         return f"{self.child.simple_string()} AS {self.name}#{self.expr_id}"
+
+
+class SortOrder(Expression):
+    """Sort direction wrapper: `nulls_first` None means Spark's default
+    (nulls first when ascending, last when descending)."""
+
+    child_fields = ("child",)
+
+    def __init__(self, child: Expression, ascending: bool = True,
+                 nulls_first: bool | None = None):
+        self.child = child
+        self.ascending = ascending
+        self.nulls_first = nulls_first
+
+    @property
+    def dtype(self) -> DataType:
+        return self.child.dtype
+
+    @property
+    def nulls_first_effective(self) -> bool:
+        return self.ascending if self.nulls_first is None else \
+            self.nulls_first
+
+    def eval(self, ctx: EvalCtx) -> Val:
+        return ctx.eval(self.child)
 
 
 # ---------------------------------------------------------------------------

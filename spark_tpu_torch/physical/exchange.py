@@ -1,17 +1,26 @@
-"""Exchange operator (counterpart of `spark_tpu/physical/exchange.py`):
-`ShuffleExchangeExec` for hash, round-robin and single-partition
-distributions. Range partitioning, broadcast and the fused, mesh and
+"""Exchange operators (counterpart of `spark_tpu/physical/exchange.py`):
+`ShuffleExchangeExec` for hash, round-robin, range and single-partition
+distributions, and `BroadcastExchangeExec`, which concatenates the build
+side into one batch that every probe partition reads. The fused, mesh and
 runtime-filter variants are not ported."""
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from ..columnar.batch import ColumnarBatch
+from ..columnar.ops import concat_batches
 from ..errors import NotPortedError
 from ..exec import shuffle as S
 from ..exec.context import ExecContext
 from ..expr.expressions import AttributeReference
+from ..types import FractionalType
+from ..utils.device_memo import memo_device_scalars
 from .operators import PhysicalPlan, attrs_schema
 from .partitioning import (
-    HashPartitioning, Partitioning, SinglePartition, UnknownPartitioning,
+    BroadcastPartitioning, HashPartitioning, Partitioning, RangePartitioning,
+    SinglePartition, UnknownPartitioning,
 )
 
 
@@ -45,10 +54,103 @@ class ShuffleExchangeExec(PhysicalPlan):
                 key_positions.append(pos[e.expr_id])
             return S.shuffle_hash(parts, key_positions, p.num_partitions,
                                   schema, ctx)
+        if isinstance(p, RangePartitioning):
+            return self._range_shuffle(parts, p, schema, ctx)
         if isinstance(p, UnknownPartitioning):
             return S.shuffle_round_robin(parts, p.num_partitions, schema, ctx)
         raise NotPortedError(f"exchange for {type(p).__name__}")
 
+    def _range_shuffle(self, parts, p: RangePartitioning, schema, ctx):
+        """Partition by the FIRST sort key against bounds sampled from the
+        first two tiles of each input partition; rows with equal first keys
+        land in one partition, so each partition's sort finishes the
+        order."""
+        order = p.orders[0]
+        pos = {a.expr_id: i for i, a in enumerate(self.output)}
+        if not isinstance(order.child, AttributeReference):
+            raise ValueError("range keys must be attributes (planner "
+                             "contract)")
+        kpos = pos[order.child.expr_id]
+        bounds = _sample_bounds(parts, kpos, schema, p.num_partitions)
+        if bounds is None or len(bounds) == 0:
+            return S.gather_single(parts)
+        return S.shuffle_range(parts, kpos, bounds, not order.ascending,
+                               order.nulls_first_effective,
+                               p.num_partitions, schema, ctx)
+
     def simple_string(self):
         return (f"Exchange[{type(self.partitioning).__name__}"
                 f"({self.partitioning.num_partitions})]")
+
+
+def _batch_key_samples(batch: ColumnarBatch, kpos: int, f,
+                       per_part_sample: int) -> tuple:
+    """The non-null keys among the first `per_part_sample` live rows of one
+    batch, as an immutable tuple. The device-to-host pull is memoized per
+    (data, validity, mask) identity, so device-cached scan tiles sync once."""
+    col = batch.columns[kpos]
+
+    def compute():
+        live = torch.nonzero(batch.row_mask).squeeze(1)[:per_part_sample]
+        data = col.data[live]
+        if col.validity is not None:
+            data = data[col.validity[live]]
+        return tuple(data.cpu().numpy().tolist())
+
+    return memo_device_scalars(
+        ("range_sample", kpos, per_part_sample, f.dataType.simple_string()),
+        (col.data, col.validity, batch.row_mask), compute)
+
+
+def _sample_bounds(parts, kpos: int, schema, num_out: int,
+                   per_part_sample: int = 4096):
+    """Sample the sort key to derive range bounds (the reference's
+    RangePartitioner sampling): up to `per_part_sample` keys of the first
+    two tiles of every partition, the distinct values sorted, and
+    num_out - 1 evenly spaced quantiles, as float64 (NaN as +inf) or
+    int64."""
+    f = schema.fields[kpos]
+    samples = []
+    for part in parts:
+        for batch in part[:2]:
+            samples.extend(_batch_key_samples(batch, kpos, f,
+                                              per_part_sample))
+    if not samples:
+        return None
+    floating = isinstance(f.dataType, FractionalType)
+    s = np.unique(np.asarray(samples,
+                             dtype=np.float64 if floating else np.int64))
+    if len(s) <= 1:
+        return None
+    qs = [int(round(i * (len(s) - 1) / num_out)) for i in range(1, num_out)]
+    bounds = np.unique(s[qs])
+    if floating:
+        bounds = np.where(np.isnan(bounds), np.inf, bounds)
+    return bounds
+
+
+class BroadcastExchangeExec(PhysicalPlan):
+    child_fields = ("child",)
+
+    def __init__(self, child: PhysicalPlan):
+        self.child = child
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def output_partitioning(self):
+        return BroadcastPartitioning()
+
+    def execute(self, ctx: ExecContext) -> list:
+        parts = self.child.execute(ctx)
+        merged = [b for p in parts for b in p]
+        schema = attrs_schema(self.output)
+        if not merged:
+            return [[ColumnarBatch.empty(schema, ctx.device)]]
+        batch = concat_batches(merged, schema)
+        ctx.metrics.add("broadcast.rows", batch.num_rows())
+        return [[batch]]
+
+    def simple_string(self):
+        return "BroadcastExchange"

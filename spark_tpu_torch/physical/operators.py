@@ -1,7 +1,9 @@
 """Physical operators (counterpart of `spark_tpu/physical/operators.py`):
-the local table scan, the fused filter+project `ComputeExec`, and
+the local table scan, the fused filter+project `ComputeExec`,
 `HashAggregateExec` in partial and final mode with its three kernels —
-ungrouped, sorted-segment and dense-range. `execute()` returns a list of
+ungrouped, sorted-segment and dense-range — `SortExec`, `LimitExec` and
+`HashJoinExec` (broadcast or shuffled; a dense direct-address build or the
+hash-sorted build with a searchsorted probe). `execute()` returns a list of
 partitions, each a list of device ColumnarBatches; blocking operators
 concatenate their partition's batches and run one kernel per chunk.
 """
@@ -14,21 +16,26 @@ from typing import Sequence
 import torch
 
 from ..columnar.batch import Column, ColumnarBatch, bucket_capacity
-from ..columnar.ops import concat_batches
+from ..columnar.ops import compact_batch, concat_batches, gather_batch
 from ..config import AGG_BLOCK_ROWS
-from ..errors import NotPortedError
+from ..errors import ExecutionError, NotPortedError
 from ..exec.context import ExecContext
-from ..expr.expressions import Alias, AttributeReference, Expression
+from ..expr.expressions import (
+    Alias, AttributeReference, Expression, SortOrder,
+)
 from ..ops import grouping as G
+from ..ops import joining as J
 from ..ops.scatter_kernels import partition_histogram
+from ..ops.sorting import SortKeySpec, limit_mask, sort_permutation
 from ..plan.tree import TreeNode
 from ..types import DateType, IntegralType, StructField, StructType
+from ..utils.device_memo import memo_device_scalars
 from .aggregates import PARTIAL_TO_MERGE, AggSpec
 from .compile import ExprPipeline
 from .partitioning import (
-    AllTuples, ClusteredDistribution, Distribution, HashPartitioning,
-    Partitioning, RangePartitioning, SinglePartition, UnknownPartitioning,
-    UnspecifiedDistribution,
+    AllTuples, BroadcastDistribution, ClusteredDistribution, Distribution,
+    HashPartitioning, Partitioning, RangePartitioning, SinglePartition,
+    UnknownPartitioning, UnspecifiedDistribution,
 )
 
 Partition = list  # list[ColumnarBatch]
@@ -404,6 +411,341 @@ class HashAggregateExec(PhysicalPlan):
         g = ", ".join(a.name for a in self.grouping)
         fns = ", ".join(type(s.func).__name__ for s in self.specs)
         return f"HashAggregate[{self.mode}](keys=[{g}], fns=[{fns}])"
+
+
+# ---------------------------------------------------------------------------
+# Sort / Limit
+# ---------------------------------------------------------------------------
+
+class SortExec(PhysicalPlan):
+    """In-partition sort: each partition concatenates into one tile and
+    sorts there (the reference's external range-bucketed sort for
+    partitions over the device budget is not ported: the port keeps no
+    budget). Orders are over child output attributes (the planner
+    pre-projects complex keys). A global sort (`is_global`) gets a range
+    exchange below it from EnsureRequirements when its child has more than
+    one partition."""
+
+    child_fields = ("child",)
+
+    def __init__(self, orders: Sequence[SortOrder], child: PhysicalPlan,
+                 is_global: bool = False):
+        self.orders = list(orders)
+        self.child = child
+        self.is_global = is_global
+        for o in self.orders:
+            if not isinstance(o.child, AttributeReference):
+                raise ValueError("the planner binds sort keys to attributes")
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        # AQE coalescing is not ported: each partition sorts on its own
+        return [[self._sort_single(p, ctx)] if p else []
+                for p in self.child.execute(ctx)]
+
+    def _sort_single(self, part: Partition, ctx) -> ColumnarBatch:
+        batch = concat_batches(part, attrs_schema(self.child.output))
+        pos = {a.expr_id: i for i, a in enumerate(self.child.output)}
+        keys, valids, specs = [], [], []
+        for o in self.orders:
+            c = batch.columns[pos[o.child.expr_id]]
+            keys.append(c.sort_keys())
+            valids.append(c.validity)
+            specs.append(SortKeySpec(o.ascending, o.nulls_first))
+        perm = sort_permutation(keys, valids, specs, batch.row_mask)
+        ctx.launches.add("sort")
+        out = gather_batch(batch, perm, batch.row_mask[perm])
+        out._num_rows = batch._num_rows
+        return out
+
+    def simple_string(self):
+        o = ", ".join(
+            f"{x.child.simple_string()} {'ASC' if x.ascending else 'DESC'}"
+            for x in self.orders)
+        return f"Sort[{o}]"
+
+
+class LimitExec(PhysicalPlan):
+    """Keep the first n live rows (after `offset`) per partition
+    (LocalLimit); with a single child partition this is GlobalLimit."""
+
+    child_fields = ("child",)
+
+    def __init__(self, n: int, child: PhysicalPlan, offset: int = 0,
+                 is_global: bool = False):
+        self.n = n
+        self.offset = offset
+        self.is_global = is_global
+        self.child = child
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def required_child_distribution(self):
+        return [AllTuples()] if self.is_global else [UnspecifiedDistribution()]
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        return [self._limit_partition(part, ctx)
+                for part in self.child.execute(ctx)]
+
+    def _limit_partition(self, part: Partition, ctx) -> Partition:
+        if not part:
+            return []
+        batch = concat_batches(part, attrs_schema(self.output))
+        keep = limit_mask(batch.row_mask, self.n, self.offset)
+        ctx.launches.add("limit")
+        limited = ColumnarBatch(batch.schema, batch.columns, keep,
+                                num_rows=None)
+        # a local limit leaves <= n live rows in a full-capacity tile;
+        # compact so the gather exchange and the sort above touch only the
+        # kept rows (the TakeOrderedAndProject shrink)
+        if not self.is_global and self.n * 4 <= batch.capacity:
+            limited = compact_batch(limited)
+        return [limited]
+
+
+# ---------------------------------------------------------------------------
+# Joins
+# ---------------------------------------------------------------------------
+
+RUNTIME_FILTER_KEYS = ("spark.tpu.join.runtimeFilter",
+                       "spark.tpu.join.runtimeFilter.bloom")
+
+
+class HashJoinExec(PhysicalPlan):
+    """Equi-join (role of ShuffledHashJoinExec / BroadcastHashJoinExec).
+    The right side is the build side; the planner flips right joins into
+    left joins over swapped children. A build with one dense, unique
+    integral key takes a direct-address table and a one-gather probe;
+    any other takes the hash-sorted build and the searchsorted probe."""
+
+    child_fields = ("left", "right")
+
+    def __init__(self, left_keys: Sequence[AttributeReference],
+                 right_keys: Sequence[AttributeReference], join_type: str,
+                 left: PhysicalPlan, right: PhysicalPlan,
+                 is_broadcast: bool = False):
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        # inner / left_outer / left_semi / left_anti / full_outer
+        self.join_type = join_type
+        self.left = left
+        self.right = right
+        self.is_broadcast = is_broadcast
+
+    @property
+    def output(self):
+        if self.join_type in ("left_semi", "left_anti"):
+            return self.left.output
+        lo, ro = self.left.output, self.right.output
+        if self.join_type in ("left_outer", "full_outer"):
+            ro = [a.with_nullability(True) for a in ro]
+        if self.join_type == "full_outer":
+            lo = [a.with_nullability(True) for a in lo]
+        return lo + ro
+
+    def required_child_distribution(self):
+        if self.is_broadcast:
+            return [UnspecifiedDistribution(), BroadcastDistribution()]
+        return [ClusteredDistribution(list(self.left_keys)),
+                ClusteredDistribution(list(self.right_keys))]
+
+    def output_partitioning(self):
+        return self.left.output_partitioning()
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        for key in RUNTIME_FILTER_KEYS:
+            if str(ctx.conf.get(key, False)).lower() == "true":
+                raise NotPortedError(f"the runtime join filter ({key})")
+        left_parts = self.left.execute(ctx)
+        right_parts = self.right.execute(ctx)
+        if self.is_broadcast:
+            # the broadcast exchange made one partition: every probe
+            # partition reads it
+            right_parts = [right_parts[0] for _ in left_parts]
+        # AQE coalescing and skew splitting are not ported (results do not
+        # depend on them)
+        if len(left_parts) != len(right_parts):
+            raise ExecutionError(
+                f"join children partition counts differ: "
+                f"{len(left_parts)} vs {len(right_parts)}")
+        lschema = attrs_schema(self.left.output)
+        rschema = attrs_schema(self.right.output)
+        return [self._join_partition(lp, rp, lschema, rschema, ctx)
+                for lp, rp in zip(left_parts, right_parts)]
+
+    def _join_partition(self, lp: Partition, rp: Partition, lschema,
+                        rschema, ctx) -> Partition:
+        build = concat_batches(rp, rschema) if rp \
+            else ColumnarBatch.empty(rschema, ctx.device)
+        rpos = {a.expr_id: i for i, a in enumerate(self.right.output)}
+        lpos = {a.expr_id: i for i, a in enumerate(self.left.output)}
+        bkeys = [build.columns[rpos[k.expr_id]] for k in self.right_keys]
+        probes = lp or [ColumnarBatch.empty(lschema, ctx.device)]
+
+        dense = self._try_dense_build(build, bkeys, ctx)
+        if dense is not None:
+            out = [self._dense_probe_batch(pb, build, dense, lpos, ctx)
+                   for pb in probes]
+        else:
+            bkey_eqs = [c.eq_keys() for c in bkeys]
+            bkey_valids = [c.validity for c in bkeys]
+            bindex = J.build_index(bkey_eqs, bkey_valids, build.row_mask)
+            ctx.launches.add("join_build")
+            out = [self._probe_batch(pb, build, bindex, bkey_eqs,
+                                     bkey_valids, lpos, ctx)
+                   for pb in probes]
+        if self.join_type == "full_outer":
+            out.append(self._unmatched_build_rows(lp, build, lschema, ctx))
+        return out
+
+    @staticmethod
+    def _probe(bindex, bkey_eqs, bkey_valids, pkeys, pmask, jt: str,
+               ctx) -> J.JoinResult:
+        """The searchsorted probe at an output capacity of the probe tile's
+        bucket, retried at the bucket of `needed` when the expansion did not
+        fit (one host read of `needed` per try)."""
+        out_cap = max(pmask.shape[0], 1 << 10)
+        while True:
+            r = J.probe_join(bindex, bkey_eqs, bkey_valids,
+                             [c.eq_keys() for c in pkeys],
+                             [c.validity for c in pkeys], pmask, out_cap, jt)
+            ctx.launches.add("join_probe")
+            needed = int(r.needed)
+            if needed <= out_cap:
+                return r
+            out_cap = bucket_capacity(needed)
+            ctx.metrics.add("join.capacity_retry")
+
+    def _probe_batch(self, pb: ColumnarBatch, build: ColumnarBatch, bindex,
+                     bkey_eqs, bkey_valids, lpos, ctx) -> ColumnarBatch:
+        jt = self.join_type if self.join_type != "full_outer" \
+            else "left_outer"
+        pkeys = [pb.columns[lpos[k.expr_id]] for k in self.left_keys]
+        r = self._probe(bindex, bkey_eqs, bkey_valids, pkeys, pb.row_mask,
+                        jt, ctx)
+        ctx.metrics.add("join.sorted_probe")
+        probe_out = gather_batch(pb, r.probe_idx, r.out_mask)
+        if self.join_type in ("left_semi", "left_anti"):
+            return probe_out
+        build_out = gather_batch(build, r.build_idx, r.out_mask,
+                                 extra_invalid=~r.matched)
+        return ColumnarBatch(attrs_schema(self.output),
+                             probe_out.columns + build_out.columns,
+                             r.out_mask, num_rows=None)
+
+    def _try_dense_build(self, build: ColumnarBatch, bkeys, ctx):
+        """Dense unique-key build (TPC-DS dimension tables: dense integral
+        primary keys): the 'hash table' is a direct-address row index and
+        the probe a single gather — no sort, no searchsorted, no expansion.
+        None when the key is multi-column, non-integral, sparse or
+        duplicated. The key range and the duplicate verdict are host reads,
+        memoized per build tensor identity so a broadcast build probed from
+        every partition reads them once."""
+        if len(bkeys) != 1:
+            return None
+        kc = bkeys[0]
+        if not isinstance(kc.dtype, (IntegralType, DateType)):
+            return None
+        cap = build.capacity
+        ident = (kc.data, kc.validity, build.row_mask)
+        kmin, kmax, any_live = memo_device_scalars(
+            ("dense_range",), ident,
+            lambda: dense_range_stats(kc, build.row_mask))
+        if not any_live:
+            return None
+        span = kmax - kmin + 1
+        if span > min(8 * cap, 1 << 23):
+            return None
+        tcap = bucket_capacity(span)
+        m = build.row_mask if kc.validity is None \
+            else build.row_mask & kc.validity
+        # dead rows and null keys take slot tcap, one past the table: the
+        # scatter drops it from a padded buffer (an index out of range is a
+        # device assert on the card) and the histogram drops it as >= P
+        slot = torch.where(m, kc.data.to(torch.int64) - kmin,
+                           torch.full((), tcap, dtype=torch.int64,
+                                      device=m.device))
+        rowidx = torch.zeros(tcap + 1, dtype=torch.int64, device=m.device)
+        rowidx.scatter_(0, slot, torch.arange(cap, device=m.device))
+        present = partition_histogram(slot.to(torch.int32), m, tcap)
+        maxc = memo_device_scalars(("djoin_maxc", tcap), ident,
+                                   lambda: int(present.max()))
+        if maxc > 1:
+            return None  # duplicate build keys: the sorted-probe path
+        ctx.launches.add("djoin_build")
+        ctx.metrics.add("join.dense_fast_path")
+        return {"rowidx": rowidx[:tcap], "present": present, "kmin": kmin,
+                "tcap": tcap}
+
+    def _dense_probe_batch(self, pb: ColumnarBatch, build: ColumnarBatch,
+                           dense, lpos, ctx) -> ColumnarBatch:
+        tcap = dense["tcap"]
+        jt = self.join_type if self.join_type != "full_outer" \
+            else "left_outer"
+        kc = pb.columns[lpos[self.left_keys[0].expr_id]]
+        k = kc.data.to(torch.int64) - dense["kmin"]
+        slot = k.clamp(0, tcap - 1)
+        usable = pb.row_mask & (k >= 0) & (k < tcap)
+        if kc.validity is not None:
+            usable = usable & kc.validity
+        matched = usable & (dense["present"][slot] > 0)
+        bidx = dense["rowidx"][slot]
+        if jt in ("inner", "left_semi"):
+            out_mask = matched
+        elif jt == "left_outer":
+            out_mask = pb.row_mask
+        else:  # left_anti
+            out_mask = pb.row_mask & ~matched
+        ctx.launches.add("djoin_probe")
+        if self.join_type in ("left_semi", "left_anti"):
+            return ColumnarBatch(pb.schema, pb.columns, out_mask,
+                                 num_rows=None)
+        build_out = gather_batch(build, bidx, out_mask,
+                                 extra_invalid=~matched)
+        return ColumnarBatch(attrs_schema(self.output),
+                             pb.columns + build_out.columns, out_mask,
+                             num_rows=None)
+
+    def _unmatched_build_rows(self, lp: Partition, build: ColumnarBatch,
+                              lschema, ctx) -> ColumnarBatch:
+        """full_outer's extension: the build rows no probe row matches (an
+        anti join of the build side against the partition's probe keys),
+        with null probe columns."""
+        probe_all = concat_batches(lp, lschema) if lp \
+            else ColumnarBatch.empty(lschema, ctx.device)
+        lpos = {a.expr_id: i for i, a in enumerate(self.left.output)}
+        rpos = {a.expr_id: i for i, a in enumerate(self.right.output)}
+        pkeys = [probe_all.columns[lpos[k.expr_id]] for k in self.left_keys]
+        bkeys = [build.columns[rpos[k.expr_id]] for k in self.right_keys]
+        pkey_eqs = [c.eq_keys() for c in pkeys]
+        pkey_valids = [c.validity for c in pkeys]
+        pi = J.build_index(pkey_eqs, pkey_valids, probe_all.row_mask)
+        ctx.launches.add("join_build")
+        # the swap: the build side probes the probe side's index
+        r = self._probe(pi, pkey_eqs, pkey_valids, bkeys, build.row_mask,
+                        "left_anti", ctx)
+        build_rows = gather_batch(build, r.probe_idx, r.out_mask)
+        schema = attrs_schema(self.output)
+        oc = r.out_mask.shape[0]
+        left_cols = [
+            Column(f.dataType,
+                   torch.zeros(oc, dtype=f.dataType.device_dtype,
+                               device=ctx.device),
+                   torch.zeros(oc, dtype=torch.bool, device=ctx.device))
+            for f in schema.fields[:len(self.left.output)]]
+        return ColumnarBatch(schema, left_cols + build_rows.columns,
+                             r.out_mask, num_rows=None)
+
+    def simple_string(self):
+        k = ", ".join(f"{l.name}={r.name}"
+                      for l, r in zip(self.left_keys, self.right_keys))
+        b = "Broadcast" if self.is_broadcast else "Shuffled"
+        return f"{b}HashJoin[{self.join_type}]({k})"
 
 
 class _SchemaOnly(PhysicalPlan):

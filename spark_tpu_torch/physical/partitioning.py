@@ -41,6 +41,11 @@ class OrderedDistribution(Distribution):
         self.orders = list(orders)
 
 
+@dataclass(frozen=True)
+class BroadcastDistribution(Distribution):
+    """The whole relation replicated to every consumer partition."""
+
+
 # --- partitionings (what an operator produces) ------------------------------
 
 class Partitioning:
@@ -64,7 +69,9 @@ class SinglePartition(Partitioning):
     num_partitions: int = 1
 
     def satisfies(self, d: Distribution) -> bool:
-        return True  # one partition satisfies any distribution
+        if isinstance(d, BroadcastDistribution):
+            return False
+        return True  # one partition satisfies any non-broadcast distribution
 
 
 class HashPartitioning(Partitioning):
@@ -102,3 +109,10 @@ class RangePartitioning(Partitioning):
                        for o in self.orders)
         return False
 
+
+@dataclass
+class BroadcastPartitioning(Partitioning):
+    num_partitions: int = 1
+
+    def satisfies(self, d: Distribution) -> bool:
+        return isinstance(d, (BroadcastDistribution, UnspecifiedDistribution))

@@ -9,28 +9,46 @@ ComputeExecs. Contracts kept from the JAX planner:
   * exchange and grouping keys are always bound to attributes (complex keys
     get pre-projected via ComputeExec);
   * aggregates are planned partial -> (exchange) -> final with a finishing
-    ComputeExec over the buffers.
+    ComputeExec over the buffers;
+  * right outer joins are flipped to left joins over swapped children; a
+    build side whose estimated bytes fit spark.sql.autoBroadcastJoinThreshold
+    is broadcast;
+  * ORDER BY + LIMIT plans as TopK: a local sort and limit per partition, a
+    gather, then a final sort and limit.
 """
 
 from __future__ import annotations
 
-from ..config import SQLConf
+from typing import Sequence
+
+from ..config import AUTO_BROADCAST_THRESHOLD, SQLConf
 from ..errors import NotPortedError
 from ..expr.expressions import (
-    AggregateFunction, Alias, AttributeReference, Expression,
+    AggregateFunction, Alias, AttributeReference, EqualTo, Expression,
+    SortOrder,
 )
 from ..plan import logical as L
 from ..plan.optimizer import split_conjuncts, substitute_attrs
 from ..plan.tree import next_id
 from .aggregates import AggSpec, lower_aggregate_function
-from .exchange import ShuffleExchangeExec
+from .exchange import BroadcastExchangeExec, ShuffleExchangeExec
 from .operators import (
-    ComputeExec, HashAggregateExec, LocalTableScanExec, PhysicalPlan,
+    ComputeExec, HashAggregateExec, HashJoinExec, LimitExec,
+    LocalTableScanExec, PhysicalPlan, SortExec,
 )
 from .partitioning import (
-    AllTuples, ClusteredDistribution, HashPartitioning, SinglePartition,
-    UnknownPartitioning,
+    AllTuples, BroadcastDistribution, ClusteredDistribution,
+    HashPartitioning, OrderedDistribution, RangePartitioning,
+    SinglePartition, UnknownPartitioning,
 )
+
+
+def _row_width(attrs: Sequence[AttributeReference]) -> int:
+    """Estimated bytes per row (the reference's, kept as is)."""
+    w = 0
+    for a in attrs:
+        w += max(int(a.dtype.device_dtype.itemsize), 4)
+    return max(w, 8)
 
 
 def merge_into_compute(filters, outputs, child: ComputeExec) -> ComputeExec:
@@ -94,6 +112,12 @@ class Planner:
                                       list(node.child.output), child)
         if isinstance(node, L.Aggregate):
             return self._plan_aggregate(node)
+        if isinstance(node, L.Sort):
+            return self._plan_sort(node)
+        if isinstance(node, (L.Limit, L.Offset)):
+            return self._plan_limit(node)
+        if isinstance(node, L.Join):
+            return self._plan_join(node)
         if isinstance(node, L.Repartition):
             child = self._convert(node.child)
             n = node.num_partitions or self.conf.shuffle_partitions
@@ -191,6 +215,114 @@ class Planner:
         return e
 
     # ------------------------------------------------------------------
+    def _plan_sort(self, node: L.Sort) -> PhysicalPlan:
+        child = self._convert(node.child)
+        keys, child = self._bind_keys([o.child for o in node.orders], child,
+                                      "__sort")
+        orders = [SortOrder(k, o.ascending, o.nulls_first)
+                  for k, o in zip(keys, node.orders)]
+        sort = SortExec(orders, child, is_global=node.is_global)
+        # drop helper columns if any were added
+        if len(child.output) != len(node.output):
+            return ComputeExec([], list(node.output), sort)
+        return sort
+
+    def _plan_limit(self, node) -> PhysicalPlan:
+        if isinstance(node, L.Offset):
+            child = self._convert(node.child)
+            return LimitExec(1 << 62, child, offset=node.n, is_global=True)
+        inner = node.child
+        offset = 0
+        if isinstance(inner, L.Offset):
+            offset = inner.n
+            inner = inner.child
+        # TopK: ORDER BY + LIMIT -> per-partition sort+limit, gather, final
+        # sort+limit (the reference's TakeOrderedAndProjectExec): no range
+        # exchange and no global sort
+        if isinstance(inner, L.Sort) and inner.is_global and all(
+                isinstance(o.child, AttributeReference)
+                for o in inner.orders):
+            child = self._convert(inner.child)
+            child_ids = {a.expr_id for a in child.output}
+            if all(o.child.expr_id in child_ids for o in inner.orders):
+                orders = [SortOrder(o.child, o.ascending, o.nulls_first)
+                          for o in inner.orders]
+                local = LimitExec(node.n + offset, SortExec(orders, child))
+                gathered = ShuffleExchangeExec(SinglePartition(), local)
+                return LimitExec(node.n, SortExec(orders, gathered),
+                                 offset=offset, is_global=True)
+        child = self._convert(inner)
+        local = LimitExec(node.n + offset, child, is_global=False)
+        return LimitExec(node.n, local, offset=offset, is_global=True)
+
+    # ------------------------------------------------------------------
+    def _plan_join(self, node: L.Join) -> PhysicalPlan:
+        jt = node.join_type
+        left_l, right_l = node.left, node.right
+        # flip right joins: the build side is always the right one
+        if jt == "right_outer":
+            left_l, right_l = right_l, left_l
+            jt = "left_outer"
+        if jt == "cross":
+            raise NotPortedError("cross join (NestedLoopJoinExec, "
+                                 "cross_join)")
+        left = self._convert(left_l)
+        right = self._convert(right_l)
+
+        # split the condition into equi keys and a residual
+        equi: list[tuple[Expression, Expression]] = []
+        residual: list[Expression] = []
+        if node.condition is not None:
+            lids = {a.expr_id for a in left_l.output}
+            rids = {a.expr_id for a in right_l.output}
+            for c in split_conjuncts(node.condition):
+                if isinstance(c, EqualTo):
+                    lr, rr = c.left.references(), c.right.references()
+                    if lr and rr and lr <= lids and rr <= rids:
+                        equi.append((c.left, c.right))
+                        continue
+                    if lr and rr and lr <= rids and rr <= lids:
+                        equi.append((c.right, c.left))
+                        continue
+                residual.append(c)
+        if not equi:
+            raise NotPortedError(f"non-equi {jt} join (NestedLoopJoinExec)")
+        if residual and jt != "inner":
+            raise NotPortedError(f"{jt} join with a non-equi residual "
+                                 "(NestedLoopJoinExec)")
+
+        lkeys, left = self._bind_keys([lk for lk, _ in equi], left, "__jkl")
+        rkeys, right = self._bind_keys([rk for _, rk in equi], right,
+                                       "__jkr")
+        join = HashJoinExec(lkeys, rkeys, jt, left, right,
+                            is_broadcast=self._can_broadcast(right_l, jt))
+        out: PhysicalPlan = join
+        if residual:
+            out = self._fuse_compute(residual, list(join.output), join)
+        # drop helper key columns, restore the logical column order
+        want = list(node.output)
+        if [a.expr_id for a in out.output] != [a.expr_id for a in want]:
+            out = self._fuse_compute([], want, out) \
+                if not isinstance(out, ComputeExec) \
+                else ComputeExec(out.filters, want, out.child)
+        return out
+
+    # join types where a replicated RIGHT build side is sound: full_outer
+    # is not one (unmatched build rows would be emitted once per probe
+    # partition)
+    _BROADCAST_RIGHT_TYPES = frozenset(
+        ("inner", "left_outer", "left_semi", "left_anti"))
+
+    def _can_broadcast(self, right_logical: L.LogicalPlan, jt: str) -> bool:
+        if jt not in self._BROADCAST_RIGHT_TYPES:
+            return False
+        rows = right_logical.stats_rows()
+        if rows is None:
+            return False
+        width = _row_width(right_logical.output)
+        return rows * width <= int(self.conf.get(AUTO_BROADCAST_THRESHOLD))
+
+    # ------------------------------------------------------------------
     # EnsureRequirements
     # ------------------------------------------------------------------
     def _ensure_requirements(self, plan: PhysicalPlan) -> PhysicalPlan:
@@ -201,18 +333,46 @@ class Planner:
         n_shuffle = self.conf.shuffle_partitions
         new_children = list(children)
         changed = False
-        for i, (child, req) in enumerate(
-                zip(children, plan.required_child_distribution())):
-            if child.output_partitioning().satisfies(req):
-                continue
-            if isinstance(req, AllTuples):
-                new_children[i] = ShuffleExchangeExec(SinglePartition(), child)
-            elif isinstance(req, ClusteredDistribution):
-                keys = [e for e in req.exprs
-                        if isinstance(e, AttributeReference)]
-                new_children[i] = ShuffleExchangeExec(
-                    HashPartitioning(keys, n_shuffle), child)
-            else:
-                raise NotPortedError(f"exchange for {type(req).__name__}")
-            changed = True
+        reqs = plan.required_child_distribution()
+        if isinstance(plan, HashJoinExec) and not plan.is_broadcast:
+            # both sides hash-partitioned alike, or both re-shuffled
+            (l, r), (lreq, rreq) = children, reqs
+            lp, rp = l.output_partitioning(), r.output_partitioning()
+            if not (lp.satisfies(lreq) and rp.satisfies(rreq)
+                    and lp.num_partitions == rp.num_partitions):
+                new_children[0] = ShuffleExchangeExec(
+                    HashPartitioning(list(plan.left_keys), n_shuffle), l)
+                new_children[1] = ShuffleExchangeExec(
+                    HashPartitioning(list(plan.right_keys), n_shuffle), r)
+                changed = True
+        else:
+            for i, (child, req) in enumerate(zip(children, reqs)):
+                if child.output_partitioning().satisfies(req):
+                    continue
+                if isinstance(req, BroadcastDistribution):
+                    new_children[i] = BroadcastExchangeExec(child)
+                elif isinstance(req, AllTuples):
+                    new_children[i] = ShuffleExchangeExec(SinglePartition(),
+                                                          child)
+                elif isinstance(req, ClusteredDistribution):
+                    keys = [e for e in req.exprs
+                            if isinstance(e, AttributeReference)]
+                    new_children[i] = ShuffleExchangeExec(
+                        HashPartitioning(keys, n_shuffle), child)
+                elif isinstance(req, OrderedDistribution):
+                    new_children[i] = ShuffleExchangeExec(
+                        RangePartitioning(req.orders, n_shuffle), child)
+                else:
+                    raise NotPortedError(
+                        f"exchange for {type(req).__name__}")
+                changed = True
+        # a global sort needs range partitioning
+        if isinstance(plan, SortExec) and plan.is_global:
+            child = new_children[0]
+            p = child.output_partitioning()
+            if not p.satisfies(OrderedDistribution(plan.orders)) \
+                    and p.num_partitions > 1:
+                new_children[0] = ShuffleExchangeExec(
+                    RangePartitioning(plan.orders, n_shuffle), child)
+                changed = True
         return plan.with_new_children(new_children) if changed else plan

@@ -14,7 +14,7 @@ from ..expr.expressions import (
     AggregateFunction, Alias, AttributeReference, Average, Cast, Count,
     Expression, Literal, Max, Min, Sum, UnresolvedAttribute, UnresolvedStar,
 )
-from .logical import Aggregate, LogicalPlan, Project
+from .logical import Aggregate, Join, LogicalPlan, Project
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
 
@@ -146,6 +146,12 @@ class CheckAnalysis(Rule):
                         raise AnalysisException("unexpected * in expression")
                     if isinstance(sub, Count) and sub.distinct:
                         raise NotPortedError("count(distinct)")
+            if isinstance(node, Join) and {
+                    a.expr_id for a in node.left.output} & {
+                    a.expr_id for a in node.right.output}:
+                raise NotPortedError(
+                    "self-join (deduplicating the attributes of a relation "
+                    "joined to itself)")
             if isinstance(node, Aggregate) and node.resolved:
                 grouping_ids = {g.expr_id for g in node.grouping_exprs
                                 if isinstance(g, AttributeReference)}

@@ -1,18 +1,22 @@
 """Logical plan nodes (counterpart of `spark_tpu/plan/logical.py`, the nodes
 the port's DataFrame API builds): LocalRelation, Project, Filter,
-Aggregate and Repartition."""
+Aggregate, Sort, Limit, Offset, Repartition and Join, with the reference's
+crude row-count estimates (`stats_rows`) that decide broadcast joins."""
 
 from __future__ import annotations
 
 from typing import Any, Sequence
 
 from ..errors import AnalysisException
-from ..expr.expressions import Alias, AttributeReference, Expression
+from ..expr.expressions import (
+    Alias, AttributeReference, Expression, SortOrder,
+)
 from .tree import TreeNode
 
 __all__ = [
-    "LogicalPlan", "LeafNode", "UnaryNode", "LocalRelation", "Project",
-    "Filter", "Aggregate", "Repartition",
+    "LogicalPlan", "LeafNode", "UnaryNode", "BinaryNode", "LocalRelation",
+    "Project", "Filter", "Aggregate", "Sort", "Limit", "Offset",
+    "Repartition", "Join", "normalize_join_type",
 ]
 
 
@@ -68,6 +72,14 @@ class LogicalPlan(TreeNode):
             out.extend(c.output)
         return out
 
+    def stats_rows(self) -> int | None:
+        """Crude row-count estimate (the reference's, kept as is: it
+        decides broadcast against shuffled joins)."""
+        ests = [c.stats_rows() for c in self.children]
+        if any(e is None for e in ests):
+            return None
+        return sum(ests) if ests else None
+
 
 class LeafNode(LogicalPlan):
     child_fields = ()
@@ -95,6 +107,9 @@ class LocalRelation(LeafNode):
     def _data_args(self):
         return (("ids", tuple(a.expr_id for a in self.attrs)),)
 
+    def stats_rows(self):
+        return self.table.num_rows
+
 
 class Project(UnaryNode):
     def __init__(self, project_list: Sequence[Expression], child: LogicalPlan):
@@ -114,11 +129,18 @@ class Project(UnaryNode):
                     f"project expression needs alias: {e.simple_string()}")
         return out
 
+    def stats_rows(self):
+        return self.child.stats_rows()
+
 
 class Filter(UnaryNode):
     def __init__(self, condition: Expression, child: LogicalPlan):
         self.condition = condition
         self.child = child
+
+    def stats_rows(self):
+        r = self.child.stats_rows()
+        return None if r is None else max(1, r // 4)
 
 
 class Aggregate(UnaryNode):
@@ -144,6 +166,39 @@ class Aggregate(UnaryNode):
                     f"aggregate expression needs alias: {e.simple_string()}")
         return out
 
+    def stats_rows(self):
+        r = self.child.stats_rows()
+        if not self.grouping_exprs:
+            return 1
+        return None if r is None else max(1, r // 10)
+
+
+class Sort(UnaryNode):
+    def __init__(self, orders: Sequence[SortOrder], is_global: bool,
+                 child: LogicalPlan):
+        self.orders = list(orders)
+        self.is_global = is_global
+        self.child = child
+
+    def stats_rows(self):
+        return self.child.stats_rows()
+
+
+class Limit(UnaryNode):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
+        self.child = child
+
+    def stats_rows(self):
+        r = self.child.stats_rows()
+        return self.n if r is None else min(self.n, r)
+
+
+class Offset(UnaryNode):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
+        self.child = child
+
 
 class Repartition(UnaryNode):
     def __init__(self, num_partitions: int | None, shuffle: bool,
@@ -152,3 +207,51 @@ class Repartition(UnaryNode):
         self.shuffle = shuffle
         self.partition_exprs = list(partition_exprs)
         self.child = child
+
+
+class BinaryNode(LogicalPlan):
+    child_fields = ("left", "right")
+
+
+def normalize_join_type(jt: str) -> str:
+    s = jt.lower().replace("_", "").replace(" ", "")
+    mapping = {
+        "inner": "inner", "cross": "cross",
+        "left": "left_outer", "leftouter": "left_outer",
+        "right": "right_outer", "rightouter": "right_outer",
+        "full": "full_outer", "fullouter": "full_outer", "outer": "full_outer",
+        "semi": "left_semi", "leftsemi": "left_semi",
+        "anti": "left_anti", "leftanti": "left_anti",
+    }
+    if s not in mapping:
+        raise AnalysisException(f"unsupported join type {jt}")
+    return mapping[s]
+
+
+class Join(BinaryNode):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, join_type: str,
+                 condition: Expression | None):
+        self.left = left
+        self.right = right
+        self.join_type = normalize_join_type(join_type)
+        self.condition = condition
+
+    @property
+    def output(self):
+        jt = self.join_type
+        if jt in ("left_semi", "left_anti"):
+            return self.left.output
+        lo = self.left.output
+        ro = self.right.output
+        if jt in ("right_outer", "full_outer"):
+            lo = [a.with_nullability(True) for a in lo]
+        if jt in ("left_outer", "full_outer"):
+            ro = [a.with_nullability(True) for a in ro]
+        return lo + ro
+
+    def stats_rows(self):
+        l = self.left.stats_rows()
+        r = self.right.stats_rows()
+        if l is None or r is None:
+            return None
+        return max(l, r)

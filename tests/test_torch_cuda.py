@@ -1,6 +1,8 @@
 """The port on the card: the CUDA kernels of
 spark_tpu_torch/csrc/scatter_kernels.cu against their plain PyTorch
-versions, and the slice's query on CUDA tensors against a numpy oracle.
+versions, the slice's query on CUDA tensors against a numpy oracle, and the
+sort, range-partition and join functions and the dense join on CUDA tensors
+against the same calls on the CPU.
 Every test here needs an NVIDIA GPU and nvcc and skips without a card.
 The file imports neither jax nor spark_tpu, so it also runs where only the
 port's dependencies are installed:
@@ -150,3 +152,202 @@ def test_slice_query_on_the_card(cuda_device):
     s2 = np.bincount(k[live], weights=v[live] * 3, minlength=5000)
     assert np.array_equal(out.column("sum(v2)").to_numpy(),
                           s2[present].astype(np.int64))
+
+
+# --- sort, range partitioning and joins: the card against the CPU ---------
+
+def _pair(arr, dev):
+    """(CPU tensor, the same values on the card)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t, t.to(dev)
+
+
+def _sort_inputs(kind, n, rng):
+    """(numpy keys, numpy validity or None) of one key column."""
+    if kind == "int64":
+        k = rng.integers(-50, 50, n)
+    elif kind == "int64_wide":
+        info = np.iinfo(np.int64)
+        k = rng.integers(info.min, info.max, n, dtype=np.int64,
+                         endpoint=True)
+    elif kind == "float":
+        # signed zeros, NaN and both infinities among ordinary values: the
+        # two zeros compare equal and keep input order on both devices
+        k = rng.choice([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -2.25],
+                       n)
+    elif kind == "bool":
+        k = (rng.random(n) < 0.5).astype(np.int32)  # Column.sort_keys()
+    else:  # date: int32 days
+        k = rng.integers(-1000, 1000, n).astype(np.int32)
+    valid = rng.random(n) < 0.9 if kind != "int64_wide" else None
+    return k, valid
+
+
+@pytest.mark.parametrize("n", [3000, 1 << 20])
+@pytest.mark.parametrize("keys", [
+    [("int64", True, None)], [("int64", False, None)],
+    [("int64_wide", True, None)], [("int64_wide", False, None)],
+    [("float", True, None)], [("float", False, None)],
+    [("float", False, True)], [("bool", False, None)],
+    [("date", True, False)],
+    [("int64", True, None), ("float", False, False), ("date", True, None)]])
+def test_sort_permutation_card_equals_cpu(cuda_device, n, keys):
+    from spark_tpu_torch.ops.sorting import SortKeySpec, sort_permutation
+
+    rng = np.random.default_rng(n + len(keys))
+    cols, valids, specs = ([], []), ([], []), []
+    for kind, asc, nulls_first in keys:
+        k, v = _sort_inputs(kind, n, rng)
+        for side, t in enumerate(_pair(k, cuda_device)):
+            cols[side].append(t)
+        for side, t in enumerate(_pair(v, cuda_device) if v is not None
+                                 else (None, None)):
+            valids[side].append(t)
+        specs.append(SortKeySpec(asc, nulls_first))
+    mask = _pair(rng.random(n) < 0.95, cuda_device)
+    want = sort_permutation(cols[0], valids[0], specs, mask[0])
+    got = sort_permutation(cols[1], valids[1], specs, mask[1])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("nulls_first", [False, True])
+@pytest.mark.parametrize("floating", [False, True])
+def test_range_partition_card_equals_cpu(cuda_device, descending,
+                                         nulls_first, floating):
+    from spark_tpu_torch.ops.partition import range_partition
+
+    rng = np.random.default_rng(12)
+    n = (1 << 20) + 7
+    if floating:
+        k = rng.choice([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -2.25, 7.0],
+                       n)
+        bounds = np.array([-2.25, 0.0, 1.5, np.inf])
+    else:
+        k = rng.integers(-1000, 1000, n)
+        bounds = np.array([-500, -10, 0, 3, 400, 999])
+    valid = _pair(rng.random(n) < 0.9, cuda_device)
+    mask = _pair(rng.random(n) < 0.95, cuda_device)
+    keys = _pair(k, cuda_device)
+    b = _pair(bounds, cuda_device)
+    parts = len(bounds) + 1
+    want = range_partition(keys[0], b[0], mask[0], parts, descending,
+                           valid[0], nulls_first)
+    before = SK.LAUNCHES["partition_histogram"]
+    got = range_partition(keys[1], b[1], mask[1], parts, descending,
+                          valid[1], nulls_first)
+    assert SK.LAUNCHES["partition_histogram"] == before + 1
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+def _join_inputs(rng, n_probe, n_build, key_hi, two_keys):
+    def side(n):
+        keys = [rng.integers(0, key_hi, n)]
+        if two_keys:
+            keys.append(rng.integers(0, 3, n))
+        return keys, [rng.random(n) < 0.95 for _ in keys], rng.random(n) < 0.9
+    return side(n_probe), side(n_build)
+
+
+@pytest.mark.parametrize("join_type", ["inner", "left_outer", "left_semi",
+                                       "left_anti"])
+@pytest.mark.parametrize("two_keys", [False, True])
+@pytest.mark.parametrize("out_capacity", [1 << 10, 1 << 21])
+def test_probe_join_card_equals_cpu(cuda_device, join_type, two_keys,
+                                    out_capacity):
+    # duplicate build keys and null keys; the small output capacity forces
+    # the `needed` overflow the engine retries on
+    from spark_tpu_torch.ops import joining as J
+
+    rng = np.random.default_rng(5)
+    (pk, pv, pm), (bk, bv, bm) = _join_inputs(rng, 1 << 17, 1 << 16, 5000,
+                                              two_keys)
+    results = []
+    for side in (0, 1):
+        def dev(a):
+            return _pair(a, cuda_device)[side]
+        bkeys, bvalids = [dev(k) for k in bk], [dev(v) for v in bv]
+        build = J.build_index(bkeys, bvalids, dev(bm))
+        results.append((build, J.probe_join(
+            build, bkeys, bvalids, [dev(k) for k in pk],
+            [dev(v) for v in pv], dev(pm), out_capacity, join_type)))
+    (cb, cr), (gb, gr) = results
+    for w, g in zip(cb + cr, gb + gr):
+        assert torch.equal(g.cpu(), w)
+    assert (int(cr.needed) > out_capacity) == (out_capacity == 1 << 10)
+
+
+def _session_pair(conf):
+    from spark_tpu_torch import TorchSession
+
+    return (TorchSession("cpu-side", dict(conf), device="cpu"),
+            TorchSession("card-side", dict(conf)))
+
+
+def _rows(table, ordered):
+    rows = list(zip(*[c.to_pylist() for c in table.columns]))
+    return rows if ordered else sorted(rows, key=repr)
+
+
+@pytest.mark.parametrize("how", ["inner", "left_outer", "left_semi",
+                                 "left_anti", "full_outer"])
+@pytest.mark.parametrize("dup", [False, True])
+def test_dense_join_card_equals_cpu(cuda_device, how, dup):
+    # unique dense build keys take the direct-address build and probe; a
+    # duplicated key sends the build to the sorted probe on both devices
+    import pyarrow as pa
+
+    rng = np.random.default_rng(17)
+    bkeys = rng.permutation(20_000) + 1000
+    if dup:
+        bkeys[7] = bkeys[8]
+    left = pa.table({"k": pa.array(rng.integers(0, 22_000, 100_000),
+                                   mask=rng.random(100_000) < 0.05),
+                     "a": rng.integers(0, 100, 100_000)})
+    right = pa.table({"k": bkeys, "b": rng.random(len(bkeys))})
+    conf = {"spark.sql.shuffle.partitions": 4,
+            "spark.tpu.batch.capacity": 1 << 15}
+    outs, paths = [], []
+    for s in _session_pair(conf):
+        l, r = s.createDataFrame(left), s.createDataFrame(right)
+        before = SK.LAUNCHES["partition_histogram"]
+        outs.append(l.join(r, l["k"] == r["k"], how).toArrow())
+        paths.append((s.metrics.get("join.dense_fast_path", 0) > 0,
+                      SK.LAUNCHES["partition_histogram"] > before))
+        s.stop()
+    assert _rows(outs[1], False) == _rows(outs[0], False)
+    assert paths[0][0] == paths[1][0] == (not dup)
+    assert paths[1][1]  # the card counted through the kernel
+
+
+@pytest.mark.parametrize("order", ["asc", "desc_nulls_first", "float_desc"])
+def test_sorts_on_the_card_equal_cpu(cuda_device, order):
+    # a range exchange over 4 partitions with null keys, and a float key
+    # holding both zeros, compared row by row in order
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+
+    rng = np.random.default_rng(23)
+    n = 200_000
+    table = pa.table({
+        "k": pa.array(rng.integers(-1000, 1000, n), mask=rng.random(n) < 0.1),
+        "f": rng.choice([0.0, -0.0, np.nan, 1.5, -2.25, np.inf], n),
+        "i": np.arange(n)})
+    conf = {"spark.sql.shuffle.partitions": 4,
+            "spark.tpu.batch.capacity": 1 << 15}
+    outs = []
+    for s in _session_pair(conf):
+        df = s.createDataFrame(table).repartition(4)
+        if order == "asc":
+            df = df.orderBy("k", "i")
+        elif order == "desc_nulls_first":
+            df = df.orderBy(F.col("k").desc_nulls_first(), F.desc("i"))
+        else:
+            df = df.orderBy(F.desc("f"), "k")
+        outs.append(df.toArrow())
+        s.stop()
+    # rows compare by repr: NaN equals NaN and -0.0 differs from 0.0
+    assert [repr(r) for r in _rows(outs[1], True)] == \
+        [repr(r) for r in _rows(outs[0], True)]

@@ -234,6 +234,12 @@ def test_port_imports_neither_jax_nor_reference():
         ".agg(F.sum('v2'), F.count('*'), F.min('v'), F.max('v'),"
         " F.avg('v')))\n"
         "assert df.toArrow().num_rows == 50\n"
+        "d = s.createDataFrame(pa.table({'k': np.arange(50),"
+        " 'w': np.arange(50) * 2}))\n"
+        "a = s.createDataFrame(t)\n"
+        "j = a.join(d, a['k'] == d['k'], 'left_outer')"
+        ".repartition(4).orderBy(F.desc('w'), 'v').limit(10)\n"
+        "assert j.toArrow().num_rows == 10\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spark_tpu' or m.startswith('spark_tpu.')]\n"
         "assert not bad, bad\n"
