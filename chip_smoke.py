@@ -47,6 +47,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
        q78:        TPC-DS q78's first CTE shape: 2e7 store_sales LEFT JOIN
                    2e6 store_returns on (ticket, item), rows with no return
                    counted and summed by store (shuffled, sorted probe);
+       tpcds:      bench.py's bench_tpcds: TPC-DS q3, q7 and q19, the query
+                   files verbatim, through session.sql over temp views of the
+                   eight tables they read at SF10 row counts (28,800,991
+                   store_sales rows; the columns the queries read, with
+                   tests/tpcds/datagen.py's value pools, strings and
+                   decimal(7,2) prices), each held exactly to a numpy oracle,
+                   its plan to the reference's operator sequence;
   6. a JSON line with every kernel's numbers, then, last, the result line
      {"ok": true, "device": {...}}.
 """
@@ -86,6 +93,48 @@ Q78_RETURNS = 2_000_000
 Q78_ITEMS = 102_000             # SF10's item and store counts
 Q78_STORES = 102
 TOPK = 100
+
+# the tpcds leg: TPC-DS SF10 row counts (the specification's), the conf of
+# the other legs, and each query's physical operator sequence at these
+# sizes, the JAX package's (tests/test_torch_tpcds_slice.py plans both
+# engines at these row counts and holds them to this table)
+TPCDS_ROWS = {"store_sales": 28_800_991, "item": 102_000,
+              "customer": 500_000, "customer_address": 250_000,
+              "customer_demographics": 1_920_800, "date_dim": 73_049,
+              "store": 102, "promotion": 500}
+TPCDS_CONF = {"spark.sql.shuffle.partitions": PARTITIONS,
+              "spark.tpu.batch.capacity": TILE}
+_TOPK_OPS = ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
+             "SortExec", "ComputeExec", "HashAggregateExec")
+_SCAN = ("ComputeExec", "LocalTableScanExec")
+_BCAST = ("BroadcastExchangeExec",) + _SCAN
+TPCDS_PLAN_OPS = {
+    "q3": _TOPK_OPS + ("HashJoinExec", "ComputeExec", "HashJoinExec")
+    + _SCAN + _SCAN + _BCAST,
+    "q7": _TOPK_OPS + ("HashJoinExec", "ComputeExec", "HashJoinExec",
+                       "ComputeExec", "HashJoinExec", "ComputeExec",
+                       "HashJoinExec") + _SCAN + _SCAN + _BCAST + _BCAST
+    + _BCAST,
+    "q19": _TOPK_OPS + ("ComputeExec", "HashJoinExec", "ComputeExec",
+                        "HashJoinExec", "ComputeExec", "HashJoinExec",
+                        "ComputeExec", "HashJoinExec", "ComputeExec",
+                        "HashJoinExec") + _SCAN + _BCAST + _SCAN + _BCAST
+    + _BCAST + _BCAST,
+}
+# the joins of each plan by kind, in the order of the tree
+TPCDS_JOINS = {
+    "q3": ("BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+           "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)"),
+    "q7": ("BroadcastHashJoin[inner](ss_promo_sk=p_promo_sk)",
+           "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+           "BroadcastHashJoin[inner](ss_cdemo_sk=cd_demo_sk)",
+           "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)"),
+    "q19": ("BroadcastHashJoin[inner](ss_store_sk=s_store_sk)",
+            "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+            "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+            "ShuffledHashJoin[inner](c_customer_sk=ss_customer_sk)",
+            "BroadcastHashJoin[inner](ca_address_sk=c_current_addr_sk)"),
+}
 
 
 def tiles(rows: int, tile: int) -> int:
@@ -756,6 +805,360 @@ def q78_leg(torch, sk, card: str) -> dict:
     return launches
 
 
+# --- the tpcds leg ---------------------------------------------------------
+
+def tpcds_calls(query: str) -> int:
+    """Histogram wrapper calls of one tpcds query at SF10, derived from its
+    plan (TPCDS_PLAN_OPS) and tile counts as leg_calls is. Every scan is
+    one partition and no exchange below the aggregate splits it, so each
+    join and the aggregate run once, on one batch: the probe side of the
+    shuffled join (a dimension, one tile) yields one batch. Each join's
+    build tries the dense direct-address table (1: its `present`, also
+    when duplicate keys then send it to the sorted probe, as store_sales
+    and customer do); a single string key aggregates over its dictionary
+    codes (1 `present` + 1 count per distinct validity plane of the
+    summed columns: the four store_sales prices come through the shuffled
+    join's build-side gather, each with its own plane); several keys take
+    the sorted-segment kernel (0)."""
+    return {
+        # the shuffled join's dense attempt (dates repeat) + item
+        "q3": 1 + 1,
+        # the shuffled join's attempt + customer_demographics, item,
+        # promotion + the aggregate's present and 4 validity counts
+        "q7": 1 + 3 + 1 + 4,
+        # customer (addresses repeat), store_sales (customers repeat),
+        # date_dim, item, store
+        "q19": 1 + 1 + 3,
+    }[query]
+
+
+def tpcds_datagen():
+    """tests/tpcds/datagen.py, loaded from its path: its value pools and
+    date keys (a `tests` package installed elsewhere may shadow the repo's
+    directory)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tpcds_datagen", os.path.join(ROOT, "tests", "tpcds", "datagen.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _decimal_column(pa, cents):
+    """decimal(7,2) Arrow array from int64 unscaled values: each value a
+    16-byte little-endian word (sign-extended), no per-value objects."""
+    import numpy as np
+
+    words = np.empty((len(cents), 2), dtype=np.int64)
+    words[:, 0] = cents
+    words[:, 1] = cents >> 63
+    return pa.Array.from_buffers(pa.decimal128(7, 2), len(cents),
+                                 [None, pa.py_buffer(words.tobytes())])
+
+
+def _nullable(pa, values, null_mask):
+    return pa.array(values.astype("int32"), pa.int32(), mask=null_mask)
+
+
+def tpcds_data(scale: float = 1.0, seed: int = 10):
+    """The eight tables of q3, q7 and q19 at TPCDS_ROWS times `scale`, the
+    columns the queries read (names and types of tests/tpcds/schema.json),
+    built vectorised from numpy (seed `seed`): surrogate keys dense from 1
+    (date_dim: the TPC-DS julian keys of 1900-01-02 on), strings taken from
+    tests/tpcds/datagen.py's pools by index, prices as int64 cents into
+    decimal(7,2). Returns ({name: pyarrow.Table}, {name: numpy arrays} for
+    the oracle)."""
+    import datetime
+
+    import numpy as np
+    import pyarrow as pa
+
+    G = tpcds_datagen()
+    rng = np.random.default_rng(seed)
+    n = {k: max(1, int(v * scale)) for k, v in TPCDS_ROWS.items()}
+    n["customer_demographics"] = TPCDS_ROWS["customer_demographics"]
+    n["date_dim"] = TPCDS_ROWS["date_dim"]
+    strs = lambda vals: pa.array(list(vals), pa.string())  # noqa: E731
+
+    # date_dim: 1900-01-02 .. 2100-01-01
+    dsk0 = G._dsk(datetime.date(1900, 1, 2))
+    days = np.datetime64("1900-01-02") + np.arange(n["date_dim"])
+    d_year = days.astype("datetime64[Y]").astype(np.int64) + 1970
+    d_moy = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    dd = {"d_date_sk": dsk0 + np.arange(n["date_dim"]), "d_year": d_year,
+          "d_moy": d_moy}
+
+    # item: i_item_id spans several sks (datagen: 75% as many ids), pools
+    ni = n["item"]
+    n_ids = max(2, int(ni * 0.75))
+    id_pool = strs(f"AAAAAAAA{i:08d}" for i in rng.permutation(n_ids))
+    manufact_ids = np.array([128, 129, 350, 677, 738, 977]
+                            + list(range(1, 1000, 7)))
+    manufact_pool = strs(f"manufact{i}" for i in range(100))
+    item = {"i_item_sk": np.arange(1, ni + 1),
+            "i_item_id": np.arange(ni) % n_ids,
+            "i_brand_id": rng.integers(1001001, 10016017, ni),
+            "i_brand": rng.integers(0, len(G.BRANDS), ni),
+            "i_manufact_id": manufact_ids[rng.integers(
+                0, len(manufact_ids), ni)],
+            "i_manufact": np.arange(ni) % 100,
+            "i_manager_id": rng.integers(1, 101, ni)}
+
+    # customer_address, customer, store, promotion
+    na, nc, ns, npr = (n["customer_address"], n["customer"], n["store"],
+                       n["promotion"])
+    ca = {"ca_address_sk": np.arange(1, na + 1),
+          "ca_zip": rng.integers(10000, 99999, na)}
+    cust = {"c_customer_sk": np.arange(1, nc + 1),
+            "c_current_addr_sk": rng.integers(1, na + 1, nc)}
+    store = {"s_store_sk": np.arange(1, ns + 1),
+             "s_zip": 38000 + np.arange(ns)}
+    promo = {"p_promo_sk": np.arange(1, npr + 1),
+             # datagen's pools: email N,N,N,Y; event N,N,Y (code 0 = 'N')
+             "p_channel_email": (rng.integers(0, 4, npr) == 3).astype(int),
+             "p_channel_event": (rng.integers(0, 3, npr) == 2).astype(int)}
+
+    # customer_demographics: the specification's full cross product,
+    # gender x marital x education x 20 x 4 x 7 x 7 x 7
+    ncd = n["customer_demographics"]
+    idx = np.arange(ncd)
+    cd = {"cd_demo_sk": idx + 1, "cd_gender": idx % 2,
+          "cd_marital_status": (idx // 2) % len(G.MARITAL),
+          "cd_education_status": (idx // 10) % len(G.EDUCATION)}
+
+    # store_sales: line items of orders (datagen's shape), 2% null keys,
+    # 30% null promotions, prices in cents
+    nss = n["store_sales"]
+    n_orders = max(1, nss // 4)
+    oi = rng.integers(0, n_orders, nss)
+    lo = G._dsk(datetime.date(1998, 1, 2))
+    hi = G._dsk(datetime.date(2002, 12, 30))
+    qty = rng.integers(1, 100, nss)
+    list_c = rng.integers(100, 20000, nss)
+    sales_c = np.rint(list_c * rng.uniform(0.3, 1.0, nss)).astype(np.int64)
+    ext_c = qty * sales_c
+    coupon_c = np.where(rng.random(nss) < 0.1,
+                        np.rint(ext_c * 0.2).astype(np.int64), 0)
+    ss = {"ss_sold_date_sk": rng.integers(lo, hi, n_orders)[oi],
+          "ss_item_sk": rng.integers(1, ni + 1, nss),
+          "ss_customer_sk": rng.integers(1, nc + 1, n_orders)[oi],
+          "ss_cdemo_sk": rng.integers(1, ncd + 1, n_orders)[oi],
+          "ss_store_sk": rng.integers(1, ns + 1, n_orders)[oi],
+          "ss_promo_sk": rng.integers(1, npr + 1, nss),
+          "ss_quantity": qty, "ss_list_price": list_c,
+          "ss_sales_price": sales_c, "ss_ext_sales_price": ext_c,
+          "ss_coupon_amt": coupon_c}
+    nulls = {c: rng.random(nss) < (0.3 if c == "ss_promo_sk" else 0.02)
+             for c in ("ss_sold_date_sk", "ss_customer_sk", "ss_cdemo_sk",
+                       "ss_store_sk", "ss_promo_sk")}
+
+    i32 = lambda a: pa.array(a.astype(np.int32), pa.int32())  # noqa: E731
+    tables = {
+        "date_dim": pa.table({k: i32(v) for k, v in dd.items()}),
+        "item": pa.table({
+            "i_item_sk": i32(item["i_item_sk"]),
+            "i_item_id": id_pool.take(pa.array(item["i_item_id"])),
+            "i_brand_id": i32(item["i_brand_id"]),
+            "i_brand": strs(G.BRANDS).take(pa.array(item["i_brand"])),
+            "i_manufact_id": i32(item["i_manufact_id"]),
+            "i_manufact": manufact_pool.take(pa.array(item["i_manufact"])),
+            "i_manager_id": i32(item["i_manager_id"])}),
+        "customer_address": pa.table({
+            "ca_address_sk": i32(ca["ca_address_sk"]),
+            "ca_zip": strs(f"{z:05d}" for z in range(10000, 99999)).take(
+                pa.array(ca["ca_zip"] - 10000))}),
+        "customer": pa.table({k: i32(v) for k, v in cust.items()}),
+        "store": pa.table({"s_store_sk": i32(store["s_store_sk"]),
+                           "s_zip": strs(str(z) for z in store["s_zip"])}),
+        "promotion": pa.table({
+            "p_promo_sk": i32(promo["p_promo_sk"]),
+            "p_channel_email": strs("NY").take(
+                pa.array(promo["p_channel_email"])),
+            "p_channel_event": strs("NY").take(
+                pa.array(promo["p_channel_event"]))}),
+        "customer_demographics": pa.table({
+            "cd_demo_sk": i32(cd["cd_demo_sk"]),
+            "cd_gender": strs("MF").take(pa.array(cd["cd_gender"])),
+            "cd_marital_status": strs(G.MARITAL).take(
+                pa.array(cd["cd_marital_status"])),
+            "cd_education_status": strs(G.EDUCATION).take(
+                pa.array(cd["cd_education_status"]))}),
+        "store_sales": pa.table({
+            **{c: (_nullable(pa, ss[c], nulls[c]) if c in nulls
+                   else i32(ss[c]))
+               for c in ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                         "ss_cdemo_sk", "ss_store_sk", "ss_promo_sk",
+                         "ss_quantity")},
+            **{c: _decimal_column(pa, ss[c])
+               for c in ("ss_list_price", "ss_sales_price",
+                         "ss_ext_sales_price", "ss_coupon_amt")}}),
+    }
+    arrays = {"dd": dd, "dsk0": dsk0, "item": item, "ca": ca, "cust": cust,
+              "store": store, "promo": promo, "cd": cd, "ss": ss,
+              "nulls": nulls, "id_pool": id_pool.to_pylist(),
+              "manufact_pool": manufact_pool.to_pylist(), "datagen": G}
+    return tables, arrays
+
+
+def _group_sum(keys, values):
+    """(unique key rows, int64 sums, counts) of `values` grouped by the
+    columns of `keys` (int64 arrays), exact."""
+    import numpy as np
+
+    stacked = np.stack(keys, axis=1)
+    uniq, inv = np.unique(stacked, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    order = np.argsort(inv, kind="stable")
+    starts = np.searchsorted(inv[order], np.arange(len(uniq)))
+    sums = [np.add.reduceat(v[order].astype(np.int64), starts)
+            for v in values]
+    return uniq, sums, np.bincount(inv, minlength=len(uniq))
+
+
+def _dec(v) -> int:
+    """A decimal(p, 2) value from Arrow as int64 cents."""
+    return int(v.scaleb(2))
+
+
+def _check_topk(label: str, got_rows: list, oracle_rows: list, key,
+                limit: int = 100) -> str:
+    """ORDER BY + LIMIT against the full oracle result: the rows come in
+    ORDER BY order, they are min(limit, n) rows of the oracle result, and
+    they hold every oracle row that sorts strictly before the last one."""
+    if len(got_rows) != min(limit, len(oracle_rows)):
+        fail(f"{label}: {len(got_rows)} rows, not "
+             f"min({limit}, {len(oracle_rows)})")
+    keys = [key(r) for r in got_rows]
+    if keys != sorted(keys):
+        fail(f"{label}: the rows are not in ORDER BY order")
+    pool = {}
+    for r in oracle_rows:
+        pool[r] = pool.get(r, 0) + 1
+    for r in got_rows:
+        if pool.get(r, 0) <= 0:
+            fail(f"{label}: row {r} is not in the oracle result")
+        pool[r] -= 1
+    if got_rows:
+        last = key(got_rows[-1])
+        before = sorted(r for r in oracle_rows if key(r) < last)
+        if sorted(r for r in got_rows if key(r) < last) != before:
+            fail(f"{label}: a row before the last one is missing")
+    return (f"{len(got_rows)} rows of {len(oracle_rows)} equal to the numpy "
+            "oracle in ORDER BY order")
+
+
+def tpcds_oracle(query: str, a: dict) -> tuple[list, callable]:
+    """The full result of `query` (no LIMIT) from numpy, exact, as rows of
+    Python values shaped like the collected Arrow rows (decimals in int64
+    units of their scale); and the ORDER BY key of a row."""
+    import numpy as np
+
+    G = a["datagen"]
+    ss, nulls, it = a["ss"], a["nulls"], a["item"]
+    d_idx = ss["ss_sold_date_sk"] - a["dsk0"]
+    year, moy = a["dd"]["d_year"][d_idx], a["dd"]["d_moy"][d_idx]
+    item = ss["ss_item_sk"] - 1
+    if query == "q3":
+        sel = ~nulls["ss_sold_date_sk"] & (moy == 11) &             (it["i_manufact_id"][item] == 128)
+        keys, (s,), _ = _group_sum(
+            [year[sel], it["i_brand"][item[sel]], it["i_brand_id"][item[sel]]],
+            [ss["ss_ext_sales_price"][sel]])
+        rows = [(int(y), int(bid), G.BRANDS[b], int(v))
+                for (y, b, bid), v in zip(keys, s)]
+        return rows, lambda r: (r[0], -r[3], r[1])
+    if query == "q7":
+        cd, promo = a["cd"], a["promo"]
+        c = ss["ss_cdemo_sk"] - 1
+        p = ss["ss_promo_sk"] - 1
+        sel = ~nulls["ss_sold_date_sk"] & ~nulls["ss_cdemo_sk"] &             ~nulls["ss_promo_sk"] & (year == 2000) &             (cd["cd_gender"][c] == 0) &             (cd["cd_marital_status"][c] == G.MARITAL.index("S")) &             (cd["cd_education_status"][c] == G.EDUCATION.index("College")) &             ((promo["p_channel_email"][p] == 0) |
+             (promo["p_channel_event"][p] == 0))
+        cols = ("ss_quantity", "ss_list_price", "ss_coupon_amt",
+                "ss_sales_price")
+        keys, sums, cnt = _group_sum([it["i_item_id"][item[sel]]],
+                                     [ss[col][sel] for col in cols])
+        n = cnt.astype(np.float64)
+        # the reference's lowering: avg(int) = sum / count in float64;
+        # avg(decimal(7,2)) = cast(sum / 10^2 / count as decimal(11,6)),
+        # the cast rounding half to even
+        agg1 = sums[0].astype(np.float64) / n
+        decs = [np.rint(s.astype(np.float64) / 100.0 / n * 1e6)
+                .astype(np.int64) for s in sums[1:]]
+        rows = [(a["id_pool"][k[0]], float(agg1[i]),
+                 int(decs[0][i]), int(decs[1][i]), int(decs[2][i]))
+                for i, k in enumerate(keys)]
+        return rows, lambda r: r[0]
+    if query == "q19":
+        cust = ss["ss_customer_sk"] - 1
+        addr = a["cust"]["c_current_addr_sk"][cust] - 1
+        zip_ca = a["ca"]["ca_zip"][addr]
+        zip_s = a["store"]["s_zip"][ss["ss_store_sk"] - 1]
+        sel = ~nulls["ss_sold_date_sk"] & ~nulls["ss_customer_sk"] &             ~nulls["ss_store_sk"] & (it["i_manager_id"][item] == 8) &             (moy == 11) & (year == 1998) & (zip_ca != zip_s)
+        keys, (s,), _ = _group_sum(
+            [it["i_brand"][item[sel]], it["i_brand_id"][item[sel]],
+             it["i_manufact_id"][item[sel]], it["i_manufact"][item[sel]]],
+            [ss["ss_ext_sales_price"][sel]])
+        rows = [(int(bid), G.BRANDS[b], int(mid), a["manufact_pool"][m],
+                 int(v)) for (b, bid, mid, m), v in zip(keys, s)]
+        return rows, lambda r: (-r[4], r[1], r[0], r[2], r[3])
+    raise ValueError(query)
+
+
+def tpcds_rows(query: str, out) -> list:
+    """The collected Arrow result as oracle-shaped rows."""
+    rows = []
+    for r in out.to_pylist():
+        if query == "q3":
+            rows.append((r["d_year"], r["brand_id"], r["brand"],
+                         _dec(r["sum_agg"])))
+        elif query == "q7":
+            rows.append((r["i_item_id"], r["agg1"],
+                         *(int(r[c].scaleb(6)) for c in
+                           ("agg2", "agg3", "agg4"))))
+        else:
+            rows.append((r["brand_id"], r["brand"], r["i_manufact_id"],
+                         r["i_manufact"], _dec(r["ext_price"])))
+    return rows
+
+
+def tpcds_leg(torch, sk, card: str) -> dict:
+    """bench.py's bench_tpcds (BASELINE config 4): TPC-DS q3, q7 and q19
+    from their files through session.sql at SF10 row counts. Returns the
+    launch counts by query."""
+    t0 = time.perf_counter()
+    tables, arrays = tpcds_data()
+    print(f"tpcds data: {sum(t.num_rows for t in tables.values()):,} rows, "
+          f"{sum(t.nbytes for t in tables.values()) / 1e9:.2f} GB of Arrow "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    spark = session(TPCDS_CONF)
+    for name, table in tables.items():
+        spark.createDataFrame(table).createOrReplaceTempView(name)
+    out = {}
+    for q in ("q3", "q7", "q19"):
+        text = open(os.path.join(ROOT, "tests", "tpcds", "queries",
+                                 f"{q}.sql")).read()
+        df = spark.sql(text)
+        ops = tuple(type(n).__name__
+                    for n in df.query_execution.physical.iter_nodes())
+        if ops != TPCDS_PLAN_OPS[q]:
+            fail(f"tpcds {q}: the operator sequence {ops} is not the "
+                 f"reference's {TPCDS_PLAN_OPS[q]}")
+        rows, key = tpcds_oracle(q, arrays)
+
+        def check(result, q=q, rows=rows, key=key):
+            return _check_topk(f"tpcds {q}", tpcds_rows(q, result), rows,
+                               key)
+
+        out[q] = drive(torch, sk, card, f"tpcds {q}", df,
+                       TPCDS_ROWS["store_sales"],
+                       TPCDS_JOINS[q] + ("LimitExec(is_global=True",
+                                         "LimitExec(is_global=False",
+                                         "Exchange[SinglePartition(1)]"),
+                       tpcds_calls(q), check)
+    spark.stop()
+    return out
+
+
 def breakdown(torch, df) -> dict:
     """Where one warm run's time goes: each operator's exclusive wall time
     (synchronized before and after every execute, so device work lands on
@@ -860,6 +1263,7 @@ def run() -> None:
         "topk": topk_leg(torch, sk, card, k, v),
         "q78": q78_leg(torch, sk, card),
     }
+    by_path.update(tpcds_leg(torch, sk, card))
 
     def entry(name, row, replaces):
         return {"name": name, "route": "cuda",

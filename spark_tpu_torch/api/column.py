@@ -1,5 +1,6 @@
 """User-facing Column DSL (counterpart of `spark_tpu/api/column.py`, the
-operators whose expressions are ported)."""
+operators whose expressions are ported; string literals come through `_expr`
+and `substr`)."""
 
 from __future__ import annotations
 
@@ -93,6 +94,11 @@ class Column:
 
     def isNotNull(self):
         return Column(E.IsNotNull(self.expr))
+
+    # --- strings ----------------------------------------------------------
+    def substr(self, pos, length=None):
+        return Column(E.Substring(self.expr, E.Literal(pos),
+                                  None if length is None else E.Literal(length)))
 
     # --- sort orders ------------------------------------------------------
     def asc(self):

@@ -155,6 +155,9 @@ class DataFrame:
     def agg(self, *cols) -> "DataFrame":
         return GroupedData(self, []).agg(*cols)
 
+    def createOrReplaceTempView(self, name: str) -> None:
+        self.session.catalog_.register(name, self.plan)
+
     # --- actions -------------------------------------------------------
     def toArrow(self) -> pa.Table:
         return self.query_execution.to_arrow()

@@ -1,6 +1,6 @@
 """Column functions (counterpart of `spark_tpu/api/functions.py`, the port's
-subset): col, lit, the sort orders asc and desc, and the aggregates sum,
-count, min, max, avg."""
+subset): col, lit (string and decimal literals too), the sort orders asc and
+desc, substring, and the aggregates sum, count, min, max, avg."""
 
 from __future__ import annotations
 
@@ -51,6 +51,10 @@ def min(c) -> Column:  # noqa: A001
 
 def max(c) -> Column:  # noqa: A001
     return Column(E.Max(_c(c)))
+
+
+def substring(c, pos: int, length: int) -> Column:
+    return Column(E.Substring(_c(c), E.Literal(pos), E.Literal(length)))
 
 
 def asc(c) -> Column:

@@ -1,6 +1,7 @@
 """Session entry point (counterpart of `spark_tpu/api/session.py`, the
-DataFrame surface of the slice): `TorchSession(appName, conf, device)`,
-`createDataFrame`, `conf` and `stop`.
+surface of the port's slices): `TorchSession(appName, conf, device)`,
+`createDataFrame`, `sql` (SELECT queries over temp views), `table`, `conf`
+and `stop`. SQL scripting, hints and commands raise `NotPortedError`.
 
 The session runs on CUDA unless the caller asks for the CPU, by
 `device="cpu"` or the conf key `spark.torch.device`. With no card and no
@@ -10,6 +11,7 @@ fallback.
 
 from __future__ import annotations
 
+import re
 from typing import Any
 
 import pyarrow as pa
@@ -22,7 +24,8 @@ from ..expr.expressions import AttributeReference
 from ..physical.compile import LaunchCounters
 from ..physical.planner import Planner
 from ..plan.analyzer import Analyzer
-from ..plan.logical import LocalRelation
+from ..plan.catalog import Catalog
+from ..plan.logical import LocalRelation, UnresolvedRelation
 from ..plan.optimizer import Optimizer
 from ..types import from_arrow_type
 
@@ -49,7 +52,8 @@ class TorchSession:
         self.appName = appName
         self.conf = SQLConf(conf)
         self.device = resolve_device(device, self.conf)
-        self._analyzer = Analyzer()
+        self.catalog_ = Catalog()
+        self._analyzer = Analyzer(self.catalog_)
         self._optimizer = Optimizer()
         self._metrics = Metrics()
         self.launches = LaunchCounters()
@@ -76,11 +80,25 @@ class TorchSession:
                  for f in table.schema]
         return DataFrame(self, LocalRelation(attrs, table))
 
+    def table(self, name: str):
+        from .dataframe import DataFrame
+
+        return DataFrame(self, UnresolvedRelation(name.split(".")))
+
     def sql(self, sqlText: str):
-        raise NotPortedError("SQL text (session.sql: lexer and parser)")
+        """A DataFrame over one SELECT query (sql/parser.py's grammar)."""
+        from ..sql.parser import parse_sql
+        from .dataframe import DataFrame
+
+        if _HINT_RE.search(sqlText):
+            raise NotPortedError("SQL hints (/*+ ... */)")
+        return DataFrame(self, parse_sql(sqlText))
 
     def stop(self) -> None:
         self._scan_cache.clear()
+
+
+_HINT_RE = re.compile(r"/\*\+")
 
 
 def _to_arrow_table(data, schema) -> pa.Table:

@@ -1,7 +1,12 @@
 """Arrow <-> ColumnarBatch interchange (counterpart of
-`spark_tpu/columnar/arrow.py`): Arrow slices are padded to a capacity bucket
-and copied to the session's device; collect concatenates each tile's live
-rows back into one table."""
+`spark_tpu/columnar/arrow.py`): Arrow slices are dictionary-encoded, padded
+to a capacity bucket and copied to the session's device; collect
+concatenates each tile's live rows back into one table.
+
+Strings are dictionary-encoded per slice by `pyarrow.compute.
+dictionary_encode`, as the reference does, so codes and dictionary order
+match it (a null takes code 0 and validity false). Decimals become int64
+scaled by 10^scale through the reference's float64 path, vectorised."""
 
 from __future__ import annotations
 
@@ -9,12 +14,14 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from ..types import (
-    BooleanType, DataType, DateType, StructField, StructType, from_arrow_type,
+    BooleanType, DataType, DateType, DecimalType, StringType, StructField,
+    StructType, from_arrow_type,
 )
-from .batch import Column, ColumnarBatch, bucket_capacity
+from .batch import Column, ColumnarBatch, StringDict, bucket_capacity
 
 __all__ = ["schema_from_arrow", "table_to_batches", "batches_to_table",
            "record_batch_to_columnar"]
@@ -28,12 +35,28 @@ def schema_from_arrow(aschema: pa.Schema) -> StructType:
 
 
 def _chunked_to_numpy(arr: pa.ChunkedArray | pa.Array, dt: DataType):
-    """-> (data ndarray in the type's host dtype, validity ndarray | None)."""
+    """-> (data ndarray in the type's host dtype, validity ndarray | None,
+    StringDict | None)."""
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     validity = None
     if arr.null_count:
         validity = np.asarray(arr.is_valid())
+    if isinstance(dt, StringType):
+        darr = arr if pa.types.is_dictionary(arr.type) \
+            else pc.dictionary_encode(arr)
+        if isinstance(darr, pa.ChunkedArray):
+            darr = darr.combine_chunks()
+        codes = np.asarray(darr.indices.fill_null(0)).astype(np.int32)
+        values = darr.dictionary.to_pylist()
+        return codes, validity, StringDict(
+            [v if v is not None else "" for v in values])
+    if isinstance(dt, DecimalType):
+        # the reference's conversion: float64 times 10^scale, rounded to
+        # the nearest integer (exact for decimals of up to 15 digits)
+        scaled = pc.multiply(pc.cast(arr, pa.float64()), 10.0 ** dt.scale)
+        data = np.rint(np.asarray(scaled.fill_null(0))).astype(np.int64)
+        return data, validity, None
     if isinstance(dt, DateType):
         data = np.asarray(arr.fill_null(0)).astype("datetime64[D]") \
             .astype(np.int32)
@@ -41,7 +64,7 @@ def _chunked_to_numpy(arr: pa.ChunkedArray | pa.Array, dt: DataType):
         data = np.asarray(arr.fill_null(False)).astype(bool)
     else:
         data = np.asarray(arr.fill_null(0)).astype(dt.numpy_dtype)
-    return data, validity
+    return data, validity, None
 
 
 def record_batch_to_columnar(rb: pa.RecordBatch | pa.Table,
@@ -52,7 +75,7 @@ def record_batch_to_columnar(rb: pa.RecordBatch | pa.Table,
     n = num_rows if num_rows is not None else rb.num_rows
     cols = []
     for i, f in enumerate(schema.fields):
-        data, validity = _chunked_to_numpy(rb.column(i), f.dataType)
+        data, validity, sd = _chunked_to_numpy(rb.column(i), f.dataType)
         pad = np.zeros(capacity, dtype=f.dataType.numpy_dtype)
         pad[:n] = data[:capacity]
         v = None
@@ -60,7 +83,8 @@ def record_batch_to_columnar(rb: pa.RecordBatch | pa.Table,
             vm = np.zeros(capacity, dtype=bool)
             vm[:n] = validity[:capacity]
             v = torch.from_numpy(vm).to(device)
-        cols.append(Column(f.dataType, torch.from_numpy(pad).to(device), v))
+        cols.append(Column(f.dataType, torch.from_numpy(pad).to(device), v,
+                           sd))
     mask = torch.zeros(capacity, dtype=torch.bool, device=device)
     mask[:n] = True
     return ColumnarBatch(schema, cols, mask, num_rows=n)

@@ -4,8 +4,10 @@
 Every batch has a power-of-two `capacity`; live rows are marked by a bool
 `row_mask` tensor, so filters never change tensor shapes. A column is a
 tensor in its type's device dtype plus an optional bool validity plane.
-Only numeric, boolean and date columns are ported; dictionary-encoded
-(string) columns raise `NotPortedError`.
+String columns are dictionary-encoded: int32 codes on the device, the UTF-8
+values on the host in a `StringDict`, whose value hashes (the equality
+domain) and lexicographic ranks (the ORDER BY domain) cross to the device
+once per dictionary. Decimal columns are int64 scaled by 10^scale.
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ import numpy as np
 import torch
 
 from ..types import (
-    BooleanType, DateType, NullType, StructType, to_arrow_type,
+    BooleanType, DateType, DecimalType, NullType, StringType, StructType,
+    dict_encoded, to_arrow_type,
 )
 
-__all__ = ["Column", "ColumnarBatch", "bucket_capacity"]
+__all__ = ["StringDict", "Column", "ColumnarBatch", "bucket_capacity",
+           "EMPTY_DICT", "hash_strings", "merge_string_dicts"]
 
 
 def bucket_capacity(n: int, minimum: int = 1 << 10) -> int:
@@ -32,27 +36,269 @@ def bucket_capacity(n: int, minimum: int = 1 << 10) -> int:
     return cap
 
 
+# ---------------------------------------------------------------------------
+# Value hashes: the reference's 64-bit string hash (native/sparktpu_native.cpp
+# hash_bytes64, xxhash64-style mixing), bit for bit, vectorised over the
+# strings of one byte length at a time
+# ---------------------------------------------------------------------------
+
+_MASK64 = (1 << 64) - 1
+_P1 = np.uint64(0x9E3779B185EBCA87)
+_P2 = np.uint64(0xC2B2AE3D27D4EB4F)
+_P3 = np.uint64(0x165667B19E3779F9)
+_P4 = np.uint64(0x85EBCA77C2B2AE63)
+_P5 = np.uint64(0x27D4EB2F165667C5)
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _word(buf: np.ndarray, pos: int, width: int) -> np.ndarray:
+    """Little-endian unsigned words of `width` bytes at byte `pos` of
+    each row of `buf` (uint8 [k, L]), as uint64."""
+    w = np.ascontiguousarray(buf[:, pos:pos + width])
+    return w.view("<u8" if width == 8 else "<u4")[:, 0].astype(np.uint64)
+
+
+def _hash_rows(buf: np.ndarray) -> np.ndarray:
+    """hash_bytes64 of each row of `buf`: k strings of one byte length L."""
+    k, n = buf.shape
+    p = 0
+    if n >= 32:
+        v = [np.full(k, (int(_P1) + int(_P2)) & _MASK64, np.uint64),
+             np.full(k, _P2, np.uint64), np.zeros(k, np.uint64),
+             np.full(k, (-int(_P1)) & _MASK64, np.uint64)]
+        while p + 32 <= n:
+            for j in range(4):
+                v[j] = _rotl(v[j] + _word(buf, p + 8 * j, 8) * _P2, 31) * _P1
+            p += 32
+        h = _rotl(v[0], 1) + _rotl(v[1], 7) + _rotl(v[2], 12) + \
+            _rotl(v[3], 18)
+    else:
+        h = np.full(k, _P5, np.uint64)
+    h = h + np.uint64(n)
+    while p + 8 <= n:
+        h ^= _rotl(_word(buf, p, 8) * _P2, 31) * _P1
+        h = _rotl(h, 27) * _P1 + _P4
+        p += 8
+    if p + 4 <= n:
+        h ^= _word(buf, p, 4) * _P1
+        h = _rotl(h, 23) * _P2 + _P3
+        p += 4
+    while p < n:
+        h ^= buf[:, p].astype(np.uint64) * _P5
+        h = _rotl(h, 11) * _P1
+        p += 1
+    h ^= h >> np.uint64(33)
+    h *= _P2
+    h ^= h >> np.uint64(29)
+    h *= _P3
+    h ^= h >> np.uint64(32)
+    return h
+
+
+def hash_strings(values: Sequence[str]) -> np.ndarray:
+    """int64 hash of each string's UTF-8 bytes, equal to the reference's
+    `spark_tpu/utils/native.py` hash_strings bit for bit. O(total bytes)
+    numpy work, grouped by byte length."""
+    enc = [v.encode("utf-8") for v in values]
+    out = np.empty(len(enc), np.uint64)
+    lens = np.fromiter((len(e) for e in enc), np.int64, len(enc))
+    for n in np.unique(lens):
+        idx = np.nonzero(lens == n)[0]
+        blob = b"".join(enc[i] for i in idx)
+        buf = np.frombuffer(blob, np.uint8).reshape(len(idx), int(n))
+        out[idx] = _hash_rows(buf)
+    return out.view(np.int64)
+
+
+class StringDict:
+    """Host-side dictionary of a string column: its unique UTF-8 values.
+
+    Derivatives, each computed once per dictionary (O(|dictionary|), never
+    O(rows)):
+      * hashes: int64 value hash per entry, the equality domain that lets
+        columns with different dictionaries compare (joins, group-by,
+        exchanges, `=`/`<>`);
+      * ranks: int32 lexicographic rank per entry, the ORDER BY domain;
+      * their device copies, one per device.
+    """
+
+    __slots__ = ("values", "_index", "_hashes", "_ranks", "_device",
+                 "_transforms", "_merges")
+
+    def __init__(self, values: Sequence[str]):
+        self.values: list[str] = list(values)
+        self._index: dict[str, int] | None = None
+        self._hashes: np.ndarray | None = None
+        self._ranks: np.ndarray | None = None
+        self._device: dict = {}  # (kind, device) -> tensor
+        self._transforms: dict = {}  # transform key -> (dict, lut | None)
+        self._merges: list = []  # [(dictionaries, merge result)], newest last
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    @property
+    def index(self) -> dict[str, int]:
+        if self._index is None:
+            self._index = {v: i for i, v in enumerate(self.values)}
+        return self._index
+
+    @property
+    def hashes(self) -> np.ndarray:
+        if self._hashes is None:
+            self._hashes = hash_strings(self.values)
+        return self._hashes
+
+    @property
+    def ranks(self) -> np.ndarray:
+        if self._ranks is None:
+            order = np.argsort(np.array(self.values, dtype=object),
+                               kind="stable")
+            r = np.empty(len(self.values), dtype=np.int32)
+            r[order] = np.arange(len(self.values), dtype=np.int32)
+            self._ranks = r
+        return self._ranks
+
+    def _on(self, kind: str, device, make) -> torch.Tensor:
+        key = (kind, str(device))
+        t = self._device.get(key)
+        if t is None:
+            t = self._device[key] = torch.from_numpy(make()).to(device)
+        return t
+
+    def device_hashes(self, device) -> torch.Tensor:
+        """The value hashes on `device`; an empty dictionary has one
+        padding entry, so a clamped code always indexes in range."""
+        return self._on("hashes", device, lambda: self.hashes
+                        if len(self.values) else np.zeros(1, np.int64))
+
+    def device_ranks(self, device) -> torch.Tensor:
+        return self._on("ranks", device, lambda: self.ranks
+                        if len(self.values) else np.zeros(1, np.int32))
+
+    def device_rank_to_code(self, device) -> torch.Tensor:
+        """Inverse of ranks: rank -> dictionary code."""
+        def make():
+            r = self.ranks if len(self.values) else np.zeros(1, np.int32)
+            inv = np.empty(len(r), dtype=np.int32)
+            inv[r] = np.arange(len(r), dtype=np.int32)
+            return inv
+
+        return self._on("rank_to_code", device, make)
+
+    def map_values(self, fn) -> "StringDict":
+        """Apply a host string -> string function to every entry: how
+        substr and the other dictionary transforms run in O(|dictionary|)."""
+        return StringDict([fn(v) for v in self.values])
+
+    def transformed(self, key: str, fn):
+        """(StringDict of fn over the values with duplicates removed, None
+        or a `device -> int32 recode lut` when fn mapped two values to one),
+        memoised per `key`: a dictionary transforms once however many
+        batches share it."""
+        hit = self._transforms.get(key)
+        if hit is None:
+            mapped = self.map_values(fn)
+            uniq, (lut,) = merge_string_dicts([mapped])
+            if len(uniq) == len(mapped):
+                hit = (mapped, None)
+            else:
+                recode = StringDict(uniq.values)
+                hit = (recode, lambda device, _lut=lut: recode._on(
+                    ("recode", key, id(self)), device, lambda: _lut))
+            self._transforms[key] = hit
+        return hit
+
+    @staticmethod
+    def merged(a: "StringDict", b: "StringDict"):
+        """Union two dictionaries; returns (merged, recode_a, recode_b) where
+        recode_x maps old codes -> merged codes."""
+        md, (ra, rb) = merge_string_dicts([a, b])
+        return md, ra, rb
+
+
+_MERGES_KEPT = 8
+
+
+def merge_string_dicts(dicts: Sequence[StringDict]):
+    """Union several dictionaries in first-occurrence order (the order of
+    the reference's native merge); returns (merged StringDict, [int32
+    recode array per dictionary]). An empty dictionary's recode is one 0
+    entry, so a clamped code always indexes in range. The last few merges
+    are memoised on the first dictionary, by the identity of the inputs:
+    tiles cached in the session merge once however often a query runs."""
+    memo = dicts[0]._merges if dicts else []
+    for key, hit in memo:
+        if len(key) == len(dicts) and all(a is b for a, b in zip(key, dicts)):
+            return hit
+    merged: list[str] = []
+    idx: dict[str, int] = {}
+    recodes = []
+    for d in dicts:
+        lut = np.zeros(max(len(d.values), 1), dtype=np.int32)
+        for i, v in enumerate(d.values):
+            j = idx.get(v)
+            if j is None:
+                j = idx[v] = len(merged)
+                merged.append(v)
+            lut[i] = j
+        recodes.append(lut)
+    hit = (StringDict(merged), recodes)
+    if dicts:
+        memo.append((tuple(dicts), hit))
+        del memo[:-_MERGES_KEPT]
+    return hit
+
+
+EMPTY_DICT = StringDict([])
+
+
+def _take_codes(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """lut[codes] with the codes clamped into the lut: padding and dead
+    rows may hold any code, and an index out of range is a device assert
+    on the card."""
+    return lut[codes.clamp(0, lut.shape[0] - 1).to(torch.int64)]
+
+
 @dataclass(frozen=True)
 class Column:
     """One column of a batch: device data + optional validity plane.
 
     data: tensor [capacity] in dtype.device_dtype
     validity: bool tensor [capacity] or None (= no nulls)
+    dictionary: the StringDict of a string column (codes index it)
     """
 
     dtype: Any
     data: torch.Tensor
     validity: torch.Tensor | None = None
+    dictionary: StringDict | None = None
+
+    @property
+    def is_string(self) -> bool:
+        return isinstance(self.dtype, StringType)
 
     def eq_keys(self) -> torch.Tensor:
-        """Tensor usable as an equality key (group-by, exchange hashing)."""
+        """Tensor usable as an equality key (group-by, join, exchange
+        hashing). Strings map codes to 64-bit value hashes, so columns with
+        different dictionaries compare correctly."""
+        if self.is_string:
+            sd = self.dictionary or EMPTY_DICT
+            return _take_codes(sd.device_hashes(self.data.device), self.data)
         if isinstance(self.dtype, BooleanType):
             return self.data.to(torch.int32)
         return self.data
 
     def sort_keys(self) -> torch.Tensor:
-        """Tensor whose numeric order is SQL ORDER BY order (booleans as
-        int32: the card's sort takes no bool keys)."""
+        """Tensor whose numeric order is SQL ORDER BY order (strings by
+        dictionary rank; booleans as int32: the card's sort takes no bool
+        keys)."""
+        if self.is_string:
+            sd = self.dictionary or EMPTY_DICT
+            return _take_codes(sd.device_ranks(self.data.device), self.data)
         if isinstance(self.dtype, BooleanType):
             return self.data.to(torch.int32)
         return self.data
@@ -97,7 +343,8 @@ class ColumnarBatch:
                    row_mask: np.ndarray | None = None) -> "ColumnarBatch":
         """Build a tile from host planes. Without `row_mask` the first n
         rows are live; with it (e.g. the planes of a JAX batch, taken with
-        np.asarray) the mask is used as given."""
+        np.asarray) the mask is used as given. String columns get the empty
+        dictionary (their codes index nothing)."""
         n = int(arrays[0].shape[0]) if arrays else 0
         if row_mask is not None:
             n = int(row_mask.shape[0])
@@ -112,7 +359,9 @@ class ColumnarBatch:
                 vm = np.zeros(cap, dtype=bool)
                 vm[:n] = np.asarray(v, dtype=bool)[:cap]
                 vv = torch.from_numpy(vm).to(device)
-            cols.append(Column(f.dataType, torch.from_numpy(pad).to(device), vv))
+            cols.append(Column(f.dataType, torch.from_numpy(pad).to(device),
+                               vv, EMPTY_DICT if dict_encoded(f.dataType)
+                               else None))
         mask = np.zeros(cap, dtype=bool)
         if row_mask is not None:
             mask[:n] = np.asarray(row_mask, dtype=bool)[:cap]
@@ -147,6 +396,18 @@ class ColumnarBatch:
             mask = None
             if c.validity is not None:
                 mask = ~c.validity[sel].cpu().numpy()
+            if isinstance(f.dataType, StringType):
+                # decode through the dictionary on the host: a dictionary
+                # array over the live codes, cast to plain strings
+                sd = c.dictionary or EMPTY_DICT
+                codes = np.clip(data, 0, max(len(sd) - 1, 0)).astype(np.int32)
+                values = pa.array(sd.values or [""], type=pa.string())
+                arrays.append(pa.DictionaryArray.from_arrays(
+                    pa.array(codes, mask=mask), values).cast(at))
+                continue
+            if isinstance(f.dataType, DecimalType):
+                arrays.append(decimal_array(data, mask, at))
+                continue
             if isinstance(f.dataType, DateType):
                 data = data.astype(np.int32)
             arrays.append(pa.array(data, type=at, mask=mask))
@@ -155,3 +416,20 @@ class ColumnarBatch:
     def __repr__(self) -> str:  # pragma: no cover
         return (f"ColumnarBatch(cap={self.capacity}, rows={self._num_rows}, "
                 f"schema={self.schema.simple_string()})")
+
+
+def decimal_array(unscaled: np.ndarray, null_mask: np.ndarray | None, at):
+    """A decimal128 Arrow array from int64 unscaled values, exact and
+    vectorised: each value sign-extended into a 16-byte little-endian
+    word."""
+    import pyarrow as pa
+
+    v = np.ascontiguousarray(unscaled, dtype=np.int64)
+    words = np.empty((len(v), 2), dtype=np.int64)
+    words[:, 0] = v
+    words[:, 1] = v >> 63
+    validity = None
+    if null_mask is not None and null_mask.any():
+        validity = pa.py_buffer(np.packbits(~null_mask, bitorder="little"))
+    return pa.Array.from_buffers(at, len(v),
+                                 [validity, pa.py_buffer(words.tobytes())])

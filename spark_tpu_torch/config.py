@@ -47,6 +47,12 @@ AUTO_BROADCAST_THRESHOLD = _register(ConfigEntry(
     "spark.sql.autoBroadcastJoinThreshold", 10 * 1024 * 1024,
     "Max estimated build-side bytes for a broadcast hash join.", int))
 
+ENCODING_ENABLED = _register(ConfigEntry(
+    "spark.tpu.encoding.enabled", True,
+    "Compressed execution: a single dictionary-encoded (string) grouping "
+    "key aggregates by direct scatter over its dense code domain.",
+    lambda s: str(s).lower() == "true"))
+
 DEVICE = _register(ConfigEntry(
     "spark.torch.device", "cuda",
     "torch device the session runs on: 'cuda' (default; raises when no "

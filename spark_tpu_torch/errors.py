@@ -23,6 +23,12 @@ class AnalysisException(SparkTpuError):
     error_class = "ANALYSIS_ERROR"
 
 
+class ParseException(AnalysisException):
+    """SQL text could not be parsed (reference: ParseException)."""
+
+    error_class = "PARSE_SYNTAX_ERROR"
+
+
 class UnresolvedColumnError(AnalysisException):
     error_class = "UNRESOLVED_COLUMN"
 

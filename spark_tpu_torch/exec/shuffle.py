@@ -7,9 +7,11 @@ grouped by pid with one stable sort, and the grouped columns are sliced into
 per-reducer buffers. The JAX package pulls the grouped columns to the host
 for slicing; here they stay on the device: one gather per column, the
 per-partition counts (from the histogram kernel) cross to the host, and
-each reducer's slices are concatenated into tiles on the device. Spilling
-to disk and the map-side column stats that seed the JAX package's
-dense-range memo are not ported.
+each reducer's slices are concatenated into tiles on the device. A string
+column's slices carry their map batch's dictionary; a reducer tile unifies
+the dictionaries of its slices (one host merge per distinct set, a device
+recode per slice). Spilling to disk, the map-side column stats that seed
+the JAX package's dense-range memo and string range keys are not ported.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ from typing import Sequence
 import torch
 
 from ..columnar.batch import Column, ColumnarBatch, bucket_capacity
+from ..columnar.ops import unify_string_columns
+from ..errors import NotPortedError
 from ..exec.context import ExecContext
-from ..types import StructType
+from ..types import StructType, dict_encoded
 
 Partition = list
 
@@ -30,7 +34,8 @@ class _OutBuffer:
 
     def __init__(self, schema: StructType):
         self.schema = schema
-        self.chunks: list[list] = []  # per append: [(data, validity), ...]
+        # per append: [(data, validity, dictionary), ...]
+        self.chunks: list[list] = []
         self._chunk_rows: list[int] = []
 
     def append(self, cols: list, n: int):
@@ -47,8 +52,14 @@ class _OutBuffer:
         for i, f in enumerate(self.schema.fields):
             data = torch.zeros(cap, dtype=f.dataType.device_dtype,
                                device=device)
+            sd = None
+            datas = [c[i][0] for c in chunks]
+            if dict_encoded(f.dataType):
+                sd, datas = unify_string_columns(
+                    [Column(f.dataType, c[i][0], None, c[i][2])
+                     for c in chunks])
             if n:
-                data[:n] = torch.cat([c[i][0] for c in chunks])
+                data[:n] = torch.cat(datas)
             validity = None
             if any(c[i][1] is not None for c in chunks):
                 validity = torch.zeros(cap, dtype=torch.bool, device=device)
@@ -56,7 +67,7 @@ class _OutBuffer:
                     c[i][1] if c[i][1] is not None
                     else torch.ones(c[i][0].shape[0], dtype=torch.bool,
                                     device=device) for c in chunks])
-            cols.append(Column(f.dataType, data, validity))
+            cols.append(Column(f.dataType, data, validity, sd))
         mask = torch.arange(cap, device=device) < n
         return ColumnarBatch(self.schema, cols, mask, num_rows=n)
 
@@ -77,8 +88,8 @@ class _OutBuffer:
                 else:
                     pend.append([
                         (d[off:off + take],
-                         None if v is None else v[off:off + take])
-                        for d, v in chunk])
+                         None if v is None else v[off:off + take], sd)
+                        for d, v, sd in chunk])
                 pend_rows += take
                 off += take
                 if pend_rows >= tile_capacity:
@@ -97,7 +108,8 @@ def _pull_sorted(batch: ColumnarBatch, perm: torch.Tensor,
     gathered = []
     for c in batch.columns:
         gathered.append((c.data[live],
-                         None if c.validity is None else c.validity[live]))
+                         None if c.validity is None else c.validity[live],
+                         c.dictionary))
     return gathered, host_counts
 
 
@@ -132,6 +144,8 @@ def range_partition_batch(batch: ColumnarBatch, key_position: int,
     from ..ops.partition import range_partition
 
     col = batch.columns[key_position]
+    if col.is_string:
+        raise NotPortedError("range exchange on a string key")
     pr = range_partition(col.sort_keys(), bounds, batch.row_mask, num_out,
                          descending, col.validity, nulls_first)
     return _pull_sorted(batch, pr.perm, pr.counts)
@@ -192,8 +206,8 @@ def _slice_into(bufs: list[_OutBuffer], gathered: list, counts: list[int]):
     for p, n in enumerate(counts):
         hi = lo + n
         if n:
-            bufs[p].append([(d[lo:hi], None if v is None else v[lo:hi])
-                            for d, v in gathered], n)
+            bufs[p].append([(d[lo:hi], None if v is None else v[lo:hi], sd)
+                            for d, v, sd in gathered], n)
         lo = hi
 
 

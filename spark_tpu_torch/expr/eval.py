@@ -1,9 +1,10 @@
 """Expression evaluation context (counterpart of `spark_tpu/expr/eval.py`).
 
 The JAX package evaluates each expression twice: a host pass for metadata
-and aux lookup tables, then a trace inside `jax.jit`. The port has no
-dictionary-encoded columns and nothing to trace: PyTorch runs eagerly, so
-one pass evaluates an expression tree on the batch's tensors directly.
+and aux lookup tables (dictionaries, their hash and rank luts), then a trace
+inside `jax.jit`. PyTorch runs eagerly, so one pass does both: a string
+value carries its host dictionary (`sdict`) beside its device codes, and a
+lut crosses to the device where the expression needs it.
 """
 
 from __future__ import annotations
@@ -22,11 +23,13 @@ __all__ = ["Val", "EvalCtx"]
 class Val:
     """An evaluated expression value: `data` is a tensor of the batch's
     capacity or a 0-dim tensor (literals); `validity` a bool tensor of
-    either shape, or None when the value has no nulls."""
+    either shape, or None when the value has no nulls; `sdict` the host
+    dictionary a string value's codes index."""
 
     dtype: DataType
     data: Any
     validity: Any = None
+    sdict: Any = None
 
 
 class EvalCtx:

@@ -3,30 +3,38 @@ subset the port evaluates).
 
 Each expression keeps the JAX package's class name, type rules, null
 semantics and `simple_string`, with one `eval(ctx)` written on torch
-tensors: attributes, literals, aliases, casts between the ported types,
-`+ - * /` (plain ops wrap on integral overflow; the try_ variants give NULL;
-x/0 gives NULL), sort orders, the comparisons, Kleene and/or/not, is [not]
-null, and the aggregate functions sum, count, min, max and avg.
+tensors: attributes, literals (string and decimal ones too), aliases, casts
+between the ported types (decimals rescale half-up; float -> decimal rounds
+half to even), `+ - * /` (plain ops wrap on integral overflow; the try_
+variants give NULL; x/0 gives NULL; decimal + - * stay exact scaled int64),
+sort orders, the comparisons (strings compare by value hash for = and <>,
+by merged-dictionary rank for the orderings), Kleene and/or/not, is [not]
+null, substr/substring (a dictionary transform on the host, once per
+dictionary), and the aggregate functions sum, count, min, max and avg.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 
+from ..columnar.batch import EMPTY_DICT, StringDict, _take_codes
 from ..errors import AnalysisException, NotPortedError, TypeCheckError
 from ..plan.tree import TreeNode, next_id
 from ..types import (
-    BooleanType, DataType, DateType, FractionalType, IntegralType, NullType,
-    NumericType, boolean, common_type, float64, infer_type, int64, null_type,
+    BooleanType, DataType, DateType, DecimalType, FractionalType,
+    IntegralType, NullType, NumericType, StringType, boolean, common_type,
+    dict_encoded, float64, infer_type, int64, null_type, string,
 )
 from .eval import EvalCtx, Val
 
 __all__ = [
     "Expression", "Literal", "AttributeReference", "UnresolvedAttribute",
-    "UnresolvedStar", "Alias", "SortOrder", "Cast", "cast_if",
+    "UnresolvedStar", "UnresolvedFunction", "Alias", "SortOrder", "Cast",
+    "cast_if", "Substring",
     "Add", "Subtract", "Multiply", "Divide", "TryAdd", "TrySubtract",
     "TryMultiply", "EqualTo", "NotEqualTo", "LessThan", "LessThanOrEqual",
     "GreaterThan", "GreaterThanOrEqual", "And", "Or", "Not", "IsNull",
@@ -77,6 +85,15 @@ class Literal(Expression):
         self._dtype = dtype if dtype is not None else infer_type(value)
         if isinstance(value, datetime.date):
             self.value = (value - datetime.date(1970, 1, 1)).days
+        else:
+            import decimal as _d
+
+            if isinstance(value, _d.Decimal):
+                if not isinstance(self._dtype, DecimalType):
+                    raise TypeCheckError(
+                        f"decimal literal of type {self._dtype}")
+                self.value = int(value.scaleb(self._dtype.scale)
+                                 .to_integral_value())
 
     @property
     def dtype(self) -> DataType:
@@ -95,6 +112,12 @@ class Literal(Expression):
 
     def eval(self, ctx: EvalCtx) -> Val:
         dt = self._dtype.device_dtype
+        if dict_encoded(self._dtype):
+            # a string literal: a one-entry dictionary, every row code 0
+            sd = StringDict([""] if self.value is None else [self.value])
+            return Val(self._dtype, ctx.scalar(0, dt),
+                       None if self.value is not None
+                       else ctx.scalar(False, torch.bool), sd)
         if self.value is None:
             return Val(self._dtype, ctx.scalar(0, dt),
                        ctx.scalar(False, torch.bool))
@@ -110,11 +133,12 @@ class AttributeReference(Expression):
     child_fields = ()
 
     def __init__(self, name: str, dtype: DataType, nullable: bool = True,
-                 expr_id: int | None = None):
+                 expr_id: int | None = None, qualifier: tuple[str, ...] = ()):
         self.name = name
         self._dtype = dtype
         self._nullable = nullable
         self.expr_id = next_id() if expr_id is None else expr_id
+        self.qualifier = tuple(qualifier)
 
     @property
     def dtype(self) -> DataType:
@@ -136,7 +160,11 @@ class AttributeReference(Expression):
 
     def with_nullability(self, nullable: bool) -> "AttributeReference":
         return AttributeReference(self.name, self._dtype, nullable,
-                                  self.expr_id)
+                                  self.expr_id, self.qualifier)
+
+    def new_instance(self) -> "AttributeReference":
+        return AttributeReference(self.name, self._dtype, self._nullable,
+                                  None, self.qualifier)
 
     def simple_string(self) -> str:
         return f"{self.name}#{self.expr_id}"
@@ -162,6 +190,23 @@ class UnresolvedAttribute(Expression):
 
 class UnresolvedStar(Expression):
     child_fields = ()
+
+    def __init__(self, target: Optional[str] = None):
+        self.target = target
+
+    @property
+    def resolved(self) -> bool:
+        return False
+
+
+class UnresolvedFunction(Expression):
+    child_fields = ("args",)
+
+    def __init__(self, name: str, args: Sequence[Expression],
+                 distinct: bool = False):
+        self.fname = name
+        self.args = list(args)
+        self.distinct = distinct
 
     @property
     def resolved(self) -> bool:
@@ -256,8 +301,36 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType) -> Val:
         return c
     dd = to.device_dtype
     if isinstance(frm, NullType):
-        return Val(to, ctx.scalar(0, dd), ctx.scalar(False, torch.bool))
+        return Val(to, ctx.scalar(0, dd), ctx.scalar(False, torch.bool),
+                   StringDict([""]) if isinstance(to, StringType) else None)
+    if isinstance(frm, StringType) or isinstance(to, StringType):
+        raise NotPortedError(f"cast({frm.simple_string()} as "
+                             f"{to.simple_string()})")
     data = c.data
+    if isinstance(frm, DecimalType) and isinstance(to, DecimalType):
+        delta = to.scale - frm.scale
+        if delta >= 0:
+            return Val(to, data * (10 ** delta), c.validity)
+        # half-up (away from zero) on the integers, as the reference does
+        f = 10 ** (-delta)
+        half = f // 2
+        out = torch.where(data >= 0, (data + half) // f,
+                          -((-data + half) // f))
+        return Val(to, out, c.validity)
+    if isinstance(frm, DecimalType):
+        # the divisor is a tensor on the data's device: CUDA divides by a
+        # host scalar as a product with its reciprocal, which can differ
+        # from the quotient in the last bit (and then in a rounded avg)
+        scale = torch.full((), 10.0 ** frm.scale, dtype=torch.float64,
+                           device=data.device)
+        scaled = data.to(torch.float64) / scale
+        return cast_val(ctx, Val(float64, scaled, c.validity), to)
+    if isinstance(to, DecimalType):
+        if data.dtype.is_floating_point:
+            # torch.round rounds half to even, as the reference's rint
+            d = torch.round(data.to(torch.float64) * (10.0 ** to.scale))
+            return Val(to, d.to(torch.int64), c.validity)
+        return Val(to, data.to(torch.int64) * (10 ** to.scale), c.validity)
     if isinstance(to, BooleanType):
         return Val(to, data != 0, c.validity)
     if isinstance(frm, FractionalType) and isinstance(to, IntegralType):
@@ -324,6 +397,12 @@ class BinaryArithmetic(BinaryExpression):
         return Val(out, data, v)
 
     def _align(self, ctx, l: Val, r: Val, out: DataType):
+        if isinstance(out, DecimalType):
+            lc = l if isinstance(l.dtype, DecimalType) \
+                else cast_val(ctx, l, out)
+            rc = r if isinstance(r.dtype, DecimalType) \
+                else cast_val(ctx, r, out)
+            return lc.data, rc.data
         dd = out.device_dtype
         return l.data.to(dd), r.data.to(dd)
 
@@ -331,8 +410,18 @@ class BinaryArithmetic(BinaryExpression):
         raise NotImplementedError
 
 
+def _decimal_sum_type(ct: DataType) -> DataType:
+    if isinstance(ct, DecimalType):
+        return DecimalType(min(ct.precision + 1, DecimalType.MAX_PRECISION),
+                           ct.scale)
+    return ct
+
+
 class Add(BinaryArithmetic):
     symbol = "+"
+
+    def _result_type(self, ct):
+        return _decimal_sum_type(ct)
 
     def _op(self, l, r):
         return l + r, None
@@ -341,12 +430,54 @@ class Add(BinaryArithmetic):
 class Subtract(BinaryArithmetic):
     symbol = "-"
 
+    def _result_type(self, ct):
+        return _decimal_sum_type(ct)
+
     def _op(self, l, r):
         return l - r, None
 
 
 class Multiply(BinaryArithmetic):
     symbol = "*"
+
+    @staticmethod
+    def _decimal_types(lt, rt):
+        def as_dec(t):
+            if isinstance(t, DecimalType):
+                return t
+            if isinstance(t, IntegralType):
+                p = {1: 3, 2: 5, 4: 10, 8: 19}[t.device_dtype.itemsize]
+                return DecimalType(p, 0)
+            return None
+
+        ld, rd = as_dec(lt), as_dec(rt)
+        if ld is not None and rd is not None and (
+                isinstance(lt, DecimalType) or isinstance(rt, DecimalType)):
+            return ld, rd
+        return None
+
+    def _result_type(self, ct):
+        if isinstance(ct, DecimalType):
+            dd = self._decimal_types(self.left.dtype, self.right.dtype)
+            if dd is not None:
+                p = dd[0].precision + dd[1].precision
+                s = dd[0].scale + dd[1].scale
+                if p <= DecimalType.MAX_PRECISION:
+                    return DecimalType(p, s)  # exact scaled-int64 product
+            # past int64's digits the reference computes in float64
+            return float64
+        return ct
+
+    def _align(self, ctx, l, r, out):
+        if isinstance(out, DecimalType):
+            # exact: the raw scaled int64 product, the scales add
+            return l.data.to(torch.int64), r.data.to(torch.int64)
+        if isinstance(out, FractionalType) and (
+                isinstance(l.dtype, DecimalType)
+                or isinstance(r.dtype, DecimalType)):
+            return (cast_val(ctx, l, float64).data,
+                    cast_val(ctx, r, float64).data)
+        return super()._align(ctx, l, r, out)
 
     def _op(self, l, r):
         return l * r, None
@@ -417,6 +548,27 @@ class Divide(BinaryArithmetic):
 # Comparisons
 # ---------------------------------------------------------------------------
 
+def _string_eq_domain(ctx: EvalCtx, v: Val) -> torch.Tensor:
+    """A string value's codes mapped to 64-bit value hashes: equal strings
+    hash equal whatever dictionary holds them."""
+    sd = v.sdict or EMPTY_DICT
+    return _take_codes(sd.device_hashes(ctx.device), v.data)
+
+
+def _string_rank_domain(ctx: EvalCtx, l: Val, r: Val):
+    """Two string values mapped into one ordering domain: ranks in the
+    sorted union of both dictionaries (ranks of two dictionaries do not
+    compare)."""
+    a = l.sdict or StringDict([""])
+    b = r.sdict or StringDict([""])
+    allv = sorted(set(a.values) | set(b.values))
+    pos = {v: i for i, v in enumerate(allv)}
+    la = np.array([pos[v] for v in a.values] or [0], dtype=np.int64)
+    lb = np.array([pos[v] for v in b.values] or [0], dtype=np.int64)
+    return (_take_codes(torch.from_numpy(la).to(ctx.device), l.data),
+            _take_codes(torch.from_numpy(lb).to(ctx.device), r.data))
+
+
 class BinaryComparison(BinaryExpression):
     @property
     def dtype(self):
@@ -425,6 +577,14 @@ class BinaryComparison(BinaryExpression):
     def eval(self, ctx):
         l = ctx.eval(self.left)
         r = ctx.eval(self.right)
+        if isinstance(l.dtype, StringType) and isinstance(r.dtype,
+                                                          StringType):
+            if type(self) in (EqualTo, NotEqualTo):
+                ld = _string_eq_domain(ctx, l)
+                rd = _string_eq_domain(ctx, r)
+            else:
+                ld, rd = _string_rank_domain(ctx, l, r)
+            return Val(boolean, self._cmp(ld, rd), ctx.and_valid(l, r))
         ct = common_type(l.dtype, r.dtype) or l.dtype
         lc = cast_val(ctx, l, ct)
         rc = cast_val(ctx, r, ct)
@@ -530,6 +690,19 @@ class UnaryExpression(Expression):
         return f"{self.sql_name()}({self.child.simple_string()})"
 
 
+class UnaryMinus(UnaryExpression):
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(c.dtype, NumericType):
+            raise TypeCheckError(
+                f"unary minus of {c.dtype.simple_string()}")
+        return Val(self.dtype, -c.data, c.validity)
+
+
 class Not(UnaryExpression):
     @property
     def dtype(self):
@@ -573,6 +746,64 @@ class IsNotNull(UnaryExpression):
 
 
 # ---------------------------------------------------------------------------
+# String functions: dictionary transforms
+# ---------------------------------------------------------------------------
+
+class _DictTransform(Expression):
+    """A string -> string function applied to the dictionary's values on
+    the host, once per dictionary (memoised on it). Where two values map to
+    one (substr('ab', 1, 1) = substr('ac', 1, 1)) the mapped dictionary is
+    deduplicated and the codes recoded by one device gather, so equal
+    strings keep one code: the code-domain aggregate and the rank order
+    need it (the reference keeps the duplicates: ROADMAP.md section C).
+    Otherwise the device codes pass through unchanged."""
+
+    child_fields = ("child",)
+
+    def __init__(self, child: Expression):
+        self.child = child
+
+    @property
+    def dtype(self):
+        return string
+
+    def transform(self, s: str) -> str:
+        raise NotImplementedError
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(c.dtype, StringType):
+            raise NotPortedError(
+                f"{self.sql_name()} of {c.dtype.simple_string()} (a cast "
+                "to string)")
+        mapped, lut = (c.sdict or StringDict([""])).transformed(
+            self.simple_string(), self.transform)
+        if lut is None:
+            return Val(string, c.data, c.validity, mapped)
+        return Val(string, _take_codes(lut(ctx.device), c.data), c.validity,
+                   mapped)
+
+
+class Substring(_DictTransform):
+    def __init__(self, child: Expression, pos: Expression,
+                 length: Expression | None = None):
+        super().__init__(child)
+        if not isinstance(pos, Literal) or (
+                length is not None and not isinstance(length, Literal)):
+            raise NotPortedError("substring with non-literal pos/len")
+        self.pos = int(pos.value)
+        self.length = None if length is None else int(length.value)
+
+    def transform(self, s):
+        # SQL 1-based; pos 0 reads as 1, a negative pos counts from the end
+        p = self.pos
+        start = max(p - 1, 0) if p > 0 else max(len(s) + p, 0)
+        if self.length is None:
+            return s[start:]
+        return s[start:start + max(self.length, 0)]
+
+
+# ---------------------------------------------------------------------------
 # Aggregate functions (evaluated by the aggregation operator, not eval())
 # ---------------------------------------------------------------------------
 
@@ -595,7 +826,10 @@ class AggregateFunction(Expression):
 class Sum(AggregateFunction):
     @property
     def dtype(self):
-        if isinstance(self.child.dtype, IntegralType):
+        ct = self.child.dtype
+        if isinstance(ct, DecimalType):
+            return DecimalType(DecimalType.MAX_PRECISION, ct.scale)
+        if isinstance(ct, IntegralType):
             return int64
         return float64
 
@@ -629,4 +863,9 @@ class Max(AggregateFunction):
 class Average(AggregateFunction):
     @property
     def dtype(self):
+        ct = self.child.dtype
+        if isinstance(ct, DecimalType):
+            return DecimalType(
+                min(ct.precision + 4, DecimalType.MAX_PRECISION),
+                min(ct.scale + 4, 10))
         return float64

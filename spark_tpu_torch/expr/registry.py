@@ -1,0 +1,40 @@
+"""Function registry: SQL function names -> expression builders
+(counterpart of `spark_tpu/expr/registry.py`, the functions of the port's
+slice). A name the reference knows and the port does not raises
+`NotPortedError` naming it."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from ..errors import AnalysisException, NotPortedError
+from . import expressions as E
+
+_BUILDERS = {
+    "sum": lambda c: E.Sum(c),
+    "min": lambda c: E.Min(c),
+    "max": lambda c: E.Max(c),
+    "avg": lambda c: E.Average(c),
+    "mean": lambda c: E.Average(c),
+    "substring": lambda c, p, l=None: E.Substring(c, p, l),
+    "substr": lambda c, p, l=None: E.Substring(c, p, l),
+}
+
+
+def build_function(name: str, args: Sequence[E.Expression],
+                   distinct: bool = False) -> E.Expression:
+    n = name.lower()
+    if n == "count":
+        if len(args) == 0 or isinstance(args[0], E.UnresolvedStar):
+            return E.Count(None, distinct=False)
+        return E.Count(args[0], distinct=distinct)
+    b = _BUILDERS.get(n)
+    if b is None:
+        raise NotPortedError(f"function {name}")
+    if distinct:
+        raise NotPortedError(f"{name}(DISTINCT ...)")
+    try:
+        return b(*args)
+    except TypeError as e:
+        raise AnalysisException(
+            f"wrong number of arguments for {name}: {len(args)}") from e

@@ -5,7 +5,9 @@ partition id, so it matches the JAX package bit for bit. torch has no
 uint64 arithmetic: products are taken in int64, which wraps modulo 2^64
 exactly as the unsigned product does, with the constants converted to their
 signed values, and each right shift is made logical by masking off the sign
-bits an arithmetic shift brings in.
+bits an arithmetic shift brings in. A string key enters as its equality
+lanes (`Column.eq_keys`: the dictionary's value hash per row), so its
+partition id equals the reference's whatever dictionary holds the value.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 expressions (counterpart of `spark_tpu/physical/aggregates.py`, for sum,
 count, min, max and avg). Merge ops are the partial ops' associative
 counterparts, so one kernel serves map-side partial and reduce-side final
-aggregation."""
+aggregation. A decimal sum is an exact int64 sum of the scaled values; a
+decimal average finishes as cast(sum / count as decimal(p+4, s+4)), the
+division in float64, as the reference lowers it."""
 
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ from ..expr.expressions import (
     AggregateFunction, Alias, AttributeReference, Average, Count, Divide,
     Expression, Max, Min, Sum, cast_if,
 )
-from ..types import DataType, IntegralType, float64, int64
+from ..types import (
+    DataType, DecimalType, IntegralType, StringType, float64, int64,
+)
 
 # primitive ops the kernels implement
 PARTIAL_TO_MERGE = {
@@ -26,6 +30,8 @@ def _buffer_dtype(op: str, in_dtype: DataType | None) -> DataType:
     if op in ("count", "countstar"):
         return int64
     if op == "sum":
+        if isinstance(in_dtype, DecimalType):
+            return DecimalType(DecimalType.MAX_PRECISION, in_dtype.scale)
         return int64 if isinstance(in_dtype, IntegralType) else float64
     return in_dtype  # min/max preserve type
 
@@ -46,6 +52,10 @@ class AggSpec:
 def lower_aggregate_function(func: AggregateFunction, out_name: str,
                              out_id: int) -> AggSpec:
     child = func.child
+    if child is not None and isinstance(child.dtype, StringType) and \
+            not isinstance(func, Count):
+        raise NotPortedError(f"{type(func).__name__.lower()} of a string "
+                             "column")
 
     def battr(i: int, op: str) -> AttributeReference:
         dt = _buffer_dtype(op, child.dtype if child is not None else None)

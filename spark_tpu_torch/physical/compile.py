@@ -65,7 +65,7 @@ class ExprPipeline:
     def run(self, batch: ColumnarBatch,
             counters: LaunchCounters | None = None) -> ColumnarBatch:
         cap = batch.capacity
-        inputs = {a.expr_id: Val(a.dtype, c.data, c.validity)
+        inputs = {a.expr_id: Val(a.dtype, c.data, c.validity, c.dictionary)
                   for a, c in zip(self.input_attrs, batch.columns)}
         ctx = EvalCtx(inputs, cap, batch.device)
         mask = batch.row_mask
@@ -77,7 +77,8 @@ class ExprPipeline:
         for f, o in zip(self.out_schema.fields, self.outputs):
             ov = ctx.eval(o)
             cols.append(Column(f.dataType, broadcast_to_cap(ov.data, cap),
-                               broadcast_to_cap(ov.validity, cap)))
+                               broadcast_to_cap(ov.validity, cap),
+                               ov.sdict))
         if counters is not None:
             counters.add("pipeline")
         return ColumnarBatch(self.out_schema, cols, mask, num_rows=None)

@@ -15,7 +15,7 @@ from ..errors import NotPortedError
 from ..exec import shuffle as S
 from ..exec.context import ExecContext
 from ..expr.expressions import AttributeReference
-from ..types import FractionalType
+from ..types import DecimalType, FractionalType, StringType
 from ..utils.device_memo import memo_device_scalars
 from .operators import PhysicalPlan, attrs_schema
 from .partitioning import (
@@ -71,6 +71,8 @@ class ShuffleExchangeExec(PhysicalPlan):
             raise ValueError("range keys must be attributes (planner "
                              "contract)")
         kpos = pos[order.child.expr_id]
+        if isinstance(schema.fields[kpos].dataType, StringType):
+            raise NotPortedError("range exchange on a string key")
         bounds = _sample_bounds(parts, kpos, schema, p.num_partitions)
         if bounds is None or len(bounds) == 0:
             return S.gather_single(parts)
@@ -117,7 +119,9 @@ def _sample_bounds(parts, kpos: int, schema, num_out: int,
                                               per_part_sample))
     if not samples:
         return None
-    floating = isinstance(f.dataType, FractionalType)
+    # decimals sample their scaled int64 values
+    floating = isinstance(f.dataType, FractionalType) and \
+        not isinstance(f.dataType, DecimalType)
     s = np.unique(np.asarray(samples,
                              dtype=np.float64 if floating else np.int64))
     if len(s) <= 1:

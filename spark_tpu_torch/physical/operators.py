@@ -1,7 +1,8 @@
 """Physical operators (counterpart of `spark_tpu/physical/operators.py`):
 the local table scan, the fused filter+project `ComputeExec`,
 `HashAggregateExec` in partial and final mode with its three kernels —
-ungrouped, sorted-segment and dense-range — `SortExec`, `LimitExec` and
+ungrouped, sorted-segment and dense-range (over an integral key's range or
+a string key's dictionary codes) — `SortExec`, `LimitExec` and
 `HashJoinExec` (broadcast or shuffled; a dense direct-address build or the
 hash-sorted build with a searchsorted probe). `execute()` returns a list of
 partitions, each a list of device ColumnarBatches; blocking operators
@@ -15,9 +16,11 @@ from typing import Sequence
 
 import torch
 
-from ..columnar.batch import Column, ColumnarBatch, bucket_capacity
+from ..columnar.batch import (
+    EMPTY_DICT, Column, ColumnarBatch, bucket_capacity,
+)
 from ..columnar.ops import compact_batch, concat_batches, gather_batch
-from ..config import AGG_BLOCK_ROWS
+from ..config import AGG_BLOCK_ROWS, ENCODING_ENABLED
 from ..errors import ExecutionError, NotPortedError
 from ..exec.context import ExecContext
 from ..expr.expressions import (
@@ -365,8 +368,10 @@ class HashAggregateExec(PhysicalPlan):
             [c.validity for c in key_cols], val_datas, val_valids,
             batch.row_mask)
         ctx.launches.add("gagg")
-        cols = [Column(f.dataType, kd, kv) for (kd, kv), f in
-                zip(out_keys, out_schema.fields[: len(key_cols)])]
+        # a string key takes its group's first code and the dictionary
+        cols = [Column(f.dataType, kd, kv, kc.dictionary)
+                for (kd, kv), kc, f in
+                zip(out_keys, key_cols, out_schema.fields[: len(key_cols)])]
         cols += [self._finish_buffer(bd, bv, f) for (bd, bv), f in
                  zip(bufs, out_schema.fields[len(key_cols):])]
         return ColumnarBatch(out_schema, cols, out_mask, num_rows=None)
@@ -380,20 +385,34 @@ class HashAggregateExec(PhysicalPlan):
 
     def _try_dense(self, batch: ColumnarBatch, key_cols, ops, val_datas,
                    val_valids, out_schema, ctx):
-        """Dense-range fast path dispatch: single integral key whose value
-        span fits a capacity bucket (the host syncs two scalars to decide)."""
+        """Dense-range fast path dispatch: a single integral key whose value
+        span fits a capacity bucket (the host syncs two scalars to decide),
+        or a single string key: its int32 codes are a dense domain
+        [0, len(dictionary)) known on the host, so the decision syncs
+        nothing and the dictionary decodes the output keys (gated by
+        spark.tpu.encoding.enabled, as in the reference)."""
         if len(key_cols) != 1:
             return None
         kc = key_cols[0]
-        if not isinstance(kc.dtype, (IntegralType, DateType)):
-            return None
         cap = batch.capacity
-        kmin, kmax, any_live = dense_range_stats(kc, batch.row_mask)
-        if not any_live:
+        key_dict = None
+        if kc.is_string:
+            if not ctx.conf.get(ENCODING_ENABLED):
+                return None
+            key_dict = kc.dictionary or EMPTY_DICT
+            kmin, span = 0, len(key_dict)
+            if span + 1 > min(4 * cap, 1 << 23):
+                return None  # a mega-dictionary: the sort path takes it
+            ctx.metrics.add("agg.dict_code_fast_path")
+        elif isinstance(kc.dtype, (IntegralType, DateType)):
+            kmin, kmax, any_live = dense_range_stats(kc, batch.row_mask)
+            if not any_live:
+                return None
+            span = kmax - kmin + 1
+            if span + 1 > min(4 * cap, 1 << 23):
+                return None  # sparse keys — sort path handles it
+        else:
             return None
-        span = kmax - kmin + 1
-        if span + 1 > min(4 * cap, 1 << 23):
-            return None  # sparse keys — sort path handles it
         out_cap = bucket_capacity(span + 1)
         out_keys, key_validity, bufs, out_mask = _dense_group_kernel(
             ops, cap, out_cap, kc.data, kc.validity, kmin, val_datas,
@@ -402,7 +421,8 @@ class HashAggregateExec(PhysicalPlan):
         ctx.metrics.add("agg.dense_fast_path")
         kf = out_schema.fields[0]
         kv = key_validity if kc.validity is not None else None
-        cols = [Column(kf.dataType, out_keys.to(kf.dataType.device_dtype), kv)]
+        cols = [Column(kf.dataType, out_keys.to(kf.dataType.device_dtype), kv,
+                       key_dict)]
         cols += [self._finish_buffer(bd, bv, f)
                  for (bd, bv), f in zip(bufs, out_schema.fields[1:])]
         return ColumnarBatch(out_schema, cols, out_mask, num_rows=None)

@@ -103,6 +103,8 @@ class Planner:
     def _convert(self, node: L.LogicalPlan) -> PhysicalPlan:
         if isinstance(node, L.LocalRelation):
             return LocalTableScanExec(list(node.attrs), node.table)
+        if isinstance(node, L.SubqueryAlias):
+            return self._convert(node.child)
         if isinstance(node, L.Project):
             child = self._convert(node.child)
             return self._fuse_compute([], node.project_list, child)

@@ -1,8 +1,15 @@
-"""Analyzer: resolves columns and names unnamed outputs (counterpart of
-`spark_tpu/plan/analyzer.py`, the rules the DataFrame slice needs):
-ResolveReferences (with star expansion), ResolveAliases and CheckAnalysis.
-Numeric coercion happens where each expression evaluates (common_type
-casts), as in the JAX package. The other rules are listed in ROADMAP.md."""
+"""Analyzer: resolves relations, columns and functions, names unnamed
+outputs and coerces decimal arithmetic (counterpart of
+`spark_tpu/plan/analyzer.py`, the rules the port's DataFrame and SQL slices
+need, in the reference's batch order): ResolveRelations,
+DeduplicateRelations, ResolveReferences (qualified names, star expansion,
+function resolution), ResolveGroupByAlias, GlobalAggregates,
+ResolveAggsInSortHaving, ResolveSortHiddenRefs, ResolveAliases,
+CoerceDecimalArithmetic and CheckAnalysis. Numeric coercion happens where
+each expression evaluates (common_type casts), as in the JAX package. The
+other rules (subqueries, windows, generators, USING joins in SQL, session
+variables, set-operation widening, interval folding) are listed in
+ROADMAP.md; their constructs raise NotPortedError at parse time."""
 
 from __future__ import annotations
 
@@ -11,10 +18,17 @@ from typing import Sequence
 
 from ..errors import AnalysisException, NotPortedError, UnresolvedColumnError
 from ..expr.expressions import (
-    AggregateFunction, Alias, AttributeReference, Average, Cast, Count,
-    Expression, Literal, Max, Min, Sum, UnresolvedAttribute, UnresolvedStar,
+    Add, AggregateFunction, Alias, AttributeReference, Average, Cast, Count,
+    Expression, Literal, Max, Min, SortOrder, Subtract, Sum,
+    UnresolvedAttribute, UnresolvedFunction, UnresolvedStar, cast_if,
 )
-from .logical import Aggregate, Join, LogicalPlan, Project
+from ..expr.registry import build_function
+from ..types import DecimalType, common_type
+from .catalog import Catalog
+from .logical import (
+    Aggregate, Filter, Join, LocalRelation, LogicalPlan, Project, Sort,
+    SubqueryAlias, UnresolvedRelation,
+)
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
 
@@ -24,12 +38,20 @@ def _resolve_name(name_parts: tuple[str, ...],
     def norm(s: str) -> str:
         return s if case_sensitive else s.lower()
 
-    if len(name_parts) != 1:
-        return None    # qualified names need relation aliases (not ported)
-    matches = [a for a in attrs if norm(a.name) == norm(name_parts[0])]
+    # qualified references must suffix-match the attribute's qualifier
+    matches = []
+    for a in attrs:
+        if norm(a.name) == norm(name_parts[-1]):
+            quals = tuple(norm(q) for q in name_parts[:-1])
+            if quals:
+                aq = tuple(norm(q) for q in a.qualifier)
+                if len(aq) < len(quals) or aq[-len(quals):] != quals:
+                    continue
+            matches.append(a)
     if len(matches) == 1:
         return matches[0]
     if len(matches) > 1:
+        # ambiguous unless they are the same attribute id
         if len({m.expr_id for m in matches}) == 1:
             return matches[0]
         raise AnalysisException(
@@ -38,12 +60,108 @@ def _resolve_name(name_parts: tuple[str, ...],
     return None
 
 
+class ResolveRelations(Rule):
+    def __init__(self, catalog: Catalog):
+        self.catalog = catalog
+
+    def apply(self, plan: LogicalPlan) -> LogicalPlan:
+        def rule(node):
+            if isinstance(node, UnresolvedRelation):
+                resolved = self.catalog.lookup(node.name_parts)
+                # the attribute instances are shared; a relation joined to
+                # itself is re-instanced by DeduplicateRelations
+                return SubqueryAlias(node.name_parts[-1], resolved)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class DeduplicateRelations(Rule):
+    """Re-instance attribute ids on the right side of a self-join
+    (reference: Analyzer DeduplicateRelations)."""
+
+    def apply(self, plan: LogicalPlan) -> LogicalPlan:
+        def rule(node):
+            if isinstance(node, Join):
+                try:
+                    left_ids = {a.expr_id for a in node.left.output}
+                    right_ids = {a.expr_id for a in node.right.output}
+                except AnalysisException:
+                    return node  # children await alias resolution
+                overlap = left_ids & right_ids
+                if overlap:
+                    mapping: dict[int, AttributeReference] = {}
+                    return node.copy(
+                        right=_remap_plan(node.right, mapping, overlap))
+            return node
+
+        return plan.transform_up(rule)
+
+
+def _remap_plan(plan: LogicalPlan, mapping: dict[int, AttributeReference],
+                overlap: set[int]) -> LogicalPlan:
+    """Copy a subtree giving fresh expr_ids to the attributes in `overlap`
+    (one new id per old id for the whole subtree) and to the aliases that
+    produce them."""
+
+    def remap_expr(e: Expression) -> Expression:
+        if isinstance(e, AttributeReference) and e.expr_id in mapping:
+            return mapping[e.expr_id]
+        if isinstance(e, Alias) and e.expr_id in overlap:
+            na = mapping.get(e.expr_id)
+            if na is None:
+                new = Alias(e.child, e.name)    # fresh expr_id
+                mapping[e.expr_id] = new.to_attribute()
+                return new
+            return Alias(e.child, e.name, expr_id=na.expr_id)
+        return e
+
+    def go(node: LogicalPlan) -> LogicalPlan:
+        node = node.map_children(go)
+        if isinstance(node, LocalRelation):
+            new_attrs, changed = [], False
+            for a in node.attrs:
+                if a.expr_id in overlap:
+                    na = mapping.get(a.expr_id)
+                    if na is None:
+                        na = mapping[a.expr_id] = a.new_instance()
+                    new_attrs.append(na)
+                    changed = True
+                else:
+                    new_attrs.append(a)
+            if changed:
+                node = node.copy(attrs=new_attrs)
+        return node.transform_expressions(remap_expr)
+
+    return go(plan)
+
+
 class ResolveReferences(Rule):
     def __init__(self, case_sensitive: bool = False):
         self.case_sensitive = case_sensitive
 
     def apply(self, plan: LogicalPlan) -> LogicalPlan:
         cs = self.case_sensitive
+        # (node, verdict) per id: holding the node pins its id for the pass
+        _dedup_memo: dict[int, tuple[LogicalPlan, bool]] = {}
+
+        def _awaits_dedup(n: LogicalPlan) -> bool:
+            """True when a descendant self-join still has overlapping ids:
+            resolving an expression above it would bind both sides to one
+            id."""
+            hit = _dedup_memo.get(id(n))
+            if hit is not None and hit[0] is n:
+                return hit[1]
+            out = any(_awaits_dedup(c) for c in n.children)
+            if not out and isinstance(n, Join):
+                try:
+                    lids = {a.expr_id for a in n.left.output}
+                    rids = {a.expr_id for a in n.right.output}
+                    out = bool(lids & rids)
+                except AnalysisException:
+                    out = False
+            _dedup_memo[id(n)] = (n, out)
+            return out
 
         def rule(node: LogicalPlan):
             if not all(c.resolved for c in node.children):
@@ -52,6 +170,8 @@ class ResolveReferences(Rule):
                 inputs = node.input_attrs()
             except AnalysisException:
                 return node  # child awaits ResolveAliases
+            if _awaits_dedup(node):
+                return node
 
             if isinstance(node, (Project, Aggregate)):
                 lst = node.project_list if isinstance(node, Project) \
@@ -59,10 +179,19 @@ class ResolveReferences(Rule):
                 if any(isinstance(e, UnresolvedStar) for e in lst):
                     expanded: list[Expression] = []
                     for e in lst:
-                        if isinstance(e, UnresolvedStar):
+                        if not isinstance(e, UnresolvedStar):
+                            expanded.append(e)
+                        elif e.target is None:
                             expanded.extend(inputs)
                         else:
-                            expanded.append(e)
+                            t = e.target if cs else e.target.lower()
+                            hits = [a for a in inputs
+                                    if t in tuple(q if cs else q.lower()
+                                                  for q in a.qualifier)]
+                            if not hits:
+                                raise AnalysisException(
+                                    f"cannot resolve {e.target}.*")
+                            expanded.extend(hits)
                     if isinstance(node, Project):
                         return node.copy(project_list=expanded)
                     return node.copy(aggregate_exprs=expanded)
@@ -71,8 +200,14 @@ class ResolveReferences(Rule):
                 if isinstance(e, UnresolvedAttribute):
                     a = _resolve_name(e.name_parts, inputs, cs)
                     return e if a is None else a
+                if isinstance(e, UnresolvedFunction):
+                    if all(c.resolved or isinstance(c, UnresolvedStar)
+                           for c in e.args):
+                        return build_function(e.fname, e.args, e.distinct)
                 return e
 
+            # Sort/Filter over an Aggregate may reference aggregate outputs
+            # or grouping child columns: ResolveAggsInSortHaving
             return node.transform_expressions(resolve_expr)
 
         return plan.transform_up(rule)
@@ -133,6 +268,261 @@ def _pretty_name(e: Expression) -> str:
     return e.simple_string()
 
 
+def _contains_agg(e: Expression) -> bool:
+    if isinstance(e, AggregateFunction):
+        return True
+    return any(_contains_agg(c) for c in e.children
+               if isinstance(c, Expression))
+
+
+class ResolveGroupByAlias(Rule):
+    """GROUP BY may reference a SELECT-list alias: a grouping expression
+    that stays unresolved against the child's columns resolves to the
+    aliased select expression, provided that is not an aggregate."""
+
+    def __init__(self, case_sensitive: bool = False):
+        self.cs = case_sensitive
+
+    def apply(self, plan):
+        def rule(node):
+            if not isinstance(node, Aggregate):
+                return node
+            if all(g.resolved for g in node.grouping_exprs):
+                return node
+            aliases = {}
+            for e in node.aggregate_exprs:
+                if isinstance(e, Alias) and e.child.resolved and \
+                        not _contains_agg(e.child):
+                    key = e.name if self.cs else e.name.lower()
+                    aliases.setdefault(key, e.child)
+
+            def fix(g):
+                if isinstance(g, UnresolvedAttribute) and \
+                        len(g.name_parts) == 1:
+                    key = g.name_parts[0] if self.cs \
+                        else g.name_parts[0].lower()
+                    sub = aliases.get(key)
+                    if sub is not None:
+                        return sub
+                return g
+
+            new_groups = [fix(g) for g in node.grouping_exprs]
+            if all(a is b for a, b in zip(new_groups, node.grouping_exprs)):
+                return node
+            return node.copy(grouping_exprs=new_groups)
+
+        return plan.transform_up(rule)
+
+
+class GlobalAggregates(Rule):
+    """A Project whose list holds an aggregate function becomes a global
+    Aggregate with no grouping."""
+
+    def apply(self, plan):
+        def rule(node):
+            if isinstance(node, Project) and \
+                    any(_contains_agg(e) for e in node.project_list):
+                return Aggregate([], list(node.project_list), node.child)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class ResolveAggsInSortHaving(Rule):
+    """Resolve HAVING filters and ORDER BY over an Aggregate: references to
+    aggregate results resolve to output attrs; bare aggregate functions get
+    pulled into the aggregate (reference: ResolveAggregateFunctions)."""
+
+    def __init__(self, case_sensitive: bool = False):
+        self.cs = case_sensitive
+
+    def apply(self, plan):
+        def rule(node):
+            tgt = _skip_alias(node.child) \
+                if isinstance(node, (Filter, Sort)) else None
+            if isinstance(node, Sort) and isinstance(tgt, Filter) and \
+                    isinstance(_skip_alias(tgt.child), Aggregate):
+                # ORDER BY over HAVING over Aggregate: resolve the sort
+                # keys against the aggregate below the filter
+                tgt = _skip_alias(tgt.child)
+            if not (isinstance(node, (Filter, Sort))
+                    and isinstance(tgt, Aggregate)):
+                return node
+            agg = tgt
+            if not agg.resolved:
+                return node
+            if any(not isinstance(e, (Alias, AttributeReference))
+                   for e in agg.aggregate_exprs):
+                return node  # wait for ResolveAliases
+            out_attrs = agg.output
+            extra: list[Alias] = []
+
+            def resolve(e: Expression) -> Expression:
+                if isinstance(e, UnresolvedAttribute):
+                    a = _resolve_name(e.name_parts, out_attrs, self.cs)
+                    if a is not None:
+                        return a
+                    a = _resolve_name(e.name_parts, agg.child.output, self.cs)
+                    return e if a is None else a
+                if isinstance(e, UnresolvedFunction):
+                    if all(c.resolved or isinstance(c, UnresolvedStar)
+                           for c in e.args):
+                        f = build_function(e.fname, e.args, e.distinct)
+                        if isinstance(f, AggregateFunction):
+                            return match_agg(f)
+                        return f
+                    return e
+                # an aggregate already built by function resolution (e.g.
+                # count(*)) still binds to the aggregate's output or is
+                # pulled into it
+                if isinstance(e, AggregateFunction) and e.resolved:
+                    return match_agg(e)
+                return e
+
+            def match_agg(f: Expression) -> Expression:
+                for ae in agg.aggregate_exprs:
+                    if isinstance(ae, Alias) and ae.child.semantic_equals(f):
+                        return ae.to_attribute()
+                al = Alias(f, _pretty_name(f))
+                extra.append(al)
+                return al.to_attribute()
+
+            # resolve against the agg child FIRST for aggregate arguments
+            def resolve_inner_attrs(e):
+                if isinstance(e, UnresolvedAttribute):
+                    a = _resolve_name(e.name_parts, agg.child.output, self.cs)
+                    if a is not None:
+                        return a
+                return e
+
+            if isinstance(node, Filter):
+                cond = node.condition.transform_up(resolve_inner_attrs)
+                cond = cond.transform_up(resolve)
+                if extra:
+                    new_agg = agg.copy(
+                        aggregate_exprs=agg.aggregate_exprs + extra)
+                    child = _replace_agg(node.child, new_agg)
+                    return Project(list(out_attrs), Filter(cond, child))
+                if cond is not node.condition:
+                    return node.copy(condition=cond)
+                return node
+            orders = []
+            changed = False
+            for o in node.orders:
+                c = o.child.transform_up(resolve_inner_attrs)
+                c = c.transform_up(resolve)
+                # a whole order expression equal to a select-list item
+                # binds to that output
+                for ae in agg.aggregate_exprs:
+                    if isinstance(ae, Alias) and not isinstance(
+                            c, AttributeReference) and \
+                            ae.child.semantic_equals(c):
+                        c = ae.to_attribute()
+                        break
+                if c is not o.child:
+                    changed = True
+                    orders.append(SortOrder(c, o.ascending, o.nulls_first))
+                else:
+                    orders.append(o)
+            if extra:
+                new_agg = agg.copy(
+                    aggregate_exprs=agg.aggregate_exprs + extra)
+                child = _replace_agg(node.child, new_agg)
+                return Project(list(out_attrs),
+                               Sort(orders, node.is_global, child))
+            if changed:
+                return node.copy(orders=orders)
+            return node
+
+        return plan.transform_up(rule)
+
+
+def _skip_alias(p: LogicalPlan) -> LogicalPlan:
+    while isinstance(p, SubqueryAlias):
+        p = p.child
+    return p
+
+
+def _replace_agg(p: LogicalPlan, new_agg: Aggregate) -> LogicalPlan:
+    if isinstance(p, (SubqueryAlias, Filter)):
+        return p.copy(child=_replace_agg(p.child, new_agg))
+    return new_agg
+
+
+class ResolveSortHiddenRefs(Rule):
+    """ORDER BY may reference columns of the FROM clause that are not in the
+    SELECT list (reference: Analyzer ResolveMissingReferences): resolve them
+    against the project's child and re-project afterwards."""
+
+    def __init__(self, case_sensitive: bool = False):
+        self.cs = case_sensitive
+
+    def apply(self, plan):
+        def rule(node):
+            if not (isinstance(node, Sort) and isinstance(node.child, Project)
+                    and node.child.resolved):
+                return node
+            proj = node.child
+            try:
+                outputs = proj.output
+                hidden = proj.child.output
+            except AnalysisException:
+                return node
+            missing: list[AttributeReference] = []
+            changed = [False]
+
+            def resolve(e):
+                if isinstance(e, UnresolvedAttribute):
+                    a = _resolve_name(e.name_parts, outputs, self.cs)
+                    if a is not None:
+                        changed[0] = True
+                        return a
+                    a = _resolve_name(e.name_parts, hidden, self.cs)
+                    if a is not None:
+                        changed[0] = True
+                        if all(x.expr_id != a.expr_id for x in missing) and \
+                                all(x.expr_id != a.expr_id for x in outputs):
+                            missing.append(a)
+                        return a
+                return e
+
+            new_orders = [SortOrder(o.child.transform_up(resolve),
+                                    o.ascending, o.nulls_first)
+                          for o in node.orders]
+            if missing:
+                inner = Project(list(proj.project_list) + missing, proj.child)
+                return Project(list(outputs),
+                               Sort(new_orders, node.is_global, inner))
+            if changed[0]:
+                return node.copy(orders=new_orders)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class CoerceDecimalArithmetic(Rule):
+    """Align decimal scales in Add/Subtract (the device value is a scaled
+    int64, so both sides must share the scale)."""
+
+    def apply(self, plan):
+        def fix(e: Expression) -> Expression:
+            if isinstance(e, (Add, Subtract)) and e.left.resolved \
+                    and e.right.resolved:
+                lt, rt = e.left.dtype, e.right.dtype
+                if isinstance(lt, DecimalType) and isinstance(rt, DecimalType) \
+                        and lt.scale != rt.scale:
+                    ct = common_type(lt, rt)
+                    return type(e)(cast_if(e.left, ct), cast_if(e.right, ct))
+            return e
+
+        def rule(node):
+            if node.expressions_resolved:
+                return node.transform_expressions(fix)
+            return node
+
+        return plan.transform_up(rule)
+
+
 class CheckAnalysis(Rule):
     def apply(self, plan):
         def check(node):
@@ -142,16 +532,15 @@ class CheckAnalysis(Rule):
                         cands = [a.name for a in node.input_attrs()]
                         close = difflib.get_close_matches(sub.name, cands, 3)
                         raise UnresolvedColumnError(sub.name, close or cands[:5])
+                    if isinstance(sub, UnresolvedFunction):
+                        raise AnalysisException(
+                            f"unresolved function {sub.fname}")
                     if isinstance(sub, UnresolvedStar):
                         raise AnalysisException("unexpected * in expression")
                     if isinstance(sub, Count) and sub.distinct:
                         raise NotPortedError("count(distinct)")
-            if isinstance(node, Join) and {
-                    a.expr_id for a in node.left.output} & {
-                    a.expr_id for a in node.right.output}:
-                raise NotPortedError(
-                    "self-join (deduplicating the attributes of a relation "
-                    "joined to itself)")
+            if isinstance(node, UnresolvedRelation):
+                raise AnalysisException(f"unresolved relation {node.name}")
             if isinstance(node, Aggregate) and node.resolved:
                 grouping_ids = {g.expr_id for g in node.grouping_exprs
                                 if isinstance(g, AttributeReference)}
@@ -188,16 +577,27 @@ def _check_agg_expr(e: Expression, grouping_ids: set[int], agg: Aggregate):
 
 
 class Analyzer(RuleExecutor):
-    def __init__(self, case_sensitive: bool = False):
+    def __init__(self, catalog: Catalog | None = None,
+                 case_sensitive: bool = False):
         super().__init__()
+        self.catalog = catalog if catalog is not None else Catalog()
         self.case_sensitive = case_sensitive
 
     def batches(self):
         cs = self.case_sensitive
         return [
             Batch("Resolution", FixedPoint(50), [
+                ResolveRelations(self.catalog),
+                DeduplicateRelations(),
                 ResolveReferences(cs),
+                ResolveGroupByAlias(cs),
+                GlobalAggregates(),
+                ResolveAggsInSortHaving(cs),
+                ResolveSortHiddenRefs(cs),
                 ResolveAliases(),
+            ]),
+            Batch("Coercion", FixedPoint(10), [
+                CoerceDecimalArithmetic(),
             ]),
             Batch("Check", Once(), [CheckAnalysis()]),
         ]

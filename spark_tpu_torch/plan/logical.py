@@ -1,7 +1,8 @@
 """Logical plan nodes (counterpart of `spark_tpu/plan/logical.py`, the nodes
-the port's DataFrame API builds): LocalRelation, Project, Filter,
-Aggregate, Sort, Limit, Offset, Repartition and Join, with the reference's
-crude row-count estimates (`stats_rows`) that decide broadcast joins."""
+the port's DataFrame API and SQL parser build): UnresolvedRelation,
+LocalRelation, SubqueryAlias, Project, Filter, Aggregate, Sort, Limit,
+Offset, Repartition and Join, with the reference's crude row-count
+estimates (`stats_rows`) that decide broadcast joins."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from .tree import TreeNode
 
 __all__ = [
     "LogicalPlan", "LeafNode", "UnaryNode", "BinaryNode", "LocalRelation",
-    "Project", "Filter", "Aggregate", "Sort", "Limit", "Offset",
+    "UnresolvedRelation", "SubqueryAlias", "Project", "Filter", "Aggregate", "Sort", "Limit", "Offset",
     "Repartition", "Join", "normalize_join_type",
 ]
 
@@ -93,6 +94,25 @@ class UnaryNode(LogicalPlan):
         return self.child.output
 
 
+class UnresolvedRelation(LeafNode):
+    """A table name the analyzer looks up in the session catalog."""
+
+    def __init__(self, name_parts: Sequence[str]):
+        self.name_parts = tuple(name_parts)
+
+    @property
+    def name(self) -> str:
+        return ".".join(self.name_parts)
+
+    @property
+    def resolved(self) -> bool:
+        return False
+
+    @property
+    def output(self):
+        raise AnalysisException(f"unresolved relation {self.name}")
+
+
 class LocalRelation(LeafNode):
     """In-memory rows (a pyarrow.Table)."""
 
@@ -109,6 +129,24 @@ class LocalRelation(LeafNode):
 
     def stats_rows(self):
         return self.table.num_rows
+
+
+class SubqueryAlias(UnaryNode):
+    """A relation alias: its output attributes carry the alias as their
+    qualifier, so `alias.column` resolves."""
+
+    def __init__(self, alias: str, child: LogicalPlan):
+        self.alias = alias
+        self.child = child
+
+    @property
+    def output(self):
+        return [AttributeReference(a.name, a.dtype, a.nullable, a.expr_id,
+                                   qualifier=(self.alias,))
+                for a in self.child.output]
+
+    def stats_rows(self):
+        return self.child.stats_rows()
 
 
 class Project(UnaryNode):

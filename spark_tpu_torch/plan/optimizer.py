@@ -1,23 +1,31 @@
 """Logical optimizer (counterpart of `spark_tpu/plan/optimizer.py`): the
 rule framework (plan/tree.py's RuleExecutor), the reference's batch layout,
-and the rules that change the plans the port's DataFrame API builds:
-filter combination and pushdown (through projects, aggregates and into join
-sides), filter-into-join merging, IsNotNull inference on inner-join keys,
-limit combination, project collapsing and column pruning. The reference's
-other rules (constant folding, subqueries, join reordering of three or more
-tables, ...) are listed in ROADMAP.md."""
+and the rules that change the plans the port's DataFrame API and SQL slice
+build: subquery-alias elimination, filter combination and pushdown (through
+projects, aggregates and into join sides), filter-into-join merging, greedy
+join reordering of inner-join chains (comma-list FROMs), constant folding,
+boolean and cast simplification, filter pruning, empty-relation
+propagation, IsNotNull inference on inner-join keys, limit combination,
+project collapsing and column pruning. The reference's other rules (set
+operations, grouping sets, distinct, the subquery rewrites, the OR
+common-factor step's users, Python UDFs) have no construct to fire on: the
+parser refuses theirs (ROADMAP.md)."""
 
 from __future__ import annotations
 
+import datetime
 from typing import Sequence
 
 from ..expr.expressions import (
-    AggregateFunction, Alias, And, AttributeReference, EqualTo, Expression,
-    IsNotNull,
+    Add, AggregateFunction, Alias, And, AttributeReference, Cast, Divide,
+    EqualTo, Expression, GreaterThan, GreaterThanOrEqual, IsNotNull,
+    LessThan, LessThanOrEqual, Literal, Multiply, Not, NotEqualTo, Or,
+    SortOrder, Subtract, UnaryMinus,
 )
+from ..types import NullType
 from .logical import (
-    Aggregate, Filter, Join, Limit, LogicalPlan, Offset, Project,
-    Repartition, Sort,
+    Aggregate, Filter, Join, Limit, LocalRelation, LogicalPlan, Offset,
+    Project, Repartition, Sort, SubqueryAlias,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -49,6 +57,193 @@ def substitute_attrs(e: Expression, mapping: dict[int, Expression]) -> Expressio
 
 def alias_map(project_list: Sequence[Expression]) -> dict[int, Expression]:
     return {e.expr_id: e.child for e in project_list if isinstance(e, Alias)}
+
+
+# ---------------------------------------------------------------------------
+# Constant folding
+# ---------------------------------------------------------------------------
+
+def const_value(e: Expression):
+    """Evaluate a literal-only expression on the host. Returns (ok, value)."""
+    if isinstance(e, Literal):
+        return True, e.value
+    if isinstance(e, Cast):
+        ok, v = const_value(e.child)
+        if not ok:
+            return False, None
+        try:
+            return True, _py_cast(v, e.to)
+        except Exception:
+            return False, None
+    if isinstance(e, UnaryMinus):
+        ok, v = const_value(e.child)
+        return (True, -v) if ok and v is not None else (ok, None)
+    if isinstance(e, Not):
+        ok, v = const_value(e.child)
+        return (True, (not v) if v is not None else None) if ok \
+            else (False, None)
+    binops = {
+        Add: lambda a, b: a + b, Subtract: lambda a, b: a - b,
+        Multiply: lambda a, b: a * b,
+        Divide: lambda a, b: a / b if b else None,
+        EqualTo: lambda a, b: a == b, NotEqualTo: lambda a, b: a != b,
+        LessThan: lambda a, b: a < b, LessThanOrEqual: lambda a, b: a <= b,
+        GreaterThan: lambda a, b: a > b,
+        GreaterThanOrEqual: lambda a, b: a >= b,
+    }
+    for cls, fn in binops.items():
+        if type(e) is cls:
+            ok1, a = const_value(e.left)
+            ok2, b = const_value(e.right)
+            if not (ok1 and ok2):
+                return False, None
+            if a is None or b is None:
+                return True, None
+            try:
+                return True, fn(a, b)
+            except Exception:
+                return False, None
+    return False, None
+
+
+def _py_cast(v, to):
+    from ..types import (
+        BooleanType, DateType, DecimalType, FractionalType, IntegralType,
+        StringType,
+    )
+
+    if v is None:
+        return None
+    if isinstance(to, IntegralType):
+        return int(v)
+    if isinstance(to, DecimalType):
+        # fold to an exact Decimal at the target scale
+        import decimal as _d
+
+        dv = v if isinstance(v, _d.Decimal) else _d.Decimal(str(v))
+        return dv.quantize(_d.Decimal(1).scaleb(-to.scale),
+                           rounding=_d.ROUND_HALF_UP)
+    if isinstance(to, FractionalType):
+        return float(v)
+    if isinstance(to, BooleanType):
+        return bool(v)
+    if isinstance(to, StringType):
+        return str(v)
+    if isinstance(to, DateType):
+        if isinstance(v, str):
+            return datetime.date.fromisoformat(v.strip()[:10])
+        return v
+    raise ValueError
+
+
+class ConstantFolding(Rule):
+    def apply(self, plan):
+        def fold(e: Expression) -> Expression:
+            if isinstance(e, Literal) or not e.resolved:
+                return e
+            if isinstance(e, (AggregateFunction, Alias, AttributeReference,
+                              SortOrder)):
+                return e
+            if any(isinstance(c, AttributeReference) for c in e.iter_nodes()):
+                return e
+            ok, v = const_value(e)
+            if ok:
+                try:
+                    dt = e.dtype
+                    if isinstance(dt, NullType) and v is not None:
+                        return Literal(v)
+                    return Literal(v, dt) if v is not None \
+                        else Literal(None, dt)
+                except Exception:
+                    return e
+            return e
+
+        def rule(node):
+            if node.expressions_resolved:
+                return node.transform_expressions(fold)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class BooleanSimplification(Rule):
+    def apply(self, plan):
+        t = lambda e: isinstance(e, Literal) and e.value is True  # noqa: E731
+        f = lambda e: isinstance(e, Literal) and e.value is False  # noqa: E731
+
+        def split_disjuncts(e: Expression) -> list[Expression]:
+            if isinstance(e, Or):
+                return split_disjuncts(e.left) + split_disjuncts(e.right)
+            return [e]
+
+        def simp(e: Expression) -> Expression:
+            if isinstance(e, And):
+                if t(e.left):
+                    return e.right
+                if t(e.right):
+                    return e.left
+                if f(e.left) or f(e.right):
+                    return Literal(False)
+            if isinstance(e, Or):
+                if f(e.left):
+                    return e.right
+                if f(e.right):
+                    return e.left
+                if t(e.left) or t(e.right):
+                    return Literal(True)
+                # common-factor extraction: (a && b) || (a && c) =>
+                # a && (b || c)
+                branches = [split_conjuncts(b) for b in split_disjuncts(e)]
+                if len(branches) > 1:
+                    common = [c for c in branches[0]
+                              if all(any(c.semantic_equals(x) for x in b)
+                                     for b in branches[1:])]
+                    if common:
+                        residuals = []
+                        for b in branches:
+                            rest = [x for x in b
+                                    if not any(x.semantic_equals(c)
+                                               for c in common)]
+                            residuals.append(join_conjuncts(rest) or
+                                             Literal(True))
+                        out = join_conjuncts(common)
+                        if not any(t(r) for r in residuals):
+                            disj = residuals[0]
+                            for r in residuals[1:]:
+                                disj = Or(disj, r)
+                            out = And(out, disj)
+                        return out
+            if isinstance(e, Not):
+                if t(e.child):
+                    return Literal(False)
+                if f(e.child):
+                    return Literal(True)
+                if isinstance(e.child, Not):
+                    return e.child.child
+            return e
+
+        def rule(node):
+            if node.expressions_resolved:
+                return node.transform_expressions(simp)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class SimplifyCasts(Rule):
+    def apply(self, plan):
+        def simp(e):
+            if isinstance(e, Cast) and e.child.resolved and \
+                    e.child.dtype == e.to:
+                return e.child
+            return e
+
+        def rule(node):
+            if node.expressions_resolved:
+                return node.transform_expressions(simp)
+            return node
+
+        return plan.transform_up(rule)
 
 
 class CombineFilters(Rule):
@@ -309,6 +504,198 @@ def _collapse_adjacent_projects(plan: LogicalPlan) -> LogicalPlan:
     return plan.transform_up(rule)
 
 
+class ReorderJoins(Rule):
+    """Greedy left-deep reordering of inner-join chains by estimated row
+    counts (the reference's, without column statistics: plan/stats.py):
+    seed with the cheapest connected pair, then repeatedly attach the
+    cheapest relation connected to the rows already joined by an equality
+    (by any predicate only when none is).
+    Fires on Filter(Join) too: a comma-list FROM parses as a cross-join
+    chain under one Filter holding every WHERE conjunct; multi-table
+    conjuncts become join conditions, single-table ones stay in the
+    Filter."""
+
+    def apply(self, plan):
+        from .stats import estimate_rows
+
+        def rule(node):
+            filter_conds: list[Expression] = []
+            join = node
+            if isinstance(node, Filter) and isinstance(node.child, Join):
+                filter_conds = split_conjuncts(node.condition)
+                join = node.child
+            if not isinstance(join, Join) or \
+                    join.join_type not in ("inner", "cross"):
+                return node
+            items: list[LogicalPlan] = []
+            conds: list[Expression] = []
+
+            def flatten(n):
+                if isinstance(n, Join) and n.join_type in ("inner", "cross"):
+                    flatten(n.left)
+                    flatten(n.right)
+                    if n.condition is not None:
+                        conds.extend(split_conjuncts(n.condition))
+                else:
+                    items.append(n)
+
+            flatten(join)
+            if len(items) <= 2:
+                return node
+            single_table: list[Expression] = []
+            if filter_conds:
+                item_ids = [{a.expr_id for a in it.output} for it in items]
+                for c in filter_conds:
+                    refs = c.references()
+                    touched = sum(1 for ids in item_ids if refs & ids)
+                    (conds if touched >= 2 else single_table).append(c)
+            if not conds:
+                # a condition-less (pure cross) chain: nothing to gain
+                return node
+
+            ests = {}
+            for it in items:
+                rows = estimate_rows(it)
+                ests[id(it)] = float("inf") if rows is None else rows
+            remaining = list(items)
+
+            def _key(x):  # deterministic tie-break: a stable fixpoint
+                out0 = x.output[0].expr_id if x.output else 0
+                return (ests[id(x)], out0)
+
+            def _pair_cost(a, b) -> float:
+                ra, rb = ests[id(a)], ests[id(b)]
+                aids = {x.expr_id for x in a.output}
+                bids = {x.expr_id for x in b.output}
+                connected = any(
+                    refs and refs <= (aids | bids) and refs & aids
+                    and refs & bids
+                    for refs in (cd.references() for cd in conds))
+                return ra * rb if connected else float("inf")
+
+            best, best_cost = None, float("inf")
+            for i, a in enumerate(items):
+                for b in items[i + 1:]:
+                    c = _pair_cost(a, b)
+                    if c < best_cost:
+                        best, best_cost = (a, b), c
+            cur = min(best, key=_key) if best is not None \
+                else min(remaining, key=_key)
+            remaining.remove(cur)
+            joined_ids = {a.expr_id for a in cur.output}
+            unused = list(conds)
+            result = cur
+            cur_rows = ests[id(cur)]
+
+            def _joined_rows(cand) -> float:
+                crows = ests[id(cand)]
+                if cur_rows == float("inf") or crows == float("inf"):
+                    return crows
+                return cur_rows * crows
+
+            while remaining:
+                def connects(cand, equi_only: bool):
+                    cids = {a.expr_id for a in cand.output}
+                    for cd in unused:
+                        if equi_only and not isinstance(cd, EqualTo):
+                            continue
+                        refs = cd.references()
+                        if refs and refs <= (joined_ids | cids) \
+                                and refs & joined_ids and refs & cids:
+                            return True
+                    return False
+
+                cands = [r for r in remaining if connects(r, True)] or \
+                    [r for r in remaining if connects(r, False)]
+                pool = cands or remaining
+                pick = min(pool, key=lambda x: (_joined_rows(x), _key(x)))
+                remaining.remove(pick)
+                cur_rows = _joined_rows(pick)
+                joined_ids |= {a.expr_id for a in pick.output}
+                applicable = [cd for cd in unused
+                              if cd.references() <= joined_ids]
+                for cd in applicable:
+                    unused.remove(cd)
+                result = Join(result, pick, "inner",
+                              join_conjuncts(applicable))
+            leftover = unused + single_table
+            if leftover:
+                result = Filter(join_conjuncts(leftover), result)
+            if [a.expr_id for a in result.output] != \
+                    [a.expr_id for a in node.output]:
+                result = Project(list(node.output), result)
+            return result
+
+        return plan.transform_up(rule)
+
+
+class EliminateSubqueryAliases(Rule):
+    """Once resolution is done, aliases are noise (the reference runs this
+    first in the optimizer)."""
+
+    def apply(self, plan):
+        def rule(node):
+            if isinstance(node, SubqueryAlias):
+                return node.child
+            return node
+
+        return plan.transform_up(rule)
+
+
+def _empty_table(attrs):
+    import pyarrow as pa
+
+    from ..types import to_arrow_type
+
+    return pa.table(
+        {a.name: pa.array([], type=to_arrow_type(a.dtype)) for a in attrs}
+        if attrs else {"__dummy": pa.array([], pa.int32())})
+
+
+class PruneFilters(Rule):
+    def apply(self, plan):
+        def rule(node):
+            if isinstance(node, Filter) and isinstance(node.condition,
+                                                       Literal):
+                if node.condition.value is True:
+                    return node.child
+                return LocalRelation(list(node.output),
+                                     _empty_table(node.output))
+            return node
+
+        return plan.transform_up(rule)
+
+
+class PropagateEmptyRelation(Rule):
+    """Empty local relations collapse the operators above them (reference:
+    PropagateEmptyRelation; unions are not ported)."""
+
+    def apply(self, plan):
+        def is_empty(p: LogicalPlan) -> bool:
+            return isinstance(p, LocalRelation) and p.table.num_rows == 0
+
+        def empty_of(node: LogicalPlan) -> LogicalPlan:
+            return LocalRelation(list(node.output), _empty_table(node.output))
+
+        def rule(node):
+            if isinstance(node, (Filter, Sort, Limit, Offset, Repartition)) \
+                    and is_empty(node.child):
+                return empty_of(node)
+            if isinstance(node, Project) and is_empty(node.child) and \
+                    node.resolved:
+                return empty_of(node)
+            if isinstance(node, Join) and node.resolved:
+                if node.join_type in ("inner", "cross", "left_semi") and \
+                        (is_empty(node.left) or is_empty(node.right)):
+                    return empty_of(node)
+                if node.join_type in ("left_outer", "left_anti") and \
+                        is_empty(node.left):
+                    return empty_of(node)
+            return node
+
+        return plan.transform_up(rule)
+
+
 class CollapseProjects(Rule):
     def apply(self, plan):
         return _collapse_adjacent_projects(plan)
@@ -345,10 +732,19 @@ class Optimizer(RuleExecutor):
 
     def batches(self):
         return [
+            Batch("Finish analysis", Once(), [
+                EliminateSubqueryAliases(),
+            ]),
             Batch("Operator optimization", FixedPoint(100), [
                 CombineFilters(),
                 MergeFilterIntoJoin(),
                 PushDownPredicates(),
+                ReorderJoins(),
+                ConstantFolding(),
+                BooleanSimplification(),
+                SimplifyCasts(),
+                PruneFilters(),
+                PropagateEmptyRelation(),
                 CombineLimits(),
                 CollapseProjects(),
                 RemoveNoopProject(),

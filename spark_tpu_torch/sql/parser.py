@@ -1,0 +1,583 @@
+"""SQL parser: text -> unresolved LogicalPlan (counterpart of
+`spark_tpu/sql/parser.py`, the SELECT grammar of the port's slice).
+
+The productions below are the reference's, copied: the select list with AS
+and bare aliases; FROM comma lists and joins with ON and table aliases;
+WHERE, GROUP BY (ordinals too), HAVING, ORDER BY ... ASC|DESC [NULLS
+FIRST|LAST], LIMIT and OFFSET; AND/OR/NOT, comparisons, IS [NOT] NULL,
+`+ - * /`, unary minus, parentheses, integer, decimal, string and DATE
+literals, CAST, and function calls (the analyzer resolves the names it
+knows: sum, avg, count, min, max, substr/substring). Every other production
+of the reference's grammar raises `NotPortedError` naming the construct:
+CTEs, subqueries, windows, set operations, CASE, IN, BETWEEN, LIKE,
+intervals, hints, scripts and commands among them.
+"""
+
+from __future__ import annotations
+
+import datetime
+
+from ..errors import NotPortedError, ParseException
+from ..expr import expressions as E
+from ..plan import logical as L
+from ..types import (
+    DataType, DecimalType, boolean, date, float32, float64, int8, int16,
+    int32, int64, string,
+)
+from .lexer import Token, tokenize
+
+
+def parse_sql(text: str) -> L.LogicalPlan:
+    p = Parser(tokenize(text))
+    plan = p.parse_statement()
+    p.expect_eof()
+    return plan
+
+
+class Parser:
+    def __init__(self, tokens: list[Token]):
+        self.toks = tokens
+        self.i = 0
+
+    # --- token helpers ----------------------------------------------------
+    def peek(self, k: int = 0) -> Token:
+        return self.toks[min(self.i + k, len(self.toks) - 1)]
+
+    def next(self) -> Token:  # noqa: A003
+        t = self.toks[self.i]
+        if t.kind != "eof":
+            self.i += 1
+        return t
+
+    def at_kw(self, *words: str) -> bool:
+        t = self.peek()
+        return t.kind == "kw" and t.value.lower() in words
+
+    def eat_kw(self, *words: str) -> bool:
+        if self.at_kw(*words):
+            self.next()
+            return True
+        return False
+
+    def expect_kw(self, word: str) -> None:
+        if not self.eat_kw(word):
+            raise ParseException(
+                f"expected {word.upper()} near {self.peek().value!r}")
+
+    def at_op(self, *ops: str) -> bool:
+        t = self.peek()
+        return t.kind == "op" and t.value in ops
+
+    def eat_op(self, *ops: str) -> bool:
+        if self.at_op(*ops):
+            self.next()
+            return True
+        return False
+
+    def expect_op(self, op: str) -> None:
+        if not self.eat_op(op):
+            raise ParseException(
+                f"expected {op!r} near {self.peek().value!r} "
+                f"(pos {self.peek().pos})")
+
+    def expect_eof(self) -> None:
+        t = self.peek()
+        if t.kind != "eof" and not (t.kind == "op" and t.value == ";"):
+            raise ParseException(f"unexpected trailing input {t.value!r}")
+
+    def ident(self) -> str:
+        t = self.peek()
+        if t.kind in ("ident", "kw"):
+            self.next()
+            return t.value
+        raise ParseException(f"expected identifier near {t.value!r}")
+
+    # --- statements -------------------------------------------------------
+    def parse_statement(self) -> L.LogicalPlan:
+        if self.at_kw("with", "select", "values") or self.at_op("("):
+            return self.parse_query()
+        t = self.peek()
+        if t.kind == "eof":
+            raise ParseException("empty statement")
+        # CREATE/DROP/INSERT/UPDATE/DELETE/MERGE/SHOW/DESCRIBE/EXPLAIN/SET/
+        # DECLARE/ANALYZE/CACHE and BEGIN ... END scripts
+        raise NotPortedError(f"SQL statement {t.value.upper()} (commands "
+                             "and scripts)")
+
+    def parse_query(self) -> L.LogicalPlan:
+        if self.at_kw("with"):
+            raise NotPortedError("WITH (common table expressions)")
+        plan = self.parse_set_expr()
+        return self._order_limit(plan)
+
+    def parse_set_expr(self) -> L.LogicalPlan:
+        left = self.parse_term_query()
+        if self.at_kw("union", "intersect", "minus", "except"):
+            raise NotPortedError(
+                f"set operation {self.peek().value.upper()}")
+        return left
+
+    def parse_term_query(self) -> L.LogicalPlan:
+        if self.eat_op("("):
+            q = self.parse_query()
+            self.expect_op(")")
+            return q
+        if self.at_kw("values"):
+            raise NotPortedError("VALUES")
+        return self.parse_select()
+
+    def parse_select(self) -> L.LogicalPlan:
+        self.expect_kw("select")
+        if self.at_kw("distinct"):
+            raise NotPortedError("SELECT DISTINCT")
+        self.eat_kw("all")
+        select_list = [self.parse_named_expression()]
+        while self.eat_op(","):
+            select_list.append(self.parse_named_expression())
+
+        if not self.eat_kw("from"):
+            raise NotPortedError("SELECT without FROM (OneRowRelation)")
+        plan = self.parse_relation()
+        while self.eat_op(","):
+            right = self.parse_relation()
+            plan = L.Join(plan, right, "cross", None)
+
+        if self.eat_kw("where"):
+            plan = L.Filter(self.parse_expr(), plan)
+
+        group_exprs = None
+        if self.at_kw("group"):
+            self.next()
+            self.expect_kw("by")
+            if self.at_kw("rollup", "cube", "grouping"):
+                raise NotPortedError(
+                    f"GROUP BY {self.peek().value.upper()} (grouping sets)")
+            group_exprs = [self.parse_expr()]
+            while self.eat_op(","):
+                group_exprs.append(self.parse_expr())
+
+        having = None
+        if self.eat_kw("having"):
+            having = self.parse_expr()
+
+        if self.peek().kind == "ident" and \
+                self.peek().value.lower() == "window":
+            raise NotPortedError("WINDOW clause (window functions)")
+
+        has_agg = any(_contains_agg(e) for e in select_list)
+        if group_exprs is not None or has_agg or having is not None:
+            # GROUP BY ordinals
+            resolved_groups = []
+            for g in group_exprs or []:
+                if isinstance(g, E.Literal) and isinstance(g.value, int):
+                    idx = g.value - 1
+                    if not (0 <= idx < len(select_list)):
+                        raise ParseException(f"GROUP BY position {g.value}")
+                    tgt = select_list[idx]
+                    resolved_groups.append(
+                        tgt.child if isinstance(tgt, E.Alias) else tgt)
+                else:
+                    resolved_groups.append(g)
+            plan = L.Aggregate(resolved_groups, list(select_list), plan)
+            if having is not None:
+                plan = L.Filter(having, plan)
+        else:
+            plan = L.Project(list(select_list), plan)
+        return plan
+
+    def _order_limit(self, plan: L.LogicalPlan) -> L.LogicalPlan:
+        if self.at_kw("order"):
+            self.next()
+            self.expect_kw("by")
+            orders = [self.parse_sort_item(plan)]
+            while self.eat_op(","):
+                orders.append(self.parse_sort_item(plan))
+            plan = L.Sort(orders, True, plan)
+        if self.eat_kw("limit"):
+            t = self.next()
+            if t.kind != "num":
+                raise ParseException("LIMIT expects a number")
+            plan = L.Limit(int(t.value.rstrip("LlDdSs")), plan)
+        if self.eat_kw("offset"):
+            t = self.next()
+            if t.kind != "num":
+                raise ParseException("OFFSET expects a number")
+            plan = L.Offset(int(t.value.rstrip("LlDdSs")), plan)
+        return plan
+
+    def parse_sort_item(self, plan) -> E.SortOrder:
+        e = self.parse_expr()
+        # ORDER BY ordinal
+        if isinstance(e, E.Literal) and isinstance(e.value, int) and \
+                isinstance(plan, (L.Project, L.Aggregate)):
+            lst = plan.project_list if isinstance(plan, L.Project) \
+                else plan.aggregate_exprs
+            idx = e.value - 1
+            if 0 <= idx < len(lst):
+                tgt = lst[idx]
+                if isinstance(tgt, E.Alias):
+                    e = E.UnresolvedAttribute([tgt.name])
+                elif isinstance(tgt, (E.AttributeReference,
+                                      E.UnresolvedAttribute)):
+                    e = tgt
+        asc = True
+        if self.eat_kw("desc"):
+            asc = False
+        else:
+            self.eat_kw("asc")
+        nulls_first = None
+        if self.eat_kw("nulls"):
+            if self.eat_kw("first"):
+                nulls_first = True
+            else:
+                self.expect_kw("last")
+                nulls_first = False
+        return E.SortOrder(e, asc, nulls_first)
+
+    # --- relations --------------------------------------------------------
+    def parse_relation(self) -> L.LogicalPlan:
+        left = self.parse_relation_primary()
+        while True:
+            jt = self._join_type()
+            if jt is None:
+                return left
+            right = self.parse_relation_primary()
+            cond = None
+            if self.eat_kw("on"):
+                cond = self.parse_expr()
+            elif self.at_kw("using"):
+                raise NotPortedError("JOIN ... USING in SQL text")
+            left = L.Join(left, right, jt, cond)
+
+    def _join_type(self) -> str | None:
+        if self.eat_kw("cross"):
+            self.expect_kw("join")
+            return "cross"
+        if self.at_kw("join"):
+            self.next()
+            return "inner"
+        if self.eat_kw("inner"):
+            self.expect_kw("join")
+            return "inner"
+        for side in ("left", "right", "full"):
+            if self.at_kw(side):
+                self.next()
+                if side == "left" and self.eat_kw("semi"):
+                    self.expect_kw("join")
+                    return "left_semi"
+                if side == "left" and self.eat_kw("anti"):
+                    self.expect_kw("join")
+                    return "left_anti"
+                self.eat_kw("outer")
+                self.expect_kw("join")
+                return {"left": "left_outer", "right": "right_outer",
+                        "full": "full_outer"}[side]
+        if self.peek().kind == "ident" and \
+                self.peek().value.lower() in ("lateral", "natural",
+                                              "pivot", "unpivot"):
+            raise NotPortedError(f"{self.peek().value.upper()} in FROM")
+        return None
+
+    def parse_relation_primary(self) -> L.LogicalPlan:
+        if self.at_op("("):
+            raise NotPortedError("subquery in FROM")
+        parts = [self.ident()]
+        while self.eat_op("."):
+            parts.append(self.ident())
+        if self.at_op("("):
+            raise NotPortedError(f"table-valued function {parts[-1]}")
+        plan: L.LogicalPlan = L.UnresolvedRelation(parts)
+        if self.peek().value.lower() == "tablesample":
+            raise NotPortedError("TABLESAMPLE")
+        alias = self._maybe_alias()
+        if alias:
+            return L.SubqueryAlias(alias, plan)
+        return plan
+
+    # soft keywords that begin a clause and therefore can't be a bare
+    # relation alias (WINDOW w AS ..., LATERAL VIEW, PIVOT ...)
+    _NON_ALIAS_IDENTS = frozenset(("window", "lateral", "pivot", "unpivot"))
+
+    def _maybe_alias(self) -> str | None:
+        if self.eat_kw("as"):
+            return self.ident()
+        t = self.peek()
+        if t.kind == "ident" and t.value.lower() not in self._NON_ALIAS_IDENTS:
+            self.next()
+            return t.value
+        return None
+
+    # --- expressions ------------------------------------------------------
+    def parse_named_expression(self) -> E.Expression:
+        if self.at_op("*"):
+            self.next()
+            return E.UnresolvedStar()
+        # qualified star: t.*
+        if self.peek().kind in ("ident",) and self.peek(1).value == "." and \
+                self.peek(2).value == "*":
+            target = self.ident()
+            self.next()  # .
+            self.next()  # *
+            return E.UnresolvedStar(target)
+        e = self.parse_expr()
+        if self.eat_kw("as"):
+            return E.Alias(e, self.ident())
+        t = self.peek()
+        if t.kind == "ident":
+            self.next()
+            return E.Alias(e, t.value)
+        return e
+
+    def parse_expr(self) -> E.Expression:
+        return self.parse_or()
+
+    def parse_or(self) -> E.Expression:
+        left = self.parse_and()
+        while self.eat_kw("or"):
+            left = E.Or(left, self.parse_and())
+        return left
+
+    def parse_and(self) -> E.Expression:
+        left = self.parse_not()
+        while self.eat_kw("and"):
+            left = E.And(left, self.parse_not())
+        return left
+
+    def parse_not(self) -> E.Expression:
+        if self.eat_kw("not"):
+            return E.Not(self.parse_not())
+        return self.parse_predicate()
+
+    def parse_predicate(self) -> E.Expression:
+        left = self.parse_bitwise_or()
+        while True:
+            if self.at_op("<=>"):
+                raise NotPortedError("<=> (EqualNullSafe)")
+            if self.at_op("=", "==", "<>", "!=", "<", "<=", ">", ">="):
+                op = self.next().value
+                right = self.parse_bitwise_or()
+                cls = {"=": E.EqualTo, "==": E.EqualTo, "<>": E.NotEqualTo,
+                       "!=": E.NotEqualTo, "<": E.LessThan,
+                       "<=": E.LessThanOrEqual, ">": E.GreaterThan,
+                       ">=": E.GreaterThanOrEqual}[op]
+                left = cls(left, right)
+                continue
+            if self.at_kw("is"):
+                self.next()
+                neg = self.eat_kw("not")
+                self.expect_kw("null")
+                left = E.IsNotNull(left) if neg else E.IsNull(left)
+                continue
+            save = self.i
+            self.eat_kw("not")
+            for word, what in (("in", "IN"), ("like", "LIKE"),
+                               ("rlike", "RLIKE"), ("between", "BETWEEN")):
+                if self.at_kw(word):
+                    if word == "in" and self.peek(1).value == "(" and \
+                            self.peek(2).value.lower() in ("select", "with"):
+                        raise NotPortedError("IN (subquery)")
+                    raise NotPortedError(what)
+            self.i = save
+            break
+        return left
+
+    def parse_bitwise_or(self) -> E.Expression:
+        left = self.parse_additive()
+        if self.at_op("|", "^", "&", "<<", ">>"):
+            raise NotPortedError(f"operator {self.peek().value}")
+        return left
+
+    def parse_additive(self) -> E.Expression:
+        left = self.parse_multiplicative()
+        while self.at_op("+", "-") or self.at_op("||"):
+            op = self.next().value
+            if op == "||":
+                raise NotPortedError("|| (concat)")
+            right = self.parse_multiplicative()
+            left = E.Add(left, right) if op == "+" else \
+                E.Subtract(left, right)
+        return left
+
+    def parse_multiplicative(self) -> E.Expression:
+        left = self.parse_unary()
+        while self.at_op("*", "/", "%") or self.at_kw("div"):
+            if self.at_kw("div") or self.at_op("%"):
+                raise NotPortedError(f"operator {self.peek().value.upper()}")
+            op = self.next().value
+            right = self.parse_unary()
+            left = E.Multiply(left, right) if op == "*" \
+                else E.Divide(left, right)
+        return left
+
+    def parse_unary(self) -> E.Expression:
+        if self.eat_op("-"):
+            e = self.parse_unary()
+            if isinstance(e, E.Literal) and isinstance(e.value, (int, float)):
+                return E.Literal(-e.value)
+            return E.UnaryMinus(e)
+        if self.eat_op("+"):
+            return self.parse_unary()
+        if self.at_op("~"):
+            raise NotPortedError("operator ~")
+        e = self.parse_primary()
+        if self.at_op("["):
+            raise NotPortedError("subscript (element_at)")
+        return e
+
+    def parse_primary(self) -> E.Expression:
+        t = self.peek()
+        if t.kind == "num":
+            self.next()
+            return _num_literal(t.value)
+        if t.kind == "str":
+            self.next()
+            return E.Literal(t.value)
+        if self.at_kw("true"):
+            self.next()
+            return E.Literal(True)
+        if self.at_kw("false"):
+            self.next()
+            return E.Literal(False)
+        if self.at_kw("null"):
+            self.next()
+            return E.Literal(None)
+        if self.at_kw("date"):
+            save = self.i
+            self.next()
+            if self.peek().kind == "str":
+                s = self.next().value
+                return E.Literal(datetime.date.fromisoformat(s.strip()[:10]))
+            self.i = save
+        if self.at_kw("timestamp") and self.peek(1).kind == "str":
+            raise NotPortedError("TIMESTAMP literals")
+        if self.at_kw("interval"):
+            raise NotPortedError("INTERVAL")
+        if self.at_kw("case"):
+            raise NotPortedError("CASE")
+        if self.at_kw("cast"):
+            self.next()
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("as")
+            to = self.parse_type()
+            self.expect_op(")")
+            return E.Cast(e, to)
+        if self.at_kw("exists") and self.peek(1).value == "(":
+            raise NotPortedError("EXISTS (subquery)")
+        if self.eat_op("("):
+            if self.at_kw("select", "with"):
+                raise NotPortedError("scalar subquery")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return e
+        if t.kind in ("ident", "kw"):
+            # function call or column reference
+            name = self.ident()
+            if self.at_op("("):
+                return self.parse_function(name)
+            parts = [name]
+            while self.at_op(".") and self.peek(1).kind in ("ident", "kw"):
+                self.next()
+                parts.append(self.ident())
+            return E.UnresolvedAttribute(parts)
+        raise ParseException(f"unexpected token {t.value!r} at {t.pos}")
+
+    def parse_function(self, name: str) -> E.Expression:
+        low = name.lower()
+        if low in ("extract", "try_cast", "position", "overlay"):
+            raise NotPortedError(f"function {low}")
+        self.expect_op("(")
+        distinct = False
+        args: list[E.Expression] = []
+        if self.at_op("*"):
+            self.next()
+            args = [E.UnresolvedStar()]
+        elif not self.at_op(")"):
+            if self.eat_kw("distinct"):
+                distinct = True
+            args.append(self._parse_arg())
+            while self.eat_op(","):
+                args.append(self._parse_arg())
+        self.expect_op(")")
+        if self.at_kw("over"):
+            raise NotPortedError(f"window function {name} ... OVER")
+        return E.UnresolvedFunction(name, args, distinct)
+
+    def _parse_arg(self) -> E.Expression:
+        if self.peek(1).value == "->" or (
+                self.at_op("(") and self.peek(2).value in (",", ")")
+                and self.peek(3).value == "->"):
+            raise NotPortedError("lambda functions (higher-order functions)")
+        return self.parse_expr()
+
+    # --- types ------------------------------------------------------------
+    def parse_type(self) -> DataType:
+        name = self.ident().lower()
+        if name in ("int", "integer"):
+            return int32
+        if name in ("bigint", "long"):
+            return int64
+        if name in ("smallint", "short"):
+            return int16
+        if name in ("tinyint", "byte"):
+            return int8
+        if name in ("float", "real"):
+            return float32
+        if name == "double":
+            return float64
+        if name in ("string", "text"):
+            return string
+        if name in ("varchar", "char"):
+            if self.eat_op("("):
+                self.next()
+                self.expect_op(")")
+            return string
+        if name in ("bool", "boolean"):
+            return boolean
+        if name == "date":
+            return date
+        if name in ("decimal", "numeric", "dec"):
+            p, s = 10, 0
+            if self.eat_op("("):
+                p = int(self.next().value)
+                if self.eat_op(","):
+                    s = int(self.next().value)
+                self.expect_op(")")
+            return DecimalType(min(p, DecimalType.MAX_PRECISION), s)
+        if name in ("timestamp", "binary", "array", "map", "struct"):
+            raise NotPortedError(f"type {name}")
+        raise ParseException(f"unknown type {name}")
+
+
+def _num_literal(text: str) -> E.Literal:
+    if text[:2].lower() == "0x":
+        v = int(text, 16)
+        return E.Literal(v) if -(2 ** 31) <= v < 2 ** 31 \
+            else E.Literal(v, int64)
+    suffix = ""
+    if text and text[-1] in "LlDdSs":
+        suffix = text[-1].lower()
+        text = text[:-1]
+    if "." in text or "e" in text.lower() or suffix == "d":
+        return E.Literal(float(text))
+    v = int(text)
+    if suffix == "l" or not (-(2 ** 31) <= v < 2 ** 31):
+        return E.Literal(v, int64)
+    return E.Literal(v)
+
+
+_AGG_NAMES = frozenset((
+    "sum", "count", "min", "max", "avg", "mean", "first", "any_value",
+    "stddev", "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop",
+    "collect_set", "collect_list", "array_agg", "first_value", "median",
+    "percentile",
+    "percentile_approx", "corr", "covar_samp", "covar_pop", "skewness",
+    "kurtosis", "approx_count_distinct"))
+
+
+def _contains_agg(e: E.Expression) -> bool:
+    if isinstance(e, E.AggregateFunction):
+        return True
+    if isinstance(e, E.UnresolvedFunction) and e.fname.lower() in _AGG_NAMES:
+        return True
+    return any(_contains_agg(c) for c in e.children)

@@ -1,11 +1,12 @@
 """SQL data types and schemas (the port's copy of `spark_tpu/types`).
 
-Only the numeric, boolean and date types are ported. Each type carries its
-device representation as a `torch.dtype` (`device_dtype`) with the widths the
-JAX package uses under x64, plus the numpy dtype of its host planes
-(`numpy_dtype`). Dates are int32 days since the epoch. Strings, binary,
-decimals, timestamps and nested types raise `NotPortedError` where a schema
-would hold them.
+The numeric, boolean, date, string and decimal types are ported. Each type
+carries its device representation as a `torch.dtype` (`device_dtype`) with
+the widths the JAX package uses under x64, plus the numpy dtype of its host
+planes (`numpy_dtype`). Dates are int32 days since the epoch; strings are
+int32 codes into a host dictionary; decimals are int64 scaled by 10^scale,
+precision at most 18. Binary, timestamps and nested types raise
+`NotPortedError` where a schema would hold them.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from ..errors import NotPortedError
 __all__ = [
     "DataType", "NumericType", "IntegralType", "FractionalType",
     "BooleanType", "ByteType", "ShortType", "IntegerType", "LongType",
-    "FloatType", "DoubleType", "DateType", "NullType",
-    "StructField", "StructType",
+    "FloatType", "DoubleType", "DateType", "NullType", "StringType",
+    "DecimalType", "StructField", "StructType",
     "boolean", "int8", "int16", "int32", "int64", "float32", "float64",
-    "date", "null_type", "common_type", "from_arrow_type", "to_arrow_type",
-    "infer_type",
+    "date", "string", "null_type", "common_type", "dict_encoded",
+    "from_arrow_type", "to_arrow_type", "infer_type",
 ]
 
 
@@ -107,6 +108,27 @@ class DateType(DataType):
     """Days since 1970-01-01 (matches Arrow date32)."""
 
 
+class StringType(DataType):
+    """Dictionary-encoded UTF-8 string: int32 codes on the device into a
+    host dictionary (`columnar.batch.StringDict`)."""
+
+
+@dataclass(frozen=True, repr=False)
+class DecimalType(FractionalType):
+    """Fixed-point decimal stored as int64 scaled by 10^scale on the
+    device; precision is capped at 18 so every value fits int64."""
+
+    precision: int = 10
+    scale: int = 0
+
+    MAX_PRECISION = 18
+    _numpy = np.dtype(np.int64)
+    _torch = torch.int64
+
+    def simple_string(self) -> str:
+        return f"decimal({self.precision},{self.scale})"
+
+
 boolean = BooleanType()
 int8 = ByteType()
 int16 = ShortType()
@@ -115,6 +137,7 @@ int64 = LongType()
 float32 = FloatType()
 float64 = DoubleType()
 date = DateType()
+string = StringType()
 null_type = NullType()
 
 
@@ -152,6 +175,8 @@ _NUMERIC_ORDER: list[DataType] = [int8, int16, int32, int64, float32, float64]
 
 
 def _numeric_rank(dt: DataType) -> int:
+    if isinstance(dt, DecimalType):
+        return _NUMERIC_ORDER.index(int64)  # decimals widen like long
     for i, t in enumerate(_NUMERIC_ORDER):
         if type(dt) is type(t):
             return i
@@ -166,10 +191,36 @@ def common_type(a: DataType, b: DataType) -> DataType | None:
         return b
     if isinstance(b, NullType):
         return a
+    if isinstance(a, DecimalType) and isinstance(b, DecimalType):
+        scale = max(a.scale, b.scale)
+        intd = max(a.precision - a.scale, b.precision - b.scale)
+        return DecimalType(min(intd + scale, DecimalType.MAX_PRECISION), scale)
+    if isinstance(a, DecimalType) and isinstance(b, IntegralType):
+        return a
+    if isinstance(b, DecimalType) and isinstance(a, IntegralType):
+        return b
+    if isinstance(a, DecimalType) and isinstance(b, FractionalType):
+        return float64
+    if isinstance(b, DecimalType) and isinstance(a, FractionalType):
+        return float64
     ra, rb = _numeric_rank(a), _numeric_rank(b)
     if ra >= 0 and rb >= 0:
         return _NUMERIC_ORDER[max(ra, rb)]
+    if isinstance(a, StringType) and isinstance(b, StringType):
+        return string
+    # string <-> other: the reference models the string side as the other
+    # type (a cast of the dictionary, not ported)
+    if isinstance(a, StringType):
+        return b
+    if isinstance(b, StringType):
+        return a
     return None
+
+
+def dict_encoded(dt) -> bool:
+    """True for types whose columns are host-dictionary-encoded (int32
+    codes on the device): strings."""
+    return isinstance(dt, StringType)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +246,16 @@ def from_arrow_type(at) -> DataType:
         return float64
     if pa.types.is_date32(at):
         return date
+    if pa.types.is_string(at) or pa.types.is_large_string(at):
+        return string
+    if pa.types.is_decimal(at):
+        if at.precision > DecimalType.MAX_PRECISION:
+            # the reference caps the precision and keeps int64 (values
+            # past 18 digits would wrap): the port refuses instead
+            raise NotPortedError(f"Arrow type {at} (decimal precision > 18)")
+        return DecimalType(at.precision, at.scale)
+    if pa.types.is_dictionary(at):
+        return from_arrow_type(at.value_type)
     if pa.types.is_null(at):
         return null_type
     raise NotPortedError(f"Arrow type {at} (column type)")
@@ -219,6 +280,10 @@ def to_arrow_type(dt: DataType):
         return pa.float64()
     if isinstance(dt, DateType):
         return pa.date32()
+    if isinstance(dt, StringType):
+        return pa.string()
+    if isinstance(dt, DecimalType):
+        return pa.decimal128(dt.precision, dt.scale)
     if isinstance(dt, NullType):
         return pa.null()
     raise NotPortedError(f"type {dt.simple_string()}")
@@ -234,8 +299,16 @@ def infer_type(value) -> DataType:
         return int32 if -(2**31) <= value < 2**31 else int64
     if isinstance(value, float):
         return float64
+    if isinstance(value, str):
+        return string
     if isinstance(value, datetime.datetime):
         raise NotPortedError("timestamp literals")
     if isinstance(value, datetime.date):
         return date
+    import decimal as _d
+
+    if isinstance(value, _d.Decimal):
+        sign, digits, exp = value.as_tuple()
+        scale = max(0, -exp)
+        return DecimalType(max(len(digits), scale), scale)
     raise NotPortedError(f"literal of type {type(value).__name__}")

@@ -351,3 +351,121 @@ def test_sorts_on_the_card_equal_cpu(cuda_device, order):
     # rows compare by repr: NaN equals NaN and -0.0 differs from 0.0
     assert [repr(r) for r in _rows(outs[1], True)] == \
         [repr(r) for r in _rows(outs[0], True)]
+
+
+# --- strings, decimals and the SQL slice on the card ------------------------
+
+# literal changes that make TPC-DS q3, q7 and q19 return at least 10 rows at
+# tests/tpcds/datagen.py's scale 0.1 (tests/test_torch_tpcds_slice.py holds
+# them against the JAX package too)
+TPCDS_VARIANTS = {
+    "q3": [("item.i_manufact_id = 128", "item.i_manufact_id < 400"),
+           ("dt.d_moy = 11", "dt.d_moy >= 11")],
+    "q7": [("cd_gender = 'M' AND", "cd_gender = 'F' AND"),
+           ("cd_marital_status = 'S' AND", "cd_marital_status <> 'W' AND"),
+           ("cd_education_status = 'College' AND",
+            "cd_education_status <> 'Primary' AND"),
+           ("d_year = 2000", "d_year >= 1999")],
+    "q19": [("i_manager_id = 8", "i_manager_id < 40"),
+            ("AND d_year = 1998", "AND d_year >= 1999")],
+}
+
+
+def tpcds_query(name: str) -> str:
+    """The text of TPC-DS `q3`/`q7`/`q19`, or of `<q>_variant`."""
+    import os
+
+    base = name.split("_")[0]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpcds",
+                        "queries", f"{base}.sql")
+    text = open(path).read()
+    if name.endswith("_variant"):
+        for old, new in TPCDS_VARIANTS[base]:
+            assert old in text, (name, old)
+            text = text.replace(old, new)
+    return text
+
+
+@pytest.fixture(scope="module")
+def tpcds_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import importlib.util
+    import os
+
+    # loaded from its path: a `tests` package installed elsewhere may
+    # shadow this directory
+    spec = importlib.util.spec_from_file_location(
+        "tpcds_datagen", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tpcds", "datagen.py"))
+    datagen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(datagen)
+    tables = datagen.gen_tpcds_full(scale=0.1)
+    sessions = _session_pair({"spark.sql.shuffle.partitions": 4,
+                              "spark.tpu.batch.capacity": 1 << 10})
+    for s in sessions:
+        for name in ("store_sales", "date_dim", "item", "customer",
+                     "customer_address", "store", "promotion",
+                     "customer_demographics"):
+            s.createDataFrame(tables[name]).createOrReplaceTempView(name)
+    yield sessions
+    for s in sessions:
+        s.stop()
+
+
+@pytest.mark.parametrize("name", ["q3", "q7", "q19", "q3_variant",
+                                  "q7_variant", "q19_variant"])
+def test_tpcds_queries_card_equal_cpu(tpcds_pair, name):
+    # exact: decimal sums are int64 on both devices, the float64 averages
+    # divide one sum by one count
+    cpu, card = tpcds_pair
+    text = tpcds_query(name)
+    want = cpu.sql(text).toArrow()
+    got = card.sql(text).toArrow()
+    assert got.schema == want.schema
+    assert got.to_pylist() == want.to_pylist()
+
+
+def test_string_keys_card_equal_cpu(cuda_device):
+    from spark_tpu_torch.columnar.batch import Column, StringDict
+    from spark_tpu_torch.types import string
+
+    rng = np.random.default_rng(31)
+    words = ["", "a", "b", "ab", "héllo", "✓", "zz", "b"]
+    sd = StringDict(words)
+    # codes past the dictionary (dead rows may hold any code) clamp
+    codes = rng.integers(0, len(words) + 3, 100_000).astype(np.int32)
+    cpu = Column(string, torch.from_numpy(codes), None, sd)
+    card = Column(string, torch.from_numpy(codes).to(cuda_device), None, sd)
+    assert torch.equal(card.eq_keys().cpu(), cpu.eq_keys())
+    assert torch.equal(card.sort_keys().cpu(), cpu.sort_keys())
+
+
+def test_dictionary_code_aggregate_card_equals_cpu(cuda_device):
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+    from spark_tpu_torch.columnar.batch import decimal_array
+
+    rng = np.random.default_rng(37)
+    n = 300_000
+    words = [f"id{i:05d}" for i in range(5000)]
+    table = pa.table({
+        "s": pa.array([words[i] for i in rng.integers(0, 5000, n)],
+                      mask=rng.random(n) < 0.03),
+        "v": pa.array(rng.integers(-50, 50, n), mask=rng.random(n) < 0.1),
+        "d": decimal_array(rng.integers(-10**6, 10**6, n), None,
+                           pa.decimal128(9, 2))})
+    conf = {"spark.sql.shuffle.partitions": 4,
+            "spark.tpu.batch.capacity": 1 << 16}
+    outs, launched = [], []
+    for s in _session_pair(conf):
+        before = SK.LAUNCHES["partition_histogram"]
+        df = s.createDataFrame(table).groupBy("s").agg(
+            F.count("*"), F.count("v"), F.sum("v"), F.sum("d"), F.avg("d"))
+        outs.append(df.toArrow())
+        assert s.metrics.get("agg.dict_code_fast_path", 0) > 0
+        launched.append(SK.LAUNCHES["partition_histogram"] > before)
+        s.stop()
+    assert _rows(outs[1], False) == _rows(outs[0], False)
+    assert launched[1]  # the card counted through the kernel

@@ -240,6 +240,15 @@ def test_port_imports_neither_jax_nor_reference():
         "j = a.join(d, a['k'] == d['k'], 'left_outer')"
         ".repartition(4).orderBy(F.desc('w'), 'v').limit(10)\n"
         "assert j.toArrow().num_rows == 10\n"
+        "s.createDataFrame(pa.table({'k': np.arange(50),"
+        " 'name': ['n' + str(i % 7) for i in range(50)]}))"
+        ".createOrReplaceTempView('dim')\n"
+        "a.createOrReplaceTempView('fact')\n"
+        "q = s.sql(\"SELECT d.name, sum(f.v) AS total, count(*) AS n \"\n"
+        "          \"FROM fact f, dim d WHERE f.k = d.k AND \"\n"
+        "          \"substr(d.name, 1, 1) = 'n' GROUP BY d.name \"\n"
+        "          \"ORDER BY total DESC LIMIT 3\")\n"
+        "assert q.toArrow().num_rows == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spark_tpu' or m.startswith('spark_tpu.')]\n"
         "assert not bad, bad\n"
@@ -262,7 +271,7 @@ def test_no_device_given_raises_without_a_card():
         .device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", ["sql", "string_column", "coalesce",
+@pytest.mark.parametrize("what", ["sql", "binary_column", "coalesce",
                                   "string_filter", "explicit_schema"])
 def test_unported_entry_points_raise_not_ported(sessions, what):
     _, t = sessions
@@ -270,8 +279,8 @@ def test_unported_entry_points_raise_not_ported(sessions, what):
     with pytest.raises(NotPortedError):
         if what == "sql":
             t.sql("select 1")
-        elif what == "string_column":
-            t.createDataFrame(pa.table({"s": ["a", "b"]}))
+        elif what == "binary_column":
+            t.createDataFrame(pa.table({"b": [b"a", b"b"]}))
         elif what == "coalesce":
             from spark_tpu_torch.plan.logical import Repartition
 
