@@ -30,7 +30,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      operator's exclusive wall time; the device-busy share, the heaviest
      kernels and the calls of each kernel of the port's CUDA source from
      torch.profiler);
-  5. five more paths through the DataFrame API, each the same way (its
+  5. more paths through the DataFrame API and SQL, each the same way (its
      physical plan asserted, a cold run, the median of 3 warm runs, a numpy
      oracle, the exact number of histogram calls, the breakdown); after
      each path, the main one too, one more run keeps the inputs of every
@@ -47,13 +47,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
        q78:        TPC-DS q78's first CTE shape: 2e7 store_sales LEFT JOIN
                    2e6 store_returns on (ticket, item), rows with no return
                    counted and summed by store (shuffled, sorted probe);
-       tpcds:      bench.py's bench_tpcds: TPC-DS q3, q7 and q19, the query
-                   files verbatim, through session.sql over temp views of the
-                   eight tables they read at SF10 row counts (28,800,991
+       tpcds:      bench.py's bench_tpcds widened to 29 TPC-DS queries (q3,
+                   q7, q13, q15, q19, q25, q26, q29, q31, q34, q42, q43,
+                   q46, q48, q50, q52, q55, q59, q62, q64, q65, q68, q73,
+                   q78, q79, q85, q93, q96, q99), the query files verbatim:
+                   first `tpcds_gate`, every query on the card over
+                   tests/tpcds/datagen.py's tables at scale 0.1, equal to
+                   its committed golden (LIMIT dropped) and to the port on
+                   the CPU; then each through session.sql over temp views of
+                   the 21 tables they read at SF10 row counts (28,800,991
                    store_sales rows; the columns the queries read, with
                    tests/tpcds/datagen.py's value pools, strings and
-                   decimal(7,2) prices), each held exactly to a numpy oracle,
-                   its plan to the reference's operator sequence;
+                   decimal prices), its plan held to the reference's
+                   operator sequence, q3, q7 and q19 exactly to numpy
+                   oracles, the others to at least one row and then (but
+                   those of TPCDS_CPU_SKIP) to the port's result on the CPU
+                   over the same tables; a query whose CTEs materialise is
+                   timed as sql() + collect, with the sql() call (the CTE
+                   round trip) on its own line;
   6. a JSON line with every kernel's numbers, then, last, the result line
      {"ok": true, "device": {...}}.
 """
@@ -98,43 +109,299 @@ TOPK = 100
 # the other legs, and each query's physical operator sequence at these
 # sizes, the JAX package's (tests/test_torch_tpcds_slice.py plans both
 # engines at these row counts and holds them to this table)
-TPCDS_ROWS = {"store_sales": 28_800_991, "item": 102_000,
-              "customer": 500_000, "customer_address": 250_000,
-              "customer_demographics": 1_920_800, "date_dim": 73_049,
-              "store": 102, "promotion": 500}
+TPCDS_ROWS = {"store_sales": 28_800_991, "store_returns": 2_875_432,
+              "catalog_sales": 14_401_261, "catalog_returns": 1_439_749,
+              "web_sales": 7_197_566, "web_returns": 719_217,
+              "item": 102_000, "customer": 500_000,
+              "customer_address": 250_000,
+              "customer_demographics": 1_920_800,
+              "household_demographics": 7_200, "date_dim": 73_049,
+              "time_dim": 86_400, "store": 102, "promotion": 500,
+              "ship_mode": 20, "warehouse": 10, "web_site": 42,
+              "web_page": 200, "call_center": 24, "reason": 45,
+              "income_band": 20}
 TPCDS_CONF = {"spark.sql.shuffle.partitions": PARTITIONS,
               "spark.tpu.batch.capacity": TILE}
 _TOPK_OPS = ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
              "SortExec", "ComputeExec", "HashAggregateExec")
 _SCAN = ("ComputeExec", "LocalTableScanExec")
 _BCAST = ("BroadcastExchangeExec",) + _SCAN
+_JOIN = ("HashJoinExec", "ComputeExec")
 TPCDS_PLAN_OPS = {
-    "q3": _TOPK_OPS + ("HashJoinExec", "ComputeExec", "HashJoinExec")
-    + _SCAN + _SCAN + _BCAST,
-    "q7": _TOPK_OPS + ("HashJoinExec", "ComputeExec", "HashJoinExec",
-                       "ComputeExec", "HashJoinExec", "ComputeExec",
-                       "HashJoinExec") + _SCAN + _SCAN + _BCAST + _BCAST
-    + _BCAST,
-    "q19": _TOPK_OPS + ("ComputeExec", "HashJoinExec", "ComputeExec",
-                        "HashJoinExec", "ComputeExec", "HashJoinExec",
-                        "ComputeExec", "HashJoinExec", "ComputeExec",
-                        "HashJoinExec") + _SCAN + _BCAST + _SCAN + _BCAST
-    + _BCAST + _BCAST,
+    "q3": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
+    "q7": _TOPK_OPS + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
+    "q13": ("ComputeExec", "HashAggregateExec") + _JOIN * 4 + ("HashJoinExec",)
+        + _SCAN * 2 + _BCAST * 4,
+    "q15": _TOPK_OPS + _JOIN * 2 + ("HashJoinExec",) + _SCAN + _BCAST + _SCAN +
+        _BCAST,
+    "q19": _TOPK_OPS + ("ComputeExec",) + _JOIN * 4 + ("HashJoinExec",) + _SCAN
+        + _BCAST + _SCAN + _BCAST * 3,
+    "q25": _TOPK_OPS + _JOIN * 6 + ("HashJoinExec",) + _SCAN * 2 + _BCAST +
+        _SCAN * 2 + _BCAST * 3,
+    "q26": _TOPK_OPS + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
+    "q29": _TOPK_OPS + _JOIN * 6 + ("HashJoinExec",) + _SCAN * 2 + _BCAST +
+        _SCAN * 2 + _BCAST * 3,
+    "q31": ("SortExec", "ComputeExec") + _JOIN * 3
+        + ("HashJoinExec", "HashJoinExec") + _SCAN + _BCAST * 5,
+    "q34": ("SortExec", "ComputeExec") + _JOIN + ("HashAggregateExec",) + _JOIN
+        * 2 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
+    "q42": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
+    "q43": _TOPK_OPS + ("ComputeExec",) + _JOIN + ("HashJoinExec",) + _SCAN * 2
+        + _BCAST,
+    "q46": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
+        "SortExec", "ComputeExec") + _JOIN + ("HashJoinExec",) + _SCAN + _BCAST
+        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
+        "ComputeExec") + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST *
+        3,
+    "q48": ("ComputeExec", "HashAggregateExec") + _JOIN * 3 + ("HashJoinExec",)
+        + _SCAN * 2 + _BCAST * 3,
+    "q50": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("HashJoinExec",) + _SCAN
+        * 2 + _BCAST + _SCAN + _BCAST,
+    "q52": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
+    "q55": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
+    "q59": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
+        "SortExec", "ComputeExec") + _JOIN * 2 + ("HashJoinExec",) + _SCAN +
+        _BCAST * 2 + ("BroadcastExchangeExec", "ComputeExec") + _JOIN +
+        ("HashJoinExec",) + _SCAN + _BCAST * 2,
+    "q62": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("HashJoinExec",) + _SCAN
+        * 2 + _BCAST * 3,
+    "q64": ("SortExec", "ComputeExec") + ("HashJoinExec",) + _SCAN + _BCAST,
+    "q65": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
+        "SortExec", "ComputeExec") + _JOIN * 2 + ("HashJoinExec",) + _SCAN +
+        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
+        "ComputeExec") + ("HashJoinExec",) + _SCAN + _BCAST * 2 +
+        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
+        "ComputeExec", "HashAggregateExec") + ("HashJoinExec",) + _SCAN +
+        _BCAST,
+    "q68": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
+        "SortExec", "ComputeExec") + _JOIN + ("HashJoinExec",) + _SCAN + _BCAST
+        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
+        "ComputeExec") + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST *
+        3,
+    "q73": ("SortExec", "ComputeExec") + _JOIN + ("HashAggregateExec",) + _JOIN
+        * 2 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
+    "q78": ("LimitExec", "LimitExec", "ComputeExec", "SortExec", "ComputeExec")
+        + _JOIN * 2 + ("HashAggregateExec",) + _JOIN + ("HashJoinExec",) +
+        _SCAN * 2 + _BCAST + ("BroadcastExchangeExec", "ComputeExec",
+        "HashAggregateExec") + _JOIN + ("HashJoinExec",) + _SCAN + _BCAST * 2 +
+        ("ComputeExec", "HashAggregateExec") + _JOIN + ("HashJoinExec",) +
+        _SCAN * 2 + _BCAST,
+    "q79": ("LimitExec", "LimitExec", "ComputeExec", "SortExec", "ComputeExec")
+        + _JOIN + ("HashAggregateExec", "ComputeExec") + _JOIN * 2 +
+        ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
+    "q85": _TOPK_OPS + _JOIN * 6 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 6,
+    "q93": _TOPK_OPS + ("ComputeExec",) + _JOIN + ("HashJoinExec",) + _SCAN * 2
+        + _BCAST,
+    "q96": _TOPK_OPS + _JOIN * 2 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 2,
+    "q99": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("HashJoinExec",) + _SCAN
+        * 2 + _BCAST * 3,
 }
 # the joins of each plan by kind, in the order of the tree
 TPCDS_JOINS = {
-    "q3": ("BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
-           "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)"),
-    "q7": ("BroadcastHashJoin[inner](ss_promo_sk=p_promo_sk)",
-           "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
-           "BroadcastHashJoin[inner](ss_cdemo_sk=cd_demo_sk)",
-           "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)"),
-    "q19": ("BroadcastHashJoin[inner](ss_store_sk=s_store_sk)",
-            "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
-            "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
-            "ShuffledHashJoin[inner](c_customer_sk=ss_customer_sk)",
-            "BroadcastHashJoin[inner](ca_address_sk=c_current_addr_sk)"),
+    "q3": (
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)",
+    ),
+    "q7": (
+        "BroadcastHashJoin[inner](ss_promo_sk=p_promo_sk)",
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "BroadcastHashJoin[inner](ss_cdemo_sk=cd_demo_sk)",
+        "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)",
+    ),
+    "q13": (
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](ss_cdemo_sk=cd_demo_sk)",
+        "BroadcastHashJoin[inner](ss_addr_sk=ca_address_sk)",
+        "BroadcastHashJoin[inner](ss_hdemo_sk=hd_demo_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q15": (
+        "BroadcastHashJoin[inner](cs_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](c_customer_sk=cs_bill_customer_sk)",
+        "BroadcastHashJoin[inner](ca_address_sk=c_current_addr_sk)",
+    ),
+    "q19": (
+        "BroadcastHashJoin[inner](ss_store_sk=s_store_sk)",
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](c_customer_sk=ss_customer_sk)",
+        "BroadcastHashJoin[inner](ca_address_sk=c_current_addr_sk)",
+    ),
+    "q25": (
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "BroadcastHashJoin[inner](sr_returned_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](cs_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](sr_customer_sk=cs_bill_customer_sk, "
+        "sr_item_sk=cs_item_sk)",
+        "ShuffledHashJoin[inner](ss_customer_sk=sr_customer_sk, "
+        "ss_item_sk=sr_item_sk, ss_ticket_number=sr_ticket_number)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q26": (
+        "BroadcastHashJoin[inner](cs_promo_sk=p_promo_sk)",
+        "BroadcastHashJoin[inner](cs_item_sk=i_item_sk)",
+        "BroadcastHashJoin[inner](cs_bill_cdemo_sk=cd_demo_sk)",
+        "ShuffledHashJoin[inner](d_date_sk=cs_sold_date_sk)",
+    ),
+    "q29": (
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "BroadcastHashJoin[inner](sr_returned_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](cs_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](sr_customer_sk=cs_bill_customer_sk, "
+        "sr_item_sk=cs_item_sk)",
+        "ShuffledHashJoin[inner](ss_customer_sk=sr_customer_sk, "
+        "ss_item_sk=sr_item_sk, ss_ticket_number=sr_ticket_number)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q31": (
+        "BroadcastHashJoin[inner](ca_county=ca_county)",
+        "BroadcastHashJoin[inner](ca_county=ca_county)",
+        "BroadcastHashJoin[inner](ca_county=ca_county)",
+        "BroadcastHashJoin[inner](ca_county=ca_county)",
+        "BroadcastHashJoin[inner](ca_county=ca_county)",
+    ),
+    "q34": (
+        "BroadcastHashJoin[inner](ss_customer_sk=c_customer_sk)",
+        "BroadcastHashJoin[inner](ss_hdemo_sk=hd_demo_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q42": (
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)",
+    ),
+    "q43": (
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q46": (
+        "BroadcastHashJoin[inner](c_customer_sk=ss_customer_sk)",
+        "BroadcastHashJoin[inner](ca_address_sk=c_current_addr_sk)",
+        "BroadcastHashJoin[inner](ss_addr_sk=ca_address_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](ss_hdemo_sk=hd_demo_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q48": (
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](ss_cdemo_sk=cd_demo_sk)",
+        "BroadcastHashJoin[inner](ss_addr_sk=ca_address_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q50": (
+        "BroadcastHashJoin[inner](sr_returned_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](ss_ticket_number=sr_ticket_number, "
+        "ss_item_sk=sr_item_sk, ss_customer_sk=sr_customer_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q52": (
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)",
+    ),
+    "q55": (
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "ShuffledHashJoin[inner](d_date_sk=ss_sold_date_sk)",
+    ),
+    "q59": (
+        "BroadcastHashJoin[inner](s_store_id1=s_store_id2, "
+        "d_week_seq1=__jkr_1)",
+        "BroadcastHashJoin[inner](d_week_seq=d_week_seq)",
+        "BroadcastHashJoin[inner](s_store_sk=ss_store_sk)",
+        "BroadcastHashJoin[inner](d_week_seq=d_week_seq)",
+        "BroadcastHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q62": (
+        "BroadcastHashJoin[inner](ws_ship_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](ws_web_site_sk=web_site_sk)",
+        "BroadcastHashJoin[inner](ws_ship_mode_sk=sm_ship_mode_sk)",
+        "ShuffledHashJoin[inner](w_warehouse_sk=ws_warehouse_sk)",
+    ),
+    "q64": (
+        "BroadcastHashJoin[inner](item_sk=item_sk, store_name=store_name, "
+        "store_zip=store_zip)",
+    ),
+    "q65": (
+        "BroadcastHashJoin[inner](ss_store_sk=ss_store_sk)",
+        "BroadcastHashJoin[inner](ss_item_sk=i_item_sk)",
+        "BroadcastHashJoin[inner](s_store_sk=ss_store_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+    ),
+    "q68": (
+        "BroadcastHashJoin[inner](c_customer_sk=ss_customer_sk)",
+        "BroadcastHashJoin[inner](ca_address_sk=c_current_addr_sk)",
+        "BroadcastHashJoin[inner](ss_addr_sk=ca_address_sk)",
+        "BroadcastHashJoin[inner](ss_hdemo_sk=hd_demo_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q73": (
+        "BroadcastHashJoin[inner](ss_customer_sk=c_customer_sk)",
+        "BroadcastHashJoin[inner](ss_hdemo_sk=hd_demo_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q78": (
+        "ShuffledHashJoin[left_outer](ss_sold_year=cs_sold_year, "
+        "ss_item_sk=cs_item_sk, ss_customer_sk=cs_customer_sk)",
+        "BroadcastHashJoin[left_outer](ss_sold_year=ws_sold_year, "
+        "ss_item_sk=ws_item_sk, ss_customer_sk=ws_customer_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[left_outer](ss_ticket_number=sr_ticket_number, "
+        "ss_item_sk=sr_item_sk)",
+        "BroadcastHashJoin[inner](ws_sold_date_sk=d_date_sk)",
+        "BroadcastHashJoin[left_outer](ws_order_number=wr_order_number, "
+        "ws_item_sk=wr_item_sk)",
+        "BroadcastHashJoin[inner](cs_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[left_outer](cs_order_number=cr_order_number, "
+        "cs_item_sk=cr_item_sk)",
+    ),
+    "q79": (
+        "BroadcastHashJoin[inner](ss_customer_sk=c_customer_sk)",
+        "BroadcastHashJoin[inner](ss_hdemo_sk=hd_demo_sk)",
+        "BroadcastHashJoin[inner](ss_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](s_store_sk=ss_store_sk)",
+    ),
+    "q85": (
+        "BroadcastHashJoin[inner](wr_reason_sk=r_reason_sk)",
+        "BroadcastHashJoin[inner](wr_refunded_addr_sk=ca_address_sk)",
+        "BroadcastHashJoin[inner](cd_marital_status=cd_marital_status, "
+        "cd_education_status=cd_education_status, "
+        "wr_returning_cdemo_sk=cd_demo_sk)",
+        "BroadcastHashJoin[inner](wr_refunded_cdemo_sk=cd_demo_sk)",
+        "BroadcastHashJoin[inner](ws_item_sk=wr_item_sk, "
+        "ws_order_number=wr_order_number)",
+        "BroadcastHashJoin[inner](ws_sold_date_sk=d_date_sk)",
+        "ShuffledHashJoin[inner](wp_web_page_sk=ws_web_page_sk)",
+    ),
+    "q93": (
+        "BroadcastHashJoin[inner](sr_reason_sk=r_reason_sk)",
+        "ShuffledHashJoin[left_outer](ss_item_sk=sr_item_sk, "
+        "ss_ticket_number=sr_ticket_number)",
+    ),
+    "q96": (
+        "BroadcastHashJoin[inner](ss_store_sk=s_store_sk)",
+        "BroadcastHashJoin[inner](ss_sold_time_sk=t_time_sk)",
+        "ShuffledHashJoin[inner](hd_demo_sk=ss_hdemo_sk)",
+    ),
+    "q99": (
+        "BroadcastHashJoin[inner](cs_ship_date_sk=d_date_sk)",
+        "BroadcastHashJoin[inner](cs_call_center_sk=cc_call_center_sk)",
+        "BroadcastHashJoin[inner](cs_ship_mode_sk=sm_ship_mode_sk)",
+        "ShuffledHashJoin[inner](w_warehouse_sk=cs_warehouse_sk)",
+    ),
 }
+TPCDS_QUERIES = tuple(TPCDS_PLAN_OPS)
+# the queries whose CTEs the session materialises (each body runs once,
+# inside session.sql, and is collected to the host), with the rows of each
+# materialised CTE at SF10, in definition order: they are the row counts
+# the join reorder and the broadcast choice of the rest of the plan read
+# (the tests plan both engines with them)
+TPCDS_CTE_ROWS = {"q31": {"ss": 2000, "ws": 2000}, "q59": {"wss": 26883},
+                  "q64": {"cross_sales": 6564}}
 
 
 def tiles(rows: int, tile: int) -> int:
@@ -322,16 +589,23 @@ def timed(row, launch, wrapper, plain, library) -> dict:
     return row
 
 
-def hist_row(torch, sk, label: str, k, m, buckets: int) -> dict:
+def hist_check(torch, sk, label: str, k, m, buckets: int) -> int:
     """partition_histogram on the card tensors `k` (int32 keys) and `m`
-    (bool mask) held against its plain version, the bare launch too, then
-    timed; fails on any difference."""
+    (bool mask) held against its plain version; fails on any difference.
+    Returns the max abs error (0)."""
     got = sk.partition_histogram(k, m, buckets)
     exp = sk.partition_histogram_plain(k, m, buckets)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
     if err != 0:
         fail(f"partition_histogram {label}: max abs err {err}")
+    return err
+
+
+def hist_row(torch, sk, label: str, k, m, buckets: int) -> dict:
+    """`hist_check`, the bare launch too, then timed."""
+    err = hist_check(torch, sk, label, k, m, buckets)
+    exp = sk.partition_histogram_plain(k, m, buckets)
     launch, bare = bare_launch(torch, sk, k, m, buckets)
     if not torch.equal(bare, exp):
         fail(f"partition_histogram {label}: the bare launch differs")
@@ -352,12 +626,13 @@ HIST_CALLERS = ("spark_tpu_torch.ops.grouping", "spark_tpu_torch.ops.partition",
                 "spark_tpu_torch.physical.operators")
 
 
-def path_histograms(torch, sk, label: str, df) -> list:
-    """Phase 3 at a path's own inputs: one more run of `df` keeps a copy of
+def path_histograms(torch, sk, label: str, run, timed_shapes=None) -> list:
+    """Phase 3 at a path's own inputs: one more `run()` keeps a copy of
     the inputs of each histogram call with a new (rows, buckets, live share
-    to 1%), then each copy is held against the plain version and timed as
-    the kernel phase's cases are. Outside the counted run: the copies sync
-    with the host."""
+    to 1%), then each copy is held against the plain version, and timed as
+    the kernel phase's cases are where its (rows, buckets) is not yet in
+    `timed_shapes` (a set shared by the paths that pass one; None times
+    every copy). Outside the counted run: the copies sync with the host."""
     import importlib
 
     mods = [importlib.import_module(name) for name in HIST_CALLERS]
@@ -376,13 +651,22 @@ def path_histograms(torch, sk, label: str, df) -> list:
     for mod in mods:
         mod.partition_histogram = keep
     try:
-        df.toArrow()
+        run()
     finally:
         for mod in mods:
             mod.partition_histogram = sk.partition_histogram
-    return [hist_row(torch, sk,
-                     f"{label}: {k.shape[0]:,} rows, P={p:,}, {live:,} live",
-                     k, m, p) for k, m, p, live in inputs]
+    rows = []
+    for k, m, p, live in inputs:
+        shape = f"{label}: {k.shape[0]:,} rows, P={p:,}, {live:,} live"
+        if timed_shapes is None or (k.shape[0], p) not in timed_shapes:
+            if timed_shapes is not None:
+                timed_shapes.add((k.shape[0], p))
+            rows.append(hist_row(torch, sk, shape, k, m, p))
+        else:
+            hist_check(torch, sk, shape, k, m, p)
+    print(f"{label}: the histogram equals its plain version at "
+          f"{len(inputs)} path inputs ({len(rows)} timed)", flush=True)
+    return rows
 
 
 def check_kernels(torch, sk):
@@ -478,13 +762,17 @@ def check_kernels(torch, sk):
 
 
 def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
-          histograms: int, check) -> dict:
+          histograms, check, run=None, timed_shapes=None) -> dict:
     """One path through the DataFrame API: assert the physical plan holds
     each of `plan_parts`, run it cold with the launch counts set to 0 just
     before and read just after (the histogram wrapper must count exactly
-    `histograms` calls), hold the result to the oracle `check(table)`, then
-    time 3 warm runs, print the breakdown, and hold the histogram kernel at
-    the path's own inputs (`path_histograms`). Returns the launch counts."""
+    `histograms` calls, or at least one where `histograms` is None), hold
+    the result to the oracle `check(table)`, then time 3 warm runs, print
+    the breakdown, and hold the histogram kernel at the path's own inputs
+    (`path_histograms`). `run()` runs the path and returns its Arrow table
+    (default: `df.toArrow`, over the plan made once). Returns the launch
+    counts."""
+    run = run or df.toArrow
     plan = df.query_execution.physical.tree_string()
     print(f"{label} plan:\n{plan}", flush=True)
     for part in plan_parts:
@@ -494,33 +782,33 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     torch.cuda.synchronize()
     sk.reset_launch_counts()
     t0 = time.perf_counter()
-    out = df.toArrow()
+    out = run()
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
+    calls = launches["partition_histogram"]
     print(f"{label} launches {json.dumps(launches)}; operator dispatches "
           f"{json.dumps(df.session.launches.snapshot())}", flush=True)
-    if launches["partition_histogram"] != histograms:
-        fail(f"{label} launched the histogram kernel "
-             f"{launches['partition_histogram']} times, not {histograms}")
+    if calls != histograms and (histograms is not None or calls < 1):
+        fail(f"{label} launched the histogram kernel {calls} times, not "
+             f"{'at least 1' if histograms is None else histograms}")
     print(f"{label}: {check(out)}", flush=True)
 
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
-        df.toArrow()
+        run()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     warm_s = statistics.median(warm)
     timing = {"rows": rows, "cold_s": cold_s, "warm_median_s": warm_s,
               "warm_s": warm, "cold_rows_per_s": rows / cold_s,
               "warm_rows_per_s": rows / warm_s,
-              "histogram_calls": launches["partition_histogram"],
-              "card": card}
+              "histogram_calls": calls, "card": card}
     print(f"{label} timing " + json.dumps(timing), flush=True)
     print(f"{label} breakdown " + json.dumps(breakdown(torch, df)),
           flush=True)
-    path_histograms(torch, sk, label, df)
+    path_histograms(torch, sk, label, run, timed_shapes)
     return launches
 
 
@@ -807,9 +1095,11 @@ def q78_leg(torch, sk, card: str) -> dict:
 
 # --- the tpcds leg ---------------------------------------------------------
 
-def tpcds_calls(query: str) -> int:
-    """Histogram wrapper calls of one tpcds query at SF10, derived from its
-    plan (TPCDS_PLAN_OPS) and tile counts as leg_calls is. Every scan is
+def tpcds_calls(query: str) -> int | None:
+    """Histogram wrapper calls of q3, q7 and q19 at SF10, derived from
+    their plans (TPCDS_PLAN_OPS) and tile counts as leg_calls is; None for
+    the other queries, whose plans all hold a join build that takes at
+    least one (drive then asserts one or more). Every scan is
     one partition and no exchange below the aggregate splits it, so each
     join and the aggregate run once, on one batch: the probe side of the
     shuffled join (a dimension, one tile) yields one batch. Each join's
@@ -829,7 +1119,7 @@ def tpcds_calls(query: str) -> int:
         # customer (addresses repeat), store_sales (customers repeat),
         # date_dim, item, store
         "q19": 1 + 1 + 3,
-    }[query]
+    }.get(query)
 
 
 def tpcds_datagen():
@@ -845,30 +1135,73 @@ def tpcds_datagen():
     return mod
 
 
-def _decimal_column(pa, cents):
-    """decimal(7,2) Arrow array from int64 unscaled values: each value a
-    16-byte little-endian word (sign-extended), no per-value objects."""
+def _decimal_column(pa, cents, precision: int = 7, scale: int = 2):
+    """decimal(precision, scale) Arrow array from int64 unscaled values:
+    each value a 16-byte little-endian word (sign-extended), no per-value
+    objects."""
     import numpy as np
 
     words = np.empty((len(cents), 2), dtype=np.int64)
     words[:, 0] = cents
     words[:, 1] = cents >> 63
-    return pa.Array.from_buffers(pa.decimal128(7, 2), len(cents),
+    return pa.Array.from_buffers(pa.decimal128(precision, scale), len(cents),
                                  [None, pa.py_buffer(words.tobytes())])
 
 
-def _nullable(pa, values, null_mask):
+def _int_column(pa, values, null_mask=None):
     return pa.array(values.astype("int32"), pa.int32(), mask=null_mask)
 
 
+def _line_prices(rng, n):
+    """Per-line quantity and prices in cents, as datagen derives them:
+    list = wholesale x U(1, 2), sales = list x U(0.3, 1), the extended
+    amounts quantity times the unit prices, a 20% coupon on 10% of lines,
+    net profit = extended sales - coupon - extended wholesale."""
+    import numpy as np
+
+    qty = rng.integers(1, 100, n)
+    whole = rng.integers(100, 10000, n)
+    list_c = np.rint(whole * rng.uniform(1.0, 2.0, n)).astype(np.int64)
+    sales = np.rint(list_c * rng.uniform(0.3, 1.0, n)).astype(np.int64)
+    ext_sales = qty * sales
+    coupon = np.where(rng.random(n) < 0.1,
+                      np.rint(ext_sales * 0.2).astype(np.int64), 0)
+    return {"quantity": qty, "wholesale_cost": whole, "list_price": list_c,
+            "sales_price": sales, "ext_sales_price": ext_sales,
+            "ext_wholesale_cost": qty * whole, "ext_list_price": qty * list_c,
+            "ext_tax": np.rint(ext_sales * 0.05).astype(np.int64),
+            "coupon_amt": coupon,
+            "net_profit": ext_sales - coupon - qty * whole}
+
+
+def _groups(rng, n, lo, hi):
+    """Group index of each of n rows, groups of uniform size in [lo, hi]
+    (tickets of line items, catalog and web orders); and the group
+    count."""
+    import numpy as np
+
+    sizes = rng.integers(lo, hi + 1, n // lo + 1)
+    count = int(np.searchsorted(np.cumsum(sizes), n)) + 1
+    return np.repeat(np.arange(count), sizes[:count])[:n], count
+
+
 def tpcds_data(scale: float = 1.0, seed: int = 10):
-    """The eight tables of q3, q7 and q19 at TPCDS_ROWS times `scale`, the
-    columns the queries read (names and types of tests/tpcds/schema.json),
-    built vectorised from numpy (seed `seed`): surrogate keys dense from 1
-    (date_dim: the TPC-DS julian keys of 1900-01-02 on), strings taken from
-    tests/tpcds/datagen.py's pools by index, prices as int64 cents into
-    decimal(7,2). Returns ({name: pyarrow.Table}, {name: numpy arrays} for
-    the oracle)."""
+    """The 21 tables the tpcds queries read, the columns they read (names
+    and types of tests/tpcds/schema.json), at TPCDS_ROWS with the facts,
+    item, customer and customer_address times `scale`; built vectorised
+    from numpy (seed `seed`): surrogate keys dense from 1 (date_dim: the
+    TPC-DS julian keys of 1900-01-02 on; time_dim: seconds of the day),
+    strings taken from tests/tpcds/datagen.py's pools by index, amounts as
+    int64 cents into decimal(7,2). Tickets hold 1 to 20 line items that
+    share date, time, customer, demographics, address and store; catalog
+    and web orders 1 to 9. Returns are 10% samples of their sales lines,
+    returned 1 to 150 days later. The channels share what the cross-channel
+    queries join on: a third of the store returns' (customer, item) pairs
+    buy again from the catalog within 120 days (q25, q29), and store
+    sales lines as many as 5% of the catalog's repeat (customer, item,
+    date) in the catalog, half of them on the web too (q78). Returns
+    ({name: pyarrow.Table}, {name: numpy arrays} for the numpy oracles of
+    q3, q7 and q19)."""
     import datetime
 
     import numpy as np
@@ -876,18 +1209,36 @@ def tpcds_data(scale: float = 1.0, seed: int = 10):
 
     G = tpcds_datagen()
     rng = np.random.default_rng(seed)
-    n = {k: max(1, int(v * scale)) for k, v in TPCDS_ROWS.items()}
-    n["customer_demographics"] = TPCDS_ROWS["customer_demographics"]
-    n["date_dim"] = TPCDS_ROWS["date_dim"]
+    n = dict(TPCDS_ROWS)
+    for k in ("store_sales", "store_returns", "catalog_sales",
+              "catalog_returns", "web_sales", "web_returns", "item",
+              "customer", "customer_address"):
+        n[k] = max(1, int(n[k] * scale))
     strs = lambda vals: pa.array(list(vals), pa.string())  # noqa: E731
+    pick = lambda pool, codes: strs(pool).take(pa.array(codes))  # noqa: E731
+    dec = lambda c: _decimal_column(pa, c)  # noqa: E731
 
-    # date_dim: 1900-01-02 .. 2100-01-01
+    def nulls(size, frac=0.02):
+        return rng.random(size) < frac
+
+    # date_dim: 1900-01-02 .. 2100-01-01; time_dim: one row per second
     dsk0 = G._dsk(datetime.date(1900, 1, 2))
-    days = np.datetime64("1900-01-02") + np.arange(n["date_dim"])
+    nd = n["date_dim"]
+    days = np.datetime64("1900-01-02") + np.arange(nd)
     d_year = days.astype("datetime64[Y]").astype(np.int64) + 1970
     d_moy = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
-    dd = {"d_date_sk": dsk0 + np.arange(n["date_dim"]), "d_year": d_year,
-          "d_moy": d_moy}
+    weekday = (days.astype(np.int64) + 3) % 7          # Monday 0
+    dd = {"d_date_sk": dsk0 + np.arange(nd), "d_year": d_year,
+          "d_moy": d_moy,
+          "d_dom": (days - days.astype("datetime64[M]")).astype(np.int64)
+          + 1,
+          "d_dow": (weekday + 1) % 7,                  # Sunday 0
+          "d_qoy": (d_moy - 1) // 3 + 1,
+          "d_month_seq": (d_year - 1900) * 12 + d_moy - 1,
+          "d_week_seq": (np.arange(nd) + 1) // 7 + 1}
+    day_names = ("Monday", "Tuesday", "Wednesday", "Thursday", "Friday",
+                 "Saturday", "Sunday")
+    t_sk = np.arange(n["time_dim"])
 
     # item: i_item_id spans several sks (datagen: 75% as many ids), pools
     ni = n["item"]
@@ -896,6 +1247,8 @@ def tpcds_data(scale: float = 1.0, seed: int = 10):
     manufact_ids = np.array([128, 129, 350, 677, 738, 977]
                             + list(range(1, 1000, 7)))
     manufact_pool = strs(f"manufact{i}" for i in range(100))
+    cat = rng.integers(0, len(G.CATEGORIES), ni)
+    price = rng.integers(50, 30000, ni)
     item = {"i_item_sk": np.arange(1, ni + 1),
             "i_item_id": np.arange(ni) % n_ids,
             "i_brand_id": rng.integers(1001001, 10016017, ni),
@@ -908,10 +1261,14 @@ def tpcds_data(scale: float = 1.0, seed: int = 10):
     # customer_address, customer, store, promotion
     na, nc, ns, npr = (n["customer_address"], n["customer"], n["store"],
                        n["promotion"])
+    ncd, nhd = n["customer_demographics"], n["household_demographics"]
+    counties = G.CA_COUNTIES + [f"County {i}" for i in range(85)]
     ca = {"ca_address_sk": np.arange(1, na + 1),
           "ca_zip": rng.integers(10000, 99999, na)}
     cust = {"c_customer_sk": np.arange(1, nc + 1),
             "c_current_addr_sk": rng.integers(1, na + 1, nc)}
+    first_sale = rng.integers(G._dsk(datetime.date(1998, 1, 1)),
+                              G._dsk(datetime.date(2001, 1, 1)), nc)
     store = {"s_store_sk": np.arange(1, ns + 1),
              "s_zip": 38000 + np.arange(ns)}
     promo = {"p_promo_sk": np.arange(1, npr + 1),
@@ -921,82 +1278,276 @@ def tpcds_data(scale: float = 1.0, seed: int = 10):
 
     # customer_demographics: the specification's full cross product,
     # gender x marital x education x 20 x 4 x 7 x 7 x 7
-    ncd = n["customer_demographics"]
     idx = np.arange(ncd)
     cd = {"cd_demo_sk": idx + 1, "cd_gender": idx % 2,
           "cd_marital_status": (idx // 2) % len(G.MARITAL),
           "cd_education_status": (idx // 10) % len(G.EDUCATION)}
+    # household_demographics: income band x buy potential x dependants
+    # (0-9) x vehicles (-1 to 4), the specification's 7,200 rows
+    hidx = np.arange(nhd)
 
-    # store_sales: line items of orders (datagen's shape), 2% null keys,
-    # 30% null promotions, prices in cents
+    # store_sales: tickets of 1-20 line items, 2% null keys, 30% null
+    # promotions, amounts in cents
     nss = n["store_sales"]
-    n_orders = max(1, nss // 4)
-    oi = rng.integers(0, n_orders, nss)
+    tk, n_tickets = _groups(rng, nss, 1, 20)
     lo = G._dsk(datetime.date(1998, 1, 2))
     hi = G._dsk(datetime.date(2002, 12, 30))
-    qty = rng.integers(1, 100, nss)
-    list_c = rng.integers(100, 20000, nss)
-    sales_c = np.rint(list_c * rng.uniform(0.3, 1.0, nss)).astype(np.int64)
-    ext_c = qty * sales_c
-    coupon_c = np.where(rng.random(nss) < 0.1,
-                        np.rint(ext_c * 0.2).astype(np.int64), 0)
-    ss = {"ss_sold_date_sk": rng.integers(lo, hi, n_orders)[oi],
+    ss = {"ss_sold_date_sk": rng.integers(lo, hi, n_tickets)[tk],
+          "ss_sold_time_sk": rng.integers(0, n["time_dim"], n_tickets)[tk],
           "ss_item_sk": rng.integers(1, ni + 1, nss),
-          "ss_customer_sk": rng.integers(1, nc + 1, n_orders)[oi],
-          "ss_cdemo_sk": rng.integers(1, ncd + 1, n_orders)[oi],
-          "ss_store_sk": rng.integers(1, ns + 1, n_orders)[oi],
+          "ss_customer_sk": rng.integers(1, nc + 1, n_tickets)[tk],
+          "ss_cdemo_sk": rng.integers(1, ncd + 1, n_tickets)[tk],
+          "ss_hdemo_sk": rng.integers(1, nhd + 1, n_tickets)[tk],
+          "ss_addr_sk": rng.integers(1, na + 1, n_tickets)[tk],
+          "ss_store_sk": rng.integers(1, ns + 1, n_tickets)[tk],
           "ss_promo_sk": rng.integers(1, npr + 1, nss),
-          "ss_quantity": qty, "ss_list_price": list_c,
-          "ss_sales_price": sales_c, "ss_ext_sales_price": ext_c,
-          "ss_coupon_amt": coupon_c}
-    nulls = {c: rng.random(nss) < (0.3 if c == "ss_promo_sk" else 0.02)
-             for c in ("ss_sold_date_sk", "ss_customer_sk", "ss_cdemo_sk",
-                       "ss_store_sk", "ss_promo_sk")}
+          "ss_ticket_number": tk + 1}
+    ss.update({f"ss_{k}": v for k, v in _line_prices(rng, nss).items()})
+    ss_null = {c: nulls(nss, 0.3 if c == "ss_promo_sk" else 0.02)
+               for c in ("ss_sold_date_sk", "ss_sold_time_sk",
+                         "ss_customer_sk", "ss_cdemo_sk", "ss_hdemo_sk",
+                         "ss_addr_sk", "ss_store_sk", "ss_promo_sk")}
+    sold = np.where(ss_null["ss_sold_date_sk"],
+                    G._dsk(datetime.date(2000, 1, 1)), ss["ss_sold_date_sk"])
 
-    i32 = lambda a: pa.array(a.astype(np.int32), pa.int32())  # noqa: E731
-    tables = {
-        "date_dim": pa.table({k: i32(v) for k, v in dd.items()}),
-        "item": pa.table({
-            "i_item_sk": i32(item["i_item_sk"]),
-            "i_item_id": id_pool.take(pa.array(item["i_item_id"])),
-            "i_brand_id": i32(item["i_brand_id"]),
-            "i_brand": strs(G.BRANDS).take(pa.array(item["i_brand"])),
-            "i_manufact_id": i32(item["i_manufact_id"]),
-            "i_manufact": manufact_pool.take(pa.array(item["i_manufact"])),
-            "i_manager_id": i32(item["i_manager_id"])}),
-        "customer_address": pa.table({
-            "ca_address_sk": i32(ca["ca_address_sk"]),
-            "ca_zip": strs(f"{z:05d}" for z in range(10000, 99999)).take(
-                pa.array(ca["ca_zip"] - 10000))}),
-        "customer": pa.table({k: i32(v) for k, v in cust.items()}),
-        "store": pa.table({"s_store_sk": i32(store["s_store_sk"]),
-                           "s_zip": strs(str(z) for z in store["s_zip"])}),
-        "promotion": pa.table({
-            "p_promo_sk": i32(promo["p_promo_sk"]),
-            "p_channel_email": strs("NY").take(
-                pa.array(promo["p_channel_email"])),
-            "p_channel_event": strs("NY").take(
-                pa.array(promo["p_channel_event"]))}),
-        "customer_demographics": pa.table({
-            "cd_demo_sk": i32(cd["cd_demo_sk"]),
-            "cd_gender": strs("MF").take(pa.array(cd["cd_gender"])),
-            "cd_marital_status": strs(G.MARITAL).take(
-                pa.array(cd["cd_marital_status"])),
-            "cd_education_status": strs(G.EDUCATION).take(
-                pa.array(cd["cd_education_status"]))}),
-        "store_sales": pa.table({
-            **{c: (_nullable(pa, ss[c], nulls[c]) if c in nulls
-                   else i32(ss[c]))
-               for c in ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
-                         "ss_cdemo_sk", "ss_store_sk", "ss_promo_sk",
-                         "ss_quantity")},
-            **{c: _decimal_column(pa, ss[c])
-               for c in ("ss_list_price", "ss_sales_price",
-                         "ss_ext_sales_price", "ss_coupon_amt")}}),
-    }
+    # store_returns: a 10% sample of the lines
+    r = np.sort(rng.permutation(nss)[:n["store_returns"]])
+    nsr = len(r)
+    rqty = np.maximum(1, (ss["ss_quantity"][r] * rng.uniform(0.2, 1.0, nsr))
+                      .astype(np.int64))
+    sr_date = sold[r] + rng.integers(1, 151, nsr)
+    sr = {"sr_returned_date_sk": sr_date, "sr_item_sk": ss["ss_item_sk"][r],
+          "sr_customer_sk": ss["ss_customer_sk"][r],
+          "sr_ticket_number": ss["ss_ticket_number"][r],
+          "sr_return_quantity": rqty,
+          "sr_net_loss": np.rint(rqty * ss["ss_sales_price"][r] * 0.5)
+          .astype(np.int64) + rng.integers(50, 10000, nsr),
+          "sr_reason_sk": rng.integers(1, n["reason"] + 1, nsr)}
+    sr_null = {"sr_returned_date_sk": nulls(nsr),
+               "sr_customer_sk": ss_null["ss_customer_sk"][r],
+               "sr_reason_sk": nulls(nsr)}
+
+    # lines shared across channels: store sales lines the catalog and the
+    # web repeat (q78), store returns the catalog sells again (q25, q29)
+    shared = rng.choice(nss, n["catalog_sales"] // 20, replace=False)
+    again = rng.choice(nsr, nsr // 3, replace=False)
+
+    def channel(prefix, rows, shares, extra):
+        """catalog or web sales: orders of 1-9 lines; the first lines
+        repeat (customer, item, date) of each `shares` block."""
+        o, n_orders = _groups(rng, rows, 1, 9)
+        out = {f"{prefix}_sold_date_sk": rng.integers(lo, hi, n_orders)[o],
+               f"{prefix}_item_sk": rng.integers(1, ni + 1, rows),
+               f"{prefix}_bill_customer_sk":
+               rng.integers(1, nc + 1, n_orders)[o],
+               f"{prefix}_order_number": o + 1,
+               f"{prefix}_ship_mode_sk": rng.integers(
+                   1, n["ship_mode"] + 1, rows),
+               f"{prefix}_warehouse_sk": rng.integers(
+                   1, n["warehouse"] + 1, rows)}
+        start = 0
+        for cust_s, item_s, date_s in shares:
+            k = min(len(cust_s), rows - start)
+            for col, v in (("bill_customer_sk", cust_s), ("item_sk", item_s),
+                           ("sold_date_sk", date_s)):
+                out[f"{prefix}_{col}"][start:start + k] = v[:k]
+            start += k
+        out[f"{prefix}_ship_date_sk"] = out[f"{prefix}_sold_date_sk"] + \
+            rng.integers(1, 151, rows)
+        out.update({f"{prefix}_{k}": v
+                    for k, v in _line_prices(rng, rows).items()})
+        out.update(extra(o, n_orders, rows))
+        return out
+
+    ss_repeat = (ss["ss_customer_sk"][shared], ss["ss_item_sk"][shared],
+                 sold[shared])
+    cs = channel("cs", n["catalog_sales"], [
+        ss_repeat,
+        (sr["sr_customer_sk"][again], sr["sr_item_sk"][again],
+         sold[r][again] + rng.integers(0, 121, len(again)))],
+        lambda o, no, rows: {
+            "cs_bill_cdemo_sk": rng.integers(1, ncd + 1, no)[o],
+            "cs_call_center_sk": rng.integers(
+                1, n["call_center"] + 1, no)[o],
+            "cs_promo_sk": rng.integers(1, npr + 1, rows)})
+    ws = channel("ws", n["web_sales"],
+                 [tuple(v[:len(shared) // 2] for v in ss_repeat)],
+                 lambda o, no, rows: {
+                     "ws_bill_addr_sk": rng.integers(1, na + 1, no)[o],
+                     "ws_web_page_sk": rng.integers(
+                         1, n["web_page"] + 1, rows),
+                     "ws_web_site_sk": rng.integers(
+                         1, n["web_site"] + 1, rows)})
+    ncs, nws = n["catalog_sales"], n["web_sales"]
+    cs_null = {c: nulls(ncs, 0.3 if c == "cs_promo_sk" else 0.02)
+               for c in ("cs_sold_date_sk", "cs_ship_date_sk",
+                         "cs_bill_customer_sk", "cs_bill_cdemo_sk",
+                         "cs_call_center_sk", "cs_ship_mode_sk",
+                         "cs_warehouse_sk", "cs_promo_sk")}
+    ws_null = {c: nulls(nws)
+               for c in ("ws_sold_date_sk", "ws_ship_date_sk",
+                         "ws_bill_customer_sk", "ws_bill_addr_sk",
+                         "ws_ship_mode_sk", "ws_warehouse_sk",
+                         "ws_web_page_sk", "ws_web_site_sk")}
+
+    def returns(sales, prefix, rows):
+        """A 10% sample of the sales lines and each return's amount."""
+        s = np.sort(rng.permutation(len(sales[f"{prefix}_item_sk"]))[:rows])
+        q = np.maximum(1, (sales[f"{prefix}_quantity"][s]
+                           * rng.uniform(0.2, 1.0, len(s))).astype(np.int64))
+        return s, q * sales[f"{prefix}_sales_price"][s]
+
+    c_s, c_amt = returns(cs, "cs", n["catalog_returns"])
+    cr = {"cr_item_sk": cs["cs_item_sk"][c_s],
+          "cr_order_number": cs["cs_order_number"][c_s],
+          "cr_refunded_cash": np.rint(c_amt * 0.7).astype(np.int64),
+          "cr_reversed_charge": np.rint(c_amt * 0.2).astype(np.int64),
+          "cr_store_credit": np.rint(c_amt * 0.1).astype(np.int64)}
+    w_s, w_amt = returns(ws, "ws", n["web_returns"])
+    nwr = len(w_s)
+    refunded = rng.integers(1, ncd + 1, nwr)
+    wr = {"wr_item_sk": ws["ws_item_sk"][w_s],
+          "wr_order_number": ws["ws_order_number"][w_s],
+          "wr_refunded_cdemo_sk": refunded,
+          # the returning customer is the refunded one 85% of the time
+          "wr_returning_cdemo_sk": np.where(rng.random(nwr) < 0.85, refunded,
+                                            rng.integers(1, ncd + 1, nwr)),
+          "wr_refunded_addr_sk": rng.integers(1, na + 1, nwr),
+          "wr_reason_sk": rng.integers(1, n["reason"] + 1, nwr),
+          "wr_refunded_cash": np.rint(w_amt * 0.7).astype(np.int64),
+          "wr_fee": rng.integers(50, 10000, nwr)}
+
+    def ints(cols, null_masks=None):
+        null_masks = null_masks or {}
+        return {k: _int_column(pa, v, null_masks.get(k))
+                for k, v in cols.items()}
+
+    def decs(cols):
+        return {k: dec(v) for k, v in cols.items()}
+
+    def split(cols, decimal_names):
+        return ({k: v for k, v in cols.items()
+                 if k.split("_", 1)[1] not in decimal_names},
+                {k: v for k, v in cols.items()
+                 if k.split("_", 1)[1] in decimal_names})
+
+    money = ("wholesale_cost", "list_price", "sales_price", "ext_sales_price",
+             "ext_wholesale_cost", "ext_list_price", "ext_tax", "coupon_amt",
+             "net_profit", "net_loss", "refunded_cash", "reversed_charge",
+             "store_credit", "fee")
+    tables = {}
+    for name, cols, masks in (("store_sales", ss, ss_null),
+                              ("store_returns", sr, sr_null),
+                              ("catalog_sales", cs, cs_null),
+                              ("catalog_returns", cr, {}),
+                              ("web_sales", ws, ws_null),
+                              ("web_returns", wr, {})):
+        keys, amounts = split(cols, money)
+        tables[name] = pa.table({**ints(keys, masks), **decs(amounts)})
+    tables["date_dim"] = pa.table({
+        **ints(dd), "d_day_name": pick(day_names, weekday)})
+    tables["time_dim"] = pa.table(ints({
+        "t_time_sk": t_sk, "t_hour": t_sk // 3600,
+        "t_minute": (t_sk // 60) % 60}))
+    tables["item"] = pa.table({
+        **ints({k: item[k] for k in ("i_item_sk", "i_brand_id",
+                                     "i_manufact_id", "i_manager_id")}),
+        "i_item_id": id_pool.take(pa.array(item["i_item_id"])),
+        "i_brand": pick(G.BRANDS, item["i_brand"]),
+        "i_manufact": manufact_pool.take(pa.array(item["i_manufact"])),
+        "i_item_desc": strs(f"item description {i}" for i in range(ni)),
+        "i_product_name": strs(f"product{i}" for i in range(ni)),
+        "i_category_id": _int_column(pa, cat + 1),
+        "i_category": pick(G.CATEGORIES, cat),
+        "i_color": pick(G.COLORS, rng.integers(0, len(G.COLORS), ni)),
+        "i_current_price": dec(price),
+        "i_wholesale_cost": dec(np.rint(price * 0.6).astype(np.int64))})
+    tables["customer_address"] = pa.table({
+        "ca_address_sk": _int_column(pa, ca["ca_address_sk"]),
+        "ca_zip": strs(f"{z:05d}" for z in range(10000, 99999)).take(
+            pa.array(ca["ca_zip"] - 10000)),
+        "ca_street_number": pick([str(i) for i in range(1, 1000)],
+                                 rng.integers(0, 999, na)),
+        "ca_street_name": pick(G.STREET_NAMES,
+                               rng.integers(0, len(G.STREET_NAMES), na)),
+        "ca_city": pick(G.CA_CITIES, rng.integers(0, len(G.CA_CITIES), na)),
+        "ca_county": pick(counties, rng.integers(0, len(counties), na)),
+        "ca_state": pick(G.CA_STATES, rng.integers(0, len(G.CA_STATES), na)),
+        "ca_country": pick(["United States"], np.zeros(na, np.int64))})
+
+    def names(pool, size):
+        return pa.array(np.array(pool, dtype=object)[
+            rng.integers(0, len(pool), size)], pa.string(),
+            mask=nulls(size))
+
+    tables["customer"] = pa.table({
+        **ints(cust),
+        "c_current_cdemo_sk": _int_column(pa, rng.integers(1, ncd + 1, nc),
+                                          nulls(nc)),
+        "c_current_hdemo_sk": _int_column(pa, rng.integers(1, nhd + 1, nc),
+                                          nulls(nc)),
+        "c_first_sales_date_sk": _int_column(pa, first_sale),
+        "c_first_shipto_date_sk": _int_column(pa, first_sale + 30),
+        "c_salutation": names(["Mr.", "Mrs.", "Ms.", "Dr.", "Miss", "Sir"],
+                              nc),
+        "c_first_name": names(G.FIRST_NAMES, nc),
+        "c_last_name": names(G.LAST_NAMES, nc),
+        "c_preferred_cust_flag": names(["Y", "N"], nc)})
+    si = np.arange(ns)
+    tables["store"] = pa.table({
+        "s_store_sk": _int_column(pa, store["s_store_sk"]),
+        "s_zip": strs(str(z) for z in store["s_zip"]),
+        "s_store_id": strs(f"AAAAAAAA{i % max(1, ns // 2):08d}" for i in si),
+        "s_store_name": pick(G.STORE_NAMES, si % len(G.STORE_NAMES)),
+        "s_company_id": _int_column(pa, np.ones(ns, np.int64)),
+        "s_street_number": strs(str(i * 10 + 1) for i in si),
+        "s_street_name": pick(G.STREET_NAMES, si % len(G.STREET_NAMES)),
+        "s_street_type": pick(G.STREET_TYPES, si % len(G.STREET_TYPES)),
+        "s_suite_number": strs(f"Suite {i}" for i in si),
+        "s_city": pick(["Fairview"] * 6 + ["Midway"] * 3 + ["Salem"],
+                       si % 10),
+        "s_county": pick(["Franklin Parish", "Williamson County"],
+                         ((si + 1) % 8 != 0).astype(np.int64)),
+        "s_state": pick(["TN"], np.zeros(ns, np.int64)),
+        "s_gmt_offset": _decimal_column(pa, np.full(ns, -500), 5, 2),
+        "s_number_employees": _int_column(pa, rng.integers(200, 301, ns))})
+    tables["promotion"] = pa.table({
+        "p_promo_sk": _int_column(pa, promo["p_promo_sk"]),
+        "p_channel_email": pick("NY", promo["p_channel_email"]),
+        "p_channel_event": pick("NY", promo["p_channel_event"])})
+    tables["customer_demographics"] = pa.table({
+        "cd_demo_sk": _int_column(pa, cd["cd_demo_sk"]),
+        "cd_gender": pick("MF", cd["cd_gender"]),
+        "cd_marital_status": pick(G.MARITAL, cd["cd_marital_status"]),
+        "cd_education_status": pick(G.EDUCATION,
+                                    cd["cd_education_status"])})
+    tables["household_demographics"] = pa.table({
+        **ints({"hd_demo_sk": hidx + 1,
+                "hd_income_band_sk": hidx // 360 + 1,
+                "hd_dep_count": (hidx // 6) % 10,
+                "hd_vehicle_count": hidx % 6 - 1}),
+        "hd_buy_potential": pick(G.BUY_POTENTIAL, (hidx // 60) % 6)})
+    tables["income_band"] = pa.table(ints({
+        "ib_income_band_sk": np.arange(1, n["income_band"] + 1)}))
+    for name, sk, label, fmt in (
+            ("ship_mode", "sm_ship_mode_sk", "sm_type", None),
+            ("warehouse", "w_warehouse_sk", "w_warehouse_name",
+             "Warehouse number {} of the west"),
+            ("web_site", "web_site_sk", "web_name", "site_{}"),
+            ("call_center", "cc_call_center_sk", "cc_name",
+             "call center {}"),
+            ("reason", "r_reason_sk", "r_reason_desc", "reason {}")):
+        k = np.arange(1, n[name] + 1)
+        labels = pick(G.SM_TYPES, (k - 1) % len(G.SM_TYPES)) \
+            if fmt is None else strs(fmt.format(i) for i in k)
+        tables[name] = pa.table({sk: _int_column(pa, k), label: labels})
+    tables["web_page"] = pa.table(ints({
+        "wp_web_page_sk": np.arange(1, n["web_page"] + 1)}))
+    assert set(tables) == set(TPCDS_ROWS)
+
     arrays = {"dd": dd, "dsk0": dsk0, "item": item, "ca": ca, "cust": cust,
               "store": store, "promo": promo, "cd": cd, "ss": ss,
-              "nulls": nulls, "id_pool": id_pool.to_pylist(),
+              "nulls": ss_null, "id_pool": id_pool.to_pylist(),
               "manufact_pool": manufact_pool.to_pylist(), "datagen": G}
     return tables, arrays
 
@@ -1121,10 +1672,92 @@ def tpcds_rows(query: str, out) -> list:
     return rows
 
 
-def tpcds_leg(torch, sk, card: str) -> dict:
-    """bench.py's bench_tpcds (BASELINE config 4): TPC-DS q3, q7 and q19
-    from their files through session.sql at SF10 row counts. Returns the
-    launch counts by query."""
+def tpcds_text(query: str) -> str:
+    return open(os.path.join(ROOT, "tests", "tpcds", "queries",
+                             f"{query}.sql")).read()
+
+
+def tpcds_golden_oracle():
+    """tests/tpcds/oracle.py (the goldens' comparison), loaded from its
+    path as tpcds_datagen is."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tpcds_oracle", os.path.join(ROOT, "tests", "tpcds", "oracle.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tpcds_gate(torch) -> None:
+    """Every tpcds query on the card over tests/tpcds/datagen.py's tables
+    at scale 0.1 (the tests' conf: 2^10-row tiles, 4 partitions): as
+    written, equal to a TorchSession(device="cpu") run row for row; with
+    its trailing LIMIT dropped, equal to its committed golden under
+    tests/tpcds/oracle.py's comparison."""
+    from spark_tpu_torch import TorchSession
+
+    G, O = tpcds_datagen(), tpcds_golden_oracle()
+    t0 = time.perf_counter()
+    tables = G.gen_tpcds_full(scale=0.1)
+    conf = {"spark.sql.shuffle.partitions": 4,
+            "spark.tpu.batch.capacity": 1 << 10}
+    card = session(conf)
+    cpu = TorchSession("chip_smoke_cpu", dict(conf), device="cpu")
+    for name, table in tables.items():
+        card.createDataFrame(table).createOrReplaceTempView(name)
+        cpu.createDataFrame(table).createOrReplaceTempView(name)
+    rows = {}
+    for q in TPCDS_QUERIES:
+        text = tpcds_text(q)
+        got = card.sql(text).toArrow()
+        want = cpu.sql(text).toArrow()
+        if got.schema != want.schema or got.to_pylist() != want.to_pylist():
+            fail(f"tpcds_gate {q}: the card's result differs from the "
+                 "CPU's")
+        full = card.sql(O.strip_trailing_limit(text)).toArrow()
+        cols = [full.column(i).to_pylist() for i in range(full.num_columns)]
+        norm = sorted([tuple(O._norm_cell(c) for c in r)
+                       for r in zip(*cols)], key=O._sort_key)
+        golden = json.load(open(os.path.join(
+            ROOT, "tests", "tpcds", "expected", f"{q}.json")))
+        ok, msg = O.compare_rows(norm, [tuple(r) for r in golden["rows"]])
+        if not ok:
+            fail(f"tpcds_gate {q}: not its golden: {msg}")
+        rows[q] = got.num_rows
+    card.stop()
+    cpu.stop()
+    print(f"tpcds_gate: {len(rows)} queries equal to their goldens and to "
+          f"the CPU in {time.perf_counter() - t0:.1f} s; rows as written "
+          f"{json.dumps(rows)}", flush=True)
+
+
+def cte_rows(df) -> dict:
+    """{CTE name: rows} of the CTEs the session materialised for `df`: the
+    in-memory relations spliced under each CTE's alias."""
+    from spark_tpu_torch.plan.logical import LocalRelation, SubqueryAlias
+
+    return {n.alias: n.child.table.num_rows for n in df.plan.iter_nodes()
+            if isinstance(n, SubqueryAlias)
+            and isinstance(n.child, LocalRelation)}
+
+
+_FACTS = ("store_sales", "store_returns", "catalog_sales", "catalog_returns",
+          "web_sales", "web_returns")
+
+
+def tpcds_leg(torch, sk, card: str):
+    """bench.py's bench_tpcds (BASELINE config 4) widened to every tpcds
+    query: the query files through session.sql at SF10 row counts, each
+    plan held to its operator sequence, q3, q7 and q19 to their numpy
+    oracles and exact histogram calls, the others to at least one row and
+    one histogram call (their results are held to the CPU afterwards,
+    `tpcds_cpu_check`). A query whose CTEs the session materialises is
+    timed as session.sql(text).toArrow() whole, with the sql() call (the
+    CTE bodies' run and collect) timed on its own. Returns the launch
+    counts by query, the new queries' results and the tables."""
+    import re
+
     t0 = time.perf_counter()
     tables, arrays = tpcds_data()
     print(f"tpcds data: {sum(t.num_rows for t in tables.values()):,} rows, "
@@ -1133,30 +1766,86 @@ def tpcds_leg(torch, sk, card: str) -> dict:
     spark = session(TPCDS_CONF)
     for name, table in tables.items():
         spark.createDataFrame(table).createOrReplaceTempView(name)
-    out = {}
-    for q in ("q3", "q7", "q19"):
-        text = open(os.path.join(ROOT, "tests", "tpcds", "queries",
-                                 f"{q}.sql")).read()
+    out, results, timed_shapes = {}, {}, set()
+    for q in TPCDS_QUERIES:
+        text = tpcds_text(q)
         df = spark.sql(text)
+        if q in TPCDS_CTE_ROWS:
+            mat = cte_rows(df)
+            if mat != TPCDS_CTE_ROWS[q]:
+                fail(f"tpcds {q}: materialised CTE rows {mat}, not "
+                     f"{TPCDS_CTE_ROWS[q]}")
         ops = tuple(type(n).__name__
                     for n in df.query_execution.physical.iter_nodes())
         if ops != TPCDS_PLAN_OPS[q]:
             fail(f"tpcds {q}: the operator sequence {ops} is not the "
                  f"reference's {TPCDS_PLAN_OPS[q]}")
-        rows, key = tpcds_oracle(q, arrays)
+        parts = TPCDS_JOINS[q]
+        if tpcds_calls(q) is not None:
+            oracle_rows, key = tpcds_oracle(q, arrays)
+            parts += ("LimitExec(is_global=True", "LimitExec(is_global=False",
+                      "Exchange[SinglePartition(1)]")
 
-        def check(result, q=q, rows=rows, key=key):
-            return _check_topk(f"tpcds {q}", tpcds_rows(q, result), rows,
-                               key)
-
-        out[q] = drive(torch, sk, card, f"tpcds {q}", df,
-                       TPCDS_ROWS["store_sales"],
-                       TPCDS_JOINS[q] + ("LimitExec(is_global=True",
-                                         "LimitExec(is_global=False",
-                                         "Exchange[SinglePartition(1)]"),
-                       tpcds_calls(q), check)
+            def check(result, q=q, rows=oracle_rows, key=key):
+                return _check_topk(f"tpcds {q}", tpcds_rows(q, result), rows,
+                                   key)
+        else:
+            def check(result, q=q):
+                if result.num_rows < 1:
+                    fail(f"tpcds {q}: no rows at SF10")
+                results[q] = result
+                return f"{result.num_rows} rows (held to the CPU later)"
+        run, cte_s = None, []
+        if q in TPCDS_CTE_ROWS:
+            def run(text=text, cte_s=cte_s):
+                t1 = time.perf_counter()
+                d = spark.sql(text)
+                torch.cuda.synchronize()
+                cte_s.append(time.perf_counter() - t1)
+                return d.toArrow()
+        rows = sum(tables[f].num_rows for f in _FACTS
+                   if re.search(rf"\b{f}\b", text))
+        out[q] = drive(torch, sk, card, f"tpcds {q}", df, rows, parts,
+                       tpcds_calls(q), check, run, timed_shapes)
+        if cte_s:
+            print(f"tpcds {q} cte " + json.dumps({
+                "sql_s": cte_s, "cold_sql_s": cte_s[0],
+                "warm_sql_median_s": statistics.median(cte_s[1:4]),
+                "card": card}), flush=True)
     spark.stop()
-    return out
+    return out, results, tables
+
+
+# queries whose SF10 result is not held to the CPU: the CPU check of all
+# 26 took 592.7 s and 657.0 s on the CPU of the H100's machine (PERF.md),
+# and each of these over 30 s there (q78 155-157 s); the gate still holds
+# them to the CPU and their goldens at scale 0.1
+TPCDS_CPU_SKIP = ("q13", "q25", "q29", "q50", "q64", "q78")
+
+
+def tpcds_cpu_check(tables: dict, results: dict) -> None:
+    """Each new query's SF10 result from the card, but those of
+    TPCDS_CPU_SKIP, equal row for row to the port's on the CPU over the
+    same tables: run once, its CPU time printed."""
+    from spark_tpu_torch import TorchSession
+
+    cpu = TorchSession("chip_smoke_cpu", dict(TPCDS_CONF), device="cpu")
+    for name, table in tables.items():
+        cpu.createDataFrame(table).createOrReplaceTempView(name)
+    secs = {}
+    for q, got in results.items():
+        if q in TPCDS_CPU_SKIP:
+            continue
+        t0 = time.perf_counter()
+        want = cpu.sql(tpcds_text(q)).toArrow()
+        secs[q] = time.perf_counter() - t0
+        if got.schema != want.schema or got.to_pylist() != want.to_pylist():
+            fail(f"tpcds {q}: the card's SF10 result differs from the "
+                 "CPU's")
+    cpu.stop()
+    print("tpcds cpu " + json.dumps({
+        "equal": sorted(secs), "skipped": TPCDS_CPU_SKIP, "cpu_s": secs,
+        "total_cpu_s": sum(secs.values())}), flush=True)
 
 
 def breakdown(torch, df) -> dict:
@@ -1253,17 +1942,28 @@ def run() -> None:
     for name, text in reports.items():
         print(f"--- nvcc {name} ---\n{text.strip()}", flush=True)
 
-    main_hist, main_sum = check_kernels(torch, sk)
+    def phase(name, fn, *args):
+        out = fn(*args)
+        print(f"phase {name} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
+    main_hist, main_sum = phase("kernels", check_kernels, torch, sk)
     k, v = main_table()
-    launches = main_path(torch, sk, card, k, v)
+    launches = phase("main", main_path, torch, sk, card, k, v)
     by_path = {
-        "join": join_leg(torch, sk, card),
-        "sort": sort_leg(torch, sk, card),
-        "range_sort": range_sort_leg(torch, sk, card, k, v),
-        "topk": topk_leg(torch, sk, card, k, v),
-        "q78": q78_leg(torch, sk, card),
+        "join": phase("join", join_leg, torch, sk, card),
+        "sort": phase("sort", sort_leg, torch, sk, card),
+        "range_sort": phase("range_sort", range_sort_leg, torch, sk, card,
+                            k, v),
+        "topk": phase("topk", topk_leg, torch, sk, card, k, v),
+        "q78": phase("q78", q78_leg, torch, sk, card),
     }
-    by_path.update(tpcds_leg(torch, sk, card))
+    phase("tpcds_gate", tpcds_gate, torch)
+    tpcds_launches, tpcds_results, tpcds_tables = phase(
+        "tpcds", tpcds_leg, torch, sk, card)
+    by_path.update({f"tpcds {q}": n for q, n in tpcds_launches.items()})
+    phase("tpcds_cpu", tpcds_cpu_check, tpcds_tables, tpcds_results)
 
     def entry(name, row, replaces):
         return {"name": name, "route": "cuda",

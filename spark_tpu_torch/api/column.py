@@ -1,6 +1,7 @@
 """User-facing Column DSL (counterpart of `spark_tpu/api/column.py`, the
 operators whose expressions are ported; string literals come through `_expr`
-and `substr`)."""
+and `substr`; `isin`, `between` and the `when`/`otherwise` chain that
+`functions.when` starts)."""
 
 from __future__ import annotations
 
@@ -94,6 +95,28 @@ class Column:
 
     def isNotNull(self):
         return Column(E.IsNotNull(self.expr))
+
+    def isin(self, *vals):
+        if len(vals) == 1 and isinstance(vals[0], (list, tuple, set)):
+            vals = tuple(vals[0])
+        return Column(E.In(self.expr, [_expr(v) for v in vals]))
+
+    def between(self, lo, hi):
+        return Column(E.And(
+            E.GreaterThanOrEqual(self.expr, _expr(lo)),
+            E.LessThanOrEqual(self.expr, _expr(hi))))
+
+    # --- CASE WHEN --------------------------------------------------------
+    def when(self, cond: "Column", value) -> "Column":
+        if not isinstance(self.expr, E.CaseWhen):
+            raise ValueError("when() follows F.when(...)")
+        return Column(E.CaseWhen(
+            self.expr.branches + [(cond.expr, _expr(value))], None))
+
+    def otherwise(self, value) -> "Column":
+        if not isinstance(self.expr, E.CaseWhen):
+            raise ValueError("otherwise() follows F.when(...)")
+        return Column(E.CaseWhen(self.expr.branches, _expr(value)))
 
     # --- strings ----------------------------------------------------------
     def substr(self, pos, length=None):

@@ -1,6 +1,7 @@
 """Column functions (counterpart of `spark_tpu/api/functions.py`, the port's
 subset): col, lit (string and decimal literals too), the sort orders asc and
-desc, substring, and the aggregates sum, count, min, max, avg."""
+desc, substring, when, coalesce, round, and the aggregates sum, count, min,
+max, avg."""
 
 from __future__ import annotations
 
@@ -63,3 +64,15 @@ def asc(c) -> Column:
 
 def desc(c) -> Column:
     return Column(E.SortOrder(_c(c), False))
+
+
+def when(cond: Column, value) -> Column:
+    return Column(E.CaseWhen([(cond.expr, _expr(value))], None))
+
+
+def coalesce(*cols) -> Column:
+    return Column(E.Coalesce([_c(c) for c in cols]))
+
+
+def round(c, scale: int = 0) -> Column:  # noqa: A001
+    return Column(E.Round(_c(c), E.Literal(scale)))

@@ -1,7 +1,9 @@
 """Session entry point (counterpart of `spark_tpu/api/session.py`, the
 surface of the port's slices): `TorchSession(appName, conf, device)`,
-`createDataFrame`, `sql` (SELECT queries over temp views), `table`, `conf`
-and `stop`. SQL scripting, hints and commands raise `NotPortedError`.
+`createDataFrame`, `sql` (SELECT queries over temp views; a CTE the parser
+materialises runs once here, its result collected to Arrow and spliced in
+as an in-memory relation), `table`, `conf` and `stop`. SQL scripting, hints
+and commands raise `NotPortedError`.
 
 The session runs on CUDA unless the caller asks for the CPU, by
 `device="cpu"` or the conf key `spark.torch.device`. With no card and no
@@ -25,7 +27,7 @@ from ..physical.compile import LaunchCounters
 from ..physical.planner import Planner
 from ..plan.analyzer import Analyzer
 from ..plan.catalog import Catalog
-from ..plan.logical import LocalRelation, UnresolvedRelation
+from ..plan.logical import LocalRelation, UnresolvedRelation, WithCTE
 from ..plan.optimizer import Optimizer
 from ..types import from_arrow_type
 
@@ -92,7 +94,38 @@ class TorchSession:
 
         if _HINT_RE.search(sqlText):
             raise NotPortedError("SQL hints (/*+ ... */)")
-        return DataFrame(self, parse_sql(sqlText))
+        plan = parse_sql(sqlText)
+        if isinstance(plan, WithCTE):
+            plan = self._materialize_ctes(plan)
+        return DataFrame(self, plan)
+
+    def _materialize_ctes(self, wplan: WithCTE):
+        """Run each materialised CTE body once, collect it to Arrow and
+        splice it into every site that reads it as an in-memory relation,
+        each site with fresh attribute ids over the shared table (the
+        reference's WithCTE round trip through the host)."""
+        from .dataframe import DataFrame
+
+        mapping = {}
+        for uniq, body in wplan.materializations:
+            body = self._splice_relations(body, mapping)
+            table = DataFrame(self, body).toArrow()
+            self._metrics.add("cte.materialized")
+            mapping[uniq.lower()] = self.createDataFrame(table).plan
+        return self._splice_relations(wplan.child, mapping)
+
+    @staticmethod
+    def _splice_relations(plan, mapping):
+        def rule(node):
+            if isinstance(node, UnresolvedRelation):
+                rel = mapping.get(node.name.lower())
+                if rel is not None:
+                    return LocalRelation(
+                        [AttributeReference(a.name, a.dtype, a.nullable)
+                         for a in rel.output], rel.table)
+            return node
+
+        return plan.transform_up(rule)
 
     def stop(self) -> None:
         self._scan_cache.clear()

@@ -9,8 +9,11 @@ half to even), `+ - * /` (plain ops wrap on integral overflow; the try_
 variants give NULL; x/0 gives NULL; decimal + - * stay exact scaled int64),
 sort orders, the comparisons (strings compare by value hash for = and <>,
 by merged-dictionary rank for the orderings), Kleene and/or/not, is [not]
-null, substr/substring (a dictionary transform on the host, once per
-dictionary), and the aggregate functions sum, count, min, max and avg.
+null, three-valued IN over a list (strings by value hash, literal items
+only), CASE WHEN / if / coalesce (every branch over the whole tile, picked
+by mask), round (half up), substr/substring (a dictionary transform on the
+host, once per dictionary), and the aggregate functions sum, count, min,
+max and avg.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ import numpy as np
 import torch
 
 from ..columnar.batch import EMPTY_DICT, StringDict, _take_codes
-from ..errors import AnalysisException, NotPortedError, TypeCheckError
+from ..errors import (
+    AnalysisException, NotPortedError, TypeCheckError,
+    UnsupportedOperationError,
+)
 from ..plan.tree import TreeNode, next_id
 from ..types import (
     BooleanType, DataType, DateType, DecimalType, FractionalType,
@@ -34,7 +40,7 @@ from .eval import EvalCtx, Val
 __all__ = [
     "Expression", "Literal", "AttributeReference", "UnresolvedAttribute",
     "UnresolvedStar", "UnresolvedFunction", "Alias", "SortOrder", "Cast",
-    "cast_if", "Substring",
+    "cast_if", "Substring", "In", "If", "CaseWhen", "Coalesce", "Round",
     "Add", "Subtract", "Multiply", "Divide", "TryAdd", "TrySubtract",
     "TryMultiply", "EqualTo", "NotEqualTo", "LessThan", "LessThanOrEqual",
     "GreaterThan", "GreaterThanOrEqual", "And", "Or", "Not", "IsNull",
@@ -318,12 +324,11 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType) -> Val:
                           -((-data + half) // f))
         return Val(to, out, c.validity)
     if isinstance(frm, DecimalType):
-        # the divisor is a tensor on the data's device: CUDA divides by a
-        # host scalar as a product with its reciprocal, which can differ
-        # from the quotient in the last bit (and then in a rounded avg)
-        scale = torch.full((), 10.0 ** frm.scale, dtype=torch.float64,
-                           device=data.device)
-        scaled = data.to(torch.float64) / scale
+        # a product with the reciprocal of 10^scale: the reference's
+        # compiler turns its division by that constant into this product,
+        # and a product rounds the same on every device (a quotient by a
+        # host scalar does not: CUDA takes the reciprocal's product)
+        scaled = data.to(torch.float64) * (1.0 / 10.0 ** frm.scale)
         return cast_val(ctx, Val(float64, scaled, c.validity), to)
     if isinstance(to, DecimalType):
         if data.dtype.is_floating_point:
@@ -743,6 +748,194 @@ class IsNotNull(UnaryExpression):
         if c.validity is None:
             return Val(boolean, ctx.scalar(True, torch.bool))
         return Val(boolean, c.validity)
+
+
+# ---------------------------------------------------------------------------
+# Conditionals and IN
+# ---------------------------------------------------------------------------
+
+class If(Expression):
+    child_fields = ("pred", "then", "otherwise")
+
+    def __init__(self, pred, then, otherwise):
+        self.pred = pred
+        self.then = then
+        self.otherwise = otherwise
+
+    @property
+    def dtype(self):
+        return common_type(self.then.dtype, self.otherwise.dtype) or \
+            self.then.dtype
+
+    def eval(self, ctx):
+        return CaseWhen([(self.pred, self.then)], self.otherwise).eval(ctx)
+
+
+class CaseWhen(Expression):
+    child_fields = ("branch_exprs", "else_expr")
+    equality_excluded_fields = ("branches",)  # same nodes as branch_exprs
+
+    def __init__(self, branches: Sequence[tuple[Expression, Expression]],
+                 else_expr: Expression | None = None):
+        self.branches = [(p, v) for p, v in branches]
+        self.branch_exprs = [e for pv in self.branches for e in pv]
+        self.else_expr = else_expr if else_expr is not None else Literal(None)
+
+    def copy(self, **overrides):
+        if "branch_exprs" in overrides:
+            be = list(overrides["branch_exprs"])
+            overrides["branch_exprs"] = be
+            overrides["branches"] = [(be[i], be[i + 1])
+                                     for i in range(0, len(be), 2)]
+        new = super().copy(**overrides)
+        new.__dict__.pop("_hash", None)  # the branches may have changed
+        return new
+
+    @property
+    def dtype(self):
+        # memoised: nested CASEs revisit each level's type from every
+        # ancestor (TreeNode.copy drops the memo)
+        memo = self.__dict__.get("_dtype_memo")
+        if memo is not None:
+            return memo
+        dt: DataType = null_type
+        for _, v in self.branches:
+            dt = common_type(dt, v.dtype) or v.dtype
+        dt = common_type(dt, self.else_expr.dtype) or dt
+        self.__dict__["_dtype_memo"] = dt
+        return dt
+
+    def eval(self, ctx):
+        out = self.dtype
+        if isinstance(out, StringType):
+            raise NotPortedError("CASE with string results")
+        # every branch runs over the whole tile (x/0 is NULL, not a fault)
+        # and the first true predicate picks each row's value
+        vals = [(ctx.eval(p), ctx.eval(cast_if(v, out)))
+                for p, v in self.branches]
+        ev = ctx.eval(cast_if(self.else_expr, out))
+        n = (ctx.capacity,)
+        data = torch.broadcast_to(ev.data, n)
+        valid = torch.broadcast_to(_known(ctx, ev.validity), n)
+        decided = torch.zeros(n, dtype=torch.bool, device=ctx.device)
+        for p, v in vals:
+            pd = p.data if p.validity is None else p.data & p.validity
+            hit = pd & ~decided
+            data = torch.where(hit, v.data, data)
+            valid = torch.where(hit, _known(ctx, v.validity), valid)
+            decided = decided | hit
+        has_null = ev.validity is not None or \
+            any(v.validity is not None for _, v in vals)
+        return Val(out, data, valid if has_null else None)
+
+
+class Coalesce(Expression):
+    child_fields = ("args",)
+
+    def __init__(self, args: Sequence[Expression]):
+        self.args = list(args)
+
+    @property
+    def dtype(self):
+        dt: DataType = null_type
+        for a in self.args:
+            dt = common_type(dt, a.dtype) or a.dtype
+        return dt
+
+    @property
+    def nullable(self):
+        return all(a.nullable for a in self.args)
+
+    def eval(self, ctx):
+        branches = [(IsNotNull(a), a) for a in self.args[:-1]]
+        return CaseWhen(branches, self.args[-1]).eval(ctx)
+
+
+class In(Expression):
+    """SQL three-valued IN over a list: TRUE on a match; else NULL when the
+    probe or an item is NULL; else FALSE. A string probe compares value
+    hashes with literal items; numeric items are cast to the probe's
+    type."""
+
+    child_fields = ("child", "items")
+
+    def __init__(self, child: Expression, items: Sequence[Expression]):
+        self.child = child
+        self.items = list(items)
+
+    @property
+    def dtype(self):
+        return boolean
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if isinstance(c.dtype, StringType):
+            if not all(isinstance(it, Literal) for it in self.items):
+                raise UnsupportedOperationError(
+                    "IN over strings needs literals")
+            targets = [it.value for it in self.items if it.value is not None]
+            has_null_item = len(targets) < len(self.items)
+            if targets:
+                data = torch.isin(_string_eq_domain(ctx, c),
+                                  StringDict(targets).device_hashes(
+                                      ctx.device))
+            else:
+                data = torch.zeros(c.data.shape, dtype=torch.bool,
+                                   device=ctx.device)
+            valid = c.validity
+            if has_null_item:  # unmatched rows are UNKNOWN, not FALSE
+                valid = data if valid is None else valid & data
+            return Val(boolean, data, valid)
+        vals = [ctx.eval(cast_if(i, c.dtype)) for i in self.items]
+        matched = ctx.scalar(False, torch.bool)
+        null_any = ctx.scalar(False, torch.bool)
+        for x in vals:
+            xv = _known(ctx, x.validity)
+            matched = matched | ((c.data == x.data) & xv)
+            null_any = null_any | ~xv
+        valid = matched | ~null_any  # unmatched with a NULL item: NULL
+        if c.validity is not None:
+            valid = valid & c.validity
+        return Val(boolean, matched, valid)
+
+
+class Round(Expression):
+    """round(x, s): half up (away from zero), decimals on their scaled
+    integers, doubles as trunc(x * 10^s +- 0.5) * 10^-s."""
+
+    child_fields = ("child", "scale_expr")
+
+    def __init__(self, child: Expression,
+                 scale_expr: Expression | None = None):
+        self.child = child
+        self.scale_expr = scale_expr if scale_expr is not None else Literal(0)
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct if isinstance(ct, (IntegralType, DecimalType)) else float64
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(self.scale_expr, Literal):
+            raise UnsupportedOperationError("round() scale must be a literal")
+        s = int(self.scale_expr.value or 0)
+        if isinstance(c.dtype, DecimalType):
+            delta = c.dtype.scale - s
+            if delta <= 0:
+                return c
+            f = 10 ** delta
+            half = f // 2
+            d = torch.where(c.data >= 0, (c.data + half) // f,
+                            -((-c.data + half) // f)) * f
+            return Val(c.dtype, d, c.validity)
+        if isinstance(c.dtype, IntegralType):
+            return c
+        x = cast_val(ctx, c, float64).data
+        f = 10.0 ** s
+        # times 1/f, as the reference's compiled division by f (cast_val)
+        d = torch.trunc(x * f + torch.where(x >= 0, 0.5, -0.5)) * (1.0 / f)
+        return Val(float64, d, c.validity)
 
 
 # ---------------------------------------------------------------------------

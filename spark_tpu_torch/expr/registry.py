@@ -18,6 +18,9 @@ _BUILDERS = {
     "mean": lambda c: E.Average(c),
     "substring": lambda c, p, l=None: E.Substring(c, p, l),
     "substr": lambda c, p, l=None: E.Substring(c, p, l),
+    "round": lambda c, s=None: E.Round(c, s),
+    "if": lambda p, a, b: E.If(p, a, b),
+    "coalesce": lambda *a: E.Coalesce(list(a)),
 }
 
 

@@ -1,7 +1,7 @@
 """Logical plan nodes (counterpart of `spark_tpu/plan/logical.py`, the nodes
 the port's DataFrame API and SQL parser build): UnresolvedRelation,
-LocalRelation, SubqueryAlias, Project, Filter, Aggregate, Sort, Limit,
-Offset, Repartition and Join, with the reference's crude row-count
+LocalRelation, SubqueryAlias, WithCTE, Project, Filter, Aggregate, Sort,
+Limit, Offset, Repartition and Join, with the reference's crude row-count
 estimates (`stats_rows`) that decide broadcast joins."""
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from .tree import TreeNode
 
 __all__ = [
     "LogicalPlan", "LeafNode", "UnaryNode", "BinaryNode", "LocalRelation",
-    "UnresolvedRelation", "SubqueryAlias", "Project", "Filter", "Aggregate", "Sort", "Limit", "Offset",
+    "UnresolvedRelation", "SubqueryAlias", "WithCTE", "Project", "Filter",
+    "Aggregate", "Sort", "Limit", "Offset",
     "Repartition", "Join", "normalize_join_type",
 ]
 
@@ -147,6 +148,22 @@ class SubqueryAlias(UnaryNode):
 
     def stats_rows(self):
         return self.child.stats_rows()
+
+
+class WithCTE(UnaryNode):
+    """The top of a query whose CTEs the parser chose to materialise
+    rather than inline: `materializations` is [(unique name, plan)] in
+    definition order, and `child` reads each by its unique name. The
+    session runs each plan once and splices the result in as an in-memory
+    relation (the reference's WithCTE)."""
+
+    def __init__(self, materializations, child: LogicalPlan):
+        self.materializations = list(materializations)
+        self.child = child
+
+    @property
+    def output(self):
+        return self.child.output
 
 
 class Project(UnaryNode):

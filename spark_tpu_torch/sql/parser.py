@@ -1,16 +1,19 @@
 """SQL parser: text -> unresolved LogicalPlan (counterpart of
 `spark_tpu/sql/parser.py`, the SELECT grammar of the port's slice).
 
-The productions below are the reference's, copied: the select list with AS
-and bare aliases; FROM comma lists and joins with ON and table aliases;
-WHERE, GROUP BY (ordinals too), HAVING, ORDER BY ... ASC|DESC [NULLS
-FIRST|LAST], LIMIT and OFFSET; AND/OR/NOT, comparisons, IS [NOT] NULL,
-`+ - * /`, unary minus, parentheses, integer, decimal, string and DATE
-literals, CAST, and function calls (the analyzer resolves the names it
-knows: sum, avg, count, min, max, substr/substring). Every other production
-of the reference's grammar raises `NotPortedError` naming the construct:
-CTEs, subqueries, windows, set operations, CASE, IN, BETWEEN, LIKE,
-intervals, hints, scripts and commands among them.
+The productions below are the reference's, copied: WITH (common table
+expressions: inlined where used once or cheap, else materialised once by
+the session through `WithCTE`, the reference's choice); the select list
+with AS and bare aliases; FROM comma lists, joins with ON, table aliases
+and subqueries with an alias; WHERE, GROUP BY (ordinals too), HAVING, ORDER
+BY ... ASC|DESC [NULLS FIRST|LAST], LIMIT and OFFSET; AND/OR/NOT,
+comparisons, IS [NOT] NULL, [NOT] IN (list), [NOT] BETWEEN, `+ - * /`,
+unary minus, parentheses, integer, decimal, string and DATE literals,
+CAST, CASE (searched and simple), and function calls (the analyzer
+resolves the names it knows). Every other production of the reference's
+grammar raises `NotPortedError` naming the construct: subquery
+expressions (scalar, IN, EXISTS), windows, set operations, LIKE,
+intervals, DISTINCT, hints, scripts and commands among them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ class Parser:
     def __init__(self, tokens: list[Token]):
         self.toks = tokens
         self.i = 0
+        self._query_depth = 0  # WITH materialises only at the top level
 
     # --- token helpers ----------------------------------------------------
     def peek(self, k: int = 0) -> Token:
@@ -105,10 +109,26 @@ class Parser:
                              "and scripts)")
 
     def parse_query(self) -> L.LogicalPlan:
-        if self.at_kw("with"):
-            raise NotPortedError("WITH (common table expressions)")
-        plan = self.parse_set_expr()
-        return self._order_limit(plan)
+        depth = self._query_depth
+        self._query_depth = depth + 1
+        try:
+            defs: list[tuple[str, L.LogicalPlan]] = []
+            if self.eat_kw("with"):
+                while True:
+                    name = self.ident()
+                    self.eat_kw("as")
+                    self.expect_op("(")
+                    defs.append((name, self.parse_query()))
+                    self.expect_op(")")
+                    if not self.eat_op(","):
+                        break
+            plan = self.parse_set_expr()
+            plan = self._order_limit(plan)
+            if defs:
+                plan = _apply_ctes(plan, defs, top_level=(depth == 0))
+            return plan
+        finally:
+            self._query_depth = depth
 
     def parse_set_expr(self) -> L.LogicalPlan:
         left = self.parse_term_query()
@@ -279,8 +299,13 @@ class Parser:
         return None
 
     def parse_relation_primary(self) -> L.LogicalPlan:
-        if self.at_op("("):
-            raise NotPortedError("subquery in FROM")
+        if self.eat_op("("):
+            sub = self.parse_query()
+            self.expect_op(")")
+            alias = self._maybe_alias()
+            if alias:
+                return L.SubqueryAlias(alias, sub)
+            return sub
         parts = [self.ident()]
         while self.eat_op("."):
             parts.append(self.ident())
@@ -368,16 +393,36 @@ class Parser:
                 self.expect_kw("null")
                 left = E.IsNotNull(left) if neg else E.IsNull(left)
                 continue
+            neg = False
             save = self.i
-            self.eat_kw("not")
-            for word, what in (("in", "IN"), ("like", "LIKE"),
-                               ("rlike", "RLIKE"), ("between", "BETWEEN")):
+            if self.eat_kw("not"):
+                neg = True
+            if self.eat_kw("in"):
+                self.expect_op("(")
+                if self.at_kw("select", "with"):
+                    raise NotPortedError("IN (subquery)")
+                items = [self.parse_expr()]
+                while self.eat_op(","):
+                    items.append(self.parse_expr())
+                self.expect_op(")")
+                left = E.In(left, items)
+                if neg:
+                    left = E.Not(left)
+                continue
+            for word, what in (("like", "LIKE"), ("rlike", "RLIKE")):
                 if self.at_kw(word):
-                    if word == "in" and self.peek(1).value == "(" and \
-                            self.peek(2).value.lower() in ("select", "with"):
-                        raise NotPortedError("IN (subquery)")
                     raise NotPortedError(what)
-            self.i = save
+            if self.eat_kw("between"):
+                lo = self.parse_additive()
+                self.expect_kw("and")
+                hi = self.parse_additive()
+                left = E.And(E.GreaterThanOrEqual(left, lo),
+                             E.LessThanOrEqual(left, hi))
+                if neg:
+                    left = E.Not(left)
+                continue
+            if neg:
+                self.i = save
             break
         return left
 
@@ -453,7 +498,7 @@ class Parser:
         if self.at_kw("interval"):
             raise NotPortedError("INTERVAL")
         if self.at_kw("case"):
-            raise NotPortedError("CASE")
+            return self.parse_case()
         if self.at_kw("cast"):
             self.next()
             self.expect_op("(")
@@ -509,6 +554,25 @@ class Parser:
                 and self.peek(3).value == "->"):
             raise NotPortedError("lambda functions (higher-order functions)")
         return self.parse_expr()
+
+    def parse_case(self) -> E.Expression:
+        self.expect_kw("case")
+        base = None
+        if not self.at_kw("when"):
+            base = self.parse_expr()
+        branches = []
+        while self.eat_kw("when"):
+            cond = self.parse_expr()
+            self.expect_kw("then")
+            val = self.parse_expr()
+            if base is not None:
+                cond = E.EqualTo(base, cond)
+            branches.append((cond, val))
+        els = None
+        if self.eat_kw("else"):
+            els = self.parse_expr()
+        self.expect_kw("end")
+        return E.CaseWhen(branches, els)
 
     # --- types ------------------------------------------------------------
     def parse_type(self) -> DataType:
@@ -581,3 +645,89 @@ def _contains_agg(e: E.Expression) -> bool:
     if isinstance(e, E.UnresolvedFunction) and e.fname.lower() in _AGG_NAMES:
         return True
     return any(_contains_agg(c) for c in e.children)
+
+
+def _refresh_alias_ids(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Fresh expr_ids for every Alias in a parse-time subtree. CTE bodies
+    splice into several call sites, and shared alias ids would collide once
+    resolved (references are still by name before resolution, so only the
+    ids need refreshing; DeduplicateRelations handles relation ids)."""
+
+    def fresh(e: E.Expression) -> E.Expression:
+        if isinstance(e, E.Alias):
+            return E.Alias(e.child, e.name)  # new expr_id
+        return e
+
+    def go(node: L.LogicalPlan) -> L.LogicalPlan:
+        node = node.map_children(go)
+        return node.map_expressions(lambda ex: ex.transform_up(fresh))
+
+    return go(plan)
+
+
+def _count_cte_refs(plan: L.LogicalPlan, name: str) -> int:
+    """Occurrences of UnresolvedRelation(name) in a plan (the slice has no
+    subquery expressions, whose plans the reference also counts)."""
+    return sum(1 for node in plan.iter_nodes()
+               if isinstance(node, L.UnresolvedRelation)
+               and node.name.lower() == name)
+
+
+def _cte_expensive(plan: L.LogicalPlan) -> bool:
+    """Worth materialising: two joins, or an aggregate over a join."""
+    joins = sum(1 for n in plan.iter_nodes() if isinstance(n, L.Join))
+    aggs = sum(1 for n in plan.iter_nodes() if isinstance(n, L.Aggregate))
+    return joins >= 2 or (joins >= 1 and aggs >= 1)
+
+
+def _apply_ctes(plan: L.LogicalPlan, defs: list,
+                top_level: bool) -> L.LogicalPlan:
+    """Inline single-use or cheap CTEs; turn expensive ones instantiated
+    more than once into WithCTE materialisations (top-level queries only:
+    a WithCTE inside a tree has no point of execution)."""
+    import uuid as _uuid
+
+    # effective instantiation count, later definitions first: a CTE read
+    # from an inlined CTE body is instantiated once per instantiation of
+    # that body; a materialised body runs once
+    eff: dict[str, int] = {}
+    mat: dict[str, bool] = {}
+    for i in range(len(defs) - 1, -1, -1):
+        name, body = defs[i]
+        key = name.lower()
+        cnt = _count_cte_refs(plan, key)
+        for j in range(i + 1, len(defs)):
+            jname, jbody = defs[j]
+            jkey = jname.lower()
+            mult = 1 if mat.get(jkey) else eff.get(jkey, 0)
+            cnt += _count_cte_refs(jbody, key) * mult
+        eff[key] = cnt
+        mat[key] = bool(top_level and cnt >= 2 and _cte_expensive(body))
+
+    ctes: dict[str, L.LogicalPlan] = {}
+    materializations: list[tuple[str, L.LogicalPlan]] = []
+    for name, body in defs:
+        key = name.lower()
+        body = _substitute_ctes(body, ctes)  # earlier CTEs visible
+        if mat[key]:
+            uniq = f"__cte_mat_{key}_{_uuid.uuid4().hex[:8]}"
+            materializations.append((uniq, body))
+            ctes[key] = L.SubqueryAlias(name, L.UnresolvedRelation([uniq]))
+        else:
+            ctes[key] = L.SubqueryAlias(name, body)
+    plan = _substitute_ctes(plan, ctes)
+    if materializations:
+        plan = L.WithCTE(materializations, plan)
+    return plan
+
+
+def _substitute_ctes(plan: L.LogicalPlan,
+                     ctes: dict[str, L.LogicalPlan]) -> L.LogicalPlan:
+    def rule(node):
+        if isinstance(node, L.UnresolvedRelation):
+            hit = ctes.get(node.name.lower())
+            if hit is not None:
+                return _refresh_alias_ids(hit)
+        return node
+
+    return plan.transform_up(rule)

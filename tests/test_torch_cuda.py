@@ -355,9 +355,9 @@ def test_sorts_on_the_card_equal_cpu(cuda_device, order):
 
 # --- strings, decimals and the SQL slice on the card ------------------------
 
-# literal changes that make TPC-DS q3, q7 and q19 return at least 10 rows at
-# tests/tpcds/datagen.py's scale 0.1 (tests/test_torch_tpcds_slice.py holds
-# them against the JAX package too)
+# literal changes that make TPC-DS queries return at least 10 rows at
+# tests/tpcds/datagen.py's scale 0.1 (tests/test_torch_tpcds_slice.py,
+# _store.py and _channels.py hold them against the JAX package too)
 TPCDS_VARIANTS = {
     "q3": [("item.i_manufact_id = 128", "item.i_manufact_id < 400"),
            ("dt.d_moy = 11", "dt.d_moy >= 11")],
@@ -368,11 +368,41 @@ TPCDS_VARIANTS = {
            ("d_year = 2000", "d_year >= 1999")],
     "q19": [("i_manager_id = 8", "i_manager_id < 40"),
             ("AND d_year = 1998", "AND d_year >= 1999")],
+    # the queries of the second SQL slice that return no rows at this
+    # scale (tests/test_torch_tpcds_store.py and _channels.py)
+    "q25": [("d1.d_moy = 4", "d1.d_moy BETWEEN 1 AND 12"),
+            ("d2.d_moy BETWEEN 4 AND 10", "d2.d_moy BETWEEN 1 AND 12"),
+            ("d3.d_moy BETWEEN 4 AND 10", "d3.d_moy BETWEEN 1 AND 12"),
+            ("AND d1.d_year = 2001", "AND d1.d_year BETWEEN 1998 AND 2002"),
+            ("AND d2.d_year = 2001", "AND d2.d_year BETWEEN 1998 AND 2002"),
+            ("AND d3.d_year = 2001", "AND d3.d_year BETWEEN 1998 AND 2002")],
+    "q34": [("cnt BETWEEN 15 AND 20", "cnt BETWEEN 1 AND 20")],
+    "q55": [("i_manager_id = 28", "i_manager_id BETWEEN 1 AND 100")],
+    "q64": [("i_current_price BETWEEN 64 AND 64 + 10",
+             "i_current_price BETWEEN 0 AND 400"),
+            ("i_current_price BETWEEN 64 + 1 AND 64 + 15",
+             "i_current_price BETWEEN 1 AND 400"),
+            ("cs1.syear = 1999", "cs1.syear >= 1998"),
+            ("cs2.syear = 1999 + 1", "cs2.syear >= 1998")],
+    "q78": [("coalesce(ws_qty, 0) > 0 AND coalesce(cs_qty, 0) > 0",
+             "coalesce(ws_qty, 0) >= 0 AND coalesce(cs_qty, 0) >= 0")],
+    "q85": [("cd1.cd_marital_status = 'M'",
+             "cd1.cd_marital_status IN ('M', 'S', 'D', 'W', 'U')"),
+            ("cd1.cd_education_status = 'Advanced Degree'",
+             "cd1.cd_education_status IS NOT NULL"),
+            ("AND d_year = 2000", "AND d_year BETWEEN 1998 AND 2002")]
+    + [(f"ws_sales_price BETWEEN {lo} AND {hi}",
+        "ws_sales_price BETWEEN 0.00 AND 500.00")
+       for lo, hi in (("100.00", "150.00"), ("50.00", "100.00"),
+                      ("150.00", "200.00"))]
+    + [(f"ws_net_profit BETWEEN {lo} AND {hi}",
+        "ws_net_profit BETWEEN -10000 AND 10000")
+       for lo, hi in ((100, 200), (150, 300), (50, 250))],
 }
 
 
 def tpcds_query(name: str) -> str:
-    """The text of TPC-DS `q3`/`q7`/`q19`, or of `<q>_variant`."""
+    """The text of a TPC-DS query file, or of `<q>_variant`."""
     import os
 
     base = name.split("_")[0]
@@ -424,6 +454,166 @@ def test_tpcds_queries_card_equal_cpu(tpcds_pair, name):
     got = card.sql(text).toArrow()
     assert got.schema == want.schema
     assert got.to_pylist() == want.to_pylist()
+
+
+# the TPC-DS queries of the second SQL slice, each as written and, where
+# it returns no rows at this scale, as its variant
+NEW_TPCDS = ("q13", "q15", "q25", "q26", "q29", "q31", "q34", "q42", "q43",
+             "q46", "q48", "q50", "q52", "q55", "q59", "q62", "q64", "q65",
+             "q68", "q73", "q78", "q79", "q85", "q93", "q96", "q99")
+
+
+@pytest.fixture(scope="module")
+def tpcds_all_pair(tpcds_pair):
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "tpcds_datagen", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tpcds", "datagen.py"))
+    datagen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(datagen)
+    for s in tpcds_pair:
+        for name, table in datagen.gen_tpcds_full(scale=0.1).items():
+            s.createDataFrame(table).createOrReplaceTempView(name)
+    return tpcds_pair
+
+
+@pytest.mark.parametrize("name", NEW_TPCDS + tuple(
+    f"{q}_variant" for q in NEW_TPCDS if q in TPCDS_VARIANTS))
+def test_new_tpcds_queries_card_equal_cpu(tpcds_all_pair, name):
+    cpu, card = tpcds_all_pair
+    text = tpcds_query(name)
+    want = cpu.sql(text).toArrow()
+    got = card.sql(text).toArrow()
+    assert got.schema == want.schema
+    assert got.to_pylist() == want.to_pylist()
+
+
+CONSTRUCT_ROWS = 3000
+CONSTRUCT_WORDS = ["", "a", "b", "ab", "héllo", "x", "zz", "✓ok"]
+
+
+def construct_tables():
+    """Small seeded temp views for the SQL construct cases: t (nulls in n,
+    s and d; zeros in z; decimal and double .5 ties) and t2."""
+    import decimal
+
+    import pyarrow as pa
+
+    N = CONSTRUCT_ROWS
+    rng = np.random.default_rng(23)
+    n = rng.integers(0, 7, N)
+    n_null = rng.random(N) < 0.1
+    s = [CONSTRUCT_WORDS[i]
+         for i in rng.integers(0, len(CONSTRUCT_WORDS), N)]
+    s_null = rng.random(N) < 0.08
+    # cents ending in 5 (ties for round(d, 1)) and in 50 (ties for round(d))
+    cents = rng.integers(-2000, 2000, N) * 5
+    d_null = rng.random(N) < 0.06
+    t = pa.table({
+        "k": np.arange(N),
+        "n": pa.array(n.astype(np.int32), pa.int32(), mask=n_null),
+        "z": pa.array(rng.integers(0, 4, N).astype(np.int32), pa.int32()),
+        "s": pa.array([None if m else v for v, m in zip(s, s_null)],
+                      pa.string()),
+        "d": pa.array([None if m else decimal.Decimal(int(c)).scaleb(-2)
+                       for c, m in zip(cents, d_null)], pa.decimal128(7, 2)),
+        # multiples of 1/8: exact ties for round(v) and round(v, 2)
+        "v": (rng.integers(0, 81, N) - 40) / 8.0,
+    })
+    t2 = pa.table({
+        "k2": pa.array(np.arange(0, N, 3).astype(np.int32), pa.int32()),
+        "w": rng.integers(0, 50, len(range(0, N, 3))),
+    })
+    return {"t": t, "t2": t2}
+
+
+# the SQL construct cases over construct_tables(): name -> (statement,
+# ordered result) (tests/test_torch_sql_constructs.py holds them against
+# the JAX package)
+SQL_CONSTRUCTS = {
+    "in_null_probe": ("SELECT k, n IN (1, 2, 5) AS a, n NOT IN (1, 2) AS b "
+                      "FROM t", False),
+    "in_null_item": ("SELECT k, n IN (1, NULL) AS a, n NOT IN (3, NULL) AS b, "
+                     "d IN (10.5, -3.25, NULL) AS c FROM t", False),
+    "in_filter": ("SELECT k, n FROM t WHERE n IN (1, 2, 3) "
+                  "AND NOT s IN ('a', 'b')", False),
+    "string_in": ("SELECT k, s IN ('a', 'héllo', NULL) AS a, "
+                  "s NOT IN ('b', 'x', '') AS b FROM t", False),
+    "between_nulls": ("SELECT k, n BETWEEN 2 AND 5 AS a, "
+                      "d NOT BETWEEN -10.5 AND 10.5 AS b, "
+                      "v BETWEEN n AND z AS c FROM t", False),
+    "case_searched": ("SELECT k, CASE WHEN n > 3 THEN d WHEN n IS NULL "
+                      "THEN 0 ELSE d * 2 END AS c FROM t", False),
+    "case_simple": ("SELECT k, CASE n WHEN 1 THEN 10 WHEN 2 THEN 20 END AS a, "
+                    "CASE z WHEN 0 THEN v ELSE 1 END AS b FROM t", False),
+    "case_divide_off_mask": (
+        "SELECT k, CASE WHEN z > 0 THEN n / z ELSE NULL END AS q FROM t "
+        "WHERE z > 0 AND CASE WHEN z > 0 THEN n / z ELSE NULL END > 1.2",
+        False),
+    "case_sum_int": ("SELECT s, sum(CASE WHEN n > 2 THEN 1 ELSE 0 END) AS c, "
+                     "sum(CASE WHEN z = 0 THEN d ELSE NULL END) AS e "
+                     "FROM t GROUP BY s ORDER BY s", True),
+    "coalesce": ("SELECT k, coalesce(n, 0) AS a, coalesce(d, n, 0) AS b, "
+                 "coalesce(NULL, d) AS c, coalesce(n + 1, z) AS e FROM t",
+                 False),
+    "round": ("SELECT k, round(d, 1) AS a, round(d) AS b, round(v, 2) AS c, "
+              "round(v) AS e, round(n, 1) AS f, round(v * 3, 1) AS g FROM t",
+              False),
+    "if": ("SELECT k, if(n > 2, d, NULL) AS a, if(z = 0, 1, v) AS b FROM t",
+           False),
+    "cte_inlined": ("WITH a AS (SELECT k, d FROM t WHERE n > 1) "
+                    "SELECT k, sum(d) AS sd FROM a GROUP BY k", False),
+    "cte_materialised": (
+        "WITH a AS (SELECT t.n, sum(t.d) AS sd, count(*) AS c FROM t "
+        "JOIN t2 ON t.k = t2.k2 GROUP BY t.n) "
+        "SELECT x.n, x.sd, y.c FROM a x JOIN a y ON x.n = y.n "
+        "ORDER BY x.n", True),
+    "cte_chain": ("WITH a AS (SELECT k, n FROM t WHERE n IS NOT NULL), "
+                  "b AS (SELECT k, n * 2 AS m FROM a) "
+                  "SELECT k, m FROM b WHERE m > 4", False),
+    "cte_named_like_view": ("WITH t2 AS (SELECT k AS k2, n FROM t) "
+                            "SELECT k2, n FROM t2 WHERE n > 3", False),
+    "from_subquery_agg": (
+        "SELECT q.s, q.total, q.c FROM (SELECT s, sum(d) AS total, "
+        "count(*) AS c FROM t GROUP BY s) q WHERE q.c > 3 ORDER BY q.s",
+        True),
+}
+
+
+def construct_rows(table, ordered: bool) -> list:
+    rows = table.to_pylist()
+    if ordered:
+        return rows
+    key = lambda r: tuple((v is None, "" if v is None else v)  # noqa: E731
+                          for v in r.values())
+    return sorted(rows, key=key)
+
+
+@pytest.fixture(scope="module")
+def construct_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sessions = _session_pair({"spark.sql.shuffle.partitions": 4,
+                              "spark.tpu.batch.capacity": 1 << 10,
+                              "spark.sql.autoBroadcastJoinThreshold": 1024})
+    for s in sessions:
+        for name, table in construct_tables().items():
+            s.createDataFrame(table).createOrReplaceTempView(name)
+    yield sessions
+    for s in sessions:
+        s.stop()
+
+
+@pytest.mark.parametrize("name", list(SQL_CONSTRUCTS))
+def test_sql_constructs_card_equal_cpu(construct_pair, name):
+    cpu, card = construct_pair
+    text, ordered = SQL_CONSTRUCTS[name]
+    want = cpu.sql(text).toArrow()
+    got = card.sql(text).toArrow()
+    assert got.schema == want.schema
+    assert construct_rows(got, ordered) == construct_rows(want, ordered)
 
 
 def test_string_keys_card_equal_cpu(cuda_device):

@@ -179,18 +179,23 @@ def test_transformed_keys_group_and_sort_by_value(sessions):
 
 
 UNPORTED = {
-    "with": ("WITH x AS (SELECT k FROM t1) SELECT k FROM x", "WITH"),
+    "with": ("WITH x AS (SELECT DISTINCT k FROM t1) SELECT k FROM x",
+             "DISTINCT"),
     "union": ("SELECT k FROM t1 UNION SELECT k FROM t1", "UNION"),
-    "from_subquery": ("SELECT k FROM (SELECT k FROM t1) q", "subquery"),
-    "in_list": ("SELECT k FROM t1 WHERE k IN (1, 2)", "IN"),
+    "from_subquery": ("SELECT k FROM (SELECT k FROM t1 UNION ALL "
+                      "SELECT k2 FROM t2) q", "UNION"),
+    "in_list": ("SELECT k FROM t1 WHERE k NOT IN (SELECT k2 FROM t2)",
+                "IN (subquery)"),
     "in_subquery": ("SELECT k FROM t1 WHERE k IN (SELECT k2 FROM t2)",
                     "IN (subquery)"),
     "exists": ("SELECT k FROM t1 WHERE EXISTS (SELECT k2 FROM t2)",
                "EXISTS"),
     "scalar_subquery": ("SELECT (SELECT max(k2) FROM t2) m FROM t1",
                         "scalar subquery"),
-    "case": ("SELECT CASE WHEN k > 1 THEN 1 ELSE 0 END FROM t1", "CASE"),
-    "between": ("SELECT k FROM t1 WHERE k BETWEEN 1 AND 3", "BETWEEN"),
+    "case": ("SELECT CASE WHEN k > 1 THEN s ELSE 'x' END FROM t1",
+             "CASE with string results"),
+    "between": ("SELECT k FROM t1 WHERE dt BETWEEN DATE '2020-01-01' AND "
+                "DATE '2020-01-01' + INTERVAL 30 DAYS", "INTERVAL"),
     "like": ("SELECT k FROM t1 WHERE s LIKE 'a%'", "LIKE"),
     "interval": ("SELECT dt + INTERVAL 1 DAY FROM t1", "INTERVAL"),
     "window": ("SELECT sum(k) OVER (PARTITION BY s) FROM t1", "OVER"),

@@ -1,0 +1,65 @@
+"""TPC-DS queries that read the catalog and web channels (catalog_sales,
+catalog_returns, web_sales, web_returns, with the store channel where a
+query joins them), held to the goldens, to the JAX reference's results and
+plans, and to `chip_smoke.py`'s SF10 plans exactly as
+`tests/test_torch_tpcds_store.py` holds the store-channel queries; and the
+TPC-DS queries whose constructs are outside the port's slice raise
+NotPortedError naming the construct instead of answering."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from spark_tpu_torch import NotPortedError  # noqa: E402
+from tests.test_torch_cuda import TPCDS_VARIANTS, tpcds_query  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402
+    Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+)
+
+QUERIES = ("q15", "q25", "q26", "q29", "q31", "q62", "q64", "q78", "q85",
+           "q99")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    p = TpcdsPair()
+    yield p
+    p.stop()
+
+
+@pytest.fixture(scope="module")
+def sf10(pair):
+    return Sf10Planner(pair.tables)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_query_matches_golden(pair, name):
+    check_golden(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES + tuple(
+    f"{q}_variant" for q in QUERIES if q in TPCDS_VARIANTS))
+def test_query_matches_reference(pair, name):
+    check_reference(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_plans_match_reference(pair, name):
+    check_plans(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_sf10_plans_match_chip_smoke(sf10, name):
+    sf10.check(name)
+
+
+# query -> what the error names
+UNPORTED = {"q84": "concat", "q2": "UNION", "q1": "scalar subquery"}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED))
+def test_unported_queries_raise(pair, name):
+    with pytest.raises(NotPortedError) as err:
+        pair.torch.sql(tpcds_query(name)).toArrow()
+    assert UNPORTED[name].lower() in err.value.what.lower()
