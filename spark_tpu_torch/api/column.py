@@ -27,7 +27,7 @@ class Column:
         return Column(E.Alias(self.expr, name))
 
     def cast(self, to: DataType) -> "Column":
-        return Column(E.Cast(self.expr, to))
+        return Column(E.Cast(self.expr, to, explicit=True))
 
     # --- arithmetic -------------------------------------------------------
     def __add__(self, o):

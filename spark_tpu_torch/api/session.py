@@ -2,7 +2,8 @@
 surface of the port's slices): `TorchSession(appName, conf, device)`,
 `createDataFrame`, `sql` (SELECT queries over temp views; a CTE the parser
 materialises runs once here, its result collected to Arrow and spliced in
-as an in-memory relation), `table`, `conf` and `stop`. SQL scripting, hints
+as an in-memory relation wherever it is read, subquery expressions
+included), `table`, `conf` and `stop`. SQL scripting, hints
 and commands raise `NotPortedError`.
 
 The session runs on CUDA unless the caller asks for the CPU, by
@@ -114,8 +115,12 @@ class TorchSession:
             mapping[uniq.lower()] = self.createDataFrame(table).plan
         return self._splice_relations(wplan.child, mapping)
 
-    @staticmethod
-    def _splice_relations(plan, mapping):
+    @classmethod
+    def _splice_relations(cls, plan, mapping):
+        """Each read of a materialised CTE, in the plan and in the plans of
+        its subquery expressions, becomes an in-memory relation."""
+        from ..plan.subquery import map_subquery_plans
+
         def rule(node):
             if isinstance(node, UnresolvedRelation):
                 rel = mapping.get(node.name.lower())
@@ -123,7 +128,9 @@ class TorchSession:
                     return LocalRelation(
                         [AttributeReference(a.name, a.dtype, a.nullable)
                          for a in rel.output], rel.table)
-            return node
+                return node
+            return map_subquery_plans(
+                node, lambda p: cls._splice_relations(p, mapping))
 
         return plan.transform_up(rule)
 

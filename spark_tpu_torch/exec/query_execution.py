@@ -1,6 +1,8 @@
 """Query execution pipeline (counterpart of
 `spark_tpu/exec/query_execution.py`, the subset that plans, executes and
-collects): analyzed -> optimized -> physical -> execute -> Arrow."""
+collects): analyzed -> optimized -> physical -> execute -> Arrow. The
+optimized plan's uncorrelated scalar subqueries run first, once each, and
+become literals."""
 
 from __future__ import annotations
 
@@ -23,7 +25,38 @@ class QueryExecution:
 
     @cached_property
     def optimized(self) -> LogicalPlan:
-        return self.session._optimizer.execute(self.analyzed)
+        plan = self.session._optimizer.execute(self.analyzed)
+        return self._materialize_scalar_subqueries(plan)
+
+    def _materialize_scalar_subqueries(self, plan: LogicalPlan
+                                       ) -> LogicalPlan:
+        """Run each remaining (uncorrelated) scalar subquery once, collect
+        it and substitute a literal: NULL for no row, an error for more
+        than one."""
+        from ..errors import ExecutionError
+        from ..expr.expressions import Literal
+        from ..plan.subquery import ScalarSubquery
+
+        if not any(isinstance(x, ScalarSubquery)
+                   for n in plan.iter_nodes()
+                   for e in n.expressions()
+                   for x in e.iter_nodes()):
+            return plan
+
+        def fix_expr(e):
+            if isinstance(e, ScalarSubquery):
+                table = QueryExecution(self.session, e.plan).to_arrow()
+                self.session._metrics.add("subquery.scalar")
+                if table.num_rows > 1:
+                    raise ExecutionError(
+                        "scalar subquery returned more than one row")
+                value = table.column(0)[0].as_py() if table.num_rows \
+                    else None
+                return Literal(value, e.dtype)
+            return e
+
+        return plan.transform_up(
+            lambda node: node.transform_expressions(fix_expr))
 
     @cached_property
     def physical(self) -> PhysicalPlan:

@@ -1,6 +1,6 @@
 """Shuffle: redistribute rows across partitions (counterpart of
 `spark_tpu/exec/shuffle.py`, the device path of the hash, round-robin
-and range exchanges; range keys are numeric).
+and range exchanges).
 
 Partition ids are computed on the device for a whole batch, rows are
 grouped by pid with one stable sort, and the grouped columns are sliced into
@@ -10,19 +10,23 @@ per-partition counts (from the histogram kernel) cross to the host, and
 each reducer's slices are concatenated into tiles on the device. A string
 column's slices carry their map batch's dictionary; a reducer tile unifies
 the dictionaries of its slices (one host merge per distinct set, a device
-recode per slice). Spilling to disk, the map-side column stats that seed
-the JAX package's dense-range memo and string range keys are not ported.
+recode per slice). A string range key maps each dictionary value to its
+partition on the host (a search among the sampled bounds), and the codes
+take that lut on the device. Spilling to disk and the map-side column
+stats that seed the JAX package's dense-range memo are not ported.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
-from ..columnar.batch import Column, ColumnarBatch, bucket_capacity
+from ..columnar.batch import (
+    EMPTY_DICT, Column, ColumnarBatch, _take_codes, bucket_capacity,
+)
 from ..columnar.ops import unify_string_columns
-from ..errors import NotPortedError
 from ..exec.context import ExecContext
 from ..types import StructType, dict_encoded
 
@@ -137,17 +141,32 @@ def rr_partition_batch(batch: ColumnarBatch, num_out: int,
 
 
 def range_partition_batch(batch: ColumnarBatch, key_position: int,
-                          bounds: torch.Tensor, descending: bool,
+                          bounds: torch.Tensor | list, descending: bool,
                           nulls_first: bool,
                           num_out: int) -> tuple[list, list[int]]:
-    """Range-partition one batch against sampled bounds (numeric keys)."""
-    from ..ops.partition import range_partition
+    """Range-partition one batch against sampled bounds: a tensor of
+    numeric bounds, or the sorted string bounds of a string key."""
+    from ..ops.partition import _group_by_pid, range_partition
 
     col = batch.columns[key_position]
-    if col.is_string:
-        raise NotPortedError("range exchange on a string key")
-    pr = range_partition(col.sort_keys(), bounds, batch.row_mask, num_out,
-                         descending, col.validity, nulls_first)
+    if not col.is_string:
+        pr = range_partition(col.sort_keys(), bounds, batch.row_mask,
+                             num_out, descending, col.validity, nulls_first)
+        return _pull_sorted(batch, pr.perm, pr.counts)
+    # each dictionary value's partition on the host, the codes' on the
+    # device
+    values = (col.dictionary or EMPTY_DICT).values or [""]
+    lut = np.searchsorted(np.array(bounds, dtype=object),
+                          np.array(values, dtype=object),
+                          side="right").astype(np.int32)
+    if descending:
+        lut = (num_out - 1) - lut
+    pids = _take_codes(torch.from_numpy(lut).to(col.data.device), col.data)
+    if col.validity is not None:
+        null_pid = 0 if nulls_first else num_out - 1
+        pids = torch.where(col.validity, pids,
+                           torch.full_like(pids, null_pid))
+    pr = _group_by_pid(pids, batch.row_mask, num_out)
     return _pull_sorted(batch, pr.perm, pr.counts)
 
 
@@ -183,7 +202,8 @@ def shuffle_range(partitions: list[Partition], key_position: int,
     """Range shuffle for a global sort. `bounds` is a host array of
     boundary values in the sort-key domain."""
     bufs = [_OutBuffer(schema) for _ in range(num_out)]
-    b = torch.as_tensor(bounds, device=ctx.device)
+    b = bounds if isinstance(bounds, list) \
+        else torch.as_tensor(bounds, device=ctx.device)
     for part in partitions:
         for batch in part:
             gathered, counts = range_partition_batch(

@@ -11,9 +11,15 @@ sort orders, the comparisons (strings compare by value hash for = and <>,
 by merged-dictionary rank for the orderings), Kleene and/or/not, is [not]
 null, three-valued IN over a list (strings by value hash, literal items
 only), CASE WHEN / if / coalesce (every branch over the whole tile, picked
-by mask), round (half up), substr/substring (a dictionary transform on the
-host, once per dictionary), and the aggregate functions sum, count, min,
-max and avg.
+by mask), round (half up), the dictionary transforms substr/substring,
+upper and concat of one column with literals (on the host, once per
+dictionary), and the aggregate functions sum, count, min, max and avg.
+A double scaled by literal factors is computed as the reference's
+compiler computes it: a division by a literal as a product with its
+reciprocal, and a chain of constant factors folded into one. A cast to a
+narrower decimal gives NULL where the value has more digits than the
+target precision, as Spark's non-ANSI cast does; a string casts to a date
+by parsing its dictionary.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from ..plan.tree import TreeNode, next_id
 from ..types import (
     BooleanType, DataType, DateType, DecimalType, FractionalType,
     IntegralType, NullType, NumericType, StringType, boolean, common_type,
-    dict_encoded, float64, infer_type, int64, null_type, string,
+    date, dict_encoded, float64, infer_type, int64, null_type, string,
 )
 from .eval import EvalCtx, Val
 
@@ -44,7 +50,8 @@ __all__ = [
     "Add", "Subtract", "Multiply", "Divide", "TryAdd", "TrySubtract",
     "TryMultiply", "EqualTo", "NotEqualTo", "LessThan", "LessThanOrEqual",
     "GreaterThan", "GreaterThanOrEqual", "And", "Or", "Not", "IsNull",
-    "IsNotNull", "AggregateFunction", "Sum", "Count", "Min", "Max", "Average",
+    "IsNotNull", "Upper", "Concat", "AggregateFunction", "Sum", "Count",
+    "Min", "Max", "Average",
 ]
 
 
@@ -282,9 +289,15 @@ class SortOrder(Expression):
 class Cast(Expression):
     child_fields = ("child",)
 
-    def __init__(self, child: Expression, to: DataType):
+    def __init__(self, child: Expression, to: DataType,
+                 explicit: bool = False):
         self.child = child
         self.to = to
+        # written by the user (CAST, Column.cast), not put in by type
+        # coercion: only then does an integer past the target precision
+        # read as NULL (a comparison casts its integer side to the other
+        # side's decimal type, where a range check would drop rows)
+        self.explicit = explicit
 
     @property
     def dtype(self) -> DataType:
@@ -295,13 +308,14 @@ class Cast(Expression):
         return self.child.nullable
 
     def eval(self, ctx: EvalCtx) -> Val:
-        return cast_val(ctx, ctx.eval(self.child), self.to)
+        return cast_val(ctx, ctx.eval(self.child), self.to, self.explicit)
 
     def simple_string(self) -> str:
         return f"cast({self.child.simple_string()} as {self.to.simple_string()})"
 
 
-def cast_val(ctx: EvalCtx, c: Val, to: DataType) -> Val:
+def cast_val(ctx: EvalCtx, c: Val, to: DataType,
+             explicit: bool = False) -> Val:
     frm = c.dtype
     if type(frm) is type(to) and frm == to:
         return c
@@ -309,6 +323,8 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType) -> Val:
     if isinstance(frm, NullType):
         return Val(to, ctx.scalar(0, dd), ctx.scalar(False, torch.bool),
                    StringDict([""]) if isinstance(to, StringType) else None)
+    if isinstance(frm, StringType) and isinstance(to, DateType):
+        return _string_to_date(c)
     if isinstance(frm, StringType) or isinstance(to, StringType):
         raise NotPortedError(f"cast({frm.simple_string()} as "
                              f"{to.simple_string()})")
@@ -316,12 +332,15 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType) -> Val:
     if isinstance(frm, DecimalType) and isinstance(to, DecimalType):
         delta = to.scale - frm.scale
         if delta >= 0:
-            return Val(to, data * (10 ** delta), c.validity)
-        # half-up (away from zero) on the integers, as the reference does
-        f = 10 ** (-delta)
-        half = f // 2
-        out = torch.where(data >= 0, (data + half) // f,
-                          -((-data + half) // f))
+            out = data * (10 ** delta)
+        else:
+            # half-up (away from zero) on the integers, as the reference
+            f = 10 ** (-delta)
+            half = f // 2
+            out = torch.where(data >= 0, (data + half) // f,
+                              -((-data + half) // f))
+        if delta < 0 or to.precision - to.scale < frm.precision - frm.scale:
+            return Val(to, out, _fits_precision(out, to, c.validity))
         return Val(to, out, c.validity)
     if isinstance(frm, DecimalType):
         # a product with the reciprocal of 10^scale: the reference's
@@ -332,10 +351,22 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType) -> Val:
         return cast_val(ctx, Val(float64, scaled, c.validity), to)
     if isinstance(to, DecimalType):
         if data.dtype.is_floating_point:
-            # torch.round rounds half to even, as the reference's rint
+            # torch.round rounds half to even, as the reference's rint;
+            # NaN, infinities and values past the precision read as NULL
             d = torch.round(data.to(torch.float64) * (10.0 ** to.scale))
-            return Val(to, d.to(torch.int64), c.validity)
-        return Val(to, data.to(torch.int64) * (10 ** to.scale), c.validity)
+            ok = d.abs() < float(10 ** to.precision)
+            out = torch.where(ok, d, torch.zeros_like(d)).to(torch.int64)
+            return Val(to, out, ok if c.validity is None
+                       else ok & c.validity)
+        # in an explicit cast, an integer with more digits than the
+        # target's integral part reads as NULL (checked before the
+        # scaling, which could wrap)
+        whole = data.to(torch.int64)
+        ok = c.validity
+        if explicit and to.precision - to.scale < 19:
+            ok = whole.abs() < 10 ** (to.precision - to.scale)
+            ok = ok if c.validity is None else ok & c.validity
+        return Val(to, whole * (10 ** to.scale), ok)
     if isinstance(to, BooleanType):
         return Val(to, data != 0, c.validity)
     if isinstance(frm, FractionalType) and isinstance(to, IntegralType):
@@ -344,6 +375,40 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType) -> Val:
                              neginf=0.0)
         return Val(to, t.to(dd), c.validity)
     return Val(to, data.to(dd), c.validity)
+
+
+def _string_to_date(c: Val) -> Val:
+    """cast(string as date): each dictionary value parsed once on the host
+    (ISO `yyyy-mm-dd`, the first ten characters after trimming; anything
+    else is NULL), the codes gathering day numbers and validity."""
+    sd = c.sdict or StringDict([""])
+
+    def parse():
+        days = np.zeros(max(len(sd.values), 1), dtype=np.int32)
+        ok = np.zeros(max(len(sd.values), 1), dtype=bool)
+        epoch = datetime.date(1970, 1, 1)
+        for i, v in enumerate(sd.values):
+            try:
+                days[i] = (datetime.date.fromisoformat(v.strip()[:10])
+                           - epoch).days
+                ok[i] = True
+            except ValueError:
+                pass
+        return days, ok
+
+    dev = c.data.device
+    days = sd._on("date_days", dev, lambda: parse()[0])
+    ok = _take_codes(sd._on("date_ok", dev, lambda: parse()[1]), c.data)
+    return Val(date, _take_codes(days, c.data),
+               ok if c.validity is None else ok & c.validity)
+
+
+def _fits_precision(data: torch.Tensor, to: DecimalType, validity):
+    """Validity of a rescaled decimal: a value with more digits than the
+    target precision reads as NULL, as Spark's non-ANSI cast gives (the
+    reference emits the overflowed value; ROADMAP.md section C)."""
+    ok = data.abs() < 10 ** to.precision
+    return ok if validity is None else ok & validity
 
 
 def cast_if(e: Expression, to: DataType) -> Expression:
@@ -484,8 +549,105 @@ class Multiply(BinaryArithmetic):
                     cast_val(ctx, r, float64).data)
         return super()._align(ctx, l, r, out)
 
+    def eval(self, ctx):
+        return _eval_scaled(ctx, self) or super().eval(ctx)
+
     def _op(self, l, r):
         return l * r, None
+
+
+# Doubles scaled by constants round as the reference's compiled programs
+# do. XLA's algebraic simplifier rewrites a division by a constant into a
+# product with its reciprocal (the decimal -> double cast divides by
+# 10^scale) and `(A * C1) * C2` into `A * (C1 * C2)`; the product of the
+# two constants is a new instruction, which is a constant again only once
+# the constant-folding pass has run. The passes alternate until nothing
+# changes. The port replays them on the chain of constant factors and
+# applies the resulting factor with one multiplication, which rounds the
+# same on the CPU and the card.
+
+def _constant_factor(e: Expression) -> float | None:
+    if isinstance(e, Literal) and e.value is not None and \
+            isinstance(e.dtype, (IntegralType, FractionalType)) and \
+            not isinstance(e.dtype, DecimalType):
+        return float(e.value)
+    return None
+
+
+def _scale_chain(e: Expression):
+    """The chain of products and quotients by constants that computes `e`
+    read as a double, as links ("div", child, constant) and ("mul", child,
+    constant) down to ("raw", decimal expression), a decimal's unscaled
+    integers, or ("leaf", expression). A constant is ("const", value) or
+    ("mulc", constant, constant), a product not folded yet."""
+    if isinstance(e, Divide):
+        c = _constant_factor(e.right)
+        if c:  # a zero divisor keeps the NULL path
+            return ("div", _scale_chain(e.left), ("const", c))
+    elif isinstance(e, Multiply) and e.dtype == float64:
+        for lit, other in ((e.right, e.left), (e.left, e.right)):
+            c = _constant_factor(lit)
+            if c is not None and _constant_factor(other) is None:
+                return ("mul", _scale_chain(other), ("const", c))
+    elif isinstance(e, Cast) and e.to == float64 and \
+            isinstance(e.child.dtype, DecimalType):
+        return _scale_chain(e.child)
+    elif isinstance(e.dtype, DecimalType):
+        # read as a double: its unscaled integers over 10^scale
+        return ("div", ("raw", e), ("const", 10.0 ** e.dtype.scale))
+    return ("leaf", e)
+
+
+def _simplify_pass(node):
+    """One post-order pass of the two rewrites; a rewritten node is not
+    revisited in the same pass."""
+    kind = node[0]
+    if kind in ("leaf", "raw"):
+        return node
+    child, k = _simplify_pass(node[1]), node[2]
+    if kind == "div":
+        return ("mul", child, ("const", 1.0 / k[1]))
+    if k[0] == "const" and child[0] == "mul" and child[2][0] == "const":
+        return ("mul", child[1], ("mulc", child[2], k))
+    return ("mul", child, k)
+
+
+def _fold_constants(node):
+    kind = node[0]
+    if kind == "mulc":
+        return ("const", _fold_constants(node[1])[1] *
+                _fold_constants(node[2])[1])
+    if kind in ("mul", "div"):
+        return (kind, _fold_constants(node[1]), _fold_constants(node[2]))
+    return node
+
+
+def _eval_scaled(ctx: EvalCtx, e: Expression) -> Val | None:
+    """`e` as base * factor when it is a double scaled by constants, else
+    None (the operator's own evaluation)."""
+    if e.dtype != float64:
+        return None
+    node = _scale_chain(e)
+    if node[0] not in ("mul", "div"):
+        return None
+    while True:
+        nxt = _fold_constants(_simplify_pass(node))
+        if nxt == node:
+            break
+        node = nxt
+    factors = []
+    while node[0] == "mul":
+        factors.append(node[2][1])
+        node = node[1]
+    kind, base = node
+    v = ctx.eval(base)
+    if kind == "raw":
+        data = v.data.to(torch.float64)
+    else:
+        data = cast_val(ctx, v, float64).data
+    for f in reversed(factors):
+        data = data * f
+    return Val(float64, data, v.validity)
 
 
 def _signed_int(t: torch.Tensor) -> bool:
@@ -539,6 +701,9 @@ class Divide(BinaryArithmetic):
 
     def _result_type(self, ct):
         return float64
+
+    def eval(self, ctx):
+        return _eval_scaled(ctx, self) or super().eval(ctx)
 
     def _align(self, ctx, l, r, out):
         return (cast_val(ctx, l, float64).data, cast_val(ctx, r, float64).data)
@@ -994,6 +1159,55 @@ class Substring(_DictTransform):
         if self.length is None:
             return s[start:]
         return s[start:start + max(self.length, 0)]
+
+
+class Upper(_DictTransform):
+    def transform(self, s):
+        return s.upper()
+
+
+class _Affix(_DictTransform):
+    """prefix + s + suffix: concat of one string column with literals."""
+
+    def __init__(self, child: Expression, prefix: str, suffix: str):
+        super().__init__(child)
+        self.prefix = prefix
+        self.suffix = suffix
+
+    def transform(self, s):
+        return self.prefix + s + self.suffix
+
+
+class Concat(Expression):
+    """concat / `||` where at most one argument is not a literal: all
+    literals make one literal, and one string column with literals is a
+    dictionary transform. Two or more columns need the host UDF lane of the
+    reference's RewriteHostOnlyExpressions, which is not ported."""
+
+    child_fields = ("args",)
+
+    def __init__(self, args: Sequence[Expression]):
+        self.args = list(args)
+
+    @property
+    def dtype(self):
+        return string
+
+    def eval(self, ctx):
+        # SQL concat is null-intolerant: any NULL argument nulls the result
+        if any(isinstance(a, Literal) and a.value is None for a in self.args):
+            return Literal(None, string).eval(ctx)
+        cols = [i for i, a in enumerate(self.args)
+                if not isinstance(a, Literal)]
+        if not cols:
+            return Literal("".join(str(a.value) for a in self.args)).eval(ctx)
+        if len(cols) > 1:
+            raise NotPortedError("concat over two or more string columns "
+                                 "(RewriteHostOnlyExpressions)")
+        i = cols[0]
+        prefix = "".join(str(a.value) for a in self.args[:i])
+        suffix = "".join(str(a.value) for a in self.args[i + 1:])
+        return ctx.eval(_Affix(self.args[i], prefix, suffix))
 
 
 # ---------------------------------------------------------------------------

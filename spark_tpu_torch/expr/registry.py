@@ -21,6 +21,9 @@ _BUILDERS = {
     "round": lambda c, s=None: E.Round(c, s),
     "if": lambda p, a, b: E.If(p, a, b),
     "coalesce": lambda *a: E.Coalesce(list(a)),
+    "upper": lambda c: E.Upper(c),
+    "ucase": lambda c: E.Upper(c),
+    "concat": lambda *a: E.Concat(list(a)),
 }
 
 

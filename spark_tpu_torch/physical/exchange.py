@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..columnar.batch import ColumnarBatch
+from ..columnar.batch import EMPTY_DICT, ColumnarBatch
 from ..columnar.ops import concat_batches
 from ..errors import NotPortedError
 from ..exec import shuffle as S
@@ -71,8 +71,6 @@ class ShuffleExchangeExec(PhysicalPlan):
             raise ValueError("range keys must be attributes (planner "
                              "contract)")
         kpos = pos[order.child.expr_id]
-        if isinstance(schema.fields[kpos].dataType, StringType):
-            raise NotPortedError("range exchange on a string key")
         bounds = _sample_bounds(parts, kpos, schema, p.num_partitions)
         if bounds is None or len(bounds) == 0:
             return S.gather_single(parts)
@@ -97,7 +95,11 @@ def _batch_key_samples(batch: ColumnarBatch, kpos: int, f,
         data = col.data[live]
         if col.validity is not None:
             data = data[col.validity[live]]
-        return tuple(data.cpu().numpy().tolist())
+        keys = data.cpu().numpy().tolist()
+        if col.is_string:  # the values, through the batch's dictionary
+            values = (col.dictionary or EMPTY_DICT).values
+            return tuple(values[k] for k in keys)
+        return tuple(keys)
 
     return memo_device_scalars(
         ("range_sample", kpos, per_part_sample, f.dataType.simple_string()),
@@ -109,8 +111,8 @@ def _sample_bounds(parts, kpos: int, schema, num_out: int,
     """Sample the sort key to derive range bounds (the reference's
     RangePartitioner sampling): up to `per_part_sample` keys of the first
     two tiles of every partition, the distinct values sorted, and
-    num_out - 1 evenly spaced quantiles, as float64 (NaN as +inf) or
-    int64."""
+    num_out - 1 evenly spaced quantiles, as float64 (NaN as +inf), int64
+    or a sorted list of strings."""
     f = schema.fields[kpos]
     samples = []
     for part in parts:
@@ -119,6 +121,12 @@ def _sample_bounds(parts, kpos: int, schema, num_out: int,
                                               per_part_sample))
     if not samples:
         return None
+    if isinstance(f.dataType, StringType):
+        s = sorted(set(samples))
+        if len(s) <= 1:
+            return None
+        return sorted({s[int(round(i * (len(s) - 1) / num_out))]
+                       for i in range(1, num_out)})
     # decimals sample their scaled int64 values
     floating = isinstance(f.dataType, FractionalType) and \
         not isinstance(f.dataType, DecimalType)

@@ -2,11 +2,12 @@
 the local table scan, the fused filter+project `ComputeExec`,
 `HashAggregateExec` in partial and final mode with its three kernels —
 ungrouped, sorted-segment and dense-range (over an integral key's range or
-a string key's dictionary codes) — `SortExec`, `LimitExec` and
-`HashJoinExec` (broadcast or shuffled; a dense direct-address build or the
-hash-sorted build with a searchsorted probe). `execute()` returns a list of
-partitions, each a list of device ColumnarBatches; blocking operators
-concatenate their partition's batches and run one kernel per chunk.
+a string key's dictionary codes) — `SortExec`, `LimitExec`, `HashJoinExec`
+(broadcast or shuffled; a dense direct-address build or the hash-sorted
+build with a searchsorted probe) and `UnionExec`. `execute()` returns a
+list of partitions, each a list of device ColumnarBatches; blocking
+operators concatenate their partition's batches and run one kernel per
+chunk.
 """
 
 from __future__ import annotations
@@ -766,6 +767,43 @@ class HashJoinExec(PhysicalPlan):
                       for l, r in zip(self.left_keys, self.right_keys))
         b = "Broadcast" if self.is_broadcast else "Shuffled"
         return f"{b}HashJoin[{self.join_type}]({k})"
+
+
+# ---------------------------------------------------------------------------
+# Union
+# ---------------------------------------------------------------------------
+
+class UnionExec(PhysicalPlan):
+    """UNION ALL: every child's partitions in turn, each batch rewrapped
+    under the union's schema. Columns keep their branch's tensors and
+    dictionaries: a string column's branches hold different dictionaries,
+    and the operators that combine batches (exchange, aggregate, sort,
+    join build) unify them as they concatenate."""
+
+    child_fields = ("children_plans",)
+
+    def __init__(self, children_plans: Sequence[PhysicalPlan],
+                 attrs: list[AttributeReference]):
+        self.children_plans = list(children_plans)
+        self.attrs = attrs
+
+    @property
+    def output(self):
+        return self.attrs
+
+    def output_partitioning(self):
+        return UnknownPartitioning(sum(
+            c.output_partitioning().num_partitions
+            for c in self.children_plans))
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        schema = attrs_schema(self.attrs)
+        out: list[Partition] = []
+        for c in self.children_plans:
+            for part in c.execute(ctx):
+                out.append([ColumnarBatch(schema, b.columns, b.row_mask,
+                                          b._num_rows) for b in part])
+        return out
 
 
 class _SchemaOnly(PhysicalPlan):

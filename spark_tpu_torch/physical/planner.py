@@ -34,7 +34,7 @@ from .aggregates import AggSpec, lower_aggregate_function
 from .exchange import BroadcastExchangeExec, ShuffleExchangeExec
 from .operators import (
     ComputeExec, HashAggregateExec, HashJoinExec, LimitExec,
-    LocalTableScanExec, PhysicalPlan, SortExec,
+    LocalTableScanExec, PhysicalPlan, SortExec, UnionExec,
 )
 from .partitioning import (
     AllTuples, BroadcastDistribution, ClusteredDistribution,
@@ -120,6 +120,14 @@ class Planner:
             return self._plan_limit(node)
         if isinstance(node, L.Join):
             return self._plan_join(node)
+        if isinstance(node, L.Union):
+            return UnionExec([self._convert(c) for c in node.children_plans],
+                             list(node.output))
+        if isinstance(node, L.Distinct):
+            # the optimizer rewrites it; a safety net
+            out = node.child.output
+            return self._plan_aggregate(
+                L.Aggregate(list(out), list(out), node.child))
         if isinstance(node, L.Repartition):
             child = self._convert(node.child)
             n = node.num_partitions or self.conf.shuffle_partitions

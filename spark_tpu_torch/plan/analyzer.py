@@ -1,15 +1,18 @@
-"""Analyzer: resolves relations, columns and functions, names unnamed
-outputs and coerces decimal arithmetic (counterpart of
-`spark_tpu/plan/analyzer.py`, the rules the port's DataFrame and SQL slices
-need, in the reference's batch order): ResolveRelations,
-DeduplicateRelations, ResolveReferences (qualified names, star expansion,
-function resolution), ResolveGroupByAlias, GlobalAggregates,
-ResolveAggsInSortHaving, ResolveSortHiddenRefs, ResolveAliases,
-CoerceDecimalArithmetic and CheckAnalysis. Numeric coercion happens where
-each expression evaluates (common_type casts), as in the JAX package. The
-other rules (subqueries, windows, generators, USING joins in SQL, session
-variables, set-operation widening, interval folding) are listed in
-ROADMAP.md; their constructs raise NotPortedError at parse time."""
+"""Analyzer: resolves relations, columns, functions and subqueries, names
+unnamed outputs, coerces decimal arithmetic and widens union branches
+(counterpart of `spark_tpu/plan/analyzer.py`, the rules the port's
+DataFrame and SQL slices need, in the reference's batch order):
+ResolveRelations, DeduplicateRelations, ResolveReferences (qualified names,
+star expansion, function resolution), ResolveGroupByAlias,
+ResolveSubqueries (a subquery's plan resolves in its own scope, and a name
+it cannot resolve there binds to the outer query: a correlation),
+GlobalAggregates, ResolveAggsInSortHaving, ResolveSortHiddenRefs,
+ResolveAliases, CoerceDecimalArithmetic, WidenSetOperationTypes and
+CheckAnalysis. Numeric coercion happens where each expression evaluates
+(common_type casts), as in the JAX package. The other rules (windows,
+generators, USING joins in SQL, session variables, interval folding) are
+listed in ROADMAP.md; their constructs raise NotPortedError at parse
+time."""
 
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from ..types import DecimalType, common_type
 from .catalog import Catalog
 from .logical import (
     Aggregate, Filter, Join, LocalRelation, LogicalPlan, Project, Sort,
-    SubqueryAlias, UnresolvedRelation,
+    SubqueryAlias, Union, UnresolvedRelation,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -500,6 +503,76 @@ class ResolveSortHiddenRefs(Rule):
         return plan.transform_up(rule)
 
 
+class _ResolveRelationsDedup(Rule):
+    """ResolveRelations for subquery scopes: re-instances attributes that
+    collide with the outer scope's ids."""
+
+    def __init__(self, catalog: Catalog, outer_ids: set[int]):
+        self.catalog = catalog
+        self.outer_ids = set(outer_ids)
+
+    def apply(self, plan: LogicalPlan) -> LogicalPlan:
+        def rule(node):
+            if isinstance(node, UnresolvedRelation):
+                resolved = self.catalog.lookup(node.name_parts)
+                overlap = {a.expr_id for a in resolved.output} & \
+                    self.outer_ids
+                if overlap:
+                    mapping: dict[int, AttributeReference] = {}
+                    resolved = _remap_plan(resolved, mapping, overlap)
+                return SubqueryAlias(node.name_parts[-1], resolved)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class ResolveSubqueries(Rule):
+    """Resolve subquery plans; references left unresolved in a subquery's
+    own scope resolve against the outer scope (correlation)."""
+
+    def __init__(self, analyzer: "Analyzer"):
+        self.analyzer = analyzer
+
+    def apply(self, plan):
+        from .subquery import SubqueryExpression
+
+        an = self.analyzer
+
+        def rule(node):
+            if not all(c.resolved for c in node.children):
+                return node
+            try:
+                outer = node.input_attrs()
+            except AnalysisException:
+                return node
+
+            def needs_alias(p):
+                # `x IN (SELECT 1)`: the plan is resolved, but its bare
+                # project output still needs the alias pass
+                for n in p.iter_nodes():
+                    if isinstance(n, Project):
+                        exprs = n.project_list
+                    elif isinstance(n, Aggregate):
+                        exprs = n.aggregate_exprs
+                    else:
+                        continue
+                    if any(not isinstance(ex, (Alias, AttributeReference,
+                                               UnresolvedStar))
+                           and ex.resolved for ex in exprs):
+                        return True
+                return False
+
+            def fix(e):
+                if isinstance(e, SubqueryExpression) and \
+                        (not e.plan.resolved or needs_alias(e.plan)):
+                    return e.copy(plan=an.execute_subquery(e.plan, outer))
+                return e
+
+            return node.transform_expressions(fix)
+
+        return plan.transform_up(rule)
+
+
 class CoerceDecimalArithmetic(Rule):
     """Align decimal scales in Add/Subtract (the device value is a scaled
     int64, so both sides must share the scale)."""
@@ -523,11 +596,73 @@ class CoerceDecimalArithmetic(Rule):
         return plan.transform_up(rule)
 
 
+class WidenSetOperationTypes(Rule):
+    """Positionally coerce union branches to common types (a branch whose
+    column type differs gets a casting Project; the first branch keeps its
+    output ids, which name the union's output)."""
+
+    def apply(self, plan):
+        def widen(children: list[LogicalPlan]) -> list[LogicalPlan] | None:
+            outs = [c.output for c in children]
+            n = len(outs[0])
+            if any(len(o) != n for o in outs):
+                raise AnalysisException(
+                    "set operation branches have different column counts",
+                    error_class="NUM_COLUMNS_MISMATCH")
+            targets = []
+            for i in range(n):
+                t = outs[0][i].dtype
+                for o in outs[1:]:
+                    ct = common_type(t, o[i].dtype)
+                    if ct is None:
+                        raise AnalysisException(
+                            f"incompatible set-op column types: "
+                            f"{t.simple_string()} vs "
+                            f"{o[i].dtype.simple_string()}")
+                    t = ct
+                targets.append(t)
+            changed = False
+            new_children = []
+            for ci, (c, o) in enumerate(zip(children, outs)):
+                if all(a.dtype == t for a, t in zip(o, targets)):
+                    new_children.append(c)
+                    continue
+                projs: list[Expression] = []
+                for a, t in zip(o, targets):
+                    if a.dtype == t:
+                        projs.append(a)
+                    else:
+                        keep = a.expr_id if ci == 0 else None
+                        projs.append(Alias(cast_if(a, t), a.name,
+                                           expr_id=keep))
+                new_children.append(Project(projs, c))
+                changed = True
+            return new_children if changed else None
+
+        def rule(node):
+            if isinstance(node, Union) and node.resolved:
+                nc = widen(node.children_plans)
+                if nc is not None:
+                    return Union(nc)
+            return node
+
+        return plan.transform_up(rule)
+
+
 class CheckAnalysis(Rule):
     def apply(self, plan):
+        from .subquery import ScalarSubquery, SubqueryExpression
+
         def check(node):
             for e in node.expressions():
                 for sub in e.iter_nodes():
+                    if isinstance(sub, SubqueryExpression):
+                        if isinstance(sub, ScalarSubquery) and \
+                                len(sub.plan.output) != 1:
+                            raise AnalysisException(
+                                "scalar subquery must return one column")
+                        self.apply(sub.plan)
+                        continue
                     if isinstance(sub, UnresolvedAttribute):
                         cands = [a.name for a in node.input_attrs()]
                         close = difflib.get_close_matches(sub.name, cands, 3)
@@ -591,6 +726,7 @@ class Analyzer(RuleExecutor):
                 DeduplicateRelations(),
                 ResolveReferences(cs),
                 ResolveGroupByAlias(cs),
+                ResolveSubqueries(self),
                 GlobalAggregates(),
                 ResolveAggsInSortHaving(cs),
                 ResolveSortHiddenRefs(cs),
@@ -598,6 +734,59 @@ class Analyzer(RuleExecutor):
             ]),
             Batch("Coercion", FixedPoint(10), [
                 CoerceDecimalArithmetic(),
+                WidenSetOperationTypes(),
             ]),
             Batch("Check", Once(), [CheckAnalysis()]),
         ]
+
+    def execute_subquery(self, plan: LogicalPlan,
+                         outer: Sequence[AttributeReference]) -> LogicalPlan:
+        """Resolve a subquery plan; column references it cannot resolve in
+        its own scope resolve against the outer scope (correlation).
+        Relations resolved inside the subquery get fresh attribute ids
+        where they collide with the outer scope's."""
+        cs = self.case_sensitive
+        outer_ids = {a.expr_id for a in outer}
+        rules = [
+            _ResolveRelationsDedup(self.catalog, outer_ids),
+            DeduplicateRelations(),
+            ResolveReferences(cs),
+            ResolveGroupByAlias(cs),
+            ResolveSubqueries(self),
+            GlobalAggregates(),
+            ResolveAggsInSortHaving(cs),
+            ResolveSortHiddenRefs(cs),
+            ResolveAliases(),
+        ]
+        cur = plan
+        for _ in range(50):
+            before = cur
+            for rule in rules:
+                cur = rule(cur)
+
+            # leftovers: the inner scope first (SQL shadowing), then the
+            # outer scope (correlation)
+            def node_fix(n):
+                if not all(c.resolved for c in n.children):
+                    return n
+                try:
+                    inputs = n.input_attrs()
+                except AnalysisException:
+                    return n
+
+                def fix(e):
+                    if isinstance(e, UnresolvedAttribute):
+                        a = _resolve_name(e.name_parts, inputs, cs)
+                        if a is not None:
+                            return a
+                        a = _resolve_name(e.name_parts, outer, cs)
+                        if a is not None:
+                            return a
+                    return e
+
+                return n.transform_expressions(fix)
+
+            cur = cur.transform_up(node_fix)
+            if cur.fast_equals(before):
+                break
+        return CoerceDecimalArithmetic()(cur)

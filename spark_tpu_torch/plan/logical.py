@@ -1,8 +1,9 @@
 """Logical plan nodes (counterpart of `spark_tpu/plan/logical.py`, the nodes
 the port's DataFrame API and SQL parser build): UnresolvedRelation,
-LocalRelation, SubqueryAlias, WithCTE, Project, Filter, Aggregate, Sort,
-Limit, Offset, Repartition and Join, with the reference's crude row-count
-estimates (`stats_rows`) that decide broadcast joins."""
+LocalRelation, SubqueryAlias, WithCTE, Project, Filter, Aggregate,
+Distinct, Sort, Limit, Offset, Repartition, Join and Union, with the
+reference's crude row-count estimates (`stats_rows`) that decide broadcast
+joins."""
 
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from .tree import TreeNode
 __all__ = [
     "LogicalPlan", "LeafNode", "UnaryNode", "BinaryNode", "LocalRelation",
     "UnresolvedRelation", "SubqueryAlias", "WithCTE", "Project", "Filter",
-    "Aggregate", "Sort", "Limit", "Offset",
-    "Repartition", "Join", "normalize_join_type",
+    "Aggregate", "Distinct", "Sort", "Limit", "Offset",
+    "Repartition", "Join", "Union", "normalize_join_type",
 ]
 
 
@@ -255,6 +256,14 @@ class Offset(UnaryNode):
         self.child = child
 
 
+class Distinct(UnaryNode):
+    """SELECT DISTINCT and UNION's duplicate removal (the optimizer's
+    ReplaceDistinct turns it into an Aggregate over every column)."""
+
+    def __init__(self, child: LogicalPlan):
+        self.child = child
+
+
 class Repartition(UnaryNode):
     def __init__(self, num_partitions: int | None, shuffle: bool,
                  partition_exprs: Sequence[Expression], child: LogicalPlan):
@@ -310,3 +319,20 @@ class Join(BinaryNode):
         if l is None or r is None:
             return None
         return max(l, r)
+
+
+class Union(LogicalPlan):
+    """UNION ALL of positionally matched branches: the first branch names
+    the output, and a column is nullable where any branch's is."""
+
+    child_fields = ("children_plans",)
+
+    def __init__(self, children_plans: Sequence[LogicalPlan]):
+        self.children_plans = list(children_plans)
+
+    @property
+    def output(self):
+        first = self.children_plans[0].output
+        nullables = [any(c.output[i].nullable for c in self.children_plans)
+                     for i in range(len(first))]
+        return [a.with_nullability(n) for a, n in zip(first, nullables)]

@@ -1,15 +1,17 @@
 """Logical optimizer (counterpart of `spark_tpu/plan/optimizer.py`): the
 rule framework (plan/tree.py's RuleExecutor), the reference's batch layout,
-and the rules that change the plans the port's DataFrame API and SQL slice
-build: subquery-alias elimination, filter combination and pushdown (through
-projects, aggregates and into join sides), filter-into-join merging, greedy
-join reordering of inner-join chains (comma-list FROMs), constant folding,
-boolean and cast simplification, filter pruning, empty-relation
-propagation, IsNotNull inference on inner-join keys, limit combination,
-project collapsing and column pruning. The reference's other rules (set
-operations, grouping sets, distinct, the subquery rewrites, the OR
-common-factor step's users, Python UDFs) have no construct to fire on: the
-parser refuses theirs (ROADMAP.md)."""
+and the rules that change the plans the port's DataFrame API and SQL
+slices build: subquery-alias elimination, DISTINCT as an aggregate, the
+subquery rewrites into joins (plan/subquery.py, after the structural rules
+ran inside each subquery's plan), filter combination and pushdown (through
+projects, aggregates and unions and into join sides), filter-into-join
+merging, greedy join reordering of inner-join chains (comma-list FROMs),
+constant folding, boolean and cast simplification, filter pruning,
+empty-relation propagation, union flattening, IsNotNull inference on
+inner-join keys, limit combination, project collapsing and column pruning.
+The reference's other rules (INTERSECT/EXCEPT, grouping sets, distinct
+aggregates, Python UDFs) have no construct to fire on: the parser or the
+analyzer refuses theirs (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ from ..expr.expressions import (
 )
 from ..types import NullType
 from .logical import (
-    Aggregate, Filter, Join, Limit, LocalRelation, LogicalPlan, Offset,
-    Project, Repartition, Sort, SubqueryAlias,
+    Aggregate, Distinct, Filter, Join, Limit, LocalRelation, LogicalPlan,
+    Offset, Project, Repartition, Sort, SubqueryAlias, Union,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -72,7 +74,7 @@ def const_value(e: Expression):
         if not ok:
             return False, None
         try:
-            return True, _py_cast(v, e.to)
+            return True, _py_cast(v, e.to, e.explicit)
         except Exception:
             return False, None
     if isinstance(e, UnaryMinus):
@@ -106,7 +108,7 @@ def const_value(e: Expression):
     return False, None
 
 
-def _py_cast(v, to):
+def _py_cast(v, to, explicit: bool = False):
     from ..types import (
         BooleanType, DateType, DecimalType, FractionalType, IntegralType,
         StringType,
@@ -121,8 +123,12 @@ def _py_cast(v, to):
         import decimal as _d
 
         dv = v if isinstance(v, _d.Decimal) else _d.Decimal(str(v))
-        return dv.quantize(_d.Decimal(1).scaleb(-to.scale),
-                           rounding=_d.ROUND_HALF_UP)
+        q = dv.quantize(_d.Decimal(1).scaleb(-to.scale),
+                        rounding=_d.ROUND_HALF_UP)
+        if (explicit or isinstance(v, (float, _d.Decimal))) and \
+                abs(q.scaleb(to.scale)) >= 10 ** to.precision:
+            return None  # past the precision: NULL, as cast_val gives
+        return q
     if isinstance(to, FractionalType):
         return float(v)
     if isinstance(to, BooleanType):
@@ -275,6 +281,10 @@ class PushDownPredicates(Rule):
                                             alias_map(child.project_list))
                 return Project(child.project_list,
                                Filter(new_cond, child.child))
+            if isinstance(child, Union):
+                return Union([
+                    Filter(_remap_union_cond(node.condition, child, i), c)
+                    for i, c in enumerate(child.children_plans)])
             if isinstance(child, Join):
                 return self._push_into_join(node, child)
             if isinstance(child, Aggregate):
@@ -348,6 +358,12 @@ def _only_grouping_refs(e: Expression, agg: Aggregate) -> bool:
         return all(ok(c) for c in x.children)
 
     return ok(e)
+
+
+def _remap_union_cond(cond: Expression, union: Union, i: int) -> Expression:
+    m = {a.expr_id: b
+         for a, b in zip(union.output, union.children_plans[i].output)}
+    return substitute_attrs(cond, m)
 
 
 class MergeFilterIntoJoin(Rule):
@@ -448,10 +464,13 @@ class ColumnPruning(Rule):
                 child_req |= e.references()
             return Aggregate(node.grouping_exprs, new_aggs,
                              self._prune(node.child, child_req))
-        if isinstance(node, (Filter, Sort, Limit, Offset, Repartition)):
+        if isinstance(node, (Filter, Sort, Limit, Offset, Repartition,
+                             Distinct)):
             child_req = set(required)
             for e in node.expressions():
                 child_req |= e.references()
+            if isinstance(node, Distinct):
+                child_req |= {a.expr_id for a in node.child.output}
             new_child = self._prune(node.child, child_req)
             if new_child is not node.child:
                 return node.copy(child=new_child)
@@ -466,7 +485,7 @@ class ColumnPruning(Rule):
             if nl is not node.left or nr is not node.right:
                 return node.copy(left=nl, right=nr)
             return node
-        # LocalRelation and other leaves: conservative
+        # Union (positional), LocalRelation and other leaves: conservative
         return node.map_children(
             lambda c: self._prune(c, {a.expr_id for a in c.output}))
 
@@ -667,8 +686,8 @@ class PruneFilters(Rule):
 
 
 class PropagateEmptyRelation(Rule):
-    """Empty local relations collapse the operators above them (reference:
-    PropagateEmptyRelation; unions are not ported)."""
+    """Empty local relations collapse the operators above them, and empty
+    union branches drop out (reference: PropagateEmptyRelation)."""
 
     def apply(self, plan):
         def is_empty(p: LogicalPlan) -> bool:
@@ -691,6 +710,48 @@ class PropagateEmptyRelation(Rule):
                 if node.join_type in ("left_outer", "left_anti") and \
                         is_empty(node.left):
                     return empty_of(node)
+            if isinstance(node, Union) and node.resolved:
+                alive = [c for c in node.children_plans if not is_empty(c)]
+                if not alive:
+                    return empty_of(node)
+                if len(alive) < len(node.children_plans):
+                    if len(alive) == 1:
+                        # keep the union's output ids, positionally
+                        return Project(
+                            [Alias(b, a.name, a.expr_id)
+                             for a, b in zip(node.output, alive[0].output)],
+                            alive[0])
+                    return Union(alive)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class ReplaceDistinct(Rule):
+    def apply(self, plan):
+        def rule(node):
+            if isinstance(node, Distinct):
+                out = node.child.output
+                return Aggregate(list(out), list(out), node.child)
+            return node
+
+        return plan.transform_up(rule)
+
+
+class CombineUnions(Rule):
+    """Flatten nested unions into one."""
+
+    def apply(self, plan):
+        def rule(node):
+            if isinstance(node, Union) and any(
+                    isinstance(c, Union) for c in node.children_plans):
+                flat: list[LogicalPlan] = []
+                for c in node.children_plans:
+                    if isinstance(c, Union):
+                        flat.extend(c.children_plans)
+                    else:
+                        flat.append(c)
+                return Union(flat)
             return node
 
         return plan.transform_up(rule)
@@ -726,14 +787,51 @@ class CombineLimits(Rule):
         return plan.transform_up(rule)
 
 
+class OptimizeSubqueryPlans(Rule):
+    """Apply structural rules inside subquery expression plans (a DISTINCT
+    inside an IN subquery must become an aggregate before the subquery
+    becomes a join)."""
+
+    def __init__(self, rules):
+        self.rules = rules
+
+    def apply(self, plan):
+        from .subquery import map_subquery_plans
+
+        def optimize(p):
+            p = self.apply(p)  # nested subqueries first
+            for r in self.rules:
+                p = r.apply(p)
+            return p
+
+        return plan.transform_up(lambda node: map_subquery_plans(node,
+                                                                 optimize))
+
+
+def _finish_analysis_rules():
+    return [EliminateSubqueryAliases(), ReplaceDistinct()]
+
+
 class Optimizer(RuleExecutor):
     """The reference's batch layout, with the ported rules in their
     places."""
 
     def batches(self):
+        from .subquery import (
+            RewriteCorrelatedScalarSubquery, RewriteExistenceSubquery,
+            RewritePredicateSubquery,
+        )
+
         return [
             Batch("Finish analysis", Once(), [
-                EliminateSubqueryAliases(),
+                OptimizeSubqueryPlans(_finish_analysis_rules() +
+                                      [BooleanSimplification()]),
+                *_finish_analysis_rules(),
+            ]),
+            Batch("Subqueries", FixedPoint(10), [
+                RewritePredicateSubquery(),
+                RewriteExistenceSubquery(),
+                RewriteCorrelatedScalarSubquery(),
             ]),
             Batch("Operator optimization", FixedPoint(100), [
                 CombineFilters(),
@@ -745,6 +843,7 @@ class Optimizer(RuleExecutor):
                 SimplifyCasts(),
                 PruneFilters(),
                 PropagateEmptyRelation(),
+                CombineUnions(),
                 CombineLimits(),
                 CollapseProjects(),
                 RemoveNoopProject(),

@@ -1,19 +1,21 @@
 """SQL parser: text -> unresolved LogicalPlan (counterpart of
-`spark_tpu/sql/parser.py`, the SELECT grammar of the port's slice).
+`spark_tpu/sql/parser.py`, the SELECT grammar of the port's slices).
 
 The productions below are the reference's, copied: WITH (common table
 expressions: inlined where used once or cheap, else materialised once by
-the session through `WithCTE`, the reference's choice); the select list
-with AS and bare aliases; FROM comma lists, joins with ON, table aliases
-and subqueries with an alias; WHERE, GROUP BY (ordinals too), HAVING, ORDER
-BY ... ASC|DESC [NULLS FIRST|LAST], LIMIT and OFFSET; AND/OR/NOT,
-comparisons, IS [NOT] NULL, [NOT] IN (list), [NOT] BETWEEN, `+ - * /`,
-unary minus, parentheses, integer, decimal, string and DATE literals,
-CAST, CASE (searched and simple), and function calls (the analyzer
-resolves the names it knows). Every other production of the reference's
-grammar raises `NotPortedError` naming the construct: subquery
-expressions (scalar, IN, EXISTS), windows, set operations, LIKE,
-intervals, DISTINCT, hints, scripts and commands among them.
+the session through `WithCTE`, the reference's choice; a CTE is visible
+inside subquery expressions too); UNION [ALL | DISTINCT]; SELECT
+[DISTINCT] with AS and bare aliases; FROM comma lists, joins with ON,
+table aliases and subqueries with an alias; WHERE, GROUP BY (ordinals
+too), HAVING, ORDER BY ... ASC|DESC [NULLS FIRST|LAST], LIMIT and OFFSET;
+AND/OR/NOT, comparisons, IS [NOT] NULL, [NOT] IN (list), [NOT] IN
+(SELECT ...), [NOT] EXISTS (SELECT ...), scalar subqueries, [NOT]
+BETWEEN, `+ - * /`, `||`, unary minus, parentheses, integer, decimal,
+string and DATE literals, CAST, CASE (searched and simple), and function
+calls (the analyzer resolves the names it knows). Every other production
+of the reference's grammar raises `NotPortedError` naming the construct:
+INTERSECT, EXCEPT and MINUS, windows, LIKE, intervals, grouping sets,
+hints, scripts and commands among them.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ import datetime
 from ..errors import NotPortedError, ParseException
 from ..expr import expressions as E
 from ..plan import logical as L
+from ..plan.subquery import (
+    Exists, InSubquery, ScalarSubquery, iter_plans, map_subquery_plans,
+)
 from ..types import (
     DataType, DecimalType, boolean, date, float32, float64, int8, int16,
     int32, int64, string,
@@ -132,9 +137,20 @@ class Parser:
 
     def parse_set_expr(self) -> L.LogicalPlan:
         left = self.parse_term_query()
-        if self.at_kw("union", "intersect", "minus", "except"):
-            raise NotPortedError(
-                f"set operation {self.peek().value.upper()}")
+        while self.at_kw("union", "intersect", "minus", "except"):
+            op = self.next().value.lower()
+            if op != "union":
+                raise NotPortedError(f"set operation {op.upper()} "
+                                     "(ReplaceSetOps)")
+            distinct = True
+            if self.eat_kw("all"):
+                distinct = False
+            else:
+                self.eat_kw("distinct")
+            right = self.parse_term_query()
+            left = L.Union([left, right])
+            if distinct:
+                left = L.Distinct(left)
         return left
 
     def parse_term_query(self) -> L.LogicalPlan:
@@ -148,9 +164,11 @@ class Parser:
 
     def parse_select(self) -> L.LogicalPlan:
         self.expect_kw("select")
-        if self.at_kw("distinct"):
-            raise NotPortedError("SELECT DISTINCT")
-        self.eat_kw("all")
+        distinct = False
+        if self.eat_kw("distinct"):
+            distinct = True
+        else:
+            self.eat_kw("all")
         select_list = [self.parse_named_expression()]
         while self.eat_op(","):
             select_list.append(self.parse_named_expression())
@@ -203,6 +221,8 @@ class Parser:
                 plan = L.Filter(having, plan)
         else:
             plan = L.Project(list(select_list), plan)
+        if distinct:
+            plan = L.Distinct(plan)
         return plan
 
     def _order_limit(self, plan: L.LogicalPlan) -> L.LogicalPlan:
@@ -400,7 +420,12 @@ class Parser:
             if self.eat_kw("in"):
                 self.expect_op("(")
                 if self.at_kw("select", "with"):
-                    raise NotPortedError("IN (subquery)")
+                    sub = self.parse_query()
+                    self.expect_op(")")
+                    left = InSubquery(left, sub)
+                    if neg:
+                        left = E.Not(left)
+                    continue
                 items = [self.parse_expr()]
                 while self.eat_op(","):
                     items.append(self.parse_expr())
@@ -436,11 +461,13 @@ class Parser:
         left = self.parse_multiplicative()
         while self.at_op("+", "-") or self.at_op("||"):
             op = self.next().value
-            if op == "||":
-                raise NotPortedError("|| (concat)")
             right = self.parse_multiplicative()
-            left = E.Add(left, right) if op == "+" else \
-                E.Subtract(left, right)
+            if op == "+":
+                left = E.Add(left, right)
+            elif op == "-":
+                left = E.Subtract(left, right)
+            else:
+                left = E.Concat([left, right])
         return left
 
     def parse_multiplicative(self) -> E.Expression:
@@ -506,12 +533,22 @@ class Parser:
             self.expect_kw("as")
             to = self.parse_type()
             self.expect_op(")")
-            return E.Cast(e, to)
-        if self.at_kw("exists") and self.peek(1).value == "(":
-            raise NotPortedError("EXISTS (subquery)")
+            return E.Cast(e, to, explicit=True)
+        if self.at_kw("exists") and self.peek(1).value == "(" and \
+                (self.peek(2).value == "(" or
+                 (self.peek(2).kind == "kw" and
+                  self.peek(2).value.lower() in ("select", "with",
+                                                 "values"))):
+            self.next()
+            self.expect_op("(")
+            sub = self.parse_query()
+            self.expect_op(")")
+            return Exists(sub)
         if self.eat_op("("):
             if self.at_kw("select", "with"):
-                raise NotPortedError("scalar subquery")
+                sub = self.parse_query()
+                self.expect_op(")")
+                return ScalarSubquery(sub)
             e = self.parse_expr()
             self.expect_op(")")
             return e
@@ -666,9 +703,9 @@ def _refresh_alias_ids(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 
 def _count_cte_refs(plan: L.LogicalPlan, name: str) -> int:
-    """Occurrences of UnresolvedRelation(name) in a plan (the slice has no
-    subquery expressions, whose plans the reference also counts)."""
-    return sum(1 for node in plan.iter_nodes()
+    """Occurrences of UnresolvedRelation(name) in a plan, including inside
+    subquery-expression plans (the scope _substitute_ctes rewrites)."""
+    return sum(1 for p in iter_plans(plan) for node in p.iter_nodes()
                if isinstance(node, L.UnresolvedRelation)
                and node.name.lower() == name)
 
@@ -728,6 +765,8 @@ def _substitute_ctes(plan: L.LogicalPlan,
             hit = ctes.get(node.name.lower())
             if hit is not None:
                 return _refresh_alias_ids(hit)
-        return node
+        # CTEs are visible inside subquery expressions too: q1 reads its
+        # CTE in a correlated scalar subquery
+        return map_subquery_plans(node, lambda p: _substitute_ctes(p, ctes))
 
     return plan.transform_up(rule)

@@ -249,6 +249,11 @@ def test_port_imports_neither_jax_nor_reference():
         "          \"substr(d.name, 1, 1) = 'n' GROUP BY d.name \"\n"
         "          \"ORDER BY total DESC LIMIT 3\")\n"
         "assert q.toArrow().num_rows == 3\n"
+        "u = s.sql(\"SELECT name, count(*) AS n FROM (SELECT name \"\n"
+        "          \"FROM dim UNION ALL SELECT 'x' AS name FROM fact) q \"\n"
+        "          \"WHERE name IN (SELECT name FROM dim WHERE k < 9) \"\n"
+        "          \"AND (SELECT max(k) FROM dim) > 3 GROUP BY name\")\n"
+        "assert u.toArrow().num_rows == 7\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spark_tpu' or m.startswith('spark_tpu.')]\n"
         "assert not bad, bad\n"

@@ -1,0 +1,55 @@
+"""TPC-DS queries of the third SQL slice with scalar subqueries: q9's
+fifteen uncorrelated ones (each run once before the query and read as a
+literal), the correlated aggregates of q1, q30 and q81 (a left-outer join
+against the aggregate regrouped by the correlation key, over a CTE the
+subquery reads) and the HAVING and IN subqueries of q23a, q23b, q24a and
+q24b over their materialised CTEs. Each is held to its golden, to the JAX
+reference's results and plans, and to `chip_smoke.py`'s SF10 plans
+exactly as `tests/test_torch_tpcds_store.py` holds the store-channel
+queries; those whose golden has no rows at scale 0.1 also run with relaxed
+literals (`TPCDS_VARIANTS` of `tests/test_torch_cuda.py`)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from tests.test_torch_cuda import TPCDS_VARIANTS  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402
+    Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+)
+
+QUERIES = ("q1", "q9", "q23a", "q23b", "q24a", "q24b", "q30", "q81")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    p = TpcdsPair()
+    yield p
+    p.stop()
+
+
+@pytest.fixture(scope="module")
+def sf10(pair):
+    return Sf10Planner(pair.tables)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_query_matches_golden(pair, name):
+    check_golden(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES + tuple(
+    f"{q}_variant" for q in QUERIES if q in TPCDS_VARIANTS))
+def test_query_matches_reference(pair, name):
+    check_reference(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_plans_match_reference(pair, name):
+    check_plans(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_sf10_plans_match_chip_smoke(sf10, name):
+    sf10.check(name)
