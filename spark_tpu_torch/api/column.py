@@ -1,7 +1,7 @@
 """User-facing Column DSL (counterpart of `spark_tpu/api/column.py`, the
 operators whose expressions are ported; string literals come through `_expr`
-and `substr`; `isin`, `between` and the `when`/`otherwise` chain that
-`functions.when` starts)."""
+and `substr`; `isin`, `between`, the `when`/`otherwise` chain that
+`functions.when` starts, and `over` a window spec of `api/window.py`)."""
 
 from __future__ import annotations
 
@@ -141,6 +141,13 @@ class Column:
 
     def desc_nulls_last(self):
         return Column(E.SortOrder(self.expr, False, False))
+
+    # --- window -----------------------------------------------------------
+    def over(self, spec) -> "Column":
+        from ..expr.window import WindowExpression
+
+        return Column(WindowExpression(self.expr, spec._partition,
+                                       spec._order, spec._frame))
 
     def __hash__(self):
         return id(self)

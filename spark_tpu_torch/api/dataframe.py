@@ -1,7 +1,10 @@
 """DataFrame API (counterpart of `spark_tpu/api/dataframe.py`, the port's
-subset): a lazy wrapper over a logical plan bound to a session."""
+subset): a lazy wrapper over a logical plan bound to a session; groupBy,
+rollup and cube hand a GroupedData to `agg`."""
 
 from __future__ import annotations
+
+import itertools
 
 import pyarrow as pa
 
@@ -152,6 +155,12 @@ class DataFrame:
     def groupBy(self, *cols) -> "GroupedData":
         return GroupedData(self, _to_expr_list(cols))
 
+    def rollup(self, *cols) -> "GroupedData":
+        return GroupedData(self, _to_expr_list(cols), sets_kind="rollup")
+
+    def cube(self, *cols) -> "GroupedData":
+        return GroupedData(self, _to_expr_list(cols), sets_kind="cube")
+
     def agg(self, *cols) -> "DataFrame":
         return GroupedData(self, []).agg(*cols)
 
@@ -179,10 +188,21 @@ def _resolve_using(df: DataFrame, name: str) -> E.AttributeReference:
 class GroupedData:
     """Role of RelationalGroupedDataset."""
 
-    def __init__(self, df: DataFrame, grouping: list[E.Expression]):
+    def __init__(self, df: DataFrame, grouping: list[E.Expression],
+                 sets_kind: str | None = None):
         self.df = df
         self.grouping = grouping
+        self._sets_kind = sets_kind  # "rollup" | "cube" | None
 
     def agg(self, *cols) -> DataFrame:
         out = list(self.grouping) + _to_expr_list(cols, allow_str=False)
+        if self._sets_kind is not None:
+            n = len(self.grouping)
+            if self._sets_kind == "rollup":
+                sets = [list(range(n - i)) for i in range(n + 1)]
+            else:  # cube: every subset
+                sets = [list(c) for k in range(n, -1, -1)
+                        for c in itertools.combinations(range(n), k)]
+            return self.df._with(
+                L.GroupingSets(sets, self.grouping, out, self.df.plan))
         return self.df._with(L.Aggregate(self.grouping, out, self.df.plan))

@@ -1,13 +1,16 @@
 """Column functions (counterpart of `spark_tpu/api/functions.py`, the port's
 subset): col, lit (string and decimal literals too), the sort orders asc and
-desc, substring, when, coalesce, round, and the aggregates sum, count, min,
-max, avg."""
+desc, substring, when, coalesce, round, abs, the aggregates sum, count,
+min, max, avg, grouping and grouping_id (with rollup and cube), and the
+window functions row_number, rank, dense_rank, percent_rank, cume_dist,
+ntile, lag and lead (with `Column.over`)."""
 
 from __future__ import annotations
 
 from typing import Any
 
 from ..expr import expressions as E
+from ..expr import window as W
 from .column import Column, _expr
 
 
@@ -76,3 +79,51 @@ def coalesce(*cols) -> Column:
 
 def round(c, scale: int = 0) -> Column:  # noqa: A001
     return Column(E.Round(_c(c), E.Literal(scale)))
+
+
+def abs(c) -> Column:  # noqa: A001
+    return Column(E.Abs(_c(c)))
+
+
+def grouping(c) -> Column:
+    return Column(E.Grouping(_c(c)))
+
+
+def grouping_id(*cols) -> Column:
+    return Column(E.GroupingID([_c(c) for c in cols]))
+
+
+# --- window functions -------------------------------------------------------
+
+def row_number() -> Column:
+    return Column(W.RowNumber())
+
+
+def rank() -> Column:
+    return Column(W.Rank())
+
+
+def dense_rank() -> Column:
+    return Column(W.DenseRank())
+
+
+def percent_rank() -> Column:
+    return Column(W.PercentRank())
+
+
+def cume_dist() -> Column:
+    return Column(W.CumeDist())
+
+
+def ntile(n: int) -> Column:
+    return Column(W.NTile(E.Literal(n)))
+
+
+def lag(c, offset: int = 1, default=None) -> Column:
+    return Column(W.Lag(_c(c), offset,
+                        None if default is None else E.Literal(default)))
+
+
+def lead(c, offset: int = 1, default=None) -> Column:
+    return Column(W.Lead(_c(c), offset,
+                         None if default is None else E.Literal(default)))

@@ -11,9 +11,13 @@ sort orders, the comparisons (strings compare by value hash for = and <>,
 by merged-dictionary rank for the orderings), Kleene and/or/not, is [not]
 null, three-valued IN over a list (strings by value hash, literal items
 only), CASE WHEN / if / coalesce (every branch over the whole tile, picked
-by mask), round (half up), the dictionary transforms substr/substring,
-upper and concat of one column with literals (on the host, once per
-dictionary), and the aggregate functions sum, count, min, max and avg.
+by mask; string results merge the branch dictionaries), round (half up),
+abs, date +/- integer days or an INTERVAL literal (months clamped to the
+month's end), date_add/date_sub/datediff, grouping()/grouping_id() (the
+optimizer folds them per grouping set), the dictionary transforms
+substr/substring, upper and concat of one column with literals (on the
+host, once per dictionary), and the aggregate functions sum, count, min,
+max and avg.
 A double scaled by literal factors is computed as the reference's
 compiler computes it: a division by a literal as a product with its
 reciprocal, and a chain of constant factors folded into one. A cast to a
@@ -30,7 +34,9 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from ..columnar.batch import EMPTY_DICT, StringDict, _take_codes
+from ..columnar.batch import (
+    EMPTY_DICT, StringDict, _take_codes, merge_string_dicts,
+)
 from ..errors import (
     AnalysisException, NotPortedError, TypeCheckError,
     UnsupportedOperationError,
@@ -39,7 +45,8 @@ from ..plan.tree import TreeNode, next_id
 from ..types import (
     BooleanType, DataType, DateType, DecimalType, FractionalType,
     IntegralType, NullType, NumericType, StringType, boolean, common_type,
-    date, dict_encoded, float64, infer_type, int64, null_type, string,
+    date, dict_encoded, float64, infer_type, int32, int64, null_type,
+    string,
 )
 from .eval import EvalCtx, Val
 
@@ -51,7 +58,8 @@ __all__ = [
     "TryMultiply", "EqualTo", "NotEqualTo", "LessThan", "LessThanOrEqual",
     "GreaterThan", "GreaterThanOrEqual", "And", "Or", "Not", "IsNull",
     "IsNotNull", "Upper", "Concat", "AggregateFunction", "Sum", "Count",
-    "Min", "Max", "Average",
+    "Min", "Max", "Average", "Abs", "IntervalLiteral", "DateAdd", "DateSub",
+    "DateDiff", "Grouping", "GroupingID",
 ]
 
 
@@ -443,14 +451,17 @@ class BinaryArithmetic(BinaryExpression):
     @property
     def dtype(self) -> DataType:
         lt, rt = self.left.dtype, self.right.dtype
-        if isinstance(lt, DateType) or isinstance(rt, DateType):
-            raise NotPortedError(f"date arithmetic ({self.symbol})")
         ct = common_type(lt, rt)
         if ct is None or not isinstance(ct, NumericType):
+            if isinstance(lt, DateType) or isinstance(rt, DateType):
+                return self._date_result(lt, rt)
             raise TypeCheckError(
                 f"{type(self).__name__} needs numeric operands, got "
                 f"{lt.simple_string()}, {rt.simple_string()}")
         return self._result_type(ct)
+
+    def _date_result(self, lt, rt) -> DataType:
+        raise TypeCheckError(f"cannot apply {self.symbol} to dates")
 
     def _result_type(self, ct: DataType) -> DataType:
         return ct
@@ -488,20 +499,75 @@ def _decimal_sum_type(ct: DataType) -> DataType:
 
 
 class Add(BinaryArithmetic):
+    """`+`; a date plus an integer count of days, or plus an INTERVAL."""
+
     symbol = "+"
+
+    @property
+    def dtype(self):
+        if isinstance(self.right, IntervalLiteral):
+            return self.left.dtype
+        if isinstance(self.left, IntervalLiteral):
+            return self.right.dtype
+        return super().dtype
+
+    def _date_result(self, lt, rt):
+        if isinstance(lt, DateType) and isinstance(rt, IntegralType):
+            return date
+        if isinstance(rt, DateType) and isinstance(lt, IntegralType):
+            return date
+        raise TypeCheckError("date + non-int")
 
     def _result_type(self, ct):
         return _decimal_sum_type(ct)
+
+    def eval(self, ctx):
+        for iv, other in ((self.right, self.left), (self.left, self.right)):
+            if isinstance(iv, IntervalLiteral):
+                return _apply_interval(ctx.eval(other), iv)
+        lt, rt = self.left.dtype, self.right.dtype
+        if isinstance(lt, DateType) or isinstance(rt, DateType):
+            l, r = ctx.eval(self.left), ctx.eval(self.right)
+            v = ctx.and_valid(l, r)
+            if isinstance(lt, DateType):
+                return Val(date, l.data + r.data.to(torch.int32), v)
+            return Val(date, r.data + l.data.to(torch.int32), v)
+        return super().eval(ctx)
 
     def _op(self, l, r):
         return l + r, None
 
 
 class Subtract(BinaryArithmetic):
+    """`-`; a date minus days or an INTERVAL, and date - date in days."""
+
     symbol = "-"
+
+    @property
+    def dtype(self):
+        if isinstance(self.right, IntervalLiteral):
+            return self.left.dtype
+        return super().dtype
+
+    def _date_result(self, lt, rt):
+        if isinstance(lt, DateType) and isinstance(rt, DateType):
+            return int32
+        if isinstance(lt, DateType) and isinstance(rt, IntegralType):
+            return date
+        raise TypeCheckError("unsupported date subtraction")
 
     def _result_type(self, ct):
         return _decimal_sum_type(ct)
+
+    def eval(self, ctx):
+        if isinstance(self.right, IntervalLiteral):
+            return _apply_interval(ctx.eval(self.left), self.right.negated())
+        if isinstance(self.left.dtype, DateType):
+            l, r = ctx.eval(self.left), ctx.eval(self.right)
+            out = self._date_result(l.dtype, r.dtype)
+            return Val(out, (l.data - r.data).to(torch.int32),
+                       ctx.and_valid(l, r))
+        return super().eval(ctx)
 
     def _op(self, l, r):
         return l - r, None
@@ -873,6 +939,16 @@ class UnaryMinus(UnaryExpression):
         return Val(self.dtype, -c.data, c.validity)
 
 
+class Abs(UnaryExpression):
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        return Val(self.dtype, torch.abs(c.data), c.validity)
+
+
 class Not(UnaryExpression):
     @property
     def dtype(self):
@@ -973,7 +1049,7 @@ class CaseWhen(Expression):
     def eval(self, ctx):
         out = self.dtype
         if isinstance(out, StringType):
-            raise NotPortedError("CASE with string results")
+            return self._eval_string(ctx)
         # every branch runs over the whole tile (x/0 is NULL, not a fault)
         # and the first true predicate picks each row's value
         vals = [(ctx.eval(p), ctx.eval(cast_if(v, out)))
@@ -992,6 +1068,34 @@ class CaseWhen(Expression):
         has_null = ev.validity is not None or \
             any(v.validity is not None for _, v in vals)
         return Val(out, data, valid if has_null else None)
+
+
+    def _eval_string(self, ctx):
+        """String CASE: the branch dictionaries merge into one output
+        dictionary (first occurrence order, as the reference's merge), and
+        each branch's codes recode into it by one device gather."""
+        vals = [(ctx.eval(p), ctx.eval(v)) for p, v in self.branches]
+        ev = ctx.eval(self.else_expr)
+        strs = [v for _, v in vals] + [ev]
+        merged, luts = merge_string_dicts([v.sdict or EMPTY_DICT
+                                           for v in strs])
+        n = (ctx.capacity,)
+
+        def recode(v, lut):
+            return torch.broadcast_to(_take_codes(
+                torch.from_numpy(lut).to(ctx.device), v.data), n)
+
+        data = recode(ev, luts[-1])
+        valid = torch.broadcast_to(_known(ctx, ev.validity), n)
+        decided = torch.zeros(n, dtype=torch.bool, device=ctx.device)
+        for (p, v), lut in zip(vals, luts):
+            pd = p.data if p.validity is None else p.data & p.validity
+            hit = pd & ~decided
+            data = torch.where(hit, recode(v, lut), data)
+            valid = torch.where(hit, _known(ctx, v.validity), valid)
+            decided = decided | hit
+        has_null = any(v.validity is not None for v in strs)
+        return Val(string, data, valid if has_null else None, merged)
 
 
 class Coalesce(Expression):
@@ -1208,6 +1312,170 @@ class Concat(Expression):
         prefix = "".join(str(a.value) for a in self.args[:i])
         suffix = "".join(str(a.value) for a in self.args[i + 1:])
         return ctx.eval(_Affix(self.args[i], prefix, suffix))
+
+
+# ---------------------------------------------------------------------------
+# Dates and intervals
+# ---------------------------------------------------------------------------
+
+def _floordiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _civil_from_days(days):
+    """days since the epoch -> (year, month, day): Hinnant's algorithm."""
+    z = days.to(torch.int64) + 719468
+    era = _floordiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _floordiv(doe - _floordiv(doe, 1460) + _floordiv(doe, 36524)
+                    - _floordiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+    mp = _floordiv(5 * doy + 2, 153)
+    d = doy - _floordiv(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y.to(torch.int32), m.to(torch.int32), d.to(torch.int32)
+
+
+def _days_from_civil(y, m, d):
+    y = y.to(torch.int64) - (m <= 2).to(torch.int64)
+    era = _floordiv(y, 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9).to(torch.int64)
+    doy = _floordiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _floordiv(yoe, 4) - _floordiv(yoe, 100) + doy
+    return (era * 146097 + doe - 719468).to(torch.int32)
+
+
+class IntervalLiteral(Expression):
+    """Calendar interval (months, days, microseconds): only valid as an
+    operand of date +/- (a literal of the reference's CalendarIntervalType;
+    the analyzer folds interval arithmetic into one literal)."""
+
+    child_fields = ()
+
+    def __init__(self, months: int = 0, days: int = 0, micros: int = 0):
+        self.months = months
+        self.days = days
+        self.micros = micros
+
+    @property
+    def dtype(self):
+        raise TypeCheckError(
+            "INTERVAL can only be added to/subtracted from dates/timestamps")
+
+    @property
+    def resolved(self):
+        return True
+
+    @property
+    def nullable(self):
+        return False
+
+    def negated(self) -> "IntervalLiteral":
+        return IntervalLiteral(-self.months, -self.days, -self.micros)
+
+    def simple_string(self):
+        return f"interval({self.months}mo {self.days}d {self.micros}us)"
+
+
+def _apply_interval(side: Val, iv: IntervalLiteral) -> Val:
+    """date + interval: the days first, then the months, clamped to the
+    end of the target month (2000-01-31 + 1 month = 2000-02-29)."""
+    if not isinstance(side.dtype, DateType):
+        raise TypeCheckError(
+            f"cannot add INTERVAL to {side.dtype.simple_string()}")
+    data = side.data
+    if iv.days or iv.micros:
+        data = data + (iv.days + iv.micros // 86_400_000_000)
+    if iv.months:
+        y, m, d = _civil_from_days(data)
+        total = (y.to(torch.int64) * 12 + (m - 1)) + iv.months
+        ny = _floordiv(total, 12).to(torch.int32)
+        nm = (torch.remainder(total, 12) + 1).to(torch.int32)
+        nmt = total + 1
+        nmy = _floordiv(nmt, 12).to(torch.int32)
+        nmm = (torch.remainder(nmt, 12) + 1).to(torch.int32)
+        one = torch.ones_like(nm)
+        dim = _days_from_civil(nmy, nmm, one) - _days_from_civil(ny, nm, one)
+        data = _days_from_civil(ny, nm, torch.minimum(d, dim))
+    return Val(date, data.to(torch.int32), side.validity)
+
+
+class DateAdd(BinaryExpression):
+    @property
+    def dtype(self):
+        return date
+
+    def eval(self, ctx):
+        l = ctx.eval(self.left)
+        r = ctx.eval(cast_if(self.right, int32))
+        return Val(date, l.data + r.data, ctx.and_valid(l, r))
+
+
+class DateSub(BinaryExpression):
+    @property
+    def dtype(self):
+        return date
+
+    def eval(self, ctx):
+        l = ctx.eval(self.left)
+        r = ctx.eval(cast_if(self.right, int32))
+        return Val(date, l.data - r.data, ctx.and_valid(l, r))
+
+
+class DateDiff(BinaryExpression):
+    @property
+    def dtype(self):
+        return int32
+
+    def eval(self, ctx):
+        l = ctx.eval(cast_if(self.left, date))
+        r = ctx.eval(cast_if(self.right, date))
+        return Val(int32, (l.data - r.data).to(torch.int32),
+                   ctx.and_valid(l, r))
+
+
+# ---------------------------------------------------------------------------
+# Grouping sets
+# ---------------------------------------------------------------------------
+
+class Grouping(UnaryExpression):
+    """grouping(col) over GROUPING SETS/ROLLUP/CUBE: folded to a 0/1
+    literal per branch when ExpandGroupingSets expands the sets."""
+
+    @property
+    def dtype(self):
+        return int32
+
+    def eval(self, ctx):
+        raise AnalysisException(
+            "grouping() is only valid with GROUPING SETS/ROLLUP/CUBE",
+            error_class="UNSUPPORTED_GROUPING_EXPRESSION")
+
+
+class GroupingID(Expression):
+    """grouping_id(...): bitmask of the keys a set leaves out, most
+    significant bit first. Empty args = all keys."""
+
+    child_fields = ("args",)
+
+    def __init__(self, args: list[Expression]):
+        self.args = list(args)
+
+    @property
+    def dtype(self):
+        return int64
+
+    def simple_string(self) -> str:
+        args = ", ".join(a.simple_string() for a in self.args)
+        return f"grouping_id({args})"
+
+    def eval(self, ctx):
+        raise AnalysisException(
+            "grouping_id() is only valid with GROUPING SETS/ROLLUP/CUBE",
+            error_class="UNSUPPORTED_GROUPING_EXPRESSION")
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from typing import Sequence
 
 from ..errors import AnalysisException, NotPortedError
 from . import expressions as E
+from . import window as W
 
 _BUILDERS = {
     "sum": lambda c: E.Sum(c),
@@ -24,6 +25,25 @@ _BUILDERS = {
     "upper": lambda c: E.Upper(c),
     "ucase": lambda c: E.Upper(c),
     "concat": lambda *a: E.Concat(list(a)),
+    "abs": lambda c: E.Abs(c),
+    "grouping": lambda c: E.Grouping(c),
+    "grouping_id": lambda *a: E.GroupingID(list(a)),
+    "date_add": lambda d, n: E.DateAdd(d, n),
+    "date_sub": lambda d, n: E.DateSub(d, n),
+    "datediff": lambda a, b: E.DateDiff(a, b),
+    "row_number": lambda: W.RowNumber(),
+    "rank": lambda: W.Rank(),
+    "dense_rank": lambda: W.DenseRank(),
+    "percent_rank": lambda: W.PercentRank(),
+    "cume_dist": lambda: W.CumeDist(),
+    "ntile": lambda n: W.NTile(n),
+    "lag": lambda c, off=None, d=None: W.Lag(
+        c, off if off is not None else E.Literal(1), d),
+    "lead": lambda c, off=None, d=None: W.Lead(
+        c, off if off is not None else E.Literal(1), d),
+    "first_value": lambda c: W.FirstValue(c),
+    "last_value": lambda c: W.LastValue(c),
+    "nth_value": lambda c, n: W.NthValue(c, n),
 }
 
 

@@ -27,6 +27,7 @@ from ..expr.expressions import (
     AggregateFunction, Alias, AttributeReference, EqualTo, Expression,
     SortOrder,
 )
+from ..expr.window import WindowExpression
 from ..plan import logical as L
 from ..plan.optimizer import split_conjuncts, substitute_attrs
 from ..plan.tree import next_id
@@ -36,6 +37,7 @@ from .operators import (
     ComputeExec, HashAggregateExec, HashJoinExec, LimitExec,
     LocalTableScanExec, PhysicalPlan, SortExec, UnionExec,
 )
+from .window import WindowExec
 from .partitioning import (
     AllTuples, BroadcastDistribution, ClusteredDistribution,
     HashPartitioning, OrderedDistribution, RangePartitioning,
@@ -128,6 +130,8 @@ class Planner:
             out = node.child.output
             return self._plan_aggregate(
                 L.Aggregate(list(out), list(out), node.child))
+        if isinstance(node, L.Window):
+            return self._plan_window(node)
         if isinstance(node, L.Repartition):
             child = self._convert(node.child)
             n = node.num_partitions or self.conf.shuffle_partitions
@@ -139,6 +143,32 @@ class Planner:
                 return ShuffleExchangeExec(HashPartitioning(keys, n), child)
             return ShuffleExchangeExec(UnknownPartitioning(n), child)
         raise NotPortedError(f"physical plan for {type(node).__name__}")
+
+    def _plan_window(self, node: L.Window) -> PhysicalPlan:
+        child = self._convert(node.child)
+        pkeys, child = self._bind_keys(list(node.partition_spec), child,
+                                       "__wpart")
+        okeys, child = self._bind_keys([o.child for o in node.order_spec],
+                                       child, "__word")
+        orders = [SortOrder(k, o.ascending, o.nulls_first)
+                  for k, o in zip(okeys, node.order_spec)]
+        arg_exprs = [al.child.function.child for al in node.window_exprs
+                     if getattr(al.child.function, "child", None) is not None]
+        arg_attrs, child = self._bind_keys(arg_exprs, child, "__warg")
+        arg_map = dict(zip((id(e) for e in arg_exprs), arg_attrs))
+        new_wexprs = []
+        for al in node.window_exprs:
+            w = al.child
+            f = w.function
+            if getattr(f, "child", None) is not None:
+                f = f.copy(child=arg_map[id(f.child)])
+            nw = WindowExpression(f, list(pkeys), list(orders), w.frame)
+            new_wexprs.append(Alias(nw, al.name, al.expr_id))
+        wexec = WindowExec(new_wexprs, pkeys, orders, child)
+        want = list(node.output)
+        if [a.expr_id for a in wexec.output] != [a.expr_id for a in want]:
+            return ComputeExec([], want, wexec)
+        return wexec
 
     def _fuse_compute(self, filters: list[Expression],
                       outputs: list[Expression],

@@ -3,16 +3,17 @@ unnamed outputs, coerces decimal arithmetic and widens union branches
 (counterpart of `spark_tpu/plan/analyzer.py`, the rules the port's
 DataFrame and SQL slices need, in the reference's batch order):
 ResolveRelations, DeduplicateRelations, ResolveReferences (qualified names,
-star expansion, function resolution), ResolveGroupByAlias,
+star expansion, function and window resolution), ResolveGroupByAlias,
 ResolveSubqueries (a subquery's plan resolves in its own scope, and a name
 it cannot resolve there binds to the outer query: a correlation),
 GlobalAggregates, ResolveAggsInSortHaving, ResolveSortHiddenRefs,
+ExtractWindowFromAggregate and ExtractWindowExpressions (window functions
+move into Window nodes, one per spec), FoldIntervalArithmetic,
 ResolveAliases, CoerceDecimalArithmetic, WidenSetOperationTypes and
 CheckAnalysis. Numeric coercion happens where each expression evaluates
-(common_type casts), as in the JAX package. The other rules (windows,
-generators, USING joins in SQL, session variables, interval folding) are
-listed in ROADMAP.md; their constructs raise NotPortedError at parse
-time."""
+(common_type casts), as in the JAX package. The other rules (generators,
+USING joins in SQL, session variables) are listed in ROADMAP.md; their
+constructs raise NotPortedError at parse time."""
 
 from __future__ import annotations
 
@@ -22,15 +23,17 @@ from typing import Sequence
 from ..errors import AnalysisException, NotPortedError, UnresolvedColumnError
 from ..expr.expressions import (
     Add, AggregateFunction, Alias, AttributeReference, Average, Cast, Count,
-    Expression, Literal, Max, Min, SortOrder, Subtract, Sum,
-    UnresolvedAttribute, UnresolvedFunction, UnresolvedStar, cast_if,
+    Divide, Expression, Grouping, GroupingID, IntervalLiteral, Literal, Max,
+    Min, Multiply, SortOrder, Subtract, Sum, UnaryMinus, UnresolvedAttribute,
+    UnresolvedFunction, UnresolvedStar, cast_if,
 )
 from ..expr.registry import build_function
+from ..expr.window import UnresolvedWindowExpression, WindowExpression
 from ..types import DecimalType, common_type
 from .catalog import Catalog
 from .logical import (
-    Aggregate, Filter, Join, LocalRelation, LogicalPlan, Project, Sort,
-    SubqueryAlias, Union, UnresolvedRelation,
+    Aggregate, Filter, GroupingSets, Join, LocalRelation, LogicalPlan,
+    Project, Sort, SubqueryAlias, Union, UnresolvedRelation, Window,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -207,6 +210,13 @@ class ResolveReferences(Rule):
                     if all(c.resolved or isinstance(c, UnresolvedStar)
                            for c in e.args):
                         return build_function(e.fname, e.args, e.distinct)
+                    return e
+                if isinstance(e, UnresolvedWindowExpression):
+                    if e.function.resolved and \
+                            all(p.resolved for p in e.partition_spec) and \
+                            all(o.resolved for o in e.order_spec):
+                        return WindowExpression(e.function, e.partition_spec,
+                                                e.order_spec, e.frame)
                 return e
 
             # Sort/Filter over an Aggregate may reference aggregate outputs
@@ -227,7 +237,7 @@ class ResolveAliases(Rule):
                         for e in node.project_list):
                     return node.copy(project_list=[_auto_alias(e)
                                                    for e in node.project_list])
-            if isinstance(node, Aggregate):
+            if isinstance(node, (Aggregate, GroupingSets)):
                 if node.expressions_resolved and any(
                         not isinstance(e, (Alias, AttributeReference, UnresolvedStar))
                         for e in node.aggregate_exprs):
@@ -288,7 +298,7 @@ class ResolveGroupByAlias(Rule):
 
     def apply(self, plan):
         def rule(node):
-            if not isinstance(node, Aggregate):
+            if not isinstance(node, (Aggregate, GroupingSets)):
                 return node
             if all(g.resolved for g in node.grouping_exprs):
                 return node
@@ -318,13 +328,21 @@ class ResolveGroupByAlias(Rule):
 
 
 class GlobalAggregates(Rule):
-    """A Project whose list holds an aggregate function becomes a global
-    Aggregate with no grouping."""
+    """A Project whose list holds an aggregate function (outside any window
+    expression) becomes a global Aggregate with no grouping."""
 
     def apply(self, plan):
+        def has_plain_agg(e) -> bool:
+            if isinstance(e, (WindowExpression, UnresolvedWindowExpression)):
+                return False  # window aggregates aggregate per row
+            if isinstance(e, AggregateFunction):
+                return True
+            return any(has_plain_agg(c) for c in e.children
+                       if isinstance(c, Expression))
+
         def rule(node):
             if isinstance(node, Project) and \
-                    any(_contains_agg(e) for e in node.project_list):
+                    any(has_plain_agg(e) for e in node.project_list):
                 return Aggregate([], list(node.project_list), node.child)
             return node
 
@@ -552,7 +570,7 @@ class ResolveSubqueries(Rule):
                 for n in p.iter_nodes():
                     if isinstance(n, Project):
                         exprs = n.project_list
-                    elif isinstance(n, Aggregate):
+                    elif isinstance(n, (Aggregate, GroupingSets)):
                         exprs = n.aggregate_exprs
                     else:
                         continue
@@ -573,6 +591,188 @@ class ResolveSubqueries(Rule):
         return plan.transform_up(rule)
 
 
+class ExtractWindowFromAggregate(Rule):
+    """Window functions in a grouped SELECT evaluate over the grouped rows:
+    Aggregate(g, outs with windows) -> Project(outs', Aggregate(g, aggs)),
+    after which ExtractWindowExpressions applies to the Project."""
+
+    def apply(self, plan):
+        def rule(node):
+            if not isinstance(node, (Aggregate, GroupingSets)) or \
+                    not node.expressions_resolved:
+                return node
+            if not any(isinstance(x, WindowExpression)
+                       for e in node.aggregate_exprs
+                       for x in e.iter_nodes()):
+                return node
+
+            # every aggregate function, those inside window specs too,
+            # computes in the inner aggregate, but a window function's head
+            # itself: `sum(sum(x)) OVER (...)` aggregates sum(x) inside,
+            # then windows over the grouped rows (q12, q20, q98)
+            funcs: list[Expression] = []
+
+            def collect(e: Expression):
+                if isinstance(e, WindowExpression):
+                    for c in e.function.children:
+                        collect(c)
+                    for p in e.partition_spec:
+                        collect(p)
+                    for o in e.order_spec:
+                        collect(o)
+                    return
+                if isinstance(e, (AggregateFunction, Grouping, GroupingID)):
+                    if not any(e.semantic_equals(f) for f in funcs):
+                        funcs.append(e)
+                    return
+                for c in e.children:
+                    collect(c)
+
+            for e in node.aggregate_exprs:
+                collect(e)
+
+            g_aliases: list[tuple[Expression, AttributeReference]] = []
+            inner_outs: list[Expression] = []
+            for i, g in enumerate(node.grouping_exprs):
+                if isinstance(g, AttributeReference):
+                    inner_outs.append(g)
+                    g_aliases.append((g, g))
+                else:
+                    al = Alias(g, f"_wg{i}")
+                    inner_outs.append(al)
+                    g_aliases.append((g, al.to_attribute()))
+            f_aliases = [Alias(f, f"_wa{i}") for i, f in enumerate(funcs)]
+            inner = node.copy(aggregate_exprs=inner_outs + f_aliases)
+
+            def fix(x: Expression) -> Expression:
+                if isinstance(x, (AggregateFunction, Grouping, GroupingID)):
+                    for f, al in zip(funcs, f_aliases):
+                        if x.semantic_equals(f):
+                            return al.to_attribute()
+                for g, a in g_aliases:
+                    if x.semantic_equals(g):
+                        return a
+                return x
+
+            outs = []
+            for e in node.aggregate_exprs:
+                if isinstance(e, Alias):
+                    outs.append(Alias(e.child.transform_up(fix), e.name,
+                                      e.expr_id))
+                elif isinstance(e, AttributeReference):
+                    outs.append(fix(e))
+                else:
+                    outs.append(e.transform_up(fix))
+            return Project(outs, inner)
+
+        return plan.transform_up(rule)
+
+
+class ExtractWindowExpressions(Rule):
+    """Pull WindowExpressions out of projections into Window operators.
+    Expressions sharing a (partition, order) spec evaluate in one Window
+    node; distinct specs chain."""
+
+    def apply(self, plan):
+        def rule(node):
+            if not isinstance(node, Project) or not node.expressions_resolved:
+                return node
+            if not any(isinstance(x, WindowExpression)
+                       for e in node.project_list for x in e.iter_nodes()):
+                return node
+
+            collected: list[Alias] = []
+
+            def extract(x: Expression) -> Expression:
+                if isinstance(x, WindowExpression):
+                    al = Alias(x, f"_we{len(collected)}")
+                    collected.append(al)
+                    return al.to_attribute()
+                return x
+
+            new_list: list[Expression] = []
+            for e in node.project_list:
+                if isinstance(e, Alias):
+                    if isinstance(e.child, WindowExpression):
+                        collected.append(e)
+                        new_list.append(e.to_attribute())
+                        continue
+                    new_list.append(
+                        Alias(e.child.transform_up(extract), e.name,
+                              e.expr_id))
+                else:
+                    new_list.append(e.transform_up(extract))
+
+            groups: dict = {}
+            order: list = []
+            for al in collected:
+                sig = al.child.spec_signature()
+                if sig not in groups:
+                    groups[sig] = []
+                    order.append(sig)
+                groups[sig].append(al)
+
+            child = node.child
+            for sig in order:
+                exprs = groups[sig]
+                w0 = exprs[0].child
+                child = Window(exprs, list(w0.partition_spec),
+                               list(w0.order_spec), child)
+            return Project(new_list, child)
+
+        return plan.transform_up(rule)
+
+
+class FoldIntervalArithmetic(Rule):
+    """Interval-interval and interval-number arithmetic folds to one
+    IntervalLiteral: interval values are born as literals, so the algebra
+    closes at analysis time and date +/- sees a single interval."""
+
+    def apply(self, plan):
+        def num(e):
+            return e.value if isinstance(e, Literal) and \
+                isinstance(e.value, (int, float)) and \
+                not isinstance(e.value, bool) else None
+
+        def fold(e):
+            if isinstance(e, UnaryMinus) and isinstance(e.child,
+                                                        IntervalLiteral):
+                return e.child.negated()
+            if isinstance(e, (Add, Subtract)) and \
+                    isinstance(e.left, IntervalLiteral) and \
+                    isinstance(e.right, IntervalLiteral):
+                r = e.right if isinstance(e, Add) else e.right.negated()
+                return IntervalLiteral(e.left.months + r.months,
+                                       e.left.days + r.days,
+                                       e.left.micros + r.micros)
+            if isinstance(e, Multiply):
+                iv, n = (e.left, num(e.right)) \
+                    if isinstance(e.left, IntervalLiteral) \
+                    else (e.right, num(e.left))
+                if isinstance(iv, IntervalLiteral) and n is not None:
+                    return IntervalLiteral(int(iv.months * n),
+                                           int(iv.days * n),
+                                           int(iv.micros * n))
+            if isinstance(e, Divide) and isinstance(e.left, IntervalLiteral):
+                n = num(e.right)
+                if n:
+                    # day fractions spill into micros; calendar months
+                    # stay integral
+                    days_f = e.left.days / n
+                    days = int(days_f)
+                    micros = int(e.left.micros / n
+                                 + (days_f - days) * 86_400_000_000)
+                    return IntervalLiteral(int(e.left.months / n), days,
+                                           micros)
+            return e
+
+        def rule(node):
+            return node.transform_expressions(
+                lambda x: x.transform_up(fold))
+
+        return plan.transform_up(rule)
+
+
 class CoerceDecimalArithmetic(Rule):
     """Align decimal scales in Add/Subtract (the device value is a scaled
     int64, so both sides must share the scale)."""
@@ -580,7 +780,9 @@ class CoerceDecimalArithmetic(Rule):
     def apply(self, plan):
         def fix(e: Expression) -> Expression:
             if isinstance(e, (Add, Subtract)) and e.left.resolved \
-                    and e.right.resolved:
+                    and e.right.resolved \
+                    and not isinstance(e.left, IntervalLiteral) \
+                    and not isinstance(e.right, IntervalLiteral):
                 lt, rt = e.left.dtype, e.right.dtype
                 if isinstance(lt, DecimalType) and isinstance(rt, DecimalType) \
                         and lt.scale != rt.scale:
@@ -730,6 +932,9 @@ class Analyzer(RuleExecutor):
                 GlobalAggregates(),
                 ResolveAggsInSortHaving(cs),
                 ResolveSortHiddenRefs(cs),
+                ExtractWindowFromAggregate(),
+                ExtractWindowExpressions(),
+                FoldIntervalArithmetic(),
                 ResolveAliases(),
             ]),
             Batch("Coercion", FixedPoint(10), [
@@ -756,6 +961,8 @@ class Analyzer(RuleExecutor):
             GlobalAggregates(),
             ResolveAggsInSortHaving(cs),
             ResolveSortHiddenRefs(cs),
+            ExtractWindowFromAggregate(),
+            ExtractWindowExpressions(),
             ResolveAliases(),
         ]
         cur = plan

@@ -1,9 +1,9 @@
 """Logical plan nodes (counterpart of `spark_tpu/plan/logical.py`, the nodes
 the port's DataFrame API and SQL parser build): UnresolvedRelation,
 LocalRelation, SubqueryAlias, WithCTE, Project, Filter, Aggregate,
-Distinct, Sort, Limit, Offset, Repartition, Join and Union, with the
-reference's crude row-count estimates (`stats_rows`) that decide broadcast
-joins."""
+Distinct, Sort, Limit, Offset, Repartition, Window, GroupingSets, Join
+and Union, with the reference's crude row-count estimates (`stats_rows`)
+that decide broadcast joins."""
 
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ __all__ = [
     "LogicalPlan", "LeafNode", "UnaryNode", "BinaryNode", "LocalRelation",
     "UnresolvedRelation", "SubqueryAlias", "WithCTE", "Project", "Filter",
     "Aggregate", "Distinct", "Sort", "Limit", "Offset",
-    "Repartition", "Join", "Union", "normalize_join_type",
+    "Repartition", "Window", "GroupingSets", "Join", "Union",
+    "normalize_join_type",
 ]
 
 
@@ -271,6 +272,42 @@ class Repartition(UnaryNode):
         self.shuffle = shuffle
         self.partition_exprs = list(partition_exprs)
         self.child = child
+
+
+class Window(UnaryNode):
+    """Window operator: window_exprs are Alias(WindowExpression) appended
+    to the child's output; one node per (partition, order) spec."""
+
+    def __init__(self, window_exprs: Sequence[Expression],
+                 partition_spec: Sequence[Expression],
+                 order_spec: Sequence[SortOrder], child: LogicalPlan):
+        self.window_exprs = list(window_exprs)
+        self.partition_spec = list(partition_spec)
+        self.order_spec = list(order_spec)
+        self.child = child
+
+    @property
+    def output(self):
+        return self.child.output + [e.to_attribute() for e in self.window_exprs]
+
+
+class GroupingSets(UnaryNode):
+    """GROUP BY ROLLUP/CUBE/GROUPING SETS, rewritten after resolution into
+    a Union of Aggregates (ExpandGroupingSets). `sets` holds indices into
+    grouping_exprs, so resolution sees one expression list."""
+
+    def __init__(self, sets: Sequence[Sequence[int]],
+                 grouping_exprs: Sequence[Expression],
+                 aggregate_exprs: Sequence[Expression], child: LogicalPlan):
+        self.sets = [list(s) for s in sets]
+        self.grouping_exprs = list(grouping_exprs)
+        self.aggregate_exprs = list(aggregate_exprs)
+        self.child = child
+
+    @property
+    def output(self):
+        return Aggregate(self.grouping_exprs, self.aggregate_exprs,
+                         self.child).output
 
 
 class BinaryNode(LogicalPlan):

@@ -1,17 +1,18 @@
 """Logical optimizer (counterpart of `spark_tpu/plan/optimizer.py`): the
 rule framework (plan/tree.py's RuleExecutor), the reference's batch layout,
 and the rules that change the plans the port's DataFrame API and SQL
-slices build: subquery-alias elimination, DISTINCT as an aggregate, the
+slices build: subquery-alias elimination, grouping sets as a union of
+aggregates, DISTINCT as an aggregate, the
 subquery rewrites into joins (plan/subquery.py, after the structural rules
 ran inside each subquery's plan), filter combination and pushdown (through
 projects, aggregates and unions and into join sides), filter-into-join
 merging, greedy join reordering of inner-join chains (comma-list FROMs),
 constant folding, boolean and cast simplification, filter pruning,
 empty-relation propagation, union flattening, IsNotNull inference on
-inner-join keys, limit combination, project collapsing and column pruning.
-The reference's other rules (INTERSECT/EXCEPT, grouping sets, distinct
-aggregates, Python UDFs) have no construct to fire on: the parser or the
-analyzer refuses theirs (ROADMAP.md)."""
+inner-join keys, limit combination, project collapsing and column pruning
+(through Window nodes too). The reference's other rules (INTERSECT/EXCEPT,
+distinct aggregates, Python UDFs) have no construct to fire on: the parser
+or the analyzer refuses theirs (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -20,14 +21,15 @@ from typing import Sequence
 
 from ..expr.expressions import (
     Add, AggregateFunction, Alias, And, AttributeReference, Cast, Divide,
-    EqualTo, Expression, GreaterThan, GreaterThanOrEqual, IsNotNull,
-    LessThan, LessThanOrEqual, Literal, Multiply, Not, NotEqualTo, Or,
-    SortOrder, Subtract, UnaryMinus,
+    EqualTo, Expression, GreaterThan, GreaterThanOrEqual, Grouping,
+    GroupingID, IsNotNull, LessThan, LessThanOrEqual, Literal, Multiply, Not,
+    NotEqualTo, Or, SortOrder, Subtract, UnaryMinus,
 )
 from ..types import NullType
 from .logical import (
-    Aggregate, Distinct, Filter, Join, Limit, LocalRelation, LogicalPlan,
-    Offset, Project, Repartition, Sort, SubqueryAlias, Union,
+    Aggregate, Distinct, Filter, GroupingSets, Join, Limit, LocalRelation,
+    LogicalPlan, Offset, Project, Repartition, Sort, SubqueryAlias, Union,
+    Window,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -485,6 +487,11 @@ class ColumnPruning(Rule):
             if nl is not node.left or nr is not node.right:
                 return node.copy(left=nl, right=nr)
             return node
+        if isinstance(node, Window):
+            child_req = {a.expr_id for a in node.child.output}
+            for e in node.expressions():
+                child_req |= e.references()
+            return node.copy(child=self._prune(node.child, child_req))
         # Union (positional), LocalRelation and other leaves: conservative
         return node.map_children(
             lambda c: self._prune(c, {a.expr_id for a in c.output}))
@@ -808,8 +815,59 @@ class OptimizeSubqueryPlans(Rule):
                                                                  optimize))
 
 
+class ExpandGroupingSets(Rule):
+    """GroupingSets -> Union of per-set Aggregates over the same child,
+    with NULL fills for the grouping keys a set leaves out and grouping()
+    / grouping_id() folded to literals per branch."""
+
+    def apply(self, plan):
+        def rule(node):
+            if not isinstance(node, GroupingSets) or not node.resolved:
+                return node
+            branches = []
+            for si, idxs in enumerate(node.sets):
+                keys = [node.grouping_exprs[i] for i in idxs]
+                out_exprs = [self._fill(e, keys, node.grouping_exprs, si)
+                             for e in node.aggregate_exprs]
+                branches.append(Aggregate(list(keys), out_exprs, node.child))
+            return Union(branches) if len(branches) > 1 else branches[0]
+
+        return plan.transform_up(rule)
+
+    def _fill(self, e: Expression, keys, all_keys, set_index: int):
+        def in_set(x):
+            return any(x.semantic_equals(k)
+                       or (isinstance(k, Alias) and x.semantic_equals(k.child))
+                       for k in keys)
+
+        def rule(x):
+            # grouping()/grouping_id() fold per branch BEFORE the null fill
+            # below can touch their key argument
+            if isinstance(x, Grouping):
+                return Literal(0 if in_set(x.child) else 1)
+            if isinstance(x, GroupingID):
+                gid = 0
+                for a in x.args or list(all_keys):
+                    gid = (gid << 1) | (0 if in_set(a) else 1)
+                return Literal(gid)
+            if any(x.semantic_equals(g) for g in all_keys) and not in_set(x):
+                return Cast(Literal(None), x.dtype)
+            return x
+
+        if isinstance(e, Alias):
+            return Alias(e.child.transform_down(rule), e.name,
+                         e.expr_id if set_index == 0 else None)
+        if isinstance(e, AttributeReference):
+            if any(e.semantic_equals(g) for g in all_keys) and not in_set(e):
+                return Alias(Cast(Literal(None), e.dtype), e.name,
+                             e.expr_id if set_index == 0 else None)
+            return e if set_index == 0 else Alias(e, e.name)
+        return e
+
+
 def _finish_analysis_rules():
-    return [EliminateSubqueryAliases(), ReplaceDistinct()]
+    return [EliminateSubqueryAliases(), ExpandGroupingSets(),
+            ReplaceDistinct()]
 
 
 class Optimizer(RuleExecutor):

@@ -11,19 +11,23 @@ too), HAVING, ORDER BY ... ASC|DESC [NULLS FIRST|LAST], LIMIT and OFFSET;
 AND/OR/NOT, comparisons, IS [NOT] NULL, [NOT] IN (list), [NOT] IN
 (SELECT ...), [NOT] EXISTS (SELECT ...), scalar subqueries, [NOT]
 BETWEEN, `+ - * /`, `||`, unary minus, parentheses, integer, decimal,
-string and DATE literals, CAST, CASE (searched and simple), and function
-calls (the analyzer resolves the names it knows). Every other production
-of the reference's grammar raises `NotPortedError` naming the construct:
-INTERSECT, EXCEPT and MINUS, windows, LIKE, intervals, grouping sets,
-hints, scripts and commands among them.
+string, DATE and INTERVAL literals, CAST, CASE (searched and simple),
+function calls (the analyzer resolves the names it knows), window
+functions `fn(...) OVER (PARTITION BY ... ORDER BY ... [ROWS | RANGE
+frame])` and named `WINDOW` specs, and GROUP BY ROLLUP, CUBE and
+GROUPING SETS. Every other production of the reference's grammar raises
+`NotPortedError` naming the construct: INTERSECT, EXCEPT and MINUS,
+LIKE, hints, scripts and commands among them.
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
 
 from ..errors import NotPortedError, ParseException
 from ..expr import expressions as E
+from ..expr.window import UnresolvedWindowExpression
 from ..plan import logical as L
 from ..plan.subquery import (
     Exists, InSubquery, ScalarSubquery, iter_plans, map_subquery_plans,
@@ -184,23 +188,83 @@ class Parser:
             plan = L.Filter(self.parse_expr(), plan)
 
         group_exprs = None
+        grouping_sets: list[list[int]] | None = None
         if self.at_kw("group"):
             self.next()
             self.expect_kw("by")
-            if self.at_kw("rollup", "cube", "grouping"):
-                raise NotPortedError(
-                    f"GROUP BY {self.peek().value.upper()} (grouping sets)")
-            group_exprs = [self.parse_expr()]
-            while self.eat_op(","):
-                group_exprs.append(self.parse_expr())
+            if self.at_kw("rollup", "cube"):
+                kind = self.next().value.lower()
+                self.expect_op("(")
+                group_exprs = [self.parse_expr()]
+                while self.eat_op(","):
+                    group_exprs.append(self.parse_expr())
+                self.expect_op(")")
+                n = len(group_exprs)
+                if kind == "rollup":
+                    grouping_sets = [list(range(n - i)) for i in range(n + 1)]
+                else:  # cube: every subset
+                    grouping_sets = [list(c) for k in range(n, -1, -1)
+                                     for c in itertools.combinations(range(n),
+                                                                     k)]
+            elif self.at_kw("grouping"):
+                self.next()
+                if self.peek().value.lower() != "sets":
+                    raise ParseException("expected SETS after GROUPING")
+                self.next()
+                self.expect_op("(")
+                group_exprs, grouping_sets = [], []
+                index: dict[str, int] = {}
+                while True:
+                    self.expect_op("(")
+                    one: list[int] = []
+                    if not self.at_op(")"):
+                        while True:
+                            e = self.parse_expr()
+                            key = e.simple_string()
+                            if key not in index:
+                                index[key] = len(group_exprs)
+                                group_exprs.append(e)
+                            one.append(index[key])
+                            if not self.eat_op(","):
+                                break
+                    self.expect_op(")")
+                    grouping_sets.append(one)
+                    if not self.eat_op(","):
+                        break
+                self.expect_op(")")
+            else:
+                group_exprs = [self.parse_expr()]
+                while self.eat_op(","):
+                    group_exprs.append(self.parse_expr())
 
         having = None
         if self.eat_kw("having"):
             having = self.parse_expr()
 
+        # WINDOW w AS (spec) [, w2 AS (spec)]*: named specs substitute into
+        # the `fn() OVER w` placeholders
         if self.peek().kind == "ident" and \
                 self.peek().value.lower() == "window":
-            raise NotPortedError("WINDOW clause (window functions)")
+            self.next()
+            specs: dict[str, tuple] = {}
+            while True:
+                wname = self.ident().lower()
+                self.expect_kw("as")
+                specs[wname] = self._parse_window_spec()
+                if not self.eat_op(","):
+                    break
+
+            def _sub(e):
+                if isinstance(e, UnresolvedWindowExpression) and \
+                        e.ref_name is not None:
+                    spec = specs.get(e.ref_name.lower())
+                    if spec is None:
+                        raise ParseException(
+                            f"undefined window: {e.ref_name}")
+                    return UnresolvedWindowExpression(e.function, *spec)
+                return e
+
+            select_list = [e.transform_up(_sub) for e in select_list]
 
         has_agg = any(_contains_agg(e) for e in select_list)
         if group_exprs is not None or has_agg or having is not None:
@@ -216,7 +280,11 @@ class Parser:
                         tgt.child if isinstance(tgt, E.Alias) else tgt)
                 else:
                     resolved_groups.append(g)
-            plan = L.Aggregate(resolved_groups, list(select_list), plan)
+            if grouping_sets is not None:
+                plan = L.GroupingSets(grouping_sets, resolved_groups,
+                                      list(select_list), plan)
+            else:
+                plan = L.Aggregate(resolved_groups, list(select_list), plan)
             if having is not None:
                 plan = L.Filter(having, plan)
         else:
@@ -523,7 +591,7 @@ class Parser:
         if self.at_kw("timestamp") and self.peek(1).kind == "str":
             raise NotPortedError("TIMESTAMP literals")
         if self.at_kw("interval"):
-            raise NotPortedError("INTERVAL")
+            return self.parse_interval()
         if self.at_kw("case"):
             return self.parse_case()
         if self.at_kw("cast"):
@@ -581,9 +649,119 @@ class Parser:
             while self.eat_op(","):
                 args.append(self._parse_arg())
         self.expect_op(")")
+        func = E.UnresolvedFunction(name, args, distinct)
         if self.at_kw("over"):
-            raise NotPortedError(f"window function {name} ... OVER")
-        return E.UnresolvedFunction(name, args, distinct)
+            return self.parse_over(func)
+        return func
+
+    def parse_over(self, func: E.Expression) -> E.Expression:
+        self.expect_kw("over")
+        if not self.at_op("("):
+            # OVER w: a named window, its spec substituted from the WINDOW
+            # clause
+            return UnresolvedWindowExpression(func, [], [], None,
+                                              ref_name=self.ident())
+        return UnresolvedWindowExpression(func, *self._parse_window_spec())
+
+    def _parse_window_spec(self):
+        self.expect_op("(")
+        partition: list[E.Expression] = []
+        orders: list[E.SortOrder] = []
+        if self.eat_kw("partition"):
+            self.expect_kw("by")
+            partition.append(self.parse_expr())
+            while self.eat_op(","):
+                partition.append(self.parse_expr())
+        if self.eat_kw("order"):
+            self.expect_kw("by")
+            orders.append(self.parse_sort_item(None))
+            while self.eat_op(","):
+                orders.append(self.parse_sort_item(None))
+        frame = None
+        if self.at_kw("rows", "range"):
+            ftype = self.next().value.lower()
+            if self.eat_kw("between"):
+                lo = self._parse_frame_bound()
+                self.expect_kw("and")
+                hi = self._parse_frame_bound()
+            else:
+                lo = self._parse_frame_bound()
+                hi = 0  # CURRENT ROW
+            if ftype == "range":
+                if (lo, hi) == (None, 0):
+                    frame = None  # the default frame
+                elif (lo, hi) == (None, None):
+                    frame = ("rows", None, None)  # the whole partition
+                else:
+                    frame = ("vrange", lo, hi)  # value offsets
+            else:
+                frame = ("rows", lo, hi)
+        self.expect_op(")")
+        return partition, orders, frame
+
+    def _parse_frame_bound(self):
+        """A row offset: None = unbounded, 0 = current row, -n preceding,
+        +n following."""
+        if self.eat_kw("unbounded"):
+            if not (self.eat_kw("preceding") or self.eat_kw("following")):
+                raise ParseException("bad frame bound")
+            return None
+        if self.eat_kw("current"):
+            self.expect_kw("row")
+            return 0
+        t = self.next()
+        if t.kind != "num":
+            raise ParseException("bad frame bound")
+        n = int(t.value.rstrip("LlDdSs"))
+        if self.eat_kw("preceding"):
+            return -n
+        if self.eat_kw("following"):
+            return n
+        raise ParseException("bad frame bound")
+
+    def parse_interval(self) -> E.Expression:
+        """INTERVAL [-]n unit [n unit ...], with quoted or bare numbers."""
+        self.expect_kw("interval")
+        months = days = micros = 0
+        saw = False
+        while True:
+            sign = 1
+            # only a '-' that introduces another signed component: in
+            # `interval '2' day - interval '1' day` the minus belongs to
+            # the enclosing subtraction
+            if self.at_op("-") and self.peek(1).kind in ("num", "str"):
+                self.next()
+                sign = -1
+            t = self.peek()
+            if t.kind == "num":
+                self.next()
+                n = sign * int(float(t.value.rstrip("LlDdSs")))
+            elif t.kind == "str":
+                self.next()
+                n = sign * int(float(t.value))
+            else:
+                break
+            unit = self.ident().lower().rstrip("s")
+            if unit == "year":
+                months += 12 * n
+            elif unit == "month":
+                months += n
+            elif unit == "week":
+                days += 7 * n
+            elif unit == "day":
+                days += n
+            elif unit == "hour":
+                micros += n * 3_600_000_000
+            elif unit == "minute":
+                micros += n * 60_000_000
+            elif unit == "second":
+                micros += n * 1_000_000
+            else:
+                raise ParseException(f"unknown interval unit {unit}")
+            saw = True
+        if not saw:
+            raise ParseException("empty INTERVAL literal")
+        return E.IntervalLiteral(months, days, micros)
 
     def _parse_arg(self) -> E.Expression:
         if self.peek(1).value == "->" or (
@@ -677,6 +855,8 @@ _AGG_NAMES = frozenset((
 
 
 def _contains_agg(e: E.Expression) -> bool:
+    if isinstance(e, UnresolvedWindowExpression):
+        return False  # window aggregates are not grouping aggregates
     if isinstance(e, E.AggregateFunction):
         return True
     if isinstance(e, E.UnresolvedFunction) and e.fname.lower() in _AGG_NAMES:

@@ -254,6 +254,14 @@ def test_port_imports_neither_jax_nor_reference():
         "          \"WHERE name IN (SELECT name FROM dim WHERE k < 9) \"\n"
         "          \"AND (SELECT max(k) FROM dim) > 3 GROUP BY name\")\n"
         "assert u.toArrow().num_rows == 7\n"
+        "import spark_tpu_torch.api.window as W\n"
+        "w = W.Window.partitionBy('k').orderBy(F.desc('v'))\n"
+        "r = a.select('k', F.rank().over(w).alias('r')).filter(F.col('r') < 2)\n"
+        "assert r.toArrow().num_rows > 0\n"
+        "g = s.sql(\"SELECT name, count(*) n, grouping(name) g, \"\n"
+        "          \"CASE WHEN k > 3 THEN name ELSE 'lo' END c FROM dim \"\n"
+        "          \"GROUP BY ROLLUP(name, k)\")\n"
+        "assert g.toArrow().num_rows > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spark_tpu' or m.startswith('spark_tpu.')]\n"
         "assert not bad, bad\n"

@@ -127,6 +127,13 @@ CASES = {
                           "WHERE t2.k2 = t1.k)", False),
     "scalar_subquery": ("SELECT (SELECT max(k2) FROM t2) m FROM t1", False),
     "distinct": ("SELECT DISTINCT k FROM t1", False),
+    # the statements of UNPORTED that run since the fourth SQL slice
+    "case": ("SELECT CASE WHEN k > 1 THEN s ELSE 'x' END FROM t1", False),
+    "between": ("SELECT k FROM t1 WHERE dt BETWEEN DATE '2020-01-01' AND "
+                "DATE '2020-01-01' + INTERVAL 30 DAYS", False),
+    "interval": ("SELECT dt + INTERVAL 1 DAY FROM t1", False),
+    "window": ("SELECT sum(k) OVER (PARTITION BY s) FROM t1", False),
+    "rollup": ("SELECT k, count(*) FROM t1 GROUP BY ROLLUP(k)", False),
 }
 
 
@@ -207,20 +214,23 @@ UNPORTED = {
                "NestedLoopJoinExec"),
     "scalar_subquery": ("SELECT (SELECT count(DISTINCT k2) FROM t2) m "
                         "FROM t1", "count(distinct)"),
-    "case": ("SELECT CASE WHEN k > 1 THEN s ELSE 'x' END FROM t1",
-             "CASE with string results"),
-    "between": ("SELECT k FROM t1 WHERE dt BETWEEN DATE '2020-01-01' AND "
-                "DATE '2020-01-01' + INTERVAL 30 DAYS", "INTERVAL"),
+    "case": ("SELECT CASE WHEN k > 1 THEN lower(s) ELSE 'x' END FROM t1",
+             "function lower"),
+    "between": ("SELECT k FROM t1 WHERE k % 3 BETWEEN 1 AND 2", "%"),
     "like": ("SELECT k FROM t1 WHERE s LIKE 'a%'", "LIKE"),
-    "interval": ("SELECT dt + INTERVAL 1 DAY FROM t1", "INTERVAL"),
-    "window": ("SELECT sum(k) OVER (PARTITION BY s) FROM t1", "OVER"),
+    "interval": ("SELECT TIMESTAMP '2020-01-01 00:00:00' + INTERVAL 1 DAY "
+                 "FROM t1", "TIMESTAMP"),
+    # the reference refuses it too
+    "window": ("SELECT nth_value(k, 2) OVER (ORDER BY k ROWS BETWEEN 1 "
+               "PRECEDING AND 1 FOLLOWING) FROM t1", "bounded frame"),
     "hint": ("SELECT /*+ BROADCAST(t2) */ k FROM t1", "hints"),
     "script": ("BEGIN SELECT k FROM t1; END", "BEGIN"),
     "command": ("CREATE TEMP VIEW v AS SELECT k FROM t1", "CREATE"),
     "distinct": ("SELECT DISTINCT k FROM t1 INTERSECT SELECT k2 FROM t2",
                  "INTERSECT"),
     "no_from": ("SELECT 1", "without FROM"),
-    "rollup": ("SELECT k, count(*) FROM t1 GROUP BY ROLLUP(k)", "ROLLUP"),
+    "rollup": ("SELECT k, count(DISTINCT s) FROM t1 GROUP BY ROLLUP(k)",
+               "count(distinct)"),
     "using": ("SELECT k FROM t1 JOIN t2 USING (k)", "USING"),
     "concat": ("SELECT s || s FROM t1", "concat"),
     "modulo": ("SELECT k % 2 FROM t1", "%"),
