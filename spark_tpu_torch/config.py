@@ -53,6 +53,10 @@ ENCODING_ENABLED = _register(ConfigEntry(
     "key aggregates by direct scatter over its dense code domain.",
     lambda s: str(s).lower() == "true"))
 
+NESTED_LOOP_TILE_FACTOR = 8
+"""A nested-loop join forms its pairs in tiles of at most
+spark.tpu.batch.capacity times this many rows."""
+
 DEVICE = _register(ConfigEntry(
     "spark.torch.device", "cuda",
     "torch device the session runs on: 'cuda' (default; raises when no "

@@ -24,6 +24,11 @@ class Metrics:
         with self._lock:
             self.counters[name] += v
 
+    def peak(self, name: str, v: int) -> None:
+        """Keep the largest value seen under `name`."""
+        with self._lock:
+            self.counters[name] = max(self.counters[name], v)
+
     def snapshot(self) -> dict:
         with self._lock:
             return dict(self.counters)

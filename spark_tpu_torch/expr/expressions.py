@@ -29,6 +29,7 @@ by parsing its dictionary.
 from __future__ import annotations
 
 import datetime
+import re
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -59,7 +60,8 @@ __all__ = [
     "GreaterThan", "GreaterThanOrEqual", "And", "Or", "Not", "IsNull",
     "IsNotNull", "Upper", "Concat", "AggregateFunction", "Sum", "Count",
     "Min", "Max", "Average", "Abs", "IntervalLiteral", "DateAdd", "DateSub",
-    "DateDiff", "Grouping", "GroupingID",
+    "DateDiff", "Grouping", "GroupingID", "Like", "DateFormat", "Sqrt",
+    "StddevSamp", "StddevPop", "VarianceSamp", "VariancePop",
 ]
 
 
@@ -949,6 +951,29 @@ class Abs(UnaryExpression):
         return Val(self.dtype, torch.abs(c.data), c.validity)
 
 
+class Sqrt(UnaryExpression):
+    """sqrt(x) in float64; a negative input is NULL (the reference's domain
+    check). Correctly rounded on both devices, so they agree bit for bit:
+    CUDA's sqrt is, torch's vectorised CPU sqrt is not (it misrounds about
+    one double in eight), numpy's is."""
+
+    @property
+    def dtype(self):
+        return float64
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        x = cast_val(ctx, c, float64).data
+        ok = x >= 0
+        x = torch.where(ok, x, torch.ones_like(x))
+        v = ok if c.validity is None else (c.validity & ok)
+        if x.device.type == "cpu":
+            data = torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+        else:
+            data = torch.sqrt(x)
+        return Val(float64, data, v)
+
+
 class Not(UnaryExpression):
     @property
     def dtype(self):
@@ -1282,11 +1307,67 @@ class _Affix(_DictTransform):
         return self.prefix + s + self.suffix
 
 
+def _like_to_regex(pattern: str, escape: str = "\\") -> str:
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+        i += 1
+    return "^" + "".join(out) + "$"
+
+
+class _StringPredicate(Expression):
+    """A string -> boolean predicate: a boolean lookup table over the
+    dictionary's values, built on the host once per dictionary (memoised
+    on it) and gathered by the codes on the device."""
+
+    child_fields = ("child",)
+
+    def __init__(self, child: Expression, pattern: str):
+        self.child = child
+        self.pattern = pattern
+
+    @property
+    def dtype(self):
+        return boolean
+
+    def matcher(self):
+        raise NotImplementedError
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        sd = c.sdict or StringDict([""])
+
+        def make_lut():
+            m = self.matcher()
+            return np.array([bool(m(v)) for v in (sd.values or [""])], bool)
+
+        lut = sd._on(f"{type(self).__name__}:{self.pattern}", ctx.device,
+                     make_lut)
+        return Val(boolean, _take_codes(lut, c.data), c.validity)
+
+
+class Like(_StringPredicate):
+    def matcher(self):
+        rx = re.compile(_like_to_regex(self.pattern), re.DOTALL)
+        return lambda s: rx.match(s) is not None
+
+
 class Concat(Expression):
-    """concat / `||` where at most one argument is not a literal: all
-    literals make one literal, and one string column with literals is a
-    dictionary transform. Two or more columns need the host UDF lane of the
-    reference's RewriteHostOnlyExpressions, which is not ported."""
+    """concat / `||`. All literals make one literal, and one string column
+    with literals is a dictionary transform. Over two or more columns the
+    dictionary product is unbounded: the optimizer's
+    RewriteHostOnlyExpressions turns it into a host UDF first."""
 
     child_fields = ("args",)
 
@@ -1306,12 +1387,45 @@ class Concat(Expression):
         if not cols:
             return Literal("".join(str(a.value) for a in self.args)).eval(ctx)
         if len(cols) > 1:
-            raise NotPortedError("concat over two or more string columns "
-                                 "(RewriteHostOnlyExpressions)")
+            raise UnsupportedOperationError(
+                "concat of multiple string columns must be rewritten to a "
+                "host UDF (optimizer rule RewriteHostOnlyExpressions)")
         i = cols[0]
         prefix = "".join(str(a.value) for a in self.args[:i])
         suffix = "".join(str(a.value) for a in self.args[i + 1:])
         return ctx.eval(_Affix(self.args[i], prefix, suffix))
+
+
+class DateFormat(Expression):
+    """date_format(d, fmt): a Java-style pattern subset mapped to strftime,
+    evaluated per row on the host (the value universe is unknown) through
+    the host UDF the optimizer makes of it: this node only resolves the
+    type."""
+
+    child_fields = ("child",)
+
+    _JAVA_TO_STRF = [("yyyy", "%Y"), ("MM", "%m"), ("dd", "%d"),
+                     ("HH", "%H"), ("mm", "%M"), ("ss", "%S"),
+                     ("EEEE", "%A"), ("E", "%a"), ("yy", "%y")]
+
+    def __init__(self, child: Expression, fmt: Expression):
+        self.child = child
+        self.fmt = str(fmt.value)
+
+    @property
+    def dtype(self):
+        return string
+
+    @classmethod
+    def to_strftime(cls, fmt: str) -> str:
+        for a, b in cls._JAVA_TO_STRF:
+            fmt = fmt.replace(a, b)
+        return fmt
+
+    def eval(self, ctx):
+        raise UnsupportedOperationError(
+            "date_format must be rewritten to a host UDF (optimizer rule "
+            "RewriteHostOnlyExpressions)")
 
 
 # ---------------------------------------------------------------------------
@@ -1544,3 +1658,27 @@ class Average(AggregateFunction):
                 min(ct.precision + 4, DecimalType.MAX_PRECISION),
                 min(ct.scale + 4, 10))
         return float64
+
+
+class _CentralMoment(AggregateFunction):
+    ddof = 1
+
+    @property
+    def dtype(self):
+        return float64
+
+
+class StddevSamp(_CentralMoment):
+    ddof = 1
+
+
+class StddevPop(_CentralMoment):
+    ddof = 0
+
+
+class VarianceSamp(_CentralMoment):
+    ddof = 1
+
+
+class VariancePop(_CentralMoment):
+    ddof = 0

@@ -17,6 +17,12 @@ _BUILDERS = {
     "max": lambda c: E.Max(c),
     "avg": lambda c: E.Average(c),
     "mean": lambda c: E.Average(c),
+    "stddev": lambda c: E.StddevSamp(c),
+    "stddev_samp": lambda c: E.StddevSamp(c),
+    "stddev_pop": lambda c: E.StddevPop(c),
+    "variance": lambda c: E.VarianceSamp(c),
+    "var_samp": lambda c: E.VarianceSamp(c),
+    "var_pop": lambda c: E.VariancePop(c),
     "substring": lambda c, p, l=None: E.Substring(c, p, l),
     "substr": lambda c, p, l=None: E.Substring(c, p, l),
     "round": lambda c, s=None: E.Round(c, s),
@@ -31,6 +37,7 @@ _BUILDERS = {
     "date_add": lambda d, n: E.DateAdd(d, n),
     "date_sub": lambda d, n: E.DateSub(d, n),
     "datediff": lambda a, b: E.DateDiff(a, b),
+    "date_format": lambda c, f: E.DateFormat(c, f),
     "row_number": lambda: W.RowNumber(),
     "rank": lambda: W.Rank(),
     "dense_rank": lambda: W.DenseRank(),

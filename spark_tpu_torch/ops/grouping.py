@@ -141,6 +141,15 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if _is_float(t) else torch.int64
 
 
+def _summand(op: str, values: torch.Tensor) -> torch.Tensor:
+    """What a sum op adds per row: the value in its accumulator type, or
+    for sumsq its float64 square (the central moments' buffer)."""
+    if op == "sumsq":
+        x = values.to(torch.float64)
+        return x * x
+    return values.to(_acc_dtype(values))
+
+
 def seg_sum(layout: GroupLayout, values: torch.Tensor, valid=None):
     cap = values.shape[0]
     v = values[layout.perm]
@@ -204,6 +213,9 @@ def apply_group_ops(layout: GroupLayout, ops: Sequence[str], val_datas,
         elif op == "sum":
             total, cnt = seg_sum(layout, vd, vv)
             bufs.append((total, cnt > 0))
+        elif op == "sumsq":
+            total, cnt = seg_sum(layout, _summand(op, vd), vv)
+            bufs.append((total, cnt > 0))
         elif op == "min":
             bufs.append(seg_min(layout, vd, vv))
         elif op == "max":
@@ -245,8 +257,8 @@ def apply_dense_ops(seg, out_cap: int, cap: int, ops: Sequence[str],
             bufs.append((count(None, live_mask), None))
         elif op == "count":
             bufs.append((count(vv, w), None))
-        elif op == "sum":
-            x = vd.to(_acc_dtype(vd))
+        elif op in ("sum", "sumsq"):
+            x = _summand(op, vd)
             total = _segment_sum(
                 torch.where(w, x, torch.zeros((), dtype=x.dtype,
                                               device=x.device)),
@@ -280,8 +292,8 @@ def apply_global_ops(ops: Sequence[str], val_datas, val_valids, row_mask):
         if op in ("count", "countstar"):
             ww = row_mask if op == "countstar" else w
             outs.append((ww.to(torch.int64).sum(), None))
-        elif op == "sum":
-            x = vd.to(_acc_dtype(vd))
+        elif op in ("sum", "sumsq"):
+            x = _summand(op, vd)
             s = torch.where(w, x, torch.zeros((), dtype=x.dtype,
                                               device=x.device)).sum()
             outs.append((s, w.any()))

@@ -1,8 +1,10 @@
 """Aggregate lowering: logical aggregate functions -> buffer ops + final
 expressions (counterpart of `spark_tpu/physical/aggregates.py`, for sum,
-count, min, max and avg). Merge ops are the partial ops' associative
-counterparts, so one kernel serves map-side partial and reduce-side final
-aggregation. A decimal sum is an exact int64 sum of the scaled values; a
+count, min, max, avg and the central moments: stddev and variance, sample
+and population, from sum/sumsq/count buffers as
+`(sumsq - sum^2/n) / (n - ddof)`, NULL at n <= ddof). Merge ops are the
+partial ops' associative counterparts, so one kernel serves map-side
+partial and reduce-side final aggregation. A decimal sum is an exact int64 sum of the scaled values; a
 decimal average finishes as cast(sum / count as decimal(p+4, s+4)), the
 division in float64, as the reference lowers it."""
 
@@ -13,7 +15,8 @@ from dataclasses import dataclass
 from ..errors import NotPortedError
 from ..expr.expressions import (
     AggregateFunction, Alias, AttributeReference, Average, Count, Divide,
-    Expression, Max, Min, Sum, cast_if,
+    Expression, GreaterThan, If, Literal, Max, Min, Multiply, Sqrt,
+    StddevPop, StddevSamp, Subtract, Sum, _CentralMoment, cast_if,
 )
 from ..types import (
     DataType, DecimalType, IntegralType, StringType, float64, int64,
@@ -22,13 +25,15 @@ from ..types import (
 # primitive ops the kernels implement
 PARTIAL_TO_MERGE = {
     "sum": "sum", "count": "sum", "countstar": "sum",
-    "min": "min", "max": "max", "first": "first",
+    "min": "min", "max": "max", "first": "first", "sumsq": "sum",
 }
 
 
 def _buffer_dtype(op: str, in_dtype: DataType | None) -> DataType:
     if op in ("count", "countstar"):
         return int64
+    if op == "sumsq":
+        return float64
     if op == "sum":
         if isinstance(in_dtype, DecimalType):
             return DecimalType(DecimalType.MAX_PRECISION, in_dtype.scale)
@@ -82,4 +87,28 @@ def lower_aggregate_function(func: AggregateFunction, out_name: str,
         return AggSpec(func, child, ["sum", "count"], [bs, bc],
                        Alias(cast_if(Divide(bs, bc), func.dtype), out_name,
                              out_id))
+    if isinstance(func, _CentralMoment):
+        bs = battr(0, "sum")
+        bq = battr(1, "sumsq")
+        bc = battr(2, "count")
+        scaled = isinstance(child.dtype, DecimalType)
+        if scaled:
+            # a decimal's sum and sumsq add its scaled integers: the
+            # moments come out in scale^2 and are scaled back last (the
+            # reference mixes the two: ROADMAP.md section C)
+            bs = AttributeReference(bs.name, int64, True)
+        n = cast_if(bc, float64)
+        mean_sq = Divide(Multiply(cast_if(bs, float64),
+                                  cast_if(bs, float64)), n)
+        ddof = func.ddof
+        denom = Subtract(n, Literal(float(ddof))) if ddof else n
+        var = Divide(Subtract(bq, mean_sq), denom)
+        if scaled:
+            var = Divide(var, Literal(float(10 ** (2 * child.dtype.scale))))
+        var = If(GreaterThan(bc, Literal(ddof)), var, Literal(None, float64))
+        result: Expression = var
+        if isinstance(func, (StddevSamp, StddevPop)):
+            result = Sqrt(var)
+        return AggSpec(func, child, ["sum", "sumsq", "count"], [bs, bq, bc],
+                       Alias(result, out_name, out_id))
     raise NotPortedError(f"aggregate {type(func).__name__}")

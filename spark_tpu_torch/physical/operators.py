@@ -4,14 +4,16 @@ the local table scan, the fused filter+project `ComputeExec`,
 ungrouped, sorted-segment and dense-range (over an integral key's range or
 a string key's dictionary codes) — `SortExec`, `LimitExec`, `HashJoinExec`
 (broadcast or shuffled; a dense direct-address build or the hash-sorted
-build with a searchsorted probe) and `UnionExec`. `execute()` returns a
-list of partitions, each a list of device ColumnarBatches; blocking
-operators concatenate their partition's batches and run one kernel per
-chunk.
+build with a searchsorted probe), `NestedLoopJoinExec` (cross joins and
+non-equi conditions over a broadcast build side) and `UnionExec`.
+`execute()` returns a list of partitions, each a list of device
+ColumnarBatches; blocking operators concatenate their partition's batches
+and run one kernel per chunk.
 """
 
 from __future__ import annotations
 
+import re
 import weakref
 from typing import Sequence
 
@@ -32,7 +34,9 @@ from ..ops import joining as J
 from ..ops.scatter_kernels import partition_histogram
 from ..ops.sorting import SortKeySpec, limit_mask, sort_permutation
 from ..plan.tree import TreeNode
-from ..types import DateType, IntegralType, StructField, StructType
+from ..types import (
+    DateType, IntegralType, StringType, StructField, StructType,
+)
 from ..utils.device_memo import memo_device_scalars
 from .aggregates import PARTIAL_TO_MERGE, AggSpec
 from .compile import ExprPipeline
@@ -636,6 +640,8 @@ class HashJoinExec(PhysicalPlan):
             bkey_eqs = [c.eq_keys() for c in bkeys]
             bkey_valids = [c.validity for c in bkeys]
             bindex = J.build_index(bkey_eqs, bkey_valids, build.row_mask)
+            if self.join_type in ("left_semi", "left_anti"):
+                bindex = J.dedup_build(bindex, bkey_eqs, bkey_valids)
             ctx.launches.add("join_build")
             out = [self._probe_batch(pb, build, bindex, bkey_eqs,
                                      bkey_valids, lpos, ctx)
@@ -787,6 +793,181 @@ class HashJoinExec(PhysicalPlan):
                       for l, r in zip(self.left_keys, self.right_keys))
         b = "Broadcast" if self.is_broadcast else "Shuffled"
         return f"{b}HashJoin[{self.join_type}]({k})"
+
+
+class NestedLoopJoinExec(PhysicalPlan):
+    """Pairs + optional condition (role of BroadcastNestedLoopJoinExec /
+    CartesianProductExec): inner, cross, left_semi, left_anti and
+    left_outer. The build side (right) is broadcast.
+
+    Pairs are formed probe-major, in tiles of at most
+    spark.tpu.batch.capacity x NESTED_LOOP_TILE_FACTOR rows, and the
+    condition is evaluated over each tile. Two enumerations give the same
+    surviving pairs in the same order:
+      * all pairs, the reference's: every live probe row with every live
+        build row (cross joins; conditions with no left = right equality,
+        such as the null-aware NOT IN's `k = k2 OR (k = k2) IS NULL`);
+      * candidates by key, when a conjunct is an equality of a left and
+        a right expression of one type (`key_pairs`): only the pairs in
+        the probe key's range of the key-hash-sorted build. A pair outside
+        it has unequal or NULL keys, so that conjunct and the AND are not
+        true; within a range the build rows keep their order (the sort is
+        stable), as in the reference's compacted build.
+    Semi and anti joins fold the surviving pairs back onto their probe rows
+    (a count per probe row, the histogram kernel); left outer adds a
+    null-extended batch of the probe rows no pair matched."""
+
+    child_fields = ("left", "right")
+
+    def __init__(self, condition: Expression | None, join_type: str,
+                 left: PhysicalPlan, right: PhysicalPlan):
+        if join_type not in ("inner", "cross", "left_semi", "left_anti",
+                             "left_outer"):
+            raise NotPortedError(f"nested-loop {join_type} join")
+        self.condition = condition
+        self.join_type = join_type
+        self.left = left
+        self.right = right
+
+    @property
+    def output(self):
+        if self.join_type in ("left_semi", "left_anti"):
+            return list(self.left.output)
+        return self.left.output + self.right.output
+
+    def required_child_distribution(self):
+        return [UnspecifiedDistribution(), BroadcastDistribution()]
+
+    def key_pairs(self) -> list:
+        """(left expr, right expr) of each conjunct `l = r` whose sides
+        come one from each child and share a type."""
+        from ..expr.expressions import EqualTo
+        from ..plan.optimizer import split_conjuncts
+
+        if self.condition is None:
+            return []
+        lids = {a.expr_id for a in self.left.output}
+        rids = {a.expr_id for a in self.right.output}
+        out = []
+        for c in split_conjuncts(self.condition):
+            if not isinstance(c, EqualTo) or c.left.dtype != c.right.dtype:
+                continue
+            lr, rr = c.left.references(), c.right.references()
+            if lr and rr and lr <= lids and rr <= rids:
+                out.append((c.left, c.right))
+            elif lr and rr and lr <= rids and rr <= lids:
+                out.append((c.right, c.left))
+        return out
+
+    @staticmethod
+    def _key_eqs(exprs, attrs, batch: ColumnarBatch):
+        """Equality-domain tensors and validities of `exprs` over `batch`."""
+        keys = [Alias(e, f"__nlk{i}") for i, e in enumerate(exprs)]
+        cols = ExprPipeline(attrs, [], keys, attrs_schema(
+            [k.to_attribute() for k in keys])).run(batch).columns
+        return [c.eq_keys() for c in cols], [c.validity for c in cols]
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        from ..config import NESTED_LOOP_TILE_FACTOR
+
+        left_parts = self.left.execute(ctx)
+        build = self.right.execute(ctx)[0]
+        rschema = attrs_schema(self.right.output)
+        lschema = attrs_schema(self.left.output)
+        bbatch = concat_batches(build, rschema) if build \
+            else ColumnarBatch.empty(rschema, ctx.device)
+        pair_attrs = list(self.left.output) + list(self.right.output)
+        pair_schema = attrs_schema(pair_attrs)
+        cond_pipe = None
+        if self.condition is not None:
+            cond_pipe = ExprPipeline(pair_attrs, [self.condition],
+                                     pair_attrs, pair_schema)
+        tile = ctx.conf.batch_capacity * NESTED_LOOP_TILE_FACTOR
+        nb = bbatch.num_rows()
+        keys = self.key_pairs()
+        if keys:
+            bkey_eqs, bkey_valids = self._key_eqs(
+                [r for _, r in keys], self.right.output, bbatch)
+            bindex = J.build_index(bkey_eqs, bkey_valids, bbatch.row_mask)
+            ctx.launches.add("join_build")
+        out = []
+        for part in left_parts:
+            obatches: list = []
+            for pb in (part or [ColumnarBatch.empty(lschema, ctx.device)]):
+                if keys:
+                    pkey_eqs, pkey_valids = self._key_eqs(
+                        [l for l, _ in keys], self.left.output, pb)
+                    starts, counts = J.match_ranges(
+                        bindex, pkey_eqs, pkey_valids, pb.row_mask)
+                    order = bindex.perm
+                else:
+                    counts, starts, order = J.all_pairs(pb.row_mask,
+                                                        bbatch.row_mask)
+                self._pairs(pb, bbatch, starts, counts, order, tile,
+                            pair_schema, cond_pipe, obatches, ctx)
+                ctx.metrics.add("nlj.pairs_all", pb.num_rows() * nb)
+            out.append(obatches)
+        return out
+
+    def simple_string(self):
+        cond = "" if self.condition is None \
+            else re.sub(r"#\d+", "", self.condition.simple_string())
+        return f"NestedLoopJoin[{self.join_type}]({cond})"
+
+    def _pairs(self, pb: ColumnarBatch, bbatch: ColumnarBatch, starts,
+               counts, order, tile: int, pair_schema, cond_pipe,
+               obatches: list, ctx) -> None:
+        """Form one probe batch's pairs tile by tile, apply the condition,
+        and append what the join type emits to `obatches`."""
+        offsets = torch.cumsum(counts, 0)
+        total = int(offsets[-1])
+        ctx.metrics.add("nlj.pairs_formed", total)
+        fold = self.join_type in ("left_semi", "left_anti", "left_outer")
+        matched = torch.zeros(pb.capacity, dtype=torch.int32,
+                              device=pb.device)
+        # one tile at least: a join with no pairs still emits an (empty)
+        # batch, as the reference's does
+        for first in range(0, max(total, 1), tile):
+            cap = bucket_capacity(min(total - first, tile))
+            ctx.metrics.peak("nlj.max_tile", cap)
+            src, bidx, live = J.expand_pairs(offsets, counts, starts, order,
+                                             first, cap)
+            live = live & pb.row_mask[src]
+            joined = ColumnarBatch(
+                pair_schema,
+                gather_batch(pb, src, live).columns
+                + gather_batch(bbatch, bidx, live).columns,
+                live, num_rows=None)
+            if cond_pipe is not None:
+                joined = cond_pipe.run(joined)
+            ctx.launches.add("nlj_pairs")
+            if fold:
+                # a probe row matches iff ANY surviving pair points at it
+                matched += partition_histogram(
+                    src.to(torch.int32), joined.row_mask, pb.capacity)
+            if self.join_type not in ("left_semi", "left_anti"):
+                obatches.append(joined)
+        if self.join_type in ("left_semi", "left_anti"):
+            keep = pb.row_mask & ((matched > 0)
+                                  if self.join_type == "left_semi"
+                                  else (matched == 0))
+            obatches.append(ColumnarBatch(pb.schema, pb.columns, keep,
+                                          num_rows=None))
+        elif self.join_type == "left_outer":
+            # null-extend the unmatched probe rows as a second batch
+            null_cols = [
+                Column(f.dataType,
+                       torch.zeros(pb.capacity,
+                                   dtype=f.dataType.device_dtype,
+                                   device=pb.device),
+                       torch.zeros(pb.capacity, dtype=torch.bool,
+                                   device=pb.device),
+                       EMPTY_DICT if isinstance(f.dataType, StringType)
+                       else None)
+                for f in attrs_schema(self.right.output).fields]
+            obatches.append(ColumnarBatch(
+                pair_schema, list(pb.columns) + null_cols,
+                pb.row_mask & (matched == 0), num_rows=None))
 
 
 # ---------------------------------------------------------------------------

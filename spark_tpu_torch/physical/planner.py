@@ -12,7 +12,9 @@ ComputeExecs. Contracts kept from the JAX planner:
     ComputeExec over the buffers;
   * right outer joins are flipped to left joins over swapped children; a
     build side whose estimated bytes fit spark.sql.autoBroadcastJoinThreshold
-    is broadcast;
+    is broadcast; cross joins, joins with no equi key and semi/anti/outer
+    joins with a non-equi residual are NestedLoopJoinExecs over a broadcast
+    right side;
   * ORDER BY + LIMIT plans as TopK: a local sort and limit per partition, a
     gather, then a final sort and limit.
 """
@@ -29,13 +31,14 @@ from ..expr.expressions import (
 )
 from ..expr.window import WindowExpression
 from ..plan import logical as L
-from ..plan.optimizer import split_conjuncts, substitute_attrs
+from ..plan.optimizer import join_conjuncts, split_conjuncts, substitute_attrs
 from ..plan.tree import next_id
 from .aggregates import AggSpec, lower_aggregate_function
 from .exchange import BroadcastExchangeExec, ShuffleExchangeExec
 from .operators import (
     ComputeExec, HashAggregateExec, HashJoinExec, LimitExec,
-    LocalTableScanExec, PhysicalPlan, SortExec, UnionExec,
+    LocalTableScanExec, NestedLoopJoinExec, PhysicalPlan, SortExec,
+    UnionExec,
 )
 from .window import WindowExec
 from .partitioning import (
@@ -130,6 +133,11 @@ class Planner:
             out = node.child.output
             return self._plan_aggregate(
                 L.Aggregate(list(out), list(out), node.child))
+        if isinstance(node, L.PythonEval):
+            from .python_eval import PythonEvalExec
+
+            return PythonEvalExec(node.udf_aliases,
+                                  self._convert(node.child))
         if isinstance(node, L.Window):
             return self._plan_window(node)
         if isinstance(node, L.Repartition):
@@ -303,9 +311,6 @@ class Planner:
         if jt == "right_outer":
             left_l, right_l = right_l, left_l
             jt = "left_outer"
-        if jt == "cross":
-            raise NotPortedError("cross join (NestedLoopJoinExec, "
-                                 "cross_join)")
         left = self._convert(left_l)
         right = self._convert(right_l)
 
@@ -326,10 +331,29 @@ class Planner:
                         continue
                 residual.append(c)
         if not equi:
-            raise NotPortedError(f"non-equi {jt} join (NestedLoopJoinExec)")
+            if jt in ("inner", "cross"):
+                nl = NestedLoopJoinExec(
+                    join_conjuncts(residual) if residual else None,
+                    "cross" if jt == "cross" and not residual else "inner",
+                    left, right)
+                return self._restore_order(nl, node)
+            if jt in ("left_semi", "left_anti", "left_outer"):
+                # e.g. the null-aware NOT IN: "eq OR eq IS NULL" is not an
+                # equi conjunct; any-match semantics need the pair fold,
+                # not a hash probe
+                nl = NestedLoopJoinExec(
+                    join_conjuncts(residual) if residual else None,
+                    jt, left, right)
+                return self._restore_order(nl, node)
+            raise NotPortedError(f"non-equi {jt} join")
+        if residual and jt in ("left_semi", "left_anti", "left_outer"):
+            # a residual on top of a semi/anti/outer hash join is not a
+            # post-filter: match existence is decided over the whole
+            # condition before null extension
+            nl = NestedLoopJoinExec(node.condition, jt, left, right)
+            return self._restore_order(nl, node)
         if residual and jt != "inner":
-            raise NotPortedError(f"{jt} join with a non-equi residual "
-                                 "(NestedLoopJoinExec)")
+            raise NotPortedError(f"{jt} join with a non-equi residual")
 
         lkeys, left = self._bind_keys([lk for lk, _ in equi], left, "__jkl")
         rkeys, right = self._bind_keys([rk for _, rk in equi], right,
@@ -347,11 +371,19 @@ class Planner:
                 else ComputeExec(out.filters, want, out.child)
         return out
 
+    @staticmethod
+    def _restore_order(plan: PhysicalPlan, node: L.Join) -> PhysicalPlan:
+        """The logical column order over a flipped join."""
+        want = list(node.output)
+        if [a.expr_id for a in plan.output] != [a.expr_id for a in want]:
+            return ComputeExec([], want, plan)
+        return plan
+
     # join types where a replicated RIGHT build side is sound: full_outer
     # is not one (unmatched build rows would be emitted once per probe
     # partition)
     _BROADCAST_RIGHT_TYPES = frozenset(
-        ("inner", "left_outer", "left_semi", "left_anti"))
+        ("inner", "cross", "left_outer", "left_semi", "left_anti"))
 
     def _can_broadcast(self, right_logical: L.LogicalPlan, jt: str) -> bool:
         if jt not in self._BROADCAST_RIGHT_TYPES:

@@ -1,5 +1,6 @@
 """Analyzer: resolves relations, columns, functions and subqueries, names
-unnamed outputs, coerces decimal arithmetic and widens union branches
+unnamed outputs, coerces decimal arithmetic and widens set-operation
+branches
 (counterpart of `spark_tpu/plan/analyzer.py`, the rules the port's
 DataFrame and SQL slices need, in the reference's batch order):
 ResolveRelations, DeduplicateRelations, ResolveReferences (qualified names,
@@ -20,7 +21,7 @@ from __future__ import annotations
 import difflib
 from typing import Sequence
 
-from ..errors import AnalysisException, NotPortedError, UnresolvedColumnError
+from ..errors import AnalysisException, UnresolvedColumnError
 from ..expr.expressions import (
     Add, AggregateFunction, Alias, AttributeReference, Average, Cast, Count,
     Divide, Expression, Grouping, GroupingID, IntervalLiteral, Literal, Max,
@@ -32,8 +33,9 @@ from ..expr.window import UnresolvedWindowExpression, WindowExpression
 from ..types import DecimalType, common_type
 from .catalog import Catalog
 from .logical import (
-    Aggregate, Filter, GroupingSets, Join, LocalRelation, LogicalPlan,
-    Project, Sort, SubqueryAlias, Union, UnresolvedRelation, Window,
+    Aggregate, Except, Filter, GroupingSets, Intersect, Join, LocalRelation,
+    LogicalPlan, Project, Sort, SubqueryAlias, Union, UnresolvedRelation,
+    Window,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -799,7 +801,8 @@ class CoerceDecimalArithmetic(Rule):
 
 
 class WidenSetOperationTypes(Rule):
-    """Positionally coerce union branches to common types (a branch whose
+    """Positionally coerce Union/Intersect/Except branches to common types
+    (a branch whose
     column type differs gets a casting Project; the first branch keeps its
     output ids, which name the union's output)."""
 
@@ -846,6 +849,10 @@ class WidenSetOperationTypes(Rule):
                 nc = widen(node.children_plans)
                 if nc is not None:
                     return Union(nc)
+            if isinstance(node, (Intersect, Except)) and node.resolved:
+                nc = widen([node.left, node.right])
+                if nc is not None:
+                    return node.copy(left=nc[0], right=nc[1])
             return node
 
         return plan.transform_up(rule)
@@ -874,8 +881,6 @@ class CheckAnalysis(Rule):
                             f"unresolved function {sub.fname}")
                     if isinstance(sub, UnresolvedStar):
                         raise AnalysisException("unexpected * in expression")
-                    if isinstance(sub, Count) and sub.distinct:
-                        raise NotPortedError("count(distinct)")
             if isinstance(node, UnresolvedRelation):
                 raise AnalysisException(f"unresolved relation {node.name}")
             if isinstance(node, Aggregate) and node.resolved:

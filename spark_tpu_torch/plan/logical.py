@@ -358,6 +358,43 @@ class Join(BinaryNode):
         return max(l, r)
 
 
+class PythonEval(UnaryNode):
+    """Append host-evaluated Python UDF columns (the logical shadow of
+    Spark's ArrowEvalPythonExec)."""
+
+    def __init__(self, udf_aliases: Sequence[Expression], child: LogicalPlan):
+        self.udf_aliases = list(udf_aliases)
+        self.child = child
+
+    @property
+    def output(self):
+        return self.child.output + [a.to_attribute() for a in self.udf_aliases]
+
+
+class Intersect(BinaryNode):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 is_all: bool = False):
+        self.left = left
+        self.right = right
+        self.is_all = is_all
+
+    @property
+    def output(self):
+        return self.left.output
+
+
+class Except(BinaryNode):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 is_all: bool = False):
+        self.left = left
+        self.right = right
+        self.is_all = is_all
+
+    @property
+    def output(self):
+        return self.left.output
+
+
 class Union(LogicalPlan):
     """UNION ALL of positionally matched branches: the first branch names
     the output, and a column is nullable where any branch's is."""

@@ -10,15 +10,17 @@ merging, greedy join reordering of inner-join chains (comma-list FROMs),
 constant folding, boolean and cast simplification, filter pruning,
 empty-relation propagation, union flattening, IsNotNull inference on
 inner-join keys, limit combination, project collapsing and column pruning
-(through Window nodes too). The reference's other rules (INTERSECT/EXCEPT,
-distinct aggregates, Python UDFs) have no construct to fire on: the parser
-or the analyzer refuses theirs (ROADMAP.md)."""
+(through Window nodes too), INTERSECT/EXCEPT as a semi/anti join plus
+DISTINCT, count(DISTINCT) as two aggregates, and the Python UDF batch:
+host-only expressions (concat over string columns, casts to string,
+date_format) become host UDFs that PythonEval evaluates over Arrow."""
 
 from __future__ import annotations
 
 import datetime
 from typing import Sequence
 
+from ..errors import NotPortedError
 from ..expr.expressions import (
     Add, AggregateFunction, Alias, And, AttributeReference, Cast, Divide,
     EqualTo, Expression, GreaterThan, GreaterThanOrEqual, Grouping,
@@ -366,6 +368,129 @@ def _remap_union_cond(cond: Expression, union: Union, i: int) -> Expression:
     m = {a.expr_id: b
          for a, b in zip(union.output, union.children_plans[i].output)}
     return substitute_attrs(cond, m)
+
+
+class RewriteHostOnlyExpressions(Rule):
+    """Expressions with no device form become vectorized host UDFs (Spark's
+    analog: expressions lacking codegen fall back to interpreted eval; here
+    the fallback is the Arrow-UDF path):
+      * concat over 2+ string COLUMNS (dictionary products are unbounded);
+      * cast(non-string AS string) (value universe unknown host-side);
+      * date_format."""
+
+    def apply(self, plan):
+        import numpy as np
+
+        from ..expr.expressions import Cast, Concat, DateFormat, Literal
+        from ..expr.pyudf import PythonUDF
+        from ..types import DateType, StringType, string
+
+        def to_str_fn(dt):
+            import datetime
+
+            if isinstance(dt, DateType):
+                return lambda a: np.array(
+                    [(datetime.date(1970, 1, 1)
+                      + datetime.timedelta(days=int(v))).isoformat()
+                     for v in a], dtype=object)
+            return lambda a: np.array([_fmt_num(v) for v in a], dtype=object)
+
+        def fix(e: Expression) -> Expression:
+            if isinstance(e, DateFormat):
+                import datetime
+
+                strf = DateFormat.to_strftime(e.fmt)
+
+                def fmt_fn(a, _strf=strf):
+                    out = []
+                    for v in a:
+                        if v is None:
+                            out.append(None)
+                        else:
+                            out.append((datetime.date(1970, 1, 1)
+                                        + datetime.timedelta(days=int(v)))
+                                       .strftime(_strf))
+                    return np.array(out, dtype=object)
+
+                return PythonUDF(fmt_fn, [e.child], string,
+                                 name="date_format", vectorized=True)
+            if isinstance(e, Concat):
+                cols = [a for a in e.args if not isinstance(a, Literal)]
+                if len(cols) >= 2:
+                    def concat_fn(*arrays, _sep=""):
+                        out = []
+                        for vals in zip(*arrays):
+                            if any(v is None for v in vals):
+                                out.append(None)
+                            else:
+                                out.append(_sep.join(str(v) for v in vals))
+                        return np.array(out, dtype=object)
+
+                    return PythonUDF(concat_fn, list(e.args), string,
+                                     name="concat")
+            if isinstance(e, Cast) and isinstance(e.to, StringType) and \
+                    e.child.resolved and \
+                    not isinstance(e.child.dtype, StringType):
+                return PythonUDF(to_str_fn(e.child.dtype), [e.child],
+                                 string, name="cast_str")
+            return e
+
+        def rule(node):
+            if node.expressions_resolved:
+                return node.transform_expressions(
+                    lambda ex: ex.transform_up(fix))
+            return node
+
+        return plan.transform_up(rule)
+
+
+def _fmt_num(v):
+    if v is None:
+        return None
+    if isinstance(v, float):
+        return repr(v)
+    import numpy as _np
+
+    if isinstance(v, _np.floating):
+        return repr(float(v))
+    if isinstance(v, (bool, _np.bool_)):
+        return str(bool(v)).lower()
+    return str(v)
+
+
+class ExtractPythonUDFs(Rule):
+    """Pull PythonUDFs out of projections/filters into PythonEval operators
+    (Spark's ExtractPythonUDFs)."""
+
+    def apply(self, plan):
+        from ..expr.pyudf import PythonUDF
+        from .logical import PythonEval
+
+        def rule(node):
+            if not isinstance(node, (Project, Filter)):
+                return node
+            if not any(isinstance(x, PythonUDF)
+                       for e in node.expressions()
+                       for x in e.iter_nodes()):
+                return node
+            collected: list[Alias] = []
+
+            def extract(x: Expression) -> Expression:
+                if isinstance(x, PythonUDF):
+                    al = Alias(x, f"_pyudf{len(collected)}")
+                    collected.append(al)
+                    return al.to_attribute()
+                return x
+
+            new_node = node.map_expressions(
+                lambda e: e.transform_up(extract))
+            child = PythonEval(collected, node.child)
+            new_node = new_node.copy(child=child)
+            if isinstance(new_node, Filter):
+                return Project(list(node.output), new_node)
+            return new_node
+
+        return plan.transform_up(rule)
 
 
 class MergeFilterIntoJoin(Rule):
@@ -815,6 +940,213 @@ class OptimizeSubqueryPlans(Rule):
                                                                  optimize))
 
 
+class RewriteDistinctAggregates(Rule):
+    """count(DISTINCT x) [GROUP BY g] -> two-level aggregation: inner
+    Aggregate(g, x) dedups, outer counts. Mixed with plain aggregates, the
+    two kinds aggregate apart and join back on the grouping keys (a cross
+    join of two one-row aggregates without them). DISTINCT over two
+    different expressions is refused, as the reference refuses it."""
+
+    def apply(self, plan):
+        from ..expr.expressions import Count
+
+        def rule(node):
+            if not isinstance(node, Aggregate) or not node.resolved:
+                return node
+            distincts = []
+            others = []
+            for e in node.aggregate_exprs:
+                for x in e.iter_nodes():
+                    if isinstance(x, AggregateFunction):
+                        if getattr(x, "distinct", False):
+                            distincts.append(x)
+                        else:
+                            others.append(x)
+            if not distincts:
+                return node
+            if others:
+                return self._rewrite_mixed(node, distincts)
+            first_child = distincts[0].child
+            if any(not d.child.semantic_equals(first_child)
+                   for d in distincts[1:]):
+                raise NotPortedError(
+                    "multiple DISTINCT aggregates on different expressions")
+
+            # inner: dedup (g..., x)
+            inner_group: list[Expression] = []
+            inner_outs: list[Expression] = []
+            group_attr: list[tuple[Expression, AttributeReference]] = []
+            for i, g in enumerate(node.grouping_exprs):
+                if isinstance(g, AttributeReference):
+                    inner_group.append(g)
+                    inner_outs.append(g)
+                    group_attr.append((g, g))
+                else:
+                    al = Alias(g, f"_g{i}")
+                    inner_group.append(g)
+                    inner_outs.append(al)
+                    group_attr.append((g, al.to_attribute()))
+            if isinstance(first_child, AttributeReference):
+                x_attr = first_child
+                inner_outs.append(first_child)
+            else:
+                xal = Alias(first_child, "_dx")
+                x_attr = xal.to_attribute()
+                inner_outs.append(xal)
+            inner = Aggregate(inner_group + [first_child], inner_outs,
+                              node.child)
+
+            # outer: original outputs with fn(distinct x) -> fn(x)
+            def fix(e: Expression) -> Expression:
+                if isinstance(e, AggregateFunction) and \
+                        getattr(e, "distinct", False):
+                    if isinstance(e, Count):
+                        return Count(x_attr, distinct=False)
+                    out = e.copy(child=x_attr)
+                    out.distinct = False
+                    return out
+                for g, a in group_attr:
+                    if e.semantic_equals(g):
+                        return a
+                return e
+
+            outer_group = [a for _, a in group_attr]
+            outer_outs = []
+            for e in node.aggregate_exprs:
+                if isinstance(e, Alias):
+                    outer_outs.append(
+                        Alias(e.child.transform_up(fix), e.name, e.expr_id))
+                else:
+                    outer_outs.append(e.transform_up(fix))
+            return Aggregate(outer_group, outer_outs, inner)
+
+        return plan.transform_up(rule)
+
+    def _rewrite_mixed(self, node: Aggregate, distincts):
+        """Mixed DISTINCT + plain aggregates: split into two aggregates over
+        the same child and join them back on the grouping keys (the
+        reference uses a single Expand; the join formulation reuses existing
+        operators). Null-safe key equality keeps null-keyed groups."""
+        from ..expr.expressions import AggregateFunction as AF
+
+        # grouping attrs for both sides (aliased when complex)
+        def key_aliases(suffix: str):
+            outs, attrs = [], []
+            for i, g in enumerate(node.grouping_exprs):
+                al = Alias(g, f"_k{suffix}{i}")
+                outs.append(al)
+                attrs.append(al.to_attribute())
+            return outs, attrs
+
+        nd_keys, nd_attrs = key_aliases("n")
+        d_keys, d_attrs = key_aliases("d")
+
+        nd_funcs, d_funcs = [], []
+        for e in node.aggregate_exprs:
+            for x in e.iter_nodes():
+                if isinstance(x, AF):
+                    bucket = d_funcs if getattr(x, "distinct", False) \
+                        else nd_funcs
+                    if not any(x.semantic_equals(f) for f in bucket):
+                        bucket.append(x)
+
+        nd_aliases = [Alias(f, f"_nd{i}") for i, f in enumerate(nd_funcs)]
+        d_aliases = [Alias(f, f"_d{i}") for i, f in enumerate(d_funcs)]
+
+        nd_agg = Aggregate(node.grouping_exprs, nd_keys + nd_aliases,
+                           node.child)
+        d_agg = Aggregate(node.grouping_exprs, d_keys + d_aliases,
+                          node.child)
+        # recursively rewrite the distinct side (now distinct-only)
+        d_agg = self.apply(d_agg)
+
+        if node.grouping_exprs:
+            cond = None
+            for l, r in zip(nd_attrs, d_attrs):
+                for c in _null_safe_eq_conjuncts(l, r):
+                    cond = c if cond is None else And(cond, c)
+            joined = Join(nd_agg, d_agg, "inner", cond)
+        else:
+            joined = Join(nd_agg, d_agg, "cross", None)
+
+        nd_map = {id(f): a.to_attribute() for f, a in zip(nd_funcs, nd_aliases)}
+        d_map = list(zip(d_funcs, [a.to_attribute() for a in d_aliases]))
+        g_map = list(zip(node.grouping_exprs, nd_attrs))
+
+        def fix(x: Expression) -> Expression:
+            if isinstance(x, AF):
+                if getattr(x, "distinct", False):
+                    for f, a in d_map:
+                        if x.semantic_equals(f):
+                            return a
+                else:
+                    for f, a in zip(nd_funcs,
+                                    [al.to_attribute() for al in nd_aliases]):
+                        if x.semantic_equals(f):
+                            return a
+            for g, a in g_map:
+                if x.semantic_equals(g):
+                    return a
+            return x
+
+        outs = []
+        for e in node.aggregate_exprs:
+            if isinstance(e, Alias):
+                outs.append(Alias(e.child.transform_up(fix), e.name,
+                                  e.expr_id))
+            elif isinstance(e, AttributeReference):
+                outs.append(Alias(fix(e), e.name, e.expr_id))
+            else:
+                outs.append(e.transform_up(fix))
+        return Project(outs, joined)
+
+
+class ReplaceSetOps(Rule):
+    """INTERSECT -> semi join + distinct; EXCEPT -> anti join + distinct
+    (Spark's ReplaceIntersectWithSemiJoin / ReplaceExceptWithAntiJoin).
+    Null-safe equality per column."""
+
+    def apply(self, plan):
+        from .logical import Except, Intersect
+
+        def rule(node):
+            if isinstance(node, (Intersect, Except)) and node.resolved:
+                # null-safe equality expressed as plain equi keys so the hash
+                # join kernel applies: (isnull(l)=isnull(r)) AND
+                # (coalesce(l,d)=coalesce(r,d))
+                cond = None
+                for l, r in zip(node.left.output, node.right.output):
+                    for c in _null_safe_eq_conjuncts(l, r):
+                        cond = c if cond is None else And(cond, c)
+                jt = "left_semi" if isinstance(node, Intersect) else "left_anti"
+                return Distinct(Join(node.left, node.right, jt, cond))
+            return node
+
+        return plan.transform_up(rule)
+
+
+def _null_safe_eq_conjuncts(l: Expression, r: Expression) -> list[Expression]:
+    from ..expr.expressions import Coalesce, IsNull
+    from ..types import BooleanType, DateType, NumericType, StringType
+
+    if not (l.nullable or r.nullable):
+        return [EqualTo(l, r)]
+    dt = l.dtype
+    if isinstance(dt, StringType):
+        d = Literal("")
+    elif isinstance(dt, BooleanType):
+        d = Literal(False)
+    elif isinstance(dt, (NumericType, DateType)):
+        d = Literal(0)
+    else:
+        d = Literal(0)
+    from ..expr.expressions import cast_if
+
+    d = cast_if(d, dt)
+    return [EqualTo(IsNull(l), IsNull(r)),
+            EqualTo(Coalesce([l, d]), Coalesce([r, d]))]
+
+
 class ExpandGroupingSets(Rule):
     """GroupingSets -> Union of per-set Aggregates over the same child,
     with NULL fills for the grouping keys a set leaves out and grouping()
@@ -866,8 +1198,8 @@ class ExpandGroupingSets(Rule):
 
 
 def _finish_analysis_rules():
-    return [EliminateSubqueryAliases(), ExpandGroupingSets(),
-            ReplaceDistinct()]
+    return [EliminateSubqueryAliases(), ReplaceSetOps(), ExpandGroupingSets(),
+            ReplaceDistinct(), RewriteDistinctAggregates()]
 
 
 class Optimizer(RuleExecutor):
@@ -910,6 +1242,10 @@ class Optimizer(RuleExecutor):
                 InferFiltersFromJoinKeys(),
                 PushDownPredicates(),
                 CombineFilters(),
+            ]),
+            Batch("Python UDFs", FixedPoint(10), [
+                RewriteHostOnlyExpressions(),
+                ExtractPythonUDFs(),
             ]),
             Batch("Column pruning", FixedPoint(20), [
                 ColumnPruning(),

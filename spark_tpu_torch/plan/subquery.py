@@ -1,16 +1,18 @@
 """Subquery expressions and decorrelation (counterpart of
 `spark_tpu/plan/subquery.py`): the expressions ScalarSubquery, InSubquery
-and Exists, and the optimizer rewrites that turn them into joins the port
-plans with its hash join: RewritePredicateSubquery (IN/EXISTS conjuncts of
-a filter -> left semi/anti joins; IN/EXISTS under OR -> a left-outer
-existence join and a flag), RewriteExistenceSubquery (IN/EXISTS as a value
+and Exists, and the optimizer rewrites that turn them into joins:
+RewritePredicateSubquery (IN/EXISTS conjuncts of a filter -> left
+semi/anti joins; IN/EXISTS under OR -> a left-outer existence join and a
+flag), RewriteExistenceSubquery (IN/EXISTS as a value
 -> the same existence join) and RewriteCorrelatedScalarSubquery (an
 equality-correlated aggregate -> a left-outer join against the aggregate
 regrouped by the correlation keys). An uncorrelated scalar subquery runs
 once before the query and becomes a literal
 (`exec/query_execution.py`). A null-aware NOT IN over nullable sides yields
-an anti join with an `OR ... IS NULL` residual, which the port's planner
-refuses (NestedLoopJoinExec is not ported).
+an anti join with an `OR ... IS NULL` residual, an uncorrelated EXISTS a
+semi join on a constant, and a correlation by a predicate other than
+equality a join with a non-equi condition: the planner makes each a
+NestedLoopJoinExec.
 """
 
 from __future__ import annotations

@@ -4,20 +4,21 @@
 The productions below are the reference's, copied: WITH (common table
 expressions: inlined where used once or cheap, else materialised once by
 the session through `WithCTE`, the reference's choice; a CTE is visible
-inside subquery expressions too); UNION [ALL | DISTINCT]; SELECT
+inside subquery expressions too); UNION [ALL | DISTINCT], INTERSECT,
+EXCEPT and MINUS (ALL reads as DISTINCT, as in the reference); SELECT
 [DISTINCT] with AS and bare aliases; FROM comma lists, joins with ON,
 table aliases and subqueries with an alias; WHERE, GROUP BY (ordinals
 too), HAVING, ORDER BY ... ASC|DESC [NULLS FIRST|LAST], LIMIT and OFFSET;
 AND/OR/NOT, comparisons, IS [NOT] NULL, [NOT] IN (list), [NOT] IN
 (SELECT ...), [NOT] EXISTS (SELECT ...), scalar subqueries, [NOT]
-BETWEEN, `+ - * /`, `||`, unary minus, parentheses, integer, decimal,
+LIKE, [NOT] BETWEEN, `+ - * /`, `||`, unary minus, parentheses, integer, decimal,
 string, DATE and INTERVAL literals, CAST, CASE (searched and simple),
 function calls (the analyzer resolves the names it knows), window
 functions `fn(...) OVER (PARTITION BY ... ORDER BY ... [ROWS | RANGE
 frame])` and named `WINDOW` specs, and GROUP BY ROLLUP, CUBE and
 GROUPING SETS. Every other production of the reference's grammar raises
-`NotPortedError` naming the construct: INTERSECT, EXCEPT and MINUS,
-LIKE, hints, scripts and commands among them.
+`NotPortedError` naming the construct: RLIKE, VALUES, hints, scripts
+and commands among them.
 """
 
 from __future__ import annotations
@@ -143,18 +144,20 @@ class Parser:
         left = self.parse_term_query()
         while self.at_kw("union", "intersect", "minus", "except"):
             op = self.next().value.lower()
-            if op != "union":
-                raise NotPortedError(f"set operation {op.upper()} "
-                                     "(ReplaceSetOps)")
             distinct = True
             if self.eat_kw("all"):
                 distinct = False
             else:
                 self.eat_kw("distinct")
             right = self.parse_term_query()
-            left = L.Union([left, right])
-            if distinct:
-                left = L.Distinct(left)
+            if op == "union":
+                left = L.Union([left, right])
+                if distinct:
+                    left = L.Distinct(left)
+            elif op == "intersect":
+                left = L.Intersect(left, right)
+            else:  # except / minus
+                left = L.Except(left, right)
         return left
 
     def parse_term_query(self) -> L.LogicalPlan:
@@ -502,9 +505,16 @@ class Parser:
                 if neg:
                     left = E.Not(left)
                 continue
-            for word, what in (("like", "LIKE"), ("rlike", "RLIKE")):
-                if self.at_kw(word):
-                    raise NotPortedError(what)
+            if self.eat_kw("like"):
+                pat = self.next()
+                if pat.kind != "str":
+                    raise ParseException("LIKE expects a string literal")
+                left = E.Like(left, pat.value)
+                if neg:
+                    left = E.Not(left)
+                continue
+            if self.at_kw("rlike"):
+                raise NotPortedError("RLIKE")
             if self.eat_kw("between"):
                 lo = self.parse_additive()
                 self.expect_kw("and")

@@ -212,3 +212,31 @@ def test_device_memo_hits_once_and_drops_dead_entries():
     gc.collect()
     memo(torch.arange(3))
     assert len(ours()) == 1
+
+
+@pytest.mark.parametrize("weak", [False, True])
+@pytest.mark.parametrize("jt", ["left_semi", "left_anti"])
+def test_dedup_build_keeps_semi_and_anti_results(monkeypatch, jt, weak):
+    # one build row per key (hash order) answers a semi or anti join as
+    # the whole build does, with a smaller expansion; with a weak hash the
+    # keys of a hash interleave and some duplicates stay
+    if weak:
+        monkeypatch.setattr(TJ, "hash_columns", lambda cols, valids=None,
+                            seed=42: sum(c.to(torch.int64) for c in cols) % 5)
+    rng = np.random.default_rng(14)
+    (bk, bv, bm), (pk, pv, pm) = (_side(rng, BCAP, 900, 12, 2, True),
+                                  _side(rng, PCAP, 2000, 12, 2, True))
+    t = lambda xs: [None if x is None else torch.from_numpy(x)  # noqa
+                    for x in xs]
+    full = TJ.build_index(t(bk), t(bv), torch.from_numpy(bm))
+    dedup = TJ.dedup_build(full, t(bk), t(bv))
+    kept = int((dedup.sorted_hash != TJ.I64_MAX).sum())
+    assert kept < int((full.sorted_hash != TJ.I64_MAX).sum())
+    outs = []
+    for b in (full, dedup):
+        args = (b, t(bk), t(bv), t(pk), t(pv), torch.from_numpy(pm))
+        need = int(TJ.probe_join(*args, 1 << 10, jt).needed)
+        outs.append(TJ.probe_join(*args, max(need, 1 << 10), jt))
+    assert int(outs[1].needed) < int(outs[0].needed)
+    rows = [sorted(r.probe_idx[r.out_mask].tolist()) for r in outs]
+    assert rows[0] == rows[1]

@@ -262,6 +262,13 @@ def test_port_imports_neither_jax_nor_reference():
         "          \"CASE WHEN k > 3 THEN name ELSE 'lo' END c FROM dim \"\n"
         "          \"GROUP BY ROLLUP(name, k)\")\n"
         "assert g.toArrow().num_rows > 0\n"
+        "x = s.sql(\"SELECT k FROM dim INTERSECT SELECT k FROM fact\")\n"
+        "assert x.toArrow().num_rows == 50\n"
+        "c = s.sql(\"SELECT count(DISTINCT v) dv, sum(v) sv FROM fact\")\n"
+        "assert c.toArrow().to_pylist()[0]['dv'] == 100\n"
+        "n = s.sql(\"SELECT count(*) n FROM dim CROSS JOIN dim d2 \"\n"
+        "          \"WHERE dim.name LIKE 'n1%'\")\n"
+        "assert n.toArrow().to_pylist()[0]['n'] == 7 * 50\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spark_tpu' or m.startswith('spark_tpu.')]\n"
         "assert not bad, bad\n"

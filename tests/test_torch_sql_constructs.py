@@ -10,7 +10,10 @@ the reference's compiler folds the constant factors); UNION and UNION ALL
 over mixed types and string literals, nested, with a filter pushed
 through, and SELECT DISTINCT; IN and EXISTS subqueries, correlated and
 not, under OR, NOT EXISTS, scalar subqueries (one returning no row is
-NULL); concat and upper. Each statement runs over small numpy-seeded temp
+NULL); concat and upper; and the fifth slice's INTERSECT, EXCEPT, LIKE,
+count(DISTINCT), the central moments, nested-loop joins and host UDFs
+(concat over two columns, casts to string). Each statement runs over small
+numpy-seeded temp
 views through TpuSession (operator tier, fusion off) and
 TorchSession(device="cpu"): the analysed and optimised plans print the
 same trees (ids renumbered), the physical plans hold the same operator
@@ -18,7 +21,7 @@ sequence, and the Arrow results are equal exactly. The DataFrame forms
 (`isin`, `between`, `when`/`otherwise`, `coalesce`, `round`) equal their
 SQL form. Where the reference is wrong or refuses (a scalar subquery of
 two rows, a narrowing decimal cast past its precision, upper merging two
-values, concat of two columns), the port is held to plain oracles."""
+values), the port is held to plain oracles; concat_ws still raises."""
 
 import pytest
 
@@ -199,8 +202,9 @@ def test_upper_merges_groups_by_value(sessions):
 
 
 def test_concat_of_two_columns_raises(sessions):
+    # concat over two columns runs since the fifth SQL slice, as a host UDF
+    # (SQL_CONSTRUCTS "concat_columns"); concat_ws over them still raises
     _, t = sessions
     with pytest.raises(NotPortedError) as err:
-        t.sql("SELECT concat(s, '-', s) FROM t").toArrow()
-    assert "concat" in err.value.what
-    assert "RewriteHostOnlyExpressions" in err.value.what
+        t.sql("SELECT concat_ws('-', s, s) FROM t").toArrow()
+    assert "concat_ws" in err.value.what

@@ -2,9 +2,10 @@
 catalog_returns, web_sales, web_returns, with the store channel where a
 query joins them), held to the goldens, to the JAX reference's results and
 plans, and to `chip_smoke.py`'s SF10 plans exactly as
-`tests/test_torch_tpcds_store.py` holds the store-channel queries; and the
-TPC-DS queries whose constructs are outside the port's slice raise
-NotPortedError naming the construct instead of answering."""
+`tests/test_torch_tpcds_store.py` holds the store-channel queries; and
+TPC-DS queries rewritten into constructs outside the port's slice (JOIN
+USING, `%`, DISTINCT over two expressions) raise NotPortedError naming
+the construct instead of answering."""
 
 import pytest
 
@@ -54,12 +55,26 @@ def test_sf10_plans_match_chip_smoke(sf10, name):
     sf10.check(name)
 
 
-# query -> what the error names
-UNPORTED = {"q84": "concat", "q14a": "INTERSECT", "q91": "LIKE"}
+# query -> (a rewrite of its text into a construct the port still
+# refuses, what the error names): since the fifth SQL slice every query
+# file runs as written
+UNPORTED = {
+    "q84": (("FROM customer\n",
+             "FROM customer JOIN customer ca2 USING (c_customer_sk)\n"),
+            "USING"),
+    "q14a": (("ss_quantity * ss_list_price", "ss_quantity % ss_list_price"),
+             "%"),
+    "q91": (("sum(cr_net_loss) Returns_Loss",
+             "count(DISTINCT cr_net_loss), count(DISTINCT cr_item_sk)"),
+            "multiple DISTINCT"),
+}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_queries_raise(pair, name):
+    (old, new), what = UNPORTED[name]
+    text = tpcds_query(name)
+    assert old in text
     with pytest.raises(NotPortedError) as err:
-        pair.torch.sql(tpcds_query(name)).toArrow()
-    assert UNPORTED[name].lower() in err.value.what.lower()
+        pair.torch.sql(text.replace(old, new)).toArrow()
+    assert what.lower() in err.value.what.lower()

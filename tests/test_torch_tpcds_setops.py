@@ -1,0 +1,62 @@
+"""TPC-DS queries of the fifth SQL slice built on INTERSECT and EXCEPT
+(q8 q14a q14b q38 q87: each set operation a semi or anti join on
+null-safe equality plus DISTINCT, ReplaceSetOps), held to their goldens,
+to the JAX reference's results and plans, and to `chip_smoke.py`'s SF10
+plans exactly as `tests/test_torch_tpcds_store.py` holds the
+store-channel queries. The queries whose goldens are empty or a 0 count
+at scale 0.1 (q8 q14b q38) also run with the literals of
+`TPCDS_VARIANTS` (`tests/test_torch_cuda.py`), which select rows."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from tests.test_torch_cuda import TPCDS_VARIANTS  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402
+    Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+    check_variant,
+)
+
+QUERIES = ("q8", "q14a", "q14b", "q38", "q87")
+# rows each variant returns at least (q8 groups by the six stores; q38 is
+# one count)
+MIN_ROWS = {"q8": 6, "q38": 1}
+
+
+@pytest.fixture(scope="module")
+def pair():
+    p = TpcdsPair()
+    yield p
+    p.stop()
+
+
+@pytest.fixture(scope="module")
+def sf10(pair):
+    return Sf10Planner(pair.tables)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_query_matches_golden(pair, name):
+    check_golden(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_query_matches_reference(pair, name):
+    check_reference(pair, name)
+
+
+@pytest.mark.parametrize("name", [q for q in QUERIES
+                                  if q in TPCDS_VARIANTS])
+def test_variant_matches_reference(pair, name):
+    check_variant(pair, f"{name}_variant", MIN_ROWS.get(name, 10))
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_plans_match_reference(pair, name):
+    check_plans(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_sf10_plans_match_chip_smoke(sf10, name):
+    sf10.check(name)

@@ -94,6 +94,20 @@ def check_reference(pair: TpcdsPair, name: str) -> None:
     assert got.to_pylist() == want.to_pylist()
 
 
+def check_variant(pair: TpcdsPair, name: str, min_rows: int = 10) -> None:
+    """A variant equals the reference's result and is not degenerate: at
+    least `min_rows` rows; a one-row aggregate (min_rows 1) holds no NULL
+    and no 0."""
+    _, want = pair.run("jax", name)
+    _, got = pair.run("torch", name)
+    assert got.schema == want.schema
+    assert got.to_pylist() == want.to_pylist()
+    assert want.num_rows >= min_rows
+    if min_rows == 1:
+        assert all(v is not None and v != 0
+                   for v in want.to_pylist()[0].values())
+
+
 def check_plans(pair: TpcdsPair, name: str) -> None:
     jd, _ = pair.run("jax", name)
     td, _ = pair.run("torch", name)
