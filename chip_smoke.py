@@ -80,6 +80,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    is timed as sql() + collect, with the sql() call (the
                    CTE round trip) and the scalar subqueries on lines of
                    their own;
+       parquet:    q3, q7 and q19 read through spark.read.parquet from
+                   files a third process of this script writes
+                   (`--tpcds-parquet`, started with it; SF100's
+                   dimensions, store_sales cut to SF10's lines), each plan
+                   and each scan's columns, splits and rows read held,
+                   each result to a numpy oracle the writer accumulated
+                   chunk by chunk; bench_join's shape over SF10 store_sales
+                   partitioned by date (dynamic partition pruning must
+                   prune every split outside November, and DPP off gives
+                   the same answer), a partition and a row-group
+                   predicate, spark.range over 2^28 rows and at a negative
+                   step, and SELECT without FROM; the files are deleted;
   6. a JSON line with every kernel's numbers, then, last, the result line
      {"ok": true, "device": {...}}.
 """
@@ -144,6 +156,11 @@ _TOPK_OPS = ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
 _SCAN = ("ComputeExec", "LocalTableScanExec")
 _BCAST = ("BroadcastExchangeExec",) + _SCAN
 _JOIN = ("HashJoinExec", "ComputeExec")
+# an aggregate planned as one pass over one partition whose input a shuffled
+# join below splits by other keys merges its partials (the port's planner;
+# the reference's one pass is right there only where AQE coalesces the
+# join's partitions back into one)
+_MERGE = ("HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec")
 TPCDS_PLAN_OPS = {
     "q3": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
     "q7": _TOPK_OPS + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
@@ -235,8 +252,7 @@ TPCDS_PLAN_OPS = {
         _JOIN * 4 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
         ("ComputeExec", "HashAggregateExec", "ComputeExec") + _JOIN * 4 +
         ("LocalTableScanExec",) + _SCAN + _BCAST * 3,
-    "q71": ("SortExec", "ShuffleExchangeExec", "ComputeExec",
-        "HashAggregateExec") +
+    "q71": ("SortExec", "ShuffleExchangeExec", "ComputeExec") + _MERGE +
         _JOIN + ("HashJoinExec", "ShuffleExchangeExec") + _SCAN +
         ("ShuffleExchangeExec", "ComputeExec", "UnionExec", "ComputeExec") +
         _JOIN + ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
@@ -427,10 +443,10 @@ TPCDS_PLAN_OPS = {
     "q5": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
         "SortExec", "UnionExec",) + (("ComputeExec", "HashAggregateExec",
         "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",) +
-        (("ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN +
+        (("ComputeExec",) + _MERGE + ("ComputeExec",) + _JOIN +
         ("HashJoinExec", "ShuffleExchangeExec",) + _SCAN +
         ("ShuffleExchangeExec", "ComputeExec", "UnionExec",) + _SCAN * 2 +
-        _BCAST) * 2 + ("ComputeExec", "HashAggregateExec", "ComputeExec",) +
+        _BCAST) * 2 + ("ComputeExec",) + _MERGE + ("ComputeExec",) +
         _JOIN + ("HashJoinExec", "ShuffleExchangeExec",) + _SCAN +
         ("ShuffleExchangeExec", "ComputeExec", "UnionExec",) + _SCAN +
         ("ComputeExec",) + _JOIN + ("LocalTableScanExec",) + _SCAN + _BCAST) *
@@ -594,7 +610,7 @@ TPCDS_PLAN_OPS = {
         "BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _SCAN,
     "q54": _TOPK_OPS + ("ComputeExec", "HashAggregateExec",) + _JOIN * 4 +
         ("LocalTableScanExec",) + _BCAST + ("BroadcastExchangeExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
+        "ComputeExec",) + _MERGE + ("ComputeExec",) + _JOIN * 2 +
         ("HashJoinExec", "ShuffleExchangeExec",) + _SCAN +
         ("ShuffleExchangeExec", "ComputeExec", "UnionExec",) + _SCAN * 2 +
         _BCAST * 2 + _SCAN + _BCAST,
@@ -1846,13 +1862,16 @@ def check_kernels(torch, sk):
 
 
 def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
-          histograms, check, run=None, timed_shapes=None) -> dict:
+          histograms, check, run=None, timed_shapes=None,
+          profile: bool = True) -> dict:
     """One path through the DataFrame API: assert the physical plan holds
     each of `plan_parts`, run it cold with the launch counts set to 0 just
     before and read just after (the histogram wrapper must count exactly
-    `histograms` calls, or at least one where `histograms` is None), hold
+    `histograms` calls, or `histograms()` where it is a function of what
+    the run recorded, or at least one where it is None), hold
     the result to the oracle `check(table)`, then time 3 warm runs, print
-    the breakdown, and hold the histogram kernel at the path's own inputs
+    the breakdown (without its profiler pass where not `profile`), and
+    hold the histogram kernel at the path's own inputs
     (`path_histograms`). `run()` runs the path and returns its Arrow table
     (default: `df.toArrow`, over the plan made once). Returns the launch
     counts."""
@@ -1871,6 +1890,8 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     cold_s = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     calls = launches["partition_histogram"]
+    if callable(histograms):
+        histograms = histograms()
     print(f"{label} launches {json.dumps(launches)}; operator dispatches "
           f"{json.dumps(df.session.launches.snapshot())}", flush=True)
     if calls != histograms and (histograms is not None or calls < 1):
@@ -1890,7 +1911,7 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
               "warm_rows_per_s": rows / warm_s,
               "histogram_calls": calls, "card": card}
     print(f"{label} timing " + json.dumps(timing), flush=True)
-    print(f"{label} breakdown " + json.dumps(breakdown(torch, df)),
+    print(f"{label} breakdown " + json.dumps(breakdown(torch, df, profile)),
           flush=True)
     path_histograms(torch, sk, label, run, timed_shapes)
     return launches
@@ -3524,11 +3545,767 @@ def tpcds_cpu_check(proc: subprocess.Popen, results: dict,
             resource.RUSAGE_SELF).ru_maxrss / 1e6}), flush=True)
 
 
-def breakdown(torch, df) -> dict:
+# ---------------------------------------------------------------------------
+# The parquet leg: TPC-DS q3, q7 and q19 read from Parquet files (SF100's
+# dimensions, store_sales cut to SF10), dynamic partition pruning over a
+# date-partitioned store_sales at SF10, static partition and row-group
+# pruning, spark.range and SELECT without FROM
+# ---------------------------------------------------------------------------
+
+# the TPC-DS specification's SF100 row counts of the tables q3, q7 and q19
+# read, but store_sales: SF100's 287,997,024 lines are cut to SF10's, the
+# tpcds leg's count, because the scan decodes and ingests them on the host
+# at 6-8M lines a second and the script's time limit holds no more
+# (PERF.md section 4 has the runs that forced the cut)
+PARQUET_ROWS = {"store_sales": 28_800_991, "date_dim": 73_049,
+                "item": 204_000, "customer": 2_000_000,
+                "customer_address": 1_000_000,
+                "customer_demographics": 1_920_800, "promotion": 1_000,
+                "store": 402}
+PARQUET_DIR = os.path.join(ROOT, "build", "tpcds_parquet")
+PARQUET_SEED = 20               # numpy seed of the parquet leg's tables
+PARQUET_CHUNK = 1 << 24         # store_sales rows per file (whole tickets)
+PARQUET_ROW_GROUP = 1 << 20
+PARQUET_QUERIES = ("q3", "q7", "q19")
+DPP_ROWS = 28_800_991           # SF10 store_sales, partitioned by date
+PARQUET_DISK_GB = 12            # free disk the leg's files need, at most
+# each query's physical operator sequence over the Parquet views at
+# PARQUET_ROWS (tests/test_torch_scan_leaves.py plans both engines at these
+# row counts and holds them to this table): date_dim and store_sales meet
+# in a shuffled join, every other dimension is broadcast, and the aggregate
+# merges its partials (_MERGE)
+_PSCAN = ("ComputeExec", "ScanExec")
+_PSHUF = ("ShuffleExchangeExec",) + _PSCAN
+_PBCAST = ("BroadcastExchangeExec",) + _PSCAN
+_PTOP = _TOPK_OPS[:-1] + _MERGE
+PARQUET_PLAN_OPS = {
+    "q3": _PTOP + _JOIN + ("HashJoinExec",) + _PSHUF * 2 + _PBCAST,
+    "q7": _PTOP + _JOIN * 3 + ("HashJoinExec",) + _PSHUF * 2 + _PBCAST * 3,
+    "q19": _PTOP + ("ComputeExec",) + _JOIN * 4 + ("HashJoinExec",)
+    + _PSHUF * 2 + _PBCAST * 4,
+}
+# the columns each scan reads (column pruning into the Parquet reader)
+PARQUET_SCAN_COLS = {
+    "q3": (("date_dim", ("d_date_sk", "d_year", "d_moy")),
+           ("store_sales", ("ss_sold_date_sk", "ss_item_sk",
+                            "ss_ext_sales_price")),
+           ("item", ("i_item_sk", "i_brand_id", "i_brand",
+                     "i_manufact_id"))),
+    "q7": (("date_dim", ("d_date_sk", "d_year")),
+           ("store_sales", ("ss_sold_date_sk", "ss_item_sk", "ss_cdemo_sk",
+                            "ss_promo_sk", "ss_quantity", "ss_list_price",
+                            "ss_sales_price", "ss_coupon_amt")),
+           ("customer_demographics", ("cd_demo_sk", "cd_gender",
+                                      "cd_marital_status",
+                                      "cd_education_status")),
+           ("item", ("i_item_sk", "i_item_id")),
+           ("promotion", ("p_promo_sk", "p_channel_email",
+                          "p_channel_event"))),
+    "q19": (("date_dim", ("d_date_sk", "d_year", "d_moy")),
+            ("store_sales", ("ss_sold_date_sk", "ss_item_sk",
+                             "ss_customer_sk", "ss_store_sk",
+                             "ss_ext_sales_price")),
+            ("customer", ("c_customer_sk", "c_current_addr_sk")),
+            ("customer_address", ("ca_address_sk", "ca_zip")),
+            ("item", ("i_item_sk", "i_brand_id", "i_brand", "i_manufact_id",
+                      "i_manufact", "i_manager_id")),
+            ("store", ("s_store_sk", "s_zip"))),
+}
+# the DPP query: store_sales (partitioned by date) probes a broadcast
+# date_dim (partitioned by year); the reference marks the fact scan
+DPP_QUERY = ("SELECT d_year, sum(ss_ext_sales_price) s FROM store_sales "
+             "JOIN date_dim ON ss_sold_date_sk = d_date_sk WHERE d_moy = 11 "
+             "GROUP BY d_year")
+DPP_PLAN_OPS = ("ComputeExec",) + _MERGE + _JOIN + ("ScanExec",) + _PBCAST
+
+
+def _parquet_dims(G, rng, n: dict) -> dict:
+    """The dimension tables of q3, q7 and q19 as numpy columns (strings as
+    pool indices), built as tpcds_data builds them, at the row counts
+    `n`; the pools ride along under '_pools'."""
+    import datetime
+
+    import numpy as np
+
+    dsk0 = G._dsk(datetime.date(1900, 1, 2))
+    days = np.datetime64("1900-01-02") + np.arange(n["date_dim"])
+    ni = n["item"]
+    n_ids = max(2, int(ni * 0.75))
+    manufact_ids = np.array([128, 129, 350, 677, 738, 977]
+                            + list(range(1, 1000, 7)))
+    na, nc, ncd, npr = (n["customer_address"], n["customer"],
+                        n["customer_demographics"], n["promotion"])
+    idx = np.arange(ncd)
+    return {
+        "date_dim": {
+            "d_date_sk": dsk0 + np.arange(n["date_dim"]),
+            "d_year": days.astype("datetime64[Y]").astype(np.int64) + 1970,
+            "d_moy": days.astype("datetime64[M]").astype(np.int64) % 12
+            + 1},
+        "item": {
+            "i_item_sk": np.arange(1, ni + 1),
+            "i_item_id": rng.permutation(n_ids)[np.arange(ni) % n_ids],
+            "i_brand_id": rng.integers(1001001, 10016017, ni),
+            "i_brand": rng.integers(0, len(G.BRANDS), ni),
+            "i_manufact_id": manufact_ids[rng.integers(
+                0, len(manufact_ids), ni)],
+            "i_manufact": np.arange(ni) % 100,
+            "i_manager_id": rng.integers(1, 101, ni)},
+        "customer_address": {
+            "ca_address_sk": np.arange(1, na + 1),
+            "ca_zip": rng.integers(10000, 99999, na)},
+        "customer": {
+            "c_customer_sk": np.arange(1, nc + 1),
+            "c_current_addr_sk": rng.integers(1, na + 1, nc)},
+        "customer_demographics": {
+            # the specification's cross product: gender x marital x
+            # education x ...
+            "cd_demo_sk": idx + 1, "cd_gender": idx % 2,
+            "cd_marital_status": (idx // 2) % len(G.MARITAL),
+            "cd_education_status": (idx // 10) % len(G.EDUCATION)},
+        "promotion": {
+            "p_promo_sk": np.arange(1, npr + 1),
+            # datagen's pools: email N,N,N,Y; event N,N,Y (index 0 = 'N')
+            "p_channel_email": (rng.integers(0, 4, npr) == 3).astype(int),
+            "p_channel_event": (rng.integers(0, 3, npr) == 2).astype(int)},
+        "store": {"s_store_sk": np.arange(1, n["store"] + 1),
+                  "s_zip": 38000 + np.arange(n["store"])},
+        "_pools": {
+            "i_item_id": [f"AAAAAAAA{i:08d}" for i in range(n_ids)],
+            "i_brand": list(G.BRANDS),
+            "i_manufact": [f"manufact{i}" for i in range(100)],
+            "cd_gender": ["M", "F"], "cd_marital_status": list(G.MARITAL),
+            "cd_education_status": list(G.EDUCATION),
+            "p_channel_email": ["N", "Y"], "p_channel_event": ["N", "Y"]},
+        "_dsk0": dsk0,
+    }
+
+
+def _dim_table(pa, name: str, cols: dict, pools: dict):
+    """A dimension as Arrow: int64 integers, strings from their pools (the
+    zips as 5-digit strings)."""
+    out = {}
+    for k, v in cols.items():
+        if k in pools:
+            out[k] = pa.array(pools[k], pa.string()).take(pa.array(v))
+        elif k in ("ca_zip", "s_zip"):
+            out[k] = pa.array(v.astype(str).astype(object), pa.string())
+        else:
+            out[k] = pa.array(v.astype("int64"), pa.int64())
+    return pa.table(out)
+
+
+def _sales_chunk(G, rng, rows: int, first_ticket: int, n: dict) -> tuple:
+    """`rows` store_sales lines in whole tickets of 1-20 lines (the last
+    one cut at the chunk's end), as tpcds_data draws them: date, customer,
+    demographics and store per ticket, item and promotion per line, 2%
+    null keys (30% null promotions), datagen's prices in cents. Returns
+    (columns, null masks, tickets)."""
+    import datetime
+
+    import numpy as np
+
+    tk, n_tickets = _groups(rng, rows, 1, 20)
+    lo = G._dsk(datetime.date(1998, 1, 2))
+    hi = G._dsk(datetime.date(2002, 12, 30))
+    ss = {"ss_sold_date_sk": rng.integers(lo, hi, n_tickets)[tk],
+          "ss_item_sk": rng.integers(1, n["item"] + 1, rows),
+          "ss_customer_sk": rng.integers(1, n["customer"] + 1,
+                                         n_tickets)[tk],
+          "ss_cdemo_sk": rng.integers(1, n["customer_demographics"] + 1,
+                                      n_tickets)[tk],
+          "ss_promo_sk": rng.integers(1, n["promotion"] + 1, rows),
+          "ss_store_sk": rng.integers(1, n["store"] + 1, n_tickets)[tk]}
+    prices = _line_prices(rng, rows)
+    for k in ("quantity", "list_price", "sales_price", "coupon_amt",
+              "ext_sales_price"):
+        ss[f"ss_{k}"] = prices[k]
+    nulls = {c: rng.random(rows) < (0.3 if c == "ss_promo_sk" else 0.02)
+             for c in ("ss_sold_date_sk", "ss_customer_sk", "ss_cdemo_sk",
+                       "ss_promo_sk", "ss_store_sk")}
+    return ss, nulls, tk + first_ticket
+
+
+_PARQUET_MONEY = ("ss_list_price", "ss_sales_price", "ss_coupon_amt",
+                  "ss_ext_sales_price")
+
+
+def _sales_table(pa, ss: dict, nulls: dict):
+    import numpy as np
+
+    cols = {}
+    for k, v in ss.items():
+        if k in _PARQUET_MONEY:
+            cols[k] = _decimal_column(pa, v.astype(np.int64))
+        else:
+            cols[k] = pa.array(v.astype(np.int64), pa.int64(),
+                               mask=nulls.get(k))
+    return pa.table(cols)
+
+
+def _parquet_partials(ss: dict, nulls: dict, dims: dict) -> dict:
+    """The group partials of q3, q7 and q19 over one chunk of store_sales
+    (tpcds_oracle's selections; sums and counts are additive): query ->
+    (key rows [m, k], sums [m, v], counts [m])."""
+    import numpy as np
+
+    dd, it, cd = dims["date_dim"], dims["item"], dims["customer_demographics"]
+    promo, pools = dims["promotion"], dims["_pools"]
+    d_idx = ss["ss_sold_date_sk"] - dims["_dsk0"]
+    year, moy = dd["d_year"][d_idx], dd["d_moy"][d_idx]
+    item = ss["ss_item_sk"] - 1
+    out = {}
+
+    def part(q, sel, keys, values):
+        uniq, sums, cnt = _group_sum([k[sel] for k in keys],
+                                     [v[sel] for v in values])
+        out[q] = (uniq, np.stack(sums, axis=1), cnt)
+
+    part("q3", ~nulls["ss_sold_date_sk"] & (moy == 11)
+         & (it["i_manufact_id"][item] == 128),
+         [year, it["i_brand"][item], it["i_brand_id"][item]],
+         [ss["ss_ext_sales_price"]])
+    c = ss["ss_cdemo_sk"] - 1
+    p = ss["ss_promo_sk"] - 1
+    part("q7", ~nulls["ss_sold_date_sk"] & ~nulls["ss_cdemo_sk"]
+         & ~nulls["ss_promo_sk"] & (year == 2000) & (cd["cd_gender"][c] == 0)
+         & (cd["cd_marital_status"][c] == pools["cd_marital_status"]
+            .index("S"))
+         & (cd["cd_education_status"][c] == pools["cd_education_status"]
+            .index("College"))
+         & ((promo["p_channel_email"][p] == 0)
+            | (promo["p_channel_event"][p] == 0)),
+         [it["i_item_id"][item]],
+         [ss[k] for k in ("ss_quantity", "ss_list_price", "ss_coupon_amt",
+                          "ss_sales_price")])
+    addr = dims["customer"]["c_current_addr_sk"][ss["ss_customer_sk"] - 1]
+    zip_ca = dims["customer_address"]["ca_zip"][addr - 1]
+    zip_s = dims["store"]["s_zip"][ss["ss_store_sk"] - 1]
+    part("q19", ~nulls["ss_sold_date_sk"] & ~nulls["ss_customer_sk"]
+         & ~nulls["ss_store_sk"] & (it["i_manager_id"][item] == 8)
+         & (moy == 11) & (year == 1998) & (zip_ca != zip_s),
+         [it["i_brand"][item], it["i_brand_id"][item],
+          it["i_manufact_id"][item], it["i_manufact"][item]],
+         [ss["ss_ext_sales_price"]])
+    return out
+
+
+def _merge_partials(parts: list) -> tuple:
+    """Partials of several chunks -> one (key rows, sums, counts)."""
+    import numpy as np
+
+    keys = np.concatenate([k for k, _, _ in parts])
+    sums = np.concatenate([s for _, s, _ in parts])
+    cnts = np.concatenate([c for _, _, c in parts])
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    tot = np.zeros((len(uniq), sums.shape[1]), np.int64)
+    np.add.at(tot, inv, sums)
+    return uniq, tot, np.bincount(inv, weights=cnts,
+                                  minlength=len(uniq)).astype(np.int64)
+
+
+def _parquet_oracle_rows(q: str, merged: tuple, pools: dict) -> list:
+    """The full result of q (no LIMIT) as tpcds_rows shapes it."""
+    import numpy as np
+
+    keys, sums, cnt = merged
+    if q == "q3":
+        return [[int(y), int(bid), pools["i_brand"][b], int(s[0])]
+                for (y, b, bid), s in zip(keys, sums)]
+    if q == "q7":
+        # avg(int) = sum / count in float64; avg(decimal(7,2)) =
+        # cast(sum / 10^2 / count as decimal(11,6)), rounding half to even
+        n = cnt.astype(np.float64)
+        agg1 = sums[:, 0].astype(np.float64) / n
+        decs = [np.rint(sums[:, i].astype(np.float64) / 100.0 / n * 1e6)
+                .astype(np.int64) for i in (1, 2, 3)]
+        return [[pools["i_item_id"][k[0]], float(agg1[i]),
+                 int(decs[0][i]), int(decs[1][i]), int(decs[2][i])]
+                for i, k in enumerate(keys)]
+    return [[int(bid), pools["i_brand"][b], int(mid),
+             pools["i_manufact"][m], int(s[0])]
+            for (b, bid, mid, m), s in zip(keys, sums)]
+
+
+PARQUET_ORACLE_KEYS = {"q3": lambda r: (r[0], -r[3], r[1]),
+                       "q7": lambda r: r[0],
+                       "q19": lambda r: (-r[4], r[1], r[0], r[2], r[3])}
+
+
+def tpcds_parquet(out_dir: str, scale: float = 1.0, seed: int = PARQUET_SEED,
+                  chunk: int = PARQUET_CHUNK,
+                  row_group: int = PARQUET_ROW_GROUP,
+                  dpp_rows: int = DPP_ROWS) -> dict:
+    """Write the parquet leg's files under `out_dir` and return its oracle
+    (also written to out_dir/oracle.json):
+      <table>/       the 8 tables of q3, q7 and q19 at PARQUET_ROWS (the
+                     facts, item, customer and customer_address times
+                     `scale`), only the columns the queries read; int64
+                     integers, decimal(7,2) money, strings from datagen's
+                     pools; store_sales one file per `chunk` lines of
+                     whole tickets, every file in row groups of
+                     `row_group` rows; numpy seed `seed`, one generator
+                     per store_sales chunk;
+      dpp/store_sales/         `dpp_rows` lines (ss_sold_date_sk,
+                     ss_ext_sales_price) partitioned by ss_sold_date_sk
+                     with pyarrow.dataset's hive flavour: 1,823 dates from
+                     1998-01-02 to 2002-12-29 and a null partition;
+      dpp/store_sales_sorted/  the same lines in one file sorted by
+                     ss_sold_date_sk (nulls last), row groups of
+                     `row_group` rows.
+    The oracle holds q3's, q7's and q19's full results, accumulated chunk
+    by chunk from their group partials, and the DPP query's, the rows each
+    pruning check must read and the split counts."""
+    import datetime
+    import shutil
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.dataset as ds
+    import pyarrow.parquet as pq
+
+    G = tpcds_datagen()
+    n = dict(PARQUET_ROWS)
+    for k in ("store_sales", "item", "customer", "customer_address"):
+        n[k] = max(1, int(n[k] * scale))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rng = np.random.default_rng(seed)
+    dims = _parquet_dims(G, rng, n)
+    pools = dims["_pools"]
+    for name, cols in dims.items():
+        if name.startswith("_"):
+            continue
+        os.makedirs(os.path.join(out_dir, name))
+        pq.write_table(_dim_table(pa, name, cols, pools),
+                       os.path.join(out_dir, name, "part-00000.parquet"),
+                       row_group_size=row_group)
+    os.makedirs(os.path.join(out_dir, "store_sales"))
+    partials = {q: [] for q in PARQUET_QUERIES}
+    first_ticket, files = 1, 0
+    for lo in range(0, n["store_sales"], chunk):
+        rows = min(chunk, n["store_sales"] - lo)
+        crng = np.random.default_rng([seed, files])
+        ss, nulls, tk = _sales_chunk(G, crng, rows, first_ticket, n)
+        first_ticket = int(tk[-1]) + 1
+        pq.write_table(_sales_table(pa, ss, nulls),
+                       os.path.join(out_dir, "store_sales",
+                                    f"part-{files:05d}.parquet"),
+                       row_group_size=row_group)
+        for q, part in _parquet_partials(ss, nulls, dims).items():
+            partials[q].append(part)
+        files += 1
+    oracle = {q: _parquet_oracle_rows(q, _merge_partials(partials[q]), pools)
+              for q in PARQUET_QUERIES}
+    # the date_dim rows each query reads: its year and month predicates
+    # prune the row groups whose ranges rule them out (the other tables'
+    # predicates rule out no row group, and are read whole)
+    dd = dims["date_dim"]
+    want = {"q3": (None, 11), "q7": (2000, None), "q19": (1998, 11)}
+    oracle["date_dim_read"] = {}
+    for q, (year, moy) in want.items():
+        rows = 0
+        for lo in range(0, n["date_dim"], row_group):
+            y = dd["d_year"][lo:lo + row_group]
+            m = dd["d_moy"][lo:lo + row_group]
+            if (year is None or y.min() <= year <= y.max()) and \
+                    (moy is None or m.min() <= moy <= m.max()):
+                rows += len(y)
+        oracle["date_dim_read"][q] = rows
+
+    # DPP: SF10 store_sales' dates and prices, partitioned by date
+    drng = np.random.default_rng([seed, 1 << 20])
+    ss, nulls, _ = _sales_chunk(G, drng, dpp_rows, 1, n)
+    date, price = ss["ss_sold_date_sk"], ss["ss_ext_sales_price"]
+    dnull = nulls["ss_sold_date_sk"]
+    order = np.lexsort((date, dnull))       # nulls last
+    fact = pa.table({
+        "ss_sold_date_sk": pa.array(date, pa.int64(), mask=dnull),
+        "ss_ext_sales_price": _decimal_column(pa, price)}).take(
+            pa.array(order))
+    # sorted by date, each partition's rows arrive together: one file each
+    ds.write_dataset(fact, os.path.join(out_dir, "dpp", "store_sales"),
+                     format="parquet", partitioning=["ss_sold_date_sk"],
+                     partitioning_flavor="hive", max_partitions=4096,
+                     basename_template="part-{i}.parquet",
+                     use_threads=False)
+    pq.write_table(fact, os.path.join(out_dir, "dpp",
+                                      "store_sales_sorted.parquet"),
+                   row_group_size=row_group)
+    dd = dims["date_dim"]
+    d_idx = date - dims["_dsk0"]
+    nov = ~dnull & (dd["d_moy"][d_idx] == 11)
+    years, inv = np.unique(dd["d_year"][d_idx[nov]], return_inverse=True)
+    dpp_sum = np.bincount(inv.reshape(-1), weights=price[nov])
+    a = G._dsk(datetime.date(2000, 3, 1))
+    b = G._dsk(datetime.date(2000, 3, 31))
+    rg_key = G._dsk(datetime.date(2002, 12, 1))
+    sorted_keys = np.where(dnull, np.iinfo(np.int64).min, date)[order]
+    rg_rows = 0
+    for start in range(0, dpp_rows, row_group):
+        block = sorted_keys[start:start + row_group]
+        live = block[block != np.iinfo(np.int64).min]
+        # a row group of nulls alone has no min/max: the reader keeps it
+        if not len(live) or live.max() >= rg_key:
+            rg_rows += len(block)
+    oracle.update({
+        "dpp": [[int(y), int(s)] for y, s in zip(years, dpp_sum)],
+        "dpp_rows": int(nov.sum()),
+        "dpp_dates": int(len(np.unique(date[~dnull]))),
+        "dpp_november_dates": int(len(np.unique(date[nov]))),
+        "dpp_null_rows": int(dnull.sum()),
+        "between": [a, b], "between_rows": int(
+            (~dnull & (date >= a) & (date <= b)).sum()),
+        "rowgroup_key": rg_key, "rowgroup_rows": rg_rows,
+        "rowgroup_match": int((~dnull & (date >= rg_key)).sum()),
+        "dpp_total_rows": dpp_rows, "rows": n,
+        "store_sales_files": files})
+    with open(os.path.join(out_dir, "oracle.json"), "w") as f:
+        json.dump(oracle, f)
+    return oracle
+
+
+PARQUET_LOG = os.path.join(ROOT, "build", "tpcds_parquet.log")
+
+
+def start_tpcds_parquet() -> subprocess.Popen:
+    """The parquet leg's files in a process of their own (this script with
+    `--tpcds-parquet`), started with the script so that its writing
+    overlaps the card's earlier legs; fails first when the disk under
+    build/ has less than PARQUET_DISK_GB free."""
+    import shutil
+
+    os.makedirs(os.path.dirname(PARQUET_DIR), exist_ok=True)
+    free = shutil.disk_usage(os.path.dirname(PARQUET_DIR)).free
+    print(f"parquet leg: {free / 1e9:.1f} GB free under build/", flush=True)
+    if free < PARQUET_DISK_GB * 1e9:
+        fail(f"the parquet leg needs {PARQUET_DISK_GB} GB free under build/"
+             f", and {free / 1e9:.1f} GB are")
+    with open(PARQUET_LOG, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tpcds-parquet"],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def tpcds_parquet_files() -> None:
+    """`--tpcds-parquet`: tpcds_parquet(PARQUET_DIR) at PARQUET_ROWS,
+    timed."""
+    t0 = time.perf_counter()
+    oracle = tpcds_parquet(PARQUET_DIR)
+    du = sum(os.path.getsize(os.path.join(d, f))
+             for d, _, fs in os.walk(PARQUET_DIR) for f in fs)
+    print(json.dumps({"seconds": time.perf_counter() - t0,
+                      "bytes_on_disk": du,
+                      "store_sales_files": oracle["store_sales_files"]}),
+          flush=True)
+
+
+def parquet_calls(query: str, fact_tiles: int, dict_passes: int) -> int:
+    """Histogram wrapper calls of q3, q7 and q19 over the Parquet views at
+    PARQUET_ROWS, derived from PARQUET_PLAN_OPS as tpcds_calls is;
+    `fact_tiles` is the store_sales scan's tile count (each split's rows
+    in tiles of TILE), `dict_passes` the aggregate passes that took q7's
+    dictionary-code path. Every dimension is one split of one tile. The
+    hash exchanges count one call per input tile: date_dim's one tile,
+    store_sales' `fact_tiles`, and the partial aggregate's P output tiles.
+    In each of the P partitions the shuffled join's build (store_sales:
+    dates repeat) tries the dense table once, and each broadcast
+    dimension's dense build takes one `present`. The probe side (a
+    date_dim partition) is one tile, so every join and the partial
+    aggregate see one batch. Several grouping keys take the sorted-segment
+    kernel (0). q7's single string key aggregates over its dictionary
+    codes where the 153,000 item ids fit 4x the tile (the partial passes;
+    a final pass only where its partition's tile is that large): one
+    `present` plus one count per validity plane, the four prices' planes
+    (they come through the shuffled join's build-side gather) or the four
+    avg sums'."""
+    p = PARTITIONS
+    common = 1 + fact_tiles + p + p
+    return {
+        "q3": common + p * 1,
+        "q7": common + p * 3 + dict_passes * (1 + 4),
+        "q19": common + p * 4,
+    }[query]
+
+
+def _scan_tiles(scan) -> int:
+    """Tiles of TILE rows a ParquetSource scan makes: per split, from the
+    row groups' counts in the footers."""
+    src = scan.source
+    total = 0
+    for fpath, lo, hi in src._splits:
+        md = src._footer(fpath)
+        total += tiles(sum(md.row_group(rg).num_rows
+                           for rg in range(lo, hi)), TILE)
+    return total
+
+
+def _scans(df) -> dict:
+    return {n.name: n for n in df.query_execution.physical.iter_nodes()
+            if type(n).__name__ == "ScanExec"}
+
+
+def parquet_leg(torch, sk, card: str, proc: subprocess.Popen,
+                t_start: float) -> dict:
+    """TPC-DS q3, q7 and q19 through session.sql over temp views of
+    spark.read.parquet at PARQUET_ROWS, each plan held to
+    PARQUET_PLAN_OPS and each scan to its columns, the splits and the rows
+    each scan read printed and held, every result to the generator's numpy
+    oracle (exact, ORDER BY + LIMIT by _check_topk), the histogram calls
+    to parquet_calls; then the DPP query over the date-partitioned SF10
+    store_sales (its date_dim written by the port's partitioned writer),
+    with DPP on and off; a partition predicate and a row-group predicate;
+    spark.range and SELECT without FROM. The files are deleted at the
+    end. Returns the launch counts by query."""
+    import gc
+    import shutil
+
+    import pyarrow.parquet as pq
+
+    try:
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=max(1.0, 1100 - (time.perf_counter()
+                                                    - t_start)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the script's 1100th second"
+        with open(PARQUET_LOG) as f:
+            log = f.read()
+        if rc != 0:
+            fail(f"the parquet generator ended with {rc}:\n{log[-2000:]}")
+        print(f"parquet files after waiting {time.perf_counter() - t0:.1f}"
+              f" s: {log.strip().splitlines()[-1]}", flush=True)
+        with open(os.path.join(PARQUET_DIR, "oracle.json")) as f:
+            oracle = json.load(f)
+        gc.collect()
+        torch.cuda.empty_cache()
+        spark = session(TPCDS_CONF)
+        for name in PARQUET_ROWS:
+            spark.read.parquet(os.path.join(PARQUET_DIR, name)) \
+                .createOrReplaceTempView(name)
+        out, summary, timed_shapes = {}, {}, set()
+        fact_rows = oracle["rows"]["store_sales"]
+        for q in PARQUET_QUERIES:
+            df = spark.sql(tpcds_text(q))
+            ops = tuple(type(n).__name__
+                        for n in df.query_execution.physical.iter_nodes())
+            if ops != PARQUET_PLAN_OPS[q]:
+                fail(f"parquet {q}: the operator sequence {ops} is not the "
+                     f"reference's {PARQUET_PLAN_OPS[q]}")
+            scans = _scans(df)
+            cols = sorted((n, tuple(a.name for a in s.attrs))
+                          for n, s in scans.items())
+            if cols != sorted(PARQUET_SCAN_COLS[q]):
+                fail(f"parquet {q}: the scans read {cols}, not "
+                     f"{sorted(PARQUET_SCAN_COLS[q])}")
+            splits = {n: s.output_partitioning().num_partitions
+                      for n, s in scans.items()}
+            fact_tiles = _scan_tiles(scans["store_sales"])
+            rows, key = [tuple(r) for r in oracle[q]], PARQUET_ORACLE_KEYS[q]
+            before = spark.metrics
+
+            def check(result, q=q, rows=rows, key=key, before=before,
+                      scans=scans, splits=splits):
+                msg = _check_topk(f"parquet {q}", tpcds_rows(q, result),
+                                  rows, key)
+                m = spark.metrics
+                read = {n: m.get(f"scan.{n}.rows", 0)
+                        - before.get(f"scan.{n}.rows", 0) for n in scans}
+                want = {n: oracle["rows"][n] for n in scans}
+                want["date_dim"] = oracle["date_dim_read"][q]
+                if read != want:
+                    fail(f"parquet {q}: the scans read {read} rows, not "
+                         f"{want}")
+                return f"{msg}; rows read {read}, splits {splits}"
+
+            def calls(q=q, fact_tiles=fact_tiles, before=before):
+                passes = spark.metrics.get("agg.dict_code_fast_path", 0) - \
+                    before.get("agg.dict_code_fast_path", 0)
+                return parquet_calls(q, fact_tiles, passes)
+
+            torch.cuda.reset_peak_memory_stats()
+            out[q] = drive(torch, sk, card, f"parquet {q}", df, fact_rows,
+                           (), calls, check, None, timed_shapes)
+            print(f"parquet {q} done at {time.perf_counter() - t_start:.1f}"
+                  " s", flush=True)
+            summary[q] = {"splits": splits, "fact_tiles": fact_tiles,
+                          "columns": dict(cols),
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out.update(dpp_checks(torch, sk, card, spark, oracle, timed_shapes,
+                              summary))
+        print(f"parquet dpp done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        out.update(range_checks(torch, sk, card, spark, summary))
+        spark.stop()
+        print("parquet summary " + json.dumps(dict(summary, card=card)),
+              flush=True)
+        return out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(PARQUET_DIR, ignore_errors=True)
+
+
+def _timed_once(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def dpp_checks(torch, sk, card: str, spark, oracle: dict, timed_shapes,
+               summary: dict) -> dict:
+    """bench_join's shape (BASELINE config 3) from files: SF10 store_sales
+    partitioned by date joined to date_dim (written here by the port's
+    partitionBy("d_year") and read back equal), November's sales by year.
+    DPP must prune every split outside the 150 November days (the null
+    partition too) and read exactly November's rows; off, the same answer
+    and no split pruned. A partition predicate and a row-group predicate
+    must read exactly their rows."""
+    import pyarrow.parquet as pq
+
+    dd_dir = os.path.join(PARQUET_DIR, "dpp", "date_dim")
+    src = os.path.join(PARQUET_DIR, "date_dim")
+    (_, write_s) = _timed_once(torch, lambda: spark.read.parquet(src).write
+                               .partitionBy("d_year").parquet(dd_dir))
+    back = spark.read.parquet(dd_dir).toArrow()
+    want = pq.read_table(src)
+    if not back.select(want.column_names).sort_by("d_date_sk").equals(
+            want.sort_by("d_date_sk")):
+        fail("parquet dpp: date_dim does not read back equal")
+    spark.read.parquet(os.path.join(PARQUET_DIR, "dpp", "store_sales")) \
+        .createOrReplaceTempView("store_sales")
+    spark.read.parquet(dd_dir).createOrReplaceTempView("date_dim")
+    spark.read.parquet(os.path.join(PARQUET_DIR, "dpp",
+                                    "store_sales_sorted.parquet")) \
+        .createOrReplaceTempView("store_sales_sorted")
+    df = spark.sql(DPP_QUERY)
+    ops = tuple(type(n).__name__
+                for n in df.query_execution.physical.iter_nodes())
+    if ops != DPP_PLAN_OPS:
+        fail(f"parquet dpp: the operator sequence {ops} is not the "
+             f"reference's {DPP_PLAN_OPS}")
+    marked = [n for n in df.query_execution.physical.iter_nodes()
+              if type(n).__name__ == "HashJoinExec" and n.dpp_targets]
+    if len(marked) != 1:
+        fail("parquet dpp: the join does not prune the fact scan")
+    splits = _scans(df)["store_sales"].output_partitioning().num_partitions
+    if splits != oracle["dpp_dates"] + 1:
+        fail(f"parquet dpp: {splits} splits, not one per date and the null "
+             "partition")
+    expect = sorted(tuple(r) for r in oracle["dpp"])
+
+    def result(t):
+        return sorted((r["d_year"], _dec(r["s"])) for r in t.to_pylist())
+
+    before = spark.metrics
+
+    def check(t):
+        if result(t) != expect:
+            fail(f"parquet dpp: {result(t)} is not {expect}")
+        m = spark.metrics
+        pruned = m.get("scan.dpp_pruned_splits", 0) - \
+            before.get("scan.dpp_pruned_splits", 0)
+        read = m.get("scan.store_sales.rows", 0) - \
+            before.get("scan.store_sales.rows", 0)
+        want_pruned = splits - oracle["dpp_november_dates"]
+        if pruned != want_pruned or read != oracle["dpp_rows"]:
+            fail(f"parquet dpp: {pruned} splits pruned and {read} rows read"
+                 f", not {want_pruned} and {oracle['dpp_rows']}")
+        return (f"equal to numpy; {pruned} of {splits} splits pruned, "
+                f"{read:,} rows read")
+
+    # no profiler pass: the trace of its 1,824 partitions takes the
+    # profiler 70 s to read (PERF.md section 5)
+    total = oracle["dpp_total_rows"]
+    out = {"dpp": drive(torch, sk, card, "parquet dpp", df, total,
+                        (), None, check, None, timed_shapes, profile=False)}
+    checks = {"date_dim_write_s": write_s, "dpp_splits": splits}
+    spark.conf.set("spark.sql.dynamicPartitionPruning.enabled", "false")
+    before = spark.metrics
+    t, secs = _timed_once(torch, lambda: spark.sql(DPP_QUERY).toArrow())
+    spark.conf.set("spark.sql.dynamicPartitionPruning.enabled", "true")
+    m = spark.metrics
+    pruned = m.get("scan.dpp_pruned_splits", 0) - \
+        before.get("scan.dpp_pruned_splits", 0)
+    read = m.get("scan.store_sales.rows", 0) - \
+        before.get("scan.store_sales.rows", 0)
+    if result(t) != expect or pruned or read != total:
+        fail(f"parquet dpp off: {pruned} pruned, {read} rows read")
+    checks["dpp_off_s"] = secs
+    a, b = oracle["between"]
+    for label, text, name, rows, match in (
+            ("between", f"SELECT count(*) c FROM store_sales WHERE "
+             f"ss_sold_date_sk BETWEEN {a} AND {b}", "store_sales",
+             oracle["between_rows"], oracle["between_rows"]),
+            ("rowgroup", f"SELECT count(*) c FROM store_sales_sorted WHERE "
+             f"ss_sold_date_sk >= {oracle['rowgroup_key']}",
+             "store_sales_sorted.parquet", oracle["rowgroup_rows"],
+             oracle["rowgroup_match"])):
+        before = spark.metrics
+        t, secs = _timed_once(torch, lambda: spark.sql(text).toArrow())
+        read = spark.metrics.get(f"scan.{name}.rows", 0) - \
+            before.get(f"scan.{name}.rows", 0)
+        if t.to_pylist() != [{"c": match}] or read != rows:
+            fail(f"parquet {label}: {t.to_pylist()} and {read} rows read, "
+                 f"not {match} and {rows}")
+        checks[f"{label}_s"] = secs
+        checks[f"{label}_rows_read"] = read
+    print("parquet dpp checks " + json.dumps(dict(checks, card=card)),
+          flush=True)
+    summary["dpp"] = checks
+    return out
+
+
+RANGE_ROWS = 1 << 28
+
+
+def range_checks(torch, sk, card: str, spark, summary: dict) -> dict:
+    """spark.range at 2^28 rows and at a negative step, aggregated to sum,
+    count, min and max, each equal to its closed form (no histogram call:
+    ungrouped aggregates and a gather); SELECT without FROM, one row."""
+    import spark_tpu_torch.api.functions as F
+
+    def agg(df):
+        return df.agg(F.sum("id").alias("s"), F.count("*").alias("n"),
+                      F.min("id").alias("lo"), F.max("id").alias("hi"))
+
+    out = {}
+    for label, (start, end, step) in (
+            ("range", (0, RANGE_ROWS, 1)),
+            ("range_down", (10, -(1 << 26), -3))):
+        n = len(range(start, end, step))
+        last = start + (n - 1) * step
+        want = [{"s": n * (start + last) // 2, "n": n,
+                 "lo": min(start, last), "hi": max(start, last)}]
+        df = agg(spark.range(start, end, step, 8))
+
+        def check(t, want=want, label=label):
+            if t.to_pylist() != want:
+                fail(f"parquet {label}: {t.to_pylist()} is not {want}")
+            return f"equal to the closed form {want}"
+
+        out[label] = drive(torch, sk, card, f"parquet {label}", df, n,
+                           ("Range(",), 0, check)
+    t = spark.sql("SELECT 1 + 1 AS two, 'x' AS s").toArrow()
+    if t.to_pylist() != [{"two": 2, "s": "x"}]:
+        fail(f"parquet one-row: {t.to_pylist()}")
+    print("parquet one-row: SELECT 1 + 1 AS two, 'x' AS s -> "
+          f"{t.to_pylist()}", flush=True)
+    return out
+
+
+def breakdown(torch, df, profile: bool = True) -> dict:
     """Where one warm run's time goes: each operator's exclusive wall time
     (synchronized before and after every execute, so device work lands on
-    the operator that queued it), then a torch.profiler pass for the
-    device-busy share and the heaviest device kernels."""
+    the operator that queued it), then, where `profile`, a torch.profiler
+    pass for the device-busy share and the heaviest device kernels."""
     nodes = list(df.query_execution.physical.iter_nodes())
     incl: dict[int, float] = {}
     for i, node in enumerate(nodes):
@@ -3556,15 +4333,20 @@ def breakdown(torch, df) -> dict:
                     "exclusive_s": incl.get(i, 0.0) - child})
     out = {"wall_s": total, "operators": ops,
            "collect_s": total - incl.get(0, 0.0)}
+    if not profile:
+        return out
 
     from torch.profiler import ProfilerActivity, profile
 
+    t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         df.toArrow()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
+    # the profiler's own cost: closing the trace and reading its events
+    out["profiler_read_s"] = time.perf_counter() - t_prof - wall
     busy_s = sum(k[0] for k in kernels) / 1e6
     out["profiled_wall_s"] = wall
     out["device_busy_s"] = busy_s if kernels else "not measured"
@@ -3624,8 +4406,10 @@ def run() -> None:
               flush=True)
         return out
 
-    # the SF10 CPU results take the longest: their process starts first
-    # and runs beside every leg (it sees no card)
+    # the parquet leg's files and the SF10 CPU results take the longest:
+    # their processes start first and run beside every leg (they see no
+    # card)
+    parquet_proc = start_tpcds_parquet()
     cpu_proc = start_tpcds_cpu()
     try:
         main_hist, main_sum = phase("kernels", check_kernels, torch, sk)
@@ -3644,12 +4428,20 @@ def run() -> None:
         tpcds_launches, tpcds_results = phase("tpcds", tpcds_leg, torch, sk,
                                               card)
         by_path.update({f"tpcds {q}": n for q, n in tpcds_launches.items()})
+        parquet_launches = phase("parquet", parquet_leg, torch, sk, card,
+                                 parquet_proc, t_start)
+        by_path.update({f"parquet {q}": n
+                        for q, n in parquet_launches.items()})
         phase("tpcds_cpu", tpcds_cpu_check, cpu_proc, tpcds_results,
               t_start)
     finally:
-        if cpu_proc.poll() is None:
-            cpu_proc.kill()
-            cpu_proc.wait()
+        for proc in (cpu_proc, parquet_proc):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+
+        shutil.rmtree(PARQUET_DIR, ignore_errors=True)
 
     def entry(name, row, replaces):
         return {"name": name, "route": "cuda",
@@ -3678,5 +4470,7 @@ def run() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--tpcds-cpu"]:
         tpcds_cpu_results()
+    elif sys.argv[1:] == ["--tpcds-parquet"]:
+        tpcds_parquet_files()
     else:
         run()

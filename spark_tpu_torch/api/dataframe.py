@@ -168,8 +168,19 @@ class DataFrame:
         self.session.catalog_.register(name, self.plan)
 
     # --- actions -------------------------------------------------------
+    @property
+    def write(self):
+        from .readwriter import DataFrameWriter
+
+        return DataFrameWriter(self)
+
     def toArrow(self) -> pa.Table:
         return self.query_execution.to_arrow()
+
+    def count(self) -> int:
+        agg = L.Aggregate([], [E.Alias(E.Count(None), "count")], self.plan)
+        t = QueryExecution(self.session, agg).to_arrow()
+        return int(t.column(0)[0].as_py())
 
     def collect(self) -> list[Row]:
         t = self.toArrow()

@@ -1,10 +1,11 @@
 """Session entry point (counterpart of `spark_tpu/api/session.py`, the
 surface of the port's slices): `TorchSession(appName, conf, device)`,
-`createDataFrame`, `sql` (SELECT queries over temp views; a CTE the parser
-materialises runs once here, its result collected to Arrow and spliced in
-as an in-memory relation wherever it is read, subquery expressions
-included), `table`, `conf` and `stop`. SQL scripting, hints
-and commands raise `NotPortedError`.
+`createDataFrame`, `read` (Parquet, ORC, CSV, JSON, text, Avro, XML and
+JDBC sources: `api/readwriter.py`), `range`, `sql` (SELECT queries over
+temp views; a CTE the parser materialises runs once here, its result
+collected to Arrow and spliced in as an in-memory relation wherever it is
+read, subquery expressions included), `table`, `conf` and `stop`. SQL
+scripting, hints and commands raise `NotPortedError`.
 
 The session runs on CUDA unless the caller asks for the CPU, by
 `device="cpu"` or the conf key `spark.torch.device`. With no card and no
@@ -20,7 +21,7 @@ from typing import Any
 import pyarrow as pa
 import torch
 
-from ..config import DEVICE, SQLConf
+from ..config import DEFAULT_PARALLELISM, DEVICE, SQLConf
 from ..errors import DeviceUnavailableError, NotPortedError
 from ..exec.context import ExecContext, Metrics
 from ..expr.expressions import AttributeReference
@@ -28,7 +29,10 @@ from ..physical.compile import LaunchCounters
 from ..physical.planner import Planner
 from ..plan.analyzer import Analyzer
 from ..plan.catalog import Catalog
-from ..plan.logical import LocalRelation, UnresolvedRelation, WithCTE
+from ..plan.logical import (
+    LocalRelation, LogicalRelation, RangeRelation, UnresolvedRelation,
+    WithCTE,
+)
 from ..plan.optimizer import Optimizer
 from ..types import from_arrow_type
 
@@ -83,6 +87,23 @@ class TorchSession:
                  for f in table.schema]
         return DataFrame(self, LocalRelation(attrs, table))
 
+    @property
+    def read(self):
+        from .readwriter import DataFrameReader
+
+        return DataFrameReader(self)
+
+    def range(self, start: int, end: int | None = None, step: int = 1,
+              numPartitions: int | None = None):
+        """int64 `id` from start to end (exclusive) by step, in
+        numPartitions partitions (default spark.default.parallelism)."""
+        from .dataframe import DataFrame
+
+        if end is None:
+            start, end = 0, start
+        n = numPartitions or int(self.conf.get(DEFAULT_PARALLELISM))
+        return DataFrame(self, RangeRelation(start, end, step, n))
+
     def table(self, name: str):
         from .dataframe import DataFrame
 
@@ -121,14 +142,17 @@ class TorchSession:
         its subquery expressions, becomes an in-memory relation."""
         from ..plan.subquery import map_subquery_plans
 
+        def fresh(rel):
+            attrs = [AttributeReference(a.name, a.dtype, a.nullable)
+                     for a in rel.output]
+            if isinstance(rel, LocalRelation):
+                return LocalRelation(attrs, rel.table)
+            return LogicalRelation(rel.source, attrs, rel.name)
+
         def rule(node):
             if isinstance(node, UnresolvedRelation):
                 rel = mapping.get(node.name.lower())
-                if rel is not None:
-                    return LocalRelation(
-                        [AttributeReference(a.name, a.dtype, a.nullable)
-                         for a in rel.output], rel.table)
-                return node
+                return fresh(rel) if rel is not None else node
             return map_subquery_plans(
                 node, lambda p: cls._splice_relations(p, mapping))
 

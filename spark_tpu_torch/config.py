@@ -53,6 +53,40 @@ ENCODING_ENABLED = _register(ConfigEntry(
     "key aggregates by direct scatter over its dense code domain.",
     lambda s: str(s).lower() == "true"))
 
+
+def _bool(s) -> bool:
+    return str(s).lower() == "true"
+
+
+DPP_ENABLED = _register(ConfigEntry(
+    "spark.sql.dynamicPartitionPruning.enabled", True,
+    "Prune probe-side scan splits from the join build side's distinct keys "
+    "(reference: sqlx/dynamicpruning/PartitionPruning.scala).", _bool))
+
+DPP_BUILD_THRESHOLD = _register(ConfigEntry(
+    "spark.sql.dynamicPartitionPruning.buildThreshold", 4 << 20,
+    "Max build-side rows for which distinct join-key values are collected "
+    "for dynamic partition pruning.", int))
+
+PARQUET_FILTER_PUSHDOWN = _register(ConfigEntry(
+    "spark.sql.parquet.filterPushdown", True,
+    "Prune parquet splits by hive partition values and row-group min/max "
+    "statistics (reference: ParquetFileFormat/ParquetFilters).", _bool))
+
+DSV2_FILTER_PUSHDOWN = _register(ConfigEntry(
+    "spark.tpu.datasource.filterPushdown", True,
+    "Negotiate predicate pushdown with SupportsPushDownFilters sources "
+    "(V2ScanRelationPushDown role).", _bool))
+
+DSV2_AGG_PUSHDOWN = _register(ConfigEntry(
+    "spark.tpu.datasource.aggPushdown", True,
+    "Push whole group-by aggregates into SupportsPushDownAggregation "
+    "sources.", _bool))
+
+DEFAULT_PARALLELISM = _register(ConfigEntry(
+    "spark.default.parallelism", 8,
+    "Default partition count of spark.range.", int))
+
 NESTED_LOOP_TILE_FACTOR = 8
 """A nested-loop join forms its pairs in tiles of at most
 spark.tpu.batch.capacity times this many rows."""

@@ -1,11 +1,15 @@
 """Physical operators (counterpart of `spark_tpu/physical/operators.py`):
-the local table scan, the fused filter+project `ComputeExec`,
+the scans (`ScanExec` over an `io/sources.py` source, one partition per
+split; `LocalTableScanExec`; `RangeExec`), the fused filter+project
+`ComputeExec`,
 `HashAggregateExec` in partial and final mode with its three kernels —
 ungrouped, sorted-segment and dense-range (over an integral key's range or
 a string key's dictionary codes) — `SortExec`, `LimitExec`, `HashJoinExec`
 (broadcast or shuffled; a dense direct-address build or the hash-sorted
-build with a searchsorted probe), `NestedLoopJoinExec` (cross joins and
-non-equi conditions over a broadcast build side) and `UnionExec`.
+build with a searchsorted probe; dynamic partition pruning of probe-side
+scans from the build side's distinct keys), `NestedLoopJoinExec` (cross
+joins and non-equi conditions over a broadcast build side) and
+`UnionExec`.
 `execute()` returns a list of partitions, each a list of device
 ColumnarBatches; blocking operators concatenate their partition's batches
 and run one kernel per chunk.
@@ -80,6 +84,75 @@ class PhysicalPlan(TreeNode):
 # Scan
 # ---------------------------------------------------------------------------
 
+class ScanExec(PhysicalPlan):
+    """Columnar scan over a DataSource (role of FileSourceScanExec): one
+    partition per split, each split's Arrow table ingested into device
+    tiles. A split that the runtime split filter (dynamic partition
+    pruning, installed by a join before this scan runs) proves empty reads
+    as one empty batch, so the partition count stays stable. Tiles are
+    cached only for a source that sets `cache_device_batches`: a file
+    source decodes its splits on every run."""
+
+    child_fields = ()
+
+    def __init__(self, source, attrs: list[AttributeReference],
+                 name: str = ""):
+        self.source = source
+        self.attrs = attrs
+        self.name = name
+        # (partition column name, allowed values)
+        self.runtime_split_filter = None
+
+    @property
+    def output(self):
+        return self.attrs
+
+    def output_partitioning(self):
+        return UnknownPartitioning(self.source.num_partitions())
+
+    def _split_pruned(self, i: int) -> bool:
+        if self.runtime_split_filter is None:
+            return False
+        from ..io.sources import UNKNOWN_PARTITION_VALUE
+
+        col, allowed = self.runtime_split_filter
+        pv = self.source.split_partition_value(i, col)
+        if pv is UNKNOWN_PARTITION_VALUE:
+            return False  # conservative: not derivable from the layout
+        return pv is None or pv not in allowed  # a null never equals a key
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        from ..columnar.arrow import table_to_batches
+
+        cols = [a.name for a in self.attrs]
+        cap = ctx.conf.batch_capacity
+        cache = getattr(self.source, "_device_cache", None)
+        if cache is None and getattr(self.source, "cache_device_batches",
+                                     False):
+            cache = self.source._device_cache = {}
+        schema = attrs_schema(self.attrs)
+        out: list[Partition] = []
+        for i in range(self.source.num_partitions()):
+            if self._split_pruned(i):
+                ctx.metrics.add("scan.dpp_pruned_splits")
+                out.append([ColumnarBatch.empty(schema, ctx.device)])
+                continue
+            key = (i, tuple(cols), cap, str(ctx.device))
+            if cache is not None and key in cache:
+                out.append(cache[key])
+                continue
+            table = self.source.read_partition(i, cols)
+            batches = list(table_to_batches(table, cap, schema, ctx.device))
+            ctx.metrics.add(f"scan.{self.name}.rows", table.num_rows)
+            if cache is not None:
+                cache[key] = batches
+            out.append(batches)
+        return out
+
+    def simple_string(self):
+        return f"Scan[{self.name}]({', '.join(a.name for a in self.attrs)})"
+
+
 class LocalTableScanExec(PhysicalPlan):
     child_fields = ()
 
@@ -118,6 +191,58 @@ class LocalTableScanExec(PhysicalPlan):
 
     def simple_string(self):
         return f"LocalTableScanExec({', '.join(a.name for a in self.attrs)})"
+
+
+class RangeExec(PhysicalPlan):
+    """spark.range: `id` = start + i * step for i in [0, total), split
+    evenly into num_partitions partitions of tiles of at most
+    spark.tpu.batch.capacity rows, each made on the session's device."""
+
+    child_fields = ()
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int,
+                 attr: AttributeReference):
+        self.start = start
+        self.end = end
+        self.step = step
+        self.num_partitions = max(1, num_partitions)
+        self.attr = attr
+
+    @property
+    def output(self):
+        return [self.attr]
+
+    def output_partitioning(self):
+        return UnknownPartitioning(self.num_partitions)
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        if self.step > 0:
+            total = max(0, -(-(self.end - self.start) // self.step))
+        else:
+            total = max(0, -(-(self.start - self.end) // -self.step))
+        per = -(-total // self.num_partitions)
+        schema = attrs_schema([self.attr])
+        tile = ctx.conf.batch_capacity
+        parts: list[Partition] = []
+        for p in range(self.num_partitions):
+            lo = min(p * per, total)
+            hi = min(lo + per, total)
+            batches = []
+            for s in range(lo, hi, tile):
+                n = min(s + tile, hi) - s
+                idx = torch.arange(bucket_capacity(n), dtype=torch.int64,
+                                   device=ctx.device)
+                data = self.start + (s + idx) * self.step
+                batches.append(ColumnarBatch(
+                    schema, [Column(self.attr.dtype, data, None, None)],
+                    idx < n, num_rows=n))
+            parts.append(batches or [ColumnarBatch.empty(schema,
+                                                         ctx.device)])
+        return parts
+
+    def simple_string(self):
+        return (f"Range({self.start}, {self.end}, step={self.step}, "
+                f"splits={self.num_partitions})")
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +404,9 @@ class HashAggregateExec(PhysicalPlan):
         self.specs = list(specs)
         self.mode = mode
         self.child = child
+        # a partial pass the planner took as the whole aggregate (its input
+        # was one partition when it was planned)
+        self.single_pass = False
 
     @property
     def output(self):
@@ -581,6 +709,10 @@ class HashJoinExec(PhysicalPlan):
         self.left = left
         self.right = right
         self.is_broadcast = is_broadcast
+        # [(ScanExec, key index)] marked by the planner: probe-side scans
+        # whose hive-partition column is a join key. The build side runs
+        # first and its distinct keys prune their splits (DPP)
+        self.dpp_targets: list = []
 
     @property
     def output(self):
@@ -606,8 +738,13 @@ class HashJoinExec(PhysicalPlan):
         for key in RUNTIME_FILTER_KEYS:
             if str(ctx.conf.get(key, False)).lower() == "true":
                 raise NotPortedError(f"the runtime join filter ({key})")
-        left_parts = self.left.execute(ctx)
-        right_parts = self.right.execute(ctx)
+        if self.dpp_targets:
+            right_parts = self.right.execute(ctx)
+            self._install_dpp_filters(right_parts, ctx)
+            left_parts = self.left.execute(ctx)
+        else:
+            left_parts = self.left.execute(ctx)
+            right_parts = self.right.execute(ctx)
         if self.is_broadcast:
             # the broadcast exchange made one partition: every probe
             # partition reads it
@@ -622,6 +759,37 @@ class HashJoinExec(PhysicalPlan):
         rschema = attrs_schema(self.right.output)
         return [self._join_partition(lp, rp, lschema, rschema, ctx)
                 for lp, rp in zip(left_parts, right_parts)]
+
+    def _install_dpp_filters(self, right_parts, ctx) -> None:
+        """The build side's distinct key values become runtime split
+        filters on the marked probe scans (the reference's PartitionPruning
+        with the materialised build side as the value source). The keys
+        are made distinct on the device; only they come to the host."""
+        from ..config import DPP_BUILD_THRESHOLD
+
+        max_rows = int(ctx.conf.get(DPP_BUILD_THRESHOLD))
+        total = sum(b.num_rows() for p in right_parts for b in p)
+        rpos = {a.expr_id: i for i, a in enumerate(self.right.output)}
+        values_by_key: dict[int, set] = {}
+        for scan, key_idx in self.dpp_targets:
+            if total > max_rows:
+                scan.runtime_split_filter = None
+                continue
+            values = values_by_key.get(key_idx)
+            if values is None:
+                ci = rpos[self.right_keys[key_idx].expr_id]
+                values = values_by_key[key_idx] = _distinct_key_values(
+                    [b.columns[ci] for p in right_parts for b in p],
+                    [b.row_mask for p in right_parts for b in p])
+            col_name = scan.attrs[self._dpp_attr_index(scan, key_idx)].name
+            scan.runtime_split_filter = (col_name, values)
+
+    def _dpp_attr_index(self, scan, key_idx: int) -> int:
+        target = self.left_keys[key_idx].expr_id
+        for i, a in enumerate(scan.attrs):
+            if a.expr_id == target:
+                return i
+        raise KeyError(target)
 
     def _join_partition(self, lp: Partition, rp: Partition, lschema,
                         rschema, ctx) -> Partition:
@@ -793,6 +961,22 @@ class HashJoinExec(PhysicalPlan):
                       for l, r in zip(self.left_keys, self.right_keys))
         b = "Broadcast" if self.is_broadcast else "Shuffled"
         return f"{b}HashJoin[{self.join_type}]({k})"
+
+
+def _distinct_key_values(cols: list[Column], masks: list) -> set:
+    """The distinct non-null values of a key column over several tiles as
+    host values comparable with a hive partition value (a partition column
+    is int64, float64 or string)."""
+    if cols and cols[0].is_string:
+        out = set()
+        for c, m in zip(cols, masks):
+            live = m if c.validity is None else m & c.validity
+            codes = torch.unique(c.data[live]).tolist()
+            out.update(c.dictionary.values[i] for i in codes)
+        return out
+    live = [c.data[m if c.validity is None else m & c.validity]
+            for c, m in zip(cols, masks)]
+    return set(torch.unique(torch.cat(live)).tolist()) if live else set()
 
 
 class NestedLoopJoinExec(PhysicalPlan):

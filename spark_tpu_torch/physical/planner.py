@@ -9,21 +9,33 @@ ComputeExecs. Contracts kept from the JAX planner:
   * exchange and grouping keys are always bound to attributes (complex keys
     get pre-projected via ComputeExec);
   * aggregates are planned partial -> (exchange) -> final with a finishing
-    ComputeExec over the buffers;
+    ComputeExec over the buffers (one pass over one partition; where an
+    exchange added below then splits that input by other keys, the port
+    merges the partials, which the JAX planner does not);
   * right outer joins are flipped to left joins over swapped children; a
     build side whose estimated bytes fit spark.sql.autoBroadcastJoinThreshold
     is broadcast; cross joins, joins with no equi key and semi/anti/outer
     joins with a non-equi residual are NestedLoopJoinExecs over a broadcast
     right side;
   * ORDER BY + LIMIT plans as TopK: a local sort and limit per partition, a
-    gather, then a final sort and limit.
+    gather, then a final sort and limit;
+  * a data source's scan takes what it can of the plan above it: the
+    filter conjuncts a SupportsPushDownFilters source accepts, split and
+    row-group pruning by a Parquet source's partition values and
+    statistics (the filter stays), a whole aggregate or a per-partition
+    limit where the source supports them; and a hash join whose probe
+    side scans a hive-partitioned source on a join key runs its build
+    side first and prunes the scan's splits (dynamic partition pruning).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-from ..config import AUTO_BROADCAST_THRESHOLD, SQLConf
+from ..config import (
+    AUTO_BROADCAST_THRESHOLD, DPP_ENABLED, DSV2_AGG_PUSHDOWN,
+    DSV2_FILTER_PUSHDOWN, PARQUET_FILTER_PUSHDOWN, SQLConf,
+)
 from ..errors import NotPortedError
 from ..expr.expressions import (
     AggregateFunction, Alias, AttributeReference, EqualTo, Expression,
@@ -37,8 +49,8 @@ from .aggregates import AggSpec, lower_aggregate_function
 from .exchange import BroadcastExchangeExec, ShuffleExchangeExec
 from .operators import (
     ComputeExec, HashAggregateExec, HashJoinExec, LimitExec,
-    LocalTableScanExec, NestedLoopJoinExec, PhysicalPlan, SortExec,
-    UnionExec,
+    LocalTableScanExec, NestedLoopJoinExec, PhysicalPlan, RangeExec,
+    ScanExec, SortExec, UnionExec,
 )
 from .window import WindowExec
 from .partitioning import (
@@ -102,21 +114,72 @@ class Planner:
     def plan(self, plan: L.LogicalPlan) -> PhysicalPlan:
         p = self._convert(plan)
         p = self._ensure_requirements(p)
-        return collapse_computes(p)
+        p = collapse_computes(p)
+        self._inject_dpp(p)
+        return p
+
+    # ------------------------------------------------------------------
+    def _inject_dpp(self, plan: PhysicalPlan) -> None:
+        """Mark probe-side scans whose hive-partition column is a join key,
+        so the join runs its build side first and prunes whole splits
+        (reference: sqlx/dynamicpruning/PartitionPruning.scala)."""
+        if not self.conf.get(DPP_ENABLED):
+            return
+
+        def scans_under(n, acc):
+            """Pruning-safe descent only: an output row of these operators
+            carries its source row's partition column unchanged.
+            Limit/Window/Sort/Aggregate stop the walk: pruning below them
+            would change which rows they keep."""
+            if isinstance(n, ScanExec):
+                acc.append(n)
+            elif isinstance(n, (ComputeExec, UnionExec, ShuffleExchangeExec,
+                                BroadcastExchangeExec)):
+                for c in n.children:
+                    scans_under(c, acc)
+            elif isinstance(n, HashJoinExec):
+                scans_under(n.left, acc)
+
+        def walk(n):
+            for c in n.children:
+                walk(c)
+            if isinstance(n, HashJoinExec) \
+                    and n.join_type in ("inner", "left_semi"):
+                acc: list = []
+                scans_under(n.left, acc)
+                for scan in acc:
+                    pk = getattr(scan.source, "_part_keys", None)
+                    if not pk or not hasattr(scan.source,
+                                             "split_partition_value"):
+                        continue
+                    by_id = {a.expr_id: a.name for a in scan.attrs}
+                    for ki, lk in enumerate(n.left_keys):
+                        if by_id.get(lk.expr_id) in pk:
+                            n.dpp_targets.append((scan, ki))
+
+        walk(plan)
 
     # ------------------------------------------------------------------
     def _convert(self, node: L.LogicalPlan) -> PhysicalPlan:
+        if isinstance(node, L.LogicalRelation):
+            return ScanExec(node.source, list(node.attrs), node.name)
         if isinstance(node, L.LocalRelation):
             return LocalTableScanExec(list(node.attrs), node.table)
+        if isinstance(node, L.OneRowRelation):
+            import pyarrow as pa
+
+            return LocalTableScanExec(
+                [], pa.table({"__one": pa.array([1], pa.int32())}).select([]))
+        if isinstance(node, L.RangeRelation):
+            return RangeExec(node.start, node.end, node.step,
+                             node.num_partitions, node.attr)
         if isinstance(node, L.SubqueryAlias):
             return self._convert(node.child)
         if isinstance(node, L.Project):
             child = self._convert(node.child)
             return self._fuse_compute([], node.project_list, child)
         if isinstance(node, L.Filter):
-            child = self._convert(node.child)
-            return self._fuse_compute(split_conjuncts(node.condition),
-                                      list(node.child.output), child)
+            return self._plan_filter(node)
         if isinstance(node, L.Aggregate):
             return self._plan_aggregate(node)
         if isinstance(node, L.Sort):
@@ -151,6 +214,41 @@ class Planner:
                 return ShuffleExchangeExec(HashPartitioning(keys, n), child)
             return ShuffleExchangeExec(UnknownPartitioning(n), child)
         raise NotPortedError(f"physical plan for {type(node).__name__}")
+
+    def _plan_filter(self, node: L.Filter) -> PhysicalPlan:
+        from ..io.sources import SupportsPushDownFilters
+
+        conjuncts = split_conjuncts(node.condition)
+        inner = node.child
+        while isinstance(inner, L.SubqueryAlias):
+            inner = inner.child
+        outputs = list(node.child.output)
+        if isinstance(inner, L.LogicalRelation) \
+                and isinstance(inner.source, SupportsPushDownFilters) \
+                and self.conf.get(DSV2_FILTER_PUSHDOWN):
+            # the source takes the conjuncts it can translate and returns
+            # those it could not apply; the engine keeps those and the
+            # untranslatable ones
+            mapped = _source_predicates_mapped(conjuncts, inner.attrs)
+            if mapped:
+                src2, residual = inner.source.push_filters(
+                    [d for _, d in mapped])
+                consumed = {id(c) for c, d in mapped if d not in residual}
+                kept = [c for c in conjuncts if id(c) not in consumed]
+                child = ScanExec(src2, list(inner.attrs), inner.name)
+                return self._fuse_compute(kept, outputs, child)
+        if isinstance(inner, L.LogicalRelation) \
+                and hasattr(inner.source, "pruned") \
+                and self.conf.get(PARQUET_FILTER_PUSHDOWN):
+            preds = _source_predicates(conjuncts, inner.attrs)
+            if preds:
+                # split and row-group pruning by partition values and
+                # statistics; the filter stays (pruning is conservative)
+                child = ScanExec(inner.source.pruned(preds),
+                                 list(inner.attrs), inner.name)
+                return self._fuse_compute(conjuncts, outputs, child)
+        child = self._convert(node.child)
+        return self._fuse_compute(conjuncts, outputs, child)
 
     def _plan_window(self, node: L.Window) -> PhysicalPlan:
         child = self._convert(node.child)
@@ -207,6 +305,9 @@ class Planner:
 
     # ------------------------------------------------------------------
     def _plan_aggregate(self, node: L.Aggregate) -> PhysicalPlan:
+        pushed = self._try_push_aggregate(node)
+        if pushed is not None:
+            return pushed
         child = self._convert(node.child)
         group_keys, child = self._bind_keys(list(node.grouping_exprs), child,
                                             "__group")
@@ -236,11 +337,96 @@ class Planner:
         if child.output_partitioning().num_partitions == 1:
             # single upstream partition: the partial pass is already complete
             final: PhysicalPlan = partial
+            partial.single_pass = True
         else:
             final = HashAggregateExec(group_keys, specs, "final", partial)
         outputs = [self._finish_expr(e, func_to_spec, group_map)
                    for e in node.aggregate_exprs]
         return ComputeExec([], outputs, final)
+
+    def _fully_pushed_filter_scan(self, plan):
+        """(relation, pushed source) where `plan` is a Filter over a
+        pushdown-capable relation that accepts every conjunct with no
+        residual; else None (the aggregate and limit pushdowns compose on
+        it)."""
+        from ..io.sources import SupportsPushDownFilters
+
+        node = plan
+        while isinstance(node, L.SubqueryAlias):
+            node = node.child
+        if not isinstance(node, L.Filter) \
+                or not self.conf.get(DSV2_FILTER_PUSHDOWN):
+            return None
+        inner = node.child
+        while isinstance(inner, L.SubqueryAlias):
+            inner = inner.child
+        if not isinstance(inner, L.LogicalRelation) or \
+                not isinstance(inner.source, SupportsPushDownFilters):
+            return None
+        conjs = split_conjuncts(node.condition)
+        mapped = _source_predicates_mapped(conjs, inner.attrs)
+        if len(mapped) != len(conjs):
+            return None
+        src2, residual = inner.source.push_filters([d for _, d in mapped])
+        if residual:
+            return None
+        return inner, src2
+
+    def _try_push_aggregate(self, node: L.Aggregate):
+        """An aggregate over a bare scan (or a fully pushed filter over
+        one) whose groupings are plain columns and whose aggregates are
+        count/sum/min/max/avg of plain columns runs in a
+        SupportsPushDownAggregation source; the node becomes a scan of
+        the aggregated result."""
+        from ..expr.expressions import Average, Count, Max, Min, Sum
+        from ..io.sources import SupportsPushDownAggregation
+
+        inner = node.child
+        while isinstance(inner, L.SubqueryAlias):
+            inner = inner.child
+        filter_src = None
+        if isinstance(inner, L.Filter):
+            pushed = self._fully_pushed_filter_scan(inner)
+            if pushed is not None:
+                inner, filter_src = pushed
+        if not isinstance(inner, L.LogicalRelation) or \
+                not isinstance(inner.source, SupportsPushDownAggregation) \
+                or not self.conf.get(DSV2_AGG_PUSHDOWN):
+            return None
+        names = {a.expr_id: a.name for a in inner.attrs}
+        if not all(isinstance(g, AttributeReference) and g.expr_id in names
+                   for g in node.grouping_exprs):
+            return None
+        fn_of = {Count: "count", Sum: "sum", Min: "min", Max: "max",
+                 Average: "avg"}
+        groupings = [names[g.expr_id] for g in node.grouping_exprs]
+        aggs, out_attrs = [], []
+        for e in node.aggregate_exprs:
+            if isinstance(e, AttributeReference) and any(
+                    e.expr_id == g.expr_id for g in node.grouping_exprs):
+                out_attrs.append(e)
+                continue
+            if not (isinstance(e, Alias) and type(e.child) in fn_of):
+                return None
+            f = e.child
+            if getattr(f, "distinct", False):
+                return None
+            if f.child is None:
+                col = None
+            elif isinstance(f.child, AttributeReference) and \
+                    f.child.expr_id in names:
+                col = names[f.child.expr_id]
+            else:
+                return None
+            aggs.append((fn_of[type(f)], col, e.name))
+            out_attrs.append(e.to_attribute())
+        if not aggs:
+            return None
+        base = filter_src if filter_src is not None else inner.source
+        src2 = base.push_aggregation(groupings, aggs)
+        if src2 is None:
+            return None
+        return ScanExec(src2, out_attrs, f"{inner.name}:agg")
 
     def _finish_expr(self, e: Expression, func_to_spec, group_map):
         def replace(x: Expression) -> Expression:
@@ -299,6 +485,29 @@ class Planner:
                 gathered = ShuffleExchangeExec(SinglePartition(), local)
                 return LimitExec(node.n, SortExec(orders, gathered),
                                  offset=offset, is_global=True)
+        # a source that supports it applies the per-partition limit; the
+        # engine's limit stays above it as the global cut (over a fully
+        # pushed filter too: WHERE ... LIMIT n)
+        from ..io.sources import SupportsPushDownLimit
+
+        scan_like, pushed_filters = inner, None
+        while isinstance(scan_like, L.SubqueryAlias):
+            scan_like = scan_like.child
+        if isinstance(scan_like, L.Filter):
+            pushed = self._fully_pushed_filter_scan(scan_like)
+            if pushed is not None:
+                scan_like, pushed_filters = pushed
+        if isinstance(scan_like, L.LogicalRelation):
+            base_src = pushed_filters or scan_like.source
+            if isinstance(base_src, SupportsPushDownLimit):
+                pushed = base_src.push_limit(node.n + offset)
+                if pushed is not None:
+                    child = ScanExec(pushed, list(scan_like.attrs),
+                                     scan_like.name)
+                    local = LimitExec(node.n + offset, child,
+                                      is_global=False)
+                    return LimitExec(node.n, local, offset=offset,
+                                     is_global=True)
         child = self._convert(inner)
         local = LimitExec(node.n + offset, child, is_global=False)
         return LimitExec(node.n, local, offset=offset, is_global=True)
@@ -447,4 +656,65 @@ class Planner:
                 new_children[0] = ShuffleExchangeExec(
                     RangePartitioning(plan.orders, n_shuffle), child)
                 changed = True
-        return plan.with_new_children(new_children) if changed else plan
+        out = plan.with_new_children(new_children) if changed else plan
+        if isinstance(out, HashAggregateExec) and out.single_pass and \
+                not out.child.output_partitioning().satisfies(
+                    ClusteredDistribution(list(out.grouping))
+                    if out.grouping else AllTuples()):
+            # planned as one pass over one partition, but an exchange added
+            # below (a shuffled join over one-split scans) splits its input
+            # by other keys: a group may now arise in several partitions,
+            # so their partials merge in a final aggregate. The JAX planner
+            # keeps the one pass and is right only where AQE coalesces the
+            # join's partitions into one (spark_tpu/physical/adaptive.py
+            # coalesce_join_inputs)
+            partial = out.copy(single_pass=False)
+            dist = HashPartitioning(list(partial.grouping), n_shuffle) \
+                if partial.grouping else SinglePartition()
+            return HashAggregateExec(partial.grouping, partial.specs, "final",
+                                     ShuffleExchangeExec(dist, partial))
+        return out
+
+
+def _source_predicates_mapped(conjuncts, attrs) -> list:
+    """(conjunct, descriptor) pairs of the conjuncts that translate to a
+    source predicate, so the planner can tell which ones a source
+    consumed."""
+    out = []
+    for c in conjuncts:
+        descs = _source_predicates([c], attrs)
+        if len(descs) == 1:
+            out.append((c, descs[0]))
+    return out
+
+
+def _source_predicates(conjuncts, attrs) -> list:
+    """(col, op, value) predicates a DataSource can prune with: comparisons
+    of an attribute with a literal, and IN over literals (reference:
+    DataSourceStrategy.translateFilter)."""
+    from ..expr.expressions import (
+        GreaterThan, GreaterThanOrEqual, In, LessThan, LessThanOrEqual,
+        Literal,
+    )
+
+    names = {a.expr_id: a.name for a in attrs}
+    flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
+    ops = {EqualTo: "=", LessThan: "<", LessThanOrEqual: "<=",
+           GreaterThan: ">", GreaterThanOrEqual: ">="}
+    preds = []
+    for c in conjuncts:
+        op = ops.get(type(c))
+        if op is not None:
+            l, r = c.left, c.right
+            if isinstance(r, AttributeReference) and isinstance(l, Literal):
+                l, r, op = r, l, flip[op]
+            if isinstance(l, AttributeReference) and isinstance(r, Literal) \
+                    and r.value is not None and l.expr_id in names:
+                preds.append((names[l.expr_id], op, r.value))
+        elif isinstance(c, In) and isinstance(c.child, AttributeReference) \
+                and c.child.expr_id in names \
+                and all(isinstance(i, Literal) for i in c.items):
+            vals = [i.value for i in c.items if i.value is not None]
+            if vals:
+                preds.append((names[c.child.expr_id], "in", vals))
+    return preds

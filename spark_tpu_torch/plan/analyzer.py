@@ -34,8 +34,8 @@ from ..types import DecimalType, common_type
 from .catalog import Catalog
 from .logical import (
     Aggregate, Except, Filter, GroupingSets, Intersect, Join, LocalRelation,
-    LogicalPlan, Project, Sort, SubqueryAlias, Union, UnresolvedRelation,
-    Window,
+    LogicalPlan, LogicalRelation, Project, RangeRelation, Sort,
+    SubqueryAlias, Union, UnresolvedRelation, Window,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -126,10 +126,12 @@ def _remap_plan(plan: LogicalPlan, mapping: dict[int, AttributeReference],
 
     def go(node: LogicalPlan) -> LogicalPlan:
         node = node.map_children(go)
-        if isinstance(node, LocalRelation):
+        if isinstance(node, (LocalRelation, LogicalRelation)):
             new_attrs, changed = [], False
             for a in node.attrs:
                 if a.expr_id in overlap:
+                    # one new instance per old id for the whole subtree: a
+                    # relation in several union branches keeps one id
                     na = mapping.get(a.expr_id)
                     if na is None:
                         na = mapping[a.expr_id] = a.new_instance()
@@ -139,6 +141,12 @@ def _remap_plan(plan: LogicalPlan, mapping: dict[int, AttributeReference],
                     new_attrs.append(a)
             if changed:
                 node = node.copy(attrs=new_attrs)
+        elif isinstance(node, RangeRelation) and \
+                node.attr.expr_id in overlap:
+            na = mapping.get(node.attr.expr_id)
+            if na is None:
+                na = mapping[node.attr.expr_id] = node.attr.new_instance()
+            node = node.copy(attr=na)
         return node.transform_expressions(remap_expr)
 
     return go(plan)

@@ -1,6 +1,7 @@
 """Logical plan nodes (counterpart of `spark_tpu/plan/logical.py`, the nodes
 the port's DataFrame API and SQL parser build): UnresolvedRelation,
-LocalRelation, SubqueryAlias, WithCTE, Project, Filter, Aggregate,
+LogicalRelation (a data source), LocalRelation, OneRowRelation,
+RangeRelation, SubqueryAlias, WithCTE, Project, Filter, Aggregate,
 Distinct, Sort, Limit, Offset, Repartition, Window, GroupingSets, Join
 and Union, with the reference's crude row-count estimates (`stats_rows`)
 that decide broadcast joins."""
@@ -13,10 +14,12 @@ from ..errors import AnalysisException
 from ..expr.expressions import (
     Alias, AttributeReference, Expression, SortOrder,
 )
+from ..types import int64
 from .tree import TreeNode
 
 __all__ = [
     "LogicalPlan", "LeafNode", "UnaryNode", "BinaryNode", "LocalRelation",
+    "LogicalRelation", "OneRowRelation", "RangeRelation",
     "UnresolvedRelation", "SubqueryAlias", "WithCTE", "Project", "Filter",
     "Aggregate", "Distinct", "Sort", "Limit", "Offset",
     "Repartition", "Window", "GroupingSets", "Join", "Union",
@@ -114,6 +117,61 @@ class UnresolvedRelation(LeafNode):
     @property
     def output(self):
         raise AnalysisException(f"unresolved relation {self.name}")
+
+
+class LogicalRelation(LeafNode):
+    """A resolved data source (`io/sources.py`): its schema, splits and
+    estimated rows."""
+
+    def __init__(self, source, attrs: list[AttributeReference],
+                 name: str = ""):
+        self.source = source
+        self.attrs = attrs
+        self.name = name
+
+    @property
+    def output(self):
+        return self.attrs
+
+    def _data_args(self):
+        return (("name", self.name),
+                ("ids", tuple(a.expr_id for a in self.attrs)))
+
+    def stats_rows(self):
+        return getattr(self.source, "estimated_rows", None)
+
+    def simple_string(self):
+        return f"Relation[{self.name}]({', '.join(a.name for a in self.attrs)})"
+
+
+class OneRowRelation(LeafNode):
+    """SELECT without FROM: one row of no columns."""
+
+    @property
+    def output(self):
+        return []
+
+    def stats_rows(self):
+        return 1
+
+
+class RangeRelation(LeafNode):
+    """spark.range(): int64 `id` from start to end (exclusive) by step."""
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int,
+                 attr: AttributeReference | None = None):
+        self.start = start
+        self.end = end
+        self.step = step
+        self.num_partitions = num_partitions
+        self.attr = attr or AttributeReference("id", int64, nullable=False)
+
+    @property
+    def output(self):
+        return [self.attr]
+
+    def stats_rows(self):
+        return max(0, (self.end - self.start + self.step - 1) // self.step)
 
 
 class LocalRelation(LeafNode):

@@ -30,8 +30,8 @@ from ..expr.expressions import (
 from ..types import NullType
 from .logical import (
     Aggregate, Distinct, Filter, GroupingSets, Join, Limit, LocalRelation,
-    LogicalPlan, Offset, Project, Repartition, Sort, SubqueryAlias, Union,
-    Window,
+    LogicalPlan, LogicalRelation, Offset, Project, Repartition, Sort,
+    SubqueryAlias, Union, Window,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -592,7 +592,7 @@ class ColumnPruning(Rule):
             return Aggregate(node.grouping_exprs, new_aggs,
                              self._prune(node.child, child_req))
         if isinstance(node, (Filter, Sort, Limit, Offset, Repartition,
-                             Distinct)):
+                             Distinct, SubqueryAlias)):
             child_req = set(required)
             for e in node.expressions():
                 child_req |= e.references()
@@ -611,6 +611,13 @@ class ColumnPruning(Rule):
             nr = self._prune_side(node.right, (required | cond_refs) & rids)
             if nl is not node.left or nr is not node.right:
                 return node.copy(left=nl, right=nr)
+            return node
+        if isinstance(node, LogicalRelation):
+            # the scan reads only these columns from its files
+            keep = [a for a in node.attrs if a.expr_id in required] \
+                or node.attrs[:1]
+            if len(keep) != len(node.attrs):
+                return node.copy(attrs=keep)
             return node
         if isinstance(node, Window):
             child_req = {a.expr_id for a in node.child.output}

@@ -41,6 +41,10 @@ def estimate_rows(plan: L.LogicalPlan) -> int | None:
     def go(node) -> int | None:
         if isinstance(node, L.LocalRelation):
             return node.table.num_rows
+        if isinstance(node, L.LogicalRelation):
+            # the port keeps no ANALYZE TABLE statistics: the source's
+            # estimate (a Parquet footer's row count; None for CSV, JSON)
+            return getattr(node.source, "estimated_rows", None)
         if isinstance(node, L.Filter):
             rows = go(node.child)
             if rows is None:

@@ -367,7 +367,7 @@ def _fresh_plan(plan: LogicalPlan, mapping: dict | None = None):
     the copy can coexist with the original in one tree (or be embedded
     as an independent subquery) without id collisions."""
     from ..expr.expressions import Alias as _Alias
-    from .logical import LocalRelation
+    from .logical import LocalRelation, LogicalRelation, RangeRelation
 
     mapping = {} if mapping is None else mapping
 
@@ -384,7 +384,7 @@ def _fresh_plan(plan: LogicalPlan, mapping: dict | None = None):
 
     def go(node):
         node = node.map_children(go)
-        if isinstance(node, LocalRelation):
+        if isinstance(node, (LogicalRelation, LocalRelation)):
             new_attrs = []
             for a in node.attrs:
                 na = mapping.get(a.expr_id)
@@ -393,6 +393,12 @@ def _fresh_plan(plan: LogicalPlan, mapping: dict | None = None):
                     mapping[a.expr_id] = na
                 new_attrs.append(na)
             node = node.copy(attrs=new_attrs)
+        elif isinstance(node, RangeRelation):
+            na = mapping.get(node.attr.expr_id)
+            if na is None:  # one fresh id per old id (union-branch shape)
+                na = node.attr.new_instance()
+                mapping[node.attr.expr_id] = na
+            node = node.copy(attr=na)
         return node.map_expressions(lambda ex: ex.transform_up(fix_expr))
 
     return go(plan)

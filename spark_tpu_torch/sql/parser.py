@@ -180,12 +180,14 @@ class Parser:
         while self.eat_op(","):
             select_list.append(self.parse_named_expression())
 
-        if not self.eat_kw("from"):
-            raise NotPortedError("SELECT without FROM (OneRowRelation)")
-        plan = self.parse_relation()
-        while self.eat_op(","):
-            right = self.parse_relation()
-            plan = L.Join(plan, right, "cross", None)
+        plan: L.LogicalPlan
+        if self.eat_kw("from"):
+            plan = self.parse_relation()
+            while self.eat_op(","):
+                right = self.parse_relation()
+                plan = L.Join(plan, right, "cross", None)
+        else:
+            plan = L.OneRowRelation()
 
         if self.eat_kw("where"):
             plan = L.Filter(self.parse_expr(), plan)

@@ -162,6 +162,23 @@ class StructType(DataType):
     def names(self) -> list[str]:
         return [f.name for f in self.fields]
 
+    def add(self, name: str, dataType: DataType,
+            nullable: bool = True) -> "StructType":
+        return StructType(self.fields + (StructField(name, dataType,
+                                                     nullable),))
+
+    def __getitem__(self, name: str) -> StructField:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(name)
+
+    def __len__(self) -> int:
+        return len(self.fields)
+
+    def __iter__(self):
+        return iter(self.fields)
+
     def simple_string(self) -> str:
         inner = ",".join(f"{f.name}:{f.dataType.simple_string()}" for f in self.fields)
         return f"struct<{inner}>"

@@ -1167,3 +1167,61 @@ def test_dictionary_code_aggregate_card_equals_cpu(cuda_device):
         s.stop()
     assert _rows(outs[1], False) == _rows(outs[0], False)
     assert launched[1]  # the card counted through the kernel
+
+
+@pytest.mark.parametrize("start,end,step,parts", [
+    (0, 1 << 22, 1, 8), (10, -(1 << 20), -3, 4), (5, 5, 1, 2)])
+def test_range_card_equals_cpu(cuda_device, start, end, step, parts):
+    """RangeExec makes its tiles on the card; the aggregate over them
+    equals the CPU's and the closed form."""
+    import spark_tpu_torch.api.functions as F
+
+    outs = []
+    for s in _session_pair({"spark.tpu.batch.capacity": 1 << 20}):
+        df = s.range(start, end, step, parts)
+        batches = df.query_execution.physical.execute(
+            s._exec_context())
+        assert all(b.row_mask.device.type == s.device.type
+                   for p in batches for b in p)
+        outs.append(df.agg(F.sum("id"), F.count("*"), F.min("id"),
+                           F.max("id")).toArrow().to_pylist())
+        s.stop()
+    ids = range(start, end, step)
+    assert outs[1] == outs[0] == [{
+        "sum(id)": sum(ids) if len(ids) else None, "count(1)": len(ids),
+        "min(id)": min(ids, default=None), "max(id)": max(ids, default=None)}]
+
+
+@pytest.mark.parametrize("query", [
+    "SELECT k, count(*) n, sum(v) s FROM f GROUP BY k",
+    "SELECT count(*) n FROM f WHERE part IN (1, 3) AND v >= 200",
+    "SELECT d.name, sum(f.v) s FROM f JOIN d ON f.part = d.pk GROUP BY "
+    "d.name"])
+def test_parquet_scan_card_equals_cpu(cuda_device, tmp_path, query):
+    """ScanExec decodes each split to tiles on the card, with partition
+    and row-group pruning and DPP; every result equals the CPU's and the
+    same splits are pruned."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(41)
+    for p in range(4):
+        os.makedirs(tmp_path / f"part={p}")
+        pq.write_table(pa.table({
+            "k": pa.array([f"k{i}" for i in rng.integers(0, 50, 20_000)]),
+            "v": np.arange(20_000) // 50 + p}),
+            tmp_path / f"part={p}" / "f.parquet", row_group_size=4096)
+    dim = pa.table({"pk": [1, 3], "name": ["one", "three"]})
+    outs, metrics = [], []
+    for s in _session_pair({"spark.sql.shuffle.partitions": 4,
+                            "spark.tpu.batch.capacity": 1 << 14}):
+        s.read.parquet(str(tmp_path)).createOrReplaceTempView("f")
+        s.createDataFrame(dim).createOrReplaceTempView("d")
+        outs.append(_rows(s.sql(query).toArrow(), False))
+        metrics.append({k: v for k, v in s.metrics.items()
+                        if k.startswith("scan.")})
+        s.stop()
+    assert outs[1] == outs[0] and outs[0]
+    assert metrics[1] == metrics[0]

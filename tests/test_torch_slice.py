@@ -221,6 +221,8 @@ def test_blockwise_fold_matches_reference(block_rows):
 def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys, numpy as np, pyarrow as pa\n"
+        # jax and the reference absent: importing either raises
+        "sys.modules.update({'jax': None, 'spark_tpu': None})\n"
         "import spark_tpu_torch\n"
         "from spark_tpu_torch import TorchSession\n"
         "import spark_tpu_torch.api.functions as F\n"
@@ -269,8 +271,22 @@ def test_port_imports_neither_jax_nor_reference():
         "n = s.sql(\"SELECT count(*) n FROM dim CROSS JOIN dim d2 \"\n"
         "          \"WHERE dim.name LIKE 'n1%'\")\n"
         "assert n.toArrow().to_pylist()[0]['n'] == 7 * 50\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'spark_tpu' or m.startswith('spark_tpu.')]\n"
+        "import os, tempfile\n"
+        "import spark_tpu_torch.io.sources, spark_tpu_torch.api.readwriter\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'fact')\n"
+        "a.write.partitionBy('k').parquet(p)\n"
+        "f = s.read.parquet(p)\n"
+        "f.createOrReplaceTempView('pfact')\n"
+        "pj = s.sql(\"SELECT count(*) n FROM pfact JOIN dim ON pfact.k = \"\n"
+        "           \"dim.k WHERE dim.k < 5\")\n"
+        "assert pj.toArrow().to_pylist()[0]['n'] == "
+        "int((t.column('k').to_numpy() < 5).sum())\n"
+        "assert s.metrics['scan.dpp_pruned_splits'] == 45\n"
+        "assert s.range(0, 100, 7, 3).count() == 15\n"
+        "assert s.sql('SELECT 1 + 1 AS two').toArrow().num_rows == 1\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
+        "m == 'jax' or m.startswith('jax.') or m == 'spark_tpu' or "
+        "m.startswith('spark_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -298,7 +314,7 @@ def test_unported_entry_points_raise_not_ported(sessions, what):
     df = t.createDataFrame(_table())
     with pytest.raises(NotPortedError):
         if what == "sql":
-            t.sql("select 1")
+            t.sql("VALUES (1)")
         elif what == "binary_column":
             t.createDataFrame(pa.table({"b": [b"a", b"b"]}))
         elif what == "coalesce":

@@ -269,7 +269,9 @@ UNPORTED = {
     # the reference refuses it too
     "distinct": ("SELECT count(DISTINCT s), count(DISTINCT k) FROM t1",
                  "multiple DISTINCT"),
-    "no_from": ("SELECT 1", "without FROM"),
+    # SELECT without FROM runs (OneRowRelation); its expressions are
+    # held to the same rules as any other query's
+    "no_from": ("SELECT 1 % 2", "%"),
     "rollup": ("SELECT k, count(DISTINCT s), count(DISTINCT v) FROM t1 "
                "GROUP BY ROLLUP(k)", "multiple DISTINCT"),
     "using": ("SELECT k FROM t1 JOIN t2 USING (k)", "USING"),

@@ -31,7 +31,7 @@ from spark_tpu_torch import TorchSession  # noqa: E402
 from tests.test_torch_cuda import TPCDS_VARIANTS  # noqa: E402
 from tests.test_torch_cuda import tpcds_query as query_text  # noqa: E402
 from tests.test_torch_tpcds_slice import (  # noqa: E402
-    CONF, JAX_CONF, _chip_smoke, _ops, _renumber, _Sized,
+    CONF, JAX_CONF, _chip_smoke, _ops, _reference_ops, _renumber, _Sized,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,7 +168,8 @@ class Sf10Planner:
 
         session.createDataFrame = sized  # materialised CTEs come through it
         try:
-            return _ops(session.sql(query_text(name)))
+            df = session.sql(query_text(name))
+            return _reference_ops(df) if engine == "jax" else _ops(df)
         finally:
             del session.createDataFrame
             assert not rows, "a materialised CTE was not planned"
