@@ -35,7 +35,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      oracle, the exact number of histogram calls, the breakdown); after
      each path, the main one too, one more run keeps the inputs of every
      histogram call of a new shape, and phase 3 holds each against the
-     plain version and times it there:
+     plain version and times it there. The paths run at the session's
+     default compile tier, `stage` (physical/fusion.py: a fused stage is a
+     CUDA graph captured once and replayed per batch; each fused batch
+     must be one replay, and the histogram calls inside replays count),
+     and print its report: fused stages, captures, replays, cache hits,
+     batches the minRows gate sent to the unfused kernels, capture ms,
+     the copies' device ms per batch, graph memory, peak memory. main,
+     join, range_sort, topk, q78 and window then run once more at the
+     `operator` tier in the same session (its exact histogram calls, the
+     oracle, equal to the stage tier's result, warm median and idle
+     share), and main's and q78's fused batches are held replay against
+     the same body run eagerly on the card (`replay_equals_eager`):
        join:       bench.py's bench_join, 2e7 store_sales rows joined to the
                    73,049-row date_dim and summed by year (broadcast, dense
                    direct-address build), 1 shuffle partition;
@@ -56,9 +67,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
        tpcds:      bench.py's bench_tpcds widened to all 103 TPC-DS
                    query files of tests/tpcds/queries, verbatim:
                    first `tpcds_gate`, every query on the card over
-                   tests/tpcds/datagen.py's tables at scale 0.1, equal to
+                   tests/tpcds/datagen.py's tables at scale 0.1 at the
+                   stage tier with spark.tpu.fusion.minRows 0, equal to
                    its committed golden (LIMIT dropped) and to the port on
-                   the CPU; then each but TPCDS_SF10_CUT (q72) through
+                   the CPU at the operator tier; then each but
+                   TPCDS_SF10_CUT (q72), at the operator tier
+                   (TPCDS_CONF), through
                    session.sql over temp views of the 24 tables they read
                    at SF10 row counts (28,800,991 store_sales and
                    133,110,000 inventory rows; the columns the queries
@@ -79,8 +93,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    materialise or whose scalar subqueries run before it
                    is timed as sql() + collect, with the sql() call (the
                    CTE round trip) and the scalar subqueries on lines of
-                   their own;
-       parquet:    q3, q7 and q19 read through spark.read.parquet from
+                   their own; last q3, q7 and q19 once more at the stage
+                   tier on the same session, each to its oracle;
+       parquet:    (at the stage tier) q3, q7 and q19 read through
+                   spark.read.parquet from
                    files a third process of this script writes
                    (`--tpcds-parquet`, started with it; SF100's
                    dimensions, store_sales cut to SF10's lines), each plan
@@ -98,6 +114,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -149,8 +166,13 @@ TPCDS_ROWS = {"store_sales": 28_800_991, "store_returns": 2_875_432,
               "web_page": 200, "call_center": 24, "reason": 45,
               "income_band": 20, "catalog_page": 12_000,
               "inventory": 133_110_000}
+# the SF10 leg over the 102 files stays at the operator tier for now (its
+# plans, TPCDS_PLAN_OPS, are the operator tier's; ROADMAP.md queue A moves
+# it to the stage tier); q3, q7 and q19 also run at the stage tier on the
+# leg's session (tpcds_stage)
 TPCDS_CONF = {"spark.sql.shuffle.partitions": PARTITIONS,
-              "spark.tpu.batch.capacity": TILE}
+              "spark.tpu.batch.capacity": TILE,
+              "spark.tpu.compile.tier": "operator"}
 _TOPK_OPS = ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
              "SortExec", "ComputeExec", "HashAggregateExec")
 _SCAN = ("ComputeExec", "LocalTableScanExec")
@@ -1726,19 +1748,29 @@ HIST_CALLERS = ("spark_tpu_torch.ops.grouping", "spark_tpu_torch.ops.partition",
                 "spark_tpu_torch.physical.operators")
 
 
-def path_histograms(torch, sk, label: str, run, timed_shapes=None) -> list:
-    """Phase 3 at a path's own inputs: one more `run()` keeps a copy of
-    the inputs of each histogram call with a new (rows, buckets, live share
-    to 1%), then each copy is held against the plain version, and timed as
-    the kernel phase's cases are where its (rows, buckets) is not yet in
-    `timed_shapes` (a set shared by the paths that pass one; None times
-    every copy). Outside the counted run: the copies sync with the host."""
+def path_histograms(torch, sk, label: str, runs,
+                    timed_shapes=None) -> tuple:
+    """Phase 3 at a path's own inputs: one more run of each of `runs`
+    ({tier: run}) keeps a copy of the inputs of each histogram call with a
+    new (rows, buckets, live share to 1%), then each copy is held against
+    the plain version, and timed as the kernel phase's cases are where its
+    (rows, buckets) is not yet in `timed_shapes` (a set shared by the
+    paths that pass one; None times every copy). Outside the counted run:
+    the copies sync with the host. A run at the stage tier goes through
+    `bodies_on_card`, so the calls inside graphs are seen at the replays'
+    own inputs; a capture in it (a program the cache dropped) records
+    nothing. Returns (the calls each run saw, the timed rows)."""
     import importlib
 
     mods = [importlib.import_module(name) for name in HIST_CALLERS]
     seen, inputs = set(), []
+    calls = dict.fromkeys(runs, 0)
+    at = []
 
     def keep(pids, mask, buckets):
+        if torch.cuda.is_current_stream_capturing():
+            return sk.partition_histogram(pids, mask, buckets)
+        calls[at[-1]] += 1
         n, live = pids.shape[0], int(mask.sum())
         shape = (n, buckets, round(live / max(n, 1), 2))
         if shape not in seen:
@@ -1751,7 +1783,9 @@ def path_histograms(torch, sk, label: str, run, timed_shapes=None) -> list:
     for mod in mods:
         mod.partition_histogram = keep
     try:
-        run()
+        for tier, run in runs.items():
+            at.append(tier)
+            run()
     finally:
         for mod in mods:
             mod.partition_histogram = sk.partition_histogram
@@ -1765,8 +1799,9 @@ def path_histograms(torch, sk, label: str, run, timed_shapes=None) -> list:
         else:
             hist_check(torch, sk, shape, k, m, p)
     print(f"{label}: the histogram equals its plain version at "
-          f"{len(inputs)} path inputs ({len(rows)} timed)", flush=True)
-    return rows
+          f"{len(inputs)} path inputs ({len(rows)} timed; calls seen: "
+          f"{json.dumps(calls)})", flush=True)
+    return calls, rows
 
 
 def check_kernels(torch, sk):
@@ -1861,20 +1896,203 @@ def check_kernels(torch, sk):
     return main_hist, main_sum
 
 
+TIER = "spark.tpu.compile.tier"
+
+
+class tier_set:
+    """`with tier_set(spark, "operator"):` the session's compile tier set
+    for the block, its earlier setting restored after."""
+
+    def __init__(self, spark, tier: str):
+        self.spark, self.tier = spark, tier
+
+    def __enter__(self):
+        self.had = self.spark.conf.get(TIER)
+        self.spark.conf.set(TIER, self.tier)
+
+    def __exit__(self, *exc):
+        self.spark.conf.set(TIER, self.had)
+
+
+def stage_counters() -> dict:
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+
+    return STAGE_CACHE.counters()
+
+
+@contextlib.contextmanager
+def bodies_on_card(torch, sk, check=None):
+    """For the block, every fused program replays as usual and then runs
+    its body once more eagerly on the card over the same inputs, so the
+    kernel wrappers inside it run in Python at the replay's own inputs;
+    the eager run's histogram calls are not counted. `check(name,
+    replayed, eager)` sees both results, when given."""
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+    from spark_tpu_torch.utils.cuda_graph import as_tensors
+
+    replay = STAGE_CACHE.run
+
+    def run(name, key, fn, inputs, device):
+        out = replay(name, key, fn, inputs, device)
+        before = dict(sk.LAUNCHES)
+        try:
+            want = list(fn([x if x is None or x.is_cuda else x.to(device)
+                            for x in as_tensors(inputs)]))
+        finally:
+            sk.LAUNCHES.update(before)
+        if check is not None:
+            check(name, out, want)
+        return out
+
+    STAGE_CACHE.run = run
+    try:
+        yield
+    finally:
+        del STAGE_CACHE.run
+
+
+@contextlib.contextmanager
+def copies_timed(torch, events: list):
+    """For the block, each graph replay's copies in and out are timed with
+    device events, appended to `events` as (kind, start, end) and read
+    after the block."""
+    from spark_tpu_torch.utils.cuda_graph import CapturedProgram
+
+    copy_in, copy_out = CapturedProgram.copy_in, CapturedProgram.copy_out
+
+    def timed(kind, f):
+        def run(self, *args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = f(self, *args)
+            ev[1].record()
+            events.append((kind, ev[0], ev[1]))
+            return out
+        return run
+
+    CapturedProgram.copy_in = timed("copy_in", copy_in)
+    CapturedProgram.copy_out = timed("copy_out", copy_out)
+    try:
+        yield
+    finally:
+        CapturedProgram.copy_in, CapturedProgram.copy_out = copy_in, copy_out
+
+
+def fused_stages(df) -> list:
+    """The plan's fused operators (a fused aggregate or limit, a join
+    with its probe pipeline, an exchange with its map pipeline)."""
+    return [n.simple_string()[:60]
+            for n in df.query_execution.physical.iter_nodes()
+            if type(n).__name__.startswith("Fused")
+            or getattr(n, "probe_fusion", None) is not None
+            or getattr(n, "pipe_fusion", None) is not None]
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def counted_run(torch, sk, spark, run):
+    """(result, seconds, histogram launches, stage report) of one run with
+    the launch counts set to 0 just before and read just after, beside the
+    stage cache's counters, the operator dispatches and the batches the
+    minRows gate sent to the unfused kernels. Each fused dispatch must be
+    one graph replay."""
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    c0, l0, m0 = stage_counters(), spark.launches.snapshot(), spark.metrics
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    cache = _delta(stage_counters(), c0)
+    for gauge in ("stage_cache.entries", "stage_cache.held_bytes"):
+        cache.pop(gauge, None)  # levels, not counts
+    dispatches = _delta(spark.launches.snapshot(), l0)
+    m1 = spark.metrics
+    gated = m1.get("fusion.min_rows_gated", 0) - \
+        m0.get("fusion.min_rows_gated", 0)
+    fused = sum(n for k, n in dispatches.items() if k.startswith("fused_"))
+    if cache.get("stage_cache.replays", 0) != fused:
+        fail(f"{cache.get('stage_cache.replays', 0)} graph replays for "
+             f"{fused} fused dispatches: each fused batch must be one "
+             "replay")
+    return out, secs, launches, {"cache": cache, "dispatches": dispatches,
+                                 "gated_batches": gated}
+
+
+def busy_share(torch, run) -> dict:
+    """Device busy s, wall s and idle share of one profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    if not kernels:
+        return {"device_busy_s": "not measured", "profiled_wall_s": wall,
+                "device_idle_share": "not measured"}
+    busy = sum(k[0] for k in kernels) / 1e6
+    return {"device_busy_s": busy, "profiled_wall_s": wall,
+            "device_idle_share": 1 - busy / wall}
+
+
+def same_tables(label: str, a, b, rel: float = 1e-9) -> None:
+    """Two tiers' results equal row for row, both sorted by every column
+    in order (the legs' leading columns are their keys): nulls and
+    non-float columns exactly, floats to `rel` (float sums add in atomic
+    order on the card)."""
+    import numpy as np
+    import pyarrow as pa
+
+    if a.column_names != b.column_names or a.num_rows != b.num_rows:
+        fail(f"{label}: the tiers' results differ in shape")
+    order = [(n, "ascending") for n in a.column_names]
+    a, b = a.sort_by(order), b.sort_by(order)
+    for name in a.column_names:
+        x, y = a.column(name), b.column(name)
+        if not np.array_equal(x.is_null().to_numpy(zero_copy_only=False),
+                              y.is_null().to_numpy(zero_copy_only=False)):
+            fail(f"{label}: the tiers' nulls differ in column {name}")
+        xv = x.drop_null().to_numpy(zero_copy_only=False)
+        yv = y.drop_null().to_numpy(zero_copy_only=False)
+        same = np.allclose(xv, yv, rtol=rel, atol=0, equal_nan=True) \
+            if pa.types.is_floating(x.type) else np.array_equal(xv, yv)
+        if not same:
+            fail(f"{label}: the tiers differ in column {name}")
+
+
 def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
           histograms, check, run=None, timed_shapes=None,
-          profile: bool = True) -> dict:
-    """One path through the DataFrame API: assert the physical plan holds
-    each of `plan_parts`, run it cold with the launch counts set to 0 just
-    before and read just after (the histogram wrapper must count exactly
-    `histograms` calls, or `histograms()` where it is a function of what
-    the run recorded, or at least one where it is None), hold
-    the result to the oracle `check(table)`, then time 3 warm runs, print
-    the breakdown (without its profiler pass where not `profile`), and
-    hold the histogram kernel at the path's own inputs
-    (`path_histograms`). `run()` runs the path and returns its Arrow table
-    (default: `df.toArrow`, over the plan made once). Returns the launch
-    counts."""
+          profile: bool = True, operator=None) -> dict:
+    """One path through the DataFrame API at the session's tier (the
+    default: stage): assert the physical plan holds each of `plan_parts`,
+    run it cold with the launch counts set to 0 just before and read just
+    after (the histogram wrapper must count exactly `histograms` calls,
+    replays counted, or `histograms()` where it is a function of what the
+    run recorded, or at least one where it is None; each fused batch must
+    be one graph replay), hold the result to the oracle `check(table)`,
+    then time 3 warm runs, print the breakdown (without its profiler pass
+    where not `profile`) and the stage tier's report (fused stages,
+    captures, replays, hits, gated batches, capture ms, the copies' device
+    ms per batch in the last warm run, graph memory, peak memory), and hold
+    the histogram kernel at the path's own inputs (`path_histograms`, at
+    both tiers: the stage tier's bodies run once more eagerly beside their
+    replays, where the wrappers see the replays' inputs). Where
+    `operator` is given, the same query then runs once more at the
+    operator tier in the same session: its histogram calls exactly
+    `operator`, its result to the oracle and to the stage tier's, 3 warm
+    runs and a profiled one. `run()` runs the path and returns its Arrow
+    table (default: `df.toArrow`, over the plan made once). Returns the
+    launch counts."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+
+    spark = df.session
+    custom = run is not None
     run = run or df.toArrow
     plan = df.query_execution.physical.tree_string()
     print(f"{label} plan:\n{plan}", flush=True)
@@ -1882,38 +2100,110 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
         if part not in plan:
             fail(f"{label}: the physical plan lacks {part}")
 
-    torch.cuda.synchronize()
-    sk.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    held0 = stage_counters()["stage_cache.held_bytes"]
+    out, cold_s, launches, stage = counted_run(torch, sk, spark, run)
     calls = launches["partition_histogram"]
     if callable(histograms):
         histograms = histograms()
     print(f"{label} launches {json.dumps(launches)}; operator dispatches "
-          f"{json.dumps(df.session.launches.snapshot())}", flush=True)
+          f"{json.dumps(stage['dispatches'])}", flush=True)
     if calls != histograms and (histograms is not None or calls < 1):
         fail(f"{label} launched the histogram kernel {calls} times, not "
              f"{'at least 1' if histograms is None else histograms}")
     print(f"{label}: {check(out)}", flush=True)
 
-    warm = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
+    warm, events = [], []
+    for i in range(3):
+        # the copies into and out of each graph, timed with device events
+        # in the last warm run (4 events per replay, read after the run)
+        with copies_timed(torch, events) if i == 2 \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
+    copy_ms = {"copy_in": 0.0, "copy_out": 0.0}
+    for kind, start, end in events:
+        copy_ms[kind] += start.elapsed_time(end)
+    batches = sum(kind == "copy_in" for kind, _, _ in events)
     warm_s = statistics.median(warm)
     timing = {"rows": rows, "cold_s": cold_s, "warm_median_s": warm_s,
               "warm_s": warm, "cold_rows_per_s": rows / cold_s,
               "warm_rows_per_s": rows / warm_s,
               "histogram_calls": calls, "card": card}
     print(f"{label} timing " + json.dumps(timing), flush=True)
-    print(f"{label} breakdown " + json.dumps(breakdown(torch, df, profile)),
-          flush=True)
-    path_histograms(torch, sk, label, run, timed_shapes)
+    bd = breakdown(torch, df, profile)
+    print(f"{label} breakdown " + json.dumps(bd), flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cc = stage["cache"]
+    report = {
+        "tier": df.query_execution.tier_decision.tier,
+        "fused_stages": fused_stages(df),
+        "captures": cc.get("stage_cache.captures", 0),
+        "replays": cc.get("stage_cache.replays", 0),
+        "hits": cc.get("stage_cache.hits", 0),
+        "gated_batches": stage["gated_batches"],
+        "capture_ms": cc.get("stage_cache.capture_ms", 0.0),
+        "copy_in_ms_per_batch": copy_ms["copy_in"] / batches
+        if batches else None,
+        "copy_out_ms_per_batch": copy_ms["copy_out"] / batches
+        if batches else None,
+        "warm_replays": batches,
+        "graph_gb_captured": cc.get("stage_cache.graph_bytes", 0) / 1e9,
+        "graph_gb_held": stage_counters()["stage_cache.held_bytes"] / 1e9,
+        "pool_resets": cc.get("stage_cache.resets", 0),
+        "graph_gb_held_before": held0 / 1e9,
+        "peak_gb": peak_gb,
+        "warm_median_s": warm_s,
+        "device_idle_share": bd.get("device_idle_share", "not measured"),
+        "dispatches": stage["dispatches"], "histogram_calls": calls,
+        "card": card}
+    print(f"{label} stage " + json.dumps(report), flush=True)
+
+    if custom:
+        op_run = run
+    else:
+        def op_run():
+            return DataFrame(spark, df.plan).toArrow()
+    with tier_set(spark, "operator"):
+        if operator is not None:
+            o_out, o_cold, o_launches, o_stage = counted_run(
+                torch, sk, spark, op_run)
+            o_calls = o_launches["partition_histogram"]
+            if o_calls != operator:
+                fail(f"{label} at the operator tier launched the histogram "
+                     f"kernel {o_calls} times, not {operator}")
+            if o_stage["cache"].get("stage_cache.replays", 0):
+                fail(f"{label}: the operator tier replayed a graph")
+            print(f"{label} operator tier: {check(o_out)}", flush=True)
+            same_tables(label, out, o_out)
+            o_warm = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                op_run()
+                torch.cuda.synchronize()
+                o_warm.append(time.perf_counter() - t0)
+            print(f"{label} operator " + json.dumps(dict(
+                busy_share(torch, op_run), tier="operator",
+                cold_s=o_cold, warm_median_s=statistics.median(o_warm),
+                warm_s=o_warm, dispatches=o_stage["dispatches"],
+                histogram_calls=o_calls, card=card)), flush=True)
+
+    def stage_run():
+        with bodies_on_card(torch, sk):
+            run()
+
+    def operator_run():
+        with tier_set(spark, "operator"):
+            op_run()
+
+    seen, _ = path_histograms(
+        torch, sk, label, {"stage": stage_run, "operator": operator_run},
+        timed_shapes)
+    if calls and not seen["stage"]:
+        fail(f"{label}: the stage tier's run showed no histogram call to "
+             f"record, though the path made {calls}")
     return launches
 
 
@@ -1988,9 +2278,47 @@ def main_path(torch, sk, card: str, k, v):
                      (f"Exchange[UnknownPartitioning({PARTITIONS})]",
                       f"Exchange[HashPartitioning({PARTITIONS})]",
                       "HashAggregate[partial]", "HashAggregate[final]"),
-                     MAIN_HISTOGRAMS, check)
+                     MAIN_HISTOGRAMS, check, operator=MAIN_HISTOGRAMS)
+    replay_equals_eager(torch, "main path", df.toArrow)
     spark.stop()
     return launches
+
+
+def replay_equals_eager(torch, label: str, run) -> None:
+    """One more run in which every fused batch's graph outputs are held
+    to the same fused body run eagerly on the card over the same inputs,
+    batch by batch: integers and masks exactly, floats to relative 1e-12
+    (the dense sums add in atomic order)."""
+    import spark_tpu_torch.ops.scatter_kernels as sk
+
+    seen = []
+
+    def compare(name, got, want):
+        if len(got) != len(want):
+            fail(f"{label} {name}: {len(got)} outputs replayed, "
+                 f"{len(want)} eager")
+        for i, (g, w) in enumerate(zip(got, want)):
+            if (g is None) != (w is None):
+                fail(f"{label} {name}: output {i} is None on one side")
+            if g is None:
+                continue
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{label} {name}: output {i} is {g.dtype}{list(g.shape)}"
+                     f" replayed, {w.dtype}{list(w.shape)} eager")
+            ok = torch.allclose(g, w, rtol=1e-12, atol=0, equal_nan=True) \
+                if g.dtype.is_floating_point else torch.equal(g, w)
+            if not ok:
+                fail(f"{label} {name}: output {i} differs between the "
+                     "replay and the eager run")
+        seen.append(name)
+
+    with bodies_on_card(torch, sk, compare):
+        run()
+        torch.cuda.synchronize()
+    if not seen:
+        fail(f"{label}: no fused batch to hold against its eager run")
+    print(f"{label}: {len(seen)} fused batches' replays equal their eager "
+          f"runs on the card ({sorted(set(seen))})", flush=True)
 
 
 def rel_err(got, exp) -> float:
@@ -2041,7 +2369,7 @@ def join_leg(torch, sk, card: str) -> dict:
 
     launches = drive(torch, sk, card, "join leg", df, ROWS + DATES,
                      ("BroadcastExchange", "BroadcastHashJoin[inner]"),
-                     leg_calls("join"), check)
+                     leg_calls("join"), check, operator=leg_calls("join"))
     spark.stop()
     return launches
 
@@ -2094,7 +2422,8 @@ def range_sort_leg(torch, sk, card: str, k, v) -> dict:
 
     launches = drive(torch, sk, card, "range_sort leg", df, ROWS,
                      (f"Exchange[RangePartitioning({PARTITIONS})]",
-                      "Sort[k#"), leg_calls("range_sort"), check)
+                      "Sort[k#"), leg_calls("range_sort"), check,
+                     operator=leg_calls("range_sort"))
     spark.stop()
     return launches
 
@@ -2122,7 +2451,7 @@ def topk_leg(torch, sk, card: str, k, v) -> dict:
     launches = drive(torch, sk, card, "topk leg", df, ROWS,
                      ("LimitExec(is_global=True", "LimitExec(is_global=False",
                       "Exchange[SinglePartition(1)]"),
-                     leg_calls("topk"), check)
+                     leg_calls("topk"), check, operator=leg_calls("topk"))
     spark.stop()
     return launches
 
@@ -2193,7 +2522,8 @@ def q78_leg(torch, sk, card: str) -> dict:
 
     launches = drive(torch, sk, card, "q78 leg", df, ROWS + Q78_RETURNS,
                      ("ShuffledHashJoin[left_outer]",),
-                     leg_calls("q78"), check)
+                     leg_calls("q78"), check, operator=leg_calls("q78"))
+    replay_equals_eager(torch, "q78 leg", df.toArrow)
     spark.stop()
     return launches
 
@@ -2273,7 +2603,7 @@ def window_leg(torch, sk, card: str, k, v) -> dict:
     launches = drive(torch, sk, card, "window leg", df, ROWS,
                      (f"Exchange[HashPartitioning({PARTITIONS})]",
                       "Window[rownumber, rank, denserank, sum, lag, max]"),
-                     leg_calls("window"), check)
+                     leg_calls("window"), check, operator=leg_calls("window"))
     spark.stop()
     return launches
 
@@ -3272,15 +3602,23 @@ def tpcds_gate(torch) -> None:
     tables = G.gen_tpcds_full(scale=0.1)
     conf = {"spark.sql.shuffle.partitions": 4,
             "spark.tpu.batch.capacity": 1 << 10}
-    card = session(conf)
-    cpu = TorchSession("chip_smoke_cpu", dict(conf), device="cpu")
+    # the card at the stage tier with every tile fused (minRows 0), the
+    # CPU at the operator tier: the oracle
+    card = session(dict(conf, **{TIER: "stage",
+                                 "spark.tpu.fusion.minRows": 0}))
+    cpu = TorchSession("chip_smoke_cpu", dict(conf, **{TIER: "operator"}),
+                       device="cpu")
+    c0 = stage_counters()
+    fused_files = 0
     for name, table in tables.items():
         card.createDataFrame(table).createOrReplaceTempView(name)
         cpu.createDataFrame(table).createOrReplaceTempView(name)
     rows = {}
     for q in TPCDS_QUERIES:
         text = tpcds_text(q)
-        got = card.sql(text).toArrow()
+        got_df = card.sql(text)
+        fused_files += bool(fused_stages(got_df))
+        got = got_df.toArrow()
         want = cpu.sql(text).toArrow()
         if not same_result(q, got, want):
             fail(f"tpcds_gate {q}: the card's result differs from the "
@@ -3295,10 +3633,17 @@ def tpcds_gate(torch) -> None:
         if not ok:
             fail(f"tpcds_gate {q}: not its golden: {msg}")
         rows[q] = got.num_rows
+    gated = card.metrics.get("fusion.min_rows_gated", 0)
     card.stop()
     cpu.stop()
-    print(f"tpcds_gate: {len(rows)} queries equal to their goldens and to "
-          f"the CPU in {time.perf_counter() - t0:.1f} s; rows as written "
+    cache = _delta(stage_counters(), c0)
+    if gated:
+        fail(f"tpcds_gate: {gated} batches took the unfused kernels at "
+             "minRows 0")
+    print(f"tpcds_gate: {len(rows)} queries at the stage tier equal to "
+          f"their goldens and to the CPU's operator tier in "
+          f"{time.perf_counter() - t0:.1f} s; {fused_files} plans fuse; "
+          f"stage cache {json.dumps(cache)}; rows as written "
           f"{json.dumps(rows)}", flush=True)
 
 
@@ -3409,11 +3754,66 @@ def tpcds_leg(torch, sk, card: str):
                 "cold_optimize_s": scalar_s[0],
                 "warm_optimize_median_s": statistics.median(scalar_s[1:4]),
                 "card": card}), flush=True)
+    tpcds_stage(torch, sk, card, spark, arrays)
     spark.stop()
     print("tpcds peak device memory " + json.dumps({
         "max_memory_allocated_gb": max(peak.values()),
         "by_query_gb": peak, "card": card}), flush=True)
     return out, results
+
+
+def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
+    """q3, q7 and q19 at SF10 once more at the stage tier, on the tpcds
+    leg's session (its conf set; the views are the same, nothing is
+    ingested again): each plan fuses, each result equals its numpy oracle,
+    each fused batch is one replay. Then each query, planned once at
+    either tier, runs warm 3 times at each in turn (stage, operator, ...),
+    with one profiled run at each (device busy and idle share) and the
+    copies into and out of the graphs timed in one more stage run, to
+    place the tiers' difference: device copies, or host time per batch."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+
+    for q in TPCDS_ORACLES:
+        with tier_set(spark, "stage"):
+            df = spark.sql(tpcds_text(q))
+            df.query_execution.physical
+        with tier_set(spark, "operator"):
+            op_df = DataFrame(spark, df.plan)
+            op_df.query_execution.physical
+        stages = fused_stages(df)
+        if not stages:
+            fail(f"tpcds {q}: nothing fuses at the stage tier")
+        rows, key = tpcds_oracle(q, arrays)
+        out, cold_s, launches, st = counted_run(torch, sk, spark, df.toArrow)
+        msg = _check_topk(f"tpcds {q} stage", tpcds_rows(q, out), rows, key)
+        warm = {"stage": [], "operator": []}
+        for _ in range(3):
+            for tier, d in (("stage", df), ("operator", op_df)):
+                t0 = time.perf_counter()
+                d.toArrow()
+                torch.cuda.synchronize()
+                warm[tier].append(time.perf_counter() - t0)
+        events = []
+        with copies_timed(torch, events):
+            df.toArrow()
+            torch.cuda.synchronize()
+        copies = {"copy_in": 0.0, "copy_out": 0.0}
+        for kind, start, end in events:
+            copies[kind] += start.elapsed_time(end)
+        print(f"tpcds {q} stage " + json.dumps({
+            "check": msg, "fused_stages": stages, "cold_s": cold_s,
+            "warm_median_s": statistics.median(warm["stage"]),
+            "warm_s": warm["stage"],
+            "operator_warm_median_s": statistics.median(warm["operator"]),
+            "operator_warm_s": warm["operator"],
+            "stage_busy": busy_share(torch, df.toArrow),
+            "operator_busy": busy_share(torch, op_df.toArrow),
+            "replays_per_run": sum(k == "copy_in" for k, _, _ in events),
+            "copy_in_ms_per_run": copies["copy_in"],
+            "copy_out_ms_per_run": copies["copy_out"],
+            "histogram_calls": launches["partition_histogram"], **st,
+            "held_gb": stage_counters()["stage_cache.held_bytes"] / 1e9,
+            "card": card}), flush=True)
 
 
 def nested_loop_pairs(spark, q: str, run, card: str) -> None:
@@ -3575,15 +3975,22 @@ PARQUET_DISK_GB = 12            # free disk the leg's files need, at most
 # in a shuffled join, every other dimension is broadcast, and the aggregate
 # merges its partials (_MERGE)
 _PSCAN = ("ComputeExec", "ScanExec")
-_PSHUF = ("ShuffleExchangeExec",) + _PSCAN
 _PBCAST = ("BroadcastExchangeExec",) + _PSCAN
 _PTOP = _TOPK_OPS[:-1] + _MERGE
+# the parquet leg's plans at the stage tier (the leg runs at the default
+# tier): each shuffle exchange runs its scan's filter/project in its map
+# program, a join whose probe pipeline fuses loses its ComputeExec, and
+# q19's partial aggregate fuses with the Compute below it
+_PFSHUF = ("ShuffleExchangeExec", "ScanExec")
 PARQUET_PLAN_OPS = {
-    "q3": _PTOP + _JOIN + ("HashJoinExec",) + _PSHUF * 2 + _PBCAST,
-    "q7": _PTOP + _JOIN * 3 + ("HashJoinExec",) + _PSHUF * 2 + _PBCAST * 3,
-    "q19": _PTOP + ("ComputeExec",) + _JOIN * 4 + ("HashJoinExec",)
-    + _PSHUF * 2 + _PBCAST * 4,
+    "q3": _PTOP + _JOIN + ("HashJoinExec",) + _PFSHUF * 2 + _PBCAST,
+    "q7": _PTOP + ("HashJoinExec",) * 3 + ("ComputeExec", "HashJoinExec")
+    + _PFSHUF * 2 + _PBCAST * 3,
+    "q19": _PTOP[:-1] + ("FusedAggregateExec",) + ("HashJoinExec",) * 3
+    + ("ComputeExec", "HashJoinExec") * 2 + _PFSHUF * 2 + _PBCAST * 4,
 }
+# the parquet leg runs at the default tier (stage)
+PARQUET_CONF = {k: v for k, v in TPCDS_CONF.items() if k != TIER}
 # the columns each scan reads (column pruning into the Parquet reader)
 PARQUET_SCAN_COLS = {
     "q3": (("date_dim", ("d_date_sk", "d_year", "d_moy")),
@@ -3616,7 +4023,8 @@ PARQUET_SCAN_COLS = {
 DPP_QUERY = ("SELECT d_year, sum(ss_ext_sales_price) s FROM store_sales "
              "JOIN date_dim ON ss_sold_date_sk = d_date_sk WHERE d_moy = 11 "
              "GROUP BY d_year")
-DPP_PLAN_OPS = ("ComputeExec",) + _MERGE + _JOIN + ("ScanExec",) + _PBCAST
+DPP_PLAN_OPS = ("ComputeExec",) + _MERGE + ("HashJoinExec", "ScanExec") \
+    + _PBCAST
 
 
 def _parquet_dims(G, rng, n: dict) -> dict:
@@ -4083,7 +4491,7 @@ def parquet_leg(torch, sk, card: str, proc: subprocess.Popen,
             oracle = json.load(f)
         gc.collect()
         torch.cuda.empty_cache()
-        spark = session(TPCDS_CONF)
+        spark = session(PARQUET_CONF)
         for name in PARQUET_ROWS:
             spark.read.parquet(os.path.join(PARQUET_DIR, name)) \
                 .createOrReplaceTempView(name)

@@ -177,6 +177,10 @@ class DataFrame:
     def toArrow(self) -> pa.Table:
         return self.query_execution.to_arrow()
 
+    def explain(self, mode: str = "formatted") -> None:
+        """Print the query plans and the compile tier with its reason."""
+        print(self.query_execution.explain_string(mode))
+
     def count(self) -> int:
         agg = L.Aggregate([], [E.Alias(E.Count(None), "count")], self.plan)
         t = QueryExecution(self.session, agg).to_arrow()

@@ -179,6 +179,18 @@ class StringDict:
         return self._on("ranks", device, lambda: self.ranks
                         if len(self.values) else np.zeros(1, np.int32))
 
+    def device_hash_lut(self) -> np.ndarray:
+        """The value hashes padded to a bucketed length (a power of two,
+        8 at least, the last entry repeated), so a fused program's key does
+        not change with every dictionary size (reference:
+        `spark_tpu/columnar/batch.py` StringDict.device_hash_lut). Fused
+        string hash keys and fused probes over strings read it as an input
+        of their program."""
+        from ..expr.eval import pad_pow2
+
+        return pad_pow2(self.hashes if len(self.values)
+                        else np.zeros(1, np.int64))
+
     def device_rank_to_code(self, device) -> torch.Tensor:
         """Inverse of ranks: rank -> dictionary code."""
         def make():
@@ -196,7 +208,7 @@ class StringDict:
 
     def transformed(self, key: str, fn):
         """(StringDict of fn over the values with duplicates removed, None
-        or a `device -> int32 recode lut` when fn mapped two values to one),
+        or the int32 recode lut (numpy) when fn mapped two values to one),
         memoised per `key`: a dictionary transforms once however many
         batches share it."""
         hit = self._transforms.get(key)
@@ -206,9 +218,7 @@ class StringDict:
             if len(uniq) == len(mapped):
                 hit = (mapped, None)
             else:
-                recode = StringDict(uniq.values)
-                hit = (recode, lambda device, _lut=lut: recode._on(
-                    ("recode", key, id(self)), device, lambda: _lut))
+                hit = (StringDict(uniq.values), lut)
             self._transforms[key] = hit
         return hit
 
@@ -259,8 +269,9 @@ EMPTY_DICT = StringDict([])
 def _take_codes(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """lut[codes] with the codes clamped into the lut: padding and dead
     rows may hold any code, and an index out of range is a device assert
-    on the card."""
-    return lut[codes.clamp(0, lut.shape[0] - 1).to(torch.int64)]
+    on the card. A gather (`torch.take`), also for a literal's 0-dim codes,
+    which plain indexing would read on the host."""
+    return torch.take(lut, codes.clamp(0, lut.shape[0] - 1).to(torch.int64))
 
 
 @dataclass(frozen=True)

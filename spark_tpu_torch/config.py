@@ -91,10 +91,74 @@ NESTED_LOOP_TILE_FACTOR = 8
 """A nested-loop join forms its pairs in tiles of at most
 spark.tpu.batch.capacity times this many rows."""
 
+FUSION_ENABLED = _register(ConfigEntry(
+    "spark.tpu.fusion.enabled", True,
+    "Whole-stage fusion: collapse each exchange-free chain of fusable "
+    "operators (filter/project feeding a partial aggregate, limit, "
+    "hash-join probe or shuffle write) into ONE program per batch "
+    "(reference: WholeStageCodegenExec produce/consume splicing, "
+    "sqlx/WholeStageCodegenExec.scala:673). On the card the program is "
+    "a captured CUDA graph replayed per batch; on the CPU it runs "
+    "eagerly. Off = operator-at-a-time execution, kept as the "
+    "differential-testing oracle.", _bool))
+
+FUSION_MIN_ROWS = _register(ConfigEntry(
+    "spark.tpu.fusion.minRows", 1 << 17,
+    "Partition tile-capacity floor for running the whole-stage FUSED "
+    "program. A fused program is captured per (stage structure, "
+    "signature, capacity) while the operator-at-a-time kernels are "
+    "shared across query structures: below this many rows the capture "
+    "costs more than the dispatches it saves, so small partitions take "
+    "the unfused kernels (same plan, runtime dispatch). 0 = always "
+    "fuse.", int))
+
+FUSION_DENSE_KEYS = _register(ConfigEntry(
+    "spark.tpu.fusion.denseKeys", True,
+    "Allow the fused partial aggregate to take the dense-range direct "
+    "scatter path when the grouping key is a pass-through integral column "
+    "whose (memoized) range fits a capacity bucket.", _bool))
+
+FUSION_EXCHANGE = _register(ConfigEntry(
+    "spark.tpu.fusion.exchange", True,
+    "Exchange map-side fusion: a stage whose terminal is a shuffle "
+    "exchange runs its filter/project pipeline AND the partition-id "
+    "computation (hash/range/round-robin) as ONE program per map batch "
+    "that emits the pid-grouped pipeline output; shuffle writes consume "
+    "it directly: no intermediate materialized batch, one dispatch per "
+    "map batch. Requires spark.tpu.fusion.enabled; subject to the "
+    "spark.tpu.fusion.minRows size gate.", _bool))
+
+COMPILE_TIER = _register(ConfigEntry(
+    "spark.tpu.compile.tier", "auto",
+    "Compilation tier: 'stage' runs one program per stage per batch "
+    "(whole-stage fusion, with the per-partition minRows runtime gate as "
+    "the stage->operator fallback); 'operator' forces the shared "
+    "operator-at-a-time kernels (the differential oracle). 'auto' "
+    "(default) resolves to 'stage': the reference's cost model chooses "
+    "between 'stage' and 'whole', and the whole-query tier is not "
+    "ported (physical/whole_query.py), which the plan's tier decision "
+    "records. 'whole' and 'mesh-whole' raise NotPortedError.", str))
+
+# keys of the reference's fusion and tier families the port does not
+# implement: setting one raises rather than being ignored
+UNPORTED_KEYS = {
+    "spark.tpu.fusion.mesh": "mesh stage fusion (parallel/mesh_exchange.py)",
+    "spark.tpu.compile.whole.minRows":
+        "the whole-query tier (physical/whole_query.py)",
+}
+
 DEVICE = _register(ConfigEntry(
     "spark.torch.device", "cuda",
     "torch device the session runs on: 'cuda' (default; raises when no "
     "card is present) or 'cpu'. There is no fallback between them.", str))
+
+
+def _check_ported(key: str) -> None:
+    what = UNPORTED_KEYS.get(key)
+    if what is not None:
+        from .errors import NotPortedError
+
+        raise NotPortedError(f"{key}: {what}")
 
 
 class SQLConf:
@@ -106,9 +170,18 @@ class SQLConf:
     def __init__(self, overrides: dict[str, Any] | None = None):
         self._lock = threading.RLock()
         self._values: dict[str, Any] = dict(overrides or {})
+        for k in self._values:
+            _check_ported(k)
+
+    def unset(self, key: str | ConfigEntry) -> "SQLConf":
+        k = key.key if isinstance(key, ConfigEntry) else key
+        with self._lock:
+            self._values.pop(k, None)
+        return self
 
     def set(self, key: str | ConfigEntry, value: Any) -> "SQLConf":
         k = key.key if isinstance(key, ConfigEntry) else key
+        _check_ported(k)
         with self._lock:
             self._values[k] = value
         return self

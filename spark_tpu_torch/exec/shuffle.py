@@ -213,6 +213,36 @@ def shuffle_range(partitions: list[Partition], key_position: int,
     return _finish(bufs, ctx)
 
 
+def shuffle_fused(partitions: list[Partition], writer, num_out: int,
+                  schema: StructType, ctx: ExecContext) -> list[Partition]:
+    """Fused exchange map side: `writer` (physical/fusion.ExchangeFusion
+    bound to a partitioning) runs ONE program per input batch (pipeline +
+    partition ids + pid-grouped gather) and this loop slices its output
+    straight into the reduce buffers once the counts cross to the host: no
+    intermediate materialized batch between the stage pipeline and the
+    shuffle write. Partitions under spark.tpu.fusion.minRows take the
+    unfused kernels instead (pipeline + shuffle kind), as the other fused
+    operators' size gate does."""
+    from ..config import FUSION_MIN_ROWS
+
+    bufs = [_OutBuffer(schema) for _ in range(num_out)]
+    min_rows = int(ctx.conf.get(FUSION_MIN_ROWS))
+    start = 0  # running live-row offset (round-robin positioning)
+    for part in partitions:
+        fused = sum(b.capacity for b in part) >= min_rows
+        if not fused:
+            ctx.metrics.add("fusion.min_rows_gated", len(part))
+        for batch in part:
+            if fused:
+                gathered, counts = writer.partition_batch(batch, start, ctx)
+            else:
+                gathered, counts = writer.partition_unfused(batch, start,
+                                                            ctx)
+            _slice_into(bufs, gathered, counts)
+            start += sum(counts)
+    return _finish(bufs, ctx)
+
+
 def gather_single(partitions: list[Partition]) -> list[Partition]:
     """AllTuples: concatenate every partition into one."""
     merged: Partition = []

@@ -1,22 +1,39 @@
-"""Expression evaluation context (counterpart of `spark_tpu/expr/eval.py`).
+"""Expression evaluation contexts (counterpart of `spark_tpu/expr/eval.py`).
 
-The JAX package evaluates each expression twice: a host pass for metadata
-and aux lookup tables (dictionaries, their hash and rank luts), then a trace
-inside `jax.jit`. PyTorch runs eagerly, so one pass does both: a string
-value carries its host dictionary (`sdict`) beside its device codes, and a
-lut crosses to the device where the expression needs it.
+A string value carries its host dictionary (`sdict`) beside its device
+codes, and an expression that needs a lookup table over a dictionary
+(value hashes, ranks, recodes, parsed values) asks the context for it with
+`ctx.aux(make)`. Three contexts answer:
+
+  * `EvalCtx`: eager evaluation over one batch (the operator-at-a-time
+    pipelines). A lut crosses to the device where the expression needs it,
+    cached on its dictionary where the expression says how.
+  * `HostCtx`: the host pass of a fused stage (the reference's HostCtx).
+    The expressions run over meta tensors, so no row is computed and no
+    value is read: the pass yields each output's dtype, validity presence
+    and dictionary, and every lut the device pass will read, as numpy
+    arrays padded to a power of two (`aux_arrays`, in request order). A
+    program's key holds only their shapes, so an expression asks for the
+    same luts whatever its dictionaries hold. A value read on the host (a
+    sync) raises here, on the CPU too.
+  * `TraceCtx`: the device pass of a fused stage (the reference's
+    TraceCtx): the same expressions over the stage's inputs, each `aux`
+    request answered by the next of the luts the host pass harvested,
+    already on the device. Nothing in it copies from the host, so it can
+    be captured into a CUDA graph.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ..types import DataType
 
-__all__ = ["Val", "EvalCtx"]
+__all__ = ["Val", "EvalCtx", "HostCtx", "TraceCtx", "pad_pow2"]
 
 
 @dataclass
@@ -32,9 +49,30 @@ class Val:
     sdict: Any = None
 
 
+def pad_pow2(arr: np.ndarray, minimum: int = 8) -> np.ndarray:
+    """`arr` (1-D) padded to a power-of-two length of at least `minimum`
+    by repeating its last entry, so a fused program's key does not change
+    with every dictionary size. Codes clamp into a lut, so a live code
+    reads what it read unpadded; a membership test over padded targets
+    sees the last target twice."""
+    arr = np.asarray(arr)
+    if arr.size == 0:
+        arr = np.zeros(1, dtype=arr.dtype)
+    n = minimum
+    while n < arr.shape[0]:
+        n <<= 1
+    if n == arr.shape[0]:
+        return arr
+    return np.pad(arr, (0, n - arr.shape[0]), mode="edge")
+
+
 class EvalCtx:
-    """Memoized evaluation over one batch. `inputs` maps attribute
+    """Memoized eager evaluation over one batch. `inputs` maps attribute
     expr_id -> Val."""
+
+    # True in the two passes of a fused stage: an expression whose luts
+    # depend on the dictionary's contents then asks for them all the same
+    fused = False
 
     def __init__(self, inputs: dict[int, Val], capacity: int,
                  device: torch.device):
@@ -58,7 +96,19 @@ class EvalCtx:
         return self.inputs[expr_id]
 
     def scalar(self, value, dtype: torch.dtype) -> torch.Tensor:
-        return torch.tensor(value, dtype=dtype, device=self.device)
+        # a fill kernel, not a host copy: literals may sit inside a
+        # captured stage (they are part of its key)
+        return torch.full((), value, dtype=dtype, device=self.device)
+
+    def aux(self, make: Callable[[], np.ndarray],
+            cached: Callable[[], torch.Tensor] | None = None
+            ) -> torch.Tensor:
+        """A lookup table on the device: `cached()` (a copy the
+        dictionary keeps per device) where the expression has one, else
+        `make()` (a numpy array) copied over."""
+        if cached is not None:
+            return cached()
+        return torch.from_numpy(np.asarray(make())).to(self.device)
 
     @staticmethod
     def and_valid(*vals: Val):
@@ -70,3 +120,42 @@ class EvalCtx:
         for p in present[1:]:
             out = out & p
         return out
+
+
+class HostCtx(EvalCtx):
+    """The host pass of a fused stage over meta tensors; see the module
+    docstring. `aux_arrays` holds the luts in request order."""
+
+    fused = True
+
+    def __init__(self, inputs: dict[int, Val], capacity: int):
+        super().__init__(inputs, capacity, torch.device("meta"))
+        self.aux_arrays: list[np.ndarray] = []
+
+    def aux(self, make, cached=None) -> torch.Tensor:
+        arr = pad_pow2(np.asarray(make()))
+        self.aux_arrays.append(arr)
+        return torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0]).dtype,
+                           device="meta")
+
+    def signature(self) -> tuple:
+        """Part of a fused program's key: the luts' shapes and dtypes."""
+        return tuple((a.shape, str(a.dtype)) for a in self.aux_arrays)
+
+
+class TraceCtx(EvalCtx):
+    """The device pass of a fused stage: `aux_args` are the host pass's
+    luts on the device, answered in request order."""
+
+    fused = True
+
+    def __init__(self, inputs: dict[int, Val], capacity: int,
+                 device: torch.device, aux_args: list):
+        super().__init__(inputs, capacity, device)
+        self._aux_args = aux_args
+        self._aux_pos = 0
+
+    def aux(self, make, cached=None) -> torch.Tensor:
+        a = self._aux_args[self._aux_pos]
+        self._aux_pos += 1
+        return a

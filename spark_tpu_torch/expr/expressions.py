@@ -334,7 +334,7 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType,
         return Val(to, ctx.scalar(0, dd), ctx.scalar(False, torch.bool),
                    StringDict([""]) if isinstance(to, StringType) else None)
     if isinstance(frm, StringType) and isinstance(to, DateType):
-        return _string_to_date(c)
+        return _string_to_date(ctx, c)
     if isinstance(frm, StringType) or isinstance(to, StringType):
         raise NotPortedError(f"cast({frm.simple_string()} as "
                              f"{to.simple_string()})")
@@ -387,7 +387,7 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType,
     return Val(to, data.to(dd), c.validity)
 
 
-def _string_to_date(c: Val) -> Val:
+def _string_to_date(ctx: EvalCtx, c: Val) -> Val:
     """cast(string as date): each dictionary value parsed once on the host
     (ISO `yyyy-mm-dd`, the first ten characters after trimming; anything
     else is NULL), the codes gathering day numbers and validity."""
@@ -406,9 +406,11 @@ def _string_to_date(c: Val) -> Val:
                 pass
         return days, ok
 
-    dev = c.data.device
-    days = sd._on("date_days", dev, lambda: parse()[0])
-    ok = _take_codes(sd._on("date_ok", dev, lambda: parse()[1]), c.data)
+    dev = ctx.device
+    days = ctx.aux(lambda: parse()[0],
+                   lambda: sd._on("date_days", dev, lambda: parse()[0]))
+    ok = _take_codes(ctx.aux(lambda: parse()[1], lambda: sd._on(
+        "date_ok", dev, lambda: parse()[1])), c.data)
     return Val(date, _take_codes(days, c.data),
                ok if c.validity is None else ok & c.validity)
 
@@ -790,7 +792,10 @@ def _string_eq_domain(ctx: EvalCtx, v: Val) -> torch.Tensor:
     """A string value's codes mapped to 64-bit value hashes: equal strings
     hash equal whatever dictionary holds them."""
     sd = v.sdict or EMPTY_DICT
-    return _take_codes(sd.device_hashes(ctx.device), v.data)
+    return _take_codes(ctx.aux(lambda: sd.hashes if len(sd.values)
+                               else np.zeros(1, np.int64),
+                               lambda: sd.device_hashes(ctx.device)),
+                       v.data)
 
 
 def _string_rank_domain(ctx: EvalCtx, l: Val, r: Val):
@@ -803,8 +808,8 @@ def _string_rank_domain(ctx: EvalCtx, l: Val, r: Val):
     pos = {v: i for i, v in enumerate(allv)}
     la = np.array([pos[v] for v in a.values] or [0], dtype=np.int64)
     lb = np.array([pos[v] for v in b.values] or [0], dtype=np.int64)
-    return (_take_codes(torch.from_numpy(la).to(ctx.device), l.data),
-            _take_codes(torch.from_numpy(lb).to(ctx.device), r.data))
+    return (_take_codes(ctx.aux(lambda: la), l.data),
+            _take_codes(ctx.aux(lambda: lb), r.data))
 
 
 class BinaryComparison(BinaryExpression):
@@ -1108,7 +1113,7 @@ class CaseWhen(Expression):
 
         def recode(v, lut):
             return torch.broadcast_to(_take_codes(
-                torch.from_numpy(lut).to(ctx.device), v.data), n)
+                ctx.aux(lambda: lut), v.data), n)
 
         data = recode(ev, luts[-1])
         valid = torch.broadcast_to(_known(ctx, ev.validity), n)
@@ -1170,9 +1175,15 @@ class In(Expression):
             targets = [it.value for it in self.items if it.value is not None]
             has_null_item = len(targets) < len(self.items)
             if targets:
-                data = torch.isin(_string_eq_domain(ctx, c),
-                                  StringDict(targets).device_hashes(
-                                      ctx.device))
+                # membership by a binary search of the sorted target
+                # hashes: torch.isin may sort and dedup its input on the
+                # card, which reads sizes on the host
+                dom = _string_eq_domain(ctx, c)
+                lut = ctx.aux(lambda: np.sort(StringDict(targets).hashes))
+                flat = dom.reshape(-1)
+                pos = torch.searchsorted(lut, flat).clamp_max(
+                    lut.shape[0] - 1)
+                data = (torch.take(lut, pos) == flat).reshape(dom.shape)
             else:
                 data = torch.zeros(c.data.shape, dtype=torch.bool,
                                    device=ctx.device)
@@ -1243,7 +1254,10 @@ class _DictTransform(Expression):
     deduplicated and the codes recoded by one device gather, so equal
     strings keep one code: the code-domain aggregate and the rank order
     need it (the reference keeps the duplicates: ROADMAP.md section C).
-    Otherwise the device codes pass through unchanged."""
+    Otherwise the device codes pass through unchanged, except in a fused
+    stage: there an identity lut is gathered, so that every batch asks for
+    the same luts whichever of its dictionaries merge (dictionaries are
+    per slice, and a program's key holds only the luts' shapes)."""
 
     child_fields = ("child",)
 
@@ -1263,12 +1277,16 @@ class _DictTransform(Expression):
             raise NotPortedError(
                 f"{self.sql_name()} of {c.dtype.simple_string()} (a cast "
                 "to string)")
-        mapped, lut = (c.sdict or StringDict([""])).transformed(
-            self.simple_string(), self.transform)
+        src = c.sdict or StringDict([""])
+        key = self.simple_string()
+        mapped, lut = src.transformed(key, self.transform)
         if lut is None:
-            return Val(string, c.data, c.validity, mapped)
-        return Val(string, _take_codes(lut(ctx.device), c.data), c.validity,
-                   mapped)
+            if not ctx.fused:
+                return Val(string, c.data, c.validity, mapped)
+            lut = np.arange(max(len(src.values), 1), dtype=np.int32)
+        codes = ctx.aux(lambda: lut, lambda: src._on(
+            ("recode", key), ctx.device, lambda: lut))
+        return Val(string, _take_codes(codes, c.data), c.validity, mapped)
 
 
 class Substring(_DictTransform):
@@ -1352,8 +1370,8 @@ class _StringPredicate(Expression):
             m = self.matcher()
             return np.array([bool(m(v)) for v in (sd.values or [""])], bool)
 
-        lut = sd._on(f"{type(self).__name__}:{self.pattern}", ctx.device,
-                     make_lut)
+        lut = ctx.aux(make_lut, lambda: sd._on(
+            f"{type(self).__name__}:{self.pattern}", ctx.device, make_lut))
         return Val(boolean, _take_codes(lut, c.data), c.validity)
 
 

@@ -58,7 +58,7 @@ def group_rows(key_cols: Sequence[torch.Tensor],
     active = row_mask[perm]
 
     changed = torch.zeros(cap, dtype=torch.bool, device=row_mask.device)
-    changed[:1] = True
+    changed[:1].fill_(True)
     for op in operands:
         k = op[perm]
         changed[1:] |= k[1:] != k[:-1]
@@ -73,15 +73,20 @@ def scatter_group_keys(layout: GroupLayout, key_col: torch.Tensor,
     """Each group's key value in output slot seg_id. Returns (data[cap],
     validity[cap] | None) in group-output order."""
     cap = layout.perm.shape[0]
-    starts = layout.start_flag
-    idx = layout.seg_ids[starts]
-    out = torch.zeros(cap, dtype=key_col.dtype, device=key_col.device)
-    out[idx] = key_col[layout.perm][starts]
+    # every row scatters: a group's first row to its segment's slot, the
+    # others to one parking slot past the end that is cut off (no
+    # boolean-mask indexing, so no sync with the host)
+    idx = torch.where(layout.start_flag, layout.seg_ids,
+                      torch.full_like(layout.seg_ids, cap))
+    dev = key_col.device
+    out = torch.zeros(cap + 1, dtype=key_col.dtype, device=dev)
+    out.scatter_(0, idx, key_col[layout.perm])
     out_valid = None
     if key_valid is not None:
-        out_valid = torch.zeros(cap, dtype=torch.bool, device=key_col.device)
-        out_valid[idx] = key_valid[layout.perm][starts]
-    return out, out_valid
+        out_valid = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        out_valid.scatter_(0, idx, key_valid[layout.perm])
+        out_valid = out_valid[:cap]
+    return out[:cap], out_valid
 
 
 def group_output_mask(layout: GroupLayout) -> torch.Tensor:

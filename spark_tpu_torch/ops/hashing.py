@@ -66,8 +66,8 @@ def hash_columns(cols, validities=None, seed: int = 42) -> torch.Tensor:
     for i, c in enumerate(cols):
         k = mix64(_to_i64_lanes(c))
         if validities is not None and validities[i] is not None:
-            null_tag = mix64(torch.tensor(0x6E756C6C + i, dtype=torch.int64,
-                                          device=k.device))
+            null_tag = mix64(torch.full((), 0x6E756C6C + i,
+                                        dtype=torch.int64, device=k.device))
             k = torch.where(validities[i], k, null_tag)
         if h is None:
             h = k
@@ -76,7 +76,7 @@ def hash_columns(cols, validities=None, seed: int = 42) -> torch.Tensor:
     if h is None:
         raise ValueError("hash_columns needs at least one column")
     # nonlinear seed fold: h' = mix64(h ^ mix64(seed))
-    seed_h = mix64(torch.tensor(seed, dtype=torch.int64, device=h.device))
+    seed_h = mix64(torch.full((), seed, dtype=torch.int64, device=h.device))
     return mix64(h ^ seed_h)
 
 

@@ -95,6 +95,13 @@ def _lib():
     return _bound
 
 
+def prepare(device: torch.device) -> None:
+    """Load the library and read the card's SM count for `device`: what
+    the first launch does, done ahead of a CUDA graph capture."""
+    _on_device(device, lambda: _scratch_rows(False, 1 << 20, 64,
+                                             device.index))
+
+
 def _check_inputs(keys: torch.Tensor, mask: torch.Tensor,
                   values: torch.Tensor | None = None) -> str:
     dev = keys.device.type

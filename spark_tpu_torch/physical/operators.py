@@ -312,18 +312,27 @@ class ComputeExec(PhysicalPlan):
 # Aggregation
 # ---------------------------------------------------------------------------
 
-def dense_range_stats(kc: Column, row_mask: torch.Tensor):
+def dense_range_stats(kc: Column, row_mask: torch.Tensor, metrics=None):
     """(kmin, kmax, any_live) of an integral key column under `row_mask`:
-    the dense fast-path decision, one reduction and one host sync per tile."""
-    m = row_mask if kc.validity is None else row_mask & kc.validity
-    k = kc.data.to(torch.int64)
-    big = torch.iinfo(torch.int64).max
-    small = torch.iinfo(torch.int64).min
-    stats = torch.stack([
-        torch.where(m, k, torch.full_like(k, big)).min(),
-        torch.where(m, k, torch.full_like(k, small)).max(),
-        m.any().to(torch.int64)]).tolist()
-    return int(stats[0]), int(stats[1]), bool(stats[2])
+    the dense fast-path decision, one reduction and one host sync, memoized
+    per (data, validity, mask) identity (utils/device_memo.py) so cached
+    scan tiles and a broadcast build sync once, not once per batch or per
+    run. `metrics` counts the syncs as `dense_range.syncs`."""
+    def compute():
+        if metrics is not None:
+            metrics.add("dense_range.syncs")
+        m = row_mask if kc.validity is None else row_mask & kc.validity
+        k = kc.data.to(torch.int64)
+        big = torch.iinfo(torch.int64).max
+        small = torch.iinfo(torch.int64).min
+        stats = torch.stack([
+            torch.where(m, k, torch.full_like(k, big)).min(),
+            torch.where(m, k, torch.full_like(k, small)).max(),
+            m.any().to(torch.int64)]).tolist()
+        return int(stats[0]), int(stats[1]), bool(stats[2])
+
+    return memo_device_scalars(("dense_range",),
+                               (kc.data, kc.validity, row_mask), compute)
 
 
 def _group_kernel(ops: tuple[str, ...], key_eqs, key_outs, key_valids,
@@ -340,7 +349,8 @@ def _dense_group_kernel(ops: tuple[str, ...], cap: int, out_cap: int,
                         key, key_valid, kmin: int, val_datas, val_valids,
                         row_mask):
     """Dense-range fast path: a single integral key whose value range fits
-    a capacity bucket aggregates by DIRECT scatter keyed by `key - kmin`,
+    a capacity bucket aggregates by DIRECT scatter keyed by `key - kmin`
+    (`kmin` an int, or a 0-dim device tensor inside a fused program),
     with no sort. NULL keys and inactive rows park in the last slot,
     out_cap - 1; its `present` count and every count buffer go through the
     histogram kernel, once per distinct weight tensor (`present` is also
@@ -361,9 +371,11 @@ def _dense_group_kernel(ops: tuple[str, ...], cap: int, out_cap: int,
     # the parking slot is a real group only for actual null keys
     null_rows = (row_mask & ~key_valid).any() if key_valid is not None \
         else torch.zeros((), dtype=torch.bool, device=dev)
-    out_mask[out_cap - 1] = null_rows
+    # slice fills and device copies: no host scalar crosses, so the body
+    # can sit inside a captured graph
+    out_mask[out_cap - 1:].copy_(null_rows.reshape(1))
     key_validity = torch.ones(out_cap, dtype=torch.bool, device=dev)
-    key_validity[out_cap - 1] = False
+    key_validity[out_cap - 1:].fill_(False)
     return out_keys, key_validity, bufs, out_mask
 
 
@@ -374,16 +386,16 @@ def _ungrouped_kernel(ops: tuple[str, ...], val_datas, val_valids, row_mask,
     datas, valids = [], []
     for d, v in outs:
         arr = torch.zeros(out_cap, dtype=d.dtype, device=dev)
-        arr[0] = d
+        arr[:1].copy_(d.reshape(1))
         datas.append(arr)
         if v is None:
             valids.append(None)
         else:
             varr = torch.zeros(out_cap, dtype=torch.bool, device=dev)
-            varr[0] = v
+            varr[:1].copy_(v.reshape(1))
             valids.append(varr)
     mask = torch.zeros(out_cap, dtype=torch.bool, device=dev)
-    mask[0] = True
+    mask[:1].fill_(True)
     return datas, valids, mask
 
 
@@ -558,7 +570,8 @@ class HashAggregateExec(PhysicalPlan):
                 return None  # a mega-dictionary: the sort path takes it
             ctx.metrics.add("agg.dict_code_fast_path")
         elif isinstance(kc.dtype, (IntegralType, DateType)):
-            kmin, kmax, any_live = dense_range_stats(kc, batch.row_mask)
+            kmin, kmax, any_live = dense_range_stats(kc, batch.row_mask,
+                                                     ctx.metrics)
             if not any_live:
                 return None
             span = kmax - kmin + 1
@@ -713,12 +726,39 @@ class HashJoinExec(PhysicalPlan):
         # whose hive-partition column is a join key. The build side runs
         # first and its distinct keys prune their splits (DPP)
         self.dpp_targets: list = []
+        # whole-stage fusion splice (physical/fusion.py fuse_stages): when
+        # a filter/project pipeline fed the probe side, its (filters,
+        # outputs) run inside the probe's program and `left` is the
+        # pipeline's child; probe_attrs are the pipeline's output
+        # attributes, the join's probe-side schema from the outside
+        self.probe_fusion: tuple | None = None
+        self.probe_attrs: list | None = None
+        self._probe_pipe_cache = None
+
+    @property
+    def _left_attrs(self) -> list:
+        """Probe-side output attributes as consumers see them (after the
+        fused pipeline when one is spliced in)."""
+        return self.probe_attrs if self.probe_fusion is not None \
+            else self.left.output
+
+    def _probe_pipeline(self):
+        """(ExprPipeline, structural key) of the spliced probe pipeline."""
+        if self._probe_pipe_cache is None:
+            from .compile import struct_key
+
+            filters, outputs = self.probe_fusion
+            self._probe_pipe_cache = (
+                ExprPipeline(self.left.output, filters, outputs,
+                             attrs_schema(self.probe_attrs)),
+                struct_key(self.left.output, filters, outputs))
+        return self._probe_pipe_cache
 
     @property
     def output(self):
         if self.join_type in ("left_semi", "left_anti"):
-            return self.left.output
-        lo, ro = self.left.output, self.right.output
+            return self._left_attrs
+        lo, ro = self._left_attrs, self.right.output
         if self.join_type in ("left_outer", "full_outer"):
             ro = [a.with_nullability(True) for a in ro]
         if self.join_type == "full_outer":
@@ -755,9 +795,18 @@ class HashJoinExec(PhysicalPlan):
             raise ExecutionError(
                 f"join children partition counts differ: "
                 f"{len(left_parts)} vs {len(right_parts)}")
-        lschema = attrs_schema(self.left.output)
+        fused = self.probe_fusion is not None
+        if fused and self.join_type == "full_outer":
+            # the unmatched-build pass reads the probe keys outside the
+            # probe program: materialize the pipeline up front
+            pipe = self._probe_pipeline()[0]
+            left_parts = [[pipe.run(b, ctx.launches) for b in p]
+                          for p in left_parts]
+            fused = False
+        lschema = attrs_schema(self.left.output if fused
+                               else self._left_attrs)
         rschema = attrs_schema(self.right.output)
-        return [self._join_partition(lp, rp, lschema, rschema, ctx)
+        return [self._join_partition(lp, rp, lschema, rschema, ctx, fused)
                 for lp, rp in zip(left_parts, right_parts)]
 
     def _install_dpp_filters(self, right_parts, ctx) -> None:
@@ -792,17 +841,18 @@ class HashJoinExec(PhysicalPlan):
         raise KeyError(target)
 
     def _join_partition(self, lp: Partition, rp: Partition, lschema,
-                        rschema, ctx) -> Partition:
+                        rschema, ctx, fused: bool = False) -> Partition:
         build = concat_batches(rp, rschema) if rp \
             else ColumnarBatch.empty(rschema, ctx.device)
         rpos = {a.expr_id: i for i, a in enumerate(self.right.output)}
-        lpos = {a.expr_id: i for i, a in enumerate(self.left.output)}
+        lpos = {a.expr_id: i for i, a in enumerate(self._left_attrs)}
         bkeys = [build.columns[rpos[k.expr_id]] for k in self.right_keys]
         probes = lp or [ColumnarBatch.empty(lschema, ctx.device)]
 
         dense = self._try_dense_build(build, bkeys, ctx)
         if dense is not None:
-            out = [self._dense_probe_batch(pb, build, dense, lpos, ctx)
+            out = [self._dense_probe_batch(pb, build, dense, lpos, ctx,
+                                           fused)
                    for pb in probes]
         else:
             bkey_eqs = [c.eq_keys() for c in bkeys]
@@ -812,7 +862,7 @@ class HashJoinExec(PhysicalPlan):
                 bindex = J.dedup_build(bindex, bkey_eqs, bkey_valids)
             ctx.launches.add("join_build")
             out = [self._probe_batch(pb, build, bindex, bkey_eqs,
-                                     bkey_valids, lpos, ctx)
+                                     bkey_valids, lpos, ctx, fused)
                    for pb in probes]
         if self.join_type == "full_outer":
             out.append(self._unmatched_build_rows(lp, build, lschema, ctx))
@@ -837,12 +887,17 @@ class HashJoinExec(PhysicalPlan):
             ctx.metrics.add("join.capacity_retry")
 
     def _probe_batch(self, pb: ColumnarBatch, build: ColumnarBatch, bindex,
-                     bkey_eqs, bkey_valids, lpos, ctx) -> ColumnarBatch:
+                     bkey_eqs, bkey_valids, lpos, ctx,
+                     fused: bool = False) -> ColumnarBatch:
         jt = self.join_type if self.join_type != "full_outer" \
             else "left_outer"
-        pkeys = [pb.columns[lpos[k.expr_id]] for k in self.left_keys]
-        r = self._probe(bindex, bkey_eqs, bkey_valids, pkeys, pb.row_mask,
-                        jt, ctx)
+        if fused:
+            pb, r = self._fused_probe(pb, bindex, bkey_eqs, bkey_valids,
+                                      ctx, jt)
+        else:
+            pkeys = [pb.columns[lpos[k.expr_id]] for k in self.left_keys]
+            r = self._probe(bindex, bkey_eqs, bkey_valids, pkeys,
+                            pb.row_mask, jt, ctx)
         ctx.metrics.add("join.sorted_probe")
         probe_out = gather_batch(pb, r.probe_idx, r.out_mask)
         if self.join_type in ("left_semi", "left_anti"):
@@ -852,6 +907,65 @@ class HashJoinExec(PhysicalPlan):
         return ColumnarBatch(attrs_schema(self.output),
                              probe_out.columns + build_out.columns,
                              r.out_mask, num_rows=None)
+
+    def _fused_probe(self, pb: ColumnarBatch, bindex, bkey_eqs, bkey_valids,
+                     ctx, jt: str):
+        """Whole-stage fused probe: the probe-side pipeline runs INSIDE
+        the probe's program: one program computes the projected columns,
+        derives the join keys and probes the build index (the consume
+        splice of the reference's codegen'd BroadcastHashJoinExec). The
+        capacity retry reads `needed` after each replay, as the unfused
+        probe does after each launch. Returns the COMPUTED probe batch
+        and the probe result; the caller's gathers read the computed
+        columns."""
+        from .compile import (
+            STAGE_CACHE, FusedPipe, key_eqs, pipeline_columns,
+            pipeline_host_pass, pipeline_signature, stage_inputs,
+            string_key_luts,
+        )
+
+        filters, outputs = self.probe_fusion
+        skey = self._probe_pipeline()[1]
+        cap = pb.capacity
+        hctx, host_outs, aux = pipeline_host_pass(self.left.output, filters,
+                                                  outputs, pb)
+        pipe = FusedPipe(self.left.output, filters, outputs, pb, aux)
+        attrs = self.probe_attrs
+        opos = {a.expr_id: i for i, a in enumerate(attrs)}
+        kidx = tuple(opos[k.expr_id] for k in self.left_keys)
+        lut_pos, luts = string_key_luts(kidx, attrs, host_outs)
+        nb, no = len(bkey_eqs), len(outputs)
+        extra = ([bindex.sorted_hash, bindex.perm] + list(bkey_eqs)
+                 + list(bkey_valids) + luts)
+        out_cap = max(cap, 1 << 10)
+        while True:
+            def body(ins, oc=out_cap):
+                od, ov, mask, ops_in = pipe.run(ins)
+                bi = J.BuildSide(ops_in[0], ops_in[1])
+                beqs, bvs = ops_in[2:2 + nb], ops_in[2 + nb:2 + 2 * nb]
+                peqs = key_eqs(od, kidx, attrs,
+                               dict(zip(lut_pos, ops_in[2 + 2 * nb:])))
+                r = J.probe_join(bi, beqs, bvs, peqs,
+                                 [ov[i] for i in kidx], mask, oc, jt)
+                return list(r) + od + ov + [mask]
+
+            out = STAGE_CACHE.run(
+                f"FusedProbe[{jt}]",
+                ("fused_probe", jt, skey, cap, out_cap, kidx,
+                 pipeline_signature(pb), hctx.signature()),
+                body, stage_inputs(pb, aux, extra), pb.device)
+            ctx.launches.add("fused_probe")
+            r = J.JoinResult(*out[:5])
+            needed = int(r.needed)
+            if needed <= out_cap:
+                break
+            out_cap = bucket_capacity(needed)
+            ctx.metrics.add("join.capacity_retry")
+        pschema = attrs_schema(attrs)
+        cols = pipeline_columns(pschema.fields, host_outs, out[5:5 + no],
+                                out[5 + no:5 + 2 * no])
+        return ColumnarBatch(pschema, cols, out[5 + 2 * no],
+                             num_rows=None), r
 
     def _try_dense_build(self, build: ColumnarBatch, bkeys, ctx):
         """Dense unique-key build (TPC-DS dimension tables: dense integral
@@ -868,9 +982,8 @@ class HashJoinExec(PhysicalPlan):
             return None
         cap = build.capacity
         ident = (kc.data, kc.validity, build.row_mask)
-        kmin, kmax, any_live = memo_device_scalars(
-            ("dense_range",), ident,
-            lambda: dense_range_stats(kc, build.row_mask))
+        kmin, kmax, any_live = dense_range_stats(kc, build.row_mask,
+                                                 ctx.metrics)
         if not any_live:
             return None
         span = kmax - kmin + 1
@@ -898,25 +1011,20 @@ class HashJoinExec(PhysicalPlan):
                 "tcap": tcap}
 
     def _dense_probe_batch(self, pb: ColumnarBatch, build: ColumnarBatch,
-                           dense, lpos, ctx) -> ColumnarBatch:
+                           dense, lpos, ctx,
+                           fused: bool = False) -> ColumnarBatch:
         tcap = dense["tcap"]
         jt = self.join_type if self.join_type != "full_outer" \
             else "left_outer"
-        kc = pb.columns[lpos[self.left_keys[0].expr_id]]
-        k = kc.data.to(torch.int64) - dense["kmin"]
-        slot = k.clamp(0, tcap - 1)
-        usable = pb.row_mask & (k >= 0) & (k < tcap)
-        if kc.validity is not None:
-            usable = usable & kc.validity
-        matched = usable & (dense["present"][slot] > 0)
-        bidx = dense["rowidx"][slot]
-        if jt in ("inner", "left_semi"):
-            out_mask = matched
-        elif jt == "left_outer":
-            out_mask = pb.row_mask
-        else:  # left_anti
-            out_mask = pb.row_mask & ~matched
-        ctx.launches.add("djoin_probe")
+        if fused:
+            pb, bidx, matched, out_mask = self._fused_dense_probe(
+                pb, dense, ctx, jt)
+        else:
+            kc = pb.columns[lpos[self.left_keys[0].expr_id]]
+            bidx, matched, out_mask = _dense_probe_body(
+                kc.data, kc.validity, pb.row_mask, dense["rowidx"],
+                dense["present"], dense["kmin"], tcap, jt)
+            ctx.launches.add("djoin_probe")
         if self.join_type in ("left_semi", "left_anti"):
             return ColumnarBatch(pb.schema, pb.columns, out_mask,
                                  num_rows=None)
@@ -926,6 +1034,48 @@ class HashJoinExec(PhysicalPlan):
                              pb.columns + build_out.columns, out_mask,
                              num_rows=None)
 
+    def _fused_dense_probe(self, pb: ColumnarBatch, dense, ctx, jt: str):
+        """The dense direct-address probe with the probe-side pipeline in
+        its program. Returns (computed probe batch, build row index,
+        matched, out_mask)."""
+        import numpy as np
+
+        from .compile import (
+            STAGE_CACHE, FusedPipe, pipeline_columns, pipeline_host_pass,
+            pipeline_signature, stage_inputs,
+        )
+
+        filters, outputs = self.probe_fusion
+        skey = self._probe_pipeline()[1]
+        cap, tcap = pb.capacity, dense["tcap"]
+        hctx, host_outs, aux = pipeline_host_pass(self.left.output, filters,
+                                                  outputs, pb)
+        pipe = FusedPipe(self.left.output, filters, outputs, pb, aux)
+        ki = next(i for i, a in enumerate(self.probe_attrs)
+                  if a.expr_id == self.left_keys[0].expr_id)
+        no = len(outputs)
+
+        def body(ins):
+            od, ov, mask, (rowidx, present, kmin) = pipe.run(ins)
+            return list(_dense_probe_body(od[ki], ov[ki], mask, rowidx,
+                                          present, kmin, tcap, jt)) \
+                + od + ov
+
+        out = STAGE_CACHE.run(
+            f"FusedDenseProbe[{jt}]",
+            ("fused_djoin_probe", jt, skey, cap, tcap, ki,
+             pipeline_signature(pb), hctx.signature()),
+            body, stage_inputs(pb, aux, [
+                dense["rowidx"], dense["present"],
+                np.array(dense["kmin"], dtype=np.int64)]), pb.device)
+        ctx.launches.add("fused_djoin_probe")
+        bidx, matched, out_mask = out[:3]
+        pschema = attrs_schema(self.probe_attrs)
+        cols = pipeline_columns(pschema.fields, host_outs, out[3:3 + no],
+                                out[3 + no:3 + 2 * no])
+        return (ColumnarBatch(pschema, cols, out_mask, num_rows=None),
+                bidx, matched, out_mask)
+
     def _unmatched_build_rows(self, lp: Partition, build: ColumnarBatch,
                               lschema, ctx) -> ColumnarBatch:
         """full_outer's extension: the build rows no probe row matches (an
@@ -933,7 +1083,7 @@ class HashJoinExec(PhysicalPlan):
         with null probe columns."""
         probe_all = concat_batches(lp, lschema) if lp \
             else ColumnarBatch.empty(lschema, ctx.device)
-        lpos = {a.expr_id: i for i, a in enumerate(self.left.output)}
+        lpos = {a.expr_id: i for i, a in enumerate(self._left_attrs)}
         rpos = {a.expr_id: i for i, a in enumerate(self.right.output)}
         pkeys = [probe_all.columns[lpos[k.expr_id]] for k in self.left_keys]
         bkeys = [build.columns[rpos[k.expr_id]] for k in self.right_keys]
@@ -952,7 +1102,7 @@ class HashJoinExec(PhysicalPlan):
                    torch.zeros(oc, dtype=f.dataType.device_dtype,
                                device=ctx.device),
                    torch.zeros(oc, dtype=torch.bool, device=ctx.device))
-            for f in schema.fields[:len(self.left.output)]]
+            for f in schema.fields[:len(self._left_attrs)]]
         return ColumnarBatch(schema, left_cols + build_rows.columns,
                              r.out_mask, num_rows=None)
 
@@ -960,7 +1110,36 @@ class HashJoinExec(PhysicalPlan):
         k = ", ".join(f"{l.name}={r.name}"
                       for l, r in zip(self.left_keys, self.right_keys))
         b = "Broadcast" if self.is_broadcast else "Shuffled"
-        return f"{b}HashJoin[{self.join_type}]({k})"
+        s = f"{b}HashJoin[{self.join_type}]({k})"
+        if self.probe_fusion is not None:
+            filters, outputs = self.probe_fusion
+            o = ", ".join(x.simple_string() for x in outputs)
+            s += f" FUSED-PROBE[{o}]"
+            if filters:
+                s += " WHERE " + " AND ".join(x.simple_string()
+                                              for x in filters)
+        return s
+
+
+def _dense_probe_body(key, key_valid, pmask, rowidx, present, kmin,
+                      tcap: int, jt: str):
+    """The dense direct-address probe: (build row index, matched,
+    out_mask) per probe row. `kmin` is an int, or a 0-dim device tensor
+    inside a fused program."""
+    k = key.to(torch.int64) - kmin
+    slot = k.clamp(0, tcap - 1)
+    usable = pmask & (k >= 0) & (k < tcap)
+    if key_valid is not None:
+        usable = usable & key_valid
+    matched = usable & (present[slot] > 0)
+    bidx = rowidx[slot]
+    if jt in ("inner", "left_semi"):
+        out_mask = matched
+    elif jt == "left_outer":
+        out_mask = pmask
+    else:  # left_anti
+        out_mask = pmask & ~matched
+    return bidx, matched, out_mask
 
 
 def _distinct_key_values(cols: list[Column], masks: list) -> set:

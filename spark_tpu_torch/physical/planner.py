@@ -1,11 +1,16 @@
 """Physical planner: LogicalPlan -> PhysicalPlan (counterpart of
 `spark_tpu/physical/planner.py`).
 
-The port plans operator at a time, as the JAX package does with
-`spark.tpu.fusion.enabled=false` and `spark.tpu.compile.tier=operator`:
-convert, insert exchanges where a child's partitioning does not satisfy its
-parent's required distribution (EnsureRequirements), then collapse adjacent
-ComputeExecs. Contracts kept from the JAX planner:
+Convert, insert exchanges where a child's partitioning does not satisfy its
+parent's required distribution (EnsureRequirements), collapse adjacent
+ComputeExecs, then, under the stage tier (the default: fusion on, tier
+`auto` or `stage`), fuse each exchange-free chain into whole-stage
+operators (physical/fusion.py fuse_stages), and mark dynamic partition
+pruning last. The tier decision (exec/query_execution.choose_tier) rides
+the plan root as `_tier_decision` for `explain`. With
+`spark.tpu.fusion.enabled=false` or `spark.tpu.compile.tier=operator` the
+plan is operator at a time, the differential oracle. Contracts kept from
+the JAX planner:
   * exchange and grouping keys are always bound to attributes (complex keys
     get pre-projected via ComputeExec);
   * aggregates are planned partial -> (exchange) -> final with a finishing
@@ -43,10 +48,11 @@ from ..expr.expressions import (
 )
 from ..expr.window import WindowExpression
 from ..plan import logical as L
-from ..plan.optimizer import join_conjuncts, split_conjuncts, substitute_attrs
+from ..plan.optimizer import join_conjuncts, split_conjuncts
 from ..plan.tree import next_id
 from .aggregates import AggSpec, lower_aggregate_function
 from .exchange import BroadcastExchangeExec, ShuffleExchangeExec
+from .fusion import collapse_computes, fuse_stages, merge_into_compute
 from .operators import (
     ComputeExec, HashAggregateExec, HashJoinExec, LimitExec,
     LocalTableScanExec, NestedLoopJoinExec, PhysicalPlan, RangeExec,
@@ -68,54 +74,25 @@ def _row_width(attrs: Sequence[AttributeReference]) -> int:
     return max(w, 8)
 
 
-def merge_into_compute(filters, outputs, child: ComputeExec) -> ComputeExec:
-    """Fuse a filter/project layer into an existing ComputeExec child by
-    substituting the child's output expressions (copy of
-    `spark_tpu/physical/fusion.py` merge_into_compute)."""
-    m: dict[int, Expression] = {}
-    for e in child.outputs:
-        if isinstance(e, Alias):
-            m[e.expr_id] = e.child
-        elif isinstance(e, AttributeReference):
-            m[e.expr_id] = e
-    new_filters = [substitute_attrs(f, m) for f in filters]
-    new_outputs: list[Expression] = []
-    for o in outputs:
-        if isinstance(o, Alias):
-            new_outputs.append(
-                Alias(substitute_attrs(o.child, m), o.name, o.expr_id))
-            continue
-        sub = m.get(o.expr_id)
-        if sub is None or (isinstance(sub, AttributeReference)
-                           and sub.expr_id == o.expr_id):
-            new_outputs.append(o)
-        else:
-            new_outputs.append(Alias(sub, o.name, o.expr_id))
-    return ComputeExec(child.filters + new_filters, new_outputs, child.child)
-
-
-def collapse_computes(plan: PhysicalPlan) -> PhysicalPlan:
-    """Collapse adjacent ComputeExec nodes anywhere in the physical tree
-    (copy of `spark_tpu/physical/fusion.py` collapse_computes)."""
-
-    def rule(node):
-        if isinstance(node, ComputeExec) and isinstance(node.child,
-                                                        ComputeExec):
-            return merge_into_compute(node.filters, node.outputs, node.child)
-        return node
-
-    return plan.transform_up(rule)
-
-
 class Planner:
     def __init__(self, conf: SQLConf):
         self.conf = conf
 
     def plan(self, plan: L.LogicalPlan) -> PhysicalPlan:
+        from ..exec.query_execution import choose_tier
+
+        decision = choose_tier(self.conf)
         p = self._convert(plan)
         p = self._ensure_requirements(p)
+        # whole-stage fusion after stage boundaries exist (the
+        # CollapseCodegenStages slot); the operator tier is the
+        # operator-at-a-time oracle. Adjacent-ComputeExec collapsing is an
+        # invariant, not a mode.
         p = collapse_computes(p)
+        if decision.tier == "stage":
+            p = fuse_stages(p, self.conf)
         self._inject_dpp(p)
+        p._tier_decision = decision
         return p
 
     # ------------------------------------------------------------------

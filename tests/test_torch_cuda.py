@@ -130,7 +130,8 @@ def test_slice_query_on_the_card(cuda_device):
     k = rng.integers(0, 5000, 200_000)
     v = rng.integers(0, 1000, 200_000)
     spark = TorchSession("on-card", {"spark.sql.shuffle.partitions": 4,
-                                     "spark.tpu.batch.capacity": 1 << 16})
+                                     "spark.tpu.batch.capacity": 1 << 16,
+                                     "spark.tpu.compile.tier": "operator"})
     assert spark.device.type == "cuda"
     df = (spark.createDataFrame(pa.table({"k": k, "v": v}))
           .filter(F.col("v") > 25).withColumn("v2", F.col("v") * 3)
@@ -279,8 +280,11 @@ def test_probe_join_card_equals_cpu(cuda_device, join_type, two_keys,
 
 
 def _session_pair(conf):
+    """A CPU and a card session over `conf`, at the operator tier unless
+    `conf` names one (the stage tier's card cases name it)."""
     from spark_tpu_torch import TorchSession
 
+    conf = {"spark.tpu.compile.tier": "operator", **conf}
     return (TorchSession("cpu-side", dict(conf), device="cpu"),
             TorchSession("card-side", dict(conf)))
 
@@ -1225,3 +1229,288 @@ def test_parquet_scan_card_equals_cpu(cuda_device, tmp_path, query):
         s.stop()
     assert outs[1] == outs[0] and outs[0]
     assert metrics[1] == metrics[0]
+
+
+# --- the stage tier: fused stages as captured CUDA graphs --------------------
+
+STAGE = {"spark.sql.shuffle.partitions": 3,
+         "spark.tpu.batch.capacity": 1 << 14,
+         "spark.tpu.compile.tier": "stage",
+         "spark.tpu.fusion.minRows": 0}
+
+
+def _stage_table(n=60_000, seed=51):
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "k": rng.integers(0, 40, n),
+        "v": pa.array(rng.integers(-50, 100, n), mask=rng.random(n) < 0.05),
+        "f": rng.random(n),
+        "s": [f"c{i % 7}" for i in rng.integers(0, 1000, n)]})
+
+
+# each fused body, by the name its program carries
+STAGE_QUERIES = {
+    "FusedHashAggregate[dense]":
+        "SELECT k, sum(v * 2), count(*), min(f) FROM t WHERE v > 0 "
+        "GROUP BY k",
+    "FusedHashAggregate[ungrouped]":
+        "SELECT count(*), sum(v), max(f) FROM t WHERE v > 10",
+    "FusedHashAggregate[sorted]":
+        "SELECT s, k, sum(f), count(v) FROM t WHERE v < 90 GROUP BY s, k",
+    "FusedLimit[n=25]": "SELECT k * 3 k3, v FROM t WHERE v > 95 LIMIT 25",
+    "FusedDenseProbe[inner]":
+        "SELECT t.k, d.name, t.v FROM t JOIN d ON t.k + 1 = d.dk "
+        "WHERE t.v > 50",
+    "FusedProbe[left_outer]":
+        "SELECT t.k, t.s, e.w FROM t LEFT JOIN e ON t.s = e.s AND "
+        "t.k = e.k WHERE t.f < 0.5",
+}
+
+
+def _stage_views(s):
+    import pyarrow as pa
+
+    s.createDataFrame(_stage_table()).createOrReplaceTempView("t")
+    s.createDataFrame(pa.table({
+        "dk": np.arange(45), "name": [f"n{i % 4}" for i in range(45)]})) \
+        .createOrReplaceTempView("d")
+    s.createDataFrame(pa.table({
+        "s": [f"c{i % 7}" for i in range(70)] * 2,
+        "k": list(range(40)) * 3 + list(range(20)),
+        "w": np.arange(140) * 0.5})).createOrReplaceTempView("e")
+
+
+def _shuffle_frames(s):
+    import spark_tpu_torch.api.functions as F
+
+    t = s.table("t").filter(F.col("v") > 5).withColumn("w", F.col("v") * 2)
+    # the range exchange needs a split input: round-robin first, then the
+    # filter/project the range map stage fuses; w = 2v + f is unique and
+    # never null (v > 5), so the order is total
+    r = s.table("t").repartition(3).filter(F.col("v") > 5) \
+        .withColumn("w", F.col("v") * 2 + F.col("f"))
+    return {"FusedShuffle[h]": t.repartition(3, "s"),
+            "FusedShuffle[rr]": t.repartition(3),
+            "FusedShuffle[rg]": r.orderBy("w")}
+
+
+@pytest.fixture(scope="module")
+def stage_pair():
+    from spark_tpu_torch import TorchSession
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the graphs have no CPU mode)")
+    pair = [TorchSession("stage-cpu", dict(STAGE), device="cpu"),
+            TorchSession("stage-card", dict(STAGE))]
+    for s in pair:
+        _stage_views(s)
+    yield pair
+    for s in pair:
+        s.stop()
+
+
+def _bodies_on_card(monkeypatch, check):
+    """STAGE_CACHE.run replays as usual, then runs the body once more
+    eagerly on the card over the same inputs (its histogram calls not
+    counted) and hands both results to `check(name, replayed, eager)`."""
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+    from spark_tpu_torch.utils.cuda_graph import as_tensors
+
+    replay = STAGE_CACHE.run
+
+    def run(name, key, fn, inputs, device):
+        out = replay(name, key, fn, inputs, device)
+        before = dict(SK.LAUNCHES)
+        try:
+            want = list(fn([x if x is None or x.is_cuda else x.to(device)
+                            for x in as_tensors(inputs)]))
+        finally:
+            SK.LAUNCHES.update(before)
+        check(name, out, want)
+        return out
+
+    monkeypatch.setattr(STAGE_CACHE, "run", run)
+
+
+def _stage_frames(s):
+    out = {name: s.sql(q) for name, q in STAGE_QUERIES.items()}
+    out.update(_shuffle_frames(s))
+    return out
+
+
+@pytest.mark.parametrize("body", list(STAGE_QUERIES) + [
+    "FusedShuffle[h]", "FusedShuffle[rr]", "FusedShuffle[rg]"])
+def test_stage_replay_equals_eager_and_cpu(stage_pair, monkeypatch, body):
+    """Each fused body on the card: every replay's outputs equal the same
+    body run eagerly on the card over the same inputs (floats to relative
+    1e-12: the dense sums add in atomic order), and the query's result
+    equals the CPU's stage tier."""
+    cpu, card = stage_pair
+    seen = []
+
+    def compare(name, got, want):
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None), name
+            if g is None:
+                continue
+            if g.dtype.is_floating_point:
+                assert torch.allclose(g, w, rtol=1e-12, atol=0,
+                                      equal_nan=True), name
+            else:
+                assert torch.equal(g, w), name
+        seen.append(name)
+
+    ordered = body in ("FusedLimit[n=25]", "FusedShuffle[rg]")
+    want = _rows(_stage_frames(cpu)[body].toArrow(), ordered)
+    df = _stage_frames(card)[body]
+    df.toArrow()  # captures
+    with monkeypatch.context() as m:
+        _bodies_on_card(m, compare)
+        got = _rows(df.toArrow(), ordered)
+    assert body in seen, (body, seen)
+    if body == "FusedLimit[n=25]":
+        assert got == want
+        return
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            if isinstance(y, float):
+                assert x == pytest.approx(y, rel=1e-12)
+            else:
+                assert x == y
+
+
+def test_stage_host_sync_raises_at_capture(cuda_device):
+    """A body that reads a value on the host fails its capture with the
+    stage named; it does not run eagerly in its place, and the next
+    capture works."""
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+    from spark_tpu_torch.utils.cuda_graph import CaptureError
+
+    calls = []
+
+    def body(ins):
+        calls.append(1)
+        x = ins[0] * 2
+        return [x + int(x.sum().item())]
+
+    x = torch.arange(1024, device=cuda_device)
+    with pytest.raises(CaptureError, match="probe-stage"):
+        STAGE_CACHE.run("probe-stage", ("sync-probe",), body, [x],
+                        cuda_device)
+    assert calls == [1]     # the capture's own trace, nothing after it
+    out = STAGE_CACHE.run("next-stage", ("after-failure",),
+                          lambda ins: [ins[0] + 1], [x], cuda_device)
+    assert torch.equal(out[0], x + 1)
+
+
+def test_stage_dict_transforms_merging_per_tile(stage_pair):
+    """Two dictionary transforms over two tiles whose dictionaries merge at
+    opposite transforms (tile 1: substr(a) maps two values to one; tile 2:
+    substr(b) does): the graph captured for tile 1 replays tile 2 right,
+    the result equal to the CPU's and to the numpy oracle."""
+    import pyarrow as pa
+
+    half = 1 << 13   # two tiles of STAGE's 2^14 rows
+    tb = pa.table({"a": ["ab", "ac"] * half + ["p", "q"] * half,
+                   "b": ["x", "y"] * half + ["xa", "xb"] * half,
+                   "v": np.arange(4 * half, dtype=np.int64)})
+    q = ("SELECT substr(a, 1, 1) sa, substr(b, 1, 1) sb, count(*) c, "
+         "sum(v) s FROM tiles GROUP BY substr(a, 1, 1), substr(b, 1, 1)")
+    got = []
+    for s in stage_pair:
+        s.createDataFrame(tb).createOrReplaceTempView("tiles")
+        got.append(_rows(s.sql(q).toArrow(), False))
+    lo, hi = np.arange(2 * half), np.arange(2 * half, 4 * half)
+    want = {("a", "x"): lo[0::2], ("a", "y"): lo[1::2],
+            ("p", "x"): hi[0::2], ("q", "x"): hi[1::2]}
+    assert got[1] == got[0] == sorted(
+        ((a, b, len(v), int(v.sum())) for (a, b), v in want.items()),
+        key=repr)
+
+
+def test_stage_graph_memory_bound_resets_and_recaptures(stage_pair):
+    """Past the cache's memory bound every other graph and the pool are
+    dropped and the new program captured again alone: with a bound of one
+    byte, two queries run in turn reset the pool at each turn, the results
+    stay right, and the captures resume under the default bound."""
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+
+    cpu, card = stage_pair
+    qs = [STAGE_QUERIES["FusedHashAggregate[dense]"],
+          STAGE_QUERIES["FusedHashAggregate[ungrouped]"]]
+    want = [_rows(cpu.sql(q).toArrow(), False) for q in qs]
+    STAGE_CACHE.clear()
+    STAGE_CACHE.max_bytes = 1
+    try:
+        before = STAGE_CACHE.counters()
+        for _ in range(2):
+            for q, w in zip(qs, want):
+                assert _rows(card.sql(q).toArrow(), False) == w
+        after = STAGE_CACHE.counters()
+        assert after["stage_cache.entries"] == 1
+    finally:
+        STAGE_CACHE.max_bytes = None
+        STAGE_CACHE.clear()
+    captures = after["stage_cache.captures"] - before["stage_cache.captures"]
+    resets = after["stage_cache.resets"] - before["stage_cache.resets"]
+    assert resets >= 3 and captures >= 4 + resets
+    for q, w in zip(qs, want):
+        assert _rows(card.sql(q).toArrow(), False) == w
+    assert STAGE_CACHE.counters()["stage_cache.captures"] > \
+        after["stage_cache.captures"]
+
+
+def test_stage_same_structure_hits_the_cache(stage_pair):
+    """A second query of the same structure over another table replays
+    the captured graphs: no new capture."""
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+
+    card = stage_pair[1]
+    q = "SELECT k, sum(v * 2), count(*) FROM {} WHERE v > 0 GROUP BY k"
+    card.sql(q.format("t")).toArrow()
+    card.createDataFrame(_stage_table(seed=52)) \
+        .createOrReplaceTempView("t2")
+    before = STAGE_CACHE.counters()
+    card.sql(q.format("t2")).toArrow()
+    after = STAGE_CACHE.counters()
+    assert after["stage_cache.captures"] == before["stage_cache.captures"]
+    assert after["stage_cache.hits"] > before["stage_cache.hits"]
+    assert after["stage_cache.replays"] - before["stage_cache.replays"] == \
+        after["stage_cache.hits"] - before["stage_cache.hits"]
+
+
+def test_stage_histogram_calls_counted_in_replays(stage_pair):
+    """The histogram calls inside a graph are counted on every replay:
+    the run that captures and the runs that only replay count the same,
+    and the count equals the eager CPU run's calls of the same plan."""
+    cpu, card = stage_pair
+    q = STAGE_QUERIES["FusedHashAggregate[dense]"]
+    counts = []
+    for _ in range(3):
+        SK.reset_launch_counts()
+        card.sql(q).toArrow()
+        counts.append(SK.LAUNCHES["partition_histogram"])
+    assert counts[0] == counts[1] == counts[2] > 0
+    import spark_tpu_torch.ops.grouping as G
+    import spark_tpu_torch.ops.partition as P
+    import spark_tpu_torch.physical.operators as O
+
+    cpu_calls = []
+
+    def counting(*a, **k):
+        cpu_calls.append(1)
+        return SK.partition_histogram(*a, **k)
+
+    mods = (G, P, O)
+    for m in mods:
+        m.partition_histogram = counting
+    try:
+        cpu.sql(q).toArrow()
+    finally:
+        for m in mods:
+            m.partition_histogram = SK.partition_histogram
+    assert counts[0] == len(cpu_calls)

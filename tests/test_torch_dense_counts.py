@@ -24,8 +24,12 @@ from spark_tpu_torch.ops import grouping as TG  # noqa: E402
 from spark_tpu_torch.ops import partition as TP  # noqa: E402
 from spark_tpu_torch.physical import operators as TO  # noqa: E402
 
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 4,
-        "spark.tpu.batch.capacity": 1 << 12}
+        "spark.tpu.batch.capacity": 1 << 12,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 N = 6000
@@ -133,7 +137,8 @@ def test_card_query_histogram_calls(counted):
     v = rng.integers(0, 1000, 200_000)
     spark = TorchSession("dense-counts-card-query",
                          {"spark.sql.shuffle.partitions": 4,
-                          "spark.tpu.batch.capacity": 1 << 16},
+                          "spark.tpu.batch.capacity": 1 << 16,
+                          "spark.tpu.compile.tier": "operator"},
                          device="cpu")
     try:
         (spark.createDataFrame(pa.table({"k": k, "v": v}))

@@ -34,7 +34,9 @@ def sessions():
     j = TpuSession("torch-expr-reference", dict(
         conf, **{"spark.tpu.fusion.enabled": "false",
                  "spark.tpu.compile.tier": "operator"}))
-    t = TorchSession("torch-expr", dict(conf), device="cpu")
+    # the port side pinned to the operator tier, as the reference side is
+    t = TorchSession("torch-expr", dict(
+        conf, **{"spark.tpu.compile.tier": "operator"}), device="cpu")
     yield j, t
     j.stop()
     t.stop()

@@ -25,8 +25,12 @@ from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import NotPortedError, TorchSession  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 4,
-        "spark.tpu.batch.capacity": 1 << 12}
+        "spark.tpu.batch.capacity": 1 << 12,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 

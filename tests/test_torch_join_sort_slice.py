@@ -21,8 +21,12 @@ import spark_tpu_torch.api.functions as TF  # noqa: E402
 from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import NotPortedError, TorchSession  # noqa: E402
 
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 4,
-        "spark.tpu.batch.capacity": 1 << 12}
+        "spark.tpu.batch.capacity": 1 << 12,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 # a build side of a few hundred rows would be broadcast; this threshold

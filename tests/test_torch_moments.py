@@ -23,7 +23,11 @@ pytest.importorskip("jax")
 from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import TorchSession  # noqa: E402
 
-CONF = {"spark.sql.shuffle.partitions": 3, "spark.tpu.batch.capacity": 1 << 9}
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
+CONF = {"spark.sql.shuffle.partitions": 3, "spark.tpu.batch.capacity": 1 << 9,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 MOMENTS = ("stddev_samp", "stddev_pop", "var_samp", "var_pop")

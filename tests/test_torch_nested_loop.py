@@ -26,8 +26,12 @@ from spark_tpu_torch.physical.operators import NestedLoopJoinExec  # noqa
 from tests.test_torch_tpcds_slice import _ops, _renumber  # noqa: E402
 
 CAP = 1 << 8
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 3, "spark.tpu.batch.capacity": CAP,
-        "spark.sql.autoBroadcastJoinThreshold": 1 << 20}
+        "spark.sql.autoBroadcastJoinThreshold": 1 << 20,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 

@@ -20,7 +20,11 @@ pytest.importorskip("jax")
 from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import NotPortedError, TorchSession  # noqa: E402
 
-CONF = {"spark.tpu.batch.capacity": 1 << 10}
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
+CONF = {"spark.tpu.batch.capacity": 1 << 10,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 

@@ -43,8 +43,12 @@ from tests.test_torch_tpcds_slice import (  # noqa: E402
     _chip_smoke, _ops, _reference_ops, _renumber,
 )
 
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 4,
-        "spark.tpu.batch.capacity": 1 << 12}
+        "spark.tpu.batch.capacity": 1 << 12,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 SCALE = 0.002           # 57,601 store_sales lines
@@ -53,13 +57,22 @@ ROW_GROUP = 1 << 15
 DPP_ROWS = 200_000
 
 
-def _sessions(conf=None, sized_conf=False):
+def _sessions(conf=None, sized_conf=False, stage=False):
+    """(reference, port) sessions at the operator tier, or both at the
+    stage tier where `stage` (sized: the card's parquet leg, which runs at
+    the default tier)."""
     cs = _chip_smoke()
-    base = dict(cs.TPCDS_CONF) if sized_conf else dict(CONF)
+    base = dict(cs.PARQUET_CONF if stage else cs.TPCDS_CONF) if sized_conf \
+        else dict(CONF)
     base.update(conf or {})
-    j = TpuSession("scan-leaves-reference", dict(
-        base, **{"spark.tpu.fusion.enabled": "false",
-                 "spark.tpu.compile.tier": "operator"}))
+    tier = {"spark.tpu.fusion.enabled": "true",
+            "spark.tpu.compile.tier": "stage"} if stage \
+        else {"spark.tpu.fusion.enabled": "false",
+              "spark.tpu.compile.tier": "operator"}
+    j = TpuSession("scan-leaves-reference", dict(base, **tier))
+    if stage:
+        base = {k: v for k, v in base.items()
+                if k != "spark.tpu.compile.tier"}
     t = TorchSession("scan-leaves", dict(base), device="cpu")
     return j, t
 
@@ -207,10 +220,10 @@ def _no_limit(cs, q: str) -> str:
 def parquet_pairs(parquet):
     cs, d, _ = parquet
     pairs = {}
-    for sized in (False, True):
-        j, t = _sessions(sized_conf=sized)
-        _views(j, cs, d, sized)
-        _views(t, cs, d, sized)
+    for sized in (False, True, "stage"):
+        j, t = _sessions(sized_conf=bool(sized), stage=sized == "stage")
+        _views(j, cs, d, bool(sized))
+        _views(t, cs, d, bool(sized))
         pairs[sized] = (j, t)
     yield pairs
     for j, t in pairs.values():
@@ -232,8 +245,10 @@ def test_parquet_plans_match_reference(parquet, parquet_pairs, q):
 
 @pytest.mark.parametrize("q", ["q3", "q7", "q19"])
 def test_parquet_card_plans_match_chip_smoke(parquet, parquet_pairs, q):
+    # the card's parquet leg runs at the default (stage) tier: both
+    # engines plan it at the stage tier
     cs, d, _ = parquet
-    j, t = parquet_pairs[True]
+    j, t = parquet_pairs["stage"]
     jd, td = j.sql(cs.tpcds_text(q)), t.sql(cs.tpcds_text(q))
     assert _ops(td) == _reference_ops(jd)
     assert tuple(_ops(td)) == cs.PARQUET_PLAN_OPS[q]
@@ -371,7 +386,18 @@ def dpp_on(dpp):
 def test_dpp_plan_and_pruning(dpp, dpp_on):
     cs, _, oracle, _ = dpp
     rows, m, td, jd, _ = dpp_on
-    assert _ops(td) == _ops(jd) == list(cs.DPP_PLAN_OPS)
+    assert _ops(td) == _ops(jd)
+    # the card's DPP path runs at the default (stage) tier: both engines
+    # plan the query at the stage tier there
+    j, t = _sessions(stage=True)
+    try:
+        for s in (j, t):
+            _dpp_views(s, cs, dpp[1], dpp[3])
+        assert _ops(t.sql(cs.DPP_QUERY)) == _ops(j.sql(cs.DPP_QUERY)) \
+            == list(cs.DPP_PLAN_OPS)
+    finally:
+        j.stop()
+        t.stop()
     marks = []
     for df in (jd, td):
         df.query_execution.physical.foreach(

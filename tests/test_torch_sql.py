@@ -31,8 +31,12 @@ from tests.test_torch_tpcds_slice import _ops, _renumber  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERY_FILES = sorted(glob.glob(os.path.join(ROOT, "tests", "tpcds",
                                             "queries", "*.sql")))
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 4,
-        "spark.tpu.batch.capacity": 1 << 10}
+        "spark.tpu.batch.capacity": 1 << 10,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 N = 3000

@@ -39,9 +39,13 @@ from tests.test_torch_cuda import construct_tables  # noqa: E402
 from tests.test_torch_tpcds_slice import _ops  # noqa: E402
 from tests.test_torch_tpcds_store import renumber  # noqa: E402
 
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 4,
         "spark.tpu.batch.capacity": 1 << 10,
-        "spark.sql.autoBroadcastJoinThreshold": 1024}
+        "spark.sql.autoBroadcastJoinThreshold": 1024,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 

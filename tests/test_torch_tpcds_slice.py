@@ -29,8 +29,12 @@ from tests.test_torch_cuda import tpcds_query as _query  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUERY_DIR = os.path.join(ROOT, "tests", "tpcds", "queries")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "tpcds", "expected")
+# the port side pinned to the operator tier, as the reference side is:
+# these tests hold operator-at-a-time execution (tests/test_torch_fusion.py
+# holds the stage tier)
 CONF = {"spark.sql.shuffle.partitions": 4,
-        "spark.tpu.batch.capacity": 1 << 10}
+        "spark.tpu.batch.capacity": 1 << 10,
+        "spark.tpu.compile.tier": "operator"}
 JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
                          "spark.tpu.compile.tier": "operator"})
 TABLES = ("store_sales", "date_dim", "item", "customer", "customer_address",
