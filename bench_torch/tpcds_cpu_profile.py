@@ -44,8 +44,10 @@ def main(argv: list[str]) -> None:
     tables, _ = cs.tpcds_data()
     print(json.dumps({"tables_s": time.perf_counter() - t0,
                       "threads": torch.get_num_threads()}), flush=True)
-    cpu = TorchSession("tpcds_cpu_profile", dict(cs.TPCDS_CONF),
-                       device="cpu")
+    # the operator tier: the SF10 check's CPU oracle runs there
+    cpu = TorchSession("tpcds_cpu_profile", dict(
+        cs.TPCDS_CONF, **{"spark.tpu.compile.tier": "operator"}),
+        device="cpu")
     for name, table in tables.items():
         cpu.createDataFrame(table).createOrReplaceTempView(name)
     for q in argv:

@@ -36,17 +36,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      each path, the main one too, one more run keeps the inputs of every
      histogram call of a new shape, and phase 3 holds each against the
      plain version and times it there. The paths run at the session's
-     default compile tier, `stage` (physical/fusion.py: a fused stage is a
-     CUDA graph captured once and replayed per batch; each fused batch
-     must be one replay, and the histogram calls inside replays count),
-     and print its report: fused stages, captures, replays, cache hits,
-     batches the minRows gate sent to the unfused kernels, capture ms,
-     the copies' device ms per batch, graph memory, peak memory. main,
-     join, range_sort, topk, q78 and window then run once more at the
-     `operator` tier in the same session (its exact histogram calls, the
-     oracle, equal to the stage tier's result, warm median and idle
-     share), and main's and q78's fused batches are held replay against
-     the same body run eagerly on the card (`replay_equals_eager`):
+     default compile tier, `auto`, whose decision each prints: `whole`
+     (physical/whole_query.py: the query as one CUDA graph per step, no
+     histogram call) or `stage` (physical/fusion.py: a fused stage is a
+     CUDA graph captured once and replayed per batch); each fused batch
+     and each whole program's attempt must be one replay, and the
+     histogram calls inside replays count. Each prints its report: the
+     decision, whole dispatches, capacity retries and degrades, fused
+     stages, captures, replays, cache hits, batches the minRows gate sent
+     to the unfused kernels, capture ms, the copies' device ms, graph
+     memory, pool resets, peak memory. main, join, range_sort, topk and
+     q78 (whole at `auto`) then run once more at the `stage` tier, where
+     their exact histogram calls and dense-path checks are held, sort
+     (staged) at forced `whole`, and these and window at the `operator`
+     tier, in the same session (the oracle, equal to the first tier's
+     result, warm median and idle share), and main's and q78's programs
+     are held replay against the same body run eagerly on the card at
+     both fused tiers (`replay_equals_eager`):
        join:       bench.py's bench_join, 2e7 store_sales rows joined to the
                    73,049-row date_dim and summed by year (broadcast, dense
                    direct-address build), 1 shuffle partition;
@@ -68,11 +74,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    query files of tests/tpcds/queries, verbatim:
                    first `tpcds_gate`, every query on the card over
                    tests/tpcds/datagen.py's tables at scale 0.1 at the
-                   stage tier with spark.tpu.fusion.minRows 0, equal to
-                   its committed golden (LIMIT dropped) and to the port on
-                   the CPU at the operator tier; then each but
-                   TPCDS_SF10_CUT (q72), at the operator tier
-                   (TPCDS_CONF), through
+                   stage tier with spark.tpu.fusion.minRows 0 and at
+                   forced `whole`, equal to its committed golden (LIMIT
+                   dropped) and to the port on the CPU at the operator
+                   tier; then each but TPCDS_SF10_CUT (q72), at `auto`
+                   (TPCDS_CONF; its decision held to TPCDS_TIERS), through
                    session.sql over temp views of the 24 tables they read
                    at SF10 row counts (28,800,991 store_sales and
                    133,110,000 inventory rows; the columns the queries
@@ -89,13 +95,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    by a second process of this script (`--tpcds-cpu`)
                    that starts after the build and runs beside every
                    phase on the host's cores but two; each query's peak
-                   device memory is printed; a query whose CTEs
+                   device memory is printed; past q3, q7 and q19 (3 warm
+                   runs and a breakdown each) a query runs cold only,
+                   with every check, to keep the script inside its time
+                   limit on a slower host; a query whose CTEs
                    materialise or whose scalar subqueries run before it
                    is timed as sql() + collect, with the sql() call (the
                    CTE round trip) and the scalar subqueries on lines of
-                   their own; last q3, q7 and q19 once more at the stage
-                   tier on the same session, each to its oracle;
-       parquet:    (at the stage tier) q3, q7 and q19 read through
+                   their own; last q3, q7 and q19 once more at each of
+                   the whole, stage and operator tiers on the same
+                   session, each to its oracle;
+       parquet:    (at `auto`, DPP at the stage tier; 1 warm run each)
+                   q3, q7 and q19 read through
                    spark.read.parquet from
                    files a third process of this script writes
                    (`--tpcds-parquet`, started with it; SF100's
@@ -166,13 +177,12 @@ TPCDS_ROWS = {"store_sales": 28_800_991, "store_returns": 2_875_432,
               "web_page": 200, "call_center": 24, "reason": 45,
               "income_band": 20, "catalog_page": 12_000,
               "inventory": 133_110_000}
-# the SF10 leg over the 102 files stays at the operator tier for now (its
-# plans, TPCDS_PLAN_OPS, are the operator tier's; ROADMAP.md queue A moves
-# it to the stage tier); q3, q7 and q19 also run at the stage tier on the
-# leg's session (tpcds_stage)
+# the SF10 leg over the 102 files runs at the default tier, `auto`: each
+# query at the tier the reference's cost model picks for it (TPCDS_TIERS);
+# q3, q7 and q19 also run at each of the three tiers on the leg's session
+# (tpcds_stage)
 TPCDS_CONF = {"spark.sql.shuffle.partitions": PARTITIONS,
-              "spark.tpu.batch.capacity": TILE,
-              "spark.tpu.compile.tier": "operator"}
+              "spark.tpu.batch.capacity": TILE}
 _TOPK_OPS = ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
              "SortExec", "ComputeExec", "HashAggregateExec")
 _SCAN = ("ComputeExec", "LocalTableScanExec")
@@ -183,567 +193,1164 @@ _JOIN = ("HashJoinExec", "ComputeExec")
 # the reference's one pass is right there only where AQE coalesces the
 # join's partitions back into one)
 _MERGE = ("HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec")
+
+
+def _plan(ops: str) -> tuple:
+    """An operator sequence written without each name's "Exec"."""
+    return tuple(f"{o}Exec" for o in ops.split())
+
+
+# each query's physical operator sequence at SF10 and the default tier, the
+# JAX package's (tests/test_torch_tpcds_store.py's Sf10Planner plans both
+# engines at these row counts and holds them to this table): a plan the
+# cost model runs whole starts with WholeQueryExec, then its inner plan
 TPCDS_PLAN_OPS = {
-    "q3": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
-    "q7": _TOPK_OPS + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
-    "q13": ("ComputeExec", "HashAggregateExec") + _JOIN * 4 + ("HashJoinExec",)
-        + _SCAN * 2 + _BCAST * 4,
-    "q15": _TOPK_OPS + _JOIN * 2 + ("HashJoinExec",) + _SCAN + _BCAST + _SCAN +
-        _BCAST,
-    "q19": _TOPK_OPS + ("ComputeExec",) + _JOIN * 4 + ("HashJoinExec",) + _SCAN
-        + _BCAST + _SCAN + _BCAST * 3,
-    "q25": _TOPK_OPS + _JOIN * 6 + ("HashJoinExec",) + _SCAN * 2 + _BCAST +
-        _SCAN * 2 + _BCAST * 3,
-    "q26": _TOPK_OPS + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
-    "q29": _TOPK_OPS + _JOIN * 6 + ("HashJoinExec",) + _SCAN * 2 + _BCAST +
-        _SCAN * 2 + _BCAST * 3,
-    "q31": ("SortExec", "ComputeExec") + _JOIN * 3
-        + ("HashJoinExec", "HashJoinExec") + _SCAN + _BCAST * 5,
-    "q34": ("SortExec", "ComputeExec") + _JOIN + ("HashAggregateExec",) + _JOIN
-        * 2 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
-    "q42": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
-    "q43": _TOPK_OPS + ("ComputeExec",) + _JOIN + ("HashJoinExec",) + _SCAN * 2
-        + _BCAST,
-    "q46": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") + _JOIN + ("HashJoinExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST *
-        3,
-    "q48": ("ComputeExec", "HashAggregateExec") + _JOIN * 3 + ("HashJoinExec",)
-        + _SCAN * 2 + _BCAST * 3,
-    "q50": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("HashJoinExec",) + _SCAN
-        * 2 + _BCAST + _SCAN + _BCAST,
-    "q52": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
-    "q55": _TOPK_OPS + _JOIN + ("HashJoinExec",) + _SCAN * 2 + _BCAST,
-    "q59": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") + _JOIN * 2 + ("HashJoinExec",) + _SCAN +
-        _BCAST * 2 + ("BroadcastExchangeExec", "ComputeExec") + _JOIN +
-        ("HashJoinExec",) + _SCAN + _BCAST * 2,
-    "q62": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("HashJoinExec",) + _SCAN
-        * 2 + _BCAST * 3,
-    "q64": ("SortExec", "ComputeExec") + ("HashJoinExec",) + _SCAN + _BCAST,
-    "q65": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") + _JOIN * 2 + ("HashJoinExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") + ("HashJoinExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec") + ("HashJoinExec",) + _SCAN +
-        _BCAST,
-    "q68": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") + _JOIN + ("HashJoinExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") + _JOIN * 3 + ("HashJoinExec",) + _SCAN * 2 + _BCAST *
-        3,
-    "q73": ("SortExec", "ComputeExec") + _JOIN + ("HashAggregateExec",) + _JOIN
-        * 2 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
-    "q78": ("LimitExec", "LimitExec", "ComputeExec", "SortExec", "ComputeExec")
-        + _JOIN * 2 + ("HashAggregateExec",) + _JOIN + ("HashJoinExec",) +
-        _SCAN * 2 + _BCAST + ("BroadcastExchangeExec", "ComputeExec",
-        "HashAggregateExec") + _JOIN + ("HashJoinExec",) + _SCAN + _BCAST * 2 +
-        ("ComputeExec", "HashAggregateExec") + _JOIN + ("HashJoinExec",) +
-        _SCAN * 2 + _BCAST,
-    "q79": ("LimitExec", "LimitExec", "ComputeExec", "SortExec", "ComputeExec")
-        + _JOIN + ("HashAggregateExec", "ComputeExec") + _JOIN * 2 +
-        ("HashJoinExec",) + _SCAN * 2 + _BCAST * 3,
-    "q85": _TOPK_OPS + _JOIN * 6 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 6,
-    "q93": _TOPK_OPS + ("ComputeExec",) + _JOIN + ("HashJoinExec",) + _SCAN * 2
-        + _BCAST,
-    "q96": _TOPK_OPS + _JOIN * 2 + ("HashJoinExec",) + _SCAN * 2 + _BCAST * 2,
-    "q99": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("HashJoinExec",) + _SCAN
-        * 2 + _BCAST * 3,
-    # the third SQL slice (UNION, DISTINCT, subquery expressions; q97)
-    "q97": ("LimitExec", "LimitExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") +
-        _JOIN + ("HashAggregateExec",) + _JOIN + ("LocalTableScanExec",) +
-        _BCAST + ("ComputeExec", "HashAggregateExec") + _JOIN +
-        ("LocalTableScanExec",) + _BCAST,
-    "q2": ("SortExec", "ComputeExec") + _JOIN * 2 + ("LocalTableScanExec",) +
-        _BCAST + ("BroadcastExchangeExec", "ComputeExec") + _JOIN +
-        ("LocalTableScanExec",) + _BCAST,
-    "q4": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 3 +
-        ("LocalTableScanExec", "BroadcastExchangeExec", "ComputeExec") +
-        _JOIN * 2 + ("LocalTableScanExec",) + _SCAN * 4,
-    "q11": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST + _SCAN + _BCAST,
-    "q66": _TOPK_OPS +
-        ("ShuffleExchangeExec", "HashAggregateExec", "ComputeExec",
-        "UnionExec", "ComputeExec", "HashAggregateExec", "ComputeExec") +
-        _JOIN * 4 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec", "ComputeExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3,
-    "q71": ("SortExec", "ShuffleExchangeExec", "ComputeExec") + _MERGE +
-        _JOIN + ("HashJoinExec", "ShuffleExchangeExec") + _SCAN +
-        ("ShuffleExchangeExec", "ComputeExec", "UnionExec", "ComputeExec") +
-        _JOIN + ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _BCAST * 2,
-    "q74": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 3,
-    "q75": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN + ("LocalTableScanExec",) + _BCAST,
-    "q76": _TOPK_OPS +
-        ("ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec") +
-        _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST +
-        ("ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN +
-        _BCAST + ("ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) +
-        _SCAN + _BCAST,
-    "q1": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "LocalTableScanExec"),
-    "q9": _SCAN,
-    "q10": _TOPK_OPS + ("ComputeExec",) + _JOIN + ("HashJoinExec",) +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST + _SCAN +
-        ("ComputeExec",) + _JOIN + ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec") +
-        _JOIN + ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec") +
-        _JOIN + ("LocalTableScanExec",) + _BCAST,
-    "q23a": ("LimitExec", "LimitExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 3 + ("ComputeExec",) +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 3,
-    "q23b": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") +
-        _JOIN * 4 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec", "ComputeExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3,
-    "q24a": ("ComputeExec", "HashAggregateExec") + _SCAN,
-    "q24b": ("ComputeExec", "HashAggregateExec") + _SCAN,
-    "q30": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "LocalTableScanExec"),
-    "q33": _TOPK_OPS +
-        ("ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec") +
-        _JOIN * 4 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3,
-    "q35": ("LimitExec", "LimitExec", "ComputeExec", "SortExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec") +
-        _JOIN + ("HashJoinExec",) + _JOIN * 3 + ("LocalTableScanExec",) +
-        _BCAST + _SCAN + ("ComputeExec",) + _JOIN + ("LocalTableScanExec",) +
-        _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec") +
-        _JOIN + ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec") +
-        _JOIN + ("LocalTableScanExec",) + _BCAST,
-    "q45": _TOPK_OPS + ("ComputeExec",) + _JOIN * 5 + ("LocalTableScanExec",) +
-        _SCAN + _BCAST * 3 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec") + _SCAN,
-    "q56": _TOPK_OPS +
-        ("ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec") +
-        _JOIN * 4 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3,
-    "q58": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 2 + ("HashAggregateExec", "ComputeExec") + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q60": _TOPK_OPS +
-        ("ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec") +
-        _JOIN * 4 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3 +
-        ("ComputeExec", "HashAggregateExec") + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3,
-    "q69": _TOPK_OPS + ("HashJoinExec", "HashJoinExec") + _JOIN * 3 +
-        ("LocalTableScanExec",) + _BCAST + _SCAN + ("ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _BCAST,
-    "q81": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "LocalTableScanExec"),
-    "q83": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec") +
-        _JOIN * 2 + ("HashAggregateExec", "ComputeExec") + _JOIN * 3 +
-        ("LocalTableScanExec",) + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec") + _JOIN +
-        ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec") + _JOIN +
-        ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec") +
-        _JOIN * 3 + ("LocalTableScanExec",) + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec") + _JOIN +
-        ("LocalTableScanExec",) + _BCAST,
-    # the fourth slice: windows, ROLLUP and date intervals; the five
-    # queries that read inventory run last
-    "q12": ("LimitExec", "LimitExec", "ComputeExec", "SortExec", "ComputeExec",
-        "WindowExec", "ComputeExec", "HashAggregateExec", "ComputeExec",) +
-        _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST,
-    "q20": ("LimitExec", "LimitExec", "ComputeExec", "SortExec", "ComputeExec",
-        "WindowExec", "ComputeExec", "HashAggregateExec", "ComputeExec",) +
-        _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST,
-    "q36": ("LimitExec", "ShuffleExchangeExec", "LimitExec", "ComputeExec",
-        "SortExec", "ShuffleExchangeExec", "ComputeExec", "WindowExec",
-        "ShuffleExchangeExec", "ComputeExec", "UnionExec",) + (("ComputeExec",
-        "HashAggregateExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN +
-        _BCAST * 2) * 3,
-    "q44": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec",) + _JOIN * 3 + (("WindowExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec",)) * 2 +
-        ("LocalTableScanExec",) + _BCAST,
-    "q47": ("LimitExec", "LimitExec", "ComputeExec", "SortExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _BCAST * 2,
-    "q49": ("LimitExec", "ShuffleExchangeExec", "LimitExec", "ComputeExec",
-        "SortExec", "ShuffleExchangeExec",) + ("ComputeExec",
-        "HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
-        "UnionExec",) * 2 + (("ComputeExec", "WindowExec", "WindowExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST) * 3,
-    "q51": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "WindowExec", "ComputeExec",) + _JOIN +
-        ("WindowExec", "ComputeExec", "HashAggregateExec",) + _JOIN +
-        ("LocalTableScanExec",) + _BCAST + ("ComputeExec", "WindowExec",
-        "ComputeExec", "HashAggregateExec",) + _JOIN + ("LocalTableScanExec",)
-        + _BCAST,
-    "q53": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "WindowExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q57": ("LimitExec", "LimitExec", "ComputeExec", "SortExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _BCAST * 2,
-    "q63": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "WindowExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q67": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "WindowExec", "ShuffleExchangeExec",
-        "UnionExec",) + (((("ComputeExec", "HashAggregateExec", "ComputeExec",)
-        + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2) * 2) * 2) *
-        2 + ("ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q70": ("LimitExec", "ShuffleExchangeExec", "LimitExec", "ComputeExec",
-        "SortExec", "ShuffleExchangeExec", "ComputeExec", "WindowExec",
-        "ShuffleExchangeExec", "ComputeExec", "UnionExec",) + (("ComputeExec",
-        "HashAggregateExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN +
-        _BCAST + ("BroadcastExchangeExec", "ComputeExec", "WindowExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST) * 3,
-    "q86": ("LimitExec", "ShuffleExchangeExec", "LimitExec", "ComputeExec",
-        "SortExec", "ShuffleExchangeExec", "ComputeExec", "WindowExec",
-        "ShuffleExchangeExec", "ComputeExec", "UnionExec",) + (("ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST) * 3,
-    "q89": ("LimitExec", "LimitExec", "ComputeExec", "SortExec", "ComputeExec",
-        "WindowExec", "ComputeExec", "HashAggregateExec", "ComputeExec",) +
-        _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q98": ("ComputeExec", "SortExec", "ComputeExec", "WindowExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST,
-    "q5": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec",) + (("ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",) +
-        (("ComputeExec",) + _MERGE + ("ComputeExec",) + _JOIN +
-        ("HashJoinExec", "ShuffleExchangeExec",) + _SCAN +
-        ("ShuffleExchangeExec", "ComputeExec", "UnionExec",) + _SCAN * 2 +
-        _BCAST) * 2 + ("ComputeExec",) + _MERGE + ("ComputeExec",) +
-        _JOIN + ("HashJoinExec", "ShuffleExchangeExec",) + _SCAN +
-        ("ShuffleExchangeExec", "ComputeExec", "UnionExec",) + _SCAN +
-        ("ComputeExec",) + _JOIN + ("LocalTableScanExec",) + _SCAN + _BCAST) *
-        3,
-    "q18": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec",) + ((("ComputeExec", "HashAggregateExec",) +
-        (("ComputeExec",) + _JOIN * 2 + ("HashJoinExec",)) * 2 + (_SCAN +
-        _BCAST) * 2 + _BCAST * 3) * 2) * 2 + ("ComputeExec",
-        "HashAggregateExec",) + (("ComputeExec",) + _JOIN * 2 +
-        ("HashJoinExec",)) * 2 + (_SCAN + _BCAST) * 2 + _BCAST * 3,
-    "q27": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec",) + (("ComputeExec", "HashAggregateExec",) +
-        (_JOIN * 2) * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3) * 3,
-    "q80": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",) +
-        (("ComputeExec", "HashAggregateExec",) + (("ComputeExec",) + _JOIN +
-        ("HashJoinExec",)) * 2 + _SCAN + ("ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 3) * 3 + ("ComputeExec",
-        "HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
-        "UnionExec",) + (("ComputeExec", "HashAggregateExec",) +
-        (("ComputeExec",) + _JOIN + ("HashJoinExec",)) * 2 + _SCAN +
-        ("ComputeExec",) + _JOIN + ("LocalTableScanExec",) + _SCAN + _BCAST *
-        3) * 3 + ("ComputeExec", "HashAggregateExec", "ShuffleExchangeExec",
-        "HashAggregateExec", "UnionExec",) + (("ComputeExec",
-        "HashAggregateExec",) + (("ComputeExec",) + _JOIN + ("HashJoinExec",))
-        * 2 + _SCAN + ("ComputeExec",) + _JOIN + ("LocalTableScanExec",) +
-        _SCAN + _BCAST * 3) * 3,
-    "q32": ("LimitExec", "LimitExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) +
-        _JOIN + ("LocalTableScanExec",) + _BCAST,
-    "q40": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",
-        "ComputeExec",) + _JOIN + ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q92": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) +
-        _SCAN + _BCAST + ("BroadcastExchangeExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN + ("LocalTableScanExec",) + _BCAST,
-    "q21": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) +
-        _SCAN + _BCAST * 2,
-    "q22": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec",) + ((("ComputeExec", "HashAggregateExec",) +
-        _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2) * 2) * 2 +
-        ("ComputeExec", "HashAggregateExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q37": _TOPK_OPS + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST +
-        _SCAN,
-    "q72": _TOPK_OPS + (("ComputeExec",) + _JOIN + ("HashJoinExec",)) * 2 +
-        (_SCAN + ("BroadcastExchangeExec", "ComputeExec",) + _JOIN +
-        ("HashJoinExec",)) * 2 + _SCAN + ("ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN * 2 + (_BCAST * 2) * 2 + _SCAN,
-    "q82": _TOPK_OPS + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST +
-        _SCAN,    # the fifth SQL slice: INTERSECT/EXCEPT, count(DISTINCT), the central
-    # moments, LIKE, host UDFs and NestedLoopJoinExec
-    "q6": _TOPK_OPS + ("ComputeExec",) + _JOIN * 5 + ("LocalTableScanExec",) +
-        _BCAST + _SCAN + _BCAST * 2 + ("BroadcastExchangeExec", "ComputeExec",
-        "HashAggregateExec", "LocalTableScanExec",),
-    "q8": _TOPK_OPS + ("ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) +
-        _SCAN + _BCAST + ("BroadcastExchangeExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN + ("LocalTableScanExec",
-        "BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        + ("LocalTableScanExec",) + _BCAST,
-    "q14a": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "LocalTableScanExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "LocalTableScanExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "LocalTableScanExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "LocalTableScanExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "LocalTableScanExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "LocalTableScanExec",),
-    "q14b": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec",) + _JOIN + ("HashAggregateExec", "ComputeExec",) + _JOIN *
-        3 + ("LocalTableScanExec",) + _SCAN + _BCAST +
-        ("BroadcastExchangeExec", "LocalTableScanExec",
-        "BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "LocalTableScanExec",),
-    "q16": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN + ("NestedLoopJoinExec", "ComputeExec",)
-        + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 3 + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _JOIN + ("NestedLoopJoinExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        * 3 + _SCAN,
-    "q17": _TOPK_OPS + _JOIN * 7 + ("LocalTableScanExec",) + _SCAN + _BCAST +
-        _SCAN * 2 + _BCAST * 3,
-    "q28": ("LimitExec",) * 2 + ("NestedLoopJoinExec",) * 5 + ("ComputeExec",
-        "NestedLoopJoinExec", "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "NestedLoopJoinExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "NestedLoopJoinExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "NestedLoopJoinExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "NestedLoopJoinExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "NestedLoopJoinExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _SCAN,
-    "q38": ("LimitExec",) * 2 + ("ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN +
-        ("HashAggregateExec", "ComputeExec",) + _JOIN + ("HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST,
-    "q39a": ("SortExec",) + _JOIN + ("LocalTableScanExec",) + _BCAST,
-    "q39b": ("SortExec",) + _JOIN + ("LocalTableScanExec",) + _BCAST,
-    "q41": _TOPK_OPS + ("ComputeExec",) + _JOIN + ("LocalTableScanExec",
-        "BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _SCAN,
-    "q54": _TOPK_OPS + ("ComputeExec", "HashAggregateExec",) + _JOIN * 4 +
-        ("LocalTableScanExec",) + _BCAST + ("BroadcastExchangeExec",
-        "ComputeExec",) + _MERGE + ("ComputeExec",) + _JOIN * 2 +
-        ("HashJoinExec", "ShuffleExchangeExec",) + _SCAN +
-        ("ShuffleExchangeExec", "ComputeExec", "UnionExec",) + _SCAN * 2 +
-        _BCAST * 2 + _SCAN + _BCAST,
-    "q61": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN * 3 + ("LocalTableScanExec",
-        "BroadcastExchangeExec", "ComputeExec",) + _JOIN * 3 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 4 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 5 + ("LocalTableScanExec",) + _SCAN + _BCAST * 4,
-    "q77": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "UnionExec", "ComputeExec", "HashAggregateExec",
-        "ShuffleExchangeExec", "HashAggregateExec", "UnionExec",
-        "ComputeExec",) + _JOIN + ("HashAggregateExec", "ComputeExec",) +
-        _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN + ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        + ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
-        ("HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _BCAST * 2 + ("ComputeExec",
-        "HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
-        "UnionExec", "ComputeExec",) + _JOIN + ("HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN + ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        + ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
-        ("HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _BCAST * 2 + ("ComputeExec",
-        "HashAggregateExec", "ShuffleExchangeExec", "HashAggregateExec",
-        "UnionExec", "ComputeExec",) + _JOIN + ("HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN + ("LocalTableScanExec",) + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        + ("LocalTableScanExec",) + _BCAST + ("ComputeExec",) + _JOIN +
-        ("HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST + ("BroadcastExchangeExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",) + _JOIN * 2 +
-        ("LocalTableScanExec",) + _BCAST * 2,
-    "q84": ("LimitExec",) * 2 + ("ComputeExec", "SortExec", "ComputeExec",
-        "PythonEvalExec",) + _JOIN * 2 + ("HashJoinExec",) * 2 + _JOIN +
-        ("LocalTableScanExec",) + _BCAST * 3 + _SCAN * 2,
-    "q87": ("ComputeExec", "HashAggregateExec", "ComputeExec",
-        "HashAggregateExec", "ComputeExec",) + _JOIN + ("HashAggregateExec",
-        "ComputeExec",) + _JOIN + ("HashAggregateExec", "ComputeExec",) +
-        _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        + ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec",) + _JOIN * 2 + ("LocalTableScanExec",) + _SCAN + _BCAST,
-    "q88": ("NestedLoopJoinExec",) * 7 + ("ComputeExec",
-        "HashAggregateExec",) +
-        _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",) + _JOIN
-        * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 2,
-    "q90": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN +
-        _BCAST * 2 + ("BroadcastExchangeExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN +
-        _BCAST * 2,
-    "q91": ("SortExec", "ComputeExec", "HashAggregateExec", "ComputeExec",) +
-        _JOIN * 2 + ("LocalTableScanExec", "BroadcastExchangeExec",
-        "ComputeExec",) + _JOIN * 4 + ("LocalTableScanExec",) + _BCAST * 5,
-    "q94": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec",) + _JOIN + ("NestedLoopJoinExec", "ComputeExec",)
-        + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST * 4 +
-        ("BroadcastExchangeExec", "ComputeExec", "HashAggregateExec",
-        "ComputeExec", "HashAggregateExec",) + _JOIN + ("NestedLoopJoinExec",
-        "ComputeExec",) + _JOIN * 3 + ("LocalTableScanExec",) + _SCAN + _BCAST
-        * 4,
-    "q95": ("LimitExec", "SortExec", "ShuffleExchangeExec", "LimitExec",
-        "SortExec", "ComputeExec", "NestedLoopJoinExec", "ComputeExec",
-        "HashAggregateExec", "HashJoinExec",) + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 2 + ("ComputeExec",) +
-        _JOIN + ("LocalTableScanExec",) + _SCAN + ("BroadcastExchangeExec",
-        "ComputeExec",) + _JOIN + ("LocalTableScanExec",
-        "BroadcastExchangeExec", "ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _SCAN + ("BroadcastExchangeExec",
-        "ComputeExec", "HashAggregateExec", "ComputeExec",
-        "HashAggregateExec", "HashJoinExec",) + _JOIN * 4 +
-        ("LocalTableScanExec",) + _SCAN + _BCAST * 2 + ("ComputeExec",) +
-        _JOIN + ("LocalTableScanExec",) + _SCAN + ("BroadcastExchangeExec",
-        "ComputeExec",) + _JOIN + ("LocalTableScanExec",
-        "BroadcastExchangeExec", "ComputeExec",) + _JOIN +
-        ("LocalTableScanExec",) + _SCAN,
+    "q3": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q7": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q13": _plan(
+        "WholeQuery Compute HashAggregate HashJoin HashJoin HashJoin "
+        "HashJoin HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q15": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q19": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q25": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin HashJoin Compute HashJoin "
+        "Compute HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q26": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q29": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin HashJoin Compute HashJoin "
+        "Compute HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q31": _plan(
+        "Sort Compute HashJoin HashJoin HashJoin HashJoin HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q34": _plan(
+        "WholeQuery Sort Compute HashJoin HashAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q42": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q43": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q46": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute FusedAggregate "
+        "HashJoin HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q48": _plan(
+        "WholeQuery Compute HashAggregate HashJoin HashJoin HashJoin "
+        "HashJoin LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q50": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan"),
+    "q52": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q55": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q59": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashJoin Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q62": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q64": _plan(
+        "Sort Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan"),
+    "q65": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "BroadcastExchange Compute FusedAggregate HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute FusedAggregate "
+        "HashAggregate HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan"),
+    "q68": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute FusedAggregate "
+        "HashJoin HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q73": _plan(
+        "WholeQuery Sort Compute HashJoin HashAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q78": _plan(
+        "WholeQuery Limit Limit Compute Sort Compute HashJoin HashJoin "
+        "HashAggregate HashJoin HashJoin Compute LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate HashJoin HashJoin "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin HashJoin Compute LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q79": _plan(
+        "WholeQuery Limit Limit Compute Sort Compute HashJoin "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q85": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin HashJoin HashJoin HashJoin "
+        "Compute HashJoin HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q93": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin HashJoin Compute LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q96": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q99": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q97": _plan(
+        "Limit FusedLimit FusedAggregate HashJoin HashAggregate HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan Compute "
+        "HashAggregate HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan"),
+    "q2": _plan(
+        "Sort Compute HashJoin HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q4": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan Compute LocalTableScan "
+        "Compute LocalTableScan Compute LocalTableScan"),
+    "q11": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q66": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate ShuffleExchange FusedAggregate Union Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute FusedAggregate "
+        "HashJoin HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q71": _plan(
+        "WholeQuery Sort ShuffleExchange Compute HashAggregate "
+        "ShuffleExchange HashAggregate HashJoin Compute HashJoin "
+        "ShuffleExchange LocalTableScan ShuffleExchange Union Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q74": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q75": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q76": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q1": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin Compute HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "LocalTableScan"),
+    "q9": _plan(
+        "Compute LocalTableScan"),
+    "q10": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin Compute HashJoin HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute LocalTableScan Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q23a": _plan(
+        "WholeQuery Limit FusedLimit HashAggregate ShuffleExchange "
+        "HashAggregate Union Compute HashJoin Compute HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute HashJoin Compute HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q23b": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute FusedAggregate HashJoin Compute HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q24a": _plan(
+        "Compute FusedAggregate LocalTableScan"),
+    "q24b": _plan(
+        "Compute FusedAggregate LocalTableScan"),
+    "q30": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin Compute HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "LocalTableScan"),
+    "q33": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "HashAggregate HashJoin Compute HashJoin HashJoin Compute "
+        "HashJoin LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q35": _plan(
+        "WholeQuery Limit Limit Compute Sort Compute FusedAggregate "
+        "HashJoin Compute HashJoin HashJoin Compute HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q45": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin Compute HashJoin HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute FusedAggregate LocalTableScan"),
+    "q56": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "HashAggregate HashJoin Compute HashJoin HashJoin Compute "
+        "HashJoin LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q58": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin HashJoin FusedAggregate HashJoin Compute HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute FusedAggregate "
+        "HashJoin Compute HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute FusedAggregate HashJoin Compute HashJoin Compute "
+        "HashJoin LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q60": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "HashAggregate HashJoin Compute HashJoin HashJoin Compute "
+        "HashJoin LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q69": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin HashJoin Compute HashJoin "
+        "Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan Compute LocalTableScan Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan"),
+    "q81": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin Compute HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "LocalTableScan"),
+    "q83": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashJoin Compute HashJoin FusedAggregate HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashJoin Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute FusedAggregate HashJoin Compute HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashJoin Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute FusedAggregate "
+        "HashJoin Compute HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashJoin "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q12": _plan(
+        "Limit Limit Compute Sort Compute Window Compute HashAggregate "
+        "Compute HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q20": _plan(
+        "Limit Limit Compute Sort Compute Window Compute HashAggregate "
+        "Compute HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q36": _plan(
+        "Limit ShuffleExchange Limit Compute Sort ShuffleExchange Compute "
+        "Window ShuffleExchange Union Compute HashAggregate HashJoin "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute HashAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute HashAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q44": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute HashJoin Compute "
+        "HashJoin HashJoin Window Compute FusedAggregate LocalTableScan "
+        "BroadcastExchange Compute Window Compute FusedAggregate "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q47": _plan(
+        "Limit Limit Compute Sort Compute HashJoin Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q49": _plan(
+        "Limit ShuffleExchange Limit Compute Sort ShuffleExchange Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute Window "
+        "Window Compute FusedAggregate HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute Window Window Compute FusedAggregate HashJoin HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan Compute Window Window Compute FusedAggregate "
+        "HashJoin HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q51": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute Window Compute "
+        "HashJoin Window Compute HashAggregate HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute Window Compute "
+        "HashAggregate HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan"),
+    "q53": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute Window Compute "
+        "HashAggregate Compute HashJoin Compute HashJoin HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q57": _plan(
+        "WholeQuery Limit Limit Compute Sort Compute HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q63": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute Window Compute "
+        "HashAggregate Compute HashJoin Compute HashJoin HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q67": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute Window "
+        "ShuffleExchange Union Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q70": _plan(
+        "Limit ShuffleExchange Limit Compute Sort ShuffleExchange Compute "
+        "Window ShuffleExchange Union Compute HashAggregate HashJoin "
+        "Compute HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute Window Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute Window Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin Compute HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute Window Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q86": _plan(
+        "Limit ShuffleExchange Limit Compute Sort ShuffleExchange Compute "
+        "Window ShuffleExchange Union Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "Compute HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan Compute "
+        "HashAggregate Compute HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q89": _plan(
+        "Limit Limit Compute Sort Compute Window Compute HashAggregate "
+        "Compute HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q98": _plan(
+        "Compute Sort Compute Window Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q5": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "HashAggregate ShuffleExchange HashAggregate Compute HashJoin "
+        "Compute HashJoin ShuffleExchange LocalTableScan ShuffleExchange "
+        "Union Compute LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "ShuffleExchange HashAggregate Compute HashJoin Compute HashJoin "
+        "ShuffleExchange LocalTableScan ShuffleExchange Union Compute "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan Compute HashAggregate ShuffleExchange "
+        "HashAggregate Compute HashJoin Compute HashJoin ShuffleExchange "
+        "LocalTableScan ShuffleExchange Union Compute LocalTableScan "
+        "Compute HashJoin Compute LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "ShuffleExchange HashAggregate Union Compute HashAggregate "
+        "ShuffleExchange HashAggregate Compute HashJoin Compute HashJoin "
+        "ShuffleExchange LocalTableScan ShuffleExchange Union Compute "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan Compute HashAggregate ShuffleExchange "
+        "HashAggregate Compute HashJoin Compute HashJoin ShuffleExchange "
+        "LocalTableScan ShuffleExchange Union Compute LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashAggregate ShuffleExchange HashAggregate Compute "
+        "HashJoin Compute HashJoin ShuffleExchange LocalTableScan "
+        "ShuffleExchange Union Compute LocalTableScan Compute HashJoin "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute HashAggregate ShuffleExchange "
+        "HashAggregate Union Compute HashAggregate ShuffleExchange "
+        "HashAggregate Compute HashJoin Compute HashJoin ShuffleExchange "
+        "LocalTableScan ShuffleExchange Union Compute LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashAggregate ShuffleExchange HashAggregate Compute "
+        "HashJoin Compute HashJoin ShuffleExchange LocalTableScan "
+        "ShuffleExchange Union Compute LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan Compute "
+        "HashAggregate ShuffleExchange HashAggregate Compute HashJoin "
+        "Compute HashJoin ShuffleExchange LocalTableScan ShuffleExchange "
+        "Union Compute LocalTableScan Compute HashJoin Compute "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan"),
+    "q18": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "FusedAggregate HashJoin HashJoin HashJoin HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "HashJoin HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute FusedAggregate HashJoin HashJoin HashJoin HashJoin "
+        "Compute HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute FusedAggregate "
+        "HashJoin HashJoin HashJoin HashJoin Compute HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute FusedAggregate HashJoin HashJoin HashJoin HashJoin "
+        "Compute HashJoin Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q27": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "HashAggregate HashJoin HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute HashAggregate HashJoin HashJoin "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q80": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin HashJoin "
+        "LocalTableScan Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "HashJoin Compute HashJoin LocalTableScan Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute FusedAggregate "
+        "HashJoin HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashAggregate ShuffleExchange HashAggregate Union "
+        "Compute FusedAggregate HashJoin HashJoin Compute HashJoin "
+        "HashJoin LocalTableScan Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "HashJoin Compute HashJoin LocalTableScan Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute FusedAggregate "
+        "HashJoin HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashAggregate ShuffleExchange HashAggregate Union "
+        "Compute FusedAggregate HashJoin HashJoin Compute HashJoin "
+        "HashJoin LocalTableScan Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute FusedAggregate HashJoin HashJoin "
+        "HashJoin Compute HashJoin LocalTableScan Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute FusedAggregate "
+        "HashJoin HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q32": _plan(
+        "WholeQuery Limit FusedLimit FusedAggregate HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q40": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q92": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate HashJoin "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q21": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q22": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "HashAggregate HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute HashAggregate "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q37": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan"),
+    "q72": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin Compute HashJoin HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute HashJoin "
+        "Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan"),
+    "q82": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan"),
+    "q6": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate LocalTableScan"),
+    "q8": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute HashAggregate "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q14a": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan Compute "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan"),
+    "q14b": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort HashJoin "
+        "FusedAggregate HashJoin Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange LocalTableScan "
+        "BroadcastExchange Compute FusedAggregate HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "LocalTableScan"),
+    "q16": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin Compute NestedLoopJoin Compute "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate Compute HashAggregate HashJoin Compute "
+        "NestedLoopJoin Compute HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute LocalTableScan"),
+    "q17": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "HashAggregate HashJoin HashJoin HashJoin Compute HashJoin "
+        "Compute HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q28": _plan(
+        "Limit Limit NestedLoopJoin NestedLoopJoin NestedLoopJoin "
+        "NestedLoopJoin NestedLoopJoin Compute NestedLoopJoin Compute "
+        "FusedAggregate LocalTableScan BroadcastExchange Compute "
+        "HashAggregate Compute FusedAggregate LocalTableScan "
+        "BroadcastExchange Compute NestedLoopJoin Compute FusedAggregate "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "FusedAggregate LocalTableScan BroadcastExchange Compute "
+        "NestedLoopJoin Compute FusedAggregate LocalTableScan "
+        "BroadcastExchange Compute HashAggregate Compute FusedAggregate "
+        "LocalTableScan BroadcastExchange Compute NestedLoopJoin Compute "
+        "FusedAggregate LocalTableScan BroadcastExchange Compute "
+        "HashAggregate Compute FusedAggregate LocalTableScan "
+        "BroadcastExchange Compute NestedLoopJoin Compute FusedAggregate "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "FusedAggregate LocalTableScan BroadcastExchange Compute "
+        "NestedLoopJoin Compute FusedAggregate LocalTableScan "
+        "BroadcastExchange Compute HashAggregate Compute FusedAggregate "
+        "LocalTableScan"),
+    "q38": _plan(
+        "WholeQuery Limit FusedLimit HashAggregate Compute HashAggregate "
+        "Compute HashJoin HashAggregate Compute HashJoin HashAggregate "
+        "Compute HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate Compute HashJoin Compute "
+        "HashJoin LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "Compute HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q39a": _plan(
+        "WholeQuery Sort HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q39b": _plan(
+        "WholeQuery Sort HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q41": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute FusedAggregate "
+        "HashJoin LocalTableScan BroadcastExchange Compute FusedAggregate "
+        "LocalTableScan"),
+    "q54": _plan(
+        "WholeQuery Limit Sort ShuffleExchange Limit Sort Compute "
+        "FusedAggregate HashAggregate HashJoin HashJoin Compute HashJoin "
+        "Compute HashJoin LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate "
+        "ShuffleExchange FusedAggregate HashJoin HashJoin Compute "
+        "HashJoin ShuffleExchange LocalTableScan ShuffleExchange Union "
+        "Compute LocalTableScan Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q61": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan BroadcastExchange Compute HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate HashJoin HashJoin HashJoin Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q77": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Union Compute "
+        "HashAggregate ShuffleExchange HashAggregate Union Compute "
+        "HashJoin HashAggregate Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashJoin HashAggregate Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashAggregate ShuffleExchange HashAggregate Union "
+        "Compute HashJoin HashAggregate Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashJoin HashAggregate Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashAggregate ShuffleExchange HashAggregate Union "
+        "Compute HashJoin HashAggregate Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "HashJoin LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "Compute HashJoin HashAggregate Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q84": _plan(
+        "Limit Limit Compute Sort Compute PythonEval HashJoin HashJoin "
+        "HashJoin HashJoin HashJoin LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan Compute LocalTableScan "
+        "Compute LocalTableScan"),
+    "q87": _plan(
+        "WholeQuery Compute HashAggregate Compute HashAggregate Compute "
+        "HashJoin HashAggregate Compute HashJoin HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate Compute HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q88": _plan(
+        "NestedLoopJoin NestedLoopJoin NestedLoopJoin NestedLoopJoin "
+        "NestedLoopJoin NestedLoopJoin NestedLoopJoin Compute "
+        "HashAggregate HashJoin HashJoin Compute HashJoin LocalTableScan "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute HashAggregate "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute HashAggregate HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan"),
+    "q90": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin HashJoin Compute HashJoin "
+        "LocalTableScan Compute LocalTableScan BroadcastExchange Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q91": _plan(
+        "WholeQuery Sort Compute HashAggregate Compute HashJoin Compute "
+        "HashJoin LocalTableScan BroadcastExchange Compute HashJoin "
+        "Compute HashJoin Compute HashJoin HashJoin LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan"),
+    "q94": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin Compute NestedLoopJoin Compute "
+        "HashJoin HashJoin Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute HashAggregate Compute HashAggregate "
+        "HashJoin Compute NestedLoopJoin Compute HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan BroadcastExchange Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan"),
+    "q95": _plan(
+        "Limit Sort ShuffleExchange Limit Sort Compute NestedLoopJoin "
+        "Compute HashAggregate HashJoin HashJoin Compute HashJoin "
+        "HashJoin Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute HashAggregate Compute "
+        "HashAggregate HashJoin HashJoin Compute HashJoin HashJoin "
+        "Compute HashJoin LocalTableScan Compute LocalTableScan "
+        "BroadcastExchange Compute LocalTableScan BroadcastExchange "
+        "Compute LocalTableScan Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan BroadcastExchange Compute HashJoin LocalTableScan "
+        "BroadcastExchange Compute HashJoin LocalTableScan Compute "
+        "LocalTableScan"),
+}
+# each plan's compile-tier decision at SF10 and the default tier, `auto`:
+# (tier, reason), the JAX package's (the same tests hold both engines to it)
+_AUTO = "cost model (spark.tpu.compile.tier=auto)"
+_FALLBACK = "whole-query fallback: "
+TPCDS_TIERS = {
+    "q3": ("whole", _AUTO),
+    "q7": ("whole", _AUTO),
+    "q13": ("whole", _AUTO),
+    "q15": ("whole", _AUTO),
+    "q19": ("whole", _AUTO),
+    "q25": ("whole", _AUTO),
+    "q26": ("whole", _AUTO),
+    "q29": ("whole", _AUTO),
+    "q31": ("stage", _FALLBACK
+        + "batch volume 12000 rows under the compile-amortization "
+        + "floor (393216; spark.tpu.compile.whole.minRows scaled by"
+        + " program depth)"),
+    "q34": ("whole", _AUTO),
+    "q42": ("whole", _AUTO),
+    "q43": ("whole", _AUTO),
+    "q46": ("whole", _AUTO),
+    "q48": ("whole", _AUTO),
+    "q50": ("whole", _AUTO),
+    "q52": ("whole", _AUTO),
+    "q55": ("whole", _AUTO),
+    "q59": ("stage", _FALLBACK
+        + "batch volume 200068 rows under the compile-amortization "
+        + "floor (524288; spark.tpu.compile.whole.minRows scaled by"
+        + " program depth)"),
+    "q62": ("whole", _AUTO),
+    "q64": ("stage", _FALLBACK
+        + "batch volume 13128 rows under the compile-amortization "
+        + "floor (131072; spark.tpu.compile.whole.minRows scaled by"
+        + " program depth)"),
+    "q65": ("whole", _AUTO),
+    "q68": ("whole", _AUTO),
+    "q73": ("whole", _AUTO),
+    "q78": ("whole", _AUTO),
+    "q79": ("whole", _AUTO),
+    "q85": ("whole", _AUTO),
+    "q93": ("whole", _AUTO),
+    "q96": ("whole", _AUTO),
+    "q99": ("whole", _AUTO),
+    "q97": ("stage", _FALLBACK
+        + "full_outer join runs eager host-side passes (no in-"
+        + "program lowering)"),
+    "q2": ("stage", _FALLBACK
+        + "batch volume 146656 rows under the compile-amortization "
+        + "floor (262144; spark.tpu.compile.whole.minRows scaled by"
+        + " program depth)"),
+    "q4": ("whole", _AUTO),
+    "q11": ("whole", _AUTO),
+    "q66": ("whole", _AUTO),
+    "q71": ("whole", _AUTO),
+    "q74": ("whole", _AUTO),
+    "q75": ("stage", _FALLBACK
+        + "batch volume 106350 rows under the compile-amortization "
+        + "floor (262144; spark.tpu.compile.whole.minRows scaled by"
+        + " program depth)"),
+    "q76": ("whole", _AUTO),
+    "q1": ("whole", _AUTO),
+    "q9": ("stage", _FALLBACK
+        + "no exchange round-trips to eliminate (single-stage plan "
+        + "— stage fusion already dispatches once per batch)"),
+    "q10": ("whole", _AUTO),
+    "q23a": ("whole", _AUTO),
+    "q23b": ("whole", _AUTO),
+    "q24a": ("stage", _FALLBACK
+        + "no exchange round-trips to eliminate (single-stage plan "
+        + "— stage fusion already dispatches once per batch)"),
+    "q24b": ("stage", _FALLBACK
+        + "no exchange round-trips to eliminate (single-stage plan "
+        + "— stage fusion already dispatches once per batch)"),
+    "q30": ("whole", _AUTO),
+    "q33": ("whole", _AUTO),
+    "q35": ("whole", _AUTO),
+    "q45": ("whole", _AUTO),
+    "q56": ("whole", _AUTO),
+    "q58": ("whole", _AUTO),
+    "q60": ("whole", _AUTO),
+    "q69": ("whole", _AUTO),
+    "q81": ("whole", _AUTO),
+    "q83": ("whole", _AUTO),
+    "q12": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q20": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q36": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q44": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q47": ("stage", _FALLBACK
+        + "batch volume 134400 rows under the compile-amortization "
+        + "floor (262144; spark.tpu.compile.whole.minRows scaled by"
+        + " program depth)"),
+    "q49": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q51": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q53": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q57": ("whole", _AUTO),
+    "q63": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q67": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q70": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q86": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q89": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q98": ("stage", _FALLBACK
+        + "operator WindowExec has no whole-query lowering"),
+    "q5": ("whole", _AUTO),
+    "q18": ("whole", _AUTO),
+    "q27": ("whole", _AUTO),
+    "q80": ("whole", _AUTO),
+    "q32": ("whole", _AUTO),
+    "q40": ("whole", _AUTO),
+    "q92": ("whole", _AUTO),
+    "q21": ("whole", _AUTO),
+    "q22": ("whole", _AUTO),
+    "q37": ("whole", _AUTO),
+    "q72": ("whole", _AUTO),
+    "q82": ("whole", _AUTO),
+    "q6": ("whole", _AUTO),
+    "q8": ("whole", _AUTO),
+    "q14a": ("whole", _AUTO),
+    "q14b": ("whole", _AUTO),
+    "q16": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
+    "q17": ("whole", _AUTO),
+    "q28": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
+    "q38": ("whole", _AUTO),
+    "q39a": ("whole", _AUTO),
+    "q39b": ("whole", _AUTO),
+    "q41": ("stage", _FALLBACK
+        + "batch volume 204000 rows under the compile-amortization "
+        + "floor (262144; spark.tpu.compile.whole.minRows scaled by"
+        + " program depth)"),
+    "q54": ("whole", _AUTO),
+    "q61": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
+    "q77": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
+    "q84": ("stage", _FALLBACK
+        + "operator PythonEvalExec has no whole-query lowering"),
+    "q87": ("whole", _AUTO),
+    "q88": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
+    "q90": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
+    "q91": ("whole", _AUTO),
+    "q94": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
+    "q95": ("stage", _FALLBACK
+        + "operator NestedLoopJoinExec has no whole-query lowering"),
 }
 # the joins of each plan by kind, in the order of the tree
 TPCDS_JOINS = {
@@ -1978,14 +2585,58 @@ def copies_timed(torch, events: list):
         CapturedProgram.copy_in, CapturedProgram.copy_out = copy_in, copy_out
 
 
+def plan_nodes(df) -> list:
+    """The plan's operators, through a whole-query program into its inner
+    plan (which is no child of it)."""
+    from spark_tpu_torch.physical.whole_query import plan_nodes as nodes
+
+    return list(nodes(df.query_execution.physical))
+
+
+def plan_ops(df) -> tuple:
+    """The plan's operator sequence as TPCDS_PLAN_OPS writes it: a whole
+    program's name, then its inner plan's operators."""
+    p = df.query_execution.physical
+    head = ("WholeQueryExec",) if type(p).__name__ == "WholeQueryExec" \
+        else ()
+    return head + tuple(type(n).__name__ for n in plan_nodes(df))
+
+
 def fused_stages(df) -> list:
     """The plan's fused operators (a fused aggregate or limit, a join
-    with its probe pipeline, an exchange with its map pipeline)."""
-    return [n.simple_string()[:60]
-            for n in df.query_execution.physical.iter_nodes()
+    with its probe pipeline, an exchange with its map pipeline), inside a
+    whole program too."""
+    return [n.simple_string()[:60] for n in plan_nodes(df)
             if type(n).__name__.startswith("Fused")
             or getattr(n, "probe_fusion", None) is not None
             or getattr(n, "pipe_fusion", None) is not None]
+
+
+def decision_report(df) -> dict:
+    """The plan's compile-tier decision: tier, reason, volume_rows and
+    est_resident_bytes where the cost model got that far, and the cause of
+    a run-time degrade to the stage tier, if one happened."""
+    d = df.query_execution.tier_decision
+    return {"tier": d.tier, "reason": d.reason,
+            "volume_rows": d.details.get("volume_rows"),
+            "est_resident_bytes": d.details.get("est_resident_bytes"),
+            "runtime_degraded": d.details.get("runtime_degraded")}
+
+
+WHOLE_METRICS = ("whole_query.dispatches", "whole_query.capacity_retries",
+                 "whole_query.runtime_degraded")
+
+
+def once(fn):
+    """`fn()`, computed at the first call and kept: a leg's numpy oracle
+    holds every tier's run of the same query."""
+    box = []
+
+    def get():
+        if not box:
+            box.append(fn())
+        return box[0]
+    return get
 
 
 def _delta(after: dict, before: dict) -> dict:
@@ -2014,13 +2665,21 @@ def counted_run(torch, sk, spark, run):
     m1 = spark.metrics
     gated = m1.get("fusion.min_rows_gated", 0) - \
         m0.get("fusion.min_rows_gated", 0)
-    fused = sum(n for k, n in dispatches.items() if k.startswith("fused_"))
+    whole = {k.split(".")[1]: m1.get(k, 0) - m0.get(k, 0)
+             for k in WHOLE_METRICS}
+    # a fused batch and a whole program's attempt are one replay each
+    fused = sum(n for k, n in dispatches.items()
+                if k.startswith("fused_") or k == "whole_query")
     if cache.get("stage_cache.replays", 0) != fused:
         fail(f"{cache.get('stage_cache.replays', 0)} graph replays for "
-             f"{fused} fused dispatches: each fused batch must be one "
-             "replay")
+             f"{fused} fused and whole-program dispatches: each must be "
+             "one replay")
+    if not whole["runtime_degraded"] and \
+            whole["dispatches"] != dispatches.get("whole_query", 0):
+        fail(f"{whole['dispatches']} whole-query dispatches counted, "
+             f"{dispatches.get('whole_query', 0)} made")
     return out, secs, launches, {"cache": cache, "dispatches": dispatches,
-                                 "gated_batches": gated}
+                                 "gated_batches": gated, "whole": whole}
 
 
 def busy_share(torch, run) -> dict:
@@ -2051,6 +2710,8 @@ def same_tables(label: str, a, b, rel: float = 1e-9) -> None:
 
     if a.column_names != b.column_names or a.num_rows != b.num_rows:
         fail(f"{label}: the tiers' results differ in shape")
+    if a.equals(b):
+        return  # the same rows in the same order (the sort leg's 1e8)
     order = [(n, "ascending") for n in a.column_names]
     a, b = a.sort_by(order), b.sort_by(order)
     for name in a.column_names:
@@ -2066,58 +2727,145 @@ def same_tables(label: str, a, b, rel: float = 1e-9) -> None:
             fail(f"{label}: the tiers differ in column {name}")
 
 
+def _warm(torch, run, n: int = 3) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def tier_run(torch, sk, card: str, label: str, spark, tier: str, run,
+             histograms, check, first, post_check=None) -> dict:
+    """The same query once more at `tier` in the same session (planned
+    anew there): its histogram calls exactly `histograms`, its result to
+    the oracle `check`, to `post_check(metrics delta)` where given and to
+    the first tier's result `first`; 3 warm runs and a profiled one,
+    printed as the `<label> <tier>` line. Returns the launch counts."""
+    with tier_set(spark, tier):
+        m0 = spark.metrics
+        out, cold, launches, st = counted_run(torch, sk, spark, run)
+        calls = launches["partition_histogram"]
+        if calls != histograms:
+            fail(f"{label} at the {tier} tier launched the histogram "
+                 f"kernel {calls} times, not {histograms}")
+        if tier == "operator" and st["cache"].get("stage_cache.replays", 0):
+            fail(f"{label}: the operator tier replayed a graph")
+        msg = check(out)
+        if post_check is not None:
+            msg += "; " + post_check(_delta(spark.metrics, m0))
+        print(f"{label} {tier} tier: {msg}", flush=True)
+        same_tables(label, first, out)
+        warm = _warm(torch, run)
+        cc = st["cache"]
+        print(f"{label} {tier} " + json.dumps(dict(
+            busy_share(torch, run), tier=tier, cold_s=cold,
+            warm_median_s=statistics.median(warm), warm_s=warm,
+            dispatches=st["dispatches"], histogram_calls=calls,
+            captures=cc.get("stage_cache.captures", 0),
+            replays=cc.get("stage_cache.replays", 0),
+            capture_ms=cc.get("stage_cache.capture_ms", 0.0),
+            card=card)), flush=True)
+    return launches
+
+
 def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
           histograms, check, run=None, timed_shapes=None,
-          profile: bool = True, operator=None) -> dict:
+          profile: bool = True, operator=None, stage=None,
+          stage_check=None, tiers_out=None, main_calls=None,
+          warm_runs: int = 3, record_operator: bool = True,
+          whole: bool = False) -> dict:
     """One path through the DataFrame API at the session's tier (the
-    default: stage): assert the physical plan holds each of `plan_parts`,
-    run it cold with the launch counts set to 0 just before and read just
-    after (the histogram wrapper must count exactly `histograms` calls,
-    replays counted, or `histograms()` where it is a function of what the
-    run recorded, or at least one where it is None; each fused batch must
-    be one graph replay), hold the result to the oracle `check(table)`,
-    then time 3 warm runs, print the breakdown (without its profiler pass
-    where not `profile`) and the stage tier's report (fused stages,
-    captures, replays, hits, gated batches, capture ms, the copies' device
-    ms per batch in the last warm run, graph memory, peak memory), and hold
-    the histogram kernel at the path's own inputs (`path_histograms`, at
-    both tiers: the stage tier's bodies run once more eagerly beside their
-    replays, where the wrappers see the replays' inputs). Where
-    `operator` is given, the same query then runs once more at the
-    operator tier in the same session: its histogram calls exactly
-    `operator`, its result to the oracle and to the stage tier's, 3 warm
-    runs and a profiled one. `run()` runs the path and returns its Arrow
-    table (default: `df.toArrow`, over the plan made once). Returns the
-    launch counts."""
+    default: `auto`, whose cost model picks whole, stage or operator per
+    plan, printed with its reason): assert the physical plan holds each of
+    `plan_parts`, run it cold with the launch counts set to 0 just before
+    and read just after (the histogram wrapper must count exactly
+    `histograms` calls, replays counted, or `histograms()` where it is a
+    function of what the run recorded, or at least one where it is None;
+    a whole program calls it never, so there exactly 0; each fused batch
+    and each whole program's attempt must be one graph replay), hold the
+    result to the oracle `check(table)`, then time `warm_runs` warm runs
+    (none where the cold run degraded to the stage tier), print the
+    breakdown (none without a warm run) (without its profiler pass where not `profile`) and the
+    tier's report (the decision; whole dispatches, capacity retries and a
+    degrade with its cause; fused stages, captures, replays, hits, gated
+    batches, capture ms, the copies' device ms per replay in the last warm
+    run, graph memory, pool resets, peak memory), and hold the histogram
+    kernel at the path's own inputs (`path_histograms`: the stage tier's
+    bodies run once more eagerly beside their replays, where the wrappers
+    see the replays' inputs; and the operator tier). Where the plan is not
+    at the stage tier and `stage` is given, the query runs once more at
+    the stage tier in the same session (`tier_run`: its histogram calls
+    exactly `stage`, `stage_check(metrics delta)` for the stage tier's own
+    paths); where `whole` is set and the plan is not whole, once more at
+    forced `whole` (no histogram call); where `operator` is given, once
+    more at the operator tier.
+    `run()` runs the path and returns its Arrow table (default:
+    `df.toArrow`, over the plan made once; `main_calls()` then gives the
+    histogram calls of the main plan alone in its last run). The SF10
+    leg cuts its time with `warm_runs` (0 but for q3, q7 and q19: the
+    cold run only, with every check) and without the operator tier's
+    recording run (`record_operator`; its
+    stage-tier queries' shapes are the stage run's, its whole programs
+    call no kernel). Returns the launch counts of the first run;
+    `tiers_out`, where given, gets each tier's, by tier."""
     from spark_tpu_torch.api.dataframe import DataFrame
 
+    tiers_out = {} if tiers_out is None else tiers_out
     spark = df.session
     custom = run is not None
     run = run or df.toArrow
     plan = df.query_execution.physical.tree_string()
+    decision = decision_report(df)
+    tier = decision["tier"]
     print(f"{label} plan:\n{plan}", flush=True)
+    print(f"{label} tier " + json.dumps(decision), flush=True)
     for part in plan_parts:
         if part not in plan:
             fail(f"{label}: the physical plan lacks {part}")
 
     torch.cuda.reset_peak_memory_stats()
     held0 = stage_counters()["stage_cache.held_bytes"]
-    out, cold_s, launches, stage = counted_run(torch, sk, spark, run)
+    m0 = spark.metrics
+    out, cold_s, launches, st = counted_run(torch, sk, spark, run)
     calls = launches["partition_histogram"]
-    if callable(histograms):
-        histograms = histograms()
+    tiers_out[tier] = launches
     print(f"{label} launches {json.dumps(launches)}; operator dispatches "
-          f"{json.dumps(stage['dispatches'])}", flush=True)
-    if calls != histograms and (histograms is not None or calls < 1):
-        fail(f"{label} launched the histogram kernel {calls} times, not "
-             f"{'at least 1' if histograms is None else histograms}")
-    print(f"{label}: {check(out)}", flush=True)
+          f"{json.dumps(st['dispatches'])}", flush=True)
+    if tier == "whole" and not st["whole"]["runtime_degraded"]:
+        # a whole program calls neither kernel (materialised CTE bodies
+        # and scalar subqueries, which run before it, may: `main_calls`)
+        own = calls if main_calls is None else main_calls()
+        if own:
+            fail(f"{label}: the whole program launched the histogram "
+                 f"kernel {own} times, not 0")
+    else:
+        if callable(histograms):
+            histograms = histograms()
+        # "at least 1" counts on the run's joins, exchanges or CTE bodies;
+        # CTE bodies and scalar subqueries that ran as whole programs
+        # call none
+        if calls != histograms and (histograms is not None or (
+                calls < 1 and not st["whole"]["dispatches"])):
+            fail(f"{label} launched the histogram kernel {calls} times, "
+                 f"not {'at least 1' if histograms is None else histograms}")
+    msg = check(out)
+    if tier == "stage" and stage_check is not None:
+        msg += "; " + stage_check(_delta(spark.metrics, m0))
+    print(f"{label}: {msg}", flush=True)
 
+    skipped = "not measured: no warm run"
+    if st["whole"]["runtime_degraded"]:
+        # each run tries the program again, runs out of memory again and
+        # re-runs the plan staged: the cold run has shown that path
+        warm_runs, skipped = 0, "not measured: the cold run degraded"
     warm, events = [], []
-    for i in range(3):
+    for i in range(warm_runs):
         # the copies into and out of each graph, timed with device events
-        # in the last warm run (4 events per replay, read after the run)
-        with copies_timed(torch, events) if i == 2 \
+        # in the last warm run (2 events per copy, read after the run)
+        with copies_timed(torch, events) if i == warm_runs - 1 \
                 else contextlib.nullcontext():
             t0 = time.perf_counter()
             run()
@@ -2127,27 +2875,29 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     for kind, start, end in events:
         copy_ms[kind] += start.elapsed_time(end)
     batches = sum(kind == "copy_in" for kind, _, _ in events)
-    warm_s = statistics.median(warm)
+    warm_s = statistics.median(warm) if warm else skipped
     timing = {"rows": rows, "cold_s": cold_s, "warm_median_s": warm_s,
               "warm_s": warm, "cold_rows_per_s": rows / cold_s,
-              "warm_rows_per_s": rows / warm_s,
+              "warm_rows_per_s": rows / warm_s if warm else warm_s,
               "histogram_calls": calls, "card": card}
     print(f"{label} timing " + json.dumps(timing), flush=True)
-    bd = breakdown(torch, df, profile)
+    bd = breakdown(torch, df, profile) if warm else {"operators": warm_s}
     print(f"{label} breakdown " + json.dumps(bd), flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cc = stage["cache"]
-    report = {
-        "tier": df.query_execution.tier_decision.tier,
+    cc = st["cache"]
+    report = dict(decision_report(df), **{
+        "whole_dispatches": st["whole"]["dispatches"],
+        "capacity_retries": st["whole"]["capacity_retries"],
+        "degrades": st["whole"]["runtime_degraded"],
         "fused_stages": fused_stages(df),
         "captures": cc.get("stage_cache.captures", 0),
         "replays": cc.get("stage_cache.replays", 0),
         "hits": cc.get("stage_cache.hits", 0),
-        "gated_batches": stage["gated_batches"],
+        "gated_batches": st["gated_batches"],
         "capture_ms": cc.get("stage_cache.capture_ms", 0.0),
-        "copy_in_ms_per_batch": copy_ms["copy_in"] / batches
+        "copy_in_ms_per_replay": copy_ms["copy_in"] / batches
         if batches else None,
-        "copy_out_ms_per_batch": copy_ms["copy_out"] / batches
+        "copy_out_ms_per_replay": copy_ms["copy_out"] / batches
         if batches else None,
         "warm_replays": batches,
         "graph_gb_captured": cc.get("stage_cache.graph_bytes", 0) / 1e9,
@@ -2157,53 +2907,46 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
         "peak_gb": peak_gb,
         "warm_median_s": warm_s,
         "device_idle_share": bd.get("device_idle_share", "not measured"),
-        "dispatches": stage["dispatches"], "histogram_calls": calls,
-        "card": card}
-    print(f"{label} stage " + json.dumps(report), flush=True)
+        "dispatches": st["dispatches"], "histogram_calls": calls,
+        "card": card})
+    print(f"{label} report " + json.dumps(report), flush=True)
 
     if custom:
-        op_run = run
+        again = run
     else:
-        def op_run():
+        def again():
             return DataFrame(spark, df.plan).toArrow()
-    with tier_set(spark, "operator"):
-        if operator is not None:
-            o_out, o_cold, o_launches, o_stage = counted_run(
-                torch, sk, spark, op_run)
-            o_calls = o_launches["partition_histogram"]
-            if o_calls != operator:
-                fail(f"{label} at the operator tier launched the histogram "
-                     f"kernel {o_calls} times, not {operator}")
-            if o_stage["cache"].get("stage_cache.replays", 0):
-                fail(f"{label}: the operator tier replayed a graph")
-            print(f"{label} operator tier: {check(o_out)}", flush=True)
-            same_tables(label, out, o_out)
-            o_warm = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                op_run()
-                torch.cuda.synchronize()
-                o_warm.append(time.perf_counter() - t0)
-            print(f"{label} operator " + json.dumps(dict(
-                busy_share(torch, op_run), tier="operator",
-                cold_s=o_cold, warm_median_s=statistics.median(o_warm),
-                warm_s=o_warm, dispatches=o_stage["dispatches"],
-                histogram_calls=o_calls, card=card)), flush=True)
+    if tier != "stage" and stage is not None:
+        tiers_out["stage"] = tier_run(torch, sk, card, label, spark,
+                                      "stage", again, stage, check, out,
+                                      stage_check)
+    if whole and tier != "whole":
+        tiers_out["whole"] = tier_run(torch, sk, card, label, spark,
+                                      "whole", again, 0, check, out)
+    if operator is not None:
+        tiers_out["operator"] = tier_run(torch, sk, card, label, spark,
+                                         "operator", again, operator,
+                                         check, out)
 
-    def stage_run():
-        with bodies_on_card(torch, sk):
-            run()
+    runs = {}
+    if tier == "stage" or stage is not None:
+        def stage_run():
+            with tier_set(spark, "stage"), bodies_on_card(torch, sk):
+                (run if tier == "stage" else again)()
+        runs["stage"] = stage_run
 
     def operator_run():
         with tier_set(spark, "operator"):
-            op_run()
-
-    seen, _ = path_histograms(
-        torch, sk, label, {"stage": stage_run, "operator": operator_run},
-        timed_shapes)
-    if calls and not seen["stage"]:
+            again()
+    if record_operator:
+        runs["operator"] = operator_run
+    if not runs:
+        return launches
+    seen, _ = path_histograms(torch, sk, label, runs, timed_shapes)
+    if "stage" in runs and not seen["stage"] and (
+            calls if tier == "stage" else stage):
         fail(f"{label}: the stage tier's run showed no histogram call to "
-             f"record, though the path made {calls}")
+             f"record, though the path made some")
     return launches
 
 
@@ -2230,6 +2973,7 @@ def main_path(torch, sk, card: str, k, v):
     import pyarrow as pa
 
     import spark_tpu_torch.api.functions as F
+    from spark_tpu_torch.api.dataframe import DataFrame
 
     spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
                      "spark.tpu.batch.capacity": TILE})
@@ -2241,9 +2985,8 @@ def main_path(torch, sk, card: str, k, v):
           .agg(F.sum("v2"), F.count("*"), F.min("v"), F.max("v"),
                F.avg("v")))
 
-    def check(out):
-        if spark.metrics.get("agg.dense_fast_path", 0) <= 0:
-            fail("the main path did not take the dense aggregate")
+    @once
+    def oracle():
         live = v > 25
         kk, vv = k[live], v[live]
         cnt = np.bincount(kk, minlength=KEYS)
@@ -2253,7 +2996,10 @@ def main_path(torch, sk, card: str, k, v):
         mx = np.full(KEYS, np.iinfo(np.int64).min)
         np.minimum.at(mn, kk, vv)
         np.maximum.at(mx, kk, vv)
-        present = np.nonzero(cnt)[0]
+        return cnt, s2, s1, mn, mx, np.nonzero(cnt)[0]
+
+    def check(out):
+        cnt, s2, s1, mn, mx, present = oracle()
         got = out.sort_by("k")
         gk = got.column("k").to_numpy()
         if not np.array_equal(gk, present):
@@ -2274,14 +3020,24 @@ def main_path(torch, sk, card: str, k, v):
         return (f"{out.num_rows} groups equal to the numpy oracle "
                 f"(integers exact, avg rel err {rel:.3e})")
 
-    launches = drive(torch, sk, card, "main path", df, ROWS,
-                     (f"Exchange[UnknownPartitioning({PARTITIONS})]",
-                      f"Exchange[HashPartitioning({PARTITIONS})]",
-                      "HashAggregate[partial]", "HashAggregate[final]"),
-                     MAIN_HISTOGRAMS, check, operator=MAIN_HISTOGRAMS)
+    def dense(metrics):
+        if metrics.get("agg.dense_fast_path", 0) <= 0:
+            fail("the main path did not take the dense aggregate")
+        return "the dense aggregate taken"
+
+    tiers = {}
+    drive(torch, sk, card, "main path", df, ROWS,
+          (f"Exchange[UnknownPartitioning({PARTITIONS})]",
+           f"Exchange[HashPartitioning({PARTITIONS})]",
+           "HashAggregate[partial]", "HashAggregate[final]"),
+          MAIN_HISTOGRAMS, check, operator=MAIN_HISTOGRAMS,
+          stage=MAIN_HISTOGRAMS, stage_check=dense, tiers_out=tiers)
     replay_equals_eager(torch, "main path", df.toArrow)
+    with tier_set(spark, "stage"):
+        replay_equals_eager(torch, "main path stage",
+                            DataFrame(spark, df.plan).toArrow)
     spark.stop()
-    return launches
+    return tiers
 
 
 def replay_equals_eager(torch, label: str, run) -> None:
@@ -2349,9 +3105,12 @@ def join_leg(torch, sk, card: str) -> dict:
     df = (f.join(d, f["ss_sold_date_sk"] == d["d_date_sk"])
           .groupBy("d_year").agg(F.sum("ss_ext_sales_price")))
 
-    def check(out):
-        if spark.metrics.get("join.dense_fast_path", 0) <= 0:
+    def dense(metrics):
+        if metrics.get("join.dense_fast_path", 0) <= 0:
             fail("join: the dense join build was not taken")
+        return "the dense join build taken"
+
+    def check(out):
         year = (sold - DATE0) // 365
         sums = np.bincount(year, weights=price)
         present = np.nonzero(np.bincount(year))[0]
@@ -2369,7 +3128,8 @@ def join_leg(torch, sk, card: str) -> dict:
 
     launches = drive(torch, sk, card, "join leg", df, ROWS + DATES,
                      ("BroadcastExchange", "BroadcastHashJoin[inner]"),
-                     leg_calls("join"), check, operator=leg_calls("join"))
+                     leg_calls("join"), check, operator=leg_calls("join"),
+                     stage=leg_calls("join"), stage_check=dense)
     spark.stop()
     return launches
 
@@ -2387,14 +3147,17 @@ def sort_leg(torch, sk, card: str) -> dict:
                      "spark.tpu.batch.capacity": SORT_TILE})
     df = spark.createDataFrame(pa.table({"k": k})).orderBy("k")
 
+    ordered = once(lambda: np.sort(k))
+
     def check(out):
         got = out.column("k").to_numpy()
-        if not np.array_equal(got, np.sort(k)):
+        if not np.array_equal(got, ordered()):
             fail("sort: the keys differ from np.sort")
         return f"{out.num_rows} keys equal to np.sort"
 
     launches = drive(torch, sk, card, "sort leg", df, SORT_ROWS,
-                     ("Sort[k#",), leg_calls("sort"), check)
+                     ("Sort[k#",), leg_calls("sort"), check,
+                     operator=leg_calls("sort"), whole=True)
     spark.stop()
     return launches
 
@@ -2412,8 +3175,10 @@ def range_sort_leg(torch, sk, card: str, k, v) -> dict:
     df = (spark.createDataFrame(pa.table({"k": k, "v": v}))
           .repartition(PARTITIONS).orderBy("k", F.desc("v")))
 
+    lexsorted = once(lambda: np.lexsort((-v, k)))
+
     def check(out):
-        order = np.lexsort((-v, k))
+        order = lexsorted()
         for name, col in (("k", k), ("v", v)):
             if not np.array_equal(out.column(name).to_numpy(), col[order]):
                 fail(f"range_sort: column {name} differs from the "
@@ -2423,7 +3188,8 @@ def range_sort_leg(torch, sk, card: str, k, v) -> dict:
     launches = drive(torch, sk, card, "range_sort leg", df, ROWS,
                      (f"Exchange[RangePartitioning({PARTITIONS})]",
                       "Sort[k#"), leg_calls("range_sort"), check,
-                     operator=leg_calls("range_sort"))
+                     operator=leg_calls("range_sort"),
+                     stage=leg_calls("range_sort"))
     spark.stop()
     return launches
 
@@ -2441,8 +3207,10 @@ def topk_leg(torch, sk, card: str, k, v) -> dict:
     df = (spark.createDataFrame(pa.table({"k": k, "v": v}))
           .orderBy(F.desc("v"), "k").limit(TOPK))
 
+    top = once(lambda: np.lexsort((k, -v))[:TOPK])
+
     def check(out):
-        order = np.lexsort((k, -v))[:TOPK]
+        order = top()
         for name, col in (("k", k), ("v", v)):
             if not np.array_equal(out.column(name).to_numpy(), col[order]):
                 fail(f"topk: column {name} differs from the oracle")
@@ -2451,7 +3219,8 @@ def topk_leg(torch, sk, card: str, k, v) -> dict:
     launches = drive(torch, sk, card, "topk leg", df, ROWS,
                      ("LimitExec(is_global=True", "LimitExec(is_global=False",
                       "Exchange[SinglePartition(1)]"),
-                     leg_calls("topk"), check, operator=leg_calls("topk"))
+                     leg_calls("topk"), check, operator=leg_calls("topk"),
+                     stage=leg_calls("topk"))
     spark.stop()
     return launches
 
@@ -2466,6 +3235,7 @@ def q78_leg(torch, sk, card: str) -> dict:
     import pyarrow as pa
 
     import spark_tpu_torch.api.functions as F
+    from spark_tpu_torch.api.dataframe import DataFrame
     from spark_tpu_torch.physical.exchange import ShuffleExchangeExec
     from spark_tpu_torch.physical.operators import HashJoinExec
     from spark_tpu_torch.physical.partitioning import HashPartitioning
@@ -2490,23 +3260,29 @@ def q78_leg(torch, sk, card: str) -> dict:
     df = (s.repartition(PARTITIONS).join(r, cond, "left_outer")
           .filter(F.col("sr_ticket_number").isNull())
           .groupBy("ss_store_sk").agg(F.count("*"), F.sum("ss_net_paid")))
-    def check(out):
-        joins = [n for n in df.query_execution.physical.iter_nodes()
-                 if isinstance(n, HashJoinExec)]
-        if len(joins) != 1 or any(
-                not (isinstance(c, ShuffleExchangeExec)
-                     and isinstance(c.partitioning, HashPartitioning))
-                for c in joins[0].children):
-            fail("q78: the join is not fed by a hash exchange on each side")
-        if spark.metrics.get("join.sorted_probe", 0) <= 0 or \
-                spark.metrics.get("join.dense_fast_path", 0) > 0:
+    def sorted_probe(metrics):
+        if metrics.get("join.sorted_probe", 0) <= 0 or \
+                metrics.get("join.dense_fast_path", 0) > 0:
             fail("q78: the join did not take the sorted probe")
+        return "the sorted probe taken"
+
+    @once
+    def oracle():
         code = ticket * (1 << 17) + item
         kept = ~np.isin(code, code[idx])
         cnt = np.bincount(store[kept], minlength=Q78_STORES + 1)
         sums = np.bincount(store[kept], weights=paid[kept],
                            minlength=Q78_STORES + 1)
-        present = np.nonzero(cnt)[0]
+        return kept, cnt, sums, np.nonzero(cnt)[0]
+
+    def check(out):
+        joins = [n for n in plan_nodes(df) if isinstance(n, HashJoinExec)]
+        if len(joins) != 1 or any(
+                not (isinstance(c, ShuffleExchangeExec)
+                     and isinstance(c.partitioning, HashPartitioning))
+                for c in joins[0].children):
+            fail("q78: the join is not fed by a hash exchange on each side")
+        kept, cnt, sums, present = oracle()
         got = out.sort_by("ss_store_sk")
         if not np.array_equal(got.column("ss_store_sk").to_numpy(), present):
             fail("q78: the stores differ from the numpy oracle")
@@ -2522,8 +3298,12 @@ def q78_leg(torch, sk, card: str) -> dict:
 
     launches = drive(torch, sk, card, "q78 leg", df, ROWS + Q78_RETURNS,
                      ("ShuffledHashJoin[left_outer]",),
-                     leg_calls("q78"), check, operator=leg_calls("q78"))
+                     leg_calls("q78"), check, operator=leg_calls("q78"),
+                     stage=leg_calls("q78"), stage_check=sorted_probe)
     replay_equals_eager(torch, "q78 leg", df.toArrow)
+    with tier_set(spark, "stage"):
+        replay_equals_eager(torch, "q78 leg stage",
+                            DataFrame(spark, df.plan).toArrow)
     spark.stop()
     return launches
 
@@ -2558,8 +3338,10 @@ def window_leg(torch, sk, card: str, k, v) -> dict:
                   F.max("v").over(w.rowsBetween(-2, 0)).alias("max3"))
           .filter(F.col("rn") <= WINDOW_TOP))
 
+    lexsorted = once(lambda: np.lexsort((-v, k)))
+
     def check(out):
-        order = np.lexsort((-v, k))
+        order = lexsorted()
         ks, vs = k[order], v[order]
         n = len(ks)
         idx = np.arange(n)
@@ -3570,80 +4352,126 @@ FLOAT_SUM_COLUMNS = {
 }
 
 
-def same_result(query: str, got, want) -> bool:
-    """The card's Arrow result equals the CPU's: schema and rows in order,
-    exactly but for the float-sum columns of FLOAT_SUM_COLUMNS."""
+# the ORDER BY keys of results whose ties the plan may order either way
+# (q75 orders by an integer difference only, and its CTE's rows come in
+# another order at another tier): rows with equal keys compare as a
+# multiset, and LIMIT may cut the last group of ties anywhere
+TIED_ORDER = {"q75": ("sales_cnt_diff",)}
+
+
+def _rows_equal(a: dict, b: dict, floats) -> bool:
     import math
 
+    for col, x in b.items():
+        y = a[col]
+        if col in floats and x is not None and y is not None:
+            if not math.isclose(x, y, rel_tol=1e-12):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def same_result(query: str, got, want) -> bool:
+    """The card's Arrow result equals the CPU's: schema and rows in order,
+    exactly but for the float-sum columns of FLOAT_SUM_COLUMNS, and but for
+    the order of ties under TIED_ORDER's keys."""
     floats = FLOAT_SUM_COLUMNS.get(query, ())
     if got.schema != want.schema or got.num_rows != want.num_rows:
         return False
-    for g, w in zip(got.to_pylist(), want.to_pylist()):
-        for col, x in w.items():
-            y = g[col]
-            if col in floats and x is not None and y is not None:
-                if not math.isclose(x, y, rel_tol=1e-12):
-                    return False
-            elif x != y:
-                return False
-    return True
+    g, w = got.to_pylist(), want.to_pylist()
+    keys = TIED_ORDER.get(query)
+    if keys:
+        gk = [tuple(r[k] for k in keys) for r in g]
+        if gk != [tuple(r[k] for k in keys) for r in w]:
+            return False
+
+        def exact(r):
+            return repr(tuple(v for c, v in r.items() if c not in floats))
+
+        # the last group of ties may hold other rows; the others, sorted
+        # by their exact columns, pair up
+        last = gk[-1] if gk else None
+        g = sorted((r for r, k in zip(g, gk) if k != last), key=exact)
+        w = sorted((r for r, k in zip(w, gk) if k != last), key=exact)
+    return all(_rows_equal(a, b, floats) for a, b in zip(g, w))
 
 
 def tpcds_gate(torch) -> None:
     """Every tpcds query on the card over tests/tpcds/datagen.py's tables
-    at scale 0.1 (the tests' conf: 2^10-row tiles, 4 partitions): as
-    written, equal to a TorchSession(device="cpu") run row for row; with
-    its trailing LIMIT dropped, equal to its committed golden under
-    tests/tpcds/oracle.py's comparison."""
+    at scale 0.1 (the tests' conf: 2^10-row tiles, 4 partitions), at the
+    stage tier with every tile fused (minRows 0) and at forced `whole`
+    (a plan the whole tier cannot lower stays staged, with its reason):
+    at each tier, as written, equal to a TorchSession(device="cpu") run at
+    the operator tier row for row, and with its trailing LIMIT dropped,
+    equal to its committed golden under tests/tpcds/oracle.py's
+    comparison."""
     from spark_tpu_torch import TorchSession
 
     G, O = tpcds_datagen(), tpcds_golden_oracle()
     t0 = time.perf_counter()
     tables = G.gen_tpcds_full(scale=0.1)
     conf = {"spark.sql.shuffle.partitions": 4,
-            "spark.tpu.batch.capacity": 1 << 10}
-    # the card at the stage tier with every tile fused (minRows 0), the
-    # CPU at the operator tier: the oracle
-    card = session(dict(conf, **{TIER: "stage",
-                                 "spark.tpu.fusion.minRows": 0}))
+            "spark.tpu.batch.capacity": 1 << 10,
+            "spark.tpu.fusion.minRows": 0}
+    cards = {tier: session(dict(conf, **{TIER: tier}))
+             for tier in ("stage", "whole")}
     cpu = TorchSession("chip_smoke_cpu", dict(conf, **{TIER: "operator"}),
                        device="cpu")
-    c0 = stage_counters()
-    fused_files = 0
     for name, table in tables.items():
-        card.createDataFrame(table).createOrReplaceTempView(name)
-        cpu.createDataFrame(table).createOrReplaceTempView(name)
-    rows = {}
+        for s in (cpu, *cards.values()):
+            s.createDataFrame(table).createOrReplaceTempView(name)
+    rows, wants = {}, {}
     for q in TPCDS_QUERIES:
-        text = tpcds_text(q)
-        got_df = card.sql(text)
-        fused_files += bool(fused_stages(got_df))
-        got = got_df.toArrow()
-        want = cpu.sql(text).toArrow()
-        if not same_result(q, got, want):
-            fail(f"tpcds_gate {q}: the card's result differs from the "
-                 "CPU's")
-        full = card.sql(O.strip_trailing_limit(text)).toArrow()
-        cols = [full.column(i).to_pylist() for i in range(full.num_columns)]
-        norm = sorted([tuple(O._norm_cell(c) for c in r)
-                       for r in zip(*cols)], key=O._sort_key)
-        golden = json.load(open(os.path.join(
-            ROOT, "tests", "tpcds", "expected", f"{q}.json")))
-        ok, msg = O.compare_rows(norm, [tuple(r) for r in golden["rows"]])
-        if not ok:
-            fail(f"tpcds_gate {q}: not its golden: {msg}")
-        rows[q] = got.num_rows
-    gated = card.metrics.get("fusion.min_rows_gated", 0)
-    card.stop()
+        wants[q] = cpu.sql(tpcds_text(q)).toArrow()
     cpu.stop()
-    cache = _delta(stage_counters(), c0)
-    if gated:
-        fail(f"tpcds_gate: {gated} batches took the unfused kernels at "
-             "minRows 0")
-    print(f"tpcds_gate: {len(rows)} queries at the stage tier equal to "
-          f"their goldens and to the CPU's operator tier in "
-          f"{time.perf_counter() - t0:.1f} s; {fused_files} plans fuse; "
-          f"stage cache {json.dumps(cache)}; rows as written "
+    for tier, card in cards.items():
+        t1 = time.perf_counter()
+        c0, m0 = stage_counters(), card.metrics
+        fused_files, whole_files = 0, []
+        for q in TPCDS_QUERIES:
+            text = tpcds_text(q)
+            got_df = card.sql(text)
+            fused_files += bool(fused_stages(got_df))
+            if type(got_df.query_execution.physical).__name__ == \
+                    "WholeQueryExec":
+                whole_files.append(q)
+            got = got_df.toArrow()
+            if not same_result(q, got, wants[q]):
+                fail(f"tpcds_gate {q}: the card's result at the {tier} "
+                     "tier differs from the CPU's")
+            full = card.sql(O.strip_trailing_limit(text)).toArrow()
+            cols = [full.column(i).to_pylist()
+                    for i in range(full.num_columns)]
+            norm = sorted([tuple(O._norm_cell(c) for c in r)
+                           for r in zip(*cols)], key=O._sort_key)
+            golden = json.load(open(os.path.join(
+                ROOT, "tests", "tpcds", "expected", f"{q}.json")))
+            ok, msg = O.compare_rows(norm,
+                                     [tuple(r) for r in golden["rows"]])
+            if not ok:
+                fail(f"tpcds_gate {q}: not its golden at the {tier} tier: "
+                     f"{msg}")
+            rows[q] = got.num_rows
+        m = _delta(card.metrics, m0)
+        gated = m.get("fusion.min_rows_gated", 0)
+        card.stop()
+        cache = _delta(stage_counters(), c0)
+        if gated:
+            fail(f"tpcds_gate: {gated} batches took the unfused kernels at "
+                 "minRows 0")
+        print(f"tpcds_gate {tier}: {len(rows)} queries equal to their "
+              f"goldens and to the CPU's operator tier in "
+              f"{time.perf_counter() - t1:.1f} s; {fused_files} plans fuse"
+              + (f"; {len(whole_files)} whole programs, "
+                 f"{m.get('whole_query.dispatches', 0)} dispatches, "
+                 f"{m.get('whole_query.capacity_retries', 0)} capacity "
+                 f"retries, {m.get('whole_query.runtime_degraded', 0)} "
+                 f"degrades; staged: "
+                 f"{sorted(set(TPCDS_QUERIES) - set(whole_files))}"
+                 if tier == "whole" else "")
+              + f"; stage cache {json.dumps(cache)}", flush=True)
+    print(f"tpcds_gate: {time.perf_counter() - t0:.1f} s; rows as written "
           f"{json.dumps(rows)}", flush=True)
 
 
@@ -3697,12 +4525,15 @@ def tpcds_leg(torch, sk, card: str):
                 fail(f"tpcds {q}: materialised CTE rows {mat}, not "
                      f"{TPCDS_CTE_ROWS[q]}")
         before = spark.metrics.get("subquery.scalar", 0)
-        ops = tuple(type(n).__name__
-                    for n in df.query_execution.physical.iter_nodes())
+        ops = plan_ops(df)
         scalars = spark.metrics.get("subquery.scalar", 0) - before
         if ops != TPCDS_PLAN_OPS[q]:
             fail(f"tpcds {q}: the operator sequence {ops} is not the "
                  f"reference's {TPCDS_PLAN_OPS[q]}")
+        d = df.query_execution.tier_decision
+        if (d.tier, d.reason) != TPCDS_TIERS[q]:
+            fail(f"tpcds {q}: the tier decision {(d.tier, d.reason)} is "
+                 f"not the reference's {TPCDS_TIERS[q]}")
         parts = TPCDS_JOINS[q]
         if q in TPCDS_ORACLES:
             oracle_rows, key = tpcds_oracle(q, arrays)
@@ -3721,11 +4552,11 @@ def tpcds_leg(torch, sk, card: str):
                     fail(f"tpcds {q}: no rows at SF10")
                 results[q] = result
                 return f"{result.num_rows} rows (held to the CPU later)"
-        run, cte_s, scalar_s = None, [], []
+        run, cte_s, scalar_s, own = None, [], [], []
         if q in TPCDS_CTE_ROWS or scalars:
             # each run parses anew: the CTE bodies run in sql(), the
             # uncorrelated scalar subqueries in the optimizer's last step
-            def run(text=text, cte_s=cte_s, scalar_s=scalar_s):
+            def run(text=text, cte_s=cte_s, scalar_s=scalar_s, own=own):
                 t1 = time.perf_counter()
                 d = spark.sql(text)
                 torch.cuda.synchronize()
@@ -3734,25 +4565,37 @@ def tpcds_leg(torch, sk, card: str):
                 torch.cuda.synchronize()
                 cte_s.append(t2 - t1)
                 scalar_s.append(time.perf_counter() - t2)
-                return d.toArrow()
+                c0 = sk.LAUNCHES["partition_histogram"]
+                out = d.toArrow()
+                own.append(sk.LAUNCHES["partition_histogram"] - c0)
+                return out
         rows = sum(tables[f].num_rows for f in _FACTS
                    if re.search(rf"\b{f}\b", text))
         torch.cuda.reset_peak_memory_stats()
+        t_q = time.perf_counter()
         out[q] = drive(torch, sk, card, f"tpcds {q}", df, rows, parts,
-                       tpcds_calls(q), check, run, timed_shapes)
+                       tpcds_calls(q), check, run, timed_shapes,
+                       main_calls=(lambda own=own: own[-1]) if run
+                       else None,
+                       warm_runs=3 if q in TPCDS_ORACLES else 0,
+                       record_operator=False)
         peak[q] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"tpcds {q} done in {time.perf_counter() - t_q:.1f} s, at "
+              f"{time.perf_counter() - t0:.1f} s of the leg", flush=True)
         if "NestedLoopJoinExec" in ops:
             nested_loop_pairs(spark, q, run or df.toArrow, card)
         if q in TPCDS_CTE_ROWS:
             print(f"tpcds {q} cte " + json.dumps({
                 "sql_s": cte_s, "cold_sql_s": cte_s[0],
-                "warm_sql_median_s": statistics.median(cte_s[1:4]),
+                "warm_sql_median_s": statistics.median(cte_s[1:4])
+                if cte_s[1:] else "not measured: no warm run",
                 "card": card}), flush=True)
         if scalars:
             print(f"tpcds {q} scalar_subqueries " + json.dumps({
                 "count": scalars, "optimize_s": scalar_s,
                 "cold_optimize_s": scalar_s[0],
-                "warm_optimize_median_s": statistics.median(scalar_s[1:4]),
+                "warm_optimize_median_s": statistics.median(scalar_s[1:4])
+                if scalar_s[1:] else "not measured: no warm run",
                 "card": card}), flush=True)
     tpcds_stage(torch, sk, card, spark, arrays)
     spark.stop()
@@ -3763,55 +4606,66 @@ def tpcds_leg(torch, sk, card: str):
 
 
 def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
-    """q3, q7 and q19 at SF10 once more at the stage tier, on the tpcds
-    leg's session (its conf set; the views are the same, nothing is
-    ingested again): each plan fuses, each result equals its numpy oracle,
-    each fused batch is one replay. Then each query, planned once at
-    either tier, runs warm 3 times at each in turn (stage, operator, ...),
-    with one profiled run at each (device busy and idle share) and the
-    copies into and out of the graphs timed in one more stage run, to
-    place the tiers' difference: device copies, or host time per batch."""
+    """q3, q7 and q19 at SF10 once more at each of the three tiers, whole,
+    stage and operator, on the tpcds leg's session (its conf set; the
+    views are the same, nothing is ingested again): each plan made once
+    per tier, each result equal to its numpy oracle, the histogram calls
+    `tpcds_calls` at the stage and operator tiers and none whole, each
+    fused batch and each whole program's attempt one replay. Then each query runs warm 3
+    times at each tier in turn (whole, stage, operator, ...), with one
+    profiled run at each (device busy and idle share) and the copies into
+    and out of the graphs timed in one more run at each fused tier, to
+    place the tiers' difference: device copies, or host time."""
     from spark_tpu_torch.api.dataframe import DataFrame
 
+    tiers = ("whole", "stage", "operator")
     for q in TPCDS_ORACLES:
-        with tier_set(spark, "stage"):
-            df = spark.sql(tpcds_text(q))
-            df.query_execution.physical
-        with tier_set(spark, "operator"):
-            op_df = DataFrame(spark, df.plan)
-            op_df.query_execution.physical
-        stages = fused_stages(df)
-        if not stages:
+        dfs = {}
+        for tier in tiers:
+            with tier_set(spark, tier):
+                dfs[tier] = DataFrame(spark, spark.sql(tpcds_text(q)).plan)
+                dfs[tier].query_execution.physical
+            got = dfs[tier].query_execution.tier_decision.tier
+            if got != tier:
+                fail(f"tpcds {q}: planned at the {got} tier, not {tier}")
+        if not fused_stages(dfs["stage"]):
             fail(f"tpcds {q}: nothing fuses at the stage tier")
         rows, key = tpcds_oracle(q, arrays)
-        out, cold_s, launches, st = counted_run(torch, sk, spark, df.toArrow)
-        msg = _check_topk(f"tpcds {q} stage", tpcds_rows(q, out), rows, key)
-        warm = {"stage": [], "operator": []}
+        report = {}
+        for tier, df in dfs.items():
+            out, cold_s, launches, st = counted_run(torch, sk, spark,
+                                                    df.toArrow)
+            want = 0 if tier == "whole" else tpcds_calls(q)
+            if launches["partition_histogram"] != want:
+                fail(f"tpcds {q} at the {tier} tier launched the histogram "
+                     f"kernel {launches['partition_histogram']} times, not "
+                     f"{want}")
+            report[tier] = {
+                "check": _check_topk(f"tpcds {q} {tier}",
+                                     tpcds_rows(q, out), rows, key),
+                "cold_s": cold_s, "warm_s": [],
+                "histogram_calls": launches["partition_histogram"], **st}
         for _ in range(3):
-            for tier, d in (("stage", df), ("operator", op_df)):
-                t0 = time.perf_counter()
-                d.toArrow()
-                torch.cuda.synchronize()
-                warm[tier].append(time.perf_counter() - t0)
-        events = []
-        with copies_timed(torch, events):
-            df.toArrow()
-            torch.cuda.synchronize()
-        copies = {"copy_in": 0.0, "copy_out": 0.0}
-        for kind, start, end in events:
-            copies[kind] += start.elapsed_time(end)
-        print(f"tpcds {q} stage " + json.dumps({
-            "check": msg, "fused_stages": stages, "cold_s": cold_s,
-            "warm_median_s": statistics.median(warm["stage"]),
-            "warm_s": warm["stage"],
-            "operator_warm_median_s": statistics.median(warm["operator"]),
-            "operator_warm_s": warm["operator"],
-            "stage_busy": busy_share(torch, df.toArrow),
-            "operator_busy": busy_share(torch, op_df.toArrow),
-            "replays_per_run": sum(k == "copy_in" for k, _, _ in events),
-            "copy_in_ms_per_run": copies["copy_in"],
-            "copy_out_ms_per_run": copies["copy_out"],
-            "histogram_calls": launches["partition_histogram"], **st,
+            for tier, df in dfs.items():
+                report[tier]["warm_s"] += _warm(torch, df.toArrow, 1)
+        for tier, df in dfs.items():
+            r = report[tier]
+            r["warm_median_s"] = statistics.median(r["warm_s"])
+            r["busy"] = busy_share(torch, df.toArrow)
+            if tier != "operator":
+                events = []
+                with copies_timed(torch, events):
+                    df.toArrow()
+                    torch.cuda.synchronize()
+                copies = {"copy_in": 0.0, "copy_out": 0.0}
+                for kind, start, end in events:
+                    copies[kind] += start.elapsed_time(end)
+                r["replays_per_run"] = sum(k == "copy_in"
+                                           for k, _, _ in events)
+                r["copy_in_ms_per_run"] = copies["copy_in"]
+                r["copy_out_ms_per_run"] = copies["copy_out"]
+        print(f"tpcds {q} tiers " + json.dumps({
+            "tiers": report, "fused_stages": fused_stages(dfs["stage"]),
             "held_gb": stage_counters()["stage_cache.held_bytes"] / 1e9,
             "card": card}), flush=True)
 
@@ -3881,7 +4735,10 @@ def tpcds_cpu_results() -> None:
 
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) - 2))
     tables, _ = tpcds_data()
-    cpu = TorchSession("chip_smoke_cpu", dict(TPCDS_CONF), device="cpu")
+    # the oracle: operator at a time (at `auto` the CPU would run whole
+    # programs over 2^25-slot flows)
+    cpu = TorchSession("chip_smoke_cpu", dict(TPCDS_CONF, **{TIER: "operator"}),
+                       device="cpu")
     for name, table in tables.items():
         cpu.createDataFrame(table).createOrReplaceTempView(name)
     secs = {}
@@ -3989,8 +4846,9 @@ PARQUET_PLAN_OPS = {
     "q19": _PTOP[:-1] + ("FusedAggregateExec",) + ("HashJoinExec",) * 3
     + ("ComputeExec", "HashJoinExec") * 2 + _PFSHUF * 2 + _PBCAST * 4,
 }
-# the parquet leg runs at the default tier (stage)
-PARQUET_CONF = {k: v for k, v in TPCDS_CONF.items() if k != TIER}
+# the parquet leg runs at the default tier, `auto` (PARQUET_PLAN_OPS are
+# the stage plans a whole program holds inside), its DPP checks at `stage`
+PARQUET_CONF = dict(TPCDS_CONF)
 # the columns each scan reads (column pruning into the Parquet reader)
 PARQUET_SCAN_COLS = {
     "q3": (("date_dim", ("d_date_sk", "d_year", "d_moy")),
@@ -4451,7 +5309,7 @@ def _scan_tiles(scan) -> int:
 
 
 def _scans(df) -> dict:
-    return {n.name: n for n in df.query_execution.physical.iter_nodes()
+    return {n.name: n for n in plan_nodes(df)
             if type(n).__name__ == "ScanExec"}
 
 
@@ -4499,8 +5357,9 @@ def parquet_leg(torch, sk, card: str, proc: subprocess.Popen,
         fact_rows = oracle["rows"]["store_sales"]
         for q in PARQUET_QUERIES:
             df = spark.sql(tpcds_text(q))
-            ops = tuple(type(n).__name__
-                        for n in df.query_execution.physical.iter_nodes())
+            # at `auto` (the footers give the leaf rows) a whole program
+            # holds the stage plan inside
+            ops = tuple(type(n).__name__ for n in plan_nodes(df))
             if ops != PARQUET_PLAN_OPS[q]:
                 fail(f"parquet {q}: the operator sequence {ops} is not the "
                      f"reference's {PARQUET_PLAN_OPS[q]}")
@@ -4537,14 +5396,19 @@ def parquet_leg(torch, sk, card: str, proc: subprocess.Popen,
 
             torch.cuda.reset_peak_memory_stats()
             out[q] = drive(torch, sk, card, f"parquet {q}", df, fact_rows,
-                           (), calls, check, None, timed_shapes)
+                           (), calls, check, None, timed_shapes,
+                           warm_runs=1)
             print(f"parquet {q} done at {time.perf_counter() - t_start:.1f}"
                   " s", flush=True)
             summary[q] = {"splits": splits, "fact_tiles": fact_tiles,
                           "columns": dict(cols),
                           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        out.update(dpp_checks(torch, sk, card, spark, oracle, timed_shapes,
-                              summary))
+        # DPP pinned to the stage tier: a whole program executes its probe
+        # scan before any join could install the build side's keys, so it
+        # prunes nothing (in the reference too)
+        with tier_set(spark, "stage"):
+            out.update(dpp_checks(torch, sk, card, spark, oracle,
+                                  timed_shapes, summary))
         print(f"parquet dpp done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
         out.update(range_checks(torch, sk, card, spark, summary))
@@ -4633,7 +5497,8 @@ def dpp_checks(torch, sk, card: str, spark, oracle: dict, timed_shapes,
     # profiler 70 s to read (PERF.md section 5)
     total = oracle["dpp_total_rows"]
     out = {"dpp": drive(torch, sk, card, "parquet dpp", df, total,
-                        (), None, check, None, timed_shapes, profile=False)}
+                        (), None, check, None, timed_shapes, profile=False,
+                        warm_runs=1)}
     checks = {"date_dim_write_s": write_s, "dpp_splits": splits}
     spark.conf.set("spark.sql.dynamicPartitionPruning.enabled", "false")
     before = spark.metrics
@@ -4709,12 +5574,9 @@ def range_checks(torch, sk, card: str, spark, summary: dict) -> dict:
     return out
 
 
-def breakdown(torch, df, profile: bool = True) -> dict:
-    """Where one warm run's time goes: each operator's exclusive wall time
-    (synchronized before and after every execute, so device work lands on
-    the operator that queued it), then, where `profile`, a torch.profiler
-    pass for the device-busy share and the heaviest device kernels."""
-    nodes = list(df.query_execution.physical.iter_nodes())
+def _operator_times(torch, df, nodes) -> dict:
+    """One run with each operator's execute timed (inclusive, then made
+    exclusive by its children's)."""
     incl: dict[int, float] = {}
     for i, node in enumerate(nodes):
         orig = node.execute
@@ -4739,8 +5601,22 @@ def breakdown(torch, df, profile: bool = True) -> dict:
         child = sum(incl.get(index[id(c)], 0.0) for c in node.children)
         ops.append({"op": node.simple_string()[:70],
                     "exclusive_s": incl.get(i, 0.0) - child})
-    out = {"wall_s": total, "operators": ops,
-           "collect_s": total - incl.get(0, 0.0)}
+    return {"wall_s": total, "operators": ops,
+            "collect_s": total - incl.get(0, 0.0)}
+
+
+def breakdown(torch, df, profile: bool = True) -> dict:
+    """Where one warm run's time goes: each operator's exclusive wall time
+    (synchronized before and after every execute, so device work lands on
+    the operator that queued it), then, where `profile`, a torch.profiler
+    pass for the device-busy share and the heaviest device kernels."""
+    nodes = list(df.query_execution.physical.iter_nodes())
+    if len(nodes) == 1 and profile:
+        # one operator (a whole program): its wall is the profiled run's
+        out = {"operators": [{"op": nodes[0].simple_string()[:70],
+                              "exclusive_s": "profiled_wall_s"}]}
+    else:
+        out = _operator_times(torch, df, nodes)
     if not profile:
         return out
 
@@ -4822,8 +5698,13 @@ def run() -> None:
     try:
         main_hist, main_sum = phase("kernels", check_kernels, torch, sk)
         k, v = main_table()
-        launches = phase("main", main_path, torch, sk, card, k, v)
-        by_path = {
+        main_tiers = phase("main", main_path, torch, sk, card, k, v)
+        # the main query at `auto` runs as one whole program, which calls
+        # neither kernel: the kernels line reports that run's counts, and
+        # beside them its stage-tier run's in the same session, the path
+        # through the kernels
+        main_tier = next(iter(main_tiers))
+        by_path = {"main": main_tiers[main_tier],
             "join": phase("join", join_leg, torch, sk, card),
             "sort": phase("sort", sort_leg, torch, sk, card),
             "range_sort": phase("range_sort", range_sort_leg, torch, sk,
@@ -4854,7 +5735,10 @@ def run() -> None:
     def entry(name, row, replaces):
         return {"name": name, "route": "cuda",
                 "source": "spark_tpu_torch/csrc/scatter_kernels.cu",
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": main_tiers[main_tier][name],
+                "main_path_tier_at_auto": main_tier,
+                "launches_at_stage": main_tiers["stage"][name],
                 "launches_by_path": {p: n[name] for p, n in by_path.items()},
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "device_ms": row["device_ms"], "call_ms": row["call_ms"],

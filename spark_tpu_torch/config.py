@@ -130,21 +130,48 @@ FUSION_EXCHANGE = _register(ConfigEntry(
 
 COMPILE_TIER = _register(ConfigEntry(
     "spark.tpu.compile.tier", "auto",
-    "Compilation tier: 'stage' runs one program per stage per batch "
+    "Compilation tier: 'whole' runs the query, exchanges lowered to "
+    "in-program gathers, as ONE program per query step "
+    "(physical/whole_query.py: a captured CUDA graph on the card, eager "
+    "on the CPU); 'stage' runs one program per stage per batch "
     "(whole-stage fusion, with the per-partition minRows runtime gate as "
     "the stage->operator fallback); 'operator' forces the shared "
     "operator-at-a-time kernels (the differential oracle). 'auto' "
-    "(default) resolves to 'stage': the reference's cost model chooses "
-    "between 'stage' and 'whole', and the whole-query tier is not "
-    "ported (physical/whole_query.py), which the plan's tier decision "
-    "records. 'whole' and 'mesh-whole' raise NotPortedError.", str))
+    "(default) chooses as the reference's cost model does: 'whole' for a "
+    "plan with exchange round-trips whose operators all lower, whose "
+    "leaf rows are known and whose volume reaches "
+    "spark.tpu.compile.whole.minRows scaled by program depth, else "
+    "'stage', with the reason on the plan's tier decision. 'mesh-whole' "
+    "raises NotPortedError (physical/mesh_whole.py).", str))
 
-# keys of the reference's fusion and tier families the port does not
-# implement: setting one raises rather than being ignored
+WHOLE_MIN_ROWS = _register(ConfigEntry(
+    "spark.tpu.compile.whole.minRows", 1 << 17,
+    "Leaf-row volume floor for the auto tier to choose whole-query "
+    "compilation (scaled up with program depth: deeper programs need "
+    "more volume to amortize the bigger capture). The whole-query analog "
+    "of spark.tpu.fusion.minRows. Forced tier=whole ignores the floor "
+    "(structural admission still applies).", int))
+
+ADAPTIVE_PARQUET_STATS = _register(ConfigEntry(
+    "spark.tpu.adaptive.parquetStats", True,
+    "Admit external parquet scans to the whole compile tier from footer "
+    "statistics (row-group row counts) instead of excluding every "
+    "external scan.", _bool))
+
+MEMORY_BUDGET = _register(ConfigEntry(
+    "spark.tpu.memory.budget", 0,
+    "Per-query device-memory admission budget in bytes (0 = unlimited). "
+    "Not ported: setting it raises (see UNPORTED_KEYS); the whole-tier "
+    "chooser reads the default, so its over-budget fallback never "
+    "fires.", int))
+
+# keys of the reference's fusion, tier and memory families the port does
+# not implement: setting one raises rather than being ignored
 UNPORTED_KEYS = {
     "spark.tpu.fusion.mesh": "mesh stage fusion (parallel/mesh_exchange.py)",
-    "spark.tpu.compile.whole.minRows":
-        "the whole-query tier (physical/whole_query.py)",
+    "spark.tpu.memory.budget":
+        "the memory budget's pre-flight (analysis/plan_lint.py memory "
+        "model, obs/resources.py MemoryBudgetExceeded)",
 }
 
 DEVICE = _register(ConfigEntry(

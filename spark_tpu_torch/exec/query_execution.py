@@ -2,63 +2,20 @@
 `spark_tpu/exec/query_execution.py`, the subset that plans, executes and
 collects): analyzed -> optimized -> physical -> execute -> Arrow. The
 optimized plan's uncorrelated scalar subqueries run first, once each, and
-become literals. `choose_tier` is the compile-tier decision (the
-reference's `physical/whole_query.choose_tier`, of which the port has the
-operator and stage tiers); `explain_string` shows it beside the plans."""
+become literals. The compile-tier decision (`TierDecision`, `choose_tier`)
+lives in physical/whole_query.py, as in the reference; the planner makes it
+last and stashes it on the plan's root, and `explain_string` shows it
+beside the plans."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
 from functools import cached_property
 
 import pyarrow as pa
 
 from ..physical.operators import PhysicalPlan, attrs_schema
+from ..physical.whole_query import TierDecision, choose_tier  # noqa: F401
 from ..plan.logical import LogicalPlan
-
-
-@dataclass
-class TierDecision:
-    """Outcome of the compile-tier choice, stashed on the physical plan's
-    root so `explain` can show it."""
-
-    tier: str       # "stage" | "operator"
-    reason: str
-    details: dict = field(default_factory=dict)
-
-    def to_dict(self) -> dict:
-        return {"tier": self.tier, "reason": self.reason,
-                "details": dict(self.details)}
-
-
-def choose_tier(conf) -> TierDecision:
-    """The compile tier of a session's plans. `operator` (or
-    spark.tpu.fusion.enabled=false) plans operator at a time; `stage`
-    fuses; `auto` resolves to `stage`, because the reference's cost model
-    chooses between `stage` and `whole` and the whole-query tier is not
-    ported (the results are the same by the reference's own contract);
-    `whole` and `mesh-whole` raise NotPortedError."""
-    from ..config import COMPILE_TIER, FUSION_ENABLED
-    from ..errors import NotPortedError
-
-    pref = str(conf.get(COMPILE_TIER)).lower()
-    if pref == "whole":
-        raise NotPortedError("spark.tpu.compile.tier=whole: the whole-query "
-                             "tier (physical/whole_query.py)")
-    if pref == "mesh-whole":
-        raise NotPortedError("spark.tpu.compile.tier=mesh-whole: the mesh "
-                             "whole-query tier (physical/mesh_whole.py)")
-    if pref not in ("auto", "stage", "operator"):
-        raise ValueError(f"spark.tpu.compile.tier: unknown tier {pref!r}")
-    if pref == "operator":
-        return TierDecision("operator", "forced by spark.tpu.compile.tier")
-    if not conf.get(FUSION_ENABLED):
-        return TierDecision("operator", "spark.tpu.fusion.enabled=false "
-                            "(operator-at-a-time differential oracle)")
-    if pref == "stage":
-        return TierDecision("stage", "forced by spark.tpu.compile.tier")
-    return TierDecision("stage", "auto: whole-query tier not ported "
-                        "(physical/whole_query.py)")
 
 
 class QueryExecution:
@@ -125,6 +82,8 @@ class QueryExecution:
             "== Physical Plan ==", self.physical.tree_string(),
             "== Compile Tier ==", f"{d.tier} ({d.reason})",
         ]
+        if d.details:
+            parts.append(f"details: {d.details}")
         if mode == "simple":
             parts = parts[4:]
         return "\n".join(parts)

@@ -15,9 +15,14 @@ so they may be baked into a program).
 captured CUDA graph per (stage structure, input signature, capacity),
 bounded in count (`max_size`) and in the card memory its graphs hold
 (`max_bytes`), and replays it once per batch (utils/cuda_graph.py); on the
-CPU the body runs eagerly. Its counters are captures, hits, replays and
-pool resets, with the capture time and the graph memory. `LaunchCounters` counts operator
-dispatches by kind ("pipeline", "dagg", "fused_agg", ...), one per batch.
+CPU the body runs eagerly. A whole-query program (physical/whole_query.py)
+is one entry too, keyed by ("whole_query", its builder's key) and its
+inputs, replayed once per query step; its joins' `needed` scalars are
+outputs of the program, read on the host after the replay. Its counters
+are captures, hits, replays, pool resets and programs too large to keep,
+with the capture time and the graph memory. `LaunchCounters` counts
+operator dispatches by kind ("pipeline", "dagg", "fused_agg", ...), one
+per batch.
 """
 
 from __future__ import annotations
@@ -273,7 +278,10 @@ class StageCache:
     dropped and the new program is captured again alone, into a fresh pool;
     the dropped programs are captured again when next needed. So the bound
     holds after every capture, but for a single program larger than it,
-    which is then kept alone."""
+    which is then kept alone until `release_oversize` drops it: a
+    whole-query program over SF10 tables can hold a third of the card, so
+    the whole tier drops it after its run (counted as `oversize`), and its
+    next run captures it anew."""
 
     def __init__(self, max_size: int = 1024, max_bytes: int | None = None):
         self.max_size = max_size
@@ -285,6 +293,7 @@ class StageCache:
         self.hits = 0
         self.replays = 0
         self.resets = 0
+        self.oversize = 0
         self.capture_ms = 0.0
         self.graph_bytes = 0
 
@@ -296,6 +305,7 @@ class StageCache:
                 "stage_cache.hits": self.hits,
                 "stage_cache.replays": self.replays,
                 "stage_cache.resets": self.resets,
+                "stage_cache.oversize": self.oversize,
                 "stage_cache.capture_ms": self.capture_ms,
                 "stage_cache.graph_bytes": self.graph_bytes,
                 "stage_cache.held_bytes": self._held(),
@@ -336,6 +346,24 @@ class StageCache:
             self.replays += 1
         return prog.replay(inputs)
 
+    def release_oversize(self, device: torch.device) -> bool:
+        """Drop every graph and the pool where they hold more than the
+        bound (a single program larger than it, kept alone); True where
+        that happened."""
+        if device.type != "cuda":
+            return False
+        with self._lock:
+            over = self._held() > self._limit(device)
+            if over:
+                self.oversize += 1
+        if over:
+            self.clear()
+        return over
+
+    def _limit(self, device: torch.device) -> int:
+        return self.max_bytes if self.max_bytes is not None else \
+            torch.cuda.get_device_properties(device).total_memory // 4
+
     def _capture(self, name, full_key, fn, inputs, device):
         from ..utils import cuda_graph as CG
 
@@ -352,8 +380,7 @@ class StageCache:
                 # the failed capture left its pool unusable
                 self._pools.pop(idx, None)
                 raise
-            limit = self.max_bytes if self.max_bytes is not None else \
-                torch.cuda.get_device_properties(dev).total_memory // 4
+            limit = self._limit(dev)
             with self._lock:
                 pool[2] += prog.pool_bytes
                 self.captures += 1

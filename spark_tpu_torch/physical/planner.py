@@ -3,11 +3,13 @@
 
 Convert, insert exchanges where a child's partitioning does not satisfy its
 parent's required distribution (EnsureRequirements), collapse adjacent
-ComputeExecs, then, under the stage tier (the default: fusion on, tier
-`auto` or `stage`), fuse each exchange-free chain into whole-stage
-operators (physical/fusion.py fuse_stages), and mark dynamic partition
-pruning last. The tier decision (exec/query_execution.choose_tier) rides
-the plan root as `_tier_decision` for `explain`. With
+ComputeExecs, then, unless the tier is `operator` (fusion on, tier `auto`,
+`whole` or `stage`), fuse each exchange-free chain into whole-stage
+operators (physical/fusion.py fuse_stages), mark dynamic partition pruning,
+and last make the compile-tier decision (physical/whole_query.py
+apply_compile_tier): the plan is wrapped into one whole-query program or
+left staged, and the decision rides the plan root as `_tier_decision` for
+`explain`. With
 `spark.tpu.fusion.enabled=false` or `spark.tpu.compile.tier=operator` the
 plan is operator at a time, the differential oracle. Contracts kept from
 the JAX planner:
@@ -79,9 +81,9 @@ class Planner:
         self.conf = conf
 
     def plan(self, plan: L.LogicalPlan) -> PhysicalPlan:
-        from ..exec.query_execution import choose_tier
+        from ..config import COMPILE_TIER, FUSION_ENABLED
+        from .whole_query import apply_compile_tier
 
-        decision = choose_tier(self.conf)
         p = self._convert(plan)
         p = self._ensure_requirements(p)
         # whole-stage fusion after stage boundaries exist (the
@@ -89,11 +91,14 @@ class Planner:
         # operator-at-a-time oracle. Adjacent-ComputeExec collapsing is an
         # invariant, not a mode.
         p = collapse_computes(p)
-        if decision.tier == "stage":
+        tier_pref = str(self.conf.get(COMPILE_TIER)).lower()
+        if self.conf.get(FUSION_ENABLED) and tier_pref != "operator":
             p = fuse_stages(p, self.conf)
         self._inject_dpp(p)
-        p._tier_decision = decision
-        return p
+        # the compile-tier cost model (physical/whole_query.py): wrap the
+        # plan into ONE whole-query program, or stash the decision with
+        # its fallback reason for explain
+        return apply_compile_tier(p, self.conf)
 
     # ------------------------------------------------------------------
     def _inject_dpp(self, plan: PhysicalPlan) -> None:

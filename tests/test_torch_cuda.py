@@ -1514,3 +1514,109 @@ def test_stage_histogram_calls_counted_in_replays(stage_pair):
         for m in mods:
             m.partition_histogram = SK.partition_histogram
     assert counts[0] == len(cpu_calls)
+
+
+# --- the whole-query tier on the card ----------------------------------------
+
+WHOLE = dict(STAGE, **{"spark.tpu.compile.tier": "whole"})
+WHOLE_QUERIES = {
+    "agg": "SELECT k, sum(v * 2), count(*), min(f) FROM t WHERE v > 0 "
+           "GROUP BY k",
+    "join_strings": "SELECT d.name, t.s, count(*), sum(t.f) FROM t JOIN d "
+                    "ON t.k + 1 = d.dk WHERE t.v > 50 GROUP BY d.name, t.s",
+    "semi": "SELECT k, s, v FROM t WHERE k IN (SELECT dk FROM d WHERE "
+            "name = 'n1') AND v > 90",
+    "union_sort": "SELECT k, v FROM (SELECT k, v FROM t WHERE v > 97 UNION "
+                  "ALL SELECT dk k, dk v FROM d) u ORDER BY v DESC, k "
+                  "LIMIT 40",
+}
+
+
+@pytest.fixture(scope="module")
+def whole_pair():
+    from spark_tpu_torch import TorchSession
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the graphs have no CPU mode)")
+    pair = [TorchSession("whole-cpu", dict(WHOLE), device="cpu"),
+            TorchSession("whole-card", dict(WHOLE))]
+    for s in pair:
+        _stage_views(s)
+    yield pair
+    for s in pair:
+        s.stop()
+
+
+@pytest.mark.parametrize("name", list(WHOLE_QUERIES))
+def test_whole_replay_equals_eager_and_cpu(whole_pair, monkeypatch, name):
+    """Each whole program on the card: its replay's outputs equal the same
+    program run eagerly on the card over the same inputs (floats to
+    relative 1e-12), one dispatch per step, no histogram call, and the
+    result equals the CPU's whole tier."""
+    cpu, card = whole_pair
+    seen = []
+
+    def compare(prog, got, want):
+        assert len(got) == len(want), prog
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None), prog
+            if g is None:
+                continue
+            if g.dtype.is_floating_point:
+                assert torch.allclose(g, w, rtol=1e-12, atol=0,
+                                      equal_nan=True), prog
+            else:
+                assert torch.equal(g, w), prog
+        seen.append(prog)
+
+    q = WHOLE_QUERIES[name]
+    ordered = name == "union_sort"
+    want = _rows(cpu.sql(q).toArrow(), ordered)
+    df = card.sql(q)
+    assert type(df.query_execution.physical).__name__ == "WholeQueryExec"
+    df.toArrow()  # captures
+    SK.reset_launch_counts()
+    before = card.launches.snapshot().get("whole_query", 0)
+    with monkeypatch.context() as m:
+        _bodies_on_card(m, compare)
+        got = _rows(df.toArrow(), ordered)
+    assert seen == ["WholeQuery"], seen
+    assert card.launches.snapshot()["whole_query"] == before + 1
+    assert SK.LAUNCHES["partition_histogram"] == 0
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            if isinstance(y, float):
+                assert x == pytest.approx(y, rel=1e-12)
+            else:
+                assert x == y
+
+
+def test_whole_capacity_retry_recaptures(whole_pair):
+    """A join whose output outgrows its bucket: the program is captured
+    again at the bumped bucket and replayed (a new key), the retry
+    counted; a second run starts from the settled capacity: one replay
+    of the last program, no capture; the result equals the CPU's."""
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+    from spark_tpu_torch.physical.whole_query import SETTLED
+
+    cpu, card = whole_pair
+    SETTLED.clear()
+    q = ("SELECT a.k, count(*), sum(b.v) FROM t a JOIN t b ON a.k = b.k "
+         "WHERE a.v > 90 AND b.v > 90 GROUP BY a.k")
+    want = _rows(cpu.sql(q).toArrow(), False)
+    m0, c0 = card.metrics, STAGE_CACHE.counters()
+    got = _rows(card.sql(q).toArrow(), False)
+    m1, c1 = card.metrics, STAGE_CACHE.counters()
+    retries = m1.get("whole_query.capacity_retries", 0) - \
+        m0.get("whole_query.capacity_retries", 0)
+    assert retries >= 1
+    assert c1["stage_cache.captures"] - c0["stage_cache.captures"] == \
+        retries + 1
+    assert c1["stage_cache.replays"] - c0["stage_cache.replays"] == \
+        retries + 1
+    assert got == want
+    card.sql(q).toArrow()
+    c2 = STAGE_CACHE.counters()
+    assert c2["stage_cache.captures"] == c1["stage_cache.captures"]
+    assert c2["stage_cache.replays"] - c1["stage_cache.replays"] == 1

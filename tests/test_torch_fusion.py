@@ -38,6 +38,19 @@ JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "true",
 OPERATOR = {"spark.tpu.compile.tier": "operator"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch's intra-op pool at one thread while a module of the port's
+    CPU tests runs, restored after: their tensors are small, and beside
+    the other workers of a parallel run (pytest-xdist) a pool of one
+    thread per core oversubscribes the machine, which made such a module
+    run 2-9 times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def sessions():
     j = TpuSession("fusion-reference", dict(JAX_CONF))
@@ -429,15 +442,26 @@ def test_string_minmax_not_ported_in_either_tier(sessions):
 # --- tiers ---------------------------------------------------------------------
 
 def test_auto_resolves_to_stage_with_its_reason(sessions, capsys):
-    t = sessions[1]
-    df = t.sql("select k, sum(v) s from fu_t where v > 1 group by k")
+    # an exchange-free plan: the cost model keeps it at the stage tier, with
+    # the reference's reason (stage fusion is already one program per
+    # batch there)
+    j, t = sessions
+    text = "select k, sum(v) s from fu_t where v > 1 group by k"
+    df = t.sql(text)
     d = df.query_execution.tier_decision
-    assert (d.tier, d.reason) == (
-        "stage", "auto: whole-query tier not ported (physical/whole_query.py)")
+    j.conf.set("spark.tpu.compile.tier", "auto")
+    try:
+        want = j.sql(text).query_execution.physical._tier_decision
+    finally:
+        j.conf.set("spark.tpu.compile.tier", "stage")
+    assert (d.tier, d.reason) == (want.tier, want.reason) == (
+        "stage", "whole-query fallback: no exchange round-trips to "
+        "eliminate (single-stage plan — stage fusion already dispatches "
+        "once per batch)")
     df.explain()
     out = capsys.readouterr().out
     assert "== Compile Tier ==" in out
-    assert "whole-query tier not ported (physical/whole_query.py)" in out
+    assert "stage (whole-query fallback: no exchange round-trips" in out
     assert "FusedHashAggregate[partial]" in out
 
 
@@ -462,7 +486,6 @@ def test_tier_keys_on_a_live_session(sessions, conf, tier):
 
 
 @pytest.mark.parametrize("tier,module", [
-    ("whole", "physical/whole_query.py"),
     ("mesh-whole", "physical/mesh_whole.py")])
 def test_whole_tiers_raise_not_ported(tier, module):
     t = TorchSession("whole", dict(CONF, **{"spark.tpu.compile.tier": tier}),
@@ -472,7 +495,7 @@ def test_whole_tiers_raise_not_ported(tier, module):
 
 
 @pytest.mark.parametrize("key", ["spark.tpu.fusion.mesh",
-                                 "spark.tpu.compile.whole.minRows"])
+                                 "spark.tpu.memory.budget"])
 def test_unported_tier_keys_raise(key):
     with pytest.raises(NotPortedError, match=key):
         TorchSession("keys", {key: "true"}, device="cpu")
@@ -582,21 +605,37 @@ def _leg_queries(s, F, Window=None):
 
 
 def test_leg_plans_match_reference_at_stage(sessions):
+    """The chip_smoke legs' plans at the default tier, `auto`, with the
+    volume floor at 0 (the card's tables are far past it): each plan's
+    operator sequence, through a whole program into its inner plan, and
+    its tier and reason equal the reference's."""
     from spark_tpu.api.window import Window as JW
     from spark_tpu_torch.api.window import Window as TW
+    from tests.test_torch_tpcds_slice import _tier
 
     j, t = sessions
-    t.conf.set("spark.sql.autoBroadcastJoinThreshold", 1 << 20)
-    j.conf.set("spark.sql.autoBroadcastJoinThreshold", 1 << 20)
+    conf = {"spark.sql.autoBroadcastJoinThreshold": 1 << 20,
+            "spark.tpu.compile.tier": "auto",
+            "spark.tpu.compile.whole.minRows": 0}
+    for s in (j, t):
+        for k, v in conf.items():
+            s.conf.set(k, v)
     try:
-        want = {n: _reference_ops(df)
+        want = {n: (_reference_ops(df), _tier(df))
                 for n, df in _leg_queries(j, JF, JW).items()}
-        got = {n: _ops(df) for n, df in _leg_queries(t, TF, TW).items()}
+        got = {n: (_ops(df), _tier(df))
+               for n, df in _leg_queries(t, TF, TW).items()}
     finally:
-        t.conf.unset("spark.sql.autoBroadcastJoinThreshold")
+        for k in conf:
+            t.conf.unset(k)
         j.conf.unset("spark.sql.autoBroadcastJoinThreshold")
+        j.conf.unset("spark.tpu.compile.whole.minRows")
+        j.conf.set("spark.tpu.compile.tier", "stage")
     assert got == want
-    assert any("Fused" in op for ops in got.values() for op in ops)
+    assert {n: tier for n, ((_, (tier, _))) in got.items()} == {
+        "main": "whole", "join": "whole", "range_sort": "whole",
+        "topk": "whole", "q78": "whole", "window": "stage"}
+    assert any("Fused" in op for ops, _ in got.values() for op in ops)
 
 
 TPCDS_FILES = tuple(sorted(
@@ -686,10 +725,9 @@ class _SyncDetector:
         self.mode = Mode
 
 
-@pytest.fixture()
-def sync_checked(monkeypatch):
+def watch_syncs(monkeypatch) -> list:
     """STAGE_CACHE.run with every fused body (eager on the CPU) watched by
-    _SyncDetector; yields the list of (stage, op) found."""
+    _SyncDetector; returns the list of (stage, op) found."""
     from spark_tpu_torch.physical.compile import StageCache
 
     found = []
@@ -706,16 +744,15 @@ def sync_checked(monkeypatch):
         return orig(self, name, key, watched, inputs, device)
 
     monkeypatch.setattr(StageCache, "run", run)
-    yield found
+    return found
 
 
-@pytest.fixture()
-def replayed(monkeypatch):
+def replay_first(monkeypatch) -> dict:
     """STAGE_CACHE.run as the card runs it: the body built for a key's
     first batch runs every later batch of that key, as a captured graph
     replays what its capture traced with only the inputs new. A key that
     misses a branch some batch's host pass took then gives a wrong result
-    on the CPU too."""
+    on the CPU too. Returns the first bodies, by program key."""
     from spark_tpu_torch.physical.compile import StageCache, program_key
     from spark_tpu_torch.utils.cuda_graph import as_tensors
 
@@ -728,7 +765,19 @@ def replayed(monkeypatch):
         return orig(self, name, key, body, inputs, device)
 
     monkeypatch.setattr(StageCache, "run", run)
-    yield first
+    return first
+
+
+@pytest.fixture()
+def sync_checked(monkeypatch):
+    """`watch_syncs` for one test."""
+    yield watch_syncs(monkeypatch)
+
+
+@pytest.fixture()
+def replayed(monkeypatch):
+    """`replay_first` for one test."""
+    yield replay_first(monkeypatch)
 
 
 def test_dict_transforms_merging_per_tile_replay_right(sessions, replayed):
@@ -795,7 +844,9 @@ def tpcds_cpu_tiers():
 
     tables = gen_tpcds_full(scale=0.01)
     conf = dict(CONF, **{"spark.tpu.batch.capacity": 1 << 10})
-    stage = TorchSession("tpcds-stage", dict(conf), device="cpu")
+    # pinned: at `auto` the inventory queries (1.3M rows here) run whole
+    stage = TorchSession("tpcds-stage", dict(conf, **{
+        "spark.tpu.compile.tier": "stage"}), device="cpu")
     oper = TorchSession("tpcds-operator", dict(conf, **OPERATOR),
                         device="cpu")
     for name, tb in tables.items():

@@ -20,6 +20,7 @@ import spark_tpu.api.functions as JF  # noqa: E402
 import spark_tpu_torch.api.functions as TF  # noqa: E402
 from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import NotPortedError, TorchSession  # noqa: E402
+from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
 
 # the port side pinned to the operator tier, as the reference side is:
 # these tests hold operator-at-a-time execution (tests/test_torch_fusion.py

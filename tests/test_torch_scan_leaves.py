@@ -39,6 +39,7 @@ import spark_tpu.api.functions as JF  # noqa: E402
 import spark_tpu_torch.api.functions as TF  # noqa: E402
 from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import TorchSession  # noqa: E402
+from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_tpcds_slice import (  # noqa: E402
     _chip_smoke, _ops, _reference_ops, _renumber,
 )
@@ -59,8 +60,8 @@ DPP_ROWS = 200_000
 
 def _sessions(conf=None, sized_conf=False, stage=False):
     """(reference, port) sessions at the operator tier, or both at the
-    stage tier where `stage` (sized: the card's parquet leg, which runs at
-    the default tier)."""
+    stage tier where `stage` (sized: the card's parquet leg, whose DPP
+    path runs pinned to the stage tier)."""
     cs = _chip_smoke()
     base = dict(cs.PARQUET_CONF if stage else cs.TPCDS_CONF) if sized_conf \
         else dict(CONF)
@@ -70,10 +71,9 @@ def _sessions(conf=None, sized_conf=False, stage=False):
         else {"spark.tpu.fusion.enabled": "false",
               "spark.tpu.compile.tier": "operator"}
     j = TpuSession("scan-leaves-reference", dict(base, **tier))
-    if stage:
-        base = {k: v for k, v in base.items()
-                if k != "spark.tpu.compile.tier"}
-    t = TorchSession("scan-leaves", dict(base), device="cpu")
+    t = TorchSession("scan-leaves", dict(
+        base, **{"spark.tpu.compile.tier": tier["spark.tpu.compile.tier"]}),
+        device="cpu")
     return j, t
 
 
@@ -245,8 +245,9 @@ def test_parquet_plans_match_reference(parquet, parquet_pairs, q):
 
 @pytest.mark.parametrize("q", ["q3", "q7", "q19"])
 def test_parquet_card_plans_match_chip_smoke(parquet, parquet_pairs, q):
-    # the card's parquet leg runs at the default (stage) tier: both
-    # engines plan it at the stage tier
+    # the card's parquet leg runs at the default tier, `auto`, whose whole
+    # programs hold this stage plan inside: both engines plan it at the
+    # stage tier
     cs, d, _ = parquet
     j, t = parquet_pairs["stage"]
     jd, td = j.sql(cs.tpcds_text(q)), t.sql(cs.tpcds_text(q))
@@ -387,8 +388,9 @@ def test_dpp_plan_and_pruning(dpp, dpp_on):
     cs, _, oracle, _ = dpp
     rows, m, td, jd, _ = dpp_on
     assert _ops(td) == _ops(jd)
-    # the card's DPP path runs at the default (stage) tier: both engines
-    # plan the query at the stage tier there
+    # the card's DPP path runs pinned to the stage tier (a whole program
+    # would prune nothing, in the reference too): both engines plan the
+    # query at the stage tier there
     j, t = _sessions(stage=True)
     try:
         for s in (j, t):

@@ -36,6 +36,7 @@ from spark_tpu_torch.errors import UnsupportedOperationError  # noqa: E402
 from tests.test_torch_cuda import SQL_CONSTRUCTS as CASES  # noqa: E402
 from tests.test_torch_cuda import construct_rows as _rows  # noqa: E402
 from tests.test_torch_cuda import construct_tables  # noqa: E402
+from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_tpcds_slice import _ops  # noqa: E402
 from tests.test_torch_tpcds_store import renumber  # noqa: E402
 

@@ -1,0 +1,66 @@
+"""The SQL and window construct statements (`SQL_CONSTRUCTS` and
+`WINDOW_CONSTRUCTS` of tests/test_torch_cuda.py) at the port's fused
+tiers, held to the JAX reference's result (operator tier, fusion off) over
+the same seeded views: the stage tier (spark.tpu.fusion.minRows 0, every
+fused program's first body run for all its later batches, as a graph
+replays: the `replayed` fixture) and the forced whole tier, each at tiles
+of 1,024 and of 128 rows. The earlier construct files hold the operator
+tier; this one holds the default tiers. Results compare exactly (the
+doubles are eighths, whose sums are exact in any order)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from spark_tpu import TpuSession  # noqa: E402
+from spark_tpu_torch import TorchSession  # noqa: E402
+from tests.test_torch_cuda import SQL_CONSTRUCTS  # noqa: E402
+from tests.test_torch_cuda import WINDOW_CONSTRUCTS  # noqa: E402
+from tests.test_torch_cuda import construct_rows, construct_tables  # noqa: E402,E501
+from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
+from tests.test_torch_fusion import replayed  # noqa: E402,F401
+
+CASES = dict(SQL_CONSTRUCTS, **WINDOW_CONSTRUCTS)
+BASE = {"spark.sql.shuffle.partitions": 4,
+        "spark.sql.autoBroadcastJoinThreshold": 1024}
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """The reference at the operator tier, and the port at the stage and
+    whole tiers at each tile size; the reference's results kept."""
+    tables = construct_tables()
+    j = TpuSession("constructs-reference", dict(
+        BASE, **{"spark.tpu.batch.capacity": 1 << 10,
+                 "spark.tpu.fusion.enabled": "false",
+                 "spark.tpu.compile.tier": "operator"}))
+    ports = {}
+    for tier in ("stage", "whole"):
+        for cap in (1 << 10, 128):
+            ports[(tier, cap)] = TorchSession(f"constructs-{tier}", dict(
+                BASE, **{"spark.tpu.batch.capacity": cap,
+                         "spark.tpu.compile.tier": tier,
+                         "spark.tpu.fusion.minRows": 0}), device="cpu")
+    for s in (j, *ports.values()):
+        for name, tb in tables.items():
+            s.createDataFrame(tb).createOrReplaceTempView(name)
+    want: dict = {}
+    yield j, ports, want
+    for s in (j, *ports.values()):
+        s.stop()
+
+
+@pytest.mark.parametrize("cap", [1 << 10, 128])
+@pytest.mark.parametrize("tier", ["stage", "whole"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_construct_at_fused_tier_matches_reference(engines, replayed, name,
+                                                   tier, cap):
+    j, ports, want = engines
+    text, ordered = CASES[name]
+    if name not in want:
+        want[name] = j.sql(text).toArrow()
+    got = ports[(tier, cap)].sql(text).toArrow()
+    assert got.schema == want[name].schema
+    assert construct_rows(got, ordered) == construct_rows(want[name],
+                                                          ordered)

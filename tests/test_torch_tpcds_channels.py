@@ -14,8 +14,9 @@ pytest.importorskip("jax")
 
 from spark_tpu_torch import NotPortedError  # noqa: E402
 from tests.test_torch_cuda import TPCDS_VARIANTS, tpcds_query  # noqa: E402
-from tests.test_torch_tpcds_store import (  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402,F401
     Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+    check_whole, one_torch_thread,
 )
 
 QUERIES = ("q15", "q25", "q26", "q29", "q31", "q62", "q64", "q78", "q85",
@@ -43,6 +44,11 @@ def test_query_matches_golden(pair, name):
     f"{q}_variant" for q in QUERIES if q in TPCDS_VARIANTS))
 def test_query_matches_reference(pair, name):
     check_reference(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)

@@ -15,8 +15,9 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.test_torch_cuda import TPCDS_VARIANTS  # noqa: E402
-from tests.test_torch_tpcds_store import (  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402,F401
     Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+    check_whole, one_torch_thread,
 )
 
 QUERIES = ("q10", "q33", "q35", "q45", "q56", "q58", "q60", "q69", "q83")
@@ -43,6 +44,11 @@ def test_query_matches_golden(pair, name):
     f"{q}_variant" for q in QUERIES if q in TPCDS_VARIANTS))
 def test_query_matches_reference(pair, name):
     check_reference(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)

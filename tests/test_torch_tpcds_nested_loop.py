@@ -17,9 +17,9 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.test_torch_cuda import TPCDS_VARIANTS, tpcds_query  # noqa: E402
-from tests.test_torch_tpcds_store import (  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402,F401
     Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
-    check_variant,
+    check_variant, check_whole, one_torch_thread,
 )
 
 QUERIES = ("q16", "q28", "q61", "q77", "q88", "q90", "q94", "q95")
@@ -68,6 +68,11 @@ def test_semi_join_residual_keeps_and_drops(pair, name):
     kept = pair.run("jax", f"{name}_variant")[1]
     assert want.column(0)[0].as_py() > 0
     assert kept.column(0)[0].as_py() > 0
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)

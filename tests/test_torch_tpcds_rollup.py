@@ -11,8 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from tests.test_torch_tpcds_store import (  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402,F401
     Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+    check_whole, one_torch_thread,
 )
 
 QUERIES = ("q5", "q18", "q22", "q27", "q80")
@@ -38,6 +39,11 @@ def test_query_matches_golden(pair, name):
 @pytest.mark.parametrize("name", QUERIES)
 def test_query_matches_reference(pair, name):
     check_reference(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)

@@ -13,9 +13,9 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.test_torch_cuda import TPCDS_VARIANTS  # noqa: E402
-from tests.test_torch_tpcds_store import (  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402,F401
     Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
-    check_variant,
+    check_variant, check_whole, one_torch_thread,
 )
 
 QUERIES = ("q8", "q14a", "q14b", "q38", "q87")
@@ -50,6 +50,11 @@ def test_query_matches_reference(pair, name):
                                   if q in TPCDS_VARIANTS])
 def test_variant_matches_reference(pair, name):
     check_variant(pair, f"{name}_variant", MIN_ROWS.get(name, 10))
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)

@@ -4,13 +4,16 @@ compile tier operator) and TorchSession(device="cpu").sql over temp views of
 `tests/tpcds/datagen.py` at scale 0.1, with 2^10-row tiles and 4 shuffle
 partitions. Each result equals the committed golden (normalised as
 `tests/test_tpcds_full.py` does) and the reference's Arrow table exactly,
-types, values and row order; the analysed and optimised logical plans print
+types, values and row order, and at the port's forced whole-query tier
+equals the reference's too (`check_whole` of
+tests/test_torch_tpcds_store.py); the analysed and optimised logical plans print
 the same trees (expression ids renumbered by first appearance) and the
 physical plans hold the same operator sequence. At this scale the queries
 return 2, 3 and 0 rows, so each also runs with literals that select at
 least 10 rows. The SF10 plans (row counts of the TPC-DS specification, from
-`chip_smoke.py`) are planned, not run, by both engines and must match the
-chip smoke test's expected operator sequence."""
+`chip_smoke.py`) are planned, not run, by both engines at the default tier,
+`auto`, and must match the chip smoke test's expected operator sequence and
+compile-tier decision."""
 
 import importlib.util
 import os
@@ -74,8 +77,25 @@ def _renumber(text: str) -> str:
     return re.sub(r"#(\d+)", one, text)
 
 
+def _root(df) -> tuple:
+    """(the operator names a plan starts with, the plan to walk): a whole
+    program's inner plan is no child of it, so the walk enters it."""
+    p = df.query_execution.physical
+    if type(p).__name__ == "WholeQueryExec":
+        return ["WholeQueryExec"], p.plan
+    return [], p
+
+
 def _ops(df) -> list:
-    return [type(n).__name__ for n in df.query_execution.physical.iter_nodes()]
+    head, p = _root(df)
+    return head + [type(n).__name__ for n in p.iter_nodes()]
+
+
+def _tier(df) -> tuple:
+    """(tier, reason) of the plan's compile-tier decision, either engine."""
+    p = df.query_execution.physical
+    d = getattr(p, "decision", None) or p._tier_decision
+    return d.tier, d.reason
 
 
 def _reference_ops(df) -> list:
@@ -111,8 +131,9 @@ def _reference_ops(df) -> list:
         for c in n.children:
             walk(c, parents + [n])
 
-    walk(df.query_execution.physical, [])
-    return out
+    head, p = _root(df)
+    walk(p, [])
+    return head + out
 
 
 @pytest.mark.parametrize("name", QUERIES)
@@ -139,6 +160,14 @@ def test_query_matches_reference(tpcds, name):
         assert want.num_rows >= 10
     assert got.schema == want.schema
     assert got.to_pylist() == want.to_pylist()
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(tpcds, monkeypatch, name):
+    from tests.test_torch_tpcds_store import check_whole
+
+    check_whole(tpcds["torch"], tpcds["jax"].sql(_query(name)).toArrow(),
+                name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES + ("q3_variant",))
@@ -216,7 +245,10 @@ def _sf10_ops(engine: str, tables, cs) -> dict:
         from spark_tpu.plan.logical import LocalRelation
         from spark_tpu.types import from_arrow_type
 
-        session = TpuSession("sf10-plans", dict(JAX_CONF, **cs.TPCDS_CONF))
+        session = TpuSession("sf10-plans", dict(
+            JAX_CONF, **cs.TPCDS_CONF,
+            **{"spark.tpu.fusion.enabled": "true",
+               "spark.tpu.compile.tier": "auto"}))
     else:
         from spark_tpu_torch.api.dataframe import DataFrame
         from spark_tpu_torch.expr.expressions import AttributeReference
@@ -232,7 +264,11 @@ def _sf10_ops(engine: str, tables, cs) -> dict:
         DataFrame(session, LocalRelation(attrs, _Sized(tb, rows))) \
             .createOrReplaceTempView(name)
     ops = _reference_ops if engine == "jax" else _ops
-    return {q: ops(session.sql(_query(q))) for q in QUERIES}
+    out = {}
+    for q in QUERIES:
+        df = session.sql(_query(q))
+        out[q] = (ops(df), _tier(df))
+    return out
 
 
 def test_sf10_plans_match_chip_smoke(tpcds):
@@ -240,4 +276,5 @@ def test_sf10_plans_match_chip_smoke(tpcds):
     want = _sf10_ops("jax", tpcds["tables"], cs)
     got = _sf10_ops("torch", tpcds["tables"], cs)
     assert got == want
-    assert {q: list(cs.TPCDS_PLAN_OPS[q]) for q in QUERIES} == got
+    assert {q: (list(cs.TPCDS_PLAN_OPS[q]), cs.TPCDS_TIERS[q])
+            for q in QUERIES} == got

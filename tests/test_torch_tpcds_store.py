@@ -6,10 +6,11 @@ TorchSession(device="cpu").sql over temp views of `tests/tpcds/datagen.py`
 at scale 0.1, with 2^10-row tiles and 4 shuffle partitions. Each result
 (its trailing LIMIT dropped, as the goldens were made) equals the committed
 golden under `tests/tpcds/oracle.py`'s comparison; each result as written
-equals the reference's Arrow table exactly (types, values, row order); the
-analysed and optimised plans print the same trees (expression ids and
-materialised CTE names renumbered) and the physical plans hold the same
-operator sequence; and the plans of both engines at the TPC-DS SF10 row
+equals the reference's Arrow table exactly (types, values, row order), and
+the port's result at the forced whole-query tier equals it too
+(`check_whole`); the analysed and optimised plans print the same trees
+(expression ids and materialised CTE names renumbered) and the physical
+plans hold the same operator sequence; and the plans of both engines at the TPC-DS SF10 row
 counts equal `chip_smoke.py`'s `TPCDS_PLAN_OPS`. The queries that return
 no rows at this scale also run with literals that select at least 10 rows
 (`TPCDS_VARIANTS` of `tests/test_torch_cuda.py`, which runs the same
@@ -30,8 +31,10 @@ from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import TorchSession  # noqa: E402
 from tests.test_torch_cuda import TPCDS_VARIANTS  # noqa: E402
 from tests.test_torch_cuda import tpcds_query as query_text  # noqa: E402
+from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_tpcds_slice import (  # noqa: E402
     CONF, JAX_CONF, _chip_smoke, _ops, _reference_ops, _renumber, _Sized,
+    _tier,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,6 +97,35 @@ def check_reference(pair: TpcdsPair, name: str) -> None:
     assert got.to_pylist() == want.to_pylist()
 
 
+WHOLE = {"spark.tpu.compile.tier": "whole", "spark.tpu.fusion.minRows": 0}
+
+
+def check_whole(session, want, name: str, monkeypatch) -> None:
+    """Query `name` on the port's `session` at the forced whole-query tier
+    (physical/whole_query.py, minRows 0) equal to the reference's result
+    `want` at the operator tier, with each program's first body run for
+    all its later runs, as a graph replays, and no body reading a device
+    value on the host. Integers, strings and ordered output compare
+    exactly, float sums to relative 1e-12."""
+    from tests.test_torch_fusion import _same, replay_first, watch_syncs
+
+    found = watch_syncs(monkeypatch)
+    replay_first(monkeypatch)
+    text = query_text(name)
+    saved = {k: session.conf.get(k) for k in WHOLE}
+    for k, v in WHOLE.items():
+        session.conf.set(k, v)
+    try:
+        df = session.sql(text)
+        got = df.toArrow()
+    finally:
+        for k, v in saved.items():
+            session.conf.set(k, v)
+    assert not found, found[:5]
+    assert got.schema == want.schema
+    _same(got, want, ordered="order by" in text.lower())
+
+
 def check_variant(pair: TpcdsPair, name: str, min_rows: int = 10) -> None:
     """A variant equals the reference's result and is not degenerate: at
     least `min_rows` rows; a one-row aggregate (min_rows 1) holds no NULL
@@ -121,10 +153,13 @@ def check_plans(pair: TpcdsPair, name: str) -> None:
 class Sf10Planner:
     """Both engines over stand-ins of the scale-0.1 tables that report the
     SF10 row counts of `chip_smoke.TPCDS_ROWS`: the planners read only the
-    schema and the row count. A CTE the session materialises runs over the
-    small tables, and its relation then stands in at the row count the card
-    materialised at SF10 (`chip_smoke.TPCDS_CTE_ROWS`), which the rest of
-    the plan's join order and broadcast choices read."""
+    schema and the row count. A query's CTEs and scalar subqueries run at
+    the operator tier over the small tables (they run while it is planned),
+    and a CTE the session materialises then stands in at the row count the
+    card materialised at SF10 (`chip_smoke.TPCDS_CTE_ROWS`), which the rest
+    of the plan's join order, broadcast choices and compile tier read. The
+    query itself is planned at the default tier, `auto` (fusion on), as
+    the card's tpcds leg runs it."""
 
     def __init__(self, tables):
         self.cs = _chip_smoke()
@@ -138,8 +173,9 @@ class Sf10Planner:
             from spark_tpu.plan.logical import LocalRelation
             from spark_tpu.types import from_arrow_type
 
-            session = TpuSession("sf10-plans",
-                                 dict(JAX_CONF, **cs.TPCDS_CONF))
+            session = TpuSession("sf10-plans", dict(
+                JAX_CONF, **cs.TPCDS_CONF,
+                **{"spark.tpu.fusion.enabled": "true"}))
         else:
             from spark_tpu_torch.api.dataframe import DataFrame
             from spark_tpu_torch.expr.expressions import AttributeReference
@@ -156,7 +192,8 @@ class Sf10Planner:
                 .createOrReplaceTempView(name)
         return session
 
-    def _ops(self, engine: str, name: str) -> list:
+    def plan(self, engine: str, name: str):
+        """The query's DataFrame, planned at the default tier."""
         session = self.sessions[engine]
         rows = list(self.cs.TPCDS_CTE_ROWS.get(name, {}).values())
         create = session.createDataFrame
@@ -167,18 +204,29 @@ class Sf10Planner:
             return df
 
         session.createDataFrame = sized  # materialised CTEs come through it
+        session.conf.set("spark.tpu.compile.tier", "operator")
         try:
             df = session.sql(query_text(name))
-            return _reference_ops(df) if engine == "jax" else _ops(df)
+            df.query_execution.optimized  # noqa: B018 (scalar subqueries)
+            session.conf.set("spark.tpu.compile.tier", "auto")
+            df.query_execution.physical  # noqa: B018
+            return df
         finally:
             del session.createDataFrame
+            session.conf.set("spark.tpu.compile.tier", "operator")
             assert not rows, "a materialised CTE was not planned"
+
+    def _ops(self, engine: str, name: str) -> tuple:
+        df = self.plan(engine, name)
+        ops = _reference_ops(df) if engine == "jax" else _ops(df)
+        return ops, _tier(df)
 
     def check(self, name: str) -> None:
         want = self._ops("jax", name)
         got = self._ops("torch", name)
         assert got == want
-        assert tuple(got) == self.cs.TPCDS_PLAN_OPS[name]
+        assert tuple(got[0]) == self.cs.TPCDS_PLAN_OPS[name]
+        assert got[1] == self.cs.TPCDS_TIERS[name]
 
 
 @pytest.fixture(scope="module")
@@ -202,6 +250,11 @@ def test_query_matches_golden(pair, name):
     f"{q}_variant" for q in QUERIES if q in TPCDS_VARIANTS))
 def test_query_matches_reference(pair, name):
     check_reference(pair, name)
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)

@@ -13,8 +13,9 @@ pytest.importorskip("jax")
 
 from tests.test_torch_cuda import TPCDS_VARIANTS, same_result  # noqa: E402
 from tests.test_torch_tpcds_slice import _chip_smoke  # noqa: E402
-from tests.test_torch_tpcds_store import (  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402,F401
     Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+    check_whole, one_torch_thread,
 )
 
 QUERIES = ("q97", "q2", "q4", "q11", "q66", "q71", "q74", "q75", "q76")
@@ -64,6 +65,11 @@ def test_query_matches_reference(pair, name):
                               if c not in floats])
 
     assert same_result(name, rows(got), rows(want))
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)

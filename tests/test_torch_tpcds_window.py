@@ -15,8 +15,9 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from tests.test_torch_cuda import TPCDS_VARIANTS  # noqa: E402
-from tests.test_torch_tpcds_store import (  # noqa: E402
+from tests.test_torch_tpcds_store import (  # noqa: E402,F401
     Sf10Planner, TpcdsPair, check_golden, check_plans, check_reference,
+    check_whole, one_torch_thread,
 )
 
 QUERIES = ("q12", "q20", "q36", "q44", "q47", "q49", "q51", "q53", "q57",
@@ -58,6 +59,11 @@ def test_query_matches_reference(pair, name):
     assert got.schema == want.schema
     keys = [(c, "ascending") for c in want.column_names]
     assert got.sort_by(keys).to_pylist() == want.sort_by(keys).to_pylist()
+
+
+@pytest.mark.parametrize("name", QUERIES)
+def test_whole_matches_reference(pair, monkeypatch, name):
+    check_whole(pair.torch, pair.run("jax", name)[1], name, monkeypatch)
 
 
 @pytest.mark.parametrize("name", QUERIES)
