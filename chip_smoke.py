@@ -104,7 +104,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    CTE round trip) and the scalar subqueries on lines of
                    their own; last q3, q7 and q19 once more at each of
                    the whole, stage and operator tiers on the same
-                   session, each to its oracle;
+                   session, each to its oracle; then the expressions leg
+                   on that session and its views: the scalar functions
+                   of EXPRESSION_QUERIES at `auto`, stage and forced
+                   `whole`, each to numpy/Python oracle rows computed
+                   after the last timed run of the query files;
        parquet:    (at `auto`, DPP at the stage tier; 1 warm run each)
                    q3, q7 and q19 read through
                    spark.read.parquet from
@@ -113,7 +117,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    dimensions, store_sales cut to SF10's lines), each plan
                    and each scan's columns, splits and rows read held,
                    each result to a numpy oracle the writer accumulated
-                   chunk by chunk; bench_join's shape over SF10 store_sales
+                   chunk by chunk, the histogram kernel held at the
+                   inputs of one more run at the operator tier;
+                   bench_join's shape over SF10 store_sales
                    partitioned by date (dynamic partition pruning must
                    prune every split outside November, and DPP off gives
                    the same answer), a partition and a row-group
@@ -2775,7 +2781,7 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
           histograms, check, run=None, timed_shapes=None,
           profile: bool = True, operator=None, stage=None,
           stage_check=None, tiers_out=None, main_calls=None,
-          warm_runs: int = 3, record_operator: bool = True,
+          warm_runs: int = 3, record_operator: bool = False,
           whole: bool = False) -> dict:
     """One path through the DataFrame API at the session's tier (the
     default: `auto`, whose cost model picks whole, stage or operator per
@@ -2806,10 +2812,12 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     `df.toArrow`, over the plan made once; `main_calls()` then gives the
     histogram calls of the main plan alone in its last run). The SF10
     leg cuts its time with `warm_runs` (0 but for q3, q7 and q19: the
-    cold run only, with every check) and without the operator tier's
-    recording run (`record_operator`; its
-    stage-tier queries' shapes are the stage run's, its whole programs
-    call no kernel). Returns the launch counts of the first run;
+    cold run only, with every check). The histogram's path inputs are
+    recorded from the stage tier's run, where the path has one: its
+    operator tier's run records the same shapes and a whole program calls
+    no kernel. A path with no stage run (parquet q3, q7 and q19: whole at
+    `auto`, no `stage`) records them from an operator tier's run instead
+    (`record_operator`). Returns the launch counts of the first run;
     `tiers_out`, where given, gets each tier's, by tier."""
     from spark_tpu_torch.api.dataframe import DataFrame
 
@@ -2928,25 +2936,24 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
                                          "operator", again, operator,
                                          check, out)
 
-    runs = {}
     if tier == "stage" or stage is not None:
         def stage_run():
             with tier_set(spark, "stage"), bodies_on_card(torch, sk):
                 (run if tier == "stage" else again)()
-        runs["stage"] = stage_run
-
-    def operator_run():
-        with tier_set(spark, "operator"):
-            again()
-    if record_operator:
-        runs["operator"] = operator_run
-    if not runs:
-        return launches
-    seen, _ = path_histograms(torch, sk, label, runs, timed_shapes)
-    if "stage" in runs and not seen["stage"] and (
-            calls if tier == "stage" else stage):
-        fail(f"{label}: the stage tier's run showed no histogram call to "
-             f"record, though the path made some")
+        seen, _ = path_histograms(torch, sk, label, {"stage": stage_run},
+                                  timed_shapes)
+        if not seen["stage"] and (calls if tier == "stage" else stage):
+            fail(f"{label}: the stage tier's run showed no histogram call "
+                 f"to record, though the path made some")
+    elif record_operator:
+        def operator_run():
+            with tier_set(spark, "operator"):
+                again()
+        seen, _ = path_histograms(torch, sk, label,
+                                  {"operator": operator_run}, timed_shapes)
+        if not seen["operator"]:
+            fail(f"{label}: the operator tier's run showed no histogram "
+                 f"call to record")
     return launches
 
 
@@ -4500,7 +4507,10 @@ def tpcds_leg(torch, sk, card: str):
     `tpcds_cpu_check`). A query whose CTEs the session materialises is
     timed as session.sql(text).toArrow() whole, with the sql() call (the
     CTE bodies' run and collect) timed on its own. Returns the launch
-    counts by query and the results the CPU check holds."""
+    counts by query, the results the CPU check holds, and the launch
+    counts of the expressions leg, which runs last on the same session
+    and views (`expressions_leg`), against oracles computed after every
+    timed run of the query files."""
     import re
 
     t0 = time.perf_counter()
@@ -4577,8 +4587,7 @@ def tpcds_leg(torch, sk, card: str):
                        tpcds_calls(q), check, run, timed_shapes,
                        main_calls=(lambda own=own: own[-1]) if run
                        else None,
-                       warm_runs=3 if q in TPCDS_ORACLES else 0,
-                       record_operator=False)
+                       warm_runs=3 if q in TPCDS_ORACLES else 0)
         peak[q] = torch.cuda.max_memory_allocated() / 1e9
         print(f"tpcds {q} done in {time.perf_counter() - t_q:.1f} s, at "
               f"{time.perf_counter() - t0:.1f} s of the leg", flush=True)
@@ -4598,11 +4607,20 @@ def tpcds_leg(torch, sk, card: str):
                 if scalar_s[1:] else "not measured: no warm run",
                 "card": card}), flush=True)
     tpcds_stage(torch, sk, card, spark, arrays)
-    spark.stop()
     print("tpcds peak device memory " + json.dumps({
         "max_memory_allocated_gb": max(peak.values()),
         "by_query_gb": peak, "card": card}), flush=True)
-    return out, results
+    # the expressions leg's oracles (Python loops and numpy), computed
+    # here, where no timed run overlaps them
+    t1 = time.perf_counter()
+    oracles = {name: expression_oracle(name, tables)
+               for name in EXPRESSION_QUERIES}
+    print(f"expression oracles computed in {time.perf_counter() - t1:.1f} "
+          "s", flush=True)
+    expressions = expressions_leg(torch, sk, card, spark, oracles,
+                                  timed_shapes)
+    spark.stop()
+    return out, results, expressions
 
 
 def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
@@ -4668,6 +4686,450 @@ def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
             "tiers": report, "fused_stages": fused_stages(dfs["stage"]),
             "held_gb": stage_counters()["stage_cache.held_bytes"] / 1e9,
             "card": card}), flush=True)
+
+
+# --- the expressions leg: the scalar functions over the SF10 views ------------
+
+EXPRESSION_QUERIES = {
+    # date parts, DIV and pmod as group keys over store_sales x date_dim
+    "dates": (
+        "SELECT year(d_date) y, quarter(d_date) q, dayofweek(d_date) dw, "
+        "pmod(ss_customer_sk, 7) pc, ss_quantity DIV 25 qd, count(*) n, "
+        "sum(ss_ext_sales_price) s FROM store_sales JOIN date_dim "
+        "ON ss_sold_date_sk = d_date_sk GROUP BY year(d_date), "
+        "quarter(d_date), dayofweek(d_date), pmod(ss_customer_sk, 7), "
+        "ss_quantity DIV 25"),
+    # greatest/least, nullif, nvl and <=> over the money columns
+    "money": (
+        "SELECT sum(greatest(ss_list_price, ss_sales_price, ss_coupon_amt)) "
+        "g, sum(nullif(ss_coupon_amt, 0)) nz, count(nullif(ss_coupon_amt, "
+        "0)) cnz, sum(nvl(ss_coupon_amt, ss_net_paid)) nv, "
+        "count_if(ss_ext_discount_amt <=> ss_coupon_amt) eq, "
+        "count_if(least(ss_list_price, ss_sales_price) <=> ss_sales_price) "
+        "le, sum(pmod(ss_item_sk, 13)) pm FROM store_sales"),
+    # the math functions, summed as doubles
+    "math": (
+        "SELECT sum(sqrt(ss_quantity)) a, sum(ln(ss_list_price)) b, "
+        "sum(sin(ss_quantity)) c, sum(cbrt(ss_net_profit)) d, "
+        "sum(pow(ss_quantity, 1.5)) e, sum(exp(ss_quantity / 100.0)) f, "
+        "sum(bround(ss_list_price / 3, 2)) g, sum(log10(ss_list_price) "
+        "* degrees(atan2(ss_quantity, 7))) h, sum(bround(ss_sales_price, "
+        "1)) r FROM store_sales"),
+    # the bitwise operators over the ticket numbers
+    "bitwise": (
+        "SELECT ss_ticket_number & 7 b, count(*) n, sum(ss_ticket_number "
+        ">> 3) s, sum(ss_ticket_number ^ 255) x, sum(~ss_ticket_number | 1) "
+        "o, sum(shiftleft(ss_quantity, 2)) sl, sum(ss_ticket_number % 13) m "
+        "FROM store_sales GROUP BY ss_ticket_number & 7"),
+    # string transforms as group keys over customer x store_sales
+    "strings": (
+        "SELECT lower(c_first_name) f, length(c_last_name) l, "
+        "initcap(c_salutation) s, count(*) n, sum(ss_quantity) q "
+        "FROM store_sales JOIN customer ON ss_customer_sk = c_customer_sk "
+        "GROUP BY lower(c_first_name), length(c_last_name), "
+        "initcap(c_salutation)"),
+    # string predicates and RLIKE over customer_address
+    "predicates": (
+        "SELECT count_if(ca_city RLIKE '^[A-M].*e$') a, "
+        "count_if(startswith(ca_street_name, 'Oak')) b, "
+        "count_if(contains(ca_county, 'ton')) c, count_if(endswith(ca_zip, "
+        "'7')) d, sum(instr(ca_street_name, 'a')) e, sum(length(ca_city)) "
+        "f, count_if(ca_state LIKE 'T_') g, count_if(ca_city NOT RLIKE 'a') "
+        "h, count(regexp_substr(ca_street_name, '[A-Z][a-z]+ey')) i "
+        "FROM customer_address"),
+    # casts from a string and try_cast
+    "casts": (
+        "SELECT sum(cast(ca_zip AS INT)) z, sum(try_cast(ca_street_number "
+        "AS BIGINT)) n, sum(cast(ca_zip AS DOUBLE)) zd, "
+        "count(try_cast(ca_suite_number AS INT)) bad, "
+        "sum(cast(concat(ca_street_number, '.25') AS DECIMAL(7, 2))) dc "
+        "FROM customer_address"),
+    # hashes and encodings over item, and hash/xxhash64 (host UDFs, row by
+    # row or once per dictionary value) over the dimensions only; a host
+    # UDF is projected below the aggregate, as the reference extracts it
+    # only from projections and filters
+    "hashes": (
+        "SELECT sum(c) c, count(DISTINCT m) m, sum(h & 1023) h, "
+        "sum(x & 65535) x, sum(length(s)) s, sum(length(b)) b FROM "
+        "(SELECT crc32(i_item_id) c, md5(i_brand) m, hash(i_item_sk) h, "
+        "xxhash64(i_item_id) x, sha2(i_category, 256) s, base64(i_color) b "
+        "FROM item)"),
+    "hashes_customer": (
+        "SELECT sum(h & 1023) h, sum(x & 255) x, sum(c) c FROM "
+        "(SELECT hash(c_birth_country) h, xxhash64(c_salutation) x, "
+        "crc32(c_email_address) c FROM customer)"),
+}
+# the expressions leg's double columns, held to relative 1e-9 (float sums
+# add in atomic order on the card)
+EXPRESSION_FLOATS = {"math": ("a", "b", "c", "d", "e", "f", "g", "h"),
+                     "casts": ("zd",)}
+
+
+def _np_col(table, name):
+    """(values, valid) of an Arrow column as numpy: decimals in int64
+    units of their scale, dates in days; strings stay Arrow (take them
+    with `_by_value`)."""
+    import numpy as np
+    import pyarrow as pa
+
+    col = table.column(name).combine_chunks()
+    valid = ~col.is_null().to_numpy(zero_copy_only=False)
+    t = col.type
+    if pa.types.is_string(t):
+        return col, valid
+    if pa.types.is_decimal(t):
+        v = np.rint(col.cast(pa.float64()).fill_null(0).to_numpy()
+                    * 10.0 ** t.scale).astype(np.int64)
+    elif pa.types.is_date32(t):
+        v = col.view(pa.int32()).fill_null(0).to_numpy()
+    else:
+        v = col.fill_null(0).to_numpy()
+    return v, valid
+
+
+def _by_value(col, fn, dtype=object):
+    """fn over each distinct value of the Arrow string column `col`,
+    gathered back per row (NULL rows get fn(None))."""
+    import numpy as np
+
+    enc = col.dictionary_encode()
+    per = np.array([fn(v) for v in enc.dictionary.to_pylist()] + [fn(None)],
+                   dtype=dtype)
+    idx = enc.indices.fill_null(len(per) - 1).to_numpy()
+    return per[idx]
+
+
+def _grouped(keys: list, valid: list, sums: list) -> list:
+    """Rows (key values or None..., count, sums...) of a GROUP BY over
+    integer key arrays (`valid` False for NULL) and (values, valid) int64
+    sum columns (a group's sum NULL where none of its values is valid):
+    the keys in mixed radix, counted and summed by bincount (each sum
+    below 2^53, so exact in its float64 weights)."""
+    import numpy as np
+
+    code = np.zeros(len(keys[0]), np.int64)
+    radix = []
+    for k, v in zip(keys, valid):
+        k = k.astype(np.int64)
+        lo = int(k[v].min()) if v.any() else 0
+        span = (int(k[v].max()) if v.any() else 0) - lo + 2  # NULL last
+        code = code * span + np.where(v, k - lo, span - 1)
+        radix.append((lo, span))
+    total = int(np.prod([span for _, span in radix]))
+    n = np.bincount(code, minlength=total)
+    tot = [(np.bincount(code, weights=np.where(ok, x, 0).astype(np.float64),
+                        minlength=total),
+            np.bincount(code, weights=ok.astype(np.float64),
+                        minlength=total)) for x, ok in sums]
+    rows = []
+    for g in np.nonzero(n)[0]:
+        key, rest = [], int(g)
+        for lo, span in reversed(radix):
+            d = rest % span
+            rest //= span
+            key.append(None if d == span - 1 else lo + d)
+        rows.append(tuple(reversed(key)) + (int(n[g]),) + tuple(
+            int(t[g]) if c[g] else None for t, c in tot))
+    return rows
+
+
+def expression_oracle(name: str, tables: dict) -> list:
+    """The expected rows of EXPRESSION_QUERIES[name] from numpy and Python
+    over the Arrow tables, decimals in int64 units of their scale."""
+    import base64
+    import hashlib
+    import re
+    import zlib
+
+    import numpy as np
+
+    ss, dd = tables["store_sales"], tables["date_dim"]
+    if name == "dates":
+        dsk, _ = _np_col(dd, "d_date_sk")
+        days, _ = _np_col(dd, "d_date")
+        lut = np.full(int(dsk.max()) + 1, -1, np.int64)
+        lut[dsk] = np.arange(len(dsk))
+        sold, sold_ok = _np_col(ss, "ss_sold_date_sk")
+        row = np.where(sold_ok, lut[np.clip(sold, 0, len(lut) - 1)], -1)
+        sel = row >= 0
+        d = days[row[sel]].astype(np.int64)
+        dt64 = d.astype("datetime64[D]")
+        y = dt64.astype("datetime64[Y]").astype(np.int64) + 1970
+        m = dt64.astype("datetime64[M]").astype(np.int64) % 12 + 1
+        cust, cust_ok = _np_col(ss, "ss_customer_sk")
+        qty, qty_ok = _np_col(ss, "ss_quantity")
+        one = np.ones(int(sel.sum()), bool)
+        price, price_ok = _np_col(ss, "ss_ext_sales_price")
+        return _grouped([y, (m - 1) // 3 + 1, (d + 4) % 7 + 1,
+                         cust[sel] % 7, qty[sel] // 25],
+                        [one, one, one, cust_ok[sel], qty_ok[sel]],
+                        [(price[sel], price_ok[sel])])
+    if name == "money":
+        lp, lp_ok = _np_col(ss, "ss_list_price")
+        sp, sp_ok = _np_col(ss, "ss_sales_price")
+        cp, cp_ok = _np_col(ss, "ss_coupon_amt")
+        da, da_ok = _np_col(ss, "ss_ext_discount_amt")
+        npd, np_ok = _np_col(ss, "ss_net_paid")
+        item, _ = _np_col(ss, "ss_item_sk")
+        low = np.iinfo(np.int64).min
+        g = np.maximum.reduce([np.where(ok, v, low) for v, ok in
+                               ((lp, lp_ok), (sp, sp_ok), (cp, cp_ok))])
+        g_ok = lp_ok | sp_ok | cp_ok
+        nz = cp_ok & (cp != 0)
+        nv = np.where(cp_ok, cp, npd)
+        nv_ok = cp_ok | np_ok
+
+        def null_safe_eq(a, a_ok, b, b_ok):
+            return np.where(a_ok & b_ok, a == b, ~a_ok & ~b_ok)
+
+        le = np.where(lp_ok & sp_ok, np.minimum(lp, sp),
+                      np.where(lp_ok, lp, sp))
+        return [(int(g[g_ok].sum()), int(cp[nz].sum()), int(nz.sum()),
+                 int(nv[nv_ok].sum()),
+                 int(null_safe_eq(da, da_ok, cp, cp_ok).sum()),
+                 int(null_safe_eq(le, lp_ok | sp_ok, sp, sp_ok).sum()),
+                 int((item % 13).sum()))]
+    if name == "math":
+        def half_even(units, f):
+            # integers rounded to multiples of f, ties to even
+            q, r = np.divmod(np.abs(units), f)
+            up = (r * 2 > f) | ((r * 2 == f) & (q % 2 == 1))
+            return np.sign(units) * (q + up) * f
+
+        qty, q_ok = _np_col(ss, "ss_quantity")
+        lp, lp_ok = _np_col(ss, "ss_list_price")
+        sp, sp_ok = _np_col(ss, "ss_sales_price")
+        pr, pr_ok = _np_col(ss, "ss_net_profit")
+        q = qty[q_ok].astype(np.float64)
+        lpv = lp[lp_ok] / 100.0
+        both = q_ok & lp_ok
+        h = np.log10(lp[both] / 100.0) * np.degrees(
+            np.arctan2(qty[both].astype(np.float64), 7.0))
+        return [(float(np.sqrt(q).sum()), float(np.log(lpv).sum()),
+                 float(np.sin(q).sum()), float(np.cbrt(pr[pr_ok] / 100.0)
+                                               .sum()),
+                 float((q ** 1.5).sum()), float(np.exp(q / 100.0).sum()),
+                 float((np.rint(lp[lp_ok] / 3.0) / 100.0).sum()),
+                 float(h.sum()), int(half_even(sp[sp_ok], 10).sum()))]
+    if name == "bitwise":
+        tk, tk_ok = _np_col(ss, "ss_ticket_number")
+        qty, q_ok = _np_col(ss, "ss_quantity")
+        return _grouped([tk & 7], [tk_ok],
+                        [(tk >> 3, tk_ok), (tk ^ 255, tk_ok),
+                         (~tk | 1, tk_ok), (qty << 2, q_ok),
+                         (tk % 13, tk_ok)])
+    if name == "strings":
+        cu = tables["customer"]
+        csk, _ = _np_col(cu, "c_customer_sk")
+        first = _by_value(cu.column("c_first_name").combine_chunks(),
+                          lambda v: None if v is None else v.lower())
+        length = _by_value(cu.column("c_last_name").combine_chunks(),
+                           lambda v: None if v is None else len(v))
+        salut = _by_value(cu.column("c_salutation").combine_chunks(),
+                          lambda v: None if v is None else " ".join(
+                              w[:1].upper() + w[1:].lower() if w else w
+                              for w in v.split(" ")))
+        pos = np.full(int(csk.max()) + 1, -1, np.int64)
+        pos[csk] = np.arange(len(csk))
+        cust, c_ok = _np_col(ss, "ss_customer_sk")
+        qty, q_ok = _np_col(ss, "ss_quantity")
+        row = np.where(c_ok, pos[np.clip(cust, 0, len(pos) - 1)], -1)
+        sel = row >= 0
+        r = row[sel]
+        # the string keys by code: each distinct value, None last
+        keys, codes = [], []
+        for arr in (first, length, salut):
+            vals = sorted({v for v in arr if v is not None})
+            at = {v: i for i, v in enumerate(vals)}
+            keys.append(vals + [None])
+            codes.append(np.array([len(vals) if v is None else at[v]
+                                   for v in arr], np.int64)[r])
+        one = np.ones(len(r), bool)
+        return [(keys[0][k[0]], keys[1][k[1]], keys[2][k[2]]) + k[3:]
+                for k in _grouped(codes, [one, one, one],
+                                  [(qty[sel], q_ok[sel])])]
+    ca = tables["customer_address"]
+    if name == "predicates":
+        def count(col, fn):
+            v = _by_value(ca.column(col).combine_chunks(),
+                          lambda s: None if s is None else fn(s))
+            return int(sum(x for x in v if x is not None))
+
+        city_rx = re.compile("^[A-M].*e$")
+        state_rx = re.compile("^T.$", re.DOTALL)
+        sub_rx = re.compile("[A-Z][a-z]+ey")
+        return [(count("ca_city", lambda s: bool(city_rx.search(s))),
+                 count("ca_street_name", lambda s: s.startswith("Oak")),
+                 count("ca_county", lambda s: "ton" in s),
+                 count("ca_zip", lambda s: s.endswith("7")),
+                 count("ca_street_name", lambda s: s.find("a") + 1),
+                 count("ca_city", len),
+                 count("ca_state", lambda s: bool(state_rx.match(s))),
+                 count("ca_city", lambda s: not re.search("a", s)),
+                 count("ca_street_name",
+                       lambda s: sub_rx.search(s) is not None))]
+    if name == "casts":
+        def parse(col, fn):
+            return _by_value(ca.column(col).combine_chunks(),
+                             lambda s: None if s is None else fn(s.strip()))
+
+        def as_int(s):
+            try:
+                return int(float(s)) if ("." in s or "e" in s.lower()) \
+                    else int(s)
+            except (ValueError, ArithmeticError):
+                return None
+
+        def as_float(s):
+            try:
+                return float(s)
+            except ValueError:
+                return None
+
+        zi = [v for v in parse("ca_zip", as_int) if v is not None]
+        sn = [v for v in parse("ca_street_number", as_int) if v is not None]
+        zd = [v for v in parse("ca_zip", as_float) if v is not None]
+        bad = [v for v in parse("ca_suite_number", as_int) if v is not None]
+        dc = [round(float(s + ".25") * 100) for s in parse(
+            "ca_street_number", lambda s: s) if s is not None]
+        return [(sum(zi), sum(sn), float(sum(zd)), len(bad), sum(dc))]
+    if name in ("hashes", "hashes_customer"):
+        def stable_hash(xs, bits):
+            h = hashlib.sha256(repr(tuple(xs)).encode()).digest()
+            return int.from_bytes(h[: bits // 8], "little", signed=True)
+
+        def per_row(table, col, fn):
+            c = table.column(col).combine_chunks()
+            return _by_value(c, fn) if c.type == "string" else np.array(
+                [fn(v) for v in c.to_numpy(zero_copy_only=False)], object)
+
+        if name == "hashes":
+            it = tables["item"]
+            crc = per_row(it, "i_item_id", lambda s: None if s is None
+                          else zlib.crc32(s.encode()))
+            md5 = {hashlib.md5(s.encode()).hexdigest()
+                   for s in it.column("i_brand").to_pylist()
+                   if s is not None}
+            sk_type = it.column("i_item_sk").type.to_pandas_dtype()
+            h = per_row(it, "i_item_sk", lambda v: stable_hash(
+                (sk_type(v),), 32) & 1023)
+            x = per_row(it, "i_item_id", lambda s: stable_hash((s,), 64)
+                        & 65535)
+            sha = per_row(it, "i_category", lambda s: None if s is None
+                          else 64)
+            b64 = per_row(it, "i_color", lambda s: None if s is None
+                          else len(base64.b64encode(s.encode())))
+            return [(sum(v for v in crc if v is not None), len(md5),
+                     int(sum(h)), int(sum(x)),
+                     sum(v for v in sha if v is not None),
+                     sum(v for v in b64 if v is not None))]
+        cu = tables["customer"]
+        h = per_row(cu, "c_birth_country", lambda s: stable_hash((s,), 32)
+                    & 1023)
+        x = per_row(cu, "c_salutation", lambda s: stable_hash((s,), 64)
+                    & 255)
+        crc = per_row(cu, "c_email_address", lambda s: None if s is None
+                      else zlib.crc32(s.encode()))
+        return [(int(sum(h)), int(sum(x)),
+                 sum(v for v in crc if v is not None))]
+    raise ValueError(name)
+
+
+def expression_rows(table) -> list:
+    """A result table's rows as tuples of Python values, decimals in int64
+    units of their scale."""
+    import decimal
+
+    # every decimal of the leg's results has scale 2
+    return [tuple(int(v * 100) if isinstance(v, decimal.Decimal) else v
+                  for v in r.values()) for r in table.to_pylist()]
+
+
+def expression_check(name: str, table, want: list) -> str:
+    """The result of EXPRESSION_QUERIES[name] against its oracle rows:
+    exactly, the double columns to relative 1e-9."""
+    import math
+
+    floats = {table.column_names.index(c)
+              for c in EXPRESSION_FLOATS.get(name, ())}
+    got = sorted(expression_rows(table), key=repr)
+    want = sorted(want, key=repr)
+    if len(got) != len(want):
+        fail(f"expressions {name}: {len(got)} rows, the oracle "
+             f"{len(want)}")
+    for g, w in zip(got, want):
+        for i, (a, b) in enumerate(zip(g, w)):
+            ok = (a == b) if i not in floats else (
+                a is not None and math.isclose(a, b, rel_tol=1e-9))
+            if not ok:
+                fail(f"expressions {name}: row {g} is not the oracle's {w}")
+    return f"{len(got)} rows equal to the oracle"
+
+
+def expressions_leg(torch, sk, card: str, spark, oracles: dict,
+                    timed_shapes) -> dict:
+    """The scalar functions at SF10, on the tpcds leg's session and views
+    (nothing ingested again): each of EXPRESSION_QUERIES at `auto`, then at
+    the stage tier and at forced `whole`, each result held to its numpy or
+    Python oracle (`oracles[name]`, the rows of `expression_oracle`), so
+    the three tiers agree; a whole
+    program calls the histogram kernel never, and each fused dispatch is
+    one replay (`counted_run`). Prints each statement's tier and reason,
+    warm time at `auto`, histogram calls and captures by tier, then holds
+    the histogram kernel against its plain version at the stage run's
+    inputs. Returns the launch counts of each statement's run at `auto`."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, text in EXPRESSION_QUERIES.items():
+        label = f"expressions {name}"
+        want = oracles[name]
+        report, dfs = {}, {}
+        for tier in ("auto", "stage", "whole"):
+            with tier_set(spark, tier):
+                df = dfs[tier] = DataFrame(spark, spark.sql(text).plan)
+                decision = decision_report(df)
+                res, cold, launches, st = counted_run(torch, sk, spark,
+                                                      df.toArrow)
+                msg = expression_check(name, res, want)
+                calls = launches["partition_histogram"]
+                if decision["tier"] == "whole" and calls and \
+                        not st["whole"]["runtime_degraded"]:
+                    fail(f"{label}: the whole program launched the "
+                         f"histogram kernel {calls} times, not 0")
+                warm = _warm(torch, df.toArrow, 1) if tier == "auto" else []
+            cc = st["cache"]
+            report[tier] = {
+                "tier": decision["tier"], "reason": decision.get("reason"),
+                "check": msg, "cold_s": cold,
+                "warm_s": warm[0] if warm else "not measured: cold run only",
+                "histogram_calls": calls,
+                "captures": cc.get("stage_cache.captures", 0),
+                "replays": cc.get("stage_cache.replays", 0),
+                "degrades": st["whole"]["runtime_degraded"]}
+            if tier == "auto":
+                out[name] = launches
+        for tier in ("stage", "whole"):
+            r = report[tier]
+            # forced whole plans stage where the reference's chooser finds
+            # an operator with no whole-query lowering (a host UDF, a
+            # nested-loop join), as the reference plans it
+            if r["tier"] != tier and not (
+                    tier == "whole" and str(r["reason"]).startswith(
+                        _FALLBACK + "operator")):
+                fail(f"{label}: planned at {r['tier']} where {tier} was "
+                     f"forced ({r['reason']})")
+
+        def stage_run(df=dfs["stage"]):
+            with tier_set(spark, "stage"), bodies_on_card(torch, sk):
+                df.toArrow()
+        path_histograms(torch, sk, label, {"stage": stage_run}, timed_shapes)
+        print(f"{label} tiers " + json.dumps(dict(report, card=card)),
+              flush=True)
+    print(f"expressions leg done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 def nested_loop_pairs(spark, q: str, run, card: str) -> None:
@@ -5395,9 +5857,11 @@ def parquet_leg(torch, sk, card: str, proc: subprocess.Popen,
                 return parquet_calls(q, fact_tiles, passes)
 
             torch.cuda.reset_peak_memory_stats()
+            # whole at `auto` with no stage run: the kernel's inputs on
+            # this path come from an operator tier's run
             out[q] = drive(torch, sk, card, f"parquet {q}", df, fact_rows,
                            (), calls, check, None, timed_shapes,
-                           warm_runs=1)
+                           warm_runs=1, record_operator=True)
             print(f"parquet {q} done at {time.perf_counter() - t_start:.1f}"
                   " s", flush=True)
             summary[q] = {"splits": splits, "fact_tiles": fact_tiles,
@@ -5714,9 +6178,13 @@ def run() -> None:
             "window": phase("window", window_leg, torch, sk, card, k, v),
         }
         phase("tpcds_gate", tpcds_gate, torch)
-        tpcds_launches, tpcds_results = phase("tpcds", tpcds_leg, torch, sk,
-                                              card)
+        # the expressions leg runs at the end of the tpcds leg, over its
+        # session and SF10 views
+        tpcds_launches, tpcds_results, expr_launches = phase(
+            "tpcds", tpcds_leg, torch, sk, card)
         by_path.update({f"tpcds {q}": n for q, n in tpcds_launches.items()})
+        by_path.update({f"expressions {q}": n
+                        for q, n in expr_launches.items()})
         parquet_launches = phase("parquet", parquet_leg, torch, sk, card,
                                  parquet_proc, t_start)
         by_path.update({f"parquet {q}": n

@@ -1,7 +1,9 @@
 """User-facing Column DSL (counterpart of `spark_tpu/api/column.py`, the
 operators whose expressions are ported; string literals come through `_expr`
-and `substr`; `isin`, `between`, the `when`/`otherwise` chain that
-`functions.when` starts, and `over` a window spec of `api/window.py`)."""
+and `substr`; `isin`, `between`, the string predicates `contains`,
+`startswith`, `endswith`, `like` and `rlike`, `isNaN`, `eqNullSafe`, the
+`when`/`otherwise` chain that `functions.when` starts, and `over` a window
+spec of `api/window.py`). `getItem`/`getField` wait for nested types."""
 
 from __future__ import annotations
 
@@ -54,6 +56,15 @@ class Column:
     def __rtruediv__(self, o):
         return Column(E.Divide(_expr(o), self.expr))
 
+    def __mod__(self, o):
+        return Column(E.Remainder(self.expr, _expr(o)))
+
+    def __neg__(self):
+        return Column(E.UnaryMinus(self.expr))
+
+    def __pow__(self, o):
+        return Column(E.Pow(self.expr, _expr(o)))
+
     # --- comparisons ------------------------------------------------------
     def __eq__(self, o):  # type: ignore[override]
         return Column(E.EqualTo(self.expr, _expr(o)))
@@ -72,6 +83,9 @@ class Column:
 
     def __ge__(self, o):
         return Column(E.GreaterThanOrEqual(self.expr, _expr(o)))
+
+    def eqNullSafe(self, o):
+        return Column(E.EqualNullSafe(self.expr, _expr(o)))
 
     # --- boolean ----------------------------------------------------------
     def __and__(self, o):
@@ -96,6 +110,9 @@ class Column:
     def isNotNull(self):
         return Column(E.IsNotNull(self.expr))
 
+    def isNaN(self):
+        return Column(E.IsNaN(self.expr))
+
     def isin(self, *vals):
         if len(vals) == 1 and isinstance(vals[0], (list, tuple, set)):
             vals = tuple(vals[0])
@@ -105,6 +122,21 @@ class Column:
         return Column(E.And(
             E.GreaterThanOrEqual(self.expr, _expr(lo)),
             E.LessThanOrEqual(self.expr, _expr(hi))))
+
+    def like(self, pattern: str):
+        return Column(E.Like(self.expr, pattern))
+
+    def rlike(self, pattern: str):
+        return Column(E.RLike(self.expr, pattern))
+
+    def contains(self, s: str):
+        return Column(E.Contains(self.expr, s))
+
+    def startswith(self, s: str):
+        return Column(E.StartsWith(self.expr, s))
+
+    def endswith(self, s: str):
+        return Column(E.EndsWith(self.expr, s))
 
     # --- CASE WHEN --------------------------------------------------------
     def when(self, cond: "Column", value) -> "Column":

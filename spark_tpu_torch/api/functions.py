@@ -1,9 +1,15 @@
 """Column functions (counterpart of `spark_tpu/api/functions.py`, the port's
 subset): col, lit (string and decimal literals too), the sort orders asc and
-desc, substring, when, coalesce, round, abs, the aggregates sum, count,
-min, max, avg, grouping and grouping_id (with rollup and cube), and the
-window functions row_number, rank, dense_rank, percent_rank, cume_dist,
-ntile, lag and lead (with `Column.over`)."""
+desc, when, coalesce, round, abs, the aggregates sum, count, countDistinct,
+approx_count_distinct, min, max, avg, grouping and grouping_id (with rollup
+and cube), the window functions row_number, rank, dense_rank,
+percent_rank, cume_dist, ntile, lag and lead (with `Column.over`), and the
+scalar functions of the reference's wrappers: isnull, isnan, greatest,
+least, nanvl, sqrt, exp, log, log10, floor, ceil, pow, negative, upper,
+lower, trim, ltrim, rtrim, length, substring, concat, regexp_extract,
+lpad, rpad, regexp_replace, year, month, dayofmonth, quarter, dayofweek,
+dayofyear, weekofyear, date_add, date_sub, datediff, trunc, make_date and
+to_date."""
 
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ from typing import Any
 
 from ..expr import expressions as E
 from ..expr import window as W
+from ..types import date
 from .column import Column, _expr
 
 
@@ -45,8 +52,22 @@ def count(c) -> Column:
     return Column(E.Count(e))
 
 
+def countDistinct(c) -> Column:
+    return Column(E.Count(_c(c), distinct=True))
+
+
+count_distinct = countDistinct
+
+
+def approx_count_distinct(c, rsd=None) -> Column:
+    return Column(E.Count(_c(c), distinct=True))
+
+
 def avg(c) -> Column:
     return Column(E.Average(_c(c)))
+
+
+mean = avg
 
 
 def min(c) -> Column:  # noqa: A001
@@ -57,8 +78,166 @@ def max(c) -> Column:  # noqa: A001
     return Column(E.Max(_c(c)))
 
 
+# --- conditionals and math ----------------------------------------------------
+
+def isnull(c) -> Column:
+    return Column(E.IsNull(_c(c)))
+
+
+def isnan(c) -> Column:
+    return Column(E.IsNaN(_c(c)))
+
+
+def greatest(*cols) -> Column:
+    return Column(E.Greatest([_c(c) for c in cols]))
+
+
+def least(*cols) -> Column:
+    return Column(E.Least([_c(c) for c in cols]))
+
+
+def nanvl(a, b) -> Column:
+    # as the reference's wrapper: if(isnan(a), b, a), whose type is the
+    # common type of a and b (SQL's nanvl gives a double)
+    return Column(E.If(E.IsNaN(_c(a)), _c(b), _c(a)))
+
+
+def sqrt(c) -> Column:
+    return Column(E.Sqrt(_c(c)))
+
+
+def exp(c) -> Column:
+    return Column(E.Exp(_c(c)))
+
+
+def log(c) -> Column:
+    return Column(E.Log(_c(c)))
+
+
+def log10(c) -> Column:
+    return Column(E.Log10(_c(c)))
+
+
+def floor(c) -> Column:
+    return Column(E.Floor(_c(c)))
+
+
+def ceil(c) -> Column:
+    return Column(E.Ceil(_c(c)))
+
+
+def pow(a, b) -> Column:  # noqa: A001
+    return Column(E.Pow(_c(a), _c(b)))
+
+
+def negative(c) -> Column:
+    return Column(E.UnaryMinus(_c(c)))
+
+
+# --- strings -----------------------------------------------------------------
+
+def upper(c) -> Column:
+    return Column(E.Upper(_c(c)))
+
+
+def lower(c) -> Column:
+    return Column(E.Lower(_c(c)))
+
+
+def trim(c) -> Column:
+    return Column(E.Trim(_c(c)))
+
+
+def ltrim(c) -> Column:
+    return Column(E.LTrim(_c(c)))
+
+
+def rtrim(c) -> Column:
+    return Column(E.RTrim(_c(c)))
+
+
+def length(c) -> Column:
+    return Column(E.Length(_c(c)))
+
+
 def substring(c, pos: int, length: int) -> Column:
     return Column(E.Substring(_c(c), E.Literal(pos), E.Literal(length)))
+
+
+def concat(*cols) -> Column:
+    return Column(E.Concat([_c(c) for c in cols]))
+
+
+def regexp_extract(c, pattern: str, idx: int = 1) -> Column:
+    return Column(E.RegexpExtract(_c(c), E.Literal(pattern), E.Literal(idx)))
+
+
+def lpad(c, length: int, pad: str = " ") -> Column:
+    return Column(E.Lpad(_c(c), E.Literal(length), E.Literal(pad)))
+
+
+def rpad(c, length: int, pad: str = " ") -> Column:
+    return Column(E.Rpad(_c(c), E.Literal(length), E.Literal(pad)))
+
+
+def regexp_replace(c, pattern: str, replacement: str) -> Column:
+    # the replacement goes to re.sub as it is (SQL's names groups $1)
+    return Column(E.RegexpReplace(_c(c), E.Literal(pattern),
+                                  E.Literal(replacement), java_refs=False))
+
+
+# --- dates -------------------------------------------------------------------
+
+def year(c) -> Column:
+    return Column(E.Year(_c(c)))
+
+
+def month(c) -> Column:
+    return Column(E.Month(_c(c)))
+
+
+def dayofmonth(c) -> Column:
+    return Column(E.DayOfMonth(_c(c)))
+
+
+def quarter(c) -> Column:
+    return Column(E.Quarter(_c(c)))
+
+
+def dayofweek(c) -> Column:
+    return Column(E.DayOfWeek(_c(c)))
+
+
+def dayofyear(c) -> Column:
+    return Column(E.DayOfYear(_c(c)))
+
+
+def weekofyear(c) -> Column:
+    return Column(E.WeekOfYear(_c(c)))
+
+
+def date_add(c, days) -> Column:
+    return Column(E.DateAdd(_c(c), _c(days)))
+
+
+def date_sub(c, days) -> Column:
+    return Column(E.DateSub(_c(c), _c(days)))
+
+
+def datediff(end, start) -> Column:
+    return Column(E.DateDiff(_c(end), _c(start)))
+
+
+def trunc(c, fmt: str) -> Column:
+    return Column(E.TruncDate(_c(c), fmt))
+
+
+def make_date(y, m, d) -> Column:
+    return Column(E.MakeDate(_c(y), _c(m), _c(d)))
+
+
+def to_date(c, fmt: str | None = None) -> Column:
+    return Column(E.Cast(_c(c), date))
 
 
 def asc(c) -> Column:

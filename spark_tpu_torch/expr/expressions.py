@@ -1,35 +1,54 @@
-"""Expression tree (counterpart of `spark_tpu/expr/expressions.py`, the
-subset the port evaluates).
+"""Expression tree (counterpart of `spark_tpu/expr/expressions.py`, its
+scalar expressions over the port's types).
 
 Each expression keeps the JAX package's class name, type rules, null
 semantics and `simple_string`, with one `eval(ctx)` written on torch
-tensors: attributes, literals (string and decimal ones too), aliases, casts
-between the ported types (decimals rescale half-up; float -> decimal rounds
-half to even), `+ - * /` (plain ops wrap on integral overflow; the try_
-variants give NULL; x/0 gives NULL; decimal + - * stay exact scaled int64),
-sort orders, the comparisons (strings compare by value hash for = and <>,
-by merged-dictionary rank for the orderings), Kleene and/or/not, is [not]
-null, three-valued IN over a list (strings by value hash, literal items
-only), CASE WHEN / if / coalesce (every branch over the whole tile, picked
-by mask; string results merge the branch dictionaries), round (half up),
-abs, date +/- integer days or an INTERVAL literal (months clamped to the
-month's end), date_add/date_sub/datediff, grouping()/grouping_id() (the
-optimizer folds them per grouping set), the dictionary transforms
-substr/substring, upper and concat of one column with literals (on the
-host, once per dictionary), and the aggregate functions sum, count, min,
-max and avg.
+tensors:
+  * leaves, aliases and casts between the ported types (decimals rescale
+    half-up; float -> decimal rounds half to even; float -> integral
+    saturates as the reference's compiler converts); a string casts to a
+    number, a boolean or a date by parsing its dictionary once on the host
+    into a data lut and an ok lut (try_cast is the same cast);
+  * `+ - * /` (plain ops wrap on integral overflow, the try_ variants give
+    NULL, x/0 gives NULL, decimal + - * stay exact scaled int64), `%`
+    (the dividend's sign; x % 0 is NULL), the bitwise operators and
+    shifts (an amount outside [0, bits) gives 0 or the sign fill), pow;
+  * the math functions with the reference's domain checks (NULL, not
+    NaN), atan2, sign, floor/ceil, round (half up) and bround (half to
+    even), nanvl, isnan;
+  * the comparisons (strings by value hash for = <> <=>, by merged
+    dictionary rank for the orderings), <=>, Kleene and/or/not,
+    is [not] null, IN over a list, CASE WHEN / if / coalesce / nullif,
+    greatest/least (NULLs skipped);
+  * dates: date +/- days or an INTERVAL, date_add/date_sub/datediff, the
+    calendar fields (year ... ISO week), trunc/date_trunc, make_date,
+    add_months, last_day, months_between;
+  * strings as dictionary luts built on the host, once per dictionary:
+    transforms (substr, upper/lower, trim, pad, replace, translate,
+    regexp_replace/extract, the hashes and encodings, ...), deduplicated
+    and recoded where two values map to one; predicates (LIKE, RLIKE,
+    startswith/endswith/contains); integer luts (length, instr, ascii,
+    levenshtein, the regexp counts); per-entry value and validity luts
+    (get_json_object, crc32, regexp_substr, to_number);
+  * grouping()/grouping_id() (folded per grouping set) and the aggregate
+    functions sum, count, min, max, avg and the central moments.
 A double scaled by literal factors is computed as the reference's
 compiler computes it: a division by a literal as a product with its
-reciprocal, and a chain of constant factors folded into one. A cast to a
-narrower decimal gives NULL where the value has more digits than the
-target precision, as Spark's non-ANSI cast does; a string casts to a date
-by parsing its dictionary.
+reciprocal, a chain of constant factors folded into one, and a product
+feeding a sum rounded once, as its fused multiply-add (`_fma`). A cast to
+a narrower decimal gives NULL where the value has more digits than the
+target precision, as Spark's non-ANSI cast does.
 """
 
 from __future__ import annotations
 
+import base64
 import datetime
+import hashlib
+import json
+import math
 import re
+import zlib
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -39,7 +58,7 @@ from ..columnar.batch import (
     EMPTY_DICT, StringDict, _take_codes, merge_string_dicts,
 )
 from ..errors import (
-    AnalysisException, NotPortedError, TypeCheckError,
+    AnalysisException, ExecutionError, NotPortedError, TypeCheckError,
     UnsupportedOperationError,
 )
 from ..plan.tree import TreeNode, next_id
@@ -55,12 +74,26 @@ __all__ = [
     "Expression", "Literal", "AttributeReference", "UnresolvedAttribute",
     "UnresolvedStar", "UnresolvedFunction", "Alias", "SortOrder", "Cast",
     "cast_if", "Substring", "In", "If", "CaseWhen", "Coalesce", "Round",
-    "Add", "Subtract", "Multiply", "Divide", "TryAdd", "TrySubtract",
-    "TryMultiply", "EqualTo", "NotEqualTo", "LessThan", "LessThanOrEqual",
-    "GreaterThan", "GreaterThanOrEqual", "And", "Or", "Not", "IsNull",
-    "IsNotNull", "Upper", "Concat", "AggregateFunction", "Sum", "Count",
-    "Min", "Max", "Average", "Abs", "IntervalLiteral", "DateAdd", "DateSub",
-    "DateDiff", "Grouping", "GroupingID", "Like", "DateFormat", "Sqrt",
+    "BRound", "Add", "Subtract", "Multiply", "Divide", "Remainder", "TryAdd",
+    "TrySubtract", "TryMultiply", "BitwiseAnd", "BitwiseOr", "BitwiseXor",
+    "BitwiseNot", "ShiftLeft", "ShiftRight", "Pow", "EqualTo", "NotEqualTo",
+    "EqualNullSafe", "LessThan", "LessThanOrEqual", "GreaterThan",
+    "GreaterThanOrEqual", "And", "Or", "Not", "IsNull", "IsNotNull",
+    "IsNaN", "NullIf", "Greatest", "Least", "NanVl", "Abs", "UnaryMinus",
+    "Sqrt", "Exp", "Log", "Log10", "Log2", "Log1p", "Expm1", "Sin", "Cos",
+    "Tan", "Asin", "Acos", "Atan", "Atan2", "Sinh", "Cosh", "Tanh", "Cbrt",
+    "Degrees", "Radians", "Signum", "Floor", "Ceil", "Upper", "Lower",
+    "Trim", "LTrim", "RTrim", "StringReplace", "Lpad", "Rpad", "Initcap",
+    "Reverse", "Repeat", "SubstringIndex", "RegexpExtract", "RegexpReplace",
+    "Left", "Right", "Overlay", "Soundex", "Md5", "Sha1", "Sha2", "Base64",
+    "Unbase64", "Translate", "FormatNumber", "ConcatWs", "Concat", "Like",
+    "RLike", "StartsWith", "EndsWith", "Contains", "Length", "RegexpInstr",
+    "RegexpCount", "Levenshtein", "Ascii", "Instr", "GetJsonObject",
+    "Crc32", "RegexpSubstr", "ToNumber", "AggregateFunction", "Sum", "Count",
+    "Min", "Max", "Average", "IntervalLiteral", "DateAdd", "DateSub",
+    "DateDiff", "Year", "Month", "DayOfMonth", "Quarter", "DayOfWeek",
+    "DayOfYear", "WeekOfYear", "TruncDate", "MakeDate", "AddMonths",
+    "LastDay", "MonthsBetween", "Grouping", "GroupingID", "DateFormat",
     "StddevSamp", "StddevPop", "VarianceSamp", "VariancePop",
 ]
 
@@ -315,6 +348,9 @@ class Cast(Expression):
 
     @property
     def nullable(self) -> bool:
+        frm = self.child.dtype if self.child.resolved else null_type
+        if isinstance(frm, StringType) and not isinstance(self.to, StringType):
+            return True  # a value that does not parse is NULL
         return self.child.nullable
 
     def eval(self, ctx: EvalCtx) -> Val:
@@ -333,9 +369,9 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType,
     if isinstance(frm, NullType):
         return Val(to, ctx.scalar(0, dd), ctx.scalar(False, torch.bool),
                    StringDict([""]) if isinstance(to, StringType) else None)
-    if isinstance(frm, StringType) and isinstance(to, DateType):
-        return _string_to_date(ctx, c)
-    if isinstance(frm, StringType) or isinstance(to, StringType):
+    if isinstance(frm, StringType) and not isinstance(to, StringType):
+        return _string_parse(ctx, c, to)
+    if isinstance(to, StringType):
         raise NotPortedError(f"cast({frm.simple_string()} as "
                              f"{to.simple_string()})")
     data = c.data
@@ -383,36 +419,97 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType,
         # float -> int truncates toward zero; NaN/inf read as 0
         t = torch.nan_to_num(torch.trunc(data), nan=0.0, posinf=0.0,
                              neginf=0.0)
-        return Val(to, t.to(dd), c.validity)
+        return Val(to, _float_to_int(t, dd), c.validity)
     return Val(to, data.to(dd), c.validity)
 
 
-def _string_to_date(ctx: EvalCtx, c: Val) -> Val:
-    """cast(string as date): each dictionary value parsed once on the host
-    (ISO `yyyy-mm-dd`, the first ten characters after trimming; anything
-    else is NULL), the codes gathering day numbers and validity."""
+_TRUE_STRINGS = {"t", "true", "y", "yes", "1"}
+_FALSE_STRINGS = {"f", "false", "n", "no", "0"}
+
+
+def _parse_str(s: str, to: DataType):
+    """One dictionary value parsed as `to` (the reference's `_parse_str`):
+    None where it does not parse."""
+    s = s.strip()
+    try:
+        if isinstance(to, BooleanType):
+            ls = s.lower()
+            if ls in _TRUE_STRINGS:
+                return True
+            if ls in _FALSE_STRINGS:
+                return False
+            return None
+        if isinstance(to, IntegralType):
+            return int(float(s)) if ("." in s or "e" in s.lower()) else int(s)
+        if isinstance(to, DecimalType):
+            import decimal as _d
+
+            return int(_d.Decimal(s).scaleb(to.scale).to_integral_value(
+                rounding=_d.ROUND_HALF_UP))
+        if isinstance(to, FractionalType):
+            return float(s)
+        if isinstance(to, DateType):
+            return (datetime.date.fromisoformat(s[:10])
+                    - datetime.date(1970, 1, 1)).days
+    except (ValueError, ArithmeticError):
+        return None
+    raise NotPortedError(f"cast(string as {to.simple_string()})")
+
+
+def _value_luts(ctx: EvalCtx, c: Val, key: str, to: DataType, fn,
+                nullable: bool = True) -> Val:
+    """`fn` of each dictionary value of the string Val `c`, computed once
+    on the host into a data lut of `to` and, where `nullable`, an ok lut
+    (`fn` gives None for NULL), which the codes gather on the device. Each
+    lut is asked for in every pass (C7); the dictionary keeps its device
+    copies under `key`."""
     sd = c.sdict or StringDict([""])
+    np_dt = torch.empty(0, dtype=to.device_dtype).numpy().dtype
+    memo: list = []
 
-    def parse():
-        days = np.zeros(max(len(sd.values), 1), dtype=np.int32)
-        ok = np.zeros(max(len(sd.values), 1), dtype=bool)
-        epoch = datetime.date(1970, 1, 1)
-        for i, v in enumerate(sd.values):
-            try:
-                days[i] = (datetime.date.fromisoformat(v.strip()[:10])
-                           - epoch).days
-                ok[i] = True
-            except ValueError:
-                pass
-        return days, ok
+    def luts():
+        if not memo:
+            vals = sd.values or [""]
+            out = np.zeros(len(vals), dtype=np_dt)
+            ok = np.zeros(len(vals), dtype=bool)
+            for i, v in enumerate(vals):
+                p = fn(v)
+                if p is not None:
+                    out[i] = p
+                    ok[i] = True
+            memo.append((out, ok))
+        return memo[0]
 
-    dev = ctx.device
-    days = ctx.aux(lambda: parse()[0],
-                   lambda: sd._on("date_days", dev, lambda: parse()[0]))
-    ok = _take_codes(ctx.aux(lambda: parse()[1], lambda: sd._on(
-        "date_ok", dev, lambda: parse()[1])), c.data)
-    return Val(date, _take_codes(days, c.data),
-               ok if c.validity is None else ok & c.validity)
+    def lut(i, name):
+        return _take_codes(ctx.aux(lambda: luts()[i], lambda: sd._on(
+            name, ctx.device, lambda: luts()[i])), c.data)
+
+    if not nullable:
+        return Val(to, lut(0, key), c.validity)
+    ok = lut(1, key + ":ok")
+    return Val(to, lut(0, key), ok if c.validity is None
+               else ok & c.validity)
+
+
+def _string_parse(ctx: EvalCtx, c: Val, to: DataType) -> Val:
+    """cast(string as numeric, boolean or date), and try_cast: each
+    dictionary value parsed once on the host (`_parse_str`); a value that
+    does not parse is NULL. A value past the target type's range raises,
+    as numpy's assignment raises in the reference."""
+    return _value_luts(ctx, c, f"parse:{to.simple_string()}", to,
+                       lambda v: _parse_str(v, to))
+
+
+def _float_to_int(x: torch.Tensor, dd: torch.dtype) -> torch.Tensor:
+    """Whole floats converted to the integral dtype `dd` as the reference's
+    compiler converts them: NaN reads as 0 and a value past the type's
+    range saturates at its end (torch's own conversion of such a value is
+    undefined: on x86 it gives the minimum)."""
+    info = torch.iinfo(dd)
+    hi = x >= float(info.max) + 1.0  # 2^(bits-1), a power of two
+    lo = x < float(info.min)
+    safe = torch.where(hi | lo | torch.isnan(x), torch.zeros_like(x), x)
+    return torch.where(hi, info.max, torch.where(lo, info.min, safe.to(dd)))
 
 
 def _fits_precision(data: torch.Tensor, to: DecimalType, validity):
@@ -536,7 +633,7 @@ class Add(BinaryArithmetic):
             if isinstance(lt, DateType):
                 return Val(date, l.data + r.data.to(torch.int32), v)
             return Val(date, r.data + l.data.to(torch.int32), v)
-        return super().eval(ctx)
+        return _contracted_sum(ctx, self, 1.0) or super().eval(ctx)
 
     def _op(self, l, r):
         return l + r, None
@@ -571,7 +668,7 @@ class Subtract(BinaryArithmetic):
             out = self._date_result(l.dtype, r.dtype)
             return Val(out, (l.data - r.data).to(torch.int32),
                        ctx.and_valid(l, r))
-        return super().eval(ctx)
+        return _contracted_sum(ctx, self, -1.0) or super().eval(ctx)
 
     def _op(self, l, r):
         return l - r, None
@@ -695,6 +792,16 @@ def _fold_constants(node):
 def _eval_scaled(ctx: EvalCtx, e: Expression) -> Val | None:
     """`e` as base * factor when it is a double scaled by constants, else
     None (the operator's own evaluation)."""
+    ops = _scaled_operands(ctx, e)
+    if ops is None:
+        return None
+    data, f, v = ops
+    return Val(float64, data * f, v)
+
+
+def _scaled_operands(ctx: EvalCtx, e: Expression):
+    """(x, f, validity) with `e` = x * f, f its chain's last constant
+    factor, where `e` is a double scaled by constants; else None."""
     if e.dtype != float64:
         return None
     node = _scale_chain(e)
@@ -715,9 +822,47 @@ def _eval_scaled(ctx: EvalCtx, e: Expression) -> Val | None:
         data = v.data.to(torch.float64)
     else:
         data = cast_val(ctx, v, float64).data
-    for f in reversed(factors):
+    for f in reversed(factors[1:]):
         data = data * f
-    return Val(float64, data, v.validity)
+    return data, factors[0], v.validity
+
+
+def _product_operands(ctx: EvalCtx, e: Expression):
+    """(a, b, validity) where `e` is a double product a * b, which the
+    reference's compiler contracts with a sum that reads it into one fused
+    multiply-add; else None."""
+    if not isinstance(e, Multiply) or e.dtype != float64:
+        return None
+    ops = _scaled_operands(ctx, e)
+    if ops is not None:
+        return ops
+    l, r = ctx.eval(e.left), ctx.eval(e.right)
+    a, b = e._align(ctx, l, r, float64)
+    return a, b, ctx.and_valid(l, r)
+
+
+def _contracted_sum(ctx: EvalCtx, e: Expression, sign: float):
+    """left + sign * right of doubles where one side is a product, rounded
+    once as the reference's compiler rounds it (the left product first,
+    as LLVM contracts it); else None."""
+    if e.dtype != float64:
+        return None
+    for side, other, neg_prod in ((e.left, e.right, False),
+                                  (e.right, e.left, sign < 0)):
+        ops = _product_operands(ctx, side)
+        if ops is None:
+            continue
+        a, b, v = ops
+        o = ctx.eval(other)
+        od = cast_val(ctx, o, float64).data
+        if side is e.left and sign < 0:
+            od = -od
+        if neg_prod:
+            a = -a
+        v = v if o.validity is None else (o.validity if v is None
+                                          else v & o.validity)
+        return Val(float64, _fma(a, b, od), v)
+    return None
 
 
 def _signed_int(t: torch.Tensor) -> bool:
@@ -782,6 +927,129 @@ class Divide(BinaryArithmetic):
         zero = r == 0
         safe = torch.where(zero, torch.ones_like(r), r)
         return l / safe, ~zero  # x/0 => NULL (non-ANSI Spark semantics)
+
+
+def _two_product(a, b):
+    """(p, e) with p = fl(a * b) and a * b = p + e exactly (Dekker's
+    product: each factor split into halves of 26 bits, a factor past 2^900
+    scaled by 2^-200 first, which is exact, so that the split cannot
+    overflow)."""
+    big = 2.0 ** 900
+    sa = torch.ones_like(a).masked_fill(a.abs() > big, 2.0 ** -200)
+    sb = torch.ones_like(b).masked_fill(b.abs() > big, 2.0 ** -200)
+    a2, b2 = a * sa, b * sb
+    p2 = a2 * b2
+
+    def split(x):
+        t = x * 134217729.0  # 2^27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+
+    ah, al = split(a2)
+    bh, bl = split(b2)
+    e2 = ((ah * bh - p2) + ah * bl + al * bh) + al * bl
+    scale = 1.0 / (sa * sb)
+    return a * b, e2 * scale
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, as a fused multiply-add: the reference's
+    compiler contracts a product feeding a sum inside one fused loop, and
+    torch runs each op as its own kernel, so the port forms the exact
+    product (`_two_product`) and sum (Knuth's TwoSum) and rounds their
+    total once. Non-finite intermediates fall back to a * b + c."""
+    p, e = _two_product(a, b)
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    out = s + (t + e)
+    return torch.where(torch.isfinite(s) & torch.isfinite(e), out, s)
+
+
+class Remainder(BinaryArithmetic):
+    """`%` and mod: the sign of the dividend (Java's), not the divisor's
+    (torch.remainder's); a zero divisor gives NULL. Integers by the
+    reference's formula l - sign(l) * (|l| // |r|) * |r|, which wraps as
+    it wraps where |x| of the int64 minimum is the minimum; doubles as
+    l - trunc(l / r) * r, with a literal divisor's quotient taken as a
+    product with its reciprocal, as the reference's compiler rewrites a
+    division by a constant, and the product and difference rounded once,
+    as its fused multiply-add rounds them (`_fma`)."""
+
+    symbol = "%"
+
+    def _op(self, l, r):
+        zero = r == 0
+        safe = torch.where(zero, torch.ones_like(r), r)
+        if l.dtype.is_floating_point:
+            q = l * (1.0 / safe) if safe.dim() == 0 else l / safe
+            return _fma(-torch.trunc(q), safe, l), ~zero
+        a = torch.abs(safe)
+        return l - torch.sign(l) * _floordiv(torch.abs(l), a) * a, ~zero
+
+
+class BitwiseAnd(BinaryArithmetic):
+    symbol = "&"
+
+    def _op(self, l, r):
+        return l & r, None
+
+
+class BitwiseOr(BinaryArithmetic):
+    symbol = "|"
+
+    def _op(self, l, r):
+        return l | r, None
+
+
+class BitwiseXor(BinaryArithmetic):
+    symbol = "^"
+
+    def _op(self, l, r):
+        return l ^ r, None
+
+
+def _shift_out_of_range(l, r):
+    bits = torch.iinfo(l.dtype).bits
+    oob = (r < 0) | (r >= bits)
+    return oob, torch.where(oob, torch.zeros_like(r), r)
+
+
+class ShiftLeft(BinaryArithmetic):
+    """`<<`: an amount outside [0, bits) gives 0, as the reference's
+    shift_left gives on every device; C++ leaves it undefined, so the
+    port shifts by an amount kept in range and picks the result."""
+
+    symbol = "<<"
+
+    def _op(self, l, r):
+        oob, amt = _shift_out_of_range(l, r)
+        return torch.where(oob, torch.zeros_like(l), l << amt), None
+
+
+class ShiftRight(BinaryArithmetic):
+    """`>>`: arithmetic; an amount outside [0, bits) fills with the sign
+    bit (0 or -1), as the reference's shift_right_arithmetic."""
+
+    symbol = ">>"
+
+    def _op(self, l, r):
+        oob, amt = _shift_out_of_range(l, r)
+        fill = torch.where(l < 0, -1, 0).to(l.dtype)
+        return torch.where(oob, fill, l >> amt), None
+
+
+class Pow(BinaryArithmetic):
+    symbol = "^"
+
+    def _result_type(self, ct):
+        return float64
+
+    def _align(self, ctx, l, r, out):
+        return (cast_val(ctx, l, float64).data, cast_val(ctx, r, float64).data)
+
+    def _op(self, l, r):
+        return torch.pow(l, r), None
 
 
 # ---------------------------------------------------------------------------
@@ -850,6 +1118,30 @@ class NotEqualTo(BinaryComparison):
 
     def _cmp(self, l, r):
         return l != r
+
+
+class EqualNullSafe(BinaryComparison):
+    """`<=>`: TRUE where both sides are NULL, FALSE where one is, else
+    `=`; never NULL."""
+
+    symbol = "<=>"
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, ctx):
+        l = ctx.eval(self.left)
+        r = ctx.eval(self.right)
+        if isinstance(l.dtype, StringType) and isinstance(r.dtype,
+                                                          StringType):
+            ld, rd = _string_eq_domain(ctx, l), _string_eq_domain(ctx, r)
+        else:
+            ct = common_type(l.dtype, r.dtype) or l.dtype
+            l, r = cast_val(ctx, l, ct), cast_val(ctx, r, ct)
+            ld, rd = l.data, r.data
+        lv, rv = _known(ctx, l.validity), _known(ctx, r.validity)
+        return Val(boolean, torch.where(lv & rv, ld == rd, ~lv & ~rv))
 
 
 class LessThan(BinaryComparison):
@@ -956,11 +1248,26 @@ class Abs(UnaryExpression):
         return Val(self.dtype, torch.abs(c.data), c.validity)
 
 
-class Sqrt(UnaryExpression):
-    """sqrt(x) in float64; a negative input is NULL (the reference's domain
-    check). Correctly rounded on both devices, so they agree bit for bit:
-    CUDA's sqrt is, torch's vectorised CPU sqrt is not (it misrounds about
-    one double in eight), numpy's is."""
+class BitwiseNot(UnaryExpression):
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        return Val(self.dtype, ~c.data, c.validity)
+
+
+class _MathUnary(UnaryExpression):
+    """A float64 function of one argument; where `domain_check` fails the
+    result is NULL, not NaN (the reference's domain checks). The
+    transcendental functions are torch's, which differ from the
+    reference's compiled ones and CUDA's in the last bits (the port's
+    tests hold them to 4 ulp); sqrt is correctly rounded on every device
+    and compares exactly."""
+
+    fn = None
+    domain_check = None
 
     @property
     def dtype(self):
@@ -969,14 +1276,244 @@ class Sqrt(UnaryExpression):
     def eval(self, ctx):
         c = ctx.eval(self.child)
         x = cast_val(ctx, c, float64).data
-        ok = x >= 0
-        x = torch.where(ok, x, torch.ones_like(x))
-        v = ok if c.validity is None else (c.validity & ok)
-        if x.device.type == "cpu":
-            data = torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
-        else:
-            data = torch.sqrt(x)
-        return Val(float64, data, v)
+        v = c.validity
+        if self.domain_check is not None:
+            ok = self.domain_check(x)
+            x = torch.where(ok, x, torch.ones_like(x))
+            v = ok if v is None else (v & ok)
+        return Val(float64, self.fn(x), v)
+
+
+def _sqrt(x):
+    """Correctly rounded on both devices, so they agree bit for bit: CUDA's
+    sqrt is, torch's vectorised CPU sqrt is not (it misrounds about one
+    double in eight), numpy's is."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+    return torch.sqrt(x)
+
+
+def _cbrt(x):
+    """The real cube root as the reference's compiler computes it:
+    |x|^(1/3) with the sign put back (torch has no cbrt)."""
+    return torch.copysign(torch.pow(torch.abs(x), 1.0 / 3.0), x)
+
+
+# log1p as the reference's compiler computes it: below sqrt(2) - 1 in
+# magnitude a rational function (Cephes' log1p), evaluated by Horner's rule
+# with each step a fused multiply-add; above it log(1 + x)
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+
+
+def _horner(x, coeffs):
+    acc = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        acc = _fma(acc, x, torch.full_like(x, c))
+    return acc
+
+
+def _log1p(x):
+    x2 = x * x
+    small = (x * x2) * (_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
+    small = x + _fma(torch.full_like(x, -0.5), x2, small)
+    return torch.where(torch.abs(x) < 0.41421356237309504880, small,
+                       torch.log(x + 1.0))
+
+
+class Sqrt(_MathUnary):
+    fn = staticmethod(_sqrt)
+    domain_check = staticmethod(lambda x: x >= 0)
+
+
+class Exp(_MathUnary):
+    fn = staticmethod(torch.exp)
+
+
+class Log(_MathUnary):
+    fn = staticmethod(torch.log)
+    domain_check = staticmethod(lambda x: x > 0)
+
+
+class Log10(_MathUnary):
+    fn = staticmethod(torch.log10)
+    domain_check = staticmethod(lambda x: x > 0)
+
+
+class Sin(_MathUnary):
+    fn = staticmethod(torch.sin)
+
+
+class Cos(_MathUnary):
+    fn = staticmethod(torch.cos)
+
+
+class Tan(_MathUnary):
+    fn = staticmethod(torch.tan)
+
+
+class Asin(_MathUnary):
+    fn = staticmethod(torch.asin)
+    domain_check = staticmethod(lambda x: torch.abs(x) <= 1)
+
+
+class Acos(_MathUnary):
+    fn = staticmethod(torch.acos)
+    domain_check = staticmethod(lambda x: torch.abs(x) <= 1)
+
+
+class Atan(_MathUnary):
+    fn = staticmethod(torch.atan)
+
+
+class Sinh(_MathUnary):
+    fn = staticmethod(torch.sinh)
+
+
+class Cosh(_MathUnary):
+    fn = staticmethod(torch.cosh)
+
+
+class Tanh(_MathUnary):
+    fn = staticmethod(torch.tanh)
+
+
+class Log2(_MathUnary):
+    fn = staticmethod(torch.log2)
+    domain_check = staticmethod(lambda x: x > 0)
+
+
+class Log1p(_MathUnary):
+    fn = staticmethod(_log1p)
+    domain_check = staticmethod(lambda x: x > -1)
+
+
+class Expm1(_MathUnary):
+    fn = staticmethod(torch.expm1)
+
+
+class Degrees(_MathUnary):
+    # a product with the constant 180/pi, as numpy's degrees
+    fn = staticmethod(lambda x: x * (180.0 / math.pi))
+
+
+class Radians(_MathUnary):
+    fn = staticmethod(lambda x: x * (math.pi / 180.0))
+
+
+class Cbrt(_MathUnary):
+    fn = staticmethod(_cbrt)
+
+
+class Atan2(BinaryArithmetic):
+    symbol = "atan2"
+
+    def _result_type(self, ct):
+        return float64
+
+    def _align(self, ctx, l, r, out):
+        return (cast_val(ctx, l, float64).data, cast_val(ctx, r, float64).data)
+
+    def _op(self, l, r):
+        return torch.atan2(l, r), None
+
+
+class Signum(UnaryExpression):
+    """sign(x) as a double: -1, 1, or x itself where it is a zero or NaN
+    (-0.0 and NaN pass through, as the reference's sign gives; torch.sign
+    gives +0.0 for both)."""
+
+    @property
+    def dtype(self):
+        return float64
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        x = c.data.to(torch.float64)
+        data = torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
+        return Val(float64, data, c.validity)
+
+
+class Floor(UnaryExpression):
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct if isinstance(ct, (IntegralType, DecimalType)) else int64
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if isinstance(c.dtype, IntegralType):
+            return c
+        if isinstance(c.dtype, DecimalType):
+            f = 10 ** c.dtype.scale
+            d = torch.where(c.data >= 0, _floordiv(c.data, f),
+                            -_floordiv(-c.data + f - 1, f)) * f
+            return Val(c.dtype, d, c.validity)
+        return Val(int64, _float_to_int(torch.floor(c.data), torch.int64),
+                   c.validity)
+
+
+class Ceil(UnaryExpression):
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct if isinstance(ct, (IntegralType, DecimalType)) else int64
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if isinstance(c.dtype, IntegralType):
+            return c
+        if isinstance(c.dtype, DecimalType):
+            f = 10 ** c.dtype.scale
+            d = torch.where(c.data >= 0, _floordiv(c.data + f - 1, f),
+                            -_floordiv(-c.data, f)) * f
+            return Val(c.dtype, d, c.validity)
+        return Val(int64, _float_to_int(torch.ceil(c.data), torch.int64),
+                   c.validity)
+
+
+class NanVl(Expression):
+    """nanvl(a, b): b where a is NaN. A NULL `a` stays NULL even where its
+    masked payload is NaN (the null check comes first)."""
+
+    child_fields = ("left", "right")
+
+    def __init__(self, left: Expression, right: Expression):
+        self.left = left
+        self.right = right
+
+    @property
+    def dtype(self):
+        return float64
+
+    def eval(self, ctx):
+        a = ctx.eval(cast_if(self.left, float64))
+        b = ctx.eval(cast_if(self.right, float64))
+        n = (ctx.capacity,)
+        nan = torch.isnan(a.data)
+        data = torch.broadcast_to(torch.where(nan, b.data, a.data), n)
+        valid = None
+        if a.validity is not None or b.validity is not None:
+            av, bv = _known(ctx, a.validity), _known(ctx, b.validity)
+            valid = torch.broadcast_to(torch.where(nan, av & bv, av), n)
+        return Val(float64, data, valid)
+
+
+class IsNaN(UnaryExpression):
+    @property
+    def dtype(self):
+        return boolean
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if c.data.dtype.is_floating_point:
+            return Val(boolean, torch.isnan(c.data), c.validity)
+        return Val(boolean, ctx.scalar(False, torch.bool), c.validity)
 
 
 class Not(UnaryExpression):
@@ -1150,6 +1687,64 @@ class Coalesce(Expression):
         return CaseWhen(branches, self.args[-1]).eval(ctx)
 
 
+class NullIf(BinaryExpression):
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+    def eval(self, ctx):
+        return CaseWhen([(EqualTo(self.left, self.right),
+                          Literal(None, self.left.dtype))],
+                        self.left).eval(ctx)
+
+
+class Greatest(Expression):
+    """greatest(...) / least(...): NULLs skipped (NULL only where every
+    argument is); arguments coerced to their common type. Strings expand
+    into the null-skipping CASE chain over the dictionary comparisons
+    (codes of two dictionaries do not order)."""
+
+    child_fields = ("args",)
+    _reduce = "maximum"
+
+    def __init__(self, args: Sequence[Expression]):
+        self.args = list(args)
+
+    @property
+    def dtype(self):
+        dt = self.args[0].dtype
+        for a in self.args[1:]:
+            dt = common_type(dt, a.dtype) or dt
+        return dt
+
+    def eval(self, ctx):
+        out = self.dtype
+        if isinstance(out, StringType):
+            cmp_cls = GreaterThan if self._reduce == "maximum" else LessThan
+            acc = self.args[0]
+            for a in self.args[1:]:
+                acc = CaseWhen([(IsNull(a), acc), (IsNull(acc), a),
+                                (cmp_cls(acc, a), acc)], a)
+            return ctx.eval(acc)
+        vals = [ctx.eval(cast_if(a, out)) for a in self.args]
+        fn = getattr(torch, self._reduce)
+        n = (ctx.capacity,)
+        data = torch.broadcast_to(vals[0].data, n)
+        valid = torch.broadcast_to(_known(ctx, vals[0].validity), n)
+        for x in vals[1:]:
+            xd = torch.broadcast_to(x.data, n)
+            xv = torch.broadcast_to(_known(ctx, x.validity), n)
+            data = torch.where(valid & xv, fn(data, xd),
+                               torch.where(xv, xd, data))
+            valid = valid | xv
+        has_null = any(x.validity is not None for x in vals)
+        return Val(out, data, valid if has_null else None)
+
+
+class Least(Greatest):
+    _reduce = "minimum"
+
+
 class In(Expression):
     """SQL three-valued IN over a list: TRUE on a match; else NULL when the
     probe or an item is NULL; else FALSE. A string probe compares value
@@ -1238,9 +1833,41 @@ class Round(Expression):
             return c
         x = cast_val(ctx, c, float64).data
         f = 10.0 ** s
-        # times 1/f, as the reference's compiled division by f (cast_val)
-        d = torch.trunc(x * f + torch.where(x >= 0, 0.5, -0.5)) * (1.0 / f)
+        # x * f + 0.5 rounded once and the quotient by f taken as a product
+        # with 1/f, as the reference's compiler computes them
+        half = torch.where(x >= 0, 0.5, -0.5).to(x.dtype)
+        d = torch.trunc(_fma(x, torch.full_like(x, f), half)) * (1.0 / f)
         return Val(float64, d, c.validity)
+
+
+class BRound(Round):
+    """bround(x, s): half to even, decimals on their scaled integers,
+    doubles as rint(x * 10^s) * 10^-s."""
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(self.scale_expr, Literal):
+            raise UnsupportedOperationError(
+                "bround() scale must be a literal")
+        s = int(self.scale_expr.value or 0)
+        if isinstance(c.dtype, DecimalType):
+            delta = c.dtype.scale - s
+            if delta <= 0:
+                return c
+            f = 10 ** delta
+            half = f // 2
+            sign = torch.where(c.data >= 0, 1, -1)
+            a = torch.abs(c.data)
+            q = _floordiv(a, f)
+            r = a - q * f
+            up = (r > half) | ((r == half) & (torch.remainder(q, 2) == 1))
+            return Val(c.dtype, sign * (q + up.to(q.dtype)) * f, c.validity)
+        if isinstance(c.dtype, IntegralType):
+            return c
+        x = cast_val(ctx, c, float64).data
+        f = 10.0 ** s
+        # torch.round rounds half to even, as rint
+        return Val(float64, torch.round(x * f) * (1.0 / f), c.validity)
 
 
 # ---------------------------------------------------------------------------
@@ -1268,6 +1895,10 @@ class _DictTransform(Expression):
     def dtype(self):
         return string
 
+    # True where transform() may give None for a value: that value reads
+    # as NULL, through an ok lut the codes gather
+    may_null = False
+
     def transform(self, s: str) -> str:
         raise NotImplementedError
 
@@ -1277,16 +1908,39 @@ class _DictTransform(Expression):
             raise NotPortedError(
                 f"{self.sql_name()} of {c.dtype.simple_string()} (a cast "
                 "to string)")
-        src = c.sdict or StringDict([""])
-        key = self.simple_string()
-        mapped, lut = src.transformed(key, self.transform)
-        if lut is None:
-            if not ctx.fused:
-                return Val(string, c.data, c.validity, mapped)
-            lut = np.arange(max(len(src.values), 1), dtype=np.int32)
-        codes = ctx.aux(lambda: lut, lambda: src._on(
-            ("recode", key), ctx.device, lambda: lut))
-        return Val(string, _take_codes(codes, c.data), c.validity, mapped)
+        return _dict_transform(ctx, c, self.simple_string(), self.transform,
+                               self.may_null)
+
+
+def _dict_transform(ctx: EvalCtx, c: Val, key: str, fn, may_null: bool
+                    ) -> Val:
+    """The string value `fn` maps `c` to, over its dictionary (see
+    _DictTransform); with `may_null`, a value `fn` maps to None reads as
+    NULL, its ok lut asked for in every pass (a fused program's luts must
+    not depend on what a dictionary holds)."""
+    src = c.sdict or StringDict([""])
+
+    def mapped_fn(v):
+        out = fn(v)
+        return "" if out is None else out
+
+    mapped, lut = src.transformed(key, mapped_fn)
+    validity = c.validity
+    if may_null:
+        def make_ok():
+            return np.array([fn(v) is not None for v in (src.values or [""])],
+                            bool)
+
+        ok = _take_codes(ctx.aux(make_ok, lambda: src._on(
+            ("ok", key), ctx.device, make_ok)), c.data)
+        validity = ok if validity is None else validity & ok
+    if lut is None:
+        if not ctx.fused:
+            return Val(string, c.data, validity, mapped)
+        lut = np.arange(max(len(src.values), 1), dtype=np.int32)
+    codes = ctx.aux(lambda: lut, lambda: src._on(
+        ("recode", key), ctx.device, lambda: lut))
+    return Val(string, _take_codes(codes, c.data), validity, mapped)
 
 
 class Substring(_DictTransform):
@@ -1323,6 +1977,331 @@ class _Affix(_DictTransform):
 
     def transform(self, s):
         return self.prefix + s + self.suffix
+
+
+class Lower(_DictTransform):
+    def transform(self, s):
+        return s.lower()
+
+
+class Trim(_DictTransform):
+    def transform(self, s):
+        return s.strip()
+
+
+class LTrim(_DictTransform):
+    def transform(self, s):
+        return s.lstrip()
+
+
+class RTrim(_DictTransform):
+    def transform(self, s):
+        return s.rstrip()
+
+
+def _lit_value(e: Expression, what: str):
+    """The value of a literal argument; a column there is not ported (nor
+    supported by the reference)."""
+    if not isinstance(e, Literal):
+        raise NotPortedError(f"{what} with a non-literal argument")
+    return e.value
+
+
+class StringReplace(_DictTransform):
+    def __init__(self, child: Expression, search: Expression,
+                 replace: Expression):
+        super().__init__(child)
+        self.search = str(_lit_value(search, "replace"))
+        self.replace = str(_lit_value(replace, "replace"))
+
+    def transform(self, s):
+        return s.replace(self.search, self.replace)
+
+
+class Lpad(_DictTransform):
+    def __init__(self, child, length: Expression, pad: Expression):
+        super().__init__(child)
+        self.length = int(_lit_value(length, "lpad/rpad"))
+        self.pad = str(_lit_value(pad, "lpad/rpad"))
+
+    def transform(self, s):
+        if len(s) >= self.length:
+            return s[: self.length]
+        need = self.length - len(s)
+        return (self.pad * need)[:need] + s
+
+
+class Rpad(Lpad):
+    def transform(self, s):
+        if len(s) >= self.length:
+            return s[: self.length]
+        need = self.length - len(s)
+        return s + (self.pad * need)[:need]
+
+
+class Initcap(_DictTransform):
+    def transform(self, s):
+        return " ".join(w[:1].upper() + w[1:].lower() if w else w
+                        for w in s.split(" "))
+
+
+class Reverse(_DictTransform):
+    def transform(self, s):
+        return s[::-1]
+
+
+class Repeat(_DictTransform):
+    def __init__(self, child, n: Expression):
+        super().__init__(child)
+        self.n = int(_lit_value(n, "repeat"))
+
+    def transform(self, s):
+        return s * self.n
+
+
+class SubstringIndex(_DictTransform):
+    def __init__(self, child, delim: Expression, count: Expression):
+        super().__init__(child)
+        self.delim = str(_lit_value(delim, "substring_index"))
+        self.count = int(_lit_value(count, "substring_index"))
+
+    def transform(self, s):
+        parts = s.split(self.delim)
+        if self.count > 0:
+            return self.delim.join(parts[: self.count])
+        if self.count < 0:
+            return self.delim.join(parts[self.count:])
+        return ""
+
+
+class RegexpExtract(_DictTransform):
+    """regexp_extract(col, pattern[, idx]): Python `re` over each
+    dictionary value; no match gives ''."""
+
+    def __init__(self, child, pattern: Expression, idx: Expression = None):
+        super().__init__(child)
+        self.pattern = str(_lit_value(pattern, "regexp_extract"))
+        self.idx = 1 if idx is None else int(_lit_value(idx,
+                                                        "regexp_extract"))
+        self._rx = re.compile(self.pattern)
+
+    def transform(self, s):
+        m = self._rx.search(s)
+        if m is None:
+            return ""
+        g = m.group(self.idx)
+        return "" if g is None else g
+
+
+class RegexpReplace(_DictTransform):
+    """regexp_replace(col, pattern, replacement): SQL's replacement names
+    groups Java's way ($1, read as Python's \\1); the DataFrame form
+    (`java_refs` False) hands its replacement to `re.sub` as it is, as the
+    reference's functions.regexp_replace does."""
+
+    def __init__(self, child, pattern: Expression, repl: Expression,
+                 java_refs: bool = True):
+        super().__init__(child)
+        self.pattern = str(_lit_value(pattern, "regexp_replace"))
+        self.repl = str(_lit_value(repl, "regexp_replace"))
+        self.java_refs = java_refs
+        self._rx = re.compile(self.pattern)
+
+    def transform(self, s):
+        repl = re.sub(r"\$(\d)", r"\\\1", self.repl) if self.java_refs \
+            else self.repl
+        return self._rx.sub(repl, s)
+
+
+class Left(_DictTransform):
+    def __init__(self, child, n: Expression):
+        super().__init__(child)
+        self.n = int(_lit_value(n, "left"))
+
+    def transform(self, s):
+        return s[: self.n] if self.n >= 0 else ""
+
+
+class Right(_DictTransform):
+    def __init__(self, child, n: Expression):
+        super().__init__(child)
+        self.n = int(_lit_value(n, "right"))
+
+    def transform(self, s):
+        return s[-self.n:] if self.n > 0 else ""
+
+
+class Overlay(_DictTransform):
+    """overlay(s, replace, pos[, len]), 1-based."""
+
+    def __init__(self, child, repl: Expression, pos: Expression,
+                 length: Expression | None = None):
+        super().__init__(child)
+        self.repl = str(_lit_value(repl, "overlay"))
+        self.pos = int(_lit_value(pos, "overlay"))
+        self.length = len(self.repl) if length is None \
+            else int(_lit_value(length, "overlay"))
+
+    def transform(self, s):
+        p = self.pos - 1
+        return s[:p] + self.repl + s[p + self.length:]
+
+
+class Soundex(_DictTransform):
+    _CODES = {**{c: "1" for c in "bfpv"}, **{c: "2" for c in "cgjkqsxz"},
+              **{c: "3" for c in "dt"}, "l": "4",
+              **{c: "5" for c in "mn"}, "r": "6"}
+
+    def transform(self, s):
+        if not s or not s[0].isalpha():
+            return s
+        out = s[0].upper()
+        prev = self._CODES.get(s[0].lower(), "")
+        for ch in s[1:].lower():
+            code = self._CODES.get(ch, "")
+            if code and code != prev:
+                out += code
+            if ch not in "hw":
+                prev = code
+            if len(out) == 4:
+                break
+        return out.ljust(4, "0")
+
+
+class Md5(_DictTransform):
+    def transform(self, s):
+        return hashlib.md5(s.encode()).hexdigest()
+
+
+class Sha1(_DictTransform):
+    def transform(self, s):
+        return hashlib.sha1(s.encode()).hexdigest()
+
+
+class Sha2(_DictTransform):
+    """sha2(s, bits): 0 means 256; a length other than 224, 256, 384 or
+    512 gives NULL."""
+
+    may_null = True
+
+    def __init__(self, child, bits: Expression):
+        super().__init__(child)
+        self.bits = int(_lit_value(bits, "sha2")) or 256
+
+    def transform(self, s):
+        if self.bits not in (224, 256, 384, 512):
+            return None
+        h = hashlib.new(f"sha{self.bits}")
+        h.update(s.encode())
+        return h.hexdigest()
+
+
+class Base64(_DictTransform):
+    def transform(self, s):
+        return base64.b64encode(s.encode()).decode()
+
+
+class Unbase64(_DictTransform):
+    """unbase64(s): NULL where s is not valid base64 (or decodes to bytes
+    that are not UTF-8); characters outside the alphabet are dropped."""
+
+    may_null = True
+
+    def transform(self, s):
+        try:
+            return base64.b64decode(s.encode()).decode()
+        except Exception:
+            return None
+
+
+class Translate(_DictTransform):
+    def __init__(self, child, matching: Expression, replace: Expression):
+        super().__init__(child)
+        self.matching = str(_lit_value(matching, "translate"))
+        self.replace = str(_lit_value(replace, "translate"))
+        self._table = str.maketrans(
+            self.matching,
+            self.replace.ljust(len(self.matching))[: len(self.matching)])
+
+    def transform(self, s):
+        return s.translate(self._table)
+
+
+class FormatNumber(Expression):
+    """format_number(x, d): numeric -> string has no bounded dictionary,
+    so the optimizer's RewriteHostOnlyExpressions makes a host UDF of it
+    (`format_fn`); this node only resolves the type."""
+
+    child_fields = ("child",)
+
+    def __init__(self, child: Expression, d: Expression):
+        self.child = child
+        self.d = int(_lit_value(d, "format_number"))
+
+    @property
+    def dtype(self):
+        return string
+
+    def format_fn(self):
+        d = self.d
+
+        def fn(a):
+            return np.array([None if v is None else f"{float(v):,.{d}f}"
+                             for v in a], dtype=object)
+
+        return fn
+
+    def eval(self, ctx):
+        raise UnsupportedOperationError(
+            "format_number must be rewritten to a host UDF (optimizer rule "
+            "RewriteHostOnlyExpressions)")
+
+
+class _ConcatWsAffix(_DictTransform):
+    """concat_ws(sep, ...) over one string column with literals: the
+    literals before and after joined by `sep` on each side."""
+
+    def __init__(self, child: Expression, sep: str, prefix: str, suffix: str):
+        super().__init__(child)
+        self.sep = sep
+        self.prefix = prefix
+        self.suffix = suffix
+
+    def transform(self, s):
+        out = s if not self.prefix else self.prefix + self.sep + s
+        return out if not self.suffix else out + self.sep + self.suffix
+
+
+class ConcatWs(Expression):
+    """concat_ws(sep, ...): all literals make one literal and one column
+    with literals is a dictionary transform; over two or more columns the
+    optimizer's RewriteHostOnlyExpressions makes a host UDF of it."""
+
+    child_fields = ("args",)
+
+    def __init__(self, sep: Expression, args: Sequence[Expression]):
+        self.sep = str(_lit_value(sep, "concat_ws"))
+        self.args = list(args)
+
+    @property
+    def dtype(self):
+        return string
+
+    def eval(self, ctx):
+        cols = [i for i, a in enumerate(self.args)
+                if not isinstance(a, Literal)]
+        if len(cols) > 1:
+            raise UnsupportedOperationError(
+                "concat_ws of multiple string columns must be rewritten to "
+                "a host UDF (optimizer rule RewriteHostOnlyExpressions)")
+        if not cols:
+            return Literal(self.sep.join(
+                str(a.value) for a in self.args)).eval(ctx)
+        i = cols[0]
+        prefix = self.sep.join(str(a.value) for a in self.args[:i])
+        suffix = self.sep.join(str(a.value) for a in self.args[i + 1:])
+        return ctx.eval(_ConcatWsAffix(self.args[i], self.sep, prefix,
+                                       suffix))
 
 
 def _like_to_regex(pattern: str, escape: str = "\\") -> str:
@@ -1363,22 +2342,289 @@ class _StringPredicate(Expression):
         raise NotImplementedError
 
     def eval(self, ctx):
-        c = ctx.eval(self.child)
-        sd = c.sdict or StringDict([""])
-
-        def make_lut():
-            m = self.matcher()
-            return np.array([bool(m(v)) for v in (sd.values or [""])], bool)
-
-        lut = ctx.aux(make_lut, lambda: sd._on(
-            f"{type(self).__name__}:{self.pattern}", ctx.device, make_lut))
-        return Val(boolean, _take_codes(lut, c.data), c.validity)
+        m = self.matcher()
+        return _value_luts(ctx, ctx.eval(self.child),
+                           f"{type(self).__name__}:{self.pattern}", boolean,
+                           lambda v: bool(m(v)), nullable=False)
 
 
 class Like(_StringPredicate):
     def matcher(self):
         rx = re.compile(_like_to_regex(self.pattern), re.DOTALL)
         return lambda s: rx.match(s) is not None
+
+
+class RLike(_StringPredicate):
+    def matcher(self):
+        rx = re.compile(self.pattern)
+        return lambda s: rx.search(s) is not None
+
+
+class StartsWith(_StringPredicate):
+    def matcher(self):
+        p = self.pattern
+        return lambda s: s.startswith(p)
+
+
+class EndsWith(_StringPredicate):
+    def matcher(self):
+        p = self.pattern
+        return lambda s: s.endswith(p)
+
+
+class Contains(_StringPredicate):
+    def matcher(self):
+        p = self.pattern
+        return lambda s: p in s
+
+
+class _StringIntLut(Expression):
+    """A string function giving an integer per dictionary entry: an int32
+    lut built on the host once per dictionary and gathered by the codes."""
+
+    child_fields = ("child",)
+
+    def __init__(self, child: Expression):
+        self.child = child
+
+    @property
+    def dtype(self):
+        return int32
+
+    def int_of(self, s: str) -> int:
+        raise NotImplementedError
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(c.dtype, StringType):
+            raise NotPortedError(f"{self.sql_name()} of "
+                                 f"{c.dtype.simple_string()} (a cast to "
+                                 "string)")
+        return _value_luts(ctx, c, self.simple_string(), int32,
+                           self.int_of, nullable=False)
+
+
+class Length(_StringIntLut):
+    def int_of(self, s):
+        return len(s)
+
+
+class RegexpInstr(_StringIntLut):
+    """regexp_instr(str, regexp): 1-based position of the first match, 0
+    where none."""
+
+    def __init__(self, child, pattern: Expression):
+        super().__init__(child)
+        self.pattern = str(_lit_value(pattern, "regexp_instr"))
+        self._rx = re.compile(self.pattern)
+
+    def int_of(self, s):
+        m = self._rx.search(s)
+        return (m.start() + 1) if m is not None else 0
+
+
+class RegexpCount(_StringIntLut):
+    def __init__(self, child, pattern: Expression):
+        super().__init__(child)
+        self.pattern = str(_lit_value(pattern, "regexp_count"))
+        self._rx = re.compile(self.pattern)
+
+    def int_of(self, s):
+        return sum(1 for _ in self._rx.finditer(s))
+
+
+class Levenshtein(_StringIntLut):
+    def __init__(self, child, other: Expression):
+        super().__init__(child)
+        self.other = str(_lit_value(other, "levenshtein"))
+
+    def int_of(self, s):
+        a, b = s, self.other
+        if len(a) < len(b):
+            a, b = b, a
+        prev = list(range(len(b) + 1))
+        for i, ca in enumerate(a, 1):
+            cur = [i]
+            for j, cb in enumerate(b, 1):
+                cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                               prev[j - 1] + (ca != cb)))
+            prev = cur
+        return prev[-1]
+
+
+class Ascii(_StringIntLut):
+    def int_of(self, s):
+        return ord(s[0]) if s else 0
+
+
+class Instr(_StringIntLut):
+    def __init__(self, child, sub: Expression):
+        super().__init__(child)
+        self.sub = str(_lit_value(sub, "instr/locate/position"))
+
+    def int_of(self, s):
+        return s.find(self.sub) + 1  # 1-based; 0 = not found
+
+
+class _ArrayLut(Expression):
+    """A function computed once per dictionary entry into a value and a
+    validity (`value_of` gives both), which the codes gather on the device.
+    The port runs it over strings only: the reference's users over arrays
+    and maps wait for the port's nested types. A string result is a
+    dictionary transform (deduplicated as _DictTransform's); a numeric one
+    a value lut beside a validity lut, both asked for in every pass."""
+
+    child_fields = ("child",)
+
+    def __init__(self, child: Expression):
+        self.child = child
+
+    def value_of(self, s):
+        raise NotImplementedError
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(c.dtype, StringType):
+            raise NotPortedError(f"{self.sql_name()} of "
+                                 f"{c.dtype.simple_string()} (nested types)")
+        key = self.simple_string()
+
+        def fn(v):
+            val, ok = self.value_of(v)
+            return val if ok else None
+
+        if isinstance(self.dtype, StringType):
+            return _dict_transform(ctx, c, key, fn, True)
+        return _value_luts(ctx, c, key, self.dtype, fn)
+
+
+class GetJsonObject(_ArrayLut):
+    """get_json_object(json_str, '$.path'): dotted fields and [n] indexing.
+    Misses and JSON nulls are NULL; a non-scalar result is written back as
+    JSON."""
+
+    def __init__(self, child: Expression, path: Expression):
+        super().__init__(child)
+        self.path = str(_lit_value(path, "get_json_object"))
+
+    @property
+    def dtype(self):
+        return string
+
+    def value_of(self, s):
+        try:
+            cur = json.loads(s)
+        except (ValueError, TypeError):
+            return "", False
+        p = self.path
+        if p.startswith("$"):
+            p = p[1:]
+        # the whole path must tokenize: an unsupported segment ($[*],
+        # quoted keys) means NULL, not a partial walk
+        tokens = list(re.finditer(r"\.([A-Za-z_][\w]*)|\[(\d+)\]", p))
+        if "".join(m.group(0) for m in tokens) != p:
+            return "", False
+        for name, idx in ((m.group(1), m.group(2)) for m in tokens):
+            if name:
+                if not isinstance(cur, dict) or name not in cur:
+                    return "", False
+                cur = cur[name]
+            else:
+                i = int(idx)
+                if not isinstance(cur, list) or i >= len(cur):
+                    return "", False
+                cur = cur[i]
+        if cur is None:
+            return "", False
+        if isinstance(cur, (dict, list)):
+            return json.dumps(cur), True
+        if isinstance(cur, bool):
+            return ("true" if cur else "false"), True
+        return str(cur), True
+
+
+class Crc32(_ArrayLut):
+    @property
+    def dtype(self):
+        return int64
+
+    def value_of(self, s):
+        return zlib.crc32(str(s).encode()), True
+
+
+class RegexpSubstr(_ArrayLut):
+    """regexp_substr(str, regexp): the first match, or NULL."""
+
+    def __init__(self, child, pattern: Expression):
+        super().__init__(child)
+        self.pattern = str(_lit_value(pattern, "regexp_substr"))
+        self._rx = re.compile(self.pattern)
+
+    @property
+    def dtype(self):
+        return string
+
+    def value_of(self, s):
+        m = self._rx.search(s)
+        return (m.group(0), True) if m is not None else ("", False)
+
+
+class ToNumber(_ArrayLut):
+    """to_number / try_to_number(str, format) -> decimal per the format
+    ('9'/'0' digits, D or . decimal point, G or , grouping, S sign, $
+    currency). A string the format does not match raises in to_number
+    and is NULL in try_to_number."""
+
+    def __init__(self, child, fmt: Expression, strict: bool = False):
+        super().__init__(child)
+        self.fmt = str(_lit_value(fmt, "to_number"))
+        self.strict = strict
+        f = self.fmt.upper().replace("D", ".").replace("G", ",")
+        self.scale = len(f.split(".", 1)[1].replace(",", "")) \
+            if "." in f else 0
+        self.precision = max(sum(1 for ch in f if ch in "90"), 1)
+
+    @property
+    def dtype(self):
+        return DecimalType(self.precision, self.scale)
+
+    def _miss(self, s):
+        if self.strict:
+            raise ExecutionError(
+                f"to_number: {s!r} does not match format {self.fmt!r}")
+        return 0, False
+
+    def value_of(self, s):
+        import decimal as _d
+
+        pat = []
+        for ch in self.fmt.upper():
+            if ch in "90":
+                pat.append(r"\d")
+            elif ch in "G,":
+                pat.append(",?")
+            elif ch in "D.":
+                pat.append(r"\.?")
+            elif ch == "S":
+                pat.append("[+-]?")
+            elif ch == "$":
+                pat.append(r"\$?")
+            else:
+                return self._miss(s)
+        rx = "[+-]?" + "".join(pat) if "S" not in self.fmt.upper() \
+            else "".join(pat)
+        t = s.strip()
+        if not re.fullmatch(rx.replace(r"\d", r"\d?"), t):
+            return self._miss(s)
+        neg = t.startswith("-") or t.endswith("-")
+        t = t.strip("+-").replace(",", "").replace("$", "")
+        try:
+            v = _d.Decimal(t)
+        except _d.InvalidOperation:
+            return self._miss(s)
+        if neg:
+            v = -v
+        return int(v.scaleb(self.scale).to_integral_value()), True
 
 
 class Concat(Expression):
@@ -1522,16 +2768,7 @@ def _apply_interval(side: Val, iv: IntervalLiteral) -> Val:
     if iv.days or iv.micros:
         data = data + (iv.days + iv.micros // 86_400_000_000)
     if iv.months:
-        y, m, d = _civil_from_days(data)
-        total = (y.to(torch.int64) * 12 + (m - 1)) + iv.months
-        ny = _floordiv(total, 12).to(torch.int32)
-        nm = (torch.remainder(total, 12) + 1).to(torch.int32)
-        nmt = total + 1
-        nmy = _floordiv(nmt, 12).to(torch.int32)
-        nmm = (torch.remainder(nmt, 12) + 1).to(torch.int32)
-        one = torch.ones_like(nm)
-        dim = _days_from_civil(nmy, nmm, one) - _days_from_civil(ny, nm, one)
-        data = _days_from_civil(ny, nm, torch.minimum(d, dim))
+        data = _add_months(data, iv.months)
     return Val(date, data.to(torch.int32), side.validity)
 
 
@@ -1567,6 +2804,198 @@ class DateDiff(BinaryExpression):
         r = ctx.eval(cast_if(self.right, date))
         return Val(int32, (l.data - r.data).to(torch.int32),
                    ctx.and_valid(l, r))
+
+
+class _DatePart(UnaryExpression):
+    """A calendar field of a date as an int32, from Hinnant's civil
+    calendar on the device (floor divisions: dates before 1970 hold
+    negative day numbers)."""
+
+    @property
+    def dtype(self):
+        return int32
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(c.dtype, DateType):
+            raise NotPortedError(f"{self.sql_name()} of "
+                                 f"{c.dtype.simple_string()}")
+        y, m, d = _civil_from_days(c.data)
+        return Val(int32, self._part(c.data, y, m, d), c.validity)
+
+    def _part(self, days, y, m, d):
+        raise NotImplementedError
+
+
+class Year(_DatePart):
+    def _part(self, days, y, m, d):
+        return y
+
+
+class Month(_DatePart):
+    def _part(self, days, y, m, d):
+        return m
+
+
+class DayOfMonth(_DatePart):
+    def _part(self, days, y, m, d):
+        return d
+
+
+class Quarter(_DatePart):
+    def _part(self, days, y, m, d):
+        return _floordiv(m - 1, 3) + 1
+
+
+class DayOfWeek(_DatePart):
+    """1 = Sunday ... 7 = Saturday."""
+
+    def _part(self, days, y, m, d):
+        return (torch.remainder(days.to(torch.int64) + 4, 7) + 1) \
+            .to(torch.int32)
+
+
+class DayOfYear(_DatePart):
+    def _part(self, days, y, m, d):
+        jan1 = _days_from_civil(y, torch.ones_like(m), torch.ones_like(d))
+        return (days - jan1 + 1).to(torch.int32)
+
+
+class WeekOfYear(_DatePart):
+    """The ISO week: the week holding the year's first Thursday is 1."""
+
+    def _part(self, days, y, m, d):
+        dow = torch.remainder(days.to(torch.int64) + 3, 7)  # 0 = Monday
+        thursday = days.to(torch.int64) - dow + 3
+        ty, _, _ = _civil_from_days(thursday)
+        jan1 = _days_from_civil(ty, torch.ones_like(m),
+                                torch.ones_like(d)).to(torch.int64)
+        return (_floordiv(thursday - jan1, 7) + 1).to(torch.int32)
+
+
+class TruncDate(UnaryExpression):
+    """trunc(date, fmt) / date_trunc(fmt, date). `allow_day` only for
+    date_trunc: trunc gives NULL for a day-level format."""
+
+    def __init__(self, child, fmt: str = "month", allow_day: bool = False):
+        super().__init__(child)
+        self.fmt = fmt.lower()
+        self.allow_day = allow_day
+
+    @property
+    def dtype(self):
+        return date
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(c.dtype, DateType):
+            raise NotPortedError(f"trunc of {c.dtype.simple_string()}")
+        y, m, d = _civil_from_days(c.data)
+        one = torch.ones_like(m)
+        if self.fmt in ("year", "yyyy", "yy"):
+            data = _days_from_civil(y, one, one)
+        elif self.fmt == "quarter":
+            data = _days_from_civil(y, _floordiv(m - 1, 3) * 3 + 1, one)
+        elif self.fmt in ("month", "mon", "mm"):
+            data = _days_from_civil(y, m, one)
+        elif self.fmt == "week":
+            dow = torch.remainder(c.data.to(torch.int64) + 3, 7)  # 0 = Mon
+            data = (c.data - dow).to(torch.int32)
+        elif self.fmt in ("day", "dd"):
+            if not self.allow_day:
+                n = (ctx.capacity,)
+                return Val(date, torch.zeros_like(c.data),
+                           torch.zeros(n, dtype=torch.bool,
+                                       device=ctx.device))
+            data = c.data
+        else:
+            raise UnsupportedOperationError(f"trunc format {self.fmt}")
+        return Val(date, data, c.validity)
+
+
+class MakeDate(Expression):
+    """make_date(y, m, d): the civil day number, unchecked (a day past the
+    month's end runs into the next month, as the reference computes)."""
+
+    child_fields = ("y", "m", "d")
+
+    def __init__(self, y, m, d):
+        self.y = y
+        self.m = m
+        self.d = d
+
+    @property
+    def dtype(self):
+        return date
+
+    def eval(self, ctx):
+        y = ctx.eval(cast_if(self.y, int32))
+        m = ctx.eval(cast_if(self.m, int32))
+        d = ctx.eval(cast_if(self.d, int32))
+        return Val(date, _days_from_civil(y.data, m.data, d.data),
+                   ctx.and_valid(y, m, d))
+
+
+def _add_months(days, months):
+    """days + `months` months, the day clamped to the target month's end
+    (2000-01-31 + 1 month = 2000-02-29)."""
+    y, m, d = _civil_from_days(days)
+    total = (y.to(torch.int64) * 12 + (m - 1)) + months
+    ny = _floordiv(total, 12).to(torch.int32)
+    nm = (torch.remainder(total, 12) + 1).to(torch.int32)
+    nmt = total + 1
+    nmy = _floordiv(nmt, 12).to(torch.int32)
+    nmm = (torch.remainder(nmt, 12) + 1).to(torch.int32)
+    one = torch.ones_like(nm)
+    dim = _days_from_civil(nmy, nmm, one) - _days_from_civil(ny, nm, one)
+    return _days_from_civil(ny, nm, torch.minimum(d, dim))
+
+
+class AddMonths(BinaryExpression):
+    @property
+    def dtype(self):
+        return date
+
+    def eval(self, ctx):
+        l = ctx.eval(cast_if(self.left, date))
+        r = ctx.eval(cast_if(self.right, int32))
+        return Val(date, _add_months(l.data, r.data), ctx.and_valid(l, r))
+
+
+class LastDay(UnaryExpression):
+    @property
+    def dtype(self):
+        return date
+
+    def eval(self, ctx):
+        c = ctx.eval(cast_if(self.child, date))
+        y, m, d = _civil_from_days(c.data)
+        ny = torch.where(m == 12, y + 1, y)
+        nm = torch.where(m == 12, 1, m + 1)
+        return Val(date, (_days_from_civil(ny, nm, torch.ones_like(m)) - 1)
+                   .to(torch.int32), c.validity)
+
+
+class MonthsBetween(BinaryExpression):
+    """months_between(a, b) = whole months apart plus the day difference
+    over 31 (unrounded, as the reference: Spark rounds to 8 digits), the
+    quotient by 31 taken as the product with its reciprocal and that
+    product's sum rounded once, as the reference's compiler takes them."""
+
+    @property
+    def dtype(self):
+        return float64
+
+    def eval(self, ctx):
+        l = ctx.eval(cast_if(self.left, date))
+        r = ctx.eval(cast_if(self.right, date))
+        ly, lm, ld = _civil_from_days(l.data)
+        ry, rm, rd = _civil_from_days(r.data)
+        months = (ly - ry) * 12 + (lm - rm)
+        frac = _fma((ld - rd).to(torch.float64),
+                    torch.full_like(ld, 1.0 / 31.0, dtype=torch.float64),
+                    months.to(torch.float64))
+        return Val(float64, frac, ctx.and_valid(l, r))
 
 
 # ---------------------------------------------------------------------------

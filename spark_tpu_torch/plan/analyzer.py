@@ -543,6 +543,10 @@ class _ResolveRelationsDedup(Rule):
         def rule(node):
             if isinstance(node, UnresolvedRelation):
                 resolved = self.catalog.lookup(node.name_parts)
+                # a view's body may hold unaliased union-branch literals
+                # (`... UNION ALL SELECT 1, 20`): alias them before reading
+                # its output, as the main path's ResolveAliases would
+                resolved = ResolveAliases().apply(resolved)
                 overlap = {a.expr_id for a in resolved.output} & \
                     self.outer_ids
                 if overlap:

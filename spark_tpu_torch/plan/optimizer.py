@@ -18,6 +18,7 @@ date_format) become host UDFs that PythonEval evaluates over Arrow."""
 from __future__ import annotations
 
 import datetime
+import math
 from typing import Sequence
 
 from ..errors import NotPortedError
@@ -25,7 +26,7 @@ from ..expr.expressions import (
     Add, AggregateFunction, Alias, And, AttributeReference, Cast, Divide,
     EqualTo, Expression, GreaterThan, GreaterThanOrEqual, Grouping,
     GroupingID, IsNotNull, LessThan, LessThanOrEqual, Literal, Multiply, Not,
-    NotEqualTo, Or, SortOrder, Subtract, UnaryMinus,
+    NotEqualTo, Or, Remainder, SortOrder, Subtract, UnaryMinus,
 )
 from ..types import NullType
 from .logical import (
@@ -92,6 +93,9 @@ def const_value(e: Expression):
         Add: lambda a, b: a + b, Subtract: lambda a, b: a - b,
         Multiply: lambda a, b: a * b,
         Divide: lambda a, b: a / b if b else None,
+        # as the reference folds it: in doubles, so a % b of two integers
+        # folds to a whole double the literal's integral type reads back
+        Remainder: lambda a, b: math.fmod(a, b) if b else None,
         EqualTo: lambda a, b: a == b, NotEqualTo: lambda a, b: a != b,
         LessThan: lambda a, b: a < b, LessThanOrEqual: lambda a, b: a <= b,
         GreaterThan: lambda a, b: a > b,
@@ -374,14 +378,17 @@ class RewriteHostOnlyExpressions(Rule):
     """Expressions with no device form become vectorized host UDFs (Spark's
     analog: expressions lacking codegen fall back to interpreted eval; here
     the fallback is the Arrow-UDF path):
-      * concat over 2+ string COLUMNS (dictionary products are unbounded);
+      * concat/concat_ws over 2+ string COLUMNS (dictionary products are
+        unbounded);
       * cast(non-string AS string) (value universe unknown host-side);
-      * date_format."""
+      * date_format and format_number."""
 
     def apply(self, plan):
         import numpy as np
 
-        from ..expr.expressions import Cast, Concat, DateFormat, Literal
+        from ..expr.expressions import (
+            Cast, Concat, ConcatWs, DateFormat, FormatNumber, Literal,
+        )
         from ..expr.pyudf import PythonUDF
         from ..types import DateType, StringType, string
 
@@ -414,10 +421,15 @@ class RewriteHostOnlyExpressions(Rule):
 
                 return PythonUDF(fmt_fn, [e.child], string,
                                  name="date_format", vectorized=True)
-            if isinstance(e, Concat):
+            if isinstance(e, FormatNumber):
+                return PythonUDF(e.format_fn(), [e.child], string,
+                                 name="format_number")
+            if isinstance(e, (Concat, ConcatWs)):
                 cols = [a for a in e.args if not isinstance(a, Literal)]
                 if len(cols) >= 2:
-                    def concat_fn(*arrays, _sep=""):
+                    sep = e.sep if isinstance(e, ConcatWs) else ""
+
+                    def concat_fn(*arrays, _sep=sep):
                         out = []
                         for vals in zip(*arrays):
                             if any(v is None for v in vals):

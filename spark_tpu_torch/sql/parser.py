@@ -469,15 +469,15 @@ class Parser:
     def parse_predicate(self) -> E.Expression:
         left = self.parse_bitwise_or()
         while True:
-            if self.at_op("<=>"):
-                raise NotPortedError("<=> (EqualNullSafe)")
-            if self.at_op("=", "==", "<>", "!=", "<", "<=", ">", ">="):
+            if self.at_op("=", "==", "<>", "!=", "<", "<=", ">", ">=",
+                          "<=>"):
                 op = self.next().value
                 right = self.parse_bitwise_or()
                 cls = {"=": E.EqualTo, "==": E.EqualTo, "<>": E.NotEqualTo,
                        "!=": E.NotEqualTo, "<": E.LessThan,
                        "<=": E.LessThanOrEqual, ">": E.GreaterThan,
-                       ">=": E.GreaterThanOrEqual}[op]
+                       ">=": E.GreaterThanOrEqual,
+                       "<=>": E.EqualNullSafe}[op]
                 left = cls(left, right)
                 continue
             if self.at_kw("is"):
@@ -515,8 +515,12 @@ class Parser:
                 if neg:
                     left = E.Not(left)
                 continue
-            if self.at_kw("rlike"):
-                raise NotPortedError("RLIKE")
+            if self.eat_kw("rlike"):
+                pat = self.next()
+                left = E.RLike(left, pat.value)
+                if neg:
+                    left = E.Not(left)
+                continue
             if self.eat_kw("between"):
                 lo = self.parse_additive()
                 self.expect_kw("and")
@@ -531,10 +535,36 @@ class Parser:
             break
         return left
 
+    # the reference's precedence, loosest first: | ^ & (<< >>) (+ - ||)
+    # (* / % DIV) unary
     def parse_bitwise_or(self) -> E.Expression:
+        left = self.parse_bitwise_xor()
+        while self.at_op("|"):
+            self.next()
+            left = E.BitwiseOr(left, self.parse_bitwise_xor())
+        return left
+
+    def parse_bitwise_xor(self) -> E.Expression:
+        left = self.parse_bitwise_and()
+        while self.at_op("^"):
+            self.next()
+            left = E.BitwiseXor(left, self.parse_bitwise_and())
+        return left
+
+    def parse_bitwise_and(self) -> E.Expression:
+        left = self.parse_shift()
+        while self.at_op("&"):
+            self.next()
+            left = E.BitwiseAnd(left, self.parse_shift())
+        return left
+
+    def parse_shift(self) -> E.Expression:
         left = self.parse_additive()
-        if self.at_op("|", "^", "&", "<<", ">>"):
-            raise NotPortedError(f"operator {self.peek().value}")
+        while self.at_op("<<", ">>"):
+            op = self.next().value
+            right = self.parse_additive()
+            left = E.ShiftLeft(left, right) if op == "<<" \
+                else E.ShiftRight(left, right)
         return left
 
     def parse_additive(self) -> E.Expression:
@@ -553,12 +583,16 @@ class Parser:
     def parse_multiplicative(self) -> E.Expression:
         left = self.parse_unary()
         while self.at_op("*", "/", "%") or self.at_kw("div"):
-            if self.at_kw("div") or self.at_op("%"):
-                raise NotPortedError(f"operator {self.peek().value.upper()}")
+            if self.eat_kw("div"):
+                # a DIV b: the quotient as a double, cast to bigint (as the
+                # reference parses it)
+                right = self.parse_unary()
+                left = E.Cast(E.Divide(left, right), int64)
+                continue
             op = self.next().value
             right = self.parse_unary()
-            left = E.Multiply(left, right) if op == "*" \
-                else E.Divide(left, right)
+            cls = {"*": E.Multiply, "/": E.Divide, "%": E.Remainder}[op]
+            left = cls(left, right)
         return left
 
     def parse_unary(self) -> E.Expression:
@@ -569,8 +603,8 @@ class Parser:
             return E.UnaryMinus(e)
         if self.eat_op("+"):
             return self.parse_unary()
-        if self.at_op("~"):
-            raise NotPortedError("operator ~")
+        if self.eat_op("~"):
+            return E.BitwiseNot(self.parse_unary())
         e = self.parse_primary()
         if self.at_op("["):
             raise NotPortedError("subscript (element_at)")
@@ -614,6 +648,17 @@ class Parser:
             to = self.parse_type()
             self.expect_op(")")
             return E.Cast(e, to, explicit=True)
+        if t.kind == "ident" and t.value.lower() == "try_cast" and \
+                self.peek(1).value == "(":
+            # try_cast: NULL where the value does not convert, which every
+            # cast of the port already gives
+            self.next()
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("as")
+            to = self.parse_type()
+            self.expect_op(")")
+            return E.Cast(e, to, explicit=True)
         if self.at_kw("exists") and self.peek(1).value == "(" and \
                 (self.peek(2).value == "(" or
                  (self.peek(2).kind == "kw" and
@@ -635,8 +680,13 @@ class Parser:
         if t.kind in ("ident", "kw"):
             # function call or column reference
             name = self.ident()
+            if name.lower() == "extract" and self.at_op("("):
+                return self.parse_extract()
             if self.at_op("("):
-                return self.parse_function(name)
+                f = self.parse_function(name)
+                if self.at_op(".") and self.peek(1).kind in ("ident", "kw"):
+                    raise NotPortedError("struct field access (nested types)")
+                return f
             parts = [name]
             while self.at_op(".") and self.peek(1).kind in ("ident", "kw"):
                 self.next()
@@ -646,8 +696,6 @@ class Parser:
 
     def parse_function(self, name: str) -> E.Expression:
         low = name.lower()
-        if low in ("extract", "try_cast", "position", "overlay"):
-            raise NotPortedError(f"function {low}")
         self.expect_op("(")
         distinct = False
         args: list[E.Expression] = []
@@ -657,9 +705,30 @@ class Parser:
         elif not self.at_op(")"):
             if self.eat_kw("distinct"):
                 distinct = True
-            args.append(self._parse_arg())
-            while self.eat_op(","):
+            if low == "position":
+                # position(substr IN str): parsed below the predicates, so
+                # the IN is this form's and not an IN list; the arguments
+                # in the order of position(substr, str)
+                args.append(self.parse_bitwise_or())
+                if self.eat_kw("in"):
+                    args.append(self.parse_expr())
+                while self.eat_op(","):
+                    args.append(self.parse_expr())
+            else:
                 args.append(self._parse_arg())
+                if low == "overlay" and self.peek().value.lower() == "placing":
+                    # overlay(str PLACING repl FROM pos [FOR len]), in the
+                    # order of overlay(str, repl, pos[, len])
+                    self.next()
+                    args.append(self.parse_expr())
+                    self.expect_kw("from")
+                    args.append(self.parse_expr())
+                    if self.peek().value.lower() == "for":
+                        self.next()
+                        args.append(self.parse_expr())
+                else:
+                    while self.eat_op(","):
+                        args.append(self._parse_arg())
         self.expect_op(")")
         func = E.UnresolvedFunction(name, args, distinct)
         if self.at_kw("over"):
@@ -776,11 +845,41 @@ class Parser:
         return E.IntervalLiteral(months, days, micros)
 
     def _parse_arg(self) -> E.Expression:
-        if self.peek(1).value == "->" or (
-                self.at_op("(") and self.peek(2).value in (",", ")")
-                and self.peek(3).value == "->"):
+        if self.peek(1).value == "->" or self._at_lambda_params():
             raise NotPortedError("lambda functions (higher-order functions)")
         return self.parse_expr()
+
+    def _at_lambda_params(self) -> bool:
+        """At `(x, y, ...) ->`: a lambda's parameter list."""
+        if not self.at_op("("):
+            return False
+        k = 1
+        while self.peek(k).kind in ("ident", "kw"):
+            if self.peek(k + 1).value == ")":
+                return self.peek(k + 2).value == "->"
+            if self.peek(k + 1).value != ",":
+                return False
+            k += 2
+        return False
+
+    def parse_extract(self) -> E.Expression:
+        """EXTRACT(field FROM d), the reference's fields over dates."""
+        self.expect_op("(")
+        field = self.ident().lower()
+        self.expect_kw("from")
+        src = self.parse_expr()
+        self.expect_op(")")
+        if field in ("hour", "minute", "second"):
+            raise NotPortedError(f"EXTRACT({field}) (timestamps)")
+        mapping = {
+            "year": E.Year, "month": E.Month, "day": E.DayOfMonth,
+            "dayofmonth": E.DayOfMonth, "quarter": E.Quarter,
+            "week": E.WeekOfYear, "doy": E.DayOfYear, "dow": E.DayOfWeek,
+        }
+        cls = mapping.get(field)
+        if cls is None:
+            raise ParseException(f"EXTRACT field {field} not supported")
+        return cls(src)
 
     def parse_case(self) -> E.Expression:
         self.expect_kw("case")

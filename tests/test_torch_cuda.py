@@ -1620,3 +1620,140 @@ def test_whole_capacity_retry_recaptures(whole_pair):
     c2 = STAGE_CACHE.counters()
     assert c2["stage_cache.captures"] == c1["stage_cache.captures"]
     assert c2["stage_cache.replays"] - c1["stage_cache.replays"] == 1
+
+
+# --- the scalar functions: card against CPU ------------------------------------
+
+# name -> (SQL expression over view x, held to 4 ulp); the shifts run over
+# every amount in -2..70, the integer % and DIV over the int64 minimum and
+# zero divisors
+SCALAR_CARD = {
+    "shift_left": ("i << k", False), "shift_right": ("i >> k", False),
+    "shift_left_int32": ("j << k", False),
+    "shift_right_int32": ("j >> k", False),
+    "remainder": ("i % d", False), "remainder_int32": ("j % d32", False),
+    "div": ("i DIV d", False), "pmod": ("pmod(i, d)", False),
+    "remainder_double": ("x % y", False),
+    "remainder_double_literal": ("x % 2.5", False),
+    "bitwise": ("(i & j) | (i ^ ~j)", False),
+    "sqrt": ("sqrt(x)", False), "hypot": ("hypot(x, y)", False),
+    "floor": ("floor(x)", False), "ceil": ("ceil(x)", False),
+    "sign": ("sign(x)", False), "round": ("round(x, 2)", False),
+    "bround": ("bround(x, 1)", False), "fma": ("x * y + z", False),
+    "months_between": ("months_between(date_add(DATE '2000-01-31', "
+                       "k * 40), DATE '1999-12-31')", False),
+    "exp": ("exp(z)", True), "ln": ("ln(x)", True),
+    "log10": ("log10(x)", True), "log2": ("log2(x)", True),
+    "log1p": ("log1p(z)", True), "expm1": ("expm1(z)", True),
+    "sin": ("sin(y)", True), "cos": ("cos(y)", True),
+    "tan": ("tan(y)", True), "asin": ("asin(z)", True),
+    "acos": ("acos(z)", True), "atan": ("atan(x)", True),
+    "atan2": ("atan2(y, x)", True), "sinh": ("sinh(z)", True),
+    "cosh": ("cosh(z)", True), "tanh": ("tanh(y)", True),
+    "cbrt": ("cbrt(x)", True), "pow": ("pow(abs(y), z)", True),
+}
+
+
+def _scalar_table():
+    import pyarrow as pa
+
+    rng = np.random.default_rng(61)
+    amounts = np.arange(-2, 71, dtype=np.int32)
+    i64 = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, 0,
+                    1, 7, -7, 1 << 40, -(1 << 40), 12345], np.int64)
+    i32 = np.array([np.iinfo(np.int32).min, np.iinfo(np.int32).max, -1, 0,
+                    1, 5, -5, 1 << 20], np.int32)
+    divisors = np.array([0, -1, 1, 3, -7, np.iinfo(np.int64).min], np.int64)
+    n = len(amounts) * len(i64)
+    x = rng.standard_normal(n) * 100
+    x[:6] = [0.0, -0.0, np.inf, np.nan, 1e300, -1e-300]
+    return pa.table({
+        "i": np.tile(i64, len(amounts)), "k": np.repeat(amounts, len(i64)),
+        "j": rng.choice(i32, n), "d": rng.choice(divisors, n),
+        "d32": rng.choice(np.array([0, -1, 3, np.iinfo(np.int32).min],
+                                   np.int32), n),
+        "x": x, "y": rng.standard_normal(n) * 3,
+        "z": rng.uniform(-0.9, 0.9, n)})
+
+
+@pytest.fixture(scope="module")
+def scalar_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = []
+    for s in _session_pair({}):
+        s.createDataFrame(_scalar_table()).createOrReplaceTempView("x")
+        cols = ", ".join(f"{e} AS `{name}`" for name, (e, _)
+                         in SCALAR_CARD.items())
+        tb = s.sql(f"SELECT {cols} FROM x").toArrow()
+        out.append({c: tb.column(c).to_pylist() for c in tb.column_names})
+        s.stop()
+    return out
+
+
+@pytest.mark.parametrize("name", list(SCALAR_CARD))
+def test_scalar_functions_card_equal_cpu(scalar_results, name):
+    cpu, card = (r[name] for r in scalar_results)
+    ulp = SCALAR_CARD[name][1]
+    assert len(cpu) == len(card)
+    for a, b in zip(card, cpu):
+        if isinstance(b, float) and isinstance(a, float):
+            if np.isnan(b):
+                assert np.isnan(a), name
+            elif ulp:
+                assert a == b or abs(a - b) <= 4 * np.spacing(
+                    max(abs(a), abs(b))), (name, a, b)
+            else:
+                assert np.float64(a).view(np.int64) == \
+                    np.float64(b).view(np.int64), (name, a, b)
+        else:
+            assert a == b, (name, a, b)
+
+
+# four dictionary luts over two tiles whose dictionaries merge at
+# different places (tile 1: lower(a) maps two values to one; tile 2:
+# lower(b) does), beside a string -> int lut, a cast from a string and a
+# regex predicate
+LUT_QUERY = ("SELECT lower(a) la, lower(b) lb, count(*) c, sum(v) s, "
+             "sum(length(cc)) l, sum(cast(n AS INT)) ni, "
+             "count_if(cc RLIKE '^x.') r FROM luts GROUP BY lower(a), "
+             "lower(b)")
+
+
+def lut_tiles(half: int):
+    """The LUT_QUERY table (two tiles of 2 * half rows) and its expected
+    rows, from numpy."""
+    import pyarrow as pa
+
+    n = 2 * half
+    a = ["Ab", "ab"] * half + ["p", "q"] * half
+    b = ["x", "y"] * half + ["Xa", "xa"] * half
+    cc = ["xy", "zzz"] * half + ["xxxx", "y"] * half
+    nums = (["1", "2", "x"] * (2 * n // 3 + 1))[: 2 * n]
+    v = np.arange(2 * n, dtype=np.int64)
+    groups: dict = {}
+    for i in range(2 * n):
+        key = (a[i].lower(), b[i].lower())
+        c, s, ln, ni, r = groups.get(key, (0, 0, 0, 0, 0))
+        num = int(nums[i]) if nums[i].isdigit() else 0
+        groups[key] = (c + 1, s + int(v[i]), ln + len(cc[i]), ni + num,
+                       r + (cc[i].startswith("x") and len(cc[i]) > 1))
+    want = sorted((k + g for k, g in groups.items()), key=repr)
+    return pa.table({"a": a, "b": b, "cc": cc, "n": nums, "v": v}), want
+
+
+@pytest.mark.parametrize("tier", ["stage", "whole"])
+def test_fused_string_luts_merging_per_tile(stage_pair, tier):
+    """LUT_QUERY at the stage tier (fused batches: the graph captured for
+    tile 1 replays tile 2) and at the whole tier (one program): equal to
+    the CPU's and to the numpy oracle."""
+    tb, want = lut_tiles(1 << 13)   # two tiles of STAGE's 2^14 rows
+    got = []
+    for s in stage_pair:
+        s.createDataFrame(tb).createOrReplaceTempView("luts")
+        s.conf.set("spark.tpu.compile.tier", tier)
+        try:
+            got.append(_rows(s.sql(LUT_QUERY).toArrow(), False))
+        finally:
+            s.conf.set("spark.tpu.compile.tier", "stage")
+    assert got[1] == got[0] == want

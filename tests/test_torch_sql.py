@@ -246,22 +246,25 @@ def test_transformed_keys_group_and_sort_by_value(sessions):
 # statements of the keys that run since the third SQL slice (CASES holds
 # the earlier statements) name a construct that still raises
 UNPORTED = {
-    "with": ("WITH x AS (SELECT k FROM t1 WHERE s RLIKE 'a.*') "
-             "SELECT k FROM x", "RLIKE"),
+    "with": ("WITH x AS (SELECT k FROM t1 WHERE hour(s) > 0) "
+             "SELECT k FROM x", "function hour"),
     "union": ("SELECT k FROM t1 UNION VALUES (1)", "VALUES"),
     "from_subquery": ("SELECT k FROM (SELECT sum(DISTINCT k) k FROM t1) q",
                       "sum(DISTINCT"),
-    "in_list": ("SELECT k FROM t1 WHERE k & 1 IN (0)", "operator &"),
+    "in_list": ("SELECT k FROM t1 WHERE second(k) IN (0)",
+                "function second"),
     "in_subquery": ("SELECT * FROM t1 FULL JOIN t2 ON t1.k = t2.k2 "
                     "AND t1.k > 3", "full_outer join with a non-equi"),
     "exists": ("SELECT * FROM t1 FULL JOIN t2 ON t1.k > t2.k2",
                "non-equi full_outer join"),
     "scalar_subquery": ("SELECT (SELECT max(name) FROM t2) m FROM t1",
                         "string column"),
-    "case": ("SELECT CASE WHEN k > 1 THEN lower(s) ELSE 'x' END FROM t1",
-             "function lower"),
-    "between": ("SELECT k FROM t1 WHERE k % 3 BETWEEN 1 AND 2", "%"),
-    "like": ("SELECT k FROM t1 WHERE s RLIKE 'a.*'", "RLIKE"),
+    "case": ("SELECT CASE WHEN k > 1 THEN hour(s) ELSE 0 END FROM t1",
+             "function hour"),
+    "between": ("SELECT k FROM t1 WHERE minute(k) BETWEEN 1 AND 2",
+                "function minute"),
+    "like": ("SELECT k FROM t1 WHERE regexp_extract_all(s, 'a') IS NULL",
+             "function regexp_extract_all"),
     "interval": ("SELECT TIMESTAMP '2020-01-01 00:00:00' + INTERVAL 1 DAY "
                  "FROM t1", "TIMESTAMP"),
     # the reference refuses it too
@@ -275,16 +278,18 @@ UNPORTED = {
                  "multiple DISTINCT"),
     # SELECT without FROM runs (OneRowRelation); its expressions are
     # held to the same rules as any other query's
-    "no_from": ("SELECT 1 % 2", "%"),
+    "no_from": ("SELECT array(1, 2)", "function array"),
     "rollup": ("SELECT k, count(DISTINCT s), count(DISTINCT v) FROM t1 "
                "GROUP BY ROLLUP(k)", "multiple DISTINCT"),
     "using": ("SELECT k FROM t1 JOIN t2 USING (k)", "USING"),
-    "concat": ("SELECT concat_ws('-', s, s) FROM t1", "concat_ws"),
-    "modulo": ("SELECT k % 2 FROM t1", "%"),
-    "unported_function": ("SELECT lower(s) FROM t1", "function lower"),
+    "concat": ("SELECT concat_ws('-', array(s, s)) FROM t1",
+               "function array"),
+    "modulo": ("SELECT k[2] FROM t1", "subscript"),
+    "unported_function": ("SELECT collect_list(s) FROM t1",
+                          "function collect_list"),
     "count_distinct": ("SELECT avg(DISTINCT k) FROM t1", "avg(DISTINCT"),
     "string_min": ("SELECT min(s) FROM t1", "string column"),
-    "string_cast": ("SELECT CAST(s AS INT) FROM t1", "cast(string as integer)"),
+    "string_cast": ("SELECT CAST(s AS TIMESTAMP) FROM t1", "timestamp"),
     "timestamp": ("SELECT TIMESTAMP '2020-01-01 00:00:00' FROM t1",
                   "TIMESTAMP"),
 }

@@ -21,7 +21,7 @@ sequence, and the Arrow results are equal exactly. The DataFrame forms
 (`isin`, `between`, `when`/`otherwise`, `coalesce`, `round`) equal their
 SQL form. Where the reference is wrong or refuses (a scalar subquery of
 two rows, a narrowing decimal cast past its precision, upper merging two
-values), the port is held to plain oracles; concat_ws still raises."""
+values), the port is held to plain oracles; concat_ws over an array raises."""
 
 import pytest
 
@@ -208,8 +208,9 @@ def test_upper_merges_groups_by_value(sessions):
 
 def test_concat_of_two_columns_raises(sessions):
     # concat over two columns runs since the fifth SQL slice, as a host UDF
-    # (SQL_CONSTRUCTS "concat_columns"); concat_ws over them still raises
+    # (SQL_CONSTRUCTS "concat_columns"), and concat_ws over them since the
+    # scalar-function slice; a concat over an array still raises
     _, t = sessions
     with pytest.raises(NotPortedError) as err:
-        t.sql("SELECT concat_ws('-', s, s) FROM t").toArrow()
-    assert "concat_ws" in err.value.what
+        t.sql("SELECT concat_ws('-', array(s, s)) FROM t").toArrow()
+    assert "function array" in err.value.what

@@ -1,0 +1,196 @@
+"""The reference's golden SQL corpus (`tests/sql-tests/results/*.out`) run
+in the port: the machinery of tests/test_torch_golden_a.py and _b.py.
+
+Each `.out` file holds `-- !query` / `-- !result` blocks, the statements
+the reference ran and their rendered results. Each statement runs in a CPU
+`TorchSession` holding the views of tests/test_golden.py's `_setup`
+(`tpcds_mini`); the `nested` view of struct, map and array columns is left
+out, since the port ingests no nested types (its `createDataFrame` raises
+NotPortedError naming the Arrow type). The result is rendered with
+test_golden.py's `_render`/`_fmt` rules and held to the committed block.
+
+A statement may instead raise NotPortedError for a construct outside the
+scalar expressions: `OUT_OF_SCOPE` maps each such construct to its
+ROADMAP.md item. A CREATE TEMP VIEW statement (a command, A1) raises;
+the view it would make is then made through the DataFrame API from its
+query, so that the statements over it are still checked. A statement over
+a view that could not be made that way, or over `nested`, counts under the
+construct that kept the view from being made. Anything else (a wrong
+result, another error, an A2 name that raises) fails. The committed
+results are the reference's and are never regenerated here.
+
+`python -m tests.torch_golden` prints the tally: statements that pass,
+and those that raise, by ROADMAP.md item and construct."""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+
+import pytest
+
+from spark_tpu_torch import NotPortedError, TorchSession
+from spark_tpu_torch.errors import AnalysisException
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+RESULTS = os.path.join(HERE, "sql-tests", "results")
+
+# construct named by NotPortedError -> the ROADMAP.md item that ports it
+OUT_OF_SCOPE = {
+    "SQL statement CREATE": "A1",
+    "TIMESTAMP literals": "A1",
+    "type timestamp": "A1",
+    "VALUES": "A1",
+    "JOIN ... USING": "A1",
+    "view nested": "A1",
+    "lambda functions": "A11",
+    "subscript (element_at)": "A11",
+    "struct field access": "A11",
+    "lag with a default value": "A11",
+    "lead with a default value": "A11",
+    "min of a string column": "A3",
+    "sum(DISTINCT": "A3",
+    "avg(DISTINCT": "A3",
+    "multiple DISTINCT": "A3",
+}
+# function names outside A2, by item (as tests/test_torch_functions.py's
+# NOT_PORTED)
+FUNCTIONS = {
+    "A1": ("hour", "minute", "second", "unix_timestamp", "from_unixtime",
+           "to_timestamp", "make_timestamp", "make_interval",
+           "make_dt_interval", "make_ym_interval"),
+    "A3": ("first", "any_value", "collect_list", "collect_set", "array_agg",
+           "median", "percentile", "percentile_approx", "mode", "bit_and",
+           "bit_or", "bit_xor", "corr", "covar_samp", "covar_pop",
+           "skewness", "kurtosis"),
+    "A11": ("array", "map", "struct", "named_struct", "split", "explode",
+            "size", "cardinality", "element_at", "sequence", "flatten",
+            "slice", "sort_array", "array_contains", "array_min",
+            "array_max", "array_distinct", "array_remove", "array_join",
+            "array_position", "array_repeat", "array_union",
+            "array_intersect", "array_except", "arrays_overlap",
+            "array_append", "array_prepend", "array_insert",
+            "array_compact", "arrays_zip", "array_sort", "map_keys",
+            "map_values", "map_contains_key", "map_from_arrays",
+            "map_from_entries", "str_to_map", "regexp_extract_all",
+            "transform", "filter", "exists", "forall", "any_match",
+            "all_match", "aggregate", "reduce", "zip_with",
+            "transform_keys", "transform_values", "map_filter",
+            "map_zip_with"),
+}
+for _item, _names in FUNCTIONS.items():
+    for _n in _names:
+        OUT_OF_SCOPE[f"function {_n}"] = _item
+
+_CREATE_VIEW = re.compile(
+    r"^\s*CREATE\s+(?:OR\s+REPLACE\s+)?(?:GLOBAL\s+)?TEMP(?:ORARY)?\s+VIEW"
+    r"\s+(\w+)", re.IGNORECASE)
+_MISSING_VIEW = re.compile(r"Table or view not found: (\w+)")
+
+
+def blocks(path: str) -> list[tuple[str, str]]:
+    """(statement, rendered result) of each block of a `.out` file."""
+    with open(path) as f:
+        text = f.read()
+    out = []
+    for chunk in text.split("-- !query\n")[1:]:
+        q, res = chunk.split("\n-- !result\n", 1)
+        out.append((q, res.rstrip("\n")))
+    return out
+
+
+def files(first: str, last: str) -> list[str]:
+    """The `.out` files whose names start in [first, last]."""
+    return [p for p in sorted(glob.glob(os.path.join(RESULTS, "*.out")))
+            if first <= os.path.basename(p)[0] <= last]
+
+
+def cases(first: str, last: str) -> list:
+    return [pytest.param(p, i, id=f"{os.path.basename(p)[:-4]}-{i}")
+            for p in files(first, last) for i in range(len(blocks(p)))]
+
+
+def item_of(what: str) -> str | None:
+    """The ROADMAP.md item of an out-of-scope construct, else None."""
+    w = what.lower()
+    for key, item in OUT_OF_SCOPE.items():
+        k = key.lower()
+        if w == k or w.startswith(k + " ") or w.startswith(k + "(") or (
+                not k.startswith("function ") and k in w):
+            return item
+    return None
+
+
+class Corpus:
+    """One CPU session over the golden views, with each file's unmade
+    views (statements run in file order within a test module)."""
+
+    def __init__(self):
+        from tests.test_golden import _render
+        from tests.tpcds_mini import register_tpcds
+
+        self.render = _render
+        self.session = TorchSession(
+            "golden", {"spark.sql.shuffle.partitions": 4,
+                       "spark.tpu.batch.capacity": 1 << 12}, device="cpu")
+        register_tpcds(self.session)
+        self.unmade: dict[str, str] = {"nested": "view nested"}
+
+    def close(self):
+        self.session.stop()
+
+    def _make_view(self, name: str, rest: str) -> None:
+        """The view a CREATE TEMP VIEW statement (a command, A1) would
+        make, made through the DataFrame API from its query, so the
+        statements over it are still checked; where the query itself
+        raises NotPortedError the view stays unmade, under that
+        construct."""
+        body = re.sub(r"^\s*AS\s", "", rest, flags=re.IGNORECASE)
+        try:
+            self.session.sql(body).createOrReplaceTempView(name)
+            self.unmade.pop(name.lower(), None)
+        except NotPortedError as e:
+            self.unmade[name.lower()] = e.what
+
+    def check(self, path: str, index: int) -> str:
+        """Run one block; returns "pass" or the out-of-scope construct it
+        raised on. Fails on anything else."""
+        q, want = blocks(path)[index]
+        try:
+            got = self.render(self.session.sql(q).toArrow()).rstrip("\n")
+        except NotPortedError as e:
+            m = _CREATE_VIEW.match(q)
+            if m:
+                self._make_view(m.group(1), q[m.end():])
+            item = item_of(e.what)
+            assert item is not None, f"{q!r} raised NotPortedError for " \
+                f"{e.what!r}, which is in scope"
+            return e.what
+        except AnalysisException as e:
+            m = _MISSING_VIEW.search(str(e))
+            assert m and m.group(1).lower() in self.unmade, \
+                f"{q!r} raised {e!r}"
+            return self.unmade[m.group(1).lower()]
+        assert got == want, f"{q!r}\ngot:\n{got}\nwant:\n{want}"
+        return "pass"
+
+
+if __name__ == "__main__":
+    import collections
+
+    corpus = Corpus()
+    tally: collections.Counter = collections.Counter()
+    for path in files("a", "z"):
+        for i in range(len(blocks(path))):
+            try:
+                what = corpus.check(path, i)
+            except AssertionError as e:
+                print("FAILS", os.path.basename(path), i, str(e)[:400])
+                what = "FAILS"
+            tally["pass" if what == "pass" else
+                  f"{item_of(what)}: {what}"] += 1
+    corpus.close()
+    print(f"statements {sum(tally.values())}, pass {tally.pop('pass')}")
+    for key, n in sorted(tally.items()):
+        print(f"{n:4d}  {key}")
