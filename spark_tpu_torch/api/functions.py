@@ -1,7 +1,9 @@
 """Column functions (counterpart of `spark_tpu/api/functions.py`, the port's
-subset): col, lit (string and decimal literals too), the sort orders asc and
-desc, when, coalesce, round, abs, the aggregates sum, count, countDistinct,
-approx_count_distinct, min, max, avg, grouping and grouping_id (with rollup
+subset): col, column, expr (a SQL expression string), lit (string and
+decimal literals too), the sort orders asc and desc, when, coalesce,
+round, abs, the aggregates sum, count, countDistinct,
+approx_count_distinct, min, max, avg, stddev, stddev_samp, stddev_pop,
+variance, var_samp, var_pop, grouping and grouping_id (with rollup
 and cube), the window functions row_number, rank, dense_rank,
 percent_rank, cume_dist, ntile, lag and lead (with `Column.over`), and the
 scalar functions of the reference's wrappers: isnull, isnan, greatest,
@@ -25,6 +27,15 @@ def col(name: str) -> Column:
     if name == "*":
         return Column(E.UnresolvedStar())
     return Column(E.UnresolvedAttribute(name.split(".")))
+
+
+column = col
+
+
+def expr(sql_text: str) -> Column:
+    from ..sql.parser import parse_expression
+
+    return Column(parse_expression(sql_text))
 
 
 def lit(v: Any) -> Column:
@@ -68,6 +79,28 @@ def avg(c) -> Column:
 
 
 mean = avg
+
+
+def stddev(c) -> Column:
+    return Column(E.StddevSamp(_c(c)))
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c) -> Column:
+    return Column(E.StddevPop(_c(c)))
+
+
+def variance(c) -> Column:
+    return Column(E.VarianceSamp(_c(c)))
+
+
+var_samp = variance
+
+
+def var_pop(c) -> Column:
+    return Column(E.VariancePop(_c(c)))
 
 
 def min(c) -> Column:  # noqa: A001

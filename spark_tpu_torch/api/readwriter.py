@@ -6,8 +6,9 @@ Role of the reference's DataFrameReader/Writer
 A reader builds a `LogicalRelation` over an `io/sources.py` source, which
 plans `ScanExec`; a writer collects the DataFrame to Arrow and writes it
 with pyarrow, a partitioned write through `io/commit.py`'s two-phase
-commit. `saveAsTable` and `insertInto` need the warehouse
-(`plan/warehouse.py`), which is not ported: they raise `NotPortedError`.
+commit. `saveAsTable` and `insertInto` write managed tables into the
+session's warehouse (`plan/warehouse.py`); with no warehouse,
+`saveAsTable` registers a temp view, as in the reference.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any
 
 import pyarrow as pa
 
-from ..errors import AnalysisException, NotPortedError
+from ..errors import AnalysisException
 from ..io.sources import (
     CSVSource, DataSource, JDBCSource, JSONSource, ORCSource, ParquetSource,
 )
@@ -259,10 +260,19 @@ class DataFrameWriter:
                 f.write(_json.dumps(row, default=str) + "\n")
 
     def saveAsTable(self, name: str) -> None:
-        raise NotPortedError("saveAsTable (the warehouse, plan/warehouse.py)")
+        wh = self.df.session.catalog_.external
+        if wh is None:
+            self.df.createOrReplaceTempView(name)
+            return
+        mode = {"errorifexists": "error"}.get(self._mode, self._mode)
+        wh.save_table(name, self.df.toArrow(), mode=mode)
 
     def insertInto(self, name: str) -> None:
-        raise NotPortedError("insertInto (the warehouse, plan/warehouse.py)")
+        wh = self.df.session.catalog_.external
+        if wh is not None and name in wh.list_tables():
+            wh.save_table(name, self.df.toArrow(), mode="append")
+            return
+        raise AnalysisException(f"table {name} is not a saved table")
 
     def save(self, path: str) -> None:
         getattr(self, self._format)(path)

@@ -174,6 +174,11 @@ UNPORTED_KEYS = {
         "model, obs/resources.py MemoryBudgetExceeded)",
 }
 
+WAREHOUSE_DIR = _register(ConfigEntry(
+    "spark.sql.warehouse.dir", "",
+    "Directory of the persistent warehouse: saved tables live there as "
+    "Parquet (plan/warehouse.py). Empty: no warehouse.", str))
+
 DEVICE = _register(ConfigEntry(
     "spark.torch.device", "cuda",
     "torch device the session runs on: 'cuda' (default; raises when no "
@@ -213,6 +218,11 @@ class SQLConf:
             self._values[k] = value
         return self
 
+    def overrides(self) -> dict:
+        """Snapshot of the explicit overrides."""
+        with self._lock:
+            return dict(self._values)
+
     def get(self, key: str | ConfigEntry, default: Any = None) -> Any:
         entry = key if isinstance(key, ConfigEntry) else _REGISTRY.get(key)
         k = entry.key if entry else key
@@ -233,3 +243,7 @@ class SQLConf:
     @property
     def batch_capacity(self) -> int:
         return int(self.get(BATCH_CAPACITY))
+
+
+def registry() -> dict[str, ConfigEntry]:
+    return dict(_REGISTRY)

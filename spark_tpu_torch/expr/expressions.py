@@ -94,7 +94,7 @@ __all__ = [
     "DateDiff", "Year", "Month", "DayOfMonth", "Quarter", "DayOfWeek",
     "DayOfYear", "WeekOfYear", "TruncDate", "MakeDate", "AddMonths",
     "LastDay", "MonthsBetween", "Grouping", "GroupingID", "DateFormat",
-    "StddevSamp", "StddevPop", "VarianceSamp", "VariancePop",
+    "StddevSamp", "StddevPop", "VarianceSamp", "VariancePop", "First",
 ]
 
 
@@ -3105,6 +3105,21 @@ class Average(AggregateFunction):
                 min(ct.precision + 4, DecimalType.MAX_PRECISION),
                 min(ct.scale + 4, 10))
         return float64
+
+
+class First(AggregateFunction):
+    """The first non-null value of a group (the reference's First with
+    ignore_nulls): DataFrame.dropDuplicates(subset) takes the other
+    columns with it. The SQL names first and any_value are A3's, so the
+    registry does not build it."""
+
+    def __init__(self, child: Expression, ignore_nulls: bool = True):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    @property
+    def dtype(self):
+        return self.child.dtype
 
 
 class _CentralMoment(AggregateFunction):

@@ -1,6 +1,6 @@
 """Aggregate lowering: logical aggregate functions -> buffer ops + final
 expressions (counterpart of `spark_tpu/physical/aggregates.py`, for sum,
-count, min, max, avg and the central moments: stddev and variance, sample
+count, min, max, first, avg and the central moments: stddev and variance, sample
 and population, from sum/sumsq/count buffers as
 `(sumsq - sum^2/n) / (n - ddof)`, NULL at n <= ddof). Merge ops are the
 partial ops' associative counterparts, so one kernel serves map-side
@@ -15,7 +15,7 @@ from dataclasses import dataclass
 from ..errors import NotPortedError
 from ..expr.expressions import (
     AggregateFunction, Alias, AttributeReference, Average, Count, Divide,
-    Expression, GreaterThan, If, Literal, Max, Min, Multiply, Sqrt,
+    Expression, First, GreaterThan, If, Literal, Max, Min, Multiply, Sqrt,
     StddevPop, StddevSamp, Subtract, Sum, _CentralMoment, cast_if,
 )
 from ..types import (
@@ -81,6 +81,9 @@ def lower_aggregate_function(func: AggregateFunction, out_name: str,
         op = "min" if isinstance(func, Min) else "max"
         b = battr(0, op)
         return AggSpec(func, child, [op], [b], Alias(b, out_name, out_id))
+    if isinstance(func, First):
+        b = battr(0, "first")
+        return AggSpec(func, child, ["first"], [b], Alias(b, out_name, out_id))
     if isinstance(func, Average):
         bs = battr(0, "sum")
         bc = battr(1, "count")

@@ -153,6 +153,17 @@ class ScanExec(PhysicalPlan):
         return f"Scan[{self.name}]({', '.join(a.name for a in self.attrs)})"
 
 
+def _evict_scan_entry(cache: dict, tid: int):
+    """A weakref callback that drops `cache[tid]` if it is still the entry
+    of the table that died (a new table may have taken its id since)."""
+    def evict(ref) -> None:
+        entry = cache.get(tid)
+        if entry is not None and entry[0] is ref:
+            del cache[tid]
+
+    return evict
+
+
 class LocalTableScanExec(PhysicalPlan):
     child_fields = ()
 
@@ -170,13 +181,16 @@ class LocalTableScanExec(PhysicalPlan):
     def execute(self, ctx: ExecContext) -> list[Partition]:
         from ..columnar.arrow import table_to_batches
 
-        # ingested tiles are cached per table in the session (keyed by
-        # id with a weakref check: ids recycle after GC, so a hit must
-        # prove the entry still belongs to THIS table)
+        # ingested tiles are cached per table in the session, keyed by id
+        # with a weakref check (ids recycle after GC, so a hit must prove
+        # the entry still belongs to THIS table); the weakref's callback
+        # evicts the entry, and its tiles, when the table dies: a DML
+        # command or a replaced view leaves the old table to die
         tid = id(self.table)
         entry = ctx.scan_cache.get(tid)
         if entry is None or entry[0]() is not self.table:
-            entry = (weakref.ref(self.table), {})
+            entry = (weakref.ref(self.table,
+                                 _evict_scan_entry(ctx.scan_cache, tid)), {})
             ctx.scan_cache[tid] = entry
         names = tuple(a.name for a in self.attrs)
         key = (names, ctx.conf.batch_capacity, str(ctx.device))

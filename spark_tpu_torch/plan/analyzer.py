@@ -8,13 +8,15 @@ star expansion, function and window resolution), ResolveGroupByAlias,
 ResolveSubqueries (a subquery's plan resolves in its own scope, and a name
 it cannot resolve there binds to the outer query: a correlation),
 GlobalAggregates, ResolveAggsInSortHaving, ResolveSortHiddenRefs,
+ResolveUsingJoin (JOIN ... USING), ResolveSessionVariables (a name no
+column resolves reads a declared session variable),
 ExtractWindowFromAggregate and ExtractWindowExpressions (window functions
 move into Window nodes, one per spec), FoldIntervalArithmetic,
 ResolveAliases, CoerceDecimalArithmetic, WidenSetOperationTypes and
 CheckAnalysis. Numeric coercion happens where each expression evaluates
-(common_type casts), as in the JAX package. The other rules (generators,
-USING joins in SQL, session variables) are listed in ROADMAP.md; their
-constructs raise NotPortedError at parse time."""
+(common_type casts), as in the JAX package. Generators (LATERAL VIEW,
+explode) are listed in ROADMAP.md; they raise NotPortedError at parse
+time."""
 
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from typing import Sequence
 
 from ..errors import AnalysisException, UnresolvedColumnError
 from ..expr.expressions import (
-    Add, AggregateFunction, Alias, AttributeReference, Average, Cast, Count,
-    Divide, Expression, Grouping, GroupingID, IntervalLiteral, Literal, Max,
+    Add, AggregateFunction, Alias, And, AttributeReference, Average, Cast,
+    Coalesce, Count, Divide, EqualTo, Expression, Grouping, GroupingID, IntervalLiteral, Literal, Max,
     Min, Multiply, SortOrder, Subtract, Sum, UnaryMinus, UnresolvedAttribute,
     UnresolvedFunction, UnresolvedStar, cast_if,
 )
@@ -35,7 +37,7 @@ from .catalog import Catalog
 from .logical import (
     Aggregate, Except, Filter, GroupingSets, Intersect, Join, LocalRelation,
     LogicalPlan, LogicalRelation, Project, RangeRelation, Sort,
-    SubqueryAlias, Union, UnresolvedRelation, Window,
+    SubqueryAlias, Union, UnresolvedRelation, UsingJoin, Window,
 )
 from .tree import Batch, FixedPoint, Once, Rule, RuleExecutor
 
@@ -90,7 +92,7 @@ class DeduplicateRelations(Rule):
 
     def apply(self, plan: LogicalPlan) -> LogicalPlan:
         def rule(node):
-            if isinstance(node, Join):
+            if isinstance(node, (Join, UsingJoin)):
                 try:
                     left_ids = {a.expr_id for a in node.left.output}
                     right_ids = {a.expr_id for a in node.right.output}
@@ -605,6 +607,106 @@ class ResolveSubqueries(Rule):
         return plan.transform_up(rule)
 
 
+class ResolveSessionVariables(Rule):
+    """A single-part name that no column resolved reads a declared session
+    variable and becomes its literal value: a column wins over a variable
+    (the reference's resolution order)."""
+
+    def __init__(self, catalog: Catalog):
+        self.catalog = catalog
+
+    def apply(self, plan):
+        variables = self.catalog.variables
+        if not variables:
+            return plan
+
+        def fix(e):
+            if isinstance(e, UnresolvedAttribute) and \
+                    len(e.name_parts) == 1:
+                hit = variables.get(e.name_parts[0].lower())
+                if hit is not None:
+                    return hit
+            return e
+
+        def rule(node):
+            # only where the children are resolved: a column of the same
+            # name must win first
+            if all(c.resolved for c in node.children):
+                return node.map_expressions(
+                    lambda ex: ex.transform_up(fix))
+            return node
+
+        return plan.transform_up(rule)
+
+
+class ResolveUsingJoin(Rule):
+    """JOIN USING (c1, ...) -> an equi Join and a projection emitting each
+    using column once: inner and left take the left side's column,
+    right_outer the right's, full_outer coalesces both; semi and anti keep
+    the left output. As in the reference, and unlike Spark, the dropped
+    right-side key is not kept as a hidden attribute, so `r.k` after
+    USING (k) does not resolve."""
+
+    def __init__(self, case_sensitive: bool = False):
+        self.cs = case_sensitive
+
+    def apply(self, plan):
+        def find(attrs, name):
+            matches = [a for a in attrs
+                       if a.name == name or (
+                           not self.cs
+                           and a.name.lower() == name.lower())]
+            if len({a.expr_id for a in matches}) > 1:
+                raise AnalysisException(
+                    f"USING column `{name}` is ambiguous",
+                    error_class="AMBIGUOUS_REFERENCE")
+            if not matches:
+                raise AnalysisException(
+                    f"USING column {name} not found among "
+                    f"[{', '.join(a.name for a in attrs)}]")
+            return matches[0]
+
+        def rule(node):
+            if not isinstance(node, UsingJoin) or \
+                    not (node.left.resolved and node.right.resolved):
+                return node
+            try:
+                lout = node.left.output
+                rout = node.right.output
+            except AnalysisException:
+                return node     # children await alias resolution
+            lats = [find(lout, c) for c in node.using_cols]
+            rats = [find(rout, c) for c in node.using_cols]
+            cond = None
+            for la, ra in zip(lats, rats):
+                c = EqualTo(la, ra)
+                cond = c if cond is None else And(cond, c)
+            joined = Join(node.left, node.right, node.join_type, cond)
+            jt = joined.join_type
+            if jt in ("left_semi", "left_anti"):
+                return joined
+            # the join's output attributes: a null-padded side's are
+            # nullable there
+            by_id = {a.expr_id: a for a in joined.output}
+            jl = [by_id[a.expr_id] for a in lats]
+            jr = [by_id[a.expr_id] for a in rats]
+            if jt == "right_outer":
+                keys: list[Expression] = list(jr)
+            elif jt == "full_outer":
+                keys = [Alias(Coalesce([la, ra]), la.name)
+                        for la, ra in zip(jl, jr)]
+            else:
+                keys = list(jl)
+            drop = {a.expr_id for a in lats} | {a.expr_id for a in rats}
+            rest = [by_id[a.expr_id] for a in node.left.output
+                    if a.expr_id not in drop] + \
+                   [by_id[a.expr_id] for a in node.right.output
+                    if a.expr_id not in drop]
+            return Project(keys + rest, joined)
+
+        return plan.transform_up(rule)
+
+
 class ExtractWindowFromAggregate(Rule):
     """Window functions in a grouped SELECT evaluate over the grouped rows:
     Aggregate(g, outs with windows) -> Project(outs', Aggregate(g, aggs)),
@@ -943,12 +1045,16 @@ class Analyzer(RuleExecutor):
             Batch("Resolution", FixedPoint(50), [
                 ResolveRelations(self.catalog),
                 DeduplicateRelations(),
+                ResolveUsingJoin(cs),
                 ResolveReferences(cs),
                 ResolveGroupByAlias(cs),
                 ResolveSubqueries(self),
                 GlobalAggregates(),
                 ResolveAggsInSortHaving(cs),
                 ResolveSortHiddenRefs(cs),
+                # after the HAVING/ORDER rules: a column reachable through
+                # the aggregate's child must win over a session variable
+                ResolveSessionVariables(self.catalog),
                 ExtractWindowFromAggregate(),
                 ExtractWindowExpressions(),
                 FoldIntervalArithmetic(),
@@ -974,6 +1080,9 @@ class Analyzer(RuleExecutor):
             DeduplicateRelations(),
             ResolveReferences(cs),
             ResolveGroupByAlias(cs),
+            # no ResolveSessionVariables: inside a subquery a bare name
+            # resolves to an inner column, then an outer one (a
+            # correlation), then a variable (node_fix below)
             ResolveSubqueries(self),
             GlobalAggregates(),
             ResolveAggsInSortHaving(cs),
@@ -1006,6 +1115,11 @@ class Analyzer(RuleExecutor):
                         a = _resolve_name(e.name_parts, outer, cs)
                         if a is not None:
                             return a
+                        if len(e.name_parts) == 1:
+                            hit = self.catalog.variables.get(
+                                e.name_parts[0].lower())
+                            if hit is not None:
+                                return hit
                     return e
 
                 return n.transform_expressions(fix)

@@ -2,8 +2,8 @@
 the port's DataFrame API and SQL parser build): UnresolvedRelation,
 LogicalRelation (a data source), LocalRelation, OneRowRelation,
 RangeRelation, SubqueryAlias, WithCTE, Project, Filter, Aggregate,
-Distinct, Sort, Limit, Offset, Repartition, Window, GroupingSets, Join
-and Union, with the reference's crude row-count estimates (`stats_rows`)
+Distinct, Sort, Limit, Offset, Repartition, Window, GroupingSets, Join,
+UsingJoin and Union, with the reference's crude row-count estimates (`stats_rows`)
 that decide broadcast joins."""
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ __all__ = [
     "LogicalRelation", "OneRowRelation", "RangeRelation",
     "UnresolvedRelation", "SubqueryAlias", "WithCTE", "Project", "Filter",
     "Aggregate", "Distinct", "Sort", "Limit", "Offset",
-    "Repartition", "Window", "GroupingSets", "Join", "Union",
+    "Repartition", "Window", "GroupingSets", "Join", "UsingJoin", "Union",
     "normalize_join_type",
 ]
 
@@ -385,6 +385,28 @@ def normalize_join_type(jt: str) -> str:
     if s not in mapping:
         raise AnalysisException(f"unsupported join type {jt}")
     return mapping[s]
+
+
+class UsingJoin(BinaryNode):
+    """JOIN ... USING (c1, ...) before resolution: ResolveUsingJoin
+    (plan/analyzer.py) rewrites it into an equi Join and a projection that
+    emits each using column once."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 join_type: str, using_cols: list):
+        self.left = left
+        self.right = right
+        self.join_type = normalize_join_type(join_type)
+        self.using_cols = list(using_cols)
+
+    @property
+    def resolved(self):
+        return False    # always rewritten by ResolveUsingJoin
+
+    @property
+    def output(self):
+        raise AnalysisException(
+            f"unresolved USING join on {self.using_cols}")
 
 
 class Join(BinaryNode):

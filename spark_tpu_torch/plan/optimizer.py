@@ -676,17 +676,19 @@ def _collapse_adjacent_projects(plan: LogicalPlan) -> LogicalPlan:
 
 class ReorderJoins(Rule):
     """Greedy left-deep reordering of inner-join chains by estimated row
-    counts (the reference's, without column statistics: plan/stats.py):
-    seed with the cheapest connected pair, then repeatedly attach the
-    cheapest relation connected to the rows already joined by an equality
-    (by any predicate only when none is).
+    counts (the reference's: plan/stats.py `estimate`): seed with the
+    cheapest connected pair, then repeatedly attach the cheapest relation
+    connected to the rows already joined by an equality (by any predicate
+    only when none is). A pair's or a step's cost is the product of the
+    rows divided by the largest ndv of its connecting equi keys, which
+    only ANALYZE TABLE gives; without it the cost is the product.
     Fires on Filter(Join) too: a comma-list FROM parses as a cross-join
     chain under one Filter holding every WHERE conjunct; multi-table
     conjuncts become join conditions, single-table ones stay in the
     Filter."""
 
     def apply(self, plan):
-        from .stats import estimate_rows
+        from .stats import Statistics, estimate
 
         def rule(node):
             filter_conds: list[Expression] = []
@@ -724,24 +726,46 @@ class ReorderJoins(Rule):
                 return node
 
             ests = {}
+            istats: dict[int, Statistics] = {}
             for it in items:
-                rows = estimate_rows(it)
-                ests[id(it)] = float("inf") if rows is None else rows
+                st = estimate(it)
+                istats[id(it)] = st
+                ests[id(it)] = float("inf") if st.row_count is None \
+                    else st.row_count
             remaining = list(items)
 
             def _key(x):  # deterministic tie-break: a stable fixpoint
                 out0 = x.output[0].expr_id if x.output else 0
                 return (ests[id(x)], out0)
 
+            def _ndv_denom(cd, stats_of) -> int:
+                denom = 1
+                for side in (cd.left, cd.right):
+                    if isinstance(side, AttributeReference):
+                        for st in stats_of:
+                            cs = st.get(side.name.lower())
+                            if cs is not None and cs.distinct_count:
+                                denom = max(denom, cs.distinct_count)
+                return denom
+
             def _pair_cost(a, b) -> float:
                 ra, rb = ests[id(a)], ests[id(b)]
+                if ra == float("inf") or rb == float("inf"):
+                    return float("inf")
                 aids = {x.expr_id for x in a.output}
                 bids = {x.expr_id for x in b.output}
-                connected = any(
-                    refs and refs <= (aids | bids) and refs & aids
-                    and refs & bids
-                    for refs in (cd.references() for cd in conds))
-                return ra * rb if connected else float("inf")
+                denom, connected = 1, False
+                for cd in conds:
+                    refs = cd.references()
+                    if not (refs and refs <= (aids | bids)
+                            and refs & aids and refs & bids):
+                        continue
+                    connected = True
+                    if isinstance(cd, EqualTo):
+                        denom = max(denom, _ndv_denom(
+                            cd, (istats[id(a)].col_stats,
+                                 istats[id(b)].col_stats)))
+                return (ra * rb) / denom if connected else float("inf")
 
             best, best_cost = None, float("inf")
             for i, a in enumerate(items):
@@ -756,12 +780,32 @@ class ReorderJoins(Rule):
             unused = list(conds)
             result = cur
             cur_rows = ests[id(cur)]
+            cur_colstats = dict(istats[id(cur)].col_stats)
 
             def _joined_rows(cand) -> float:
+                """|result join cand|: the product over the largest ndv of
+                the connecting equi keys (a candidate's own statistics
+                first, then those joined so far)."""
                 crows = ests[id(cand)]
                 if cur_rows == float("inf") or crows == float("inf"):
                     return crows
-                return cur_rows * crows
+                cstats = istats[id(cand)].col_stats
+                cids = {a.expr_id for a in cand.output}
+                denom = 1
+                for cd in unused:
+                    if not isinstance(cd, EqualTo):
+                        continue
+                    refs = cd.references()
+                    if not (refs and refs <= (joined_ids | cids)
+                            and refs & joined_ids and refs & cids):
+                        continue
+                    for side in (cd.left, cd.right):
+                        if isinstance(side, AttributeReference):
+                            cs = (cstats.get(side.name.lower())
+                                  or cur_colstats.get(side.name.lower()))
+                            if cs is not None and cs.distinct_count:
+                                denom = max(denom, cs.distinct_count)
+                return (cur_rows * crows) / max(denom, 1)
 
             while remaining:
                 def connects(cand, equi_only: bool):
@@ -781,6 +825,7 @@ class ReorderJoins(Rule):
                 pick = min(pool, key=lambda x: (_joined_rows(x), _key(x)))
                 remaining.remove(pick)
                 cur_rows = _joined_rows(pick)
+                cur_colstats.update(istats[id(pick)].col_stats)
                 joined_ids |= {a.expr_id for a in pick.output}
                 applicable = [cd for cd in unused
                               if cd.references() <= joined_ids]

@@ -16,9 +16,15 @@ string, DATE and INTERVAL literals, CAST, CASE (searched and simple),
 function calls (the analyzer resolves the names it knows), window
 functions `fn(...) OVER (PARTITION BY ... ORDER BY ... [ROWS | RANGE
 frame])` and named `WINDOW` specs, and GROUP BY ROLLUP, CUBE and
-GROUPING SETS. Every other production of the reference's grammar raises
-`NotPortedError` naming the construct: RLIKE, VALUES, hints, scripts
-and commands among them.
+GROUPING SETS, VALUES (a LocalRelation, as a query and in FROM) and JOIN
+... USING. `parse_statement` also reads the commands (plan/commands.py):
+CREATE [OR REPLACE] [TEMP] VIEW | TABLE ... AS, DROP VIEW | TABLE |
+VARIABLE, INSERT INTO | OVERWRITE, UPDATE, DELETE, MERGE, SHOW TABLES |
+FUNCTIONS [LIKE], DESCRIBE, EXPLAIN [EXTENDED | FORMATTED | ANALYZE],
+DECLARE, SET [VARIABLE], ANALYZE TABLE and [UN]CACHE TABLE. Every other
+production of the reference's grammar raises `NotPortedError` naming the
+construct: table-valued functions, TABLESAMPLE and the struct, array and
+timestamp constructs among them.
 """
 
 from __future__ import annotations
@@ -40,11 +46,19 @@ from ..types import (
 from .lexer import Token, tokenize
 
 
-def parse_sql(text: str) -> L.LogicalPlan:
+def parse_sql(text: str):
+    """A query's LogicalPlan, or a command (plan/commands.py)."""
     p = Parser(tokenize(text))
     plan = p.parse_statement()
     p.expect_eof()
     return plan
+
+
+def parse_expression(text: str) -> E.Expression:
+    p = Parser(tokenize(text))
+    e = p.parse_named_expression()
+    p.expect_eof()
+    return e
 
 
 class Parser:
@@ -78,6 +92,20 @@ class Parser:
             raise ParseException(
                 f"expected {word.upper()} near {self.peek().value!r}")
 
+    def eat_word(self, word: str) -> bool:
+        """Consume a statement word that is not a reserved keyword
+        (ANALYZE, COMPUTE, STATISTICS, ... lex as plain identifiers)."""
+        t = self.peek()
+        if t.kind in ("kw", "ident") and t.value.lower() == word:
+            self.next()
+            return True
+        return False
+
+    def expect_word(self, word: str) -> None:
+        if not self.eat_word(word):
+            raise ParseException(
+                f"expected {word.upper()} near {self.peek().value!r}")
+
     def at_op(self, *ops: str) -> bool:
         t = self.peek()
         return t.kind == "op" and t.value in ops
@@ -107,16 +135,229 @@ class Parser:
         raise ParseException(f"expected identifier near {t.value!r}")
 
     # --- statements -------------------------------------------------------
-    def parse_statement(self) -> L.LogicalPlan:
+    def parse_statement(self):
+        from ..plan import commands as C
+
         if self.at_kw("with", "select", "values") or self.at_op("("):
             return self.parse_query()
-        t = self.peek()
-        if t.kind == "eof":
-            raise ParseException("empty statement")
-        # CREATE/DROP/INSERT/UPDATE/DELETE/MERGE/SHOW/DESCRIBE/EXPLAIN/SET/
-        # DECLARE/ANALYZE/CACHE and BEGIN ... END scripts
-        raise NotPortedError(f"SQL statement {t.value.upper()} (commands "
-                             "and scripts)")
+        if self.eat_kw("create"):
+            replace = False
+            if self.eat_kw("or"):
+                self.expect_kw("replace")
+                replace = True
+            while self.peek().value.lower() in ("global", "temporary", "temp"):
+                self.next()
+            materialize = False
+            if self.eat_kw("view"):
+                pass
+            elif self.eat_kw("table"):
+                materialize = True
+            else:
+                raise ParseException("expected VIEW or TABLE")
+            name = self._qualified_name()
+            self.expect_kw("as")
+            q = self.parse_query()
+            return C.CreateViewCommand(name, q, replace=replace or True,
+                                       materialize=materialize)
+        if self.eat_kw("drop"):
+            self.eat_word("temporary")
+            if self.peek().value.lower() in ("variable", "var"):
+                self.next()
+                if_exists = False
+                if self.eat_word("if"):
+                    self.expect_word("exists")
+                    if_exists = True
+                return C.DropVariableCommand(self.ident(), if_exists)
+            if not (self.eat_kw("view") or self.eat_kw("table")):
+                raise ParseException("expected VIEW or TABLE")
+            if_exists = False
+            if self.peek().value.lower() == "if":
+                self.next()
+                self.expect_kw("exists")
+                if_exists = True
+            return C.DropRelationCommand(self._qualified_name(), if_exists)
+        if self.eat_kw("insert"):
+            overwrite = False
+            if self.peek().value.lower() == "overwrite":
+                self.next()
+                overwrite = True
+                self.eat_kw("table")
+            else:
+                self.expect_kw("into")
+                self.eat_kw("table")
+            name = self._qualified_name()
+            q = self.parse_query()
+            return C.InsertIntoCommand(name, q, overwrite)
+        if self.eat_kw("update"):
+            name = self._qualified_name()
+            self.expect_kw("set")
+            assigns = [self._parse_assignment()]
+            while self.eat_op(","):
+                assigns.append(self._parse_assignment())
+            cond = self.parse_expr() if self.eat_kw("where") else None
+            return C.UpdateCommand(name, assigns, cond)
+        if self.eat_kw("delete"):
+            self.expect_kw("from")
+            name = self._qualified_name()
+            cond = self.parse_expr() if self.eat_kw("where") else None
+            return C.DeleteCommand(name, cond)
+        if self.eat_kw("merge"):
+            return self._parse_merge()
+        if self.eat_kw("show"):
+            if self.eat_word("functions"):
+                pattern = None
+                if self.eat_kw("like"):
+                    t = self.next()
+                    if t.kind != "str":
+                        raise ParseException(
+                            "SHOW FUNCTIONS LIKE expects a string "
+                            f"literal, got {t.value!r}")
+                    pattern = str(t.value)
+                return C.ShowFunctionsCommand(pattern)
+            self.expect_kw("tables")
+            return C.ShowTablesCommand()
+        if self.eat_kw("describe"):
+            self.eat_kw("table")
+            return C.DescribeCommand(self._qualified_name())
+        if self.eat_kw("explain"):
+            mode = self.peek().value.lower()
+            analyze = mode == "analyze"
+            extended = mode in ("extended", "formatted")
+            if analyze or extended:
+                self.next()
+            return C.ExplainCommand(self.parse_query(), extended, analyze)
+        if self.peek().value.lower() == "declare":
+            self.next()
+            replace = False
+            if self.eat_word("or"):
+                self.expect_word("replace")
+                replace = True
+            self.eat_word("variable") or self.eat_word("var")
+            name = self.ident()
+            dtype = None
+            if self.peek().kind in ("ident", "kw") and \
+                    self.peek().value.lower() != "default":
+                dtype = self.parse_type()
+            default = None
+            if self.eat_word("default") or self.eat_op("="):
+                default = self.parse_expr()
+            return C.DeclareVariableCommand(name, dtype, default,
+                                            replace=replace)
+        if self.peek().value.lower() == "analyze":
+            self.next()
+            self.expect_word("table")
+            name = self._qualified_name()
+            self.expect_word("compute")
+            self.expect_word("statistics")
+            columns = None
+            if self.eat_word("for"):
+                if self.eat_word("all"):
+                    self.expect_word("columns")
+                else:
+                    self.expect_word("columns")
+                    columns = [self.ident()]
+                    while self.eat_op(","):
+                        columns.append(self.ident())
+            return C.AnalyzeTableCommand(name, columns)
+        if self.peek().value.lower() == "cache":
+            self.next()
+            self.expect_kw("table")
+            return C.CacheTableCommand(self._qualified_name())
+        if self.peek().value.lower() == "uncache":
+            self.next()
+            self.expect_kw("table")
+            return C.CacheTableCommand(self._qualified_name(), uncache=True)
+        if self.peek().value.lower() == "set":
+            self.next()
+            if self.peek().kind == "eof":
+                return C.SetCommand(None, None)
+            if self.peek().value.lower() in ("variable", "var"):
+                self.next()
+                name = self.ident()
+                self.expect_op("=")
+                return C.SetVariableCommand(name, self.parse_expr())
+            key = self._conf_key()
+            value = None
+            if self.eat_op("="):
+                parts = []
+                while self.peek().kind != "eof" and not self.at_op(";"):
+                    parts.append(self.next().value)
+                value = " ".join(parts)
+            return C.SetCommand(key, value)
+        raise ParseException(
+            f"unsupported statement near {self.peek().value!r}")
+
+    def _parse_assignment(self):
+        parts = [self.ident()]
+        while self.eat_op("."):
+            parts.append(self.ident())
+        self.expect_op("=")
+        return (parts[-1], self.parse_expr())
+
+    def _parse_merge(self):
+        from ..plan import commands as C
+
+        self.expect_kw("into")
+        name = self._qualified_name()
+        talias = self._maybe_alias() or name.split(".")[-1]
+        target = L.SubqueryAlias(talias,
+                                 L.UnresolvedRelation(name.split(".")))
+        self.expect_kw("using")
+        source = self.parse_relation_primary()
+        self.expect_kw("on")
+        cond = self.parse_expr()
+        matched, not_matched = [], []
+        while self.eat_kw("when"):
+            neg = self.eat_kw("not")
+            self.expect_kw("matched")
+            extra = self.parse_expr() if self.eat_kw("and") else None
+            self.expect_kw("then")
+            if neg:
+                self.expect_kw("insert")
+                if self.at_op("*"):
+                    self.next()
+                    not_matched.append(C.MergeClause(
+                        "insert", extra, insert_star=True))
+                else:
+                    self.expect_op("(")
+                    cols = [self.ident()]
+                    while self.eat_op(","):
+                        cols.append(self.ident())
+                    self.expect_op(")")
+                    self.expect_kw("values")
+                    self.expect_op("(")
+                    vals = [self.parse_expr()]
+                    while self.eat_op(","):
+                        vals.append(self.parse_expr())
+                    self.expect_op(")")
+                    not_matched.append(C.MergeClause(
+                        "insert", extra, insert_cols=cols,
+                        insert_vals=vals))
+            elif self.eat_kw("delete"):
+                matched.append(C.MergeClause("delete", extra))
+            else:
+                self.expect_kw("update")
+                self.expect_kw("set")
+                assigns = [self._parse_assignment()]
+                while self.eat_op(","):
+                    assigns.append(self._parse_assignment())
+                matched.append(C.MergeClause("update", extra,
+                                             assignments=assigns))
+        return C.MergeCommand(name, target, source, cond, matched,
+                              not_matched)
+
+    def _qualified_name(self) -> str:
+        parts = [self.ident()]
+        while self.eat_op("."):
+            parts.append(self.ident())
+        return ".".join(parts)
+
+    def _conf_key(self) -> str:
+        parts = [self.next().value]
+        while self.at_op("."):
+            self.next()
+            parts.append(self.next().value)
+        return ".".join(parts)
 
     def parse_query(self) -> L.LogicalPlan:
         depth = self._query_depth
@@ -166,8 +407,41 @@ class Parser:
             self.expect_op(")")
             return q
         if self.at_kw("values"):
-            raise NotPortedError("VALUES")
+            return self.parse_values()
         return self.parse_select()
+
+    def parse_values(self) -> L.LogicalPlan:
+        """VALUES (..), (..): a LocalRelation of columns col1, col2, ...
+        whose entries must fold to constants."""
+        self.expect_kw("values")
+        rows = []
+        while True:
+            self.expect_op("(")
+            row = [self.parse_expr()]
+            while self.eat_op(","):
+                row.append(self.parse_expr())
+            self.expect_op(")")
+            rows.append(row)
+            if not self.eat_op(","):
+                break
+        import pyarrow as pa
+
+        from ..plan.optimizer import const_value
+        from ..types import from_arrow_type
+
+        cols = {}
+        for c in range(len(rows[0])):
+            vals = []
+            for r in rows:
+                ok, v = const_value(r[c])
+                if not ok:
+                    raise ParseException("VALUES entries must be literals")
+                vals.append(v)
+            cols[f"col{c + 1}"] = vals
+        table = pa.table(cols)
+        attrs = [E.AttributeReference(f.name, from_arrow_type(f.type), True)
+                 for f in table.schema]
+        return L.LocalRelation(attrs, table)
 
     def parse_select(self) -> L.LogicalPlan:
         self.expect_kw("select")
@@ -356,11 +630,19 @@ class Parser:
                 return left
             right = self.parse_relation_primary()
             cond = None
+            using = None
             if self.eat_kw("on"):
                 cond = self.parse_expr()
-            elif self.at_kw("using"):
-                raise NotPortedError("JOIN ... USING in SQL text")
-            left = L.Join(left, right, jt, cond)
+            elif self.eat_kw("using"):
+                self.expect_op("(")
+                using = [self.ident()]
+                while self.eat_op(","):
+                    using.append(self.ident())
+                self.expect_op(")")
+            if using is not None:
+                left = L.UsingJoin(left, right, jt, using)
+            else:
+                left = L.Join(left, right, jt, cond)
 
     def _join_type(self) -> str | None:
         if self.eat_kw("cross"):

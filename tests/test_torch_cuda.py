@@ -1757,3 +1757,117 @@ def test_fused_string_luts_merging_per_tile(stage_pair, tier):
         finally:
             s.conf.set("spark.tpu.compile.tier", "stage")
     assert got[1] == got[0] == want
+
+
+# --- commands on the card: DML through the compile tiers --------------------
+
+# statement lists run in order over _stage_views' tables; the view each
+# list changes is read back after every statement
+DML_CASES = {
+    "update": ("t", [
+        "UPDATE t SET v = v * 3, s = upper(s) WHERE k % 5 = 1",
+        "UPDATE t SET f = 0 WHERE v IS NULL"]),
+    "delete": ("t", [
+        "DELETE FROM t WHERE v > 80",
+        "DELETE FROM t WHERE k IN (SELECT dk FROM d WHERE name = 'n1')",
+        "DELETE FROM t WHERE s IN (SELECT s FROM e WHERE w > 60)"]),
+    "insert": ("t", [
+        "INSERT INTO t SELECT k + 100, v, f, s FROM t WHERE v < 0",
+        "INSERT INTO t VALUES (7, -1, 0.5, 'new')"]),
+    "ctas": ("tt", [
+        "CREATE TABLE tt AS SELECT k, sum(v) AS sv, count(*) AS n FROM t "
+        "GROUP BY k"]),
+    "merge": ("d", [
+        "CREATE TABLE d_src AS SELECT DISTINCT k AS dk, 'm' AS name FROM t "
+        "WHERE v > 90 UNION ALL SELECT 100 AS dk, 'z' AS name",
+        "MERGE INTO d USING d_src s ON d.dk = s.dk "
+        "WHEN MATCHED AND s.dk % 2 = 0 THEN DELETE "
+        "WHEN MATCHED THEN UPDATE SET name = s.name "
+        "WHEN NOT MATCHED THEN INSERT *"]),
+    "merge_cardinality": ("e", [
+        "MERGE INTO e USING (SELECT s, k, v FROM t) x ON e.s = x.s AND "
+        "e.k = x.k WHEN MATCHED THEN UPDATE SET w = x.v"]),
+}
+# auto with the whole tier's volume floor at 0: auto chooses whole where
+# the plan lowers
+DML_TIERS = {"auto": {"spark.tpu.compile.tier": "auto",
+                      "spark.tpu.compile.whole.minRows": 0},
+             "stage": {}}
+
+
+def _sorted_rows(s, view: str) -> list:
+    rows = s.sql(f"SELECT * FROM {view}").toArrow().to_pylist()
+    return sorted(rows, key=lambda r: [(v is not None, v)
+                                       for v in r.values()])
+
+
+@pytest.mark.parametrize("tier", list(DML_TIERS))
+@pytest.mark.parametrize("name", list(DML_CASES))
+def test_dml_card_equals_cpu(cuda_device, tier, name):
+    """Each DML statement on device="cuda" leaves the view the CPU's
+    leaves, at auto and at the stage tier; a MERGE whose target rows
+    match several source rows raises the same error on both."""
+    from spark_tpu_torch import TorchSession
+
+    conf = dict(STAGE, **DML_TIERS[tier])
+    view, statements = DML_CASES[name]
+    seen = []
+    for dev in ("cpu", "cuda"):
+        s = TorchSession(f"dml-{dev}", dict(conf), device=dev)
+        _stage_views(s)
+        out = []
+        try:
+            for text in statements:
+                try:
+                    s.sql(text)
+                    out.append(_sorted_rows(s, view))
+                except Exception as e:  # noqa: BLE001 - compared below
+                    out.append((type(e).__name__, str(e)[:60]))
+        finally:
+            s.stop()
+        seen.append(out)
+    assert seen[1] == seen[0]
+    if name == "merge_cardinality":
+        assert seen[1][0][0] == "ExecutionError"
+
+
+def test_inserts_release_replaced_tiles_on_card(cuda_device):
+    """Ten INSERT INTOs replace a view's table ten times: after them the
+    card holds the tiles of the live tables and no more (the stage cache
+    emptied and garbage collected before each reading)."""
+    import gc
+
+    import pyarrow as pa
+
+    from spark_tpu_torch import TorchSession
+    from spark_tpu_torch.physical.compile import STAGE_CACHE
+
+    def settled():
+        STAGE_CACHE.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    s = TorchSession("ins-card", dict(STAGE))
+    try:
+        base = settled()
+        s.createDataFrame(pa.table({"k": np.arange(1 << 18),
+                                    "v": np.arange(1 << 18) * 0.5})) \
+            .createOrReplaceTempView("grow")
+        for i in range(10):
+            s.sql(f"INSERT INTO grow VALUES ({i}, {i}.5)")
+            assert s.sql("SELECT count(*) AS c FROM grow").toArrow() \
+                .to_pylist() == [{"c": (1 << 18) + i + 1}]
+        held = settled() - base
+        rel = s.catalog_.lookup(["grow"])
+        live = 0
+        for batches in s._scan_cache[id(rel.table)][1].values():
+            for b in batches:
+                for t in [b.row_mask] + [x for c in b.columns
+                                         for x in (c.data, c.validity)
+                                         if x is not None]:
+                    live += t.numel() * t.element_size()
+        assert len(s._scan_cache) == 1
+        assert held <= 1.1 * live, (held, live)
+    finally:
+        s.stop()

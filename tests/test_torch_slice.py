@@ -290,6 +290,22 @@ def test_port_imports_neither_jax_nor_reference():
         "assert s.metrics['scan.dpp_pruned_splits'] == 45\n"
         "assert s.range(0, 100, 7, 3).count() == 15\n"
         "assert s.sql('SELECT 1 + 1 AS two').toArrow().num_rows == 1\n"
+        "import spark_tpu_torch.plan.commands, spark_tpu_torch.plan.stats\n"
+        "import spark_tpu_torch.plan.warehouse, spark_tpu_torch.api.na\n"
+        "import spark_tpu_torch.api.stat, spark_tpu_torch.sql.scripting\n"
+        "s.sql('CREATE TABLE ct AS SELECT k, v FROM fact WHERE k < 10')\n"
+        "s.sql('DELETE FROM ct WHERE k = 0')\n"
+        "s.sql('INSERT INTO ct VALUES (99, 1)')\n"
+        "s.sql('MERGE INTO ct USING (SELECT k, 0 AS v FROM dim) d ON '\n"
+        "      'ct.k = d.k WHEN MATCHED THEN UPDATE SET v = d.v')\n"
+        "s.sql('ANALYZE TABLE ct COMPUTE STATISTICS')\n"
+        "sc = s.sql('BEGIN DECLARE i INT DEFAULT 0; WHILE i < 3 DO '\n"
+        "           'SET VARIABLE i = i + 1; END WHILE; SELECT i AS r; END')\n"
+        "assert sc.toArrow().to_pylist() == [{'r': 3}]\n"
+        "u = s.sql('SELECT * FROM ct JOIN (SELECT col1 AS k FROM '\n"
+        "          '(VALUES (99))) w USING (k)')\n"
+        "assert u.toArrow().to_pylist() == [{'k': 99, 'v': 1}]\n"
+        "s.table('ct').na.fill(0).describe('v').collect()\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'jax' or m.startswith('jax.') or m == 'spark_tpu' or "
         "m.startswith('spark_tpu.'))]\n"
@@ -320,7 +336,7 @@ def test_unported_entry_points_raise_not_ported(sessions, what):
     df = t.createDataFrame(_table())
     with pytest.raises(NotPortedError):
         if what == "sql":
-            t.sql("VALUES (1)")
+            t.sql("CACHE TABLE t1")
         elif what == "binary_column":
             t.createDataFrame(pa.table({"b": [b"a", b"b"]}))
         elif what == "coalesce":
@@ -328,6 +344,8 @@ def test_unported_entry_points_raise_not_ported(sessions, what):
 
             df._with(Repartition(2, False, [], df.plan)).toArrow()
         elif what == "string_filter":
-            df.filter("v > 3")
+            # a string condition parses; a timestamp literal in it is A1's
+            df.filter("TIMESTAMP '2020-01-01 00:00:00' IS NULL")
         else:
-            t.createDataFrame(pa.table({"k": [1]}), schema=["k"])
+            # rows with a schema are ported; a binary column is not
+            t.createDataFrame([(b"a",)], schema=["b"])

@@ -9,15 +9,15 @@ out, since the port ingests no nested types (its `createDataFrame` raises
 NotPortedError naming the Arrow type). The result is rendered with
 test_golden.py's `_render`/`_fmt` rules and held to the committed block.
 
-A statement may instead raise NotPortedError for a construct outside the
-scalar expressions: `OUT_OF_SCOPE` maps each such construct to its
-ROADMAP.md item. A CREATE TEMP VIEW statement (a command, A1) raises;
-the view it would make is then made through the DataFrame API from its
-query, so that the statements over it are still checked. A statement over
-a view that could not be made that way, or over `nested`, counts under the
-construct that kept the view from being made. Anything else (a wrong
-result, another error, an A2 name that raises) fails. The committed
-results are the reference's and are never regenerated here.
+A statement may instead raise NotPortedError for a construct of another
+slice: `OUT_OF_SCOPE` maps each such construct to its ROADMAP.md item. A
+CREATE TEMP VIEW statement runs through the port's command and is held to
+its committed block like any other; where its query raises
+NotPortedError at parse time, the view is not made, and a statement over
+it, or over `nested`, counts under the construct that kept the view from
+being made. Anything else (a wrong result, another error, an in-scope
+construct that raises) fails. The committed results are the reference's
+and are never regenerated here.
 
 `python -m tests.torch_golden` prints the tally: statements that pass,
 and those that raise, by ROADMAP.md item and construct."""
@@ -38,11 +38,8 @@ RESULTS = os.path.join(HERE, "sql-tests", "results")
 
 # construct named by NotPortedError -> the ROADMAP.md item that ports it
 OUT_OF_SCOPE = {
-    "SQL statement CREATE": "A1",
     "TIMESTAMP literals": "A1",
     "type timestamp": "A1",
-    "VALUES": "A1",
-    "JOIN ... USING": "A1",
     "view nested": "A1",
     "lambda functions": "A11",
     "subscript (element_at)": "A11",
@@ -140,19 +137,6 @@ class Corpus:
     def close(self):
         self.session.stop()
 
-    def _make_view(self, name: str, rest: str) -> None:
-        """The view a CREATE TEMP VIEW statement (a command, A1) would
-        make, made through the DataFrame API from its query, so the
-        statements over it are still checked; where the query itself
-        raises NotPortedError the view stays unmade, under that
-        construct."""
-        body = re.sub(r"^\s*AS\s", "", rest, flags=re.IGNORECASE)
-        try:
-            self.session.sql(body).createOrReplaceTempView(name)
-            self.unmade.pop(name.lower(), None)
-        except NotPortedError as e:
-            self.unmade[name.lower()] = e.what
-
     def check(self, path: str, index: int) -> str:
         """Run one block; returns "pass" or the out-of-scope construct it
         raised on. Fails on anything else."""
@@ -162,7 +146,7 @@ class Corpus:
         except NotPortedError as e:
             m = _CREATE_VIEW.match(q)
             if m:
-                self._make_view(m.group(1), q[m.end():])
+                self.unmade[m.group(1).lower()] = e.what
             item = item_of(e.what)
             assert item is not None, f"{q!r} raised NotPortedError for " \
                 f"{e.what!r}, which is in scope"
