@@ -102,13 +102,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    materialise or whose scalar subqueries run before it
                    is timed as sql() + collect, with the sql() call (the
                    CTE round trip) and the scalar subqueries on lines of
-                   their own; last q3, q7 and q19 once more at each of
-                   the whole, stage and operator tiers on the same
-                   session, each to its oracle; then the expressions leg
-                   on that session and its views: the scalar functions
-                   of EXPRESSION_QUERIES at `auto`, stage and forced
-                   `whole`, each to numpy/Python oracle rows computed
-                   after the last timed run of the query files;
+                   their own (its cold run makes the DataFrame the plan
+                   checks read after it, so its sql() runs once, and
+                   its scalar subqueries are counted against
+                   TPCDS_SCALAR_SUBQUERIES); last q3, q7 and q19 once
+                   more at each of the whole, stage and operator tiers on
+                   the same session, each to its oracle; then the
+                   expressions leg on that session and its views: the
+                   scalar functions of EXPRESSION_QUERIES at `auto`,
+                   stage and forced `whole`, each to numpy/Python oracle
+                   rows computed after the last timed run of the query
+                   files; then the types leg: TYPES_QUERIES (timestamps
+                   made on the card from d_date and t_time grouped by
+                   hour and filtered by a TIMESTAMP window; a word count
+                   of explode(split(ca_county)), two or three words an
+                   address, and array functions of the split; a struct key and a map lookup over a
+                   view of item built by named_struct and map, and that
+                   view collected) at `auto` and at the stage tier, each
+                   to numpy oracle rows; then the maintenance leg;
        parquet:    (at `auto`, DPP at the stage tier; 1 warm run each)
                    q3, q7 and q19 read through
                    spark.read.parquet from
@@ -2133,6 +2144,11 @@ TPCDS_CTE_ROWS = {"q31": {"ss": 2000, "ws": 2000}, "q59": {"wss": 26883},
                   "q14a": {"cross_items": 102000, "avg_sales": 1},
                   "q14b": {"cross_items": 102000, "avg_sales": 1},
                   "q39a": {"inv": 367524}, "q39b": {"inv": 367524}}
+# the queries whose optimizer runs uncorrelated scalar subqueries (in its
+# last step, each once: the `subquery.scalar` metric), with their number
+TPCDS_SCALAR_SUBQUERIES = {"q9": 15, "q24a": 1, "q24b": 1, "q45": 2,
+                           "q58": 3, "q44": 2, "q6": 1, "q14a": 15,
+                           "q14b": 4, "q54": 2}
 
 
 def tiles(rows: int, tile: int) -> int:
@@ -2777,12 +2793,25 @@ def tier_run(torch, sk, card: str, label: str, spark, tier: str, run,
     return launches
 
 
+def show_plan(label: str, df, plan_parts) -> dict:
+    """Print the physical plan and the tier decision of `df`, assert the
+    plan holds each of `plan_parts`, and return the decision."""
+    plan = df.query_execution.physical.tree_string()
+    decision = decision_report(df)
+    print(f"{label} plan:\n{plan}", flush=True)
+    print(f"{label} tier " + json.dumps(decision), flush=True)
+    for part in plan_parts:
+        if part not in plan:
+            fail(f"{label}: the physical plan lacks {part}")
+    return decision
+
+
 def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
           histograms, check, run=None, timed_shapes=None,
           profile: bool = True, operator=None, stage=None,
           stage_check=None, tiers_out=None, main_calls=None,
           warm_runs: int = 3, record_operator: bool = False,
-          whole: bool = False) -> dict:
+          whole: bool = False, session=None) -> dict:
     """One path through the DataFrame API at the session's tier (the
     default: `auto`, whose cost model picks whole, stage or operator per
     plan, printed with its reason): assert the physical plan holds each of
@@ -2817,27 +2846,30 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     operator tier's run records the same shapes and a whole program calls
     no kernel. A path with no stage run (parquet q3, q7 and q19: whole at
     `auto`, no `stage`) records them from an operator tier's run instead
-    (`record_operator`). Returns the launch counts of the first run;
-    `tiers_out`, where given, gets each tier's, by tier."""
+    (`record_operator`). `df` is the path's DataFrame or, where each run
+    makes its own (`run` parses anew: the SF10 queries whose sql() runs
+    their CTE bodies or whose optimizer runs their scalar subqueries), a
+    function giving the one the cold run made, whose plan is read after
+    that run; `session` is then the session. Returns the launch counts of
+    the first run; `tiers_out`, where given, gets each tier's, by tier."""
     from spark_tpu_torch.api.dataframe import DataFrame
 
     tiers_out = {} if tiers_out is None else tiers_out
-    spark = df.session
+    made = callable(df)
+    spark = session if made else df.session
     custom = run is not None
     run = run or df.toArrow
-    plan = df.query_execution.physical.tree_string()
-    decision = decision_report(df)
-    tier = decision["tier"]
-    print(f"{label} plan:\n{plan}", flush=True)
-    print(f"{label} tier " + json.dumps(decision), flush=True)
-    for part in plan_parts:
-        if part not in plan:
-            fail(f"{label}: the physical plan lacks {part}")
+    if not made:
+        decision = show_plan(label, df, plan_parts)
 
     torch.cuda.reset_peak_memory_stats()
     held0 = stage_counters()["stage_cache.held_bytes"]
     m0 = spark.metrics
     out, cold_s, launches, st = counted_run(torch, sk, spark, run)
+    if made:
+        df = df()
+        decision = show_plan(label, df, plan_parts)
+    tier = decision["tier"]
     calls = launches["partition_histogram"]
     tiers_out[tier] = launches
     print(f"{label} launches {json.dumps(launches)}; operator dispatches "
@@ -4527,22 +4559,7 @@ def tpcds_leg(torch, sk, card: str):
         if q in TPCDS_SF10_CUT:
             continue
         text = tpcds_text(q)
-        df = spark.sql(text)
-        if q in TPCDS_CTE_ROWS:
-            mat = cte_rows(df)
-            if mat != TPCDS_CTE_ROWS[q]:
-                fail(f"tpcds {q}: materialised CTE rows {mat}, not "
-                     f"{TPCDS_CTE_ROWS[q]}")
-        before = spark.metrics.get("subquery.scalar", 0)
-        ops = plan_ops(df)
-        scalars = spark.metrics.get("subquery.scalar", 0) - before
-        if ops != TPCDS_PLAN_OPS[q]:
-            fail(f"tpcds {q}: the operator sequence {ops} is not the "
-                 f"reference's {TPCDS_PLAN_OPS[q]}")
-        d = df.query_execution.tier_decision
-        if (d.tier, d.reason) != TPCDS_TIERS[q]:
-            fail(f"tpcds {q}: the tier decision {(d.tier, d.reason)} is "
-                 f"not the reference's {TPCDS_TIERS[q]}")
+        scalars = TPCDS_SCALAR_SUBQUERIES.get(q, 0)
         parts = TPCDS_JOINS[q]
         if q in TPCDS_ORACLES:
             oracle_rows, key = tpcds_oracle(q, arrays)
@@ -4561,23 +4578,37 @@ def tpcds_leg(torch, sk, card: str):
                     fail(f"tpcds {q}: no rows at SF10")
                 results[q] = result
                 return f"{result.num_rows} rows (held to the CPU later)"
-        run, cte_s, scalar_s, own = None, [], [], []
+        run, cte_s, scalar_s, ran, own, made = None, [], [], [], [], []
         if q in TPCDS_CTE_ROWS or scalars:
             # each run parses anew: the CTE bodies run in sql(), the
-            # uncorrelated scalar subqueries in the optimizer's last step
-            def run(text=text, cte_s=cte_s, scalar_s=scalar_s, own=own):
+            # uncorrelated scalar subqueries in the optimizer's last step;
+            # the plan checks read the DataFrame the cold run made
+            def run(text=text, cte_s=cte_s, scalar_s=scalar_s, ran=ran,
+                    own=own, made=made):
                 t1 = time.perf_counter()
                 d = spark.sql(text)
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
+                s0 = spark.metrics.get("subquery.scalar", 0)
                 d.query_execution.optimized
                 torch.cuda.synchronize()
                 cte_s.append(t2 - t1)
                 scalar_s.append(time.perf_counter() - t2)
+                ran.append(spark.metrics.get("subquery.scalar", 0) - s0)
                 c0 = sk.LAUNCHES["partition_histogram"]
                 out = d.toArrow()
                 own.append(sk.LAUNCHES["partition_histogram"] - c0)
+                if not made:
+                    made.append(d)
                 return out
+            df = lambda made=made: made[0]  # noqa: E731
+        else:
+            df = spark.sql(text)
+            s0 = spark.metrics.get("subquery.scalar", 0)
+            df.query_execution.optimized
+            if spark.metrics.get("subquery.scalar", 0) != s0:
+                fail(f"tpcds {q}: the optimizer ran scalar subqueries "
+                     "TPCDS_SCALAR_SUBQUERIES does not list")
         rows = sum(tables[f].num_rows for f in _FACTS
                    if re.search(rf"\b{f}\b", text))
         torch.cuda.reset_peak_memory_stats()
@@ -4585,11 +4616,29 @@ def tpcds_leg(torch, sk, card: str):
         out[q] = drive(torch, sk, card, f"tpcds {q}", df, rows, parts,
                        tpcds_calls(q), check, run, timed_shapes,
                        main_calls=(lambda own=own: own[-1]) if run
-                       else None,
+                       else None, session=spark,
                        warm_runs=3 if q in TPCDS_ORACLES else 0)
         peak[q] = torch.cuda.max_memory_allocated() / 1e9
         print(f"tpcds {q} done in {time.perf_counter() - t_q:.1f} s, at "
               f"{time.perf_counter() - t0:.1f} s of the leg", flush=True)
+        if run:
+            df = made[0]
+            if ran[0] != scalars:
+                fail(f"tpcds {q}: the optimizer ran {ran[0]} scalar "
+                     f"subqueries, not {scalars}")
+        if q in TPCDS_CTE_ROWS:
+            mat = cte_rows(df)
+            if mat != TPCDS_CTE_ROWS[q]:
+                fail(f"tpcds {q}: materialised CTE rows {mat}, not "
+                     f"{TPCDS_CTE_ROWS[q]}")
+        ops = plan_ops(df)
+        if ops != TPCDS_PLAN_OPS[q]:
+            fail(f"tpcds {q}: the operator sequence {ops} is not the "
+                 f"reference's {TPCDS_PLAN_OPS[q]}")
+        d = df.query_execution.tier_decision
+        if (d.tier, d.reason) != TPCDS_TIERS[q]:
+            fail(f"tpcds {q}: the tier decision {(d.tier, d.reason)} is "
+                 f"not the reference's {TPCDS_TIERS[q]}")
         if "NestedLoopJoinExec" in ops:
             nested_loop_pairs(spark, q, run or df.toArrow, card)
         if q in TPCDS_CTE_ROWS:
@@ -4618,12 +4667,13 @@ def tpcds_leg(torch, sk, card: str):
           "s", flush=True)
     expressions = expressions_leg(torch, sk, card, spark, oracles,
                                   timed_shapes)
+    types = types_leg(torch, sk, card, spark, tables, timed_shapes)
     # the maintenance leg changes the views: it runs after every other
     # run over them
     maintenance = maintenance_leg(torch, sk, card, spark, tables, arrays,
                                   timed_shapes)
     spark.stop()
-    return out, results, expressions, maintenance
+    return out, results, expressions, types, maintenance
 
 
 def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
@@ -4691,7 +4741,7 @@ def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
             "card": card}), flush=True)
 
 
-# --- the expressions leg: the scalar functions over the SF10 views ------------
+# --- the expressions leg: the scalar functions over the SF10 views -----------
 
 EXPRESSION_QUERIES = {
     # date parts, DIV and pmod as group keys over store_sales x date_dim
@@ -5135,7 +5185,259 @@ def expressions_leg(torch, sk, card: str, spark, oracles: dict,
     return out
 
 
-# --- the maintenance leg: TPC-DS data maintenance over the SF10 views ---------
+# --- the types leg: timestamps, arrays, maps and structs over the SF10 views -
+
+# a sale's instant: its date as a TIMESTAMP plus its time of day, made on
+# the device
+TYPES_EVENTS = (
+    "SELECT from_unixtime(unix_timestamp(CAST(d_date AS TIMESTAMP)) + "
+    "t_time) ts, ss_net_paid FROM store_sales "
+    "JOIN date_dim ON ss_sold_date_sk = d_date_sk "
+    "JOIN time_dim ON ss_sold_time_sk = t_time_sk")
+TYPES_WINDOW = ("2000-03-01 06:00:00", "2000-03-31 18:30:00")
+# tables the statements read, made once by CTAS: a struct and a map per
+# item, built on the host row by row (PythonEvalExec) over the 102,000
+# items only, collected to Arrow with their nested columns and read back
+# through the nested ingest
+TYPES_TABLES = {
+    "item_nested": "CREATE TABLE item_nested AS SELECT i_item_sk, "
+                   "named_struct('category', i_category, 'brand', i_brand) "
+                   "cb, map(i_category, i_current_price) m FROM item"}
+TYPES_QUERIES = {
+    # sales by hour of day
+    "events": f"SELECT hour(ts) h, count(*) n, sum(ss_net_paid) paid FROM "
+              f"({TYPES_EVENTS}) e GROUP BY hour(ts)",
+    # a month's sales: the first and last instant, 90 minutes later
+    "events_window": f"SELECT min(ts + INTERVAL 90 MINUTES) lo, "
+                     f"max(ts + INTERVAL 90 MINUTES) hi, count(*) n FROM "
+                     f"({TYPES_EVENTS}) e WHERE ts BETWEEN TIMESTAMP "
+                     f"'{TYPES_WINDOW[0]}' AND TIMESTAMP '{TYPES_WINDOW[1]}'",
+    # the Spark SQL guide's word count, over county names of two and
+    # three words ('Dona Ana County', 'County 12'): each address explodes
+    # into two or three rows
+    "words": "SELECT w, count(*) n FROM (SELECT explode(split("
+             "ca_county, ' ')) w FROM customer_address) x GROUP BY w",
+    "word_arrays": "SELECT size(sp) sz, element_at(sp, 1) w1, "
+                   "element_at(sp, -1) wl, array_contains(sp, 'County') "
+                   "cty, array_join(sort_array(sp), '+') j, count(*) n "
+                   "FROM (SELECT split(ca_county, ' ') sp FROM "
+                   "customer_address) x GROUP BY sz, w1, wl, cty, j",
+    # sales by a struct key, its fields read above the aggregate
+    "structs": "SELECT g.cb.category cat, g.cb.brand brand, n, paid, music "
+               "FROM (SELECT cb, count(*) n, sum(ss_net_paid) paid, "
+               "max(m['Music']) music FROM store_sales JOIN item_nested ON "
+               "ss_item_sk = i_item_sk GROUP BY cb) g",
+    # the table read back and collected to Arrow with its struct and map
+    # columns
+    "item_nested": "SELECT i_item_sk, cb, m FROM item_nested",
+}
+
+
+def _plain(v):
+    """A result value as the oracles give it: decimals in int64 units of
+    their scale (2 in every result of the leg), timestamps in
+    microseconds, structs and maps as tuples of their items."""
+    import datetime
+    import decimal
+
+    if isinstance(v, decimal.Decimal):
+        return int(v * 100)
+    if isinstance(v, datetime.datetime):
+        return (v - datetime.datetime(1970, 1, 1)) // \
+            datetime.timedelta(microseconds=1)
+    if isinstance(v, dict):
+        return tuple((k, _plain(x)) for k, x in v.items())
+    if isinstance(v, (list, tuple)):
+        return tuple(_plain(x) for x in v)
+    return v
+
+
+def _event_seconds(tables: dict):
+    """(seconds since the epoch, ss_net_paid, its validity) of each
+    store_sales line whose date and time join: what both events
+    statements read."""
+    import numpy as np
+
+    ss = tables["store_sales"]
+    dd, td = tables["date_dim"], tables["time_dim"]
+    dsk, _ = _np_col(dd, "d_date_sk")
+    days, _ = _np_col(dd, "d_date")
+    tsk, _ = _np_col(td, "t_time_sk")
+    tt, _ = _np_col(td, "t_time")
+    sold, sold_ok = _np_col(ss, "ss_sold_date_sk")
+    stime, stime_ok = _np_col(ss, "ss_sold_time_sk")
+    dlut = np.full(int(dsk.max()) + 1, -1, np.int64)
+    dlut[dsk] = np.arange(len(dsk))
+    tlut = np.full(int(tsk.max()) + 1, -1, np.int64)
+    tlut[tsk] = np.arange(len(tsk))
+    # a NULL or unknown key joins nothing: its lut entry is -1
+    dlut = np.append(dlut, -1)
+    tlut = np.append(tlut, -1)
+    drow = dlut[np.where(sold_ok & (sold >= 0) & (sold < len(dlut) - 1),
+                         sold, -1)]
+    trow = tlut[np.where(stime_ok & (stime >= 0) &
+                         (stime < len(tlut) - 1), stime, -1)]
+    sel = (drow >= 0) & (trow >= 0)
+    secs = days.astype(np.int64)[drow[sel]] * 86400 + \
+        tt.astype(np.int64)[trow[sel]]
+    paid, paid_ok = _np_col(ss, "ss_net_paid")
+    return secs, paid[sel], paid_ok[sel]
+
+
+def types_oracle(name: str, tables: dict, events=None) -> list:
+    """The expected rows of TYPES_QUERIES[name] from numpy and Python's
+    str.split over the Arrow tables (`_plain` values); `events`, where
+    given, is `_event_seconds(tables)`."""
+    import collections
+
+    import numpy as np
+
+    ss = tables["store_sales"]
+    if name in ("events", "events_window"):
+        secs, paid, paid_ok = events or _event_seconds(tables)
+        if name == "events":
+            one = np.ones(len(secs), bool)
+            return _grouped([np.floor_divide(np.mod(secs, 86400), 3600)],
+                            [one], [(paid, paid_ok)])
+        lo, hi = (int((np.datetime64(t) - np.datetime64("1970-01-01"))
+                      .astype("timedelta64[s]").astype(np.int64))
+                  for t in TYPES_WINDOW)
+        w = secs[(secs >= lo) & (secs <= hi)] + 5400
+        if not len(w):
+            return [(None, None, 0)]
+        return [(int(w.min()) * 1_000_000, int(w.max()) * 1_000_000,
+                 int(len(w)))]
+    if name in ("words", "word_arrays"):
+        splits = [None if v is None else v.split(" ") for v in
+                  tables["customer_address"].column("ca_county").to_pylist()]
+        if name == "words":
+            # explode of NULL gives no row
+            return list(collections.Counter(
+                w for sp in splits if sp is not None for w in sp).items())
+        return [k + (n,) for k, n in collections.Counter(
+            (None,) * 5 if sp is None else
+            (len(sp), sp[0], sp[-1], "County" in sp, "+".join(sorted(sp)))
+            for sp in splits).items()]
+    it = tables["item"]
+    isk, _ = _np_col(it, "i_item_sk")
+    price, price_ok = _np_col(it, "i_current_price")
+    cats = it.column("i_category").to_pylist()
+    brands = it.column("i_brand").to_pylist()
+    if name == "item_nested":
+        return [(int(k), (("category", c), ("brand", b)),
+                 ((c, int(p) if ok else None),))
+                for k, c, b, p, ok in zip(isk, cats, brands, price,
+                                          price_ok)]
+    pairs = sorted(set(zip(cats, brands)), key=repr)
+    pair_code = {p: i for i, p in enumerate(pairs)}
+    icode = np.array([pair_code[p] for p in zip(cats, brands)], np.int64)
+    music = np.array([c == "Music" for c in cats], bool) & price_ok
+    ilut = np.full(int(isk.max()) + 1, -1, np.int64)
+    ilut[isk] = np.arange(len(isk))
+    item, item_ok = _np_col(ss, "ss_item_sk")
+    ilut = np.append(ilut, -1)
+    row = ilut[np.where(item_ok & (item >= 0) & (item < len(ilut) - 1),
+                        item, -1)]
+    sel = row >= 0
+    rs = row[sel]
+    g = icode[rs]
+    paid, paid_ok = _np_col(ss, "ss_net_paid")
+    rows = _grouped([g], [np.ones(len(g), bool)],
+                    [(paid[sel], paid_ok[sel])])
+    # the best Music price per pair: over the items sold, not the lines
+    best = np.full(len(pairs), np.iinfo(np.int64).min, np.int64)
+    sold_items = np.nonzero(np.bincount(rs, minlength=len(isk)))[0]
+    m = music[sold_items]
+    np.maximum.at(best, icode[sold_items][m], price[sold_items][m])
+    return [(pairs[k][0], pairs[k][1], n, s,
+             int(best[k]) if best[k] != np.iinfo(np.int64).min else None)
+            for (k, n, s) in rows]
+
+
+def types_check(name: str, table, want: list) -> str:
+    """The result of TYPES_QUERIES[name] against its oracle rows, exactly
+    (row order aside)."""
+    got = sorted((tuple(_plain(v) for v in r.values())
+                  for r in table.to_pylist()), key=repr)
+    want = sorted(want, key=repr)
+    if len(got) != len(want):
+        fail(f"types {name}: {len(got)} rows, the oracle {len(want)}")
+    for g, w in zip(got, want):
+        if g != w:
+            fail(f"types {name}: row {g} is not the oracle's {w}")
+    return f"{len(got)} rows equal to the oracle"
+
+
+def types_leg(torch, sk, card: str, spark, tables: dict,
+              timed_shapes) -> dict:
+    """A1's value types and A11's collections at SF10, on the tpcds leg's
+    session and views (nothing ingested again; TYPES_TABLES made over them,
+    timed):
+    each of TYPES_QUERIES at `auto`, then at the stage tier, each result
+    held to its numpy oracle (`types_oracle`, computed first, outside
+    every timed run), the tier and reason printed (tests/test_torch_nested.py
+    holds them to the reference's at scale 0.1); a whole program calls the
+    histogram kernel never, and each fused dispatch is one replay
+    (`counted_run`). Then the histogram kernel is held against its plain
+    version at the stage run's inputs. Returns the launch counts of each
+    statement's run at `auto`."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+
+    t0 = time.perf_counter()
+    events = _event_seconds(tables)
+    oracles = {name: types_oracle(name, tables, events)
+               for name in TYPES_QUERIES}
+    print(f"types oracles computed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for table, text in TYPES_TABLES.items():
+        t1 = time.perf_counter()
+        spark.sql(text)
+        torch.cuda.synchronize()
+        print(f"types {table} made in {time.perf_counter() - t1:.3f} s",
+              flush=True)
+    out = {}
+    for name, text in TYPES_QUERIES.items():
+        label = f"types {name}"
+        report, dfs = {}, {}
+        for tier in ("auto", "stage"):
+            with tier_set(spark, tier):
+                df = dfs[tier] = DataFrame(spark, spark.sql(text).plan)
+                decision = decision_report(df)
+                res, cold, launches, st = counted_run(torch, sk, spark,
+                                                      df.toArrow)
+                msg = types_check(name, res, oracles[name])
+            calls = launches["partition_histogram"]
+            if decision["tier"] == "whole" and calls and \
+                    not st["whole"]["runtime_degraded"]:
+                fail(f"{label}: the whole program launched the histogram "
+                     f"kernel {calls} times, not 0")
+            if tier == "stage" and decision["tier"] != "stage":
+                fail(f"{label}: planned at {decision['tier']} where stage "
+                     f"was set ({decision['reason']})")
+            cc = st["cache"]
+            report[tier] = {
+                "tier": decision["tier"], "reason": decision["reason"],
+                "check": msg, "cold_s": cold, "histogram_calls": calls,
+                "captures": cc.get("stage_cache.captures", 0),
+                "replays": cc.get("stage_cache.replays", 0),
+                "degrades": st["whole"]["runtime_degraded"],
+                "dispatches": st["dispatches"]}
+            if tier == "auto":
+                out[name] = launches
+
+        def stage_run(df=dfs["stage"]):
+            with tier_set(spark, "stage"), bodies_on_card(torch, sk):
+                df.toArrow()
+        path_histograms(torch, sk, label, {"stage": stage_run}, timed_shapes)
+        print(f"{label} tiers " + json.dumps(dict(report, card=card)),
+              flush=True)
+    for table in TYPES_TABLES:
+        spark.sql(f"DROP TABLE {table}")
+    print(f"types leg done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+# --- the maintenance leg: TPC-DS data maintenance over the SF10 views --------
 
 # TPC-DS v3.2.0 clause 5 (Data Maintenance): LF_SS loads a refresh set of
 # store sales, DF_SS deletes the sales of a date range and the returns of
@@ -6536,13 +6838,14 @@ def run() -> None:
             "window": phase("window", window_leg, torch, sk, card, k, v),
         }
         phase("tpcds_gate", tpcds_gate, torch)
-        # the expressions leg runs at the end of the tpcds leg, over its
-        # session and SF10 views
-        tpcds_launches, tpcds_results, expr_launches, maint_launches = \
-            phase("tpcds", tpcds_leg, torch, sk, card)
+        # the expressions, types and maintenance legs run at the end of
+        # the tpcds leg, over its session and SF10 views
+        tpcds_launches, tpcds_results, expr_launches, types_launches, \
+            maint_launches = phase("tpcds", tpcds_leg, torch, sk, card)
         by_path.update({f"tpcds {q}": n for q, n in tpcds_launches.items()})
         by_path.update({f"expressions {q}": n
                         for q, n in expr_launches.items()})
+        by_path.update({f"types {q}": n for q, n in types_launches.items()})
         by_path.update({f"maintenance {q}": n
                         for q, n in maint_launches.items()})
         parquet_launches = phase("parquet", parquet_leg, torch, sk, card,

@@ -2,8 +2,9 @@
 operators whose expressions are ported; string literals come through `_expr`
 and `substr`; `isin`, `between`, the string predicates `contains`,
 `startswith`, `endswith`, `like` and `rlike`, `isNaN`, `eqNullSafe`, the
-`when`/`otherwise` chain that `functions.when` starts, and `over` a window
-spec of `api/window.py`). `getItem`/`getField` wait for nested types."""
+`when`/`otherwise` chain that `functions.when` starts, `over` a window
+spec of `api/window.py`, and the nested accessors `getField`, `getItem`
+and `[]`)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,28 @@ class Column:
 
     def cast(self, to: DataType) -> "Column":
         return Column(E.Cast(self.expr, to, explicit=True))
+
+    # --- nested access ----------------------------------------------------
+    def getField(self, name: str) -> "Column":
+        """A struct field."""
+        return Column(E.GetStructField(self.expr, name))
+
+    def getItem(self, key) -> "Column":
+        """A map value or an array element; which one is decided at
+        analysis, since the column may be unresolved here."""
+        return Column(E.UnresolvedFunction(
+            "element_at", [self.expr, E.Literal(key)], False))
+
+    def __getitem__(self, key) -> "Column":
+        if isinstance(key, str):
+            from ..types import StructType
+
+            try:
+                if isinstance(self.expr.dtype, StructType):
+                    return self.getField(key)
+            except Exception:
+                pass
+        return self.getItem(key)
 
     # --- arithmetic -------------------------------------------------------
     def __add__(self, o):

@@ -10,8 +10,12 @@ scalar functions of the reference's wrappers: isnull, isnan, greatest,
 least, nanvl, sqrt, exp, log, log10, floor, ceil, pow, negative, upper,
 lower, trim, ltrim, rtrim, length, substring, concat, regexp_extract,
 lpad, rpad, regexp_replace, year, month, dayofmonth, quarter, dayofweek,
-dayofyear, weekofyear, date_add, date_sub, datediff, trunc, make_date and
-to_date."""
+dayofyear, weekofyear, date_add, date_sub, datediff, trunc, make_date,
+to_date, hour, minute, second, unix_timestamp, from_unixtime,
+to_timestamp and make_timestamp, and the collections: split, explode,
+size/cardinality, element_at, the array_*, arrays_* and map_* functions,
+flatten, slice, sort_array, sequence, str_to_map, regexp_extract_all, and
+the constructors array, create_map (SQL map), struct and named_struct."""
 
 from __future__ import annotations
 
@@ -111,7 +115,7 @@ def max(c) -> Column:  # noqa: A001
     return Column(E.Max(_c(c)))
 
 
-# --- conditionals and math ----------------------------------------------------
+# --- conditionals and math ---------------------------------------------------
 
 def isnull(c) -> Column:
     return Column(E.IsNull(_c(c)))
@@ -339,3 +343,200 @@ def lag(c, offset: int = 1, default=None) -> Column:
 def lead(c, offset: int = 1, default=None) -> Column:
     return Column(W.Lead(_c(c), offset,
                          None if default is None else E.Literal(default)))
+
+
+# --- timestamps and intervals ------------------------------------------------
+
+def hour(c) -> Column:
+    return Column(E.Hour(_c(c)))
+
+
+def minute(c) -> Column:
+    return Column(E.Minute(_c(c)))
+
+
+def second(c) -> Column:
+    return Column(E.Second(_c(c)))
+
+
+def _call(name: str, *args) -> Column:
+    """A registry function over resolved-later arguments (the builder
+    dispatches on their types at analysis)."""
+    return Column(E.UnresolvedFunction(name, list(args), False))
+
+
+def unix_timestamp(c) -> Column:
+    return _call("unix_timestamp", _c(c))
+
+
+def from_unixtime(c) -> Column:
+    return _call("from_unixtime", _c(c))
+
+
+def to_timestamp(c) -> Column:
+    return _call("to_timestamp", _c(c))
+
+
+def make_timestamp(y, mo, d, h, mi, s) -> Column:
+    return _call("make_timestamp", *[_c(x) for x in (y, mo, d, h, mi, s)])
+
+
+# --- collections -------------------------------------------------------------
+
+def split(c, pattern: str) -> Column:
+    return Column(E.Split(_c(c), E.Literal(pattern)))
+
+
+def explode(c) -> Column:
+    return Column(E.Explode(_c(c)))
+
+
+def size(c) -> Column:
+    return Column(E.Size(_c(c)))
+
+
+cardinality = size
+
+
+def array_contains(c, value) -> Column:
+    return Column(E.ArrayContains(_c(c), E.Literal(value)))
+
+
+def array_min(c) -> Column:
+    return Column(E.ArrayMin(_c(c)))
+
+
+def array_max(c) -> Column:
+    return Column(E.ArrayMax(_c(c)))
+
+
+def sort_array(c, asc: bool = True) -> Column:
+    return Column(E.SortArray(_c(c), E.Literal(asc)))
+
+
+def array_sort(c) -> Column:
+    return Column(E.ArraySortNullsLast(_c(c)))
+
+
+def array_distinct(c) -> Column:
+    return Column(E.ArrayDistinct(_c(c)))
+
+
+def element_at(c, idx) -> Column:
+    # dispatches on the resolved type (a map key or an array index)
+    return _call("element_at", _c(c), E.Literal(idx))
+
+
+def flatten(c) -> Column:
+    return Column(E.Flatten(_c(c)))
+
+
+def slice(c, start: int, length: int) -> Column:  # noqa: A001
+    return Column(E.Slice(_c(c), E.Literal(start), E.Literal(length)))
+
+
+def array_remove(c, value) -> Column:
+    return Column(E.ArrayRemove(_c(c), E.Literal(value)))
+
+
+def array_join(c, sep: str, null_replacement: str | None = None) -> Column:
+    return Column(E.ArrayJoin(_c(c), E.Literal(sep),
+                              None if null_replacement is None
+                              else E.Literal(null_replacement)))
+
+
+def array_position(c, value) -> Column:
+    return Column(E.ArrayPosition(_c(c), E.Literal(value)))
+
+
+def map_keys(c) -> Column:
+    return Column(E.MapKeys(_c(c)))
+
+
+def map_values(c) -> Column:
+    return Column(E.MapValues(_c(c)))
+
+
+def map_contains_key(c, key) -> Column:
+    return Column(E.MapContainsKey(_c(c), E.Literal(key)))
+
+
+def regexp_extract_all(c, pattern: str, idx: int | None = None) -> Column:
+    return Column(E.RegexpExtractAll(_c(c), E.Literal(pattern),
+                                     None if idx is None else E.Literal(idx)))
+
+
+def array(*cols) -> Column:
+    return _call("array", *[_c(c) for c in cols])
+
+
+def create_map(*cols) -> Column:
+    return _call("map", *[_c(c) for c in cols])
+
+
+def struct(*cols) -> Column:
+    return _call("struct", *[_c(c) for c in cols])
+
+
+def named_struct(*args) -> Column:
+    """named_struct('n1', c1, 'n2', c2, ...): names are literals."""
+    return _call("named_struct", *[E.Literal(a) if i % 2 == 0 else _c(a)
+                                   for i, a in enumerate(args)])
+
+
+def sequence(start, stop, step=None) -> Column:
+    return _call("sequence", *[_c(x) for x in (start, stop, step)
+                               if x is not None])
+
+
+def array_repeat(c, n: int) -> Column:
+    return _call("array_repeat", _c(c), E.Literal(n))
+
+
+def array_union(a, b) -> Column:
+    return _call("array_union", _c(a), _c(b))
+
+
+def array_intersect(a, b) -> Column:
+    return _call("array_intersect", _c(a), _c(b))
+
+
+def array_except(a, b) -> Column:
+    return _call("array_except", _c(a), _c(b))
+
+
+def arrays_overlap(a, b) -> Column:
+    return _call("arrays_overlap", _c(a), _c(b))
+
+
+def array_append(c, value) -> Column:
+    return _call("array_append", _c(c), _expr(value))
+
+
+def array_prepend(c, value) -> Column:
+    return _call("array_prepend", _c(c), _expr(value))
+
+
+def array_insert(c, pos: int, value) -> Column:
+    return _call("array_insert", _c(c), E.Literal(pos), _expr(value))
+
+
+def array_compact(c) -> Column:
+    return _call("array_compact", _c(c))
+
+
+def arrays_zip(*cols) -> Column:
+    return _call("arrays_zip", *[_c(c) for c in cols])
+
+
+def map_from_arrays(k, v) -> Column:
+    return _call("map_from_arrays", _c(k), _c(v))
+
+
+def map_from_entries(c) -> Column:
+    return _call("map_from_entries", _c(c))
+
+
+def str_to_map(c, pair_delim: str = ",", key_value_delim: str = ":") -> Column:
+    return _call("str_to_map", _c(c), E.Literal(pair_delim),
+                 E.Literal(key_value_delim))

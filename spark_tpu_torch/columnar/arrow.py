@@ -5,8 +5,13 @@ concatenates each tile's live rows back into one table.
 
 Strings are dictionary-encoded per slice by `pyarrow.compute.
 dictionary_encode`, as the reference does, so codes and dictionary order
-match it (a null takes code 0 and validity false). Decimals become int64
-scaled by 10^scale through the reference's float64 path, vectorised."""
+match it (a null takes code 0 and validity false); binary columns the same
+way, their dictionaries holding `bytes`. Array, map and struct columns
+dictionary-encode their Python values (`to_pylist`; a map becomes a dict)
+by canonical form (`encode_values`). Decimals become int64 scaled by
+10^scale through the reference's float64 path, vectorised. A timestamp of
+any unit or zone is cast to timestamp[us] (a zone's wall clock is dropped:
+the value is its UTC instant, as the reference reads it)."""
 
 from __future__ import annotations
 
@@ -18,10 +23,13 @@ import pyarrow.compute as pc
 import torch
 
 from ..types import (
-    BooleanType, DataType, DateType, DecimalType, StringType, StructField,
-    StructType, from_arrow_type,
+    ArrayType, BooleanType, DataType, DateType, DecimalType, MapType,
+    StringType, StructField, StructType, TimestampType, from_arrow_type,
 )
-from .batch import Column, ColumnarBatch, StringDict, bucket_capacity
+from .batch import (
+    Column, ColumnarBatch, StringDict, bucket_capacity, empty_entry,
+    encode_values,
+)
 
 __all__ = ["schema_from_arrow", "table_to_batches", "batches_to_table",
            "record_batch_to_columnar"]
@@ -50,7 +58,14 @@ def _chunked_to_numpy(arr: pa.ChunkedArray | pa.Array, dt: DataType):
         codes = np.asarray(darr.indices.fill_null(0)).astype(np.int32)
         values = darr.dictionary.to_pylist()
         return codes, validity, StringDict(
-            [v if v is not None else "" for v in values])
+            [v if v is not None else empty_entry(dt) for v in values])
+    if isinstance(dt, (ArrayType, MapType, StructType)):
+        vals = arr.to_pylist()
+        if isinstance(dt, MapType):
+            # Arrow gives a map as its list of (key, value) pairs
+            vals = [dict(v) if v is not None else None for v in vals]
+        uniq, codes = encode_values(vals)
+        return codes, validity, StringDict(uniq or [empty_entry(dt)])
     if isinstance(dt, DecimalType):
         # the reference's conversion: float64 times 10^scale, rounded to
         # the nearest integer (exact for decimals of up to 15 digits)
@@ -60,6 +75,10 @@ def _chunked_to_numpy(arr: pa.ChunkedArray | pa.Array, dt: DataType):
     if isinstance(dt, DateType):
         data = np.asarray(arr.fill_null(0)).astype("datetime64[D]") \
             .astype(np.int32)
+    elif isinstance(dt, TimestampType):
+        a = pc.cast(arr, pa.timestamp("us"))
+        data = np.asarray(a.fill_null(0)).astype("datetime64[us]") \
+            .astype(np.int64)
     elif isinstance(dt, BooleanType):
         data = np.asarray(arr.fill_null(False)).astype(bool)
     else:

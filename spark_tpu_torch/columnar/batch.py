@@ -7,7 +7,12 @@ tensor in its type's device dtype plus an optional bool validity plane.
 String columns are dictionary-encoded: int32 codes on the device, the UTF-8
 values on the host in a `StringDict`, whose value hashes (the equality
 domain) and lexicographic ranks (the ORDER BY domain) cross to the device
-once per dictionary. Decimal columns are int64 scaled by 10^scale.
+once per dictionary. Binary, array, map and struct columns are encoded the
+same way, their dictionaries holding `bytes`, lists and dicts: an entry's
+hash is the string hash of its canonical form (`canon_value`, where a map's
+items are sorted, so two insertion orders are one key), and its rank
+orders lists element by element and structs field by field. Decimal
+columns are int64 scaled by 10^scale; timestamps int64 microseconds.
 """
 
 from __future__ import annotations
@@ -19,12 +24,14 @@ import numpy as np
 import torch
 
 from ..types import (
-    BooleanType, DateType, DecimalType, NullType, StringType, StructType,
-    dict_encoded, to_arrow_type,
+    ArrayType, BinaryType, BooleanType, DateType, DecimalType, MapType,
+    NullType, StringType, StructType, TimestampType, dict_encoded,
+    to_arrow_type,
 )
 
 __all__ = ["StringDict", "Column", "ColumnarBatch", "bucket_capacity",
-           "EMPTY_DICT", "hash_strings", "merge_string_dicts"]
+           "EMPTY_DICT", "hash_strings", "merge_string_dicts",
+           "canon_value", "encode_values", "empty_entry"]
 
 
 def bucket_capacity(n: int, minimum: int = 1 << 10) -> int:
@@ -98,11 +105,81 @@ def _hash_rows(buf: np.ndarray) -> np.ndarray:
     return h
 
 
-def hash_strings(values: Sequence[str]) -> np.ndarray:
+def canon_value(v):
+    """The hashable canonical form of a dictionary entry (the reference's
+    `canon_value`): a dict's items sorted by key, since a map has no order
+    (two insertion orders are one map; a struct's fields have one order,
+    so sorting them is harmless), a list as a tuple."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, canon_value(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple, np.ndarray)):
+        return tuple(canon_value(x) for x in v)
+    if isinstance(v, np.generic):
+        # a host UDF's numpy scalar hashes as the Python value it equals
+        return v.item()
+    return v
+
+
+def encode_values(values, codes: np.ndarray | None = None):
+    """Dictionary-encode a sequence of Python values by canonical form
+    (None takes code 0; the caller keeps the validity). Returns (unique
+    values in first-occurrence order, int32 codes)."""
+    if codes is None:
+        codes = np.zeros(len(values), np.int32)
+    uniq: list = []
+    index: dict = {}
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        k = canon_value(v)
+        j = index.get(k)
+        if j is None:
+            j = index[k] = len(uniq)
+            uniq.append(v)
+        codes[i] = j
+    return uniq, codes
+
+
+def empty_entry(dt):
+    """The placeholder entry of an empty dictionary of type `dt`."""
+    if isinstance(dt, ArrayType):
+        return []
+    if isinstance(dt, (MapType, StructType)):
+        return {}
+    if isinstance(dt, BinaryType):
+        return b""
+    return ""
+
+
+def _entry_bytes(v) -> bytes:
+    """The bytes an entry hashes: a string's UTF-8, a blob as it is, a
+    nested value's canonical form's repr."""
+    if isinstance(v, str):
+        return v.encode("utf-8")
+    if isinstance(v, bytes):
+        return v
+    return repr(canon_value(v)).encode("utf-8", "surrogatepass")
+
+
+def _order_key(v):
+    """A key that orders nested entries: None first, lists element by
+    element (Python's list order), dicts by their items in order (a
+    struct's fields in schema order)."""
+    if v is None:
+        return (0,)
+    if isinstance(v, dict):
+        return (1, tuple((k, _order_key(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return (1, tuple(_order_key(x) for x in v))
+    return (1, v)
+
+
+def hash_strings(values: Sequence) -> np.ndarray:
     """int64 hash of each string's UTF-8 bytes, equal to the reference's
     `spark_tpu/utils/native.py` hash_strings bit for bit. O(total bytes)
-    numpy work, grouped by byte length."""
-    enc = [v.encode("utf-8") for v in values]
+    numpy work, grouped by byte length. A `bytes` entry hashes its bytes,
+    a nested entry its canonical form (`_entry_bytes`)."""
+    enc = [_entry_bytes(v) for v in values]
     out = np.empty(len(enc), np.uint64)
     lens = np.fromiter((len(e) for e in enc), np.int64, len(enc))
     for n in np.unique(lens):
@@ -114,7 +191,9 @@ def hash_strings(values: Sequence[str]) -> np.ndarray:
 
 
 class StringDict:
-    """Host-side dictionary of a string column: its unique UTF-8 values.
+    """Host-side dictionary of a string column: its unique UTF-8 values
+    (or `bytes`, lists and dicts for binary, array, map and struct
+    columns).
 
     Derivatives, each computed once per dictionary (O(|dictionary|), never
     O(rows)):
@@ -141,9 +220,17 @@ class StringDict:
         return len(self.values)
 
     @property
-    def index(self) -> dict[str, int]:
+    def nested(self) -> bool:
+        """True where the entries are lists or dicts."""
+        return bool(self.values) and isinstance(self.values[0],
+                                                (list, dict, tuple))
+
+    @property
+    def index(self) -> dict:
+        """Entry -> code, keyed by canonical form (`canon_value`)."""
         if self._index is None:
-            self._index = {v: i for i, v in enumerate(self.values)}
+            self._index = {canon_value(v): i
+                           for i, v in enumerate(self.values)}
         return self._index
 
     @property
@@ -155,8 +242,13 @@ class StringDict:
     @property
     def ranks(self) -> np.ndarray:
         if self._ranks is None:
-            order = np.argsort(np.array(self.values, dtype=object),
-                               kind="stable")
+            if self.nested:
+                order = np.array(sorted(range(len(self.values)), key=lambda
+                                        i: _order_key(self.values[i])),
+                                 dtype=np.int64)
+            else:
+                order = np.argsort(_object_array(self.values),
+                                   kind="stable")
             r = np.empty(len(self.values), dtype=np.int32)
             r[order] = np.arange(len(self.values), dtype=np.int32)
             self._ranks = r
@@ -230,6 +322,14 @@ class StringDict:
         return md, ra, rb
 
 
+def _object_array(values) -> np.ndarray:
+    """A 1-D object array of `values` (np.array would make equal-length
+    lists 2-D)."""
+    out = np.empty(len(values), dtype=object)
+    out[:] = values
+    return out
+
+
 _MERGES_KEPT = 8
 
 
@@ -244,15 +344,19 @@ def merge_string_dicts(dicts: Sequence[StringDict]):
     for key, hit in memo:
         if len(key) == len(dicts) and all(a is b for a, b in zip(key, dicts)):
             return hit
-    merged: list[str] = []
-    idx: dict[str, int] = {}
+    merged: list = []
+    idx: dict = {}
     recodes = []
     for d in dicts:
         lut = np.zeros(max(len(d.values), 1), dtype=np.int32)
+        # nested entries merge by canonical form (a map's two insertion
+        # orders are one entry); strings and blobs by value
+        key = canon_value if d.nested else (lambda v: v)
         for i, v in enumerate(d.values):
-            j = idx.get(v)
+            k = key(v)
+            j = idx.get(k)
             if j is None:
-                j = idx[v] = len(merged)
+                j = idx[k] = len(merged)
                 merged.append(v)
             lut[i] = j
         recodes.append(lut)
@@ -280,7 +384,8 @@ class Column:
 
     data: tensor [capacity] in dtype.device_dtype
     validity: bool tensor [capacity] or None (= no nulls)
-    dictionary: the StringDict of a string column (codes index it)
+    dictionary: the StringDict of a dictionary-encoded column (string,
+        binary, array, map, struct; codes index it)
     """
 
     dtype: Any
@@ -294,9 +399,10 @@ class Column:
 
     def eq_keys(self) -> torch.Tensor:
         """Tensor usable as an equality key (group-by, join, exchange
-        hashing). Strings map codes to 64-bit value hashes, so columns with
-        different dictionaries compare correctly."""
-        if self.is_string:
+        hashing). Dictionary-encoded columns map codes to 64-bit value
+        hashes, so columns with different dictionaries compare correctly
+        (a nested entry's hash is its canonical form's)."""
+        if dict_encoded(self.dtype):
             sd = self.dictionary or EMPTY_DICT
             return _take_codes(sd.device_hashes(self.data.device), self.data)
         if isinstance(self.dtype, BooleanType):
@@ -307,7 +413,7 @@ class Column:
         """Tensor whose numeric order is SQL ORDER BY order (strings by
         dictionary rank; booleans as int32: the card's sort takes no bool
         keys)."""
-        if self.is_string:
+        if dict_encoded(self.dtype):
             sd = self.dictionary or EMPTY_DICT
             return _take_codes(sd.device_ranks(self.data.device), self.data)
         if isinstance(self.dtype, BooleanType):
@@ -412,21 +518,44 @@ class ColumnarBatch:
                 # array over the live codes, cast to plain strings
                 sd = c.dictionary or EMPTY_DICT
                 codes = np.clip(data, 0, max(len(sd) - 1, 0)).astype(np.int32)
-                values = pa.array(sd.values or [""], type=pa.string())
+                values = pa.array(sd.values or [empty_entry(f.dataType)],
+                                  type=at)
                 arrays.append(pa.DictionaryArray.from_arrays(
                     pa.array(codes, mask=mask), values).cast(at))
+                continue
+            if dict_encoded(f.dataType):
+                arrays.append(nested_array(c.dictionary or EMPTY_DICT,
+                                           data, mask, f.dataType, at))
                 continue
             if isinstance(f.dataType, DecimalType):
                 arrays.append(decimal_array(data, mask, at))
                 continue
             if isinstance(f.dataType, DateType):
                 data = data.astype(np.int32)
+            elif isinstance(f.dataType, TimestampType):
+                data = data.astype(np.int64)
             arrays.append(pa.array(data, type=at, mask=mask))
         return pa.table(arrays, names=self.schema.names)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"ColumnarBatch(cap={self.capacity}, rows={self._num_rows}, "
                 f"schema={self.schema.simple_string()})")
+
+
+def nested_array(sd: StringDict, codes: np.ndarray,
+                 null_mask: np.ndarray | None, dt, at):
+    """An Arrow array of an array, map or struct column: its dictionary's
+    entries, each converted once, taken by the live codes (a map entry as
+    its list of items, as Arrow takes maps)."""
+    import pyarrow as pa
+
+    values = sd.values or [empty_entry(dt)]
+    if isinstance(dt, MapType):
+        values = [list(v.items()) if isinstance(v, dict) else v
+                  for v in values]
+    entries = pa.array(values, type=at)
+    idx = np.clip(codes, 0, len(values) - 1).astype(np.int32)
+    return entries.take(pa.array(idx, mask=null_mask))
 
 
 def decimal_array(unscaled: np.ndarray, null_mask: np.ndarray | None, at):

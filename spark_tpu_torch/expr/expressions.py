@@ -23,6 +23,18 @@ tensors:
   * dates: date +/- days or an INTERVAL, date_add/date_sub/datediff, the
     calendar fields (year ... ISO week), trunc/date_trunc, make_date,
     add_months, last_day, months_between;
+  * timestamps (int64 microseconds, no time zone): casts to and from dates,
+    numbers and strings, + / - an INTERVAL of days and microseconds,
+    hour/minute/second (floor operations, right before 1970),
+    unix_timestamp, from_unixtime (a TIMESTAMP, as the reference gives),
+    make_interval's literal folding;
+  * collections: arrays, maps and structs are dictionary-encoded columns,
+    so each function is a lut over the dictionary's entries (size,
+    array_contains, element_at, a struct field, a map lookup, ...) or a
+    transform of it into another dictionary (split, map_keys, sort_array,
+    slice, ...); the constructors (array, map, struct, named_struct) are
+    host UDFs row by row; explode() is a marker the analyzer moves into a
+    Generate node;
   * strings as dictionary luts built on the host, once per dictionary:
     transforms (substr, upper/lower, trim, pad, replace, translate,
     regexp_replace/extract, the hashes and encodings, ...), deduplicated
@@ -55,7 +67,8 @@ import numpy as np
 import torch
 
 from ..columnar.batch import (
-    EMPTY_DICT, StringDict, _take_codes, merge_string_dicts,
+    EMPTY_DICT, StringDict, _order_key, _take_codes, canon_value,
+    empty_entry, merge_string_dicts,
 )
 from ..errors import (
     AnalysisException, ExecutionError, NotPortedError, TypeCheckError,
@@ -63,10 +76,10 @@ from ..errors import (
 )
 from ..plan.tree import TreeNode, next_id
 from ..types import (
-    BooleanType, DataType, DateType, DecimalType, FractionalType,
-    IntegralType, NullType, NumericType, StringType, boolean, common_type,
-    date, dict_encoded, float64, infer_type, int32, int64, null_type,
-    string,
+    ArrayType, BooleanType, DataType, DateType, DecimalType, FractionalType,
+    IntegralType, MapType, NullType, NumericType, StringType, StructField,
+    StructType, TimestampType, boolean, common_type, date, dict_encoded,
+    float64, infer_type, int32, int64, null_type, string, timestamp,
 )
 from .eval import EvalCtx, Val
 
@@ -95,6 +108,14 @@ __all__ = [
     "DayOfYear", "WeekOfYear", "TruncDate", "MakeDate", "AddMonths",
     "LastDay", "MonthsBetween", "Grouping", "GroupingID", "DateFormat",
     "StddevSamp", "StddevPop", "VarianceSamp", "VariancePop", "First",
+    "Hour", "Minute", "Second", "UnixTimestamp", "FromUnixtime",
+    "build_make_interval", "Split", "Explode", "Size", "ArrayContains",
+    "ArrayMin", "ArrayMax", "ElementAt", "ElementAtString", "GetStructField",
+    "GetMapValue", "MapContainsKey", "Flatten", "ArrayJoin", "ArrayPosition",
+    "RegexpExtractAll", "MapKeys", "MapValues", "SortArray",
+    "ArraySortNullsLast", "ArrayDistinct", "Slice", "ArrayRemove",
+    "build_element_at", "build_struct_ctor", "build_named_struct",
+    "build_array_ctor", "build_map_ctor",
 ]
 
 
@@ -139,7 +160,9 @@ class Literal(Expression):
     def __init__(self, value: Any, dtype: DataType | None = None):
         self.value = value
         self._dtype = dtype if dtype is not None else infer_type(value)
-        if isinstance(value, datetime.date):
+        if isinstance(value, datetime.datetime):
+            self.value = _micros(value)
+        elif isinstance(value, datetime.date):
             self.value = (value - datetime.date(1970, 1, 1)).days
         else:
             import decimal as _d
@@ -169,8 +192,10 @@ class Literal(Expression):
     def eval(self, ctx: EvalCtx) -> Val:
         dt = self._dtype.device_dtype
         if dict_encoded(self._dtype):
-            # a string literal: a one-entry dictionary, every row code 0
-            sd = StringDict([""] if self.value is None else [self.value])
+            # a string, binary or nested literal: a one-entry dictionary,
+            # every row code 0
+            sd = StringDict([empty_entry(self._dtype) if self.value is None
+                             else self.value])
             return Val(self._dtype, ctx.scalar(0, dt),
                        None if self.value is not None
                        else ctx.scalar(False, torch.bool), sd)
@@ -368,7 +393,8 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType,
     dd = to.device_dtype
     if isinstance(frm, NullType):
         return Val(to, ctx.scalar(0, dd), ctx.scalar(False, torch.bool),
-                   StringDict([""]) if isinstance(to, StringType) else None)
+                   StringDict([empty_entry(to)]) if dict_encoded(to)
+                   else None)
     if isinstance(frm, StringType) and not isinstance(to, StringType):
         return _string_parse(ctx, c, to)
     if isinstance(to, StringType):
@@ -413,6 +439,15 @@ def cast_val(ctx: EvalCtx, c: Val, to: DataType,
             ok = whole.abs() < 10 ** (to.precision - to.scale)
             ok = ok if c.validity is None else ok & c.validity
         return Val(to, whole * (10 ** to.scale), ok)
+    if isinstance(frm, DateType) and isinstance(to, TimestampType):
+        return Val(to, data.to(torch.int64) * _US_PER_DAY, c.validity)
+    if isinstance(frm, TimestampType) and isinstance(to, DateType):
+        # floor: an instant before 1970 belongs to the day that holds it
+        return Val(to, _floordiv(data, _US_PER_DAY).to(torch.int32),
+                   c.validity)
+    if isinstance(frm, (DateType, TimestampType)) and \
+            isinstance(to, NumericType):
+        return Val(to, data.to(dd), c.validity)
     if isinstance(to, BooleanType):
         return Val(to, data != 0, c.validity)
     if isinstance(frm, FractionalType) and isinstance(to, IntegralType):
@@ -451,6 +486,8 @@ def _parse_str(s: str, to: DataType):
         if isinstance(to, DateType):
             return (datetime.date.fromisoformat(s[:10])
                     - datetime.date(1970, 1, 1)).days
+        if isinstance(to, TimestampType):
+            return _parse_ts(s)
     except (ValueError, ArithmeticError):
         return None
     raise NotPortedError(f"cast(string as {to.simple_string()})")
@@ -462,14 +499,15 @@ def _value_luts(ctx: EvalCtx, c: Val, key: str, to: DataType, fn,
     on the host into a data lut of `to` and, where `nullable`, an ok lut
     (`fn` gives None for NULL), which the codes gather on the device. Each
     lut is asked for in every pass (C7); the dictionary keeps its device
-    copies under `key`."""
-    sd = c.sdict or StringDict([""])
+    copies under `key`. `c` may be any dictionary-encoded value (a nested
+    entry goes to `fn` as its list or dict)."""
+    sd = c.sdict or StringDict([empty_entry(c.dtype)])
     np_dt = torch.empty(0, dtype=to.device_dtype).numpy().dtype
     memo: list = []
 
     def luts():
         if not memo:
-            vals = sd.values or [""]
+            vals = sd.values or [empty_entry(c.dtype)]
             out = np.zeros(len(vals), dtype=np_dt)
             ok = np.zeros(len(vals), dtype=bool)
             for i, v in enumerate(vals):
@@ -1069,13 +1107,17 @@ def _string_eq_domain(ctx: EvalCtx, v: Val) -> torch.Tensor:
 def _string_rank_domain(ctx: EvalCtx, l: Val, r: Val):
     """Two string values mapped into one ordering domain: ranks in the
     sorted union of both dictionaries (ranks of two dictionaries do not
-    compare)."""
-    a = l.sdict or StringDict([""])
-    b = r.sdict or StringDict([""])
-    allv = sorted(set(a.values) | set(b.values))
+    compare). Nested entries order by `_order_key` (lists element by
+    element, structs field by field)."""
+    a = l.sdict or StringDict([empty_entry(l.dtype)])
+    b = r.sdict or StringDict([empty_entry(r.dtype)])
+    key = _order_key if (a.nested or b.nested) else (lambda v: v)
+    ka = [key(v) for v in a.values]
+    kb = [key(v) for v in b.values]
+    allv = sorted(set(ka) | set(kb))
     pos = {v: i for i, v in enumerate(allv)}
-    la = np.array([pos[v] for v in a.values] or [0], dtype=np.int64)
-    lb = np.array([pos[v] for v in b.values] or [0], dtype=np.int64)
+    la = np.array([pos[v] for v in ka] or [0], dtype=np.int64)
+    lb = np.array([pos[v] for v in kb] or [0], dtype=np.int64)
     return (_take_codes(ctx.aux(lambda: la), l.data),
             _take_codes(ctx.aux(lambda: lb), r.data))
 
@@ -1088,8 +1130,9 @@ class BinaryComparison(BinaryExpression):
     def eval(self, ctx):
         l = ctx.eval(self.left)
         r = ctx.eval(self.right)
-        if isinstance(l.dtype, StringType) and isinstance(r.dtype,
-                                                          StringType):
+        if dict_encoded(l.dtype) and dict_encoded(r.dtype):
+            # strings, and nested values by canonical form (the reference
+            # compares a nested column's codes)
             if type(self) in (EqualTo, NotEqualTo):
                 ld = _string_eq_domain(ctx, l)
                 rd = _string_eq_domain(ctx, r)
@@ -1615,7 +1658,7 @@ class CaseWhen(Expression):
 
     def eval(self, ctx):
         out = self.dtype
-        if isinstance(out, StringType):
+        if dict_encoded(out):
             return self._eval_string(ctx)
         # every branch runs over the whole tile (x/0 is NULL, not a fault)
         # and the first true predicate picks each row's value
@@ -1662,7 +1705,7 @@ class CaseWhen(Expression):
             valid = torch.where(hit, _known(ctx, v.validity), valid)
             decided = decided | hit
         has_null = any(v.validity is not None for v in strs)
-        return Val(string, data, valid if has_null else None, merged)
+        return Val(self.dtype, data, valid if has_null else None, merged)
 
 
 class Coalesce(Expression):
@@ -1912,35 +1955,37 @@ class _DictTransform(Expression):
                                self.may_null)
 
 
-def _dict_transform(ctx: EvalCtx, c: Val, key: str, fn, may_null: bool
-                    ) -> Val:
-    """The string value `fn` maps `c` to, over its dictionary (see
+def _dict_transform(ctx: EvalCtx, c: Val, key: str, fn, may_null: bool,
+                    out: DataType = string) -> Val:
+    """The dictionary-encoded value of type `out` (a string, or an array,
+    map or struct) that `fn` maps `c` to, over its dictionary (see
     _DictTransform); with `may_null`, a value `fn` maps to None reads as
     NULL, its ok lut asked for in every pass (a fused program's luts must
     not depend on what a dictionary holds)."""
-    src = c.sdict or StringDict([""])
+    src = c.sdict or StringDict([empty_entry(c.dtype)])
+    blank = empty_entry(out)
 
     def mapped_fn(v):
-        out = fn(v)
-        return "" if out is None else out
+        r = fn(v)
+        return blank if r is None else r
 
     mapped, lut = src.transformed(key, mapped_fn)
     validity = c.validity
     if may_null:
         def make_ok():
-            return np.array([fn(v) is not None for v in (src.values or [""])],
-                            bool)
+            return np.array([fn(v) is not None for v in
+                             (src.values or [empty_entry(c.dtype)])], bool)
 
         ok = _take_codes(ctx.aux(make_ok, lambda: src._on(
             ("ok", key), ctx.device, make_ok)), c.data)
         validity = ok if validity is None else validity & ok
     if lut is None:
         if not ctx.fused:
-            return Val(string, c.data, validity, mapped)
+            return Val(out, c.data, validity, mapped)
         lut = np.arange(max(len(src.values), 1), dtype=np.int32)
     codes = ctx.aux(lambda: lut, lambda: src._on(
         ("recode", key), ctx.device, lambda: lut))
-    return Val(string, _take_codes(codes, c.data), validity, mapped)
+    return Val(out, _take_codes(codes, c.data), validity, mapped)
 
 
 class Substring(_DictTransform):
@@ -2468,11 +2513,12 @@ class Instr(_StringIntLut):
 
 class _ArrayLut(Expression):
     """A function computed once per dictionary entry into a value and a
-    validity (`value_of` gives both), which the codes gather on the device.
-    The port runs it over strings only: the reference's users over arrays
-    and maps wait for the port's nested types. A string result is a
-    dictionary transform (deduplicated as _DictTransform's); a numeric one
-    a value lut beside a validity lut, both asked for in every pass."""
+    validity (`value_of` gives both), which the codes gather on the device:
+    over strings, and over the lists and dicts of array, map and struct
+    columns. A dictionary-encoded result (a string, an array, a struct
+    field that is a string) is a dictionary transform (deduplicated as
+    _DictTransform's); a numeric, date or boolean one a value lut beside a
+    validity lut, both asked for in every pass."""
 
     child_fields = ("child",)
 
@@ -2484,18 +2530,24 @@ class _ArrayLut(Expression):
 
     def eval(self, ctx):
         c = ctx.eval(self.child)
-        if not isinstance(c.dtype, StringType):
-            raise NotPortedError(f"{self.sql_name()} of "
-                                 f"{c.dtype.simple_string()} (nested types)")
+        if not dict_encoded(c.dtype):
+            raise TypeCheckError(f"{self.sql_name()} of "
+                                 f"{c.dtype.simple_string()}")
         key = self.simple_string()
+        out = self.dtype
 
-        def fn(v):
+        if dict_encoded(out):
+            def fn(v):
+                val, ok = self.value_of(v)
+                return val if ok else None
+
+            return _dict_transform(ctx, c, key, fn, True, out)
+
+        def device_fn(v):
             val, ok = self.value_of(v)
-            return val if ok else None
+            return _device_value(out, val) if ok else None
 
-        if isinstance(self.dtype, StringType):
-            return _dict_transform(ctx, c, key, fn, True)
-        return _value_luts(ctx, c, key, self.dtype, fn)
+        return _value_luts(ctx, c, key, out, device_fn)
 
 
 class GetJsonObject(_ArrayLut):
@@ -2625,6 +2677,460 @@ class ToNumber(_ArrayLut):
         if neg:
             v = -v
         return int(v.scaleb(self.scale).to_integral_value()), True
+
+
+# ---------------------------------------------------------------------------
+# Collections: arrays, maps and structs as dictionary-encoded columns
+# ---------------------------------------------------------------------------
+
+class Split(_DictTransform):
+    """string -> array<string> by a regex delimiter: one regex run per
+    dictionary entry, into an array dictionary. Under explode(),
+    GenerateExec reads `split_lists` directly."""
+
+    def __init__(self, child: Expression, delim: Expression):
+        super().__init__(child)
+        self.delim = str(delim.value)
+        self._rx = re.compile(self.delim)
+
+    @property
+    def dtype(self):
+        return ArrayType(string)
+
+    def split_lists(self, values: list[str]) -> list[list[str]]:
+        return [self._rx.split(v) for v in values]
+
+    def transform(self, s):
+        return self._rx.split(s)
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not isinstance(c.dtype, StringType):
+            raise TypeCheckError("split() needs a string")
+        return _dict_transform(ctx, c, self.simple_string(), self.transform,
+                               False, self.dtype)
+
+
+class Explode(Expression):
+    """Generator marker: the analyzer moves it into a Generate node
+    (ExtractGenerators)."""
+
+    child_fields = ("child",)
+
+    def __init__(self, child: Expression):
+        self.child = child
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct.element_type if isinstance(ct, ArrayType) else ct
+
+    def eval(self, ctx):
+        raise UnsupportedOperationError(
+            "explode() must be planned as a Generate operator")
+
+
+class Size(_ArrayLut):
+    @property
+    def dtype(self):
+        return int32
+
+    def value_of(self, lst):
+        return len(lst), True
+
+
+class ArrayContains(_ArrayLut):
+    def __init__(self, child: Expression, value: Expression):
+        super().__init__(child)
+        self.value = _lit_value(value, "array_contains")
+
+    @property
+    def dtype(self):
+        return boolean
+
+    def value_of(self, lst):
+        return (self.value in lst), True
+
+
+class ArrayMin(_ArrayLut):
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct.element_type if isinstance(ct, ArrayType) else ct
+
+    def value_of(self, lst):
+        vals = [v for v in lst if v is not None]
+        return (min(vals), True) if vals else (0, False)
+
+
+class ArrayMax(ArrayMin):
+    def value_of(self, lst):
+        vals = [v for v in lst if v is not None]
+        return (max(vals), True) if vals else (0, False)
+
+
+class ElementAt(_ArrayLut):
+    """element_at(arr, i): 1-based, negative from the end; NULL out of
+    range or at a NULL element."""
+
+    def __init__(self, child: Expression, idx: Expression):
+        super().__init__(child)
+        self.idx = int(_lit_value(idx, "element_at"))
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct.element_type if isinstance(ct, ArrayType) else ct
+
+    def value_of(self, lst):
+        i = self.idx - 1 if self.idx > 0 else len(lst) + self.idx
+        if 0 <= i < len(lst) and lst[i] is not None:
+            return lst[i], True
+        return 0, False
+
+
+class ElementAtString(ElementAt):
+    """element_at over array<string> (the reference's class of its own:
+    a dictionary transform with a real NULL out of range)."""
+
+    @property
+    def dtype(self):
+        return string
+
+
+class GetStructField(_ArrayLut):
+    """struct.field: the field of each dictionary entry, into a lut (a
+    numeric field) or a derived dictionary (a string or nested field)."""
+
+    def __init__(self, child: Expression, name: str):
+        super().__init__(child)
+        self.field_name = name
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        if isinstance(ct, StructType):
+            ft = ct.field_type(self.field_name)
+            if ft is not None:
+                return ft
+        return null_type
+
+    def value_of(self, d):
+        if isinstance(d, dict) and d.get(self.field_name) is not None:
+            return d[self.field_name], True
+        return 0, False
+
+    def simple_string(self):
+        return f"{self.child.simple_string()}.{self.field_name}"
+
+
+class GetMapValue(_ArrayLut):
+    """map[key] / element_at(map, key) over a literal key."""
+
+    def __init__(self, child: Expression, key: Expression):
+        super().__init__(child)
+        self.key = _lit_value(key, "a map subscript")
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct.value_type if isinstance(ct, MapType) else null_type
+
+    def value_of(self, m):
+        if isinstance(m, dict) and m.get(self.key) is not None:
+            return m[self.key], True
+        return 0, False
+
+
+class MapContainsKey(_ArrayLut):
+    def __init__(self, child: Expression, key: Expression):
+        super().__init__(child)
+        self.key = _lit_value(key, "map_contains_key")
+
+    @property
+    def dtype(self):
+        return boolean
+
+    @property
+    def nullable(self):
+        return self.child.nullable
+
+    def value_of(self, m):
+        return (self.key in m) if isinstance(m, dict) else False, True
+
+
+class Flatten(_ArrayLut):
+    """flatten(array<array<T>>) -> array<T>, one level; a NULL sub-array
+    makes the result NULL."""
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct.element_type if isinstance(ct, ArrayType) and \
+            isinstance(ct.element_type, ArrayType) else ct
+
+    def value_of(self, lst):
+        out = []
+        for sub in lst:
+            if sub is None:
+                return [], False
+            out.extend(sub)
+        return out, True
+
+
+class ArrayJoin(_ArrayLut):
+    """array_join(arr, sep[, null_replacement]) -> string."""
+
+    def __init__(self, child: Expression, sep: Expression,
+                 null_replacement: Expression | None = None):
+        super().__init__(child)
+        self.sep = str(_lit_value(sep, "array_join"))
+        self.null_rep = None if null_replacement is None \
+            else str(_lit_value(null_replacement, "array_join"))
+
+    @property
+    def dtype(self):
+        return string
+
+    def value_of(self, lst):
+        parts = []
+        for v in lst:
+            if v is None:
+                if self.null_rep is not None:
+                    parts.append(self.null_rep)
+            else:
+                parts.append(str(v))
+        return self.sep.join(parts), True
+
+
+class ArrayPosition(_ArrayLut):
+    """array_position(arr, value): the 1-based index of the first match,
+    0 where absent."""
+
+    def __init__(self, child: Expression, value: Expression):
+        super().__init__(child)
+        self.value = _lit_value(value, "array_position")
+
+    @property
+    def dtype(self):
+        return int64
+
+    def value_of(self, lst):
+        for i, v in enumerate(lst):
+            if v == self.value:
+                return i + 1, True
+        return 0, True
+
+
+class RegexpExtractAll(_ArrayLut):
+    """regexp_extract_all(str, regexp[, idx]) -> array<string>: group 1 by
+    default, the whole match for a pattern without groups."""
+
+    def __init__(self, child, pattern: Expression,
+                 group: Expression | None = None):
+        super().__init__(child)
+        self.pattern = str(_lit_value(pattern, "regexp_extract_all"))
+        self._rx = re.compile(self.pattern)
+        if group is None:
+            self.group = 1 if self._rx.groups >= 1 else 0
+        else:
+            self.group = int(_lit_value(group, "regexp_extract_all"))
+            if self.group > self._rx.groups:
+                raise AnalysisException(
+                    f"regexp_extract_all: regex group count is "
+                    f"{self._rx.groups}, but the specified group index "
+                    f"is {self.group}")
+
+    @property
+    def dtype(self):
+        return ArrayType(string)
+
+    def value_of(self, s):
+        return [m.group(self.group) or ""
+                for m in self._rx.finditer(s)], True
+
+
+class _ArrayDictTransform(_DictTransform):
+    """A list -> list (or map -> list) function over a nested column's
+    dictionary entries, deduplicated as every dictionary transform."""
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def eval(self, ctx):
+        c = ctx.eval(self.child)
+        if not dict_encoded(c.dtype) or isinstance(c.dtype, StringType):
+            raise TypeCheckError(f"{self.sql_name()} of "
+                                 f"{c.dtype.simple_string()}")
+        return _dict_transform(ctx, c, self.simple_string(), self.transform,
+                               False, self.dtype)
+
+
+class MapKeys(_ArrayDictTransform):
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ArrayType(ct.key_type) if isinstance(ct, MapType) \
+            else ArrayType()
+
+    def transform(self, m):
+        return list(m.keys()) if isinstance(m, dict) else []
+
+
+class MapValues(_ArrayDictTransform):
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ArrayType(ct.value_type) if isinstance(ct, MapType) \
+            else ArrayType()
+
+    def transform(self, m):
+        return list(m.values()) if isinstance(m, dict) else []
+
+
+class SortArray(_ArrayDictTransform):
+    """sort_array(arr[, asc]): NULL elements first when ascending, last
+    when descending (the reference's sorted() raises on them:
+    ROADMAP.md C16)."""
+
+    def __init__(self, child: Expression, asc: Expression | None = None):
+        super().__init__(child)
+        self.asc = True if asc is None else bool(_lit_value(asc,
+                                                            "sort_array"))
+
+    def transform(self, lst):
+        vals = sorted((v for v in lst if v is not None),
+                      reverse=not self.asc)
+        nulls = [None] * (len(lst) - len(vals))
+        return nulls + vals if self.asc else vals + nulls
+
+
+class ArraySortNullsLast(_ArrayDictTransform):
+    """array_sort(arr): ascending with NULLs last (sort_array puts them
+    first)."""
+
+    def transform(self, lst):
+        return sorted([v for v in lst if v is not None]) + \
+            [None] * sum(1 for v in lst if v is None)
+
+
+class ArrayDistinct(_ArrayDictTransform):
+    def transform(self, lst):
+        return list(dict.fromkeys(lst))
+
+
+class Slice(_ArrayDictTransform):
+    """slice(arr, start, length): 1-based, a negative start from the
+    end."""
+
+    def __init__(self, child: Expression, start: Expression,
+                 length: Expression):
+        super().__init__(child)
+        self.start = int(_lit_value(start, "slice"))
+        self.length = int(_lit_value(length, "slice"))
+        if self.start == 0:
+            raise AnalysisException(
+                "Unexpected value for start in function slice: "
+                "SQL array indices start at 1")
+
+    def transform(self, lst):
+        s = self.start - 1 if self.start > 0 else len(lst) + self.start
+        if s < 0:
+            return []
+        return lst[s:s + self.length]
+
+
+class ArrayRemove(_ArrayDictTransform):
+    def __init__(self, child: Expression, value: Expression):
+        super().__init__(child)
+        self.value = _lit_value(value, "array_remove")
+
+    def transform(self, lst):
+        return [v for v in lst if v != self.value]
+
+
+def build_element_at(child: Expression, idx: Expression) -> Expression:
+    """element_at(c, k) and c[k]: a map lookup, or an array element."""
+    if not isinstance(idx, Literal):
+        raise AnalysisException(
+            "element_at / [] requires a literal key; column-valued keys "
+            "are not supported yet")
+    ct = child.dtype
+    if isinstance(ct, MapType):
+        return GetMapValue(child, idx)
+    if isinstance(ct, ArrayType) and isinstance(ct.element_type, StringType):
+        return ElementAtString(child, idx)
+    return ElementAt(child, idx)
+
+
+def host_udf(fn, args, dt: DataType, name: str):
+    """`fn` evaluated row by row on the host (PythonEvalExec), as the
+    reference builds its constructors and set functions; a nested result
+    is dictionary-encoded on the way back."""
+    from .pyudf import PythonUDF
+
+    return PythonUDF(fn, list(args), dt, name=name, vectorized=False)
+
+
+def build_struct_ctor(args, names=None) -> Expression:
+    """struct(...) / named_struct('n1', v1, ...): a struct column built on
+    the host; struct() names a field after its column, alias or field."""
+    if names is None:
+        names, vals = [], []
+        for i, a in enumerate(args):
+            if isinstance(a, (Alias, AttributeReference)):
+                names.append(a.name)
+                vals.append(a.child if isinstance(a, Alias) else a)
+            elif isinstance(a, GetStructField):
+                names.append(a.field_name)
+                vals.append(a)
+            else:
+                names.append(f"col{i + 1}")
+                vals.append(a)
+    else:
+        vals = list(args)
+    st = StructType(tuple(StructField(n, v.dtype, True)
+                          for n, v in zip(names, vals)))
+    captured = list(names)
+    return host_udf(lambda *cols: dict(zip(captured, cols)), vals, st,
+                      "named_struct")
+
+
+def build_named_struct(args) -> Expression:
+    if len(args) % 2 != 0:
+        raise AnalysisException("named_struct expects name/value pairs")
+    names = [str(_lit_value(a, "named_struct")) for a in args[0::2]]
+    return build_struct_ctor(args[1::2], names=names)
+
+
+def build_array_ctor(args) -> Expression:
+    """array(e1, e2, ...): an array column built on the host."""
+    et: DataType = null_type
+    for a in args:
+        et = common_type(et, a.dtype) or a.dtype
+    if not args:
+        # array(): one dummy input keeps the evaluation shaped
+        return host_udf(lambda _x: [], [Literal(0)], ArrayType(et),
+                          "array")
+    return host_udf(lambda *cols: list(cols), args, ArrayType(et),
+                      "array")
+
+
+def build_map_ctor(args) -> Expression:
+    """map(k1, v1, k2, v2, ...): a map column built on the host."""
+    if len(args) % 2 != 0:
+        raise AnalysisException("map expects key/value pairs")
+    kt: DataType = null_type
+    vt: DataType = null_type
+    for k in args[0::2]:
+        kt = common_type(kt, k.dtype) or k.dtype
+    for v in args[1::2]:
+        vt = common_type(vt, v.dtype) or v.dtype
+    n = len(args) // 2
+    return host_udf(lambda *cols: {cols[2 * i]: cols[2 * i + 1]
+                                     for i in range(n)},
+                      args, MapType(kt, vt), "map")
 
 
 class Concat(Expression):
@@ -2760,7 +3266,15 @@ class IntervalLiteral(Expression):
 
 def _apply_interval(side: Val, iv: IntervalLiteral) -> Val:
     """date + interval: the days first, then the months, clamped to the
-    end of the target month (2000-01-31 + 1 month = 2000-02-29)."""
+    end of the target month (2000-01-31 + 1 month = 2000-02-29). A
+    timestamp adds the days and microseconds (a month interval on a
+    timestamp raises, as in the reference)."""
+    if isinstance(side.dtype, TimestampType):
+        if iv.months:
+            raise UnsupportedOperationError(
+                "month intervals on timestamps not supported yet")
+        return Val(timestamp, side.data + (iv.days * _US_PER_DAY + iv.micros),
+                   side.validity)
     if not isinstance(side.dtype, DateType):
         raise TypeCheckError(
             f"cannot add INTERVAL to {side.dtype.simple_string()}")
@@ -2816,7 +3330,7 @@ class _DatePart(UnaryExpression):
         return int32
 
     def eval(self, ctx):
-        c = ctx.eval(self.child)
+        c = _as_date(ctx, ctx.eval(self.child))
         if not isinstance(c.dtype, DateType):
             raise NotPortedError(f"{self.sql_name()} of "
                                  f"{c.dtype.simple_string()}")
@@ -2887,7 +3401,7 @@ class TruncDate(UnaryExpression):
         return date
 
     def eval(self, ctx):
-        c = ctx.eval(self.child)
+        c = _as_date(ctx, ctx.eval(self.child))
         if not isinstance(c.dtype, DateType):
             raise NotPortedError(f"trunc of {c.dtype.simple_string()}")
         y, m, d = _civil_from_days(c.data)
@@ -2996,6 +3510,134 @@ class MonthsBetween(BinaryExpression):
                     torch.full_like(ld, 1.0 / 31.0, dtype=torch.float64),
                     months.to(torch.float64))
         return Val(float64, frac, ctx.and_valid(l, r))
+
+
+# ---------------------------------------------------------------------------
+# Timestamps: int64 microseconds since the epoch, no session time zone
+# ---------------------------------------------------------------------------
+
+_US_PER_DAY = 86_400_000_000
+_EPOCH = datetime.datetime(1970, 1, 1)
+
+
+def _micros(v: datetime.datetime) -> int:
+    """Microseconds from the epoch to `v`'s wall clock (an aware value
+    against the epoch in its own zone, as the reference reads it), in
+    integer arithmetic: the reference goes through a float of seconds and
+    can lose a microsecond (ROADMAP.md C14)."""
+    td = v - _EPOCH.replace(tzinfo=v.tzinfo)
+    return (td.days * 86_400 + td.seconds) * 1_000_000 + td.microseconds
+
+
+def _parse_ts(s: str) -> int | None:
+    """A timestamp string ('yyyy-mm-dd[ hh:mm:ss[.ffffff]]', 'T' allowed)
+    as microseconds, or None."""
+    s = s.strip().replace("T", " ")
+    for fmt in ("%Y-%m-%d %H:%M:%S.%f", "%Y-%m-%d %H:%M:%S", "%Y-%m-%d"):
+        try:
+            return _micros(datetime.datetime.strptime(s, fmt))
+        except ValueError:
+            continue
+    return None
+
+
+def _device_value(dt: DataType, v):
+    """A host value as Arrow's to_pylist gives it (a nested entry's field
+    or element) in `dt`'s device representation: a date as days, a
+    timestamp as microseconds, a Decimal scaled to an integer."""
+    if isinstance(v, bool) or v is None:
+        return v
+    if isinstance(dt, TimestampType) and isinstance(v, datetime.datetime):
+        return _micros(v)
+    if isinstance(dt, DateType) and isinstance(v, datetime.date):
+        return (v - datetime.date(1970, 1, 1)).days
+    if isinstance(dt, DecimalType):
+        import decimal as _d
+
+        if isinstance(v, _d.Decimal):
+            return int(v.scaleb(dt.scale).to_integral_value())
+    return v
+
+
+def _as_date(ctx: EvalCtx, c: Val) -> Val:
+    """A timestamp's date (the calendar fields and trunc read it)."""
+    return cast_val(ctx, c, date) if isinstance(c.dtype, TimestampType) \
+        else c
+
+
+class _TimePart(UnaryExpression):
+    """A clock field of a timestamp (the child cast to a timestamp):
+    (micros mod `period`) div `unit`, floor operations, so an instant
+    before 1970 reads its own clock."""
+
+    period = _US_PER_DAY
+    unit = 3_600_000_000
+
+    @property
+    def dtype(self):
+        return int32
+
+    def eval(self, ctx):
+        c = ctx.eval(cast_if(self.child, timestamp))
+        us = torch.remainder(c.data, self.period)
+        return Val(int32, _floordiv(us, self.unit).to(torch.int32),
+                   c.validity)
+
+
+class Hour(_TimePart):
+    pass
+
+
+class Minute(_TimePart):
+    period = 3_600_000_000
+    unit = 60_000_000
+
+
+class Second(_TimePart):
+    period = 60_000_000
+    unit = 1_000_000
+
+
+class UnixTimestamp(UnaryExpression):
+    """unix_timestamp(ts): whole seconds since the epoch (floor)."""
+
+    @property
+    def dtype(self):
+        return int64
+
+    def eval(self, ctx):
+        c = ctx.eval(cast_if(self.child, timestamp))
+        return Val(int64, _floordiv(c.data, 1_000_000), c.validity)
+
+
+class FromUnixtime(UnaryExpression):
+    """from_unixtime(seconds): a TIMESTAMP, as the reference returns (not
+    Spark's formatted string)."""
+
+    @property
+    def dtype(self):
+        return timestamp
+
+    def eval(self, ctx):
+        c = ctx.eval(cast_if(self.child, int64))
+        return Val(timestamp, c.data * 1_000_000, c.validity)
+
+
+def build_make_interval(y, mo, w, d, h, mi, s) -> IntervalLiteral:
+    """make_interval(years, months, weeks, days, hours, mins, secs) over
+    literal arguments, as interval literals themselves."""
+    def val(e, default=0):
+        if e is None:
+            return default
+        if isinstance(e, Literal) and e.value is not None:
+            return e.value
+        raise AnalysisException("make_interval expects literal arguments")
+
+    months = int(val(y)) * 12 + int(val(mo))
+    days = int(val(w)) * 7 + int(val(d))
+    micros = int(val(h)) * 3_600_000_000 + int(val(mi)) * 60_000_000 + \
+        int(round(float(val(s)) * 1_000_000))
+    return IntervalLiteral(months, days, micros)
 
 
 # ---------------------------------------------------------------------------

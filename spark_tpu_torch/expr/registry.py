@@ -1,19 +1,25 @@
 """Function registry: SQL function names -> expression builders
 (counterpart of `spark_tpu/expr/registry.py`, the functions of the port's
 slices, with the reference's argument defaults). A name the reference
-knows and the port does not (its collections, timestamps, intervals and
-the aggregates still to come) raises `NotPortedError` naming it."""
+knows and the port does not (the higher-order functions and the
+aggregates still to come) raises `NotPortedError` naming it. The
+collection constructors and set functions are host UDFs row by row, as
+the reference builds them."""
 
 from __future__ import annotations
 
+import calendar
 import datetime
 import fnmatch
 import hashlib
 import math
 from typing import Callable, Sequence
 
-from ..errors import AnalysisException, NotPortedError
-from ..types import boolean, common_type, date, int32, int64, string
+from ..errors import AnalysisException, ExecutionError, NotPortedError
+from ..types import (
+    ArrayType, MapType, StructField, StructType, boolean, common_type, date,
+    int32, int64, string, timestamp,
+)
 from . import expressions as E
 from . import window as W
 from .pyudf import PythonUDF
@@ -101,12 +107,96 @@ def _date_part(field, src):
          "mon": E.Month, "day": E.DayOfMonth, "d": E.DayOfMonth,
          "dayofweek": E.DayOfWeek, "dow": E.DayOfWeek,
          "doy": E.DayOfYear, "quarter": E.Quarter, "qtr": E.Quarter,
-         "week": E.WeekOfYear}
-    if f in ("hour", "hr", "minute", "min", "second", "sec"):
-        raise NotPortedError(f"function date_part({f}) (timestamps)")
+         "week": E.WeekOfYear, "hour": E.Hour, "hr": E.Hour,
+         "minute": E.Minute, "min": E.Minute, "second": E.Second,
+         "sec": E.Second}
     if f not in m:
         raise AnalysisException(f"date_part: unknown field {field}")
     return m[f](src)
+
+
+def _seq(x, y, s=None):
+    """sequence(start, stop[, step]), both ends included."""
+    if s is None:
+        s = 1 if y >= x else -1
+    s = int(s)
+    if s == 0 or (s > 0) != (y >= x) and x != y:
+        raise ExecutionError(
+            f"sequence: illegal step {s} for bounds {x}..{y}")
+    return list(range(int(x), int(y) + (1 if s > 0 else -1), s))
+
+
+def _make_timestamp(y, mo, d, h, mi, sec) -> int:
+    """make_timestamp(...) as epoch microseconds (the seconds' fraction
+    rounded to a microsecond, as the reference rounds it)."""
+    dt = datetime.datetime(int(y), int(mo), int(d), int(h), int(mi),
+                           int(float(sec)))
+    return calendar.timegm(dt.timetuple()) * 1_000_000 \
+        + int(round((float(sec) % 1) * 1e6))
+
+
+def _intersect(x, y):
+    right = set(v for v in y if v is not None)
+    y_null = any(v is None for v in y)
+    return [v for v in dict.fromkeys(x)
+            if v in right or (v is None and y_null)]
+
+
+def _except(x, y):
+    right = set(v for v in y if v is not None)
+    y_null = any(v is None for v in y)
+    return [v for v in dict.fromkeys(x)
+            if v not in right and not (v is None and y_null)]
+
+
+def _overlap(x, y):
+    if set(v for v in x if v is not None) & \
+            set(v for v in y if v is not None):
+        return True
+    return None if (None in list(x) or None in list(y)) and x and y \
+        else False
+
+
+def _insert(x, i, e):
+    i = int(i)
+    if i > 0:
+        return list(x[:i - 1]) + [e] + list(x[i - 1:])
+    return list(x[:len(x) + i + 1]) + [e] + list(x[len(x) + i + 1:])
+
+
+def _zip(*xs):
+    if not xs:
+        return []
+    return [{str(i): (x[j] if j < len(x) else None)
+             for i, x in enumerate(xs)}
+            for j in range(max(len(x) for x in xs))]
+
+
+def _from_entries(es):
+    def kv(e):
+        return (e[list(e)[0]], e[list(e)[1]]) if isinstance(e, dict) \
+            else (e[0], e[1])
+
+    return dict(kv(e) for e in es)
+
+
+def _str_to_map(x, p=",", kv=":"):
+    if not x:
+        return {}
+    return {(part.split(kv, 1) + [None])[0]: (part.split(kv, 1) + [None])[1]
+            for part in x.split(p)}
+
+
+def _elem(e, default=int64):
+    dt = e.dtype
+    return dt.element_type if isinstance(dt, ArrayType) else default
+
+
+def _array_sort(c, f=None):
+    if f is not None:
+        raise NotPortedError("lambda functions (array_sort with a "
+                             "comparator)")
+    return E.ArraySortNullsLast(c)
 
 
 def _host(fn, name: str, rtype, strict: bool = True):
@@ -312,6 +402,88 @@ _REGISTRY: dict[str, Builder] = {
     "last_day": lambda c: E.LastDay(c),
     "to_date": lambda c, fmt=None: E.Cast(c, date),
     "unix_date": lambda d: E.DateDiff(d, E.Literal(datetime.date(1970, 1, 1))),
+    # timestamps and intervals
+    "hour": lambda c: E.Hour(c),
+    "minute": lambda c: E.Minute(c),
+    "second": lambda c: E.Second(c),
+    "unix_timestamp": lambda c: E.UnixTimestamp(c),
+    "from_unixtime": lambda c, fmt=None: E.FromUnixtime(c),
+    "to_timestamp": lambda c, fmt=None: E.Cast(c, timestamp),
+    "make_timestamp": lambda y, mo, d, h, mi, s: E.host_udf(
+        _strict(_make_timestamp), [y, mo, d, h, mi, s], timestamp,
+        "make_timestamp"),
+    "make_interval": lambda y=None, mo=None, w=None, d=None, h=None,
+    mi=None, s=None: E.build_make_interval(y, mo, w, d, h, mi, s),
+    "make_dt_interval": lambda d=None, h=None, mi=None, s=None:
+    E.build_make_interval(None, None, None, d, h, mi, s),
+    "make_ym_interval": lambda y=None, mo=None:
+    E.build_make_interval(y, mo, None, None, None, None, None),
+    # collections: dictionary luts and transforms
+    "split": lambda c, d: E.Split(c, d),
+    "explode": lambda c: E.Explode(c),
+    "size": lambda c: E.Size(c),
+    "cardinality": lambda c: E.Size(c),
+    "array_contains": lambda c, v: E.ArrayContains(c, v),
+    "array_min": lambda c: E.ArrayMin(c),
+    "array_max": lambda c: E.ArrayMax(c),
+    "sort_array": lambda c, asc=None: E.SortArray(c, asc),
+    "array_sort": _array_sort,
+    "array_distinct": lambda c: E.ArrayDistinct(c),
+    "element_at": lambda c, i: E.build_element_at(c, i),
+    "flatten": lambda c: E.Flatten(c),
+    "slice": lambda c, s, ln: E.Slice(c, s, ln),
+    "array_remove": lambda c, v: E.ArrayRemove(c, v),
+    "array_join": lambda c, sep, nr=None: E.ArrayJoin(c, sep, nr),
+    "array_position": lambda c, v: E.ArrayPosition(c, v),
+    "map_keys": lambda c: E.MapKeys(c),
+    "map_values": lambda c: E.MapValues(c),
+    "map_contains_key": lambda c, k: E.MapContainsKey(c, k),
+    "regexp_extract_all": lambda c, p, g=None: E.RegexpExtractAll(c, p, g),
+    # collections: constructors and set functions, host UDFs row by row
+    "array": lambda *a: E.build_array_ctor(list(a)),
+    "map": lambda *a: E.build_map_ctor(list(a)),
+    "struct": lambda *a: E.build_struct_ctor(list(a)),
+    "named_struct": lambda *a: E.build_named_struct(list(a)),
+    "sequence": lambda a, b, step=None: E.host_udf(
+        _strict(_seq), [a, b] + ([step] if step is not None else []),
+        ArrayType(int64), "sequence"),
+    "array_repeat": lambda v, n: E.host_udf(
+        lambda x, k: [] if k is None else [x] * int(k), [v, n],
+        ArrayType(v.dtype), "array_repeat"),
+    "array_union": lambda a, b: E.host_udf(
+        _strict(lambda x, y: list(dict.fromkeys(list(x) + list(y)))),
+        [a, b], a.dtype, "array_union"),
+    "array_intersect": lambda a, b: E.host_udf(_strict(_intersect), [a, b],
+                                         a.dtype, "array_intersect"),
+    "array_except": lambda a, b: E.host_udf(_strict(_except), [a, b], a.dtype,
+                                      "array_except"),
+    "arrays_overlap": lambda a, b: E.host_udf(_strict(_overlap), [a, b],
+                                        boolean, "arrays_overlap"),
+    "array_append": lambda a, v: E.host_udf(
+        lambda x, e: None if x is None else list(x) + [e], [a, v],
+        a.dtype, "array_append"),
+    "array_prepend": lambda a, v: E.host_udf(
+        lambda x, e: None if x is None else [e] + list(x), [a, v],
+        a.dtype, "array_prepend"),
+    "array_insert": lambda a, p, v: E.host_udf(_strict(_insert), [a, p, v],
+                                         a.dtype, "array_insert"),
+    "array_compact": lambda a: E.host_udf(
+        lambda x: None if x is None else [v for v in x if v is not None],
+        [a], a.dtype, "array_compact"),
+    "arrays_zip": lambda *args: E.host_udf(
+        _strict(_zip), args,
+        ArrayType(StructType(tuple(StructField(str(i), _elem(a), True)
+                                   for i, a in enumerate(args)))),
+        "arrays_zip"),
+    "map_from_arrays": lambda k, v: E.host_udf(
+        _strict(lambda ks, vs: dict(zip(ks, vs))), [k, v],
+        MapType(_elem(k, string), _elem(v)), "map_from_arrays"),
+    "map_from_entries": lambda a: E.host_udf(_strict(_from_entries), [a],
+                                       MapType(string, int64),
+                                       "map_from_entries"),
+    "str_to_map": lambda s, pd=None, kvd=None: E.host_udf(
+        _strict(_str_to_map), [s] + [x for x in (pd, kvd) if x is not None],
+        MapType(string, string), "str_to_map"),
     # window and ranking
     "row_number": lambda: W.RowNumber(),
     "rank": lambda: W.Rank(),

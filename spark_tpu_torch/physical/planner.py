@@ -183,6 +183,11 @@ class Planner:
 
             return PythonEvalExec(node.udf_aliases,
                                   self._convert(node.child))
+        if isinstance(node, L.Generate):
+            from .generate import GenerateExec
+
+            return GenerateExec(node.generator, node.element_attr,
+                                self._convert(node.child))
         if isinstance(node, L.Window):
             return self._plan_window(node)
         if isinstance(node, L.Repartition):

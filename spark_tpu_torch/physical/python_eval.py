@@ -5,8 +5,9 @@ The role of Spark's ArrowEvalPythonExec and its worker protocol. There is
 no process boundary: device pipelines evaluate the argument expressions,
 the live rows cross to the host once, the UDF runs vectorized over numpy
 arrays, and its results come back as new device columns (strings re-enter
-through a dictionary). A deterministic UDF over one dictionary-encoded
-string argument runs once per distinct live value instead of once per row.
+through a dictionary; an array, map or struct result is dictionary-encoded
+by canonical form). A deterministic UDF over one dictionary-encoded string
+argument runs once per distinct live value instead of once per row.
 """
 
 from __future__ import annotations
@@ -16,24 +17,31 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..columnar.batch import Column, ColumnarBatch, StringDict
+from ..columnar.batch import (
+    Column, ColumnarBatch, StringDict, empty_entry, encode_values,
+)
 from ..config import ENCODING_ENABLED
 from ..exec.context import ExecContext
 from ..expr.expressions import Alias
-from ..types import DecimalType, StringType, StructField, StructType
+from ..types import (
+    ArrayType, DateType, DecimalType, MapType, StringType, StructField,
+    StructType, TimestampType, dict_encoded,
+)
 from .compile import ExprPipeline
 from .operators import PhysicalPlan, attrs_schema
 
 
 def host_values(col: Column, sel: torch.Tensor) -> np.ndarray:
-    """The selected rows of `col` as host Python-level values: strings
-    decoded, decimals scaled to floats, NULL as None."""
+    """The selected rows of `col` as host Python-level values: strings,
+    blobs, lists and dicts decoded, decimals scaled to floats, dates and
+    timestamps as their int days and microseconds, NULL as None."""
     data = col.data[sel].cpu().numpy()
-    if col.is_string:
+    if dict_encoded(col.dtype):
         values = col.dictionary.values if col.dictionary is not None else []
         vals = np.empty(len(values) + 1, dtype=object)
-        vals[:len(values)] = values
-        vals[-1] = ""
+        for i, v in enumerate(values):  # lists stay whole, never 2-D
+            vals[i] = v
+        vals[-1] = empty_entry(col.dtype)
         out = vals[np.clip(data, 0, len(values))] if values \
             else vals[np.full(len(data), -1)]
         out = np.asarray(out, dtype=object)
@@ -46,6 +54,55 @@ def host_values(col: Column, sel: torch.Tensor) -> np.ndarray:
         out = np.asarray(out, dtype=object).copy()
         out[~valid] = None
     return out
+
+
+def conform(v, dt):
+    """A host UDF's value inside a nested result in the form Arrow's ingest
+    gives the same type: a decimal as a Decimal at its scale, a date and a
+    timestamp as date and datetime objects (a UDF sees them as a float,
+    days and microseconds), numpy scalars as Python values, recursively.
+    The reference keeps the float, so a decimal read back from its struct
+    or map loses its scale and its collect fails (ROADMAP.md C15)."""
+    import datetime
+    import decimal
+
+    if v is None:
+        return None
+    if isinstance(v, np.generic):
+        v = v.item()
+    if isinstance(dt, DecimalType):
+        if isinstance(v, decimal.Decimal):
+            return v
+        return decimal.Decimal(int(round(float(v) * 10 ** dt.scale))) \
+            .scaleb(-dt.scale)
+    if isinstance(dt, TimestampType) and not isinstance(v, datetime.datetime):
+        return datetime.datetime(1970, 1, 1) + \
+            datetime.timedelta(microseconds=int(v))
+    if isinstance(dt, DateType) and not isinstance(v, datetime.date):
+        return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))
+    if isinstance(dt, ArrayType):
+        return [conform(x, dt.element_type) for x in v]
+    if isinstance(dt, MapType):
+        return {conform(k, dt.key_type): conform(x, dt.value_type)
+                for k, x in v.items()}
+    if isinstance(dt, StructType) and isinstance(v, dict):
+        return {f.name: conform(v.get(f.name), f.dataType)
+                for f in dt.fields}
+    return v
+
+
+def _holds_scaled(dt) -> bool:
+    """True where a nested type holds a decimal, a date or a timestamp
+    (the values `conform` rewrites)."""
+    if isinstance(dt, (DecimalType, DateType, TimestampType)):
+        return True
+    if isinstance(dt, ArrayType):
+        return _holds_scaled(dt.element_type)
+    if isinstance(dt, MapType):
+        return _holds_scaled(dt.key_type) or _holds_scaled(dt.value_type)
+    if isinstance(dt, StructType):
+        return any(_holds_scaled(f.dataType) for f in dt.fields)
+    return False
 
 
 class PythonEvalExec(PhysicalPlan):
@@ -177,6 +234,22 @@ class PythonEvalExec(PhysicalPlan):
         nulls = np.array([v is None for v in result], bool) \
             if result.dtype == object else np.zeros(len(result), bool)
         sel_np = sel.cpu().numpy()
+        if isinstance(dt, (ArrayType, MapType, StructType)):
+            # np.asarray may have made equal-length list results 2-D: take
+            # them row by row
+            fix = conform if _holds_scaled(dt) else (lambda v, _dt: v)
+            rows = [None if v is None else
+                    fix(list(v) if isinstance(v, np.ndarray) else v, dt)
+                    for v in (result.tolist() if result.ndim > 1
+                              else result)]
+            values, codes = encode_values(rows)
+            data = np.zeros(cap, np.int32)
+            data[sel_np] = codes
+            validity = np.zeros(cap, bool)
+            validity[sel_np] = np.array([v is not None for v in rows], bool)
+            return Column(dt, torch.from_numpy(data).to(device),
+                          torch.from_numpy(validity).to(device),
+                          StringDict(values or [empty_entry(dt)]))
         if isinstance(dt, StringType):
             values: list[str] = []
             index: dict[str, int] = {}

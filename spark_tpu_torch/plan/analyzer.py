@@ -14,9 +14,10 @@ ExtractWindowFromAggregate and ExtractWindowExpressions (window functions
 move into Window nodes, one per spec), FoldIntervalArithmetic,
 ResolveAliases, CoerceDecimalArithmetic, WidenSetOperationTypes and
 CheckAnalysis. Numeric coercion happens where each expression evaluates
-(common_type casts), as in the JAX package. Generators (LATERAL VIEW,
-explode) are listed in ROADMAP.md; they raise NotPortedError at parse
-time."""
+(common_type casts; a date meets a timestamp as a timestamp), as in the
+JAX package. A dotted name whose prefix is a struct column resolves to its
+field accesses (`_resolve_struct_path`), and ExtractGenerators moves an
+explode() out of a SELECT into a Generate node."""
 
 from __future__ import annotations
 
@@ -26,16 +27,18 @@ from typing import Sequence
 from ..errors import AnalysisException, UnresolvedColumnError
 from ..expr.expressions import (
     Add, AggregateFunction, Alias, And, AttributeReference, Average, Cast,
-    Coalesce, Count, Divide, EqualTo, Expression, Grouping, GroupingID, IntervalLiteral, Literal, Max,
-    Min, Multiply, SortOrder, Subtract, Sum, UnaryMinus, UnresolvedAttribute,
+    Coalesce, Count, Divide, EqualTo, Explode, Expression, GetStructField,
+    Grouping, GroupingID, IntervalLiteral, Literal, Max, Min, Multiply,
+    SortOrder, Split, Subtract, Sum, UnaryMinus, UnresolvedAttribute,
     UnresolvedFunction, UnresolvedStar, cast_if,
 )
 from ..expr.registry import build_function
 from ..expr.window import UnresolvedWindowExpression, WindowExpression
-from ..types import DecimalType, common_type
+from ..types import DecimalType, StructType, common_type
 from .catalog import Catalog
 from .logical import (
-    Aggregate, Except, Filter, GroupingSets, Intersect, Join, LocalRelation,
+    Aggregate, Except, Filter, Generate, GroupingSets, Intersect, Join,
+    LocalRelation,
     LogicalPlan, LogicalRelation, Project, RangeRelation, Sort,
     SubqueryAlias, Union, UnresolvedRelation, UsingJoin, Window,
 )
@@ -154,6 +157,31 @@ def _remap_plan(plan: LogicalPlan, mapping: dict[int, AttributeReference],
     return go(plan)
 
 
+def _resolve_struct_path(name_parts, attrs, case_sensitive):
+    """a.b.c where a prefix resolves to a struct column: the remaining
+    parts as field accesses (the reference's `_resolve_struct_path`)."""
+    def norm(s):
+        return s if case_sensitive else s.lower()
+
+    for k in range(len(name_parts) - 1, 0, -1):
+        base = _resolve_name(name_parts[:k], attrs, case_sensitive)
+        if base is None or not isinstance(base.dtype, StructType):
+            continue
+        out = base
+        for p in name_parts[k:]:
+            dt = out.dtype
+            actual = next((f.name for f in dt.fields
+                           if norm(f.name) == norm(p)), None) \
+                if isinstance(dt, StructType) else None
+            if actual is None:
+                out = None
+                break
+            out = GetStructField(out, actual)
+        if out is not None:
+            return out
+    return None
+
+
 class ResolveReferences(Rule):
     def __init__(self, case_sensitive: bool = False):
         self.case_sensitive = case_sensitive
@@ -217,7 +245,10 @@ class ResolveReferences(Rule):
             def resolve_expr(e: Expression) -> Expression:
                 if isinstance(e, UnresolvedAttribute):
                     a = _resolve_name(e.name_parts, inputs, cs)
-                    return e if a is None else a
+                    if a is not None:
+                        return a
+                    nested = _resolve_struct_path(e.name_parts, inputs, cs)
+                    return e if nested is None else nested
                 if isinstance(e, UnresolvedFunction):
                     if all(c.resolved or isinstance(c, UnresolvedStar)
                            for c in e.args):
@@ -267,6 +298,8 @@ def _auto_alias(e: Expression) -> Expression:
 
 
 def _pretty_name(e: Expression) -> str:
+    if isinstance(e, GetStructField):
+        return e.field_name  # `a.b` names its output `b`, as the reference
     if isinstance(e, Sum):
         return f"sum({_pretty_name(e.child)})"
     if isinstance(e, Count):
@@ -396,7 +429,20 @@ class ResolveAggsInSortHaving(Rule):
                     if a is not None:
                         return a
                     a = _resolve_name(e.name_parts, agg.child.output, self.cs)
-                    return e if a is None else a
+                    if a is not None:
+                        return a
+                    # a struct path over the aggregate's child (ORDER BY
+                    # s.a where s.a is a grouping expression) binds to the
+                    # matching aggregate output
+                    nested = _resolve_struct_path(
+                        e.name_parts, agg.child.output, self.cs)
+                    if nested is None:
+                        return e
+                    for ae in agg.aggregate_exprs:
+                        if isinstance(ae, Alias) and \
+                                ae.child.semantic_equals(nested):
+                            return ae.to_attribute()
+                    return nested
                 if isinstance(e, UnresolvedFunction):
                     if all(c.resolved or isinstance(c, UnresolvedStar)
                            for c in e.args):
@@ -517,6 +563,21 @@ class ResolveSortHiddenRefs(Rule):
                                 all(x.expr_id != a.expr_id for x in outputs):
                             missing.append(a)
                         return a
+                    nested = _resolve_struct_path(e.name_parts, hidden,
+                                                  self.cs)
+                    if nested is not None:
+                        # a sort on a hidden struct field carries the base
+                        # struct column through the inner project
+                        changed[0] = True
+                        base = nested
+                        while not isinstance(base, AttributeReference):
+                            base = base.child
+                        if all(x.expr_id != base.expr_id
+                               for x in missing) and \
+                                all(x.expr_id != base.expr_id
+                                    for x in outputs):
+                            missing.append(base)
+                        return nested
                 return e
 
             new_orders = [SortOrder(o.child.transform_up(resolve),
@@ -703,6 +764,51 @@ class ResolveUsingJoin(Rule):
                    [by_id[a.expr_id] for a in node.right.output
                     if a.expr_id not in drop]
             return Project(keys + rest, joined)
+
+        return plan.transform_up(rule)
+
+
+class ExtractGenerators(Rule):
+    """A Project holding explode() -> a Project over Generate (the
+    reference's ExtractGenerators): one generator per SELECT; a computed
+    source (explode(map_keys(m))) binds to a column first, so Generate
+    sees an attribute, a literal, or split() of one."""
+
+    def apply(self, plan):
+        def rule(node):
+            if not isinstance(node, Project) or not node.expressions_resolved:
+                return node
+            gens = [e for pe in node.project_list
+                    for e in pe.iter_nodes() if isinstance(e, Explode)]
+            if not gens:
+                return node
+            if len(gens) > 1:
+                raise AnalysisException(
+                    "only one generator per SELECT is supported")
+            gen = gens[0]
+            elem = AttributeReference("col", gen.dtype, True)
+
+            def replace(e):
+                return elem if e is gen else e
+
+            new_list = []
+            for e in node.project_list:
+                if isinstance(e, Alias):
+                    new_list.append(Alias(e.child.transform_up(replace),
+                                          e.name, e.expr_id))
+                else:
+                    new_list.append(e.transform_up(replace))
+            src = gen.child
+            child_plan = node.child
+            simple = isinstance(src, (AttributeReference, Literal)) or (
+                isinstance(src, Split)
+                and isinstance(src.child, (AttributeReference, Literal)))
+            if not simple:
+                bound = Alias(src, "__gen_src")
+                child_plan = Project(list(node.child.output) + [bound],
+                                     node.child)
+                src = bound.to_attribute()
+            return Project(new_list, Generate(src, elem, child_plan))
 
         return plan.transform_up(rule)
 
@@ -1055,6 +1161,7 @@ class Analyzer(RuleExecutor):
                 # after the HAVING/ORDER rules: a column reachable through
                 # the aggregate's child must win over a session variable
                 ResolveSessionVariables(self.catalog),
+                ExtractGenerators(),
                 ExtractWindowFromAggregate(),
                 ExtractWindowExpressions(),
                 FoldIntervalArithmetic(),
@@ -1087,6 +1194,7 @@ class Analyzer(RuleExecutor):
             GlobalAggregates(),
             ResolveAggsInSortHaving(cs),
             ResolveSortHiddenRefs(cs),
+            ExtractGenerators(),
             ExtractWindowFromAggregate(),
             ExtractWindowExpressions(),
             ResolveAliases(),

@@ -23,7 +23,7 @@ __all__ = [
     "UnresolvedRelation", "SubqueryAlias", "WithCTE", "Project", "Filter",
     "Aggregate", "Distinct", "Sort", "Limit", "Offset",
     "Repartition", "Window", "GroupingSets", "Join", "UsingJoin", "Union",
-    "normalize_join_type",
+    "Generate", "normalize_join_type",
 ]
 
 
@@ -449,6 +449,22 @@ class PythonEval(UnaryNode):
     @property
     def output(self):
         return self.child.output + [a.to_attribute() for a in self.udf_aliases]
+
+
+class Generate(UnaryNode):
+    """Row generator (the reference's Generate over Explode): appends the
+    generator's element column, each input row repeated once per element
+    of its array (none for an empty or NULL array)."""
+
+    def __init__(self, generator: Expression, element_attr,
+                 child: LogicalPlan):
+        self.generator = generator  # an array attribute, or split(col, d)
+        self.element_attr = element_attr
+        self.child = child
+
+    @property
+    def output(self):
+        return self.child.output + [self.element_attr]
 
 
 class Intersect(BinaryNode):

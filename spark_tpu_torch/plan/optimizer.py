@@ -119,7 +119,7 @@ def const_value(e: Expression):
 def _py_cast(v, to, explicit: bool = False):
     from ..types import (
         BooleanType, DateType, DecimalType, FractionalType, IntegralType,
-        StringType,
+        StringType, TimestampType,
     )
 
     if v is None:
@@ -146,6 +146,10 @@ def _py_cast(v, to, explicit: bool = False):
     if isinstance(to, DateType):
         if isinstance(v, str):
             return datetime.date.fromisoformat(v.strip()[:10])
+        return v
+    if isinstance(to, TimestampType):
+        if isinstance(v, str):
+            return datetime.datetime.fromisoformat(v.strip())
         return v
     raise ValueError
 
@@ -390,7 +394,7 @@ class RewriteHostOnlyExpressions(Rule):
             Cast, Concat, ConcatWs, DateFormat, FormatNumber, Literal,
         )
         from ..expr.pyudf import PythonUDF
-        from ..types import DateType, StringType, string
+        from ..types import DateType, StringType, TimestampType, string
 
         def to_str_fn(dt):
             import datetime
@@ -400,6 +404,12 @@ class RewriteHostOnlyExpressions(Rule):
                     [(datetime.date(1970, 1, 1)
                       + datetime.timedelta(days=int(v))).isoformat()
                      for v in a], dtype=object)
+            if isinstance(dt, TimestampType):
+                return lambda a: np.array(
+                    [(datetime.datetime(1970, 1, 1)
+                      + datetime.timedelta(microseconds=int(v))).isoformat(
+                          sep=" ")
+                     for v in a], dtype=object)
             return lambda a: np.array([_fmt_num(v) for v in a], dtype=object)
 
         def fix(e: Expression) -> Expression:
@@ -407,12 +417,18 @@ class RewriteHostOnlyExpressions(Rule):
                 import datetime
 
                 strf = DateFormat.to_strftime(e.fmt)
+                is_ts = isinstance(e.child.dtype, TimestampType)
 
-                def fmt_fn(a, _strf=strf):
+                def fmt_fn(a, _strf=strf, _ts=is_ts):
                     out = []
                     for v in a:
                         if v is None:
                             out.append(None)
+                        elif _ts:
+                            out.append((datetime.datetime(1970, 1, 1)
+                                        + datetime.timedelta(
+                                            microseconds=int(v)))
+                                       .strftime(_strf))
                         else:
                             out.append((datetime.date(1970, 1, 1)
                                         + datetime.timedelta(days=int(v)))

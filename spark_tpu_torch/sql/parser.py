@@ -12,7 +12,9 @@ too), HAVING, ORDER BY ... ASC|DESC [NULLS FIRST|LAST], LIMIT and OFFSET;
 AND/OR/NOT, comparisons, IS [NOT] NULL, [NOT] IN (list), [NOT] IN
 (SELECT ...), [NOT] EXISTS (SELECT ...), scalar subqueries, [NOT]
 LIKE, [NOT] BETWEEN, `+ - * /`, `||`, unary minus, parentheses, integer, decimal,
-string, DATE and INTERVAL literals, CAST, CASE (searched and simple),
+string, DATE, TIMESTAMP and INTERVAL literals, CAST (timestamp among its
+types), CASE (searched and simple), EXTRACT, struct field access `a.b`
+(also on a function's result), the `[]` subscript (an element_at call),
 function calls (the analyzer resolves the names it knows), window
 functions `fn(...) OVER (PARTITION BY ... ORDER BY ... [ROWS | RANGE
 frame])` and named `WINDOW` specs, and GROUP BY ROLLUP, CUBE and
@@ -23,8 +25,8 @@ VARIABLE, INSERT INTO | OVERWRITE, UPDATE, DELETE, MERGE, SHOW TABLES |
 FUNCTIONS [LIKE], DESCRIBE, EXPLAIN [EXTENDED | FORMATTED | ANALYZE],
 DECLARE, SET [VARIABLE], ANALYZE TABLE and [UN]CACHE TABLE. Every other
 production of the reference's grammar raises `NotPortedError` naming the
-construct: table-valued functions, TABLESAMPLE and the struct, array and
-timestamp constructs among them.
+construct: table-valued functions, TABLESAMPLE and lambda functions among
+them.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from ..plan.subquery import (
 )
 from ..types import (
     DataType, DecimalType, boolean, date, float32, float64, int8, int16,
-    int32, int64, string,
+    int32, int64, string, timestamp,
 )
 from .lexer import Token, tokenize
 
@@ -888,8 +890,11 @@ class Parser:
         if self.eat_op("~"):
             return E.BitwiseNot(self.parse_unary())
         e = self.parse_primary()
-        if self.at_op("["):
-            raise NotPortedError("subscript (element_at)")
+        # subscript: col[key] -> element_at (a map value, an array element)
+        while self.eat_op("["):
+            key = self.parse_expr()
+            self.expect_op("]")
+            e = E.UnresolvedFunction("element_at", [e, key], False)
         return e
 
     def parse_primary(self) -> E.Expression:
@@ -917,7 +922,8 @@ class Parser:
                 return E.Literal(datetime.date.fromisoformat(s.strip()[:10]))
             self.i = save
         if self.at_kw("timestamp") and self.peek(1).kind == "str":
-            raise NotPortedError("TIMESTAMP literals")
+            self.next()
+            return E.Literal(_parse_ts_literal(self.next().value))
         if self.at_kw("interval"):
             return self.parse_interval()
         if self.at_kw("case"):
@@ -966,8 +972,12 @@ class Parser:
                 return self.parse_extract()
             if self.at_op("("):
                 f = self.parse_function(name)
-                if self.at_op(".") and self.peek(1).kind in ("ident", "kw"):
-                    raise NotPortedError("struct field access (nested types)")
+                # struct field access on a function's result:
+                # named_struct(...).a.b
+                while self.at_op(".") and \
+                        self.peek(1).kind in ("ident", "kw"):
+                    self.next()
+                    f = E.GetStructField(f, self.ident())
                 return f
             parts = [name]
             while self.at_op(".") and self.peek(1).kind in ("ident", "kw"):
@@ -1145,18 +1155,18 @@ class Parser:
         return False
 
     def parse_extract(self) -> E.Expression:
-        """EXTRACT(field FROM d), the reference's fields over dates."""
+        """EXTRACT(field FROM d), the reference's fields over dates and
+        timestamps."""
         self.expect_op("(")
         field = self.ident().lower()
         self.expect_kw("from")
         src = self.parse_expr()
         self.expect_op(")")
-        if field in ("hour", "minute", "second"):
-            raise NotPortedError(f"EXTRACT({field}) (timestamps)")
         mapping = {
             "year": E.Year, "month": E.Month, "day": E.DayOfMonth,
             "dayofmonth": E.DayOfMonth, "quarter": E.Quarter,
             "week": E.WeekOfYear, "doy": E.DayOfYear, "dow": E.DayOfWeek,
+            "hour": E.Hour, "minute": E.Minute, "second": E.Second,
         }
         cls = mapping.get(field)
         if cls is None:
@@ -1208,6 +1218,8 @@ class Parser:
             return boolean
         if name == "date":
             return date
+        if name == "timestamp":
+            return timestamp
         if name in ("decimal", "numeric", "dec"):
             p, s = 10, 0
             if self.eat_op("("):
@@ -1216,9 +1228,17 @@ class Parser:
                     s = int(self.next().value)
                 self.expect_op(")")
             return DecimalType(min(p, DecimalType.MAX_PRECISION), s)
-        if name in ("timestamp", "binary", "array", "map", "struct"):
-            raise NotPortedError(f"type {name}")
         raise ParseException(f"unknown type {name}")
+
+
+def _parse_ts_literal(s: str) -> datetime.datetime:
+    s = s.strip().replace("T", " ")
+    for fmt in ("%Y-%m-%d %H:%M:%S.%f", "%Y-%m-%d %H:%M:%S", "%Y-%m-%d"):
+        try:
+            return datetime.datetime.strptime(s, fmt)
+        except ValueError:
+            continue
+    raise ParseException(f"bad timestamp literal {s!r}")
 
 
 def _num_literal(text: str) -> E.Literal:

@@ -1,18 +1,20 @@
 """SQL data types and schemas (the port's copy of `spark_tpu/types`).
 
-The numeric, boolean, date, string and decimal types are ported. Each type
-carries its device representation as a `torch.dtype` (`device_dtype`) with
-the widths the JAX package uses under x64, plus the numpy dtype of its host
-planes (`numpy_dtype`). Dates are int32 days since the epoch; strings are
-int32 codes into a host dictionary; decimals are int64 scaled by 10^scale,
-precision at most 18. Binary, timestamps and nested types raise
-`NotPortedError` where a schema would hold them.
+Each type carries its device representation as a `torch.dtype`
+(`device_dtype`) with the widths the JAX package uses under x64, plus the
+numpy dtype of its host planes (`numpy_dtype`). Dates are int32 days since
+the epoch; timestamps int64 microseconds since the epoch, with no session
+time zone; strings and binary are int32 codes into a host dictionary of
+`str` or `bytes`; arrays, maps and structs as column types are int32 codes
+into a host dictionary of Python lists, dicts and dicts; decimals are int64
+scaled by 10^scale, precision at most 18 (an Arrow decimal past 18 digits
+raises `NotPortedError`).
 """
 
 from __future__ import annotations
 
 import datetime
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -22,10 +24,12 @@ from ..errors import NotPortedError
 __all__ = [
     "DataType", "NumericType", "IntegralType", "FractionalType",
     "BooleanType", "ByteType", "ShortType", "IntegerType", "LongType",
-    "FloatType", "DoubleType", "DateType", "NullType", "StringType",
-    "DecimalType", "StructField", "StructType",
+    "FloatType", "DoubleType", "DateType", "TimestampType", "NullType",
+    "StringType", "BinaryType", "DecimalType", "StructField", "StructType",
+    "ArrayType", "MapType",
     "boolean", "int8", "int16", "int32", "int64", "float32", "float64",
-    "date", "string", "null_type", "common_type", "dict_encoded",
+    "date", "timestamp", "string", "binary", "null_type", "common_type",
+    "dict_encoded",
     "from_arrow_type", "to_arrow_type", "infer_type",
 ]
 
@@ -108,9 +112,22 @@ class DateType(DataType):
     """Days since 1970-01-01 (matches Arrow date32)."""
 
 
+class TimestampType(DataType):
+    """Microseconds since 1970-01-01 00:00:00, no time zone (matches Arrow
+    timestamp[us])."""
+
+    _numpy = np.dtype(np.int64)
+    _torch = torch.int64
+
+
 class StringType(DataType):
     """Dictionary-encoded UTF-8 string: int32 codes on the device into a
     host dictionary (`columnar.batch.StringDict`)."""
+
+
+class BinaryType(StringType):
+    """Binary blobs, dictionary-encoded like strings (the dictionary holds
+    `bytes`)."""
 
 
 @dataclass(frozen=True, repr=False)
@@ -129,6 +146,31 @@ class DecimalType(FractionalType):
         return f"decimal({self.precision},{self.scale})"
 
 
+@dataclass(frozen=True, repr=False)
+class ArrayType(DataType):
+    """An array column: ragged lists have no dense device layout, so the
+    column is dictionary-encoded like a string, int32 codes on the device
+    and the Python lists in the column's host dictionary."""
+
+    element_type: DataType = field(default_factory=lambda: IntegerType())
+
+    def simple_string(self) -> str:
+        return f"array<{self.element_type.simple_string()}>"
+
+
+@dataclass(frozen=True, repr=False)
+class MapType(DataType):
+    """A map column, dictionary-encoded like an array (Python dicts in the
+    host dictionary)."""
+
+    key_type: DataType = field(default_factory=lambda: StringType())
+    value_type: DataType = field(default_factory=lambda: IntegerType())
+
+    def simple_string(self) -> str:
+        return (f"map<{self.key_type.simple_string()},"
+                f"{self.value_type.simple_string()}>")
+
+
 boolean = BooleanType()
 int8 = ByteType()
 int16 = ShortType()
@@ -137,7 +179,9 @@ int64 = LongType()
 float32 = FloatType()
 float64 = DoubleType()
 date = DateType()
+timestamp = TimestampType()
 string = StringType()
+binary = BinaryType()
 null_type = NullType()
 
 
@@ -153,6 +197,10 @@ class StructField:
 
 @dataclass(frozen=True)
 class StructType(DataType):
+    """A schema, and a struct column's type: as a column it is
+    dictionary-encoded (int32 codes, Python dicts in the host
+    dictionary)."""
+
     fields: tuple[StructField, ...] = ()
 
     def __init__(self, fields=()):
@@ -161,6 +209,12 @@ class StructType(DataType):
     @property
     def names(self) -> list[str]:
         return [f.name for f in self.fields]
+
+    def field_type(self, name: str) -> "DataType | None":
+        for f in self.fields:
+            if f.name == name:
+                return f.dataType
+        return None
 
     def add(self, name: str, dataType: DataType,
             nullable: bool = True) -> "StructType":
@@ -225,6 +279,10 @@ def common_type(a: DataType, b: DataType) -> DataType | None:
         return _NUMERIC_ORDER[max(ra, rb)]
     if isinstance(a, StringType) and isinstance(b, StringType):
         return string
+    if isinstance(a, DateType) and isinstance(b, TimestampType):
+        return timestamp
+    if isinstance(b, DateType) and isinstance(a, TimestampType):
+        return timestamp
     # string <-> other: the reference models the string side as the other
     # type (a cast of the dictionary, not ported)
     if isinstance(a, StringType):
@@ -236,8 +294,8 @@ def common_type(a: DataType, b: DataType) -> DataType | None:
 
 def dict_encoded(dt) -> bool:
     """True for types whose columns are host-dictionary-encoded (int32
-    codes on the device): strings."""
-    return isinstance(dt, StringType)
+    codes on the device): strings, binary, arrays, maps and structs."""
+    return isinstance(dt, (StringType, ArrayType, MapType, StructType))
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +323,11 @@ def from_arrow_type(at) -> DataType:
         return date
     if pa.types.is_string(at) or pa.types.is_large_string(at):
         return string
+    if pa.types.is_binary(at) or pa.types.is_large_binary(at):
+        return binary
+    if pa.types.is_timestamp(at):
+        # any unit or zone: ingest casts it to timestamp[us]
+        return timestamp
     if pa.types.is_decimal(at):
         if at.precision > DecimalType.MAX_PRECISION:
             # the reference caps the precision and keeps int64 (values
@@ -273,6 +336,15 @@ def from_arrow_type(at) -> DataType:
         return DecimalType(at.precision, at.scale)
     if pa.types.is_dictionary(at):
         return from_arrow_type(at.value_type)
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow_type(at.value_type))
+    if pa.types.is_map(at):
+        return MapType(from_arrow_type(at.key_type),
+                       from_arrow_type(at.item_type))
+    if pa.types.is_struct(at):
+        return StructType(tuple(
+            StructField(f.name, from_arrow_type(f.type), f.nullable)
+            for f in at))
     if pa.types.is_null(at):
         return null_type
     raise NotPortedError(f"Arrow type {at} (column type)")
@@ -297,12 +369,24 @@ def to_arrow_type(dt: DataType):
         return pa.float64()
     if isinstance(dt, DateType):
         return pa.date32()
+    if isinstance(dt, TimestampType):
+        return pa.timestamp("us")
+    if isinstance(dt, BinaryType):
+        return pa.binary()
     if isinstance(dt, StringType):
         return pa.string()
     if isinstance(dt, DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
     if isinstance(dt, NullType):
         return pa.null()
+    if isinstance(dt, ArrayType):
+        return pa.list_(to_arrow_type(dt.element_type))
+    if isinstance(dt, MapType):
+        return pa.map_(to_arrow_type(dt.key_type),
+                       to_arrow_type(dt.value_type))
+    if isinstance(dt, StructType):
+        return pa.struct([(f.name, to_arrow_type(f.dataType))
+                          for f in dt.fields])
     raise NotPortedError(f"type {dt.simple_string()}")
 
 
@@ -318,8 +402,10 @@ def infer_type(value) -> DataType:
         return float64
     if isinstance(value, str):
         return string
+    if isinstance(value, bytes):
+        return binary
     if isinstance(value, datetime.datetime):
-        raise NotPortedError("timestamp literals")
+        return timestamp
     if isinstance(value, datetime.date):
         return date
     import decimal as _d
@@ -328,4 +414,18 @@ def infer_type(value) -> DataType:
         sign, digits, exp = value.as_tuple()
         scale = max(0, -exp)
         return DecimalType(max(len(digits), scale), scale)
+    if isinstance(value, (list, tuple)):
+        return ArrayType(_common_of([infer_type(v) for v in value]))
+    if isinstance(value, dict):
+        return MapType(_common_of([infer_type(k) for k in value]),
+                       _common_of([infer_type(v) for v in value.values()]))
     raise NotPortedError(f"literal of type {type(value).__name__}")
+
+
+def _common_of(types) -> DataType:
+    """The common type of a literal collection's elements (null_type when
+    it is empty or all NULL)."""
+    out: DataType = null_type
+    for t in types:
+        out = common_type(out, t) or t
+    return out

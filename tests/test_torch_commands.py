@@ -608,7 +608,7 @@ NOT_PORTED_SQL = {
     "SELECT /*+ POOL(x) */ 1 AS one": "hints",
     "SET spark.tpu.memory.budget = 10": "spark.tpu.memory.budget",
     "SELECT first(k) AS f FROM np_t": "function first",
-    "SELECT TIMESTAMP '2020-01-01 00:00:00' AS t": "TIMESTAMP",
+    "SELECT transform(array(1), x -> x) AS t": "lambda",
 }
 
 

@@ -1622,7 +1622,7 @@ def test_whole_capacity_retry_recaptures(whole_pair):
     assert c2["stage_cache.replays"] - c1["stage_cache.replays"] == 1
 
 
-# --- the scalar functions: card against CPU ------------------------------------
+# --- the scalar functions: card against CPU ----------------------------------
 
 # name -> (SQL expression over view x, held to 4 ulp); the shifts run over
 # every amount in -2..70, the integer % and DIV over the int64 minimum and
@@ -1871,3 +1871,208 @@ def test_inserts_release_replaced_tiles_on_card(cuda_device):
         assert held <= 1.1 * live, (held, live)
     finally:
         s.stop()
+
+
+# --- A1's types and A11's collections on the card ----------------------------
+
+TYPES_TIERS = ("auto", "stage")
+
+
+@pytest.fixture(scope="module")
+def types_leg_pair():
+    """chip_smoke.py's types leg at scale 0.01: a CPU session at the
+    operator tier and a card session, over the tables its statements
+    read and its views."""
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tables, _ = cs.tpcds_data(scale=0.01)
+    tables = {n: tables[n] for n in ("store_sales", "date_dim", "time_dim",
+                                     "customer_address", "item")}
+    conf = {"spark.sql.shuffle.partitions": 4,
+            "spark.tpu.fusion.minRows": 0,
+            "spark.tpu.compile.whole.minRows": 0}
+    pair = _session_pair(conf)
+    for s in pair:
+        for name, tb in tables.items():
+            s.createDataFrame(tb).createOrReplaceTempView(name)
+        for text in cs.TYPES_TABLES.values():
+            s.sql(text)
+    yield cs, tables, pair
+    for s in pair:
+        s.stop()
+
+
+@pytest.mark.parametrize("tier", TYPES_TIERS)
+@pytest.mark.parametrize("name", ["events", "events_window", "words",
+                                  "word_arrays", "structs", "item_nested"])
+def test_types_leg_card_equals_cpu(types_leg_pair, name, tier):
+    """Each statement of the types leg on the card at `auto` and at the
+    stage tier: equal to the CPU's operator tier and to the leg's numpy
+    oracle."""
+    cs, tables, (cpu, card) = types_leg_pair
+    text = cs.TYPES_QUERIES[name]
+    card.conf.set("spark.tpu.compile.tier", tier)
+    try:
+        got = card.sql(text).toArrow()
+    finally:
+        card.conf.set("spark.tpu.compile.tier", "operator")
+    want = cpu.sql(text).toArrow()
+    assert got.schema == want.schema
+    assert sorted(map(repr, got.to_pylist())) == \
+        sorted(map(repr, want.to_pylist()))
+    failures = []
+    saved = cs.fail
+    cs.fail = failures.append
+    try:
+        cs.types_check(name, got, cs.types_oracle(name, tables))
+    finally:
+        cs.fail = saved
+    assert not failures, failures[:3]
+
+
+def _keys_table():
+    import pyarrow as pa
+
+    rng = np.random.default_rng(71)
+    n = 9000
+    st = pa.struct([("a", pa.int64()), ("b", pa.string())])
+    ts = rng.integers(-3, 4, n) * 3_600_000_000 + \
+        rng.integers(0, 5, n) * 86_400_000_000 - 1
+    return pa.table({
+        "st": pa.array([None if rng.random() < 0.05 else
+                        {"a": int(rng.integers(0, 30)), "b": "pqr"[i % 3]}
+                        for i in range(n)], st),
+        "ts": pa.array(ts.astype("datetime64[us]"), pa.timestamp("us"),
+                       mask=rng.random(n) < 0.05),
+        "v": rng.integers(0, 1000, n)})
+
+
+KEY_COLUMNS = {"struct": "st", "timestamp": "ts"}
+
+
+@pytest.mark.parametrize("name", list(KEY_COLUMNS))
+def test_nested_and_timestamp_keys_through_fused_exchange(cuda_device,
+                                                          monkeypatch, name):
+    """A struct and a timestamp key over tiles of 1,024 rows whose
+    dictionaries differ: a hash exchange on the key after a filter (fused
+    at the stage tier for the timestamp; a nested key's exchange stays
+    unfused, as the reference plans it), then a fused partial aggregate
+    by the key. On the card each replay equals its body run eagerly on
+    the card, and the result equals the CPU's operator tier."""
+    from spark_tpu_torch import TorchSession
+    from spark_tpu_torch.api.functions import col
+
+    key = KEY_COLUMNS[name]
+    conf = {"spark.sql.shuffle.partitions": 3,
+            "spark.tpu.batch.capacity": 1 << 10,
+            "spark.tpu.fusion.minRows": 0}
+    cpu = TorchSession("keys-cpu", dict(conf, **{
+        "spark.tpu.compile.tier": "operator"}), device="cpu")
+    card = TorchSession("keys-card", dict(conf, **{
+        "spark.tpu.compile.tier": "stage"}))
+    frames = []
+    for s in (cpu, card):
+        s.createDataFrame(_keys_table()).filter(col("v") > 5) \
+            .withColumn("w", col("v") + 1).repartition(3, col(key)) \
+            .createOrReplaceTempView("keys")
+        frames.append(s.sql(f"SELECT {key}, count(*) n, sum(v) sv FROM keys "
+                            f"WHERE v > 10 GROUP BY {key}"))
+    want = sorted(map(repr, frames[0].toArrow().to_pylist()))
+    frames[1].toArrow()  # captures
+    seen = []
+
+    def compare(stage, got, eager):
+        for g, w in zip(got, eager):
+            assert (g is None) == (w is None), stage
+            if g is not None:
+                assert torch.equal(g, w), stage
+        seen.append(stage)
+
+    with monkeypatch.context() as m:
+        _bodies_on_card(m, compare)
+        got = sorted(map(repr, frames[1].toArrow().to_pylist()))
+    cpu.stop()
+    card.stop()
+    assert any("FusedHashAggregate" in st for st in seen), seen
+    if name == "timestamp":
+        assert any("FusedShuffle" in st for st in seen), seen
+    assert got == want
+
+
+def _arrays_table():
+    import pyarrow as pa
+
+    rng = np.random.default_rng(73)
+    n = 6000
+
+    def lists(make):
+        out = []
+        for _ in range(n):
+            k = int(rng.integers(0, 7))
+            out.append(None if rng.random() < 0.05 else
+                       [None if rng.random() < 0.1 else make()
+                        for _ in range(k)])
+        return out
+
+    return pa.table({
+        "xs": pa.array(lists(lambda: int(rng.integers(-50, 50))),
+                       pa.list_(pa.int64())),
+        "ws": pa.array(lists(lambda: "abcdefgh"[int(rng.integers(0, 8))]
+                             * int(rng.integers(1, 3))),
+                       pa.list_(pa.string())),
+        "v": rng.integers(0, 1000, n)})
+
+
+EXPLODES = {
+    "int": "SELECT x, count(*) n, sum(v) sv FROM (SELECT explode(xs) x, v "
+           "FROM arrs) GROUP BY x",
+    "string": "SELECT w, count(*) n, sum(v) sv FROM (SELECT explode(ws) w, "
+              "v FROM arrs WHERE v > 100) GROUP BY w",
+    "split": "SELECT w, count(*) n FROM (SELECT explode(split("
+             "array_join(ws, ' '), ' ')) w FROM arrs) GROUP BY w",
+    "functions": "SELECT size(ws) s, element_at(ws, -1) l, "
+                 "array_join(sort_array(ws), '+') j, count(*) n "
+                 "FROM arrs GROUP BY size(ws), element_at(ws, -1), "
+                 "array_join(sort_array(ws), '+')",
+}
+
+
+@pytest.mark.parametrize("tier", TYPES_TIERS)
+@pytest.mark.parametrize("name", list(EXPLODES))
+def test_explode_several_elements_card_equals_cpu(cuda_device, name, tier):
+    """explode over arrays of zero to six elements (NULL arrays and NULL
+    elements among them), over tiles of 1,024 rows whose dictionaries
+    differ, on the card at `auto` and at the stage tier: equal to the
+    CPU's operator tier and, for the int arrays, to Python's expansion of
+    the lists."""
+    import collections
+
+    conf = {"spark.sql.shuffle.partitions": 3,
+            "spark.tpu.batch.capacity": 1 << 10,
+            "spark.tpu.fusion.minRows": 0,
+            "spark.tpu.compile.whole.minRows": 0}
+    cpu, card = _session_pair(conf)
+    table = _arrays_table()
+    for s in (cpu, card):
+        s.createDataFrame(table).createOrReplaceTempView("arrs")
+    card.conf.set("spark.tpu.compile.tier", tier)
+    try:
+        got = card.sql(EXPLODES[name]).toArrow()
+        want = cpu.sql(EXPLODES[name]).toArrow()
+    finally:
+        cpu.stop()
+        card.stop()
+    assert got.schema == want.schema
+    assert sorted(map(repr, got.to_pylist())) == \
+        sorted(map(repr, want.to_pylist()))
+    if name == "int":
+        n, sv = collections.Counter(), collections.Counter()
+        for xs, v in zip(table.column("xs").to_pylist(),
+                         table.column("v").to_pylist()):
+            for x in xs or ():
+                n[x] += 1
+                sv[x] += v
+        assert sorted(map(repr, got.to_pylist())) == sorted(
+            repr({"x": x, "n": n[x], "sv": sv[x]}) for x in n)

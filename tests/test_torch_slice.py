@@ -306,6 +306,12 @@ def test_port_imports_neither_jax_nor_reference():
         "          '(VALUES (99))) w USING (k)')\n"
         "assert u.toArrow().to_pylist() == [{'k': 99, 'v': 1}]\n"
         "s.table('ct').na.fill(0).describe('v').collect()\n"
+        "s.createDataFrame(pa.table({'l': pa.array([[1, 2], [3]],"
+        " pa.list_(pa.int64())), 'ts': pa.array([0, 86400000001],"
+        " pa.timestamp('us'))})).createOrReplaceTempView('nt')\n"
+        "e = s.sql(\"SELECT explode(l) x, hour(ts) h, named_struct('a', 1).a"
+        " a FROM nt\").toArrow()\n"
+        "assert e.num_rows == 3, e\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and ("
         "m == 'jax' or m.startswith('jax.') or m == 'spark_tpu' or "
         "m.startswith('spark_tpu.'))]\n"
@@ -338,14 +344,23 @@ def test_unported_entry_points_raise_not_ported(sessions, what):
         if what == "sql":
             t.sql("CACHE TABLE t1")
         elif what == "binary_column":
-            t.createDataFrame(pa.table({"b": [b"a", b"b"]}))
+            # binary columns run since the types slice; a decimal past 18
+            # digits is still refused at ingest
+            import decimal
+
+            t.createDataFrame(pa.table({"b": pa.array(
+                [decimal.Decimal(1)], pa.decimal128(30, 2))}))
         elif what == "coalesce":
             from spark_tpu_torch.plan.logical import Repartition
 
             df._with(Repartition(2, False, [], df.plan)).toArrow()
         elif what == "string_filter":
-            # a string condition parses; a timestamp literal in it is A1's
-            df.filter("TIMESTAMP '2020-01-01 00:00:00' IS NULL")
+            # a string condition parses; a lambda in it is A11's
+            df.filter("exists(array(1), x -> x > 0)")
         else:
-            # rows with a schema are ported; a binary column is not
-            t.createDataFrame([(b"a",)], schema=["b"])
+            # rows with a schema are ported; a decimal past 18 digits is
+            # not
+            import decimal
+
+            t.createDataFrame([(decimal.Decimal("12345678901234567890.5"),)],
+                              schema=["b"])

@@ -246,56 +246,56 @@ def test_transformed_keys_group_and_sort_by_value(sessions):
 # statements of the keys that run since the third SQL slice (CASES holds
 # the earlier statements) name a construct that still raises
 UNPORTED = {
-    "with": ("WITH x AS (SELECT k FROM t1 WHERE hour(s) > 0) "
-             "SELECT k FROM x", "function hour"),
-    "union": ("SELECT k FROM t1 UNION SELECT hour(k) FROM t1",
-              "function hour"),
+    "with": ("WITH x AS (SELECT k FROM t1 WHERE bit_and(k) > 0) "
+             "SELECT k FROM x", "function bit_and"),
+    "union": ("SELECT k FROM t1 UNION SELECT median(k) FROM t1",
+              "function median"),
     "from_subquery": ("SELECT k FROM (SELECT sum(DISTINCT k) k FROM t1) q",
                       "sum(DISTINCT"),
-    "in_list": ("SELECT k FROM t1 WHERE second(k) IN (0)",
-                "function second"),
+    "in_list": ("SELECT k FROM t1 WHERE kurtosis(k) IN (0)",
+                "function kurtosis"),
     "in_subquery": ("SELECT * FROM t1 FULL JOIN t2 ON t1.k = t2.k2 "
                     "AND t1.k > 3", "full_outer join with a non-equi"),
     "exists": ("SELECT * FROM t1 FULL JOIN t2 ON t1.k > t2.k2",
                "non-equi full_outer join"),
     "scalar_subquery": ("SELECT (SELECT max(name) FROM t2) m FROM t1",
                         "string column"),
-    "case": ("SELECT CASE WHEN k > 1 THEN hour(s) ELSE 0 END FROM t1",
-             "function hour"),
-    "between": ("SELECT k FROM t1 WHERE minute(k) BETWEEN 1 AND 2",
-                "function minute"),
-    "like": ("SELECT k FROM t1 WHERE regexp_extract_all(s, 'a') IS NULL",
-             "function regexp_extract_all"),
-    "interval": ("SELECT TIMESTAMP '2020-01-01 00:00:00' + INTERVAL 1 DAY "
-                 "FROM t1", "TIMESTAMP"),
+    "case": ("SELECT CASE WHEN k > 1 THEN bit_or(k) ELSE 0 END FROM t1",
+             "function bit_or"),
+    "between": ("SELECT k FROM t1 WHERE bit_xor(k) BETWEEN 1 AND 2",
+                "function bit_xor"),
+    "like": ("SELECT k FROM t1 WHERE exists(array(s), x -> x LIKE 'a') ",
+             "lambda"),
+    "interval": ("SELECT percentile_approx(k, 0.5) + INTERVAL 1 DAY "
+                 "FROM t1", "function percentile_approx"),
     # the reference refuses it too
     "window": ("SELECT nth_value(k, 2) OVER (ORDER BY k ROWS BETWEEN 1 "
                "PRECEDING AND 1 FOLLOWING) FROM t1", "bounded frame"),
     "hint": ("SELECT /*+ BROADCAST(t2) */ k FROM t1", "hints"),
     # scripts and commands run since the commands slice; a statement in
     # a script is held to the same rules, and CACHE TABLE is A12's
-    "script": ("BEGIN SELECT hour(k) FROM t1; END", "function hour"),
+    "script": ("BEGIN SELECT corr(k, k) FROM t1; END", "function corr"),
     "command": ("CACHE TABLE t1", "CACHE TABLE"),
     # the reference refuses it too
     "distinct": ("SELECT count(DISTINCT s), count(DISTINCT k) FROM t1",
                  "multiple DISTINCT"),
     # SELECT without FROM runs (OneRowRelation); its expressions are
     # held to the same rules as any other query's
-    "no_from": ("SELECT array(1, 2)", "function array"),
+    "no_from": ("SELECT percentile(1, 0.5)", "function percentile"),
     "rollup": ("SELECT k, count(DISTINCT s), count(DISTINCT v) FROM t1 "
                "GROUP BY ROLLUP(k)", "multiple DISTINCT"),
     "using": ("SELECT k FROM t1 JOIN t1 x USING (k, s) "
-              "WHERE hour(k) > 0", "function hour"),
+              "WHERE mode(k) > 0", "function mode"),
     "concat": ("SELECT concat_ws('-', array(s, s)) FROM t1",
-               "function array"),
-    "modulo": ("SELECT k[2] FROM t1", "subscript"),
+               "array<string>"),
+    "modulo": ("SELECT filter(array(k), x -> x > 1) FROM t1", "lambda"),
     "unported_function": ("SELECT collect_list(s) FROM t1",
                           "function collect_list"),
     "count_distinct": ("SELECT avg(DISTINCT k) FROM t1", "avg(DISTINCT"),
     "string_min": ("SELECT min(s) FROM t1", "string column"),
-    "string_cast": ("SELECT CAST(s AS TIMESTAMP) FROM t1", "timestamp"),
-    "timestamp": ("SELECT TIMESTAMP '2020-01-01 00:00:00' FROM t1",
-                  "TIMESTAMP"),
+    "string_cast": ("SELECT min(CAST(k AS STRING)) FROM t1",
+                    "string column"),
+    "timestamp": ("SELECT any_value(k) FROM t1", "function any_value"),
 }
 
 

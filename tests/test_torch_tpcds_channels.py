@@ -4,7 +4,7 @@ query joins them), held to the goldens, to the JAX reference's results and
 plans, and to `chip_smoke.py`'s SF10 plans exactly as
 `tests/test_torch_tpcds_store.py` holds the store-channel queries; and
 TPC-DS queries rewritten into constructs outside the port's slices
-(TABLESAMPLE, `hour`, DISTINCT over two expressions) raise NotPortedError
+(TABLESAMPLE, `skewness`, DISTINCT over two expressions) raise NotPortedError
 naming the construct instead of answering."""
 
 import pytest
@@ -69,7 +69,7 @@ UNPORTED = {
              "FROM customer TABLESAMPLE (10 PERCENT)\n"),
             "TABLESAMPLE"),
     "q14a": (("ss_quantity * ss_list_price",
-              "hour(ss_quantity) * ss_list_price"), "function hour"),
+              "skewness(ss_quantity) * ss_list_price"), "function skewness"),
     "q91": (("sum(cr_net_loss) Returns_Loss",
              "count(DISTINCT cr_net_loss), count(DISTINCT cr_item_sk)"),
             "multiple DISTINCT"),

@@ -3,19 +3,18 @@ in the port: the machinery of tests/test_torch_golden_a.py and _b.py.
 
 Each `.out` file holds `-- !query` / `-- !result` blocks, the statements
 the reference ran and their rendered results. Each statement runs in a CPU
-`TorchSession` holding the views of tests/test_golden.py's `_setup`
-(`tpcds_mini`); the `nested` view of struct, map and array columns is left
-out, since the port ingests no nested types (its `createDataFrame` raises
-NotPortedError naming the Arrow type). The result is rendered with
-test_golden.py's `_render`/`_fmt` rules and held to the committed block.
+`TorchSession` holding the views of tests/test_golden.py's `_setup`:
+`tpcds_mini`'s tables and the `nested` view of struct, map and array
+columns (the table `_setup` builds, made here by `nested_table`). The
+result is rendered with test_golden.py's `_render`/`_fmt` rules and held
+to the committed block.
 
 A statement may instead raise NotPortedError for a construct of another
 slice: `OUT_OF_SCOPE` maps each such construct to its ROADMAP.md item. A
 CREATE TEMP VIEW statement runs through the port's command and is held to
 its committed block like any other; where its query raises
 NotPortedError at parse time, the view is not made, and a statement over
-it, or over `nested`, counts under the construct that kept the view from
-being made. Anything else (a wrong result, another error, an in-scope
+it counts under the construct that kept the view from being made. Anything else (a wrong result, another error, an in-scope
 construct that raises) fails. The committed results are the reference's
 and are never regenerated here.
 
@@ -38,12 +37,7 @@ RESULTS = os.path.join(HERE, "sql-tests", "results")
 
 # construct named by NotPortedError -> the ROADMAP.md item that ports it
 OUT_OF_SCOPE = {
-    "TIMESTAMP literals": "A1",
-    "type timestamp": "A1",
-    "view nested": "A1",
     "lambda functions": "A11",
-    "subscript (element_at)": "A11",
-    "struct field access": "A11",
     "lag with a default value": "A11",
     "lead with a default value": "A11",
     "min of a string column": "A3",
@@ -54,24 +48,11 @@ OUT_OF_SCOPE = {
 # function names outside A2, by item (as tests/test_torch_functions.py's
 # NOT_PORTED)
 FUNCTIONS = {
-    "A1": ("hour", "minute", "second", "unix_timestamp", "from_unixtime",
-           "to_timestamp", "make_timestamp", "make_interval",
-           "make_dt_interval", "make_ym_interval"),
     "A3": ("first", "any_value", "collect_list", "collect_set", "array_agg",
            "median", "percentile", "percentile_approx", "mode", "bit_and",
            "bit_or", "bit_xor", "corr", "covar_samp", "covar_pop",
            "skewness", "kurtosis"),
-    "A11": ("array", "map", "struct", "named_struct", "split", "explode",
-            "size", "cardinality", "element_at", "sequence", "flatten",
-            "slice", "sort_array", "array_contains", "array_min",
-            "array_max", "array_distinct", "array_remove", "array_join",
-            "array_position", "array_repeat", "array_union",
-            "array_intersect", "array_except", "arrays_overlap",
-            "array_append", "array_prepend", "array_insert",
-            "array_compact", "arrays_zip", "array_sort", "map_keys",
-            "map_values", "map_contains_key", "map_from_arrays",
-            "map_from_entries", "str_to_map", "regexp_extract_all",
-            "transform", "filter", "exists", "forall", "any_match",
+    "A11": ("transform", "filter", "exists", "forall", "any_match",
             "all_match", "aggregate", "reduce", "zip_with",
             "transform_keys", "transform_values", "map_filter",
             "map_zip_with"),
@@ -84,6 +65,22 @@ _CREATE_VIEW = re.compile(
     r"^\s*CREATE\s+(?:OR\s+REPLACE\s+)?(?:GLOBAL\s+)?TEMP(?:ORARY)?\s+VIEW"
     r"\s+(\w+)", re.IGNORECASE)
 _MISSING_VIEW = re.compile(r"Table or view not found: (\w+)")
+
+
+def nested_table():
+    """tests/test_golden.py's `nested` view: a struct, a map and an array
+    column over three rows."""
+    import pyarrow as pa
+
+    return pa.table({
+        "id": [1, 2, 3],
+        "person": pa.array(
+            [{"name": "ann", "age": 31}, {"name": "bob", "age": 25}, None],
+            pa.struct([("name", pa.string()), ("age", pa.int64())])),
+        "tags": pa.array([[("x", 1), ("y", 2)], [("x", 9)], []],
+                         pa.map_(pa.string(), pa.int64())),
+        "nums": pa.array([[3, 1, 2], [5], None], pa.list_(pa.int64())),
+    })
 
 
 def blocks(path: str) -> list[tuple[str, str]]:
@@ -132,7 +129,9 @@ class Corpus:
             "golden", {"spark.sql.shuffle.partitions": 4,
                        "spark.tpu.batch.capacity": 1 << 12}, device="cpu")
         register_tpcds(self.session)
-        self.unmade: dict[str, str] = {"nested": "view nested"}
+        self.session.createDataFrame(nested_table()) \
+            .createOrReplaceTempView("nested")
+        self.unmade: dict[str, str] = {}
 
     def close(self):
         self.session.stop()
