@@ -9,8 +9,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build every CUDA source of the port with nvcc (one process per source,
      all started together) and print the build time;
   3. hold each hand-written kernel against its plain PyTorch version on the
-     card, at the main path's shapes, at each switch point of the kernels'
-     paths and on misaligned views, with its device time alone (device_ms:
+     card (the bit kernel, `check_bit_kernel`: bit_and/bit_or/bit_xor per
+     segment at 2^22 rows and 8, 1,024 and 2^21 segments, all-masked,
+     negative, int32, stray masked ids, misaligned views and inside a
+     captured graph; no library call computes it), at the main path's
+     shapes, at each switch point of the kernels' paths and on misaligned
+     views, with its device time alone (device_ms:
      CUDA events around 100 launches of the C entry point on buffers
      allocated once, queued behind a sleep kernel so host dispatch is
      hidden), the wrapper's time per call (call_ms), the plain
@@ -119,7 +123,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    address, and array functions of the split; a struct key and a map lookup over a
                    view of item built by named_struct and map, and that
                    view collected) at `auto` and at the stage tier, each
-                   to numpy oracle rows; then the maintenance leg;
+                   to numpy oracle rows; then the aggregates leg:
+                   AGG_QUERIES (bit_and/bit_or/bit_xor over all
+                   store_sales lines by store, by two keys, ungrouped
+                   and by month over a join, percentiles over a year,
+                   string min/max and first, collects over item,
+                   moments, DISTINCT sums, mode, and lambdas over county
+                   words, a collect_set and item_nested's maps) at
+                   `auto` and at stage, the bits statements at forced
+                   `whole` too, each to its oracle (the oracles of these
+                   three legs come from the `--tpcds-cpu` process, which
+                   computes them first), the bit kernel held to its
+                   plain version at every input of the bits statements,
+                   inside whole programs too;
+                   then the maintenance leg;
        parquet:    (at `auto`, DPP at the stage tier; 1 warm run each)
                    q3, q7 and q19 read through
                    spark.read.parquet from
@@ -136,7 +153,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    the same answer), a partition and a row-group
                    predicate, spark.range over 2^28 rows and at a negative
                    step, and SELECT without FROM; the files are deleted;
-  6. a JSON line with every kernel's numbers, then, last, the result line
+  6. a JSON line with every kernel's numbers (the bit kernel's launches
+     are the aggregates leg's bits statements'), then, last, the result line
      {"ok": true, "device": {...}}.
 """
 
@@ -145,10 +163,12 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3 rate of an H100 SXM (data sheet)
@@ -2525,6 +2545,215 @@ def check_kernels(torch, sk):
     return main_hist, main_sum
 
 
+BIT_KINDS = ("and", "or", "xor")
+BIT_LIBRARY = "none: torch has no bitwise segment reduce"
+
+
+def bit_values(rng, seg, segs: int, dtype, negative: bool = False):
+    """Values of low entropy for the bit kernel's checks, one per segment
+    id of `seg`: each segment's random base with four bits of its own
+    flipped at random in each row, so AND and OR differ from segment to
+    segment (full-width random values give AND 0 and OR -1 in every
+    segment of more than a few rows, which a kernel could return without
+    reducing). `negative`: every value below 0 (the sign bit is set in
+    each base and never flipped)."""
+    import numpy as np
+
+    info = np.iinfo(dtype)
+    udt = np.dtype(f"uint{info.bits}")
+    base = rng.integers(0, np.iinfo(udt).max, segs, dtype=udt, endpoint=True)
+    span = info.bits - 1 if negative else info.bits
+    if negative:
+        base |= udt.type(1) << udt.type(info.bits - 1)
+    flip = np.zeros(segs, udt)
+    for _ in range(4):
+        flip |= udt.type(1) << rng.integers(0, span, segs).astype(udt)
+    noise = rng.integers(0, np.iinfo(udt).max, len(seg), dtype=udt,
+                         endpoint=True)
+    return (base[seg] ^ (noise & flip[seg])).view(dtype)
+
+
+def bits_bare_launch(torch, sk, v, m, g, segs: int, kind: str, count):
+    """(launch, out): the bit kernel's C entry point on the current stream
+    into `out`, allocated here once, with no checks and no launch count;
+    for timing the kernel alone. Takes contiguous int64 values, a bool
+    mask, int32 segment ids and int32 counts on the current device."""
+    out = torch.empty(segs, dtype=torch.int64, device=v.device)
+    lib = sk._bits_lib()
+    k = sk.BIT_KINDS.index(kind)
+
+    def launch():
+        return lib.spark_segment_bits_i64(
+            v.data_ptr(), g.data_ptr(), m.data_ptr(), v.shape[0], segs, k,
+            count.data_ptr(), out.data_ptr(), sk._stream(v))
+    if launch() != 0:
+        fail(f"the bit kernel's bare launch at {segs} segments failed")
+    torch.cuda.synchronize()
+    return launch, out
+
+
+# inputs whose plain version runs whole: n x 64 planes and segs x 64 sums
+PLAIN_BITS_ROWS = 1 << 22
+PLAIN_BITS_SEGMENTS = 1 << 21
+
+
+def plain_fits(n: int, segs: int) -> bool:
+    return n <= PLAIN_BITS_ROWS and segs <= PLAIN_BITS_SEGMENTS
+
+
+def plain_bits(torch, sk, v, m, g, segs: int, kind: str):
+    """The plain version's result on the card tensors. Where its [n, 64]
+    bit planes and [segs, 64] sums would not fit beside the leg's tables
+    (a sorted-segment tile of 2^25 rows and segments), it runs on chunks
+    of PLAIN_BITS_ROWS rows over the segments that hold a weighted row,
+    numbered densely, and the chunks' results merge by the reduce itself
+    (an AND over the chunks where the segment has a row)."""
+    if plain_fits(v.shape[0], segs):
+        return sk.segment_bits_plain(v, m, g, segs, kind)
+    gi = g.to(torch.int64)
+    w = m & (gi >= 0) & (gi < segs)
+    used, dense = torch.unique(torch.where(w, gi, torch.full_like(gi, -1)),
+                               return_inverse=True)
+    k = used.shape[0]
+    acc = torch.full((k,), -1 if kind == "and" else 0, dtype=torch.int64,
+                     device=v.device)
+    has = torch.zeros(k, dtype=torch.bool, device=v.device)
+    op = {"and": torch.bitwise_and, "or": torch.bitwise_or,
+          "xor": torch.bitwise_xor}[kind]
+    for lo in range(0, v.shape[0], PLAIN_BITS_ROWS):
+        sl = slice(lo, lo + PLAIN_BITS_ROWS)
+        part = sk.segment_bits_plain(v[sl], w[sl], dense[sl], k, kind)
+        here = torch.zeros(k, dtype=torch.bool, device=v.device)
+        here.index_fill_(0, dense[sl][w[sl]], True)
+        acc = torch.where(here, op(acc, part), acc)
+        has |= here
+    out = torch.zeros(segs, dtype=torch.int64, device=v.device)
+    keep = used >= 0
+    out[used[keep]] = torch.where(has, acc, torch.zeros_like(acc))[keep]
+    return out
+
+
+def bits_check(torch, sk, label: str, v, m, g, segs: int, kind: str):
+    """segment_bits on the card tensors held against its plain version
+    (the reference's bit-plane reduce on the same tensors, `plain_bits`),
+    exactly; returns the histogram's counts and the plain result."""
+    count = sk.partition_histogram(g, m, segs)
+    got = sk.segment_bits(v, m, g, segs, kind, count)
+    exp = plain_bits(torch, sk, v, m, g, segs, kind)
+    torch.cuda.synchronize()
+    if not torch.equal(got, exp):
+        bad = int((got != exp).sum())
+        fail(f"segment_bits {label} ({kind}): {bad} of {segs} segments "
+             "differ from the plain version")
+    return count, exp
+
+
+def bits_row(torch, sk, label: str, v, m, g, segs: int, kind: str) -> dict:
+    """`bits_check`, the bare launch too, then its times: device_ms (the
+    kernel alone: fill, reduce and, for AND, the clearing kernel),
+    call_ms (the wrapper), the plain version's device_ms; no library
+    call computes this function. The bound counts the bytes the function
+    needs: each mask byte, the value and segment id of each weighted row,
+    each output's 8 bytes."""
+    count, exp = bits_check(torch, sk, label, v, m, g, segs, kind)
+    vv = v.to(torch.int64).contiguous()
+    launch, bare = bits_bare_launch(torch, sk, vv, m, g, segs, kind, count)
+    if not torch.equal(bare, exp):
+        fail(f"segment_bits {label} ({kind}): the bare launch differs")
+    n, live = v.shape[0], int(m.sum())
+    row = {"kernel": "segment_bits", "shape": f"{label}, {kind}",
+           "kind": kind, "rows": n, "segments": segs,
+           "live_rows": live, "max_abs_err": 0,
+           "bound_ms": bound_ms(n + live * (v.element_size() + 4)
+                                + segs * 8),
+           "device_ms": device_ms(launch),
+           "call_ms": call_ms(lambda: sk.segment_bits(v, m, g, segs, kind,
+                                                      count)),
+           "plain_ms": device_ms(lambda: sk.segment_bits_plain(
+               v, m, g, segs, kind), iters=10) if plain_fits(n, segs)
+           else "not measured: its [n, 64] planes do not fit beside the "
+                "leg's tables",
+           "library_ms": None, "library": BIT_LIBRARY}
+    row["ms"] = row["device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    print("kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def check_bit_kernel(torch, sk) -> dict:
+    """Phase 3 for the bit kernel: each kind against the plain version at
+    2^22 rows and 8, 1,024 and 2^21 segments, 58% live (timed), then
+    all-masked input, all-negative values, int32 values, misaligned views
+    and masked rows whose ids lie outside the segments (checked), and one
+    case inside a captured CUDA graph, equal to the eager call. Returns
+    the row the kernels line reports (1,024 segments, AND)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    n = 1 << 22
+
+    def inputs(segs, live, dtype=np.int64, negative=False, stray=False):
+        seg = rng.integers(0, segs, n).astype(np.int32)
+        vals = bit_values(rng, seg, segs, dtype, negative)
+        mask = rng.random(n) < live
+        if stray:
+            off = ~mask & (rng.random(n) < 0.5)
+            seg[off] = rng.choice(np.array([-7, segs, segs + 100],
+                                           np.int32), int(off.sum()))
+        return vals, mask, seg
+
+    def card(arr, off=0):
+        full = np.concatenate([np.zeros(off, arr.dtype), arr])
+        return torch.from_numpy(full).to(dev)[off:]
+
+    rows, main = [], None
+    for segs in (8, 1024, 1 << 21):
+        vals, mask, seg = inputs(segs, 0.58)
+        v, m, g = card(vals), card(mask), card(seg)
+        for kind in BIT_KINDS:
+            label = f"2^22 rows, {segs:,} segments, 58% live"
+            row = bits_row(torch, sk, label, v, m, g, segs, kind)
+            rows.append(row)
+            if segs == 1024 and kind == "and":
+                main = row
+    checks = 0
+    for kind in BIT_KINDS:
+        for label, (vals, mask, seg), off in (
+                ("all masked", inputs(1024, 0.0), 0),
+                ("all negative", inputs(1024, 0.58, negative=True), 0),
+                ("int32 values", inputs(1024, 0.58, np.int32), 0),
+                ("masked ids outside the segments",
+                 inputs(1024, 0.58, stray=True), 0),
+                ("values[1:] ids[1:] mask[3:]", inputs(8, 0.58), 1)):
+            v = card(vals, off)
+            m = card(mask, 3 if off else 0)
+            g = card(seg, off)
+            bits_check(torch, sk, f"2^22 rows, {label}", v, m, g,
+                       1024 if "[1:]" not in label else 8, kind)
+            checks += 1
+    # one case inside a captured graph: the replay equals the eager call
+    vals, mask, seg = inputs(1024, 0.58)
+    v, m, g = card(vals), card(mask), card(seg)
+    sk.prepare(dev)
+    count = sk.partition_histogram(g, m, 1024)
+    eager = sk.segment_bits(v, m, g, 1024, "xor", count)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c2 = sk.partition_histogram(g, m, 1024)
+        out = sk.segment_bits(v, m, g, 1024, "xor", c2)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        fail("segment_bits: the graph replay differs from the eager call")
+    print(f"segment_bits: {len(rows)} timed cases and {checks} more equal "
+          "the plain version; a captured graph's replay equals the eager "
+          "call", flush=True)
+    return main
+
+
 TIER = "spark.tpu.compile.tier"
 
 
@@ -4529,7 +4758,7 @@ _FACTS = ("store_sales", "store_returns", "catalog_sales", "catalog_returns",
           "web_sales", "web_returns", "inventory")
 
 
-def tpcds_leg(torch, sk, card: str):
+def tpcds_leg(torch, sk, card: str, cpu_proc):
     """bench.py's bench_tpcds (BASELINE config 4) widened to every tpcds
     query: the query files through session.sql at SF10 row counts, each
     plan held to its operator sequence, q3, q7 and q19 to their numpy
@@ -4539,9 +4768,9 @@ def tpcds_leg(torch, sk, card: str):
     timed as session.sql(text).toArrow() whole, with the sql() call (the
     CTE bodies' run and collect) timed on its own. Returns the launch
     counts by query, the results the CPU check holds, and the launch
-    counts of the expressions leg, which runs last on the same session
-    and views (`expressions_leg`), against oracles computed after every
-    timed run of the query files."""
+    counts of the expressions, types, aggregates and maintenance legs,
+    which run last on the same session and views, against oracles the
+    `--tpcds-cpu` process (`cpu_proc`) computed."""
     import re
 
     t0 = time.perf_counter()
@@ -4658,22 +4887,24 @@ def tpcds_leg(torch, sk, card: str):
     print("tpcds peak device memory " + json.dumps({
         "max_memory_allocated_gb": max(peak.values()),
         "by_query_gb": peak, "card": card}), flush=True)
-    # the expressions leg's oracles (Python loops and numpy), computed
-    # here, where no timed run overlaps them
-    t1 = time.perf_counter()
-    oracles = {name: expression_oracle(name, tables)
-               for name in EXPRESSION_QUERIES}
-    print(f"expression oracles computed in {time.perf_counter() - t1:.1f} "
-          "s", flush=True)
-    expressions = expressions_leg(torch, sk, card, spark, oracles,
-                                  timed_shapes)
-    types = types_leg(torch, sk, card, spark, tables, timed_shapes)
+    # the oracles of the expressions, types and aggregates legs (Python
+    # loops and numpy over the same seeded tables) come from the
+    # `--tpcds-cpu` process, which computed them first
+    oracles = side_oracles(cpu_proc)
+    expressions = expressions_leg(torch, sk, card, spark,
+                                  oracles["expressions"])
+    types = types_leg(torch, sk, card, spark, oracles["types"],
+                      timed_shapes)
+    aggregates = aggregates_leg(torch, sk, card, spark,
+                                oracles["aggregates"], timed_shapes)
+    for table in TYPES_TABLES:
+        spark.sql(f"DROP TABLE {table}")
     # the maintenance leg changes the views: it runs after every other
     # run over them
     maintenance = maintenance_leg(torch, sk, card, spark, tables, arrays,
                                   timed_shapes)
     spark.stop()
-    return out, results, expressions, types, maintenance
+    return out, results, expressions, types, aggregates, maintenance
 
 
 def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
@@ -5119,8 +5350,7 @@ def expression_check(name: str, table, want: list) -> str:
     return f"{len(got)} rows equal to the oracle"
 
 
-def expressions_leg(torch, sk, card: str, spark, oracles: dict,
-                    timed_shapes) -> dict:
+def expressions_leg(torch, sk, card: str, spark, oracles: dict) -> dict:
     """The scalar functions at SF10, on the tpcds leg's session and views
     (nothing ingested again): each of EXPRESSION_QUERIES at `auto`, then at
     the stage tier and at forced `whole`, each result held to its numpy or
@@ -5135,6 +5365,7 @@ def expressions_leg(torch, sk, card: str, spark, oracles: dict,
 
     t0 = time.perf_counter()
     out = {}
+    own_shapes = set()
     for name, text in EXPRESSION_QUERIES.items():
         label = f"expressions {name}"
         want = oracles[name]
@@ -5177,7 +5408,9 @@ def expressions_leg(torch, sk, card: str, spark, oracles: dict,
         def stage_run(df=dfs["stage"]):
             with tier_set(spark, "stage"), bodies_on_card(torch, sk):
                 df.toArrow()
-        path_histograms(torch, sk, label, {"stage": stage_run}, timed_shapes)
+        # the leg's own inputs are timed once each (PERF.md's kernel table
+        # has their row), even where an earlier path timed the shape
+        path_histograms(torch, sk, label, {"stage": stage_run}, own_shapes)
         print(f"{label} tiers " + json.dumps(dict(report, card=card)),
               flush=True)
     print(f"expressions leg done in {time.perf_counter() - t0:.1f} s",
@@ -5354,6 +5587,12 @@ def types_oracle(name: str, tables: dict, events=None) -> list:
             for (k, n, s) in rows]
 
 
+def types_oracles(tables: dict) -> dict:
+    events = _event_seconds(tables)
+    return {name: types_oracle(name, tables, events)
+            for name in TYPES_QUERIES}
+
+
 def types_check(name: str, table, want: list) -> str:
     """The result of TYPES_QUERIES[name] against its oracle rows, exactly
     (row order aside)."""
@@ -5368,27 +5607,23 @@ def types_check(name: str, table, want: list) -> str:
     return f"{len(got)} rows equal to the oracle"
 
 
-def types_leg(torch, sk, card: str, spark, tables: dict,
+def types_leg(torch, sk, card: str, spark, oracles: dict,
               timed_shapes) -> dict:
     """A1's value types and A11's collections at SF10, on the tpcds leg's
     session and views (nothing ingested again; TYPES_TABLES made over them,
     timed):
     each of TYPES_QUERIES at `auto`, then at the stage tier, each result
-    held to its numpy oracle (`types_oracle`, computed first, outside
-    every timed run), the tier and reason printed (tests/test_torch_nested.py
+    held to its numpy oracle (`oracles[name]`, the rows of `types_oracles`
+    computed by the `--tpcds-cpu` process), the tier and reason printed (tests/test_torch_nested.py
     holds them to the reference's at scale 0.1); a whole program calls the
     histogram kernel never, and each fused dispatch is one replay
     (`counted_run`). Then the histogram kernel is held against its plain
     version at the stage run's inputs. Returns the launch counts of each
-    statement's run at `auto`."""
+    statement's run at `auto`. TYPES_TABLES stay for the aggregates leg;
+    the tpcds leg drops them after it."""
     from spark_tpu_torch.api.dataframe import DataFrame
 
     t0 = time.perf_counter()
-    events = _event_seconds(tables)
-    oracles = {name: types_oracle(name, tables, events)
-               for name in TYPES_QUERIES}
-    print(f"types oracles computed in {time.perf_counter() - t0:.1f} s",
-          flush=True)
     for table, text in TYPES_TABLES.items():
         t1 = time.perf_counter()
         spark.sql(text)
@@ -5431,10 +5666,497 @@ def types_leg(torch, sk, card: str, spark, tables: dict,
         path_histograms(torch, sk, label, {"stage": stage_run}, timed_shapes)
         print(f"{label} tiers " + json.dumps(dict(report, card=card)),
               flush=True)
-    for table in TYPES_TABLES:
-        spark.sql(f"DROP TABLE {table}")
     print(f"types leg done in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# --- the aggregates leg: A3's aggregates and A11's lambdas over the SF10 views -
+
+# the bit kernel's statements first: the JSON line's launches are theirs
+AGG_BITS = ("bits", "bits_two_keys", "bits_global", "bits_months")
+_BIT_COLS = ("bit_and(ss_ticket_number) ba, bit_or(ss_item_sk) bo, "
+             "bit_xor(ss_customer_sk) bx, count(*) n FROM store_sales")
+AGG_QUERIES = {
+    # flag rollups over every store_sales line: the dense fused aggregate
+    # by store at the stage tier, the sorted-segment one by two keys
+    "bits": f"SELECT ss_store_sk, {_BIT_COLS} GROUP BY ss_store_sk",
+    "bits_two_keys": f"SELECT ss_store_sk, ss_promo_sk, {_BIT_COLS} "
+                     "GROUP BY ss_store_sk, ss_promo_sk",
+    "bits_global": f"SELECT {_BIT_COLS}",
+    # a month's date keys share their high bits, so AND and OR differ from
+    # month to month; over a join, so `auto` lowers it whole
+    "bits_months": "SELECT d_year, d_moy, bit_and(ss_sold_date_sk) ba, "
+                   "bit_or(ss_sold_date_sk) bo, bit_xor(ss_ticket_number) "
+                   "bx, count(*) n FROM store_sales JOIN date_dim ON "
+                   "ss_sold_date_sk = d_date_sk GROUP BY d_year, d_moy",
+    # a report's quantiles over one year of sales (about 5.8M lines): the
+    # gather to one partition and the multi-key sort
+    "percentiles": "SELECT ss_store_sk, percentile(ss_quantity, 0.9) p, "
+                   "median(ss_net_paid) m, percentile_approx("
+                   "ss_sales_price, 0.25) a FROM store_sales JOIN date_dim "
+                   "ON ss_sold_date_sk = d_date_sk WHERE d_year = 2001 "
+                   "GROUP BY ss_store_sk",
+    # string min/max in rank space (a fused body, a whole program) and
+    # first over a string, which keeps its dictionary
+    "strings": "SELECT s_state, s_city, min(c_last_name) lo, "
+               "max(c_first_name) hi, first(c_last_name) f, count(*) n "
+               "FROM store_sales JOIN customer ON ss_customer_sk = "
+               "c_customer_sk JOIN store ON ss_store_sk = s_store_sk "
+               "GROUP BY s_state, s_city",
+    "collects": "SELECT i_category, sort_array(collect_set(i_brand)) b, "
+                "size(collect_list(i_item_sk)) n FROM item "
+                "GROUP BY i_category",
+    "moments": "SELECT ss_store_sk, corr(ss_quantity, ss_net_paid) c, "
+               "covar_samp(ss_quantity, ss_sales_price) cs, "
+               "covar_pop(ss_quantity, ss_sales_price) cp, "
+               "skewness(ss_net_paid) sk, kurtosis(ss_quantity) ku "
+               "FROM store_sales GROUP BY ss_store_sk",
+    "distinct": "SELECT ss_store_sk, sum(DISTINCT ss_quantity) sd, "
+                "avg(DISTINCT ss_quantity) ad FROM store_sales "
+                "GROUP BY ss_store_sk",
+    "mode": "SELECT ss_store_sk, mode(ss_quantity) m FROM store_sales "
+            "GROUP BY ss_store_sk",
+    # lambdas over the words of every address's county, grouped small
+    "lambda_words": "SELECT t, f, e, a, count(*) n FROM (SELECT "
+                    "transform(sp, w -> concat(w, '.')) t, filter(sp, w -> "
+                    "w <> 'County') f, exists(sp, w -> w = 'County') e, "
+                    "aggregate(sp, 0, (acc, w) -> acc + 1) a FROM "
+                    "(SELECT split(ca_county, ' ') sp FROM "
+                    "customer_address) x) y GROUP BY t, f, e, a",
+    "lambda_collect": "SELECT ss_store_sk, aggregate(qs, 0L, (acc, x) -> "
+                      "acc + x) tot, size(filter(qs, x -> x > 50)) big "
+                      "FROM (SELECT ss_store_sk, collect_set(ss_quantity) "
+                      "qs FROM store_sales GROUP BY ss_store_sk) c",
+    # the types leg's item_nested map (TYPES_TABLES)
+    "lambda_maps": "SELECT big, nv, count(*) n FROM (SELECT "
+                   "size(map_filter(m, (k, v) -> v > 50)) big, "
+                   "transform_values(m, (k, v) -> v IS NULL) nv FROM "
+                   "item_nested) x GROUP BY big, nv",
+}
+AGG_FLOAT_RTOL = 1e-9           # the moments' oracle: float64 raw moments
+
+
+class Approx(NamedTuple):
+    """An oracle's float64 value and the largest term its formula
+    subtracts: a result within AGG_FLOAT_RTOL of the larger of the two
+    matches (two summation orders of a cancelling raw-moment formula
+    differ by the rounding of its terms, not of its result)."""
+
+    value: float
+    scale: float
+
+
+def _group_code(keys: list, valid: list):
+    """(code per row, decode(code) -> key tuple): integer key arrays in
+    mixed radix, a NULL key (valid False) its own value."""
+    import numpy as np
+
+    code = np.zeros(len(keys[0]) if keys else 0, np.int64)
+    radix = []
+    for k, v in zip(keys, valid):
+        k = k.astype(np.int64)
+        lo = int(k[v].min()) if v.any() else 0
+        span = (int(k[v].max()) if v.any() else 0) - lo + 2  # NULL last
+        code = code * span + np.where(v, k - lo, span - 1)
+        radix.append((lo, span))
+
+    def decode(g: int) -> tuple:
+        key, rest = [], int(g)
+        for lo, span in reversed(radix):
+            d = rest % span
+            rest //= span
+            key.append(None if d == span - 1 else lo + d)
+        return tuple(reversed(key))
+
+    return code, decode
+
+
+def _bits_oracle(keys: list, values: list, n_rows: int) -> list:
+    """Rows (keys..., one result per value column, count) of a bits
+    statement: one stable sort by group, then a bitwise reduceat per
+    column (a NULL value is the identity: all ones for AND, 0 for OR and
+    XOR). `keys` and `values` are (array, valid) pairs; `values` are
+    reduced by AND, OR and XOR in turn."""
+    import numpy as np
+
+    code, decode = _group_code([k[0] for k in keys], [k[1] for k in keys]) \
+        if keys else (np.zeros(n_rows, np.int64), lambda g: ())
+    order = np.argsort(code, kind="stable")
+    code = code[order]
+    starts = np.flatnonzero(np.r_[True, code[1:] != code[:-1]])
+    outs = []
+    for (v, ok), (ufunc, ident) in zip(values, (
+            (np.bitwise_and, -1), (np.bitwise_or, 0), (np.bitwise_xor, 0))):
+        v, ok = v.astype(np.int64)[order], ok[order]
+        red = ufunc.reduceat(np.where(ok, v, ident), starts)
+        has = np.add.reduceat(ok.astype(np.int64), starts) > 0
+        outs.append([int(x) if h else None for x, h in zip(red, has)])
+    counts = np.diff(np.r_[starts, len(code)])
+    return [decode(code[st]) + tuple(o[i] for o in outs) + (int(counts[i]),)
+            for i, st in enumerate(starts)]
+
+
+def _bits_months_oracle(tables: dict) -> list:
+    """The bits_months rows: store_sales lines whose date key is in
+    date_dim, by (d_year, d_moy)."""
+    import numpy as np
+
+    ss, dd = tables["store_sales"], tables["date_dim"]
+    dsk, _ = _np_col(dd, "d_date_sk")
+    lo = int(dsk.min())
+    row = np.full(int(dsk.max()) - lo + 1, -1, np.int64)
+    row[dsk - lo] = np.arange(len(dsk))
+    sold, sold_ok = _np_col(ss, "ss_sold_date_sk")
+    inside = sold_ok & (sold >= lo) & (sold <= int(dsk.max()))
+    r = np.where(inside, row[np.clip(sold - lo, 0, len(row) - 1)], -1)
+    sel = r >= 0
+    r = r[sel]
+    keys = []
+    for name in ("d_year", "d_moy"):
+        v, ok = _np_col(dd, name)
+        keys.append((v[r], ok[r]))
+    ticket, ticket_ok = _np_col(ss, "ss_ticket_number")
+    values = [(sold[sel], sold_ok[sel])] * 2 + [(ticket[sel], ticket_ok[sel])]
+    return _bits_oracle(keys, values, int(sel.sum()))
+
+
+def _sorted_runs(code, vals):
+    """(group code of each run, run starts, sorted values, run lengths) of
+    `vals` ordered by (code, value)."""
+    import numpy as np
+
+    order = np.lexsort((vals, code))
+    c, v = code[order], vals[order]
+    starts = np.flatnonzero(np.r_[True, c[1:] != c[:-1]]) if len(c) else \
+        np.zeros(0, np.int64)
+    return c[starts], starts, v, np.diff(np.r_[starts, len(c)])
+
+
+def aggregates_oracle(name: str, tables: dict) -> list:
+    """The expected rows of AGG_QUERIES[name] from numpy and Python over
+    the Arrow tables (`_plain` values: decimals in int64 units of 0.01;
+    the moments in float64 by the reference's raw-moment formulas, each
+    an `Approx` with its formula's largest term; the
+    strings statement's first as the set of its group's values)."""
+    import collections
+
+    import numpy as np
+
+    ss = tables["store_sales"]
+    if name in ("bits", "bits_two_keys", "bits_global"):
+        keys = {"bits": ("ss_store_sk",),
+                "bits_two_keys": ("ss_store_sk", "ss_promo_sk"),
+                "bits_global": ()}[name]
+        return _bits_oracle([_np_col(ss, k) for k in keys],
+                            [_np_col(ss, c) for c in (
+                                "ss_ticket_number", "ss_item_sk",
+                                "ss_customer_sk")], ss.num_rows)
+    if name == "bits_months":
+        return _bits_months_oracle(tables)
+    store, store_ok = _np_col(ss, "ss_store_sk")
+    scode, sdecode = _group_code([store], [store_ok])
+    qty, _ = _np_col(ss, "ss_quantity")
+    if name == "percentiles":
+        dd = tables["date_dim"]
+        dsk, _ = _np_col(dd, "d_date_sk")
+        year, _ = _np_col(dd, "d_year")
+        lut = np.full(int(dsk.max()) + 2, 0, np.int64)
+        lut[dsk] = year
+        sold, sold_ok = _np_col(ss, "ss_sold_date_sk")
+        sel = sold_ok & (sold >= 0) & (sold <= dsk.max()) & \
+            (lut[np.clip(sold, 0, len(lut) - 1)] == 2001)
+        out = {}
+        for col, q in (("ss_quantity", 0.9), ("ss_net_paid", 0.5),
+                       ("ss_sales_price", 0.25)):
+            v, ok = _np_col(ss, col)
+            m = sel & ok
+            g, st, sv, cnt = _sorted_runs(scode[m], v[m].astype(np.int64))
+            idx = st + np.floor(q * (cnt - 1)).astype(np.int64)
+            for gg, x in zip(g, sv[idx]):
+                out.setdefault(int(gg), []).append(int(x))
+        return [sdecode(g) + tuple(v) for g, v in out.items()]
+    if name == "strings":
+        cu, st = tables["customer"], tables["store"]
+        csk, _ = _np_col(cu, "c_customer_sk")
+        ssk, _ = _np_col(st, "s_store_sk")
+        clut = np.full(int(csk.max()) + 2, -1, np.int64)
+        clut[csk] = np.arange(len(csk))
+        slut = np.full(int(ssk.max()) + 2, -1, np.int64)
+        slut[ssk] = np.arange(len(ssk))
+        cust, cust_ok = _np_col(ss, "ss_customer_sk")
+        crow = np.where(cust_ok & (cust >= 0) & (cust < len(clut)),
+                        clut[np.clip(cust, 0, len(clut) - 1)], -1)
+        srow = np.where(store_ok & (store >= 0) & (store < len(slut)),
+                        slut[np.clip(store, 0, len(slut) - 1)], -1)
+        sel = (crow >= 0) & (srow >= 0)
+        states = st.column("s_state").to_pylist()
+        cities = st.column("s_city").to_pylist()
+        keys = sorted(set(zip(states, cities)), key=repr)
+        kcode = {k: i for i, k in enumerate(keys)}
+        gofs = np.array([kcode[k] for k in zip(states, cities)], np.int64)
+        g = gofs[srow[sel]]
+        counts = np.bincount(g, minlength=len(keys))
+        pairs = np.unique(g * len(csk) + crow[sel])
+        last = cu.column("c_last_name").to_pylist()
+        first = cu.column("c_first_name").to_pylist()
+        rows = []
+        for k in range(len(keys)):
+            if not counts[k]:
+                continue
+            cs = pairs[(pairs // len(csk)) == k] % len(csk)
+            lasts = {last[i] for i in cs} - {None}
+            firsts = {first[i] for i in cs} - {None}
+            rows.append(keys[k] + (min(lasts) if lasts else None,
+                                   max(firsts) if firsts else None,
+                                   frozenset(lasts), int(counts[k])))
+        return rows
+    if name == "collects":
+        it = tables["item"]
+        groups: dict = {}
+        for c, b, sk_ in zip(it.column("i_category").to_pylist(),
+                             it.column("i_brand").to_pylist(),
+                             it.column("i_item_sk").to_pylist()):
+            brands, n = groups.setdefault(c, (set(), [0]))
+            if b is not None:
+                brands.add(b)
+            n[0] += sk_ is not None
+        return [(c, tuple(sorted(b)), n[0]) for c, (b, n) in groups.items()]
+    if name == "moments":
+        paid, _ = _np_col(ss, "ss_net_paid")
+        price, _ = _np_col(ss, "ss_sales_price")
+        x, y, z = qty.astype(np.float64), paid / 100.0, price / 100.0
+        ng = int(scode.max()) + 1
+
+        def s(w):
+            return np.bincount(scode, weights=w, minlength=ng)
+
+        n = s(np.ones(len(x)))
+
+        def div(a, b):
+            return np.where(b != 0, a / np.where(b != 0, b, 1), np.nan)
+
+        def top(*terms):
+            return np.max(np.abs(np.stack(terms)), axis=0)
+
+        # each value with the largest term its formula subtracts, over
+        # the same denominator: the raw-moment formulas cancel, so two
+        # summation orders agree to AGG_FLOAT_RTOL of that term
+        def corr(a, b):
+            sa, sb, sab = s(a), s(b), s(a * b)
+            den = np.sqrt((n * s(a * a) - sa * sa) * (n * s(b * b) - sb * sb))
+            return div(n * sab - sa * sb, den), div(top(n * sab, sa * sb),
+                                                    den)
+
+        def covar(a, b, ddof):
+            sab, prod = s(a * b), div(s(a) * s(b), n)
+            return div(sab - prod, n - ddof), div(top(sab, prod), n - ddof)
+
+        def moments(a):
+            mu = div(s(a), n)
+            e2, e3, e4 = div(s(a * a), n), div(s(a * a * a), n), \
+                div(s((a * a) * (a * a)), n)
+            m2 = e2 - mu * mu
+            t3 = (e3, 3.0 * (mu * e2), 2.0 * (mu * (mu * mu)))
+            m3 = t3[0] - (t3[1] - t3[2])
+            mu2 = mu * mu
+            t4 = (e4, 4.0 * (mu * e3), 6.0 * (mu2 * e2), 3.0 * (mu2 * mu2))
+            m4 = t4[0] - (t4[1] - (t4[2] - t4[3]))
+            return m2, (m3, top(*t3)), (m4, top(*t4))
+
+        m2p, (m3p, t3p), _ = moments(y)
+        m2q, _, (m4q, t4q) = moments(x)
+        cube = np.sqrt(m2p * m2p * m2p)
+        cols = [corr(x, y), covar(x, z, 1.0), covar(x, z, 0.0),
+                (div(m3p, cube), div(t3p, cube)),
+                (div(m4q, m2q * m2q) - 3.0, div(t4q, m2q * m2q))]
+        return [sdecode(g) + tuple(
+            None if np.isnan(v[g]) else Approx(float(v[g]), float(t[g]))
+            for v, t in cols) for g in range(ng) if n[g]]
+    if name in ("distinct", "mode", "lambda_collect"):
+        pair = scode * 100 + qty.astype(np.int64)
+        cnt = np.bincount(pair)
+        rows = []
+        for g in np.unique(scode):
+            c = cnt[g * 100:(g + 1) * 100]
+            vals = np.nonzero(c)[0]
+            if name == "distinct":
+                rows.append(sdecode(g) + (int(vals.sum()),
+                                          float(vals.sum()) / len(vals)))
+            elif name == "mode":
+                rows.append(sdecode(g) + (int(np.argmax(c)),))
+            else:
+                rows.append(sdecode(g) + (int(vals.sum()),
+                                          int((vals > 50).sum())))
+        return rows
+    if name == "lambda_words":
+        counts = collections.Counter()
+        for county in tables["customer_address"].column(
+                "ca_county").to_pylist():
+            if county is None:
+                counts[(None,) * 4] += 1
+                continue
+            sp = county.split(" ")
+            counts[(tuple(w + "." for w in sp),
+                    tuple(w for w in sp if w != "County"), "County" in sp,
+                    len(sp))] += 1
+        return [k + (n,) for k, n in counts.items()]
+    if name == "lambda_maps":
+        it = tables["item"]
+        price, price_ok = _np_col(it, "i_current_price")
+        counts = collections.Counter(
+            (int(ok and p > 5000), ((c, not ok),))
+            for c, p, ok in zip(it.column("i_category").to_pylist(), price,
+                                price_ok))
+        return [k + (n,) for k, n in counts.items()]
+    raise KeyError(name)
+
+
+def aggregates_check(name: str, table, want: list) -> str:
+    """The result of AGG_QUERIES[name] against its oracle rows (row order
+    aside): exact, but the moments within AGG_FLOAT_RTOL of the larger of
+    the value and the largest term its formula subtracts (`Approx`), and the
+    strings statement's first, which must be one of its group's values
+    (Spark leaves the row it takes unspecified)."""
+    import math
+
+    got = sorted((tuple(_plain(v) for v in r.values())
+                  for r in table.to_pylist()), key=repr)
+    want = sorted(want, key=repr)
+    if len(got) != len(want):
+        fail(f"aggregates {name}: {len(got)} rows, the oracle {len(want)}")
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, frozenset):
+                ok = x in y if y else x is None
+            elif isinstance(y, Approx):
+                ok = isinstance(x, float) and abs(x - y.value) <= \
+                    AGG_FLOAT_RTOL * max(abs(y.value), y.scale)
+            else:
+                ok = x == y
+            if not ok:
+                fail(f"aggregates {name}: row {g} is not the oracle's {w}")
+    return f"{len(got)} rows equal to the oracle"
+
+
+def path_bits(torch, sk, label: str, runs, timed_shapes) -> int:
+    """The bit kernel at a path's own inputs: one more run of each of
+    `runs` ({tier: run}) keeps a copy of the inputs of each segment_bits
+    call of a new (rows, segments, kind, live share), inside whole
+    programs and fused bodies too (`bodies_on_card` runs each body once
+    more eagerly, so the wrapper runs in Python at the replay's inputs),
+    then holds each copy against the plain version, and times it where
+    its (rows, segments, kind) is not yet in `timed_shapes`. Returns the
+    number of inputs held."""
+    from spark_tpu_torch.ops import grouping as G
+
+    seen, inputs = set(), []
+    real = G.segment_bits
+
+    def keep(values, weights, seg_ids, num_segments, kind, count):
+        if not torch.cuda.is_current_stream_capturing():
+            n, live = seg_ids.shape[0], int(weights.sum())
+            shape = (n, num_segments, kind, round(live / max(n, 1), 2))
+            if shape not in seen:
+                seen.add(shape)
+                inputs.append((values.clone(), weights.clone(),
+                               seg_ids.to(torch.int32, copy=True)
+                               .contiguous(), num_segments, kind, live))
+        return real(values, weights, seg_ids, num_segments, kind, count)
+
+    G.segment_bits = keep
+    try:
+        for tier, run in runs.items():
+            with bodies_on_card(torch, sk):
+                run()
+    finally:
+        G.segment_bits = real
+    timed = 0
+    for v, m, g, segs, kind, live in inputs:
+        shape = f"{label}: {g.shape[0]:,} rows, {segs:,} segments, " \
+                f"{live:,} live"
+        if (g.shape[0], segs, kind) not in timed_shapes:
+            timed_shapes.add((g.shape[0], segs, kind))
+            bits_row(torch, sk, shape, v, m, g, segs, kind)
+            timed += 1
+        else:
+            bits_check(torch, sk, shape, v, m, g, segs, kind)
+    print(f"{label}: the bit kernel equals its plain version at "
+          f"{len(inputs)} path inputs ({timed} timed)", flush=True)
+    return len(inputs)
+
+
+def aggregates_leg(torch, sk, card: str, spark, oracles: dict,
+                   timed_shapes) -> dict:
+    """A3's aggregates and A11's lambdas at SF10, on the tpcds leg's
+    session and views (nothing ingested again; the types leg's
+    item_nested table still made): each of AGG_QUERIES at `auto` (its
+    decision printed; tests/test_torch_aggregates_leg.py holds it to the
+    reference's on the same plan at a small scale), then at the stage tier
+    and, for the bits statements, at the whole tier (each skipped where
+    `auto` chose it: that run is its run), each result held to its oracle
+    rows (`oracles[name]`, computed by the `--tpcds-cpu` process). A whole
+    program calls the histogram kernel only for a bit reduce's counts;
+    each fused dispatch is one replay (`counted_run`); the bits
+    statements launch the bit kernel at every tier. Then one more run of
+    the bits statements at each of their tiers holds the bit kernel
+    against its plain version at every input they gave it, inside whole
+    programs too. Returns the launch counts of each statement's run at
+    each tier, and the tier `auto` chose for each statement."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+
+    t0 = time.perf_counter()
+    out, auto_tiers, bit_runs = {}, {}, {}
+    for name, text in AGG_QUERIES.items():
+        label = f"aggregates {name}"
+        report = {}
+        tiers = ("auto", "stage") + (("whole",) if name in AGG_BITS else ())
+        for tier in tiers:
+            if tier != "auto" and report["auto"]["tier"] == tier:
+                out[(name, tier)] = out[(name, "auto")]
+                report[tier] = f"the auto run (auto chose {tier})"
+                continue
+            with tier_set(spark, tier):
+                df = DataFrame(spark, spark.sql(text).plan)
+                decision = decision_report(df)
+                res, secs, launches, st = counted_run(torch, sk, spark,
+                                                      df.toArrow)
+                msg = aggregates_check(name, res, oracles[name])
+            calls = launches["partition_histogram"]
+            bits = launches["segment_bits"]
+            # in a whole program the histogram kernel counts only the bit
+            # reduces' weighted rows, one call for each
+            if decision["tier"] == "whole" and calls != bits and \
+                    not st["whole"]["runtime_degraded"]:
+                fail(f"{label}: the whole program launched the histogram "
+                     f"kernel {calls} times, not {bits}")
+            if tier != "auto" and decision["tier"] != tier:
+                fail(f"{label}: planned at {decision['tier']} where {tier} "
+                     f"was set ({decision['reason']})")
+            if (name in AGG_BITS) != (bits > 0):
+                fail(f"{label}: {bits} bit kernel launches at {tier}")
+            cc = st["cache"]
+            report[tier] = {
+                "tier": decision["tier"], "reason": decision["reason"],
+                "check": msg, "seconds": secs, "histogram_calls": calls,
+                "bit_kernel_calls": bits,
+                "captures": cc.get("stage_cache.captures", 0),
+                "replays": cc.get("stage_cache.replays", 0),
+                "degrades": st["whole"]["runtime_degraded"],
+                "dispatches": st["dispatches"]}
+            out[(name, tier)] = launches
+            if tier == "auto":
+                auto_tiers[name] = decision["tier"]
+            if name in AGG_BITS:
+                def run(df=df, tier=tier):
+                    with tier_set(spark, tier):
+                        df.toArrow()
+                bit_runs[f"{name} {tier}"] = run
+        print(f"{label} tiers " + json.dumps(dict(report, card=card)),
+              flush=True)
+    path_bits(torch, sk, "aggregates bits", bit_runs, timed_shapes)
+    print(f"aggregates leg done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out, auto_tiers
 
 
 # --- the maintenance leg: TPC-DS data maintenance over the SF10 views --------
@@ -5826,6 +6548,27 @@ TPCDS_CPU_SKIP = ("q13", "q25", "q29", "q50", "q64", "q78", "q4", "q9",
 
 
 TPCDS_CPU_DIR = os.path.join(ROOT, "build", "tpcds_cpu")
+ORACLES_FILE = os.path.join(TPCDS_CPU_DIR, "oracles.pkl")
+
+
+def side_oracles(proc: subprocess.Popen) -> dict:
+    """The expressions, types and aggregates legs' oracle rows, as the
+    `--tpcds-cpu` process wrote them (it computes them before its
+    queries); waits for the file, and fails if the process ended without
+    it. Prints the wait."""
+    t0 = time.perf_counter()
+    while not os.path.exists(ORACLES_FILE):
+        if proc.poll() is not None:
+            with open(os.path.join(TPCDS_CPU_DIR, "log.txt")) as f:
+                tail = f.read()[-2000:]
+            fail(f"the tpcds CPU process ended with {proc.returncode} and "
+                 f"no oracles:\n{tail}")
+        time.sleep(0.5)
+    with open(ORACLES_FILE, "rb") as f:
+        oracles = pickle.load(f)
+    print(f"leg oracles read after a wait of {time.perf_counter() - t0:.1f}"
+          " s (computed by the tpcds CPU process)", flush=True)
+    return oracles
 
 
 def start_tpcds_cpu() -> subprocess.Popen:
@@ -5845,10 +6588,12 @@ def start_tpcds_cpu() -> subprocess.Popen:
 
 
 def tpcds_cpu_results() -> None:
-    """`--tpcds-cpu`: each tpcds query but those of TPCDS_CPU_SKIP and
-    TPCDS_ORACLES on a TorchSession(device="cpu") over tpcds_data(), its
-    Arrow result and its time written to TPCDS_CPU_DIR. It leaves two
-    cores to the process that drives the card."""
+    """`--tpcds-cpu`: first the oracle rows of the expressions, types and
+    aggregates legs over tpcds_data(), written to ORACLES_FILE; then each
+    tpcds query but those of TPCDS_CPU_SKIP and TPCDS_ORACLES on a
+    TorchSession(device="cpu") over the same tables, its Arrow result and
+    its time written to TPCDS_CPU_DIR. It leaves two cores to the process
+    that drives the card."""
     import pyarrow as pa
     import torch
 
@@ -5857,6 +6602,19 @@ def tpcds_cpu_results() -> None:
 
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) - 2))
     tables, _ = tpcds_data()
+    # the legs' oracles first: the card's process waits for them
+    t0 = time.perf_counter()
+    oracles = {
+        "expressions": {name: expression_oracle(name, tables)
+                        for name in EXPRESSION_QUERIES},
+        "types": types_oracles(tables),
+        "aggregates": {name: aggregates_oracle(name, tables)
+                       for name in AGG_QUERIES}}
+    tmp = ORACLES_FILE + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(oracles, f)
+    os.replace(tmp, ORACLES_FILE)
+    print(f"oracles {time.perf_counter() - t0:.3f} s", flush=True)
     # the oracle: operator at a time (at `auto` the CPU would run whole
     # programs over 2^25-slot flows)
     cpu = TorchSession("chip_smoke_cpu", dict(TPCDS_CONF, **{TIER: "operator"}),
@@ -6802,7 +7560,7 @@ def run() -> None:
     except ImportError as e:
         fail(f"spark_tpu_torch is not beside this script: {e}")
     t0 = time.perf_counter()
-    reports = cuda_build.build_all([sk.SOURCE])
+    reports = cuda_build.build_all(list(sk.SOURCES))
     print(f"built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in reports.items():
@@ -6821,6 +7579,7 @@ def run() -> None:
     cpu_proc = start_tpcds_cpu()
     try:
         main_hist, main_sum = phase("kernels", check_kernels, torch, sk)
+        main_bits = phase("bit_kernel", check_bit_kernel, torch, sk)
         k, v = main_table()
         main_tiers = phase("main", main_path, torch, sk, card, k, v)
         # the main query at `auto` runs as one whole program, which calls
@@ -6841,11 +7600,14 @@ def run() -> None:
         # the expressions, types and maintenance legs run at the end of
         # the tpcds leg, over its session and SF10 views
         tpcds_launches, tpcds_results, expr_launches, types_launches, \
-            maint_launches = phase("tpcds", tpcds_leg, torch, sk, card)
+            (agg_launches, agg_tiers), maint_launches = phase("tpcds", tpcds_leg, torch,
+                                                 sk, card, cpu_proc)
         by_path.update({f"tpcds {q}": n for q, n in tpcds_launches.items()})
         by_path.update({f"expressions {q}": n
                         for q, n in expr_launches.items()})
         by_path.update({f"types {q}": n for q, n in types_launches.items()})
+        by_path.update({f"aggregates {q} {tier}": n
+                        for (q, tier), n in agg_launches.items()})
         by_path.update({f"maintenance {q}": n
                         for q, n in maint_launches.items()})
         parquet_launches = phase("parquet", parquet_leg, torch, sk, card,
@@ -6863,20 +7625,40 @@ def run() -> None:
 
         shutil.rmtree(PARQUET_DIR, ignore_errors=True)
 
-    def entry(name, row, replaces):
+    def entry(name, row, replaces, source="scatter_kernels.cu",
+              at_auto=None, at_stage=None, path="main", tier_at_auto=None):
         return {"name": name, "route": "cuda",
-                "source": "spark_tpu_torch/csrc/scatter_kernels.cu",
+                "source": f"spark_tpu_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": main_tiers[main_tier][name],
-                "main_path_tier_at_auto": main_tier,
-                "launches_at_stage": main_tiers["stage"][name],
-                "launches_by_path": {p: n[name] for p, n in by_path.items()},
+                "launches": main_tiers[main_tier][name] if at_auto is None
+                else at_auto,
+                "path": path,
+                "main_path_tier_at_auto": tier_at_auto or main_tier,
+                "launches_at_stage": main_tiers["stage"][name]
+                if at_stage is None else at_stage,
+                "launches_by_path": {p: n.get(name, 0)
+                                     for p, n in by_path.items()},
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "device_ms": row["device_ms"], "call_ms": row["call_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": "bytes", "library_ms": row["library_ms"],
                 "shape": row["shape"]}
 
+    # the bit kernel's path is this slice's: the aggregates leg's bits
+    # statements, each counted from 0 at `auto`, at stage and at whole
+    bits_at = {tier: sum(agg_launches[(q, tier)]["segment_bits"]
+                         for q in AGG_BITS)
+               for tier in ("auto", "stage", "whole")}
+    if not all(bits_at.values()):
+        fail(f"the bits statements launched the bit kernel {bits_at}")
+    bits_entry = entry(
+        "segment_bits", main_bits,
+        "spark_tpu/ops/grouping.py:159 bitplane_reduce (XLA-lowered)",
+        "segment_bits.cu", bits_at["auto"], bits_at["stage"],
+        "aggregates bits", ", ".join(sorted({agg_tiers[q]
+                                             for q in AGG_BITS})))
+    bits_entry["launches_at_whole"] = bits_at["whole"]
+    bits_entry["library"] = BIT_LIBRARY
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
@@ -6884,6 +7666,7 @@ def run() -> None:
               "spark_tpu/ops/pallas_kernels.py:67"),
         entry("dense_group_sum_f32", main_sum,
               "spark_tpu/ops/pallas_kernels.py:128"),
+        bits_entry,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

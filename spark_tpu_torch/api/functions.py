@@ -115,6 +115,70 @@ def max(c) -> Column:  # noqa: A001
     return Column(E.Max(_c(c)))
 
 
+def first(c, ignorenulls: bool = True) -> Column:
+    return Column(E.First(_c(c), ignorenulls))
+
+
+def any_value(c) -> Column:
+    return Column(E.AnyValue(_c(c)))
+
+
+def median(c) -> Column:
+    return Column(E.Median(_c(c)))
+
+
+def percentile_approx(c, q, accuracy=None) -> Column:
+    return Column(E.Percentile(_c(c), float(q)))
+
+
+def corr(a, b) -> Column:
+    from ..expr import agg_compound as AC
+
+    return Column(AC.corr(_c(a), _c(b)))
+
+
+def covar_samp(a, b) -> Column:
+    from ..expr import agg_compound as AC
+
+    return Column(AC.covar_samp(_c(a), _c(b)))
+
+
+def covar_pop(a, b) -> Column:
+    from ..expr import agg_compound as AC
+
+    return Column(AC.covar_pop(_c(a), _c(b)))
+
+
+def skewness(c) -> Column:
+    from ..expr import agg_compound as AC
+
+    return Column(AC.skewness(_c(c)))
+
+
+def kurtosis(c) -> Column:
+    from ..expr import agg_compound as AC
+
+    return Column(AC.kurtosis(_c(c)))
+
+
+def sum_distinct(c) -> Column:
+    e = E.Sum(_c(c))
+    e.distinct = True
+    return Column(e)
+
+
+def collect_list(c) -> Column:
+    return Column(E.CollectList(_c(c)))
+
+
+def collect_set(c) -> Column:
+    return Column(E.CollectSet(_c(c)))
+
+
+def array_agg(c) -> Column:
+    return Column(E.CollectList(_c(c)))
+
+
 # --- conditionals and math ---------------------------------------------------
 
 def isnull(c) -> Column:

@@ -283,15 +283,18 @@ class StringDict:
         return pad_pow2(self.hashes if len(self.values)
                         else np.zeros(1, np.int64))
 
+    def rank_luts(self) -> tuple[np.ndarray, np.ndarray]:
+        """(code -> rank, rank -> code), int32, one padding entry each in
+        an empty dictionary: a min/max over the column reduces ranks and
+        maps the winner back to its code."""
+        r = self.ranks if len(self.values) else np.zeros(1, np.int32)
+        inv = np.empty(len(r), dtype=np.int32)
+        inv[r] = np.arange(len(r), dtype=np.int32)
+        return r, inv
+
     def device_rank_to_code(self, device) -> torch.Tensor:
         """Inverse of ranks: rank -> dictionary code."""
-        def make():
-            r = self.ranks if len(self.values) else np.zeros(1, np.int32)
-            inv = np.empty(len(r), dtype=np.int32)
-            inv[r] = np.arange(len(r), dtype=np.int32)
-            return inv
-
-        return self._on("rank_to_code", device, make)
+        return self._on("rank_to_code", device, lambda: self.rank_luts()[1])
 
     def map_values(self, fn) -> "StringDict":
         """Apply a host string -> string function to every entry: how

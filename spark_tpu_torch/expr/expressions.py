@@ -108,7 +108,8 @@ __all__ = [
     "DayOfYear", "WeekOfYear", "TruncDate", "MakeDate", "AddMonths",
     "LastDay", "MonthsBetween", "Grouping", "GroupingID", "DateFormat",
     "StddevSamp", "StddevPop", "VarianceSamp", "VariancePop", "First",
-    "Hour", "Minute", "Second", "UnixTimestamp", "FromUnixtime",
+    "AnyValue", "Mode", "BitAndAgg", "BitOrAgg", "BitXorAgg", "Percentile",
+    "Median", "CollectSet", "CollectList", "Hour", "Minute", "Second", "UnixTimestamp", "FromUnixtime",
     "build_make_interval", "Split", "Explode", "Size", "ArrayContains",
     "ArrayMin", "ArrayMax", "ElementAt", "ElementAtString", "GetStructField",
     "GetMapValue", "MapContainsKey", "Flatten", "ArrayJoin", "ArrayPosition",
@@ -872,11 +873,18 @@ def _product_operands(ctx: EvalCtx, e: Expression):
     if not isinstance(e, Multiply) or e.dtype != float64:
         return None
     ops = _scaled_operands(ctx, e)
-    if ops is not None:
-        return ops
-    l, r = ctx.eval(e.left), ctx.eval(e.right)
-    a, b = e._align(ctx, l, r, float64)
-    return a, b, ctx.and_valid(l, r)
+    if ops is None:
+        l, r = ctx.eval(e.left), ctx.eval(e.right)
+        ops = (*e._align(ctx, l, r, float64), ctx.and_valid(l, r))
+    a, b, v = ops
+    if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+        return None
+    # a literal factor (the moments' 3.0 * ...) broadcasts as a tensor
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    elif not isinstance(b, torch.Tensor):
+        b = torch.full_like(a, b)
+    return a, b, v
 
 
 def _contracted_sum(ctx: EvalCtx, e: Expression, sign: float):
@@ -3749,11 +3757,48 @@ class Average(AggregateFunction):
         return float64
 
 
+class Mode(AggregateFunction):
+    """mode(col): the most frequent non-null value. Never lowered: the
+    optimizer rewrites it into counts per value, a max-count join and a
+    min-value tie-break (RewriteModeAggregate), so ties give the smallest
+    value, as in the reference."""
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+class BitAndAgg(AggregateFunction):
+    """bit_and(col): the bitwise segment reduce (ops/grouping.py
+    bitplane_reduce, the hand-written bit kernel on the card). The result
+    keeps the input's integral type."""
+
+    kind = "and"
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        if not isinstance(ct, IntegralType):
+            raise TypeCheckError(
+                f"bit_{self.kind} requires an integral column, got "
+                f"{ct.simple_string()}")
+        return ct
+
+
+class BitOrAgg(BitAndAgg):
+    kind = "or"
+
+
+class BitXorAgg(BitAndAgg):
+    kind = "xor"
+
+
 class First(AggregateFunction):
     """The first non-null value of a group (the reference's First with
-    ignore_nulls): DataFrame.dropDuplicates(subset) takes the other
-    columns with it. The SQL names first and any_value are A3's, so the
-    registry does not build it."""
+    ignore_nulls), in the order the aggregate meets its rows: first,
+    first_value's aggregate form, any_value, and the other columns of
+    DataFrame.dropDuplicates(subset). Over a string column it keeps the
+    column's dictionary (the reference drops it, ROADMAP.md C17)."""
 
     def __init__(self, child: Expression, ignore_nulls: bool = True):
         super().__init__(child)
@@ -3762,6 +3807,10 @@ class First(AggregateFunction):
     @property
     def dtype(self):
         return self.child.dtype
+
+
+class AnyValue(First):
+    pass
 
 
 class _CentralMoment(AggregateFunction):
@@ -3786,3 +3835,43 @@ class VarianceSamp(_CentralMoment):
 
 class VariancePop(_CentralMoment):
     ddof = 0
+
+
+class Percentile(AggregateFunction):
+    """Exact percentile at the lower nearest rank, floor(q * (n - 1)), as
+    the reference computes percentile, median and percentile_approx (Spark
+    interpolates; ROADMAP.md "Known differences"). Non-mergeable: the
+    planner gathers to one partition before aggregating."""
+
+    def __init__(self, child: Expression, q: float):
+        super().__init__(child)
+        self.q = float(q)
+
+    @property
+    def dtype(self):
+        ct = self.child.dtype
+        return ct if isinstance(ct, (IntegralType, DateType, TimestampType,
+                                     DecimalType)) else float64
+
+
+class Median(Percentile):
+    def __init__(self, child: Expression):
+        super().__init__(child, 0.5)
+
+
+class CollectSet(AggregateFunction):
+    """collect_set: non-mergeable, gathered to one partition; each group's
+    list is built on the host and dictionary-encoded as an ArrayType
+    column."""
+
+    @property
+    def dtype(self):
+        return ArrayType(self.child.dtype)
+
+
+class CollectList(AggregateFunction):
+    """collect_list (array_agg): as collect_set, duplicates kept."""
+
+    @property
+    def dtype(self):
+        return ArrayType(self.child.dtype)

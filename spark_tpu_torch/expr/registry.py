@@ -1,10 +1,10 @@
 """Function registry: SQL function names -> expression builders
-(counterpart of `spark_tpu/expr/registry.py`, the functions of the port's
-slices, with the reference's argument defaults). A name the reference
-knows and the port does not (the higher-order functions and the
-aggregates still to come) raises `NotPortedError` naming it. The
-collection constructors and set functions are host UDFs row by row, as
-the reference builds them."""
+(counterpart of `spark_tpu/expr/registry.py`: every name of the
+reference's registry, with its argument defaults). The collection
+constructors and set functions are host UDFs row by row, and the
+higher-order functions lower to host UDFs over their collection and
+captured columns (`expr/higher_order.py`), as the reference builds them.
+DISTINCT is accepted on count, sum and avg."""
 
 from __future__ import annotations
 
@@ -194,8 +194,9 @@ def _elem(e, default=int64):
 
 def _array_sort(c, f=None):
     if f is not None:
-        raise NotPortedError("lambda functions (array_sort with a "
-                             "comparator)")
+        from . import higher_order as H
+
+        return H.lower_hof(H.ArraySortLambda([c], f))
     return E.ArraySortNullsLast(c)
 
 
@@ -206,6 +207,22 @@ def _host(fn, name: str, rtype, strict: bool = True):
                                 rtype, name=name, vectorized=False)
 
 
+def _agg_compound(name: str):
+    def build(*args):
+        from . import agg_compound as AC
+
+        return getattr(AC, name)(*args)
+    return build
+
+
+def _hof(name: str):
+    def build(*args):
+        from . import higher_order as H
+
+        return getattr(H, f"build_{name}")(*args)
+    return build
+
+
 _REGISTRY: dict[str, Builder] = {
     # aggregates
     "sum": lambda c: E.Sum(c),
@@ -213,6 +230,37 @@ _REGISTRY: dict[str, Builder] = {
     "max": lambda c: E.Max(c),
     "avg": lambda c: E.Average(c),
     "mean": lambda c: E.Average(c),
+    "first": lambda c, *a: E.First(c),
+    "any_value": lambda c, *a: E.AnyValue(c),
+    "collect_set": lambda c: E.CollectSet(c),
+    "collect_list": lambda c: E.CollectList(c),
+    "array_agg": lambda c: E.CollectList(c),
+    "median": lambda c: E.Median(c),
+    "percentile": lambda c, q: E.Percentile(c, float(q.value)),
+    "percentile_approx": lambda c, q, *a: E.Percentile(c, float(q.value)),
+    "corr": _agg_compound("corr"),
+    "covar_samp": _agg_compound("covar_samp"),
+    "covar_pop": _agg_compound("covar_pop"),
+    "skewness": _agg_compound("skewness"),
+    "kurtosis": _agg_compound("kurtosis"),
+    "bit_and": lambda c: E.BitAndAgg(c),
+    "bit_or": lambda c: E.BitOrAgg(c),
+    "bit_xor": lambda c: E.BitXorAgg(c),
+    "mode": lambda c: E.Mode(c),
+    # higher-order functions (expr/higher_order.py)
+    "transform": _hof("transform"),
+    "filter": _hof("filter"),
+    "exists": _hof("exists"),
+    "forall": _hof("forall"),
+    "any_match": _hof("exists"),
+    "all_match": _hof("forall"),
+    "aggregate": _hof("aggregate"),
+    "reduce": _hof("aggregate"),
+    "zip_with": _hof("zip_with"),
+    "transform_keys": _hof("transform_keys"),
+    "transform_values": _hof("transform_values"),
+    "map_filter": _hof("map_filter"),
+    "map_zip_with": _hof("map_zip_with"),
     "stddev": lambda c: E.StddevSamp(c),
     "stddev_samp": lambda c: E.StddevSamp(c),
     "stddev_pop": lambda c: E.StddevPop(c),
@@ -536,10 +584,14 @@ def build_function(name: str, args: Sequence[E.Expression],
     b = lookup(n)
     if b is None:
         raise NotPortedError(f"function {name}")
-    if distinct:
-        raise NotPortedError(f"{name}(DISTINCT ...)")
     try:
-        return b(*args)
+        out = b(*args)
     except TypeError as e:
         raise AnalysisException(
             f"wrong number of arguments for {name}: {len(args)}") from e
+    if distinct:
+        if isinstance(out, (E.Sum, E.Average)):
+            out.distinct = True  # consumed by RewriteDistinctAggregates
+        else:
+            raise AnalysisException(f"DISTINCT is not supported for {name}")
+    return out

@@ -7,7 +7,10 @@ segment with `index_add_` / `scatter_reduce_`. The dense-range path
 scatters by precomputed segment ids; its counts go through the
 hand-written histogram kernel. Output capacity equals input capacity with a
 row mask for live groups; empty segments hold the same identities the JAX
-package's segment reductions give them.
+package's segment reductions give them. bit_and, bit_or and bit_xor reduce
+through the hand-written bit kernel (`scatter_kernels.segment_bits`) on the
+card and its bit-plane twin on the CPU; percentiles take the lower nearest
+rank of one multi-key sort, as the reference's do.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..errors import NotPortedError
-from .scatter_kernels import partition_histogram
+from .scatter_kernels import partition_histogram, segment_bits
 
 
 class GroupLayout(NamedTuple):
@@ -204,6 +207,28 @@ def seg_first(layout: GroupLayout, values: torch.Tensor, valid=None):
     return v[first_pos.clamp_max(cap - 1)], has
 
 
+def bitplane_reduce(values: torch.Tensor, weights: torch.Tensor,
+                    seg_ids: torch.Tensor, num_segments: int, kind: str,
+                    count: torch.Tensor | None = None):
+    """bit_and / bit_or / bit_xor per segment: (int64[num_segments], has),
+    0 in an empty segment, `has` the segment's weighted-row count > 0.
+    `count` is that count where the caller has it (the dense path's);
+    otherwise the histogram kernel counts it. Ids outside [0,
+    num_segments) of masked rows add nothing."""
+    seg32 = seg_ids.to(torch.int32).contiguous()
+    if count is None:
+        count = partition_histogram(seg32, weights, num_segments)
+    out = segment_bits(values, weights, seg32, num_segments, kind, count)
+    return out, count > 0
+
+
+def seg_bitreduce(layout: GroupLayout, values: torch.Tensor, valid=None,
+                  kind: str = "or"):
+    cap = values.shape[0]
+    return bitplane_reduce(values[layout.perm], _weights(layout, valid),
+                           layout.seg_ids, cap, kind)
+
+
 # --- primitive-op dispatch tables ---------------------------------------------
 
 def apply_group_ops(layout: GroupLayout, ops: Sequence[str], val_datas,
@@ -227,6 +252,8 @@ def apply_group_ops(layout: GroupLayout, ops: Sequence[str], val_datas,
             bufs.append(seg_max(layout, vd, vv))
         elif op == "first":
             bufs.append(seg_first(layout, vd, vv))
+        elif op in ("bitand", "bitor", "bitxor"):
+            bufs.append(seg_bitreduce(layout, vd, vv, kind=op[3:]))
         else:
             raise NotPortedError(f"aggregate buffer op {op!r}")
     return bufs
@@ -284,6 +311,9 @@ def apply_dense_ops(seg, out_cap: int, cap: int, ops: Sequence[str],
             p = torch.where(w, pos, torch.full_like(pos, cap))
             fp = _segment_extreme(p, seg, out_cap, "amin")
             bufs.append((vd[fp.clamp_max(cap - 1)], fp < cap))
+        elif op in ("bitand", "bitor", "bitxor"):
+            bufs.append(bitplane_reduce(vd, w, seg32, out_cap, op[3:],
+                                        count(vv, w)))
         else:
             raise NotPortedError(f"aggregate buffer op {op!r}")
     return bufs
@@ -310,7 +340,71 @@ def apply_global_ops(ops: Sequence[str], val_datas, val_valids, row_mask):
                 vd, _min_ident(vd.dtype))).max(), w.any()))
         elif op == "first":
             pos = torch.argmax(w.to(torch.int8))  # first True (0 if none)
-            outs.append((vd[pos], w.any()))
+            outs.append((vd.index_select(0, pos.reshape(1))[0], w.any()))
+        elif op in ("bitand", "bitor", "bitxor"):
+            seg0 = torch.zeros(vd.shape[0], dtype=torch.int32,
+                               device=vd.device)
+            r, has = bitplane_reduce(vd, w, seg0, 1, op[3:])
+            outs.append((r[0], has[0]))
         else:
             raise NotPortedError(f"aggregate buffer op {op!r}")
     return outs
+
+
+# --- percentiles (exact; the lower nearest rank) -----------------------------
+
+def _rank_index(q: float, n: torch.Tensor) -> torch.Tensor:
+    """floor(q * max(n - 1, 0)) in float64, as the reference computes it."""
+    return torch.floor(q * (n - 1).clamp_min(0).to(torch.float64)) \
+        .to(torch.int64)
+
+
+def group_percentile(key_cols, key_valids, values, value_valid, row_mask,
+                     q: float):
+    """Exact per-group percentile: one stable sort by (keys, value) makes
+    each group's values contiguous and ordered; the q-th element is a
+    gather at seg_start + floor(q * (n_valid - 1)). Non-mergeable across
+    partitions (the planner gathers to one partition first). Returns
+    (vals, has) in the group order of group_rows over the same keys."""
+    cap = row_mask.shape[0]
+    dev = row_mask.device
+    w = row_mask if value_valid is None else (row_mask & value_valid)
+    operands = [(~row_mask).to(torch.int32)]
+    for c, v in zip(key_cols, key_valids):
+        if v is not None:
+            operands.append((~v).to(torch.int32))
+            operands.append(torch.where(v, c, torch.zeros_like(c)))
+        else:
+            operands.append(c)
+    n_keys = len(operands)
+    perm = _stable_multisort(operands + [(~w).to(torch.int32), values])
+    svals = values[perm]
+    active = row_mask[perm]
+    sw = w[perm]
+
+    changed = torch.zeros(cap, dtype=torch.bool, device=dev)
+    changed[:1].fill_(True)
+    for op in operands[:n_keys]:
+        k = op[perm]
+        changed[1:] |= k[1:] != k[:-1]
+    start_flag = changed & active
+    seg_ids = (torch.cumsum(start_flag.to(torch.int64), 0) - 1).clamp_min(0)
+
+    pos = torch.arange(cap, dtype=torch.int64, device=dev)
+    seg_start = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    seg_start.scatter_(0, torch.where(start_flag, seg_ids,
+                                      torch.full_like(seg_ids, cap)), pos)
+    n_valid = _segment_sum(sw.to(torch.int64), seg_ids, cap)
+    idx = seg_start[:cap] + _rank_index(q, n_valid)
+    return svals[idx.clamp(0, cap - 1)], n_valid > 0
+
+
+def masked_percentile(values, row_mask, valid, q: float):
+    """Global exact percentile via one sort: (0-dim value, 0-dim has)."""
+    cap = values.shape[0]
+    w = row_mask if valid is None else (row_mask & valid)
+    sv, _ = torch.sort(torch.where(w, values, torch.full_like(
+        values, _max_ident(values.dtype))))
+    n = w.to(torch.int64).sum()
+    idx = _rank_index(q, n).clamp(0, cap - 1).reshape(1)
+    return sv.index_select(0, idx)[0], n > 0

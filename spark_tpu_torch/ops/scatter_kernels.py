@@ -10,6 +10,10 @@
     engine does not call it (its sums are int64/float64); it is ported so
     every TPU kernel has a counterpart, and is held against its plain
     version.
+  * `segment_bits`: the bitwise AND, OR or XOR of int64 values per
+    segment (`spark_tpu_torch/csrc/segment_bits.cu`), the hand-written
+    kernel of the reference's XLA-lowered `bitplane_reduce`
+    (`spark_tpu/ops/grouping.py:159`), behind bit_and, bit_or and bit_xor.
 
 Each wrapper takes its plain PyTorch version (`*_plain`, `index_add_` at the
 clipped keys) only for tensors on the CPU. Given CUDA tensors it launches
@@ -30,10 +34,14 @@ import torch
 from ..utils import cuda_build
 
 SOURCE = "scatter_kernels"
+BITS_SOURCE = "segment_bits"
+SOURCES = (SOURCE, BITS_SOURCE)
 
 # wrapper calls that launched the kernel (incremented only where it launches)
 LAUNCHES: dict[str, int] = {"partition_histogram": 0,
-                            "dense_group_sum_f32": 0}
+                            "dense_group_sum_f32": 0,
+                            "segment_bits": 0}
+BIT_KINDS = ("and", "or", "xor")
 
 
 def reset_launch_counts() -> None:
@@ -73,6 +81,37 @@ def dense_group_sum_f32_plain(keys: torch.Tensor, values: torch.Tensor,
     return out[:num_groups]
 
 
+def segment_bits_plain(values: torch.Tensor, weights: torch.Tensor,
+                       seg_ids: torch.Tensor, num_segments: int,
+                       kind: str) -> torch.Tensor:
+    """The reference's bit-plane reduce: each value (as int64, so negatives
+    keep their two's-complement bits) splits into 64 planes summed by
+    segment in one [n, 64] int32 matrix; OR is plane sum > 0, AND plane sum
+    == the segment's count (0 in an empty segment), XOR its parity. Ids
+    outside [0, num_segments) add nothing."""
+    dev = values.device
+    v = values.to(torch.int64)
+    shifts = torch.arange(64, dtype=torch.int64, device=dev)
+    bits = ((v[:, None] >> shifts[None, :]) & 1).to(torch.int32)
+    bits = torch.where(weights[:, None], bits,
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    seg = seg_ids.to(torch.int64)
+    seg = torch.where((seg >= 0) & (seg < num_segments), seg,
+                      torch.full_like(seg, num_segments))
+    sums = torch.zeros(num_segments + 1, 64, dtype=torch.int32, device=dev)
+    sums.index_add_(0, seg, bits)
+    cnt = torch.zeros(num_segments + 1, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, seg, weights.to(torch.int32))
+    sums, cnt = sums[:num_segments], cnt[:num_segments, None]
+    if kind == "and":
+        plane = (sums == cnt) & (cnt > 0)
+    elif kind == "xor":
+        plane = (sums & 1) == 1
+    else:
+        plane = sums > 0
+    return (plane.to(torch.int64) << shifts[None, :]).sum(dim=1)
+
+
 # --- CUDA launch ---------------------------------------------------------------
 
 _bound = None
@@ -95,11 +134,29 @@ def _lib():
     return _bound
 
 
+_bits_bound = None
+
+
+def _bits_lib():
+    global _bits_bound
+    if _bits_bound is None:
+        lib = cuda_build.load(BITS_SOURCE)
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.spark_segment_bits_prepare.argtypes = []
+        lib.spark_segment_bits_prepare.restype = ctypes.c_int
+        lib.spark_segment_bits_i64.argtypes = [p, p, p, i64, i32, i32, p, p,
+                                               p]
+        lib.spark_segment_bits_i64.restype = ctypes.c_int
+        _bits_bound = lib
+    return _bits_bound
+
+
 def prepare(device: torch.device) -> None:
     """Load the library and read the card's SM count for `device`: what
     the first launch does, done ahead of a CUDA graph capture."""
     _on_device(device, lambda: _scratch_rows(False, 1 << 20, 64,
                                              device.index))
+    _on_device(device, lambda: _bits_lib().spark_segment_bits_prepare())
 
 
 def _check_inputs(keys: torch.Tensor, mask: torch.Tensor,
@@ -224,4 +281,39 @@ def dense_group_sum_f32(keys: torch.Tensor, values: torch.Tensor,
 
     _raise_on(_on_device(k.device, launch), "dense_group_sum_f32")
     LAUNCHES["dense_group_sum_f32"] += 1
+    return out
+
+
+def segment_bits(values: torch.Tensor, weights: torch.Tensor,
+                 seg_ids: torch.Tensor, num_segments: int, kind: str,
+                 count: torch.Tensor) -> torch.Tensor:
+    """int64[num_segments]: the bitwise `kind` ("and", "or" or "xor") of
+    the values (sign-extended to int64) of the weighted rows of each
+    segment; 0 in a segment whose `count` (the caller's count of its
+    weighted rows, e.g. `partition_histogram`'s) is 0. Masked rows' ids may
+    lie anywhere; weighted rows' ids outside [0, num_segments) add
+    nothing. On the card it launches the kernel: no host read and no
+    allocation sized by data, so it runs inside a CUDA graph capture."""
+    if kind not in BIT_KINDS:
+        raise ValueError(f"bit reduce kind {kind!r}")
+    if _check_inputs(seg_ids, weights, values) == "cpu":
+        return segment_bits_plain(values, weights, seg_ids, num_segments,
+                                  kind)
+    if count.device != seg_ids.device or count.shape != (num_segments,):
+        raise ValueError("segment_bits: count must be [num_segments] on the "
+                         "inputs' device")
+    v, g = _as(values, torch.int64), _as(seg_ids, torch.int32)
+    m, c = _as(weights, torch.bool), _as(count, torch.int32)
+    out = torch.empty(num_segments, dtype=torch.int64, device=v.device)
+    if num_segments == 0:
+        return out
+
+    def launch():
+        return _bits_lib().spark_segment_bits_i64(
+            v.data_ptr(), g.data_ptr(), m.data_ptr(), v.shape[0],
+            num_segments, BIT_KINDS.index(kind), c.data_ptr(),
+            out.data_ptr(), _stream(v))
+
+    _raise_on(_on_device(v.device, launch), "segment_bits")
+    LAUNCHES["segment_bits"] += 1
     return out

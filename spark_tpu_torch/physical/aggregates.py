@@ -1,10 +1,12 @@
 """Aggregate lowering: logical aggregate functions -> buffer ops + final
 expressions (counterpart of `spark_tpu/physical/aggregates.py`, for sum,
-count, min, max, first, avg and the central moments: stddev and variance, sample
-and population, from sum/sumsq/count buffers as
-`(sumsq - sum^2/n) / (n - ddof)`, NULL at n <= ddof). Merge ops are the
-partial ops' associative counterparts, so one kernel serves map-side
-partial and reduce-side final aggregation. A decimal sum is an exact int64 sum of the scaled values; a
+count, min, max (of strings too, reduced in rank space), first and
+any_value, avg, bit_and/bit_or/bit_xor, the central moments: stddev and
+variance, sample and population, from sum/sumsq/count buffers as
+`(sumsq - sum^2/n) / (n - ddof)`, NULL at n <= ddof, and the non-mergeable
+percentile and collect specs, which the planner gathers to one partition
+first). Merge ops are the partial ops' associative counterparts, so one
+kernel serves map-side partial and reduce-side final aggregation. A decimal sum is an exact int64 sum of the scaled values; a
 decimal average finishes as cast(sum / count as decimal(p+4, s+4)), the
 division in float64, as the reference lowers it."""
 
@@ -14,23 +16,24 @@ from dataclasses import dataclass
 
 from ..errors import NotPortedError
 from ..expr.expressions import (
-    AggregateFunction, Alias, AttributeReference, Average, Count, Divide,
-    Expression, First, GreaterThan, If, Literal, Max, Min, Multiply, Sqrt,
-    StddevPop, StddevSamp, Subtract, Sum, _CentralMoment, cast_if,
+    AggregateFunction, Alias, AttributeReference, Average, BitAndAgg,
+    CollectList, CollectSet, Count, Divide, Expression, First, GreaterThan,
+    If, Literal, Max, Min, Multiply, Percentile, Sqrt, StddevPop, StddevSamp,
+    Subtract, Sum, _CentralMoment, cast_if,
 )
-from ..types import (
-    DataType, DecimalType, IntegralType, StringType, float64, int64,
-)
+from ..types import DataType, DecimalType, IntegralType, float64, int64
 
 # primitive ops the kernels implement
 PARTIAL_TO_MERGE = {
     "sum": "sum", "count": "sum", "countstar": "sum",
     "min": "min", "max": "max", "first": "first", "sumsq": "sum",
+    # bitwise reduces are associative: partials merge with themselves
+    "bitand": "bitand", "bitor": "bitor", "bitxor": "bitxor",
 }
 
 
 def _buffer_dtype(op: str, in_dtype: DataType | None) -> DataType:
-    if op in ("count", "countstar"):
+    if op in ("count", "countstar", "bitand", "bitor", "bitxor"):
         return int64
     if op == "sumsq":
         return float64
@@ -38,7 +41,7 @@ def _buffer_dtype(op: str, in_dtype: DataType | None) -> DataType:
         if isinstance(in_dtype, DecimalType):
             return DecimalType(DecimalType.MAX_PRECISION, in_dtype.scale)
         return int64 if isinstance(in_dtype, IntegralType) else float64
-    return in_dtype  # min/max preserve type
+    return in_dtype  # min/max/first preserve type
 
 
 @dataclass
@@ -57,10 +60,6 @@ class AggSpec:
 def lower_aggregate_function(func: AggregateFunction, out_name: str,
                              out_id: int) -> AggSpec:
     child = func.child
-    if child is not None and isinstance(child.dtype, StringType) and \
-            not isinstance(func, Count):
-        raise NotPortedError(f"{type(func).__name__.lower()} of a string "
-                             "column")
 
     def battr(i: int, op: str) -> AttributeReference:
         dt = _buffer_dtype(op, child.dtype if child is not None else None)
@@ -90,6 +89,21 @@ def lower_aggregate_function(func: AggregateFunction, out_name: str,
         return AggSpec(func, child, ["sum", "count"], [bs, bc],
                        Alias(cast_if(Divide(bs, bc), func.dtype), out_name,
                              out_id))
+    if isinstance(func, BitAndAgg):
+        op = "bit" + func.kind
+        b = battr(0, op)
+        return AggSpec(func, child, [op], [b],
+                       Alias(cast_if(b, func.dtype), out_name, out_id))
+    if isinstance(func, Percentile):
+        b = AttributeReference(f"{out_name}#buf0", func.dtype, True)
+        return AggSpec(func, child, ["percentile"], [b],
+                       Alias(b, out_name, out_id), mergeable=False,
+                       param=func.q)
+    if isinstance(func, (CollectList, CollectSet)):
+        b = AttributeReference(f"{out_name}#buf0", func.dtype, False)
+        return AggSpec(func, child, ["collect"], [b],
+                       Alias(b, out_name, out_id), mergeable=False,
+                       param=1.0 if isinstance(func, CollectSet) else 0.0)
     if isinstance(func, _CentralMoment):
         bs = battr(0, "sum")
         bq = battr(1, "sumsq")

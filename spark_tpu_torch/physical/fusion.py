@@ -29,8 +29,10 @@ graph. The unfused operator-at-a-time path stays intact behind
 spark.tpu.fusion.enabled=false / spark.tpu.compile.tier=operator as the
 differential-testing oracle, and partitions under spark.tpu.fusion.minRows
 take it at run time. The runtime join filter is not ported (the
-reference's `bind_runtime_filter`), and string min/max is not ported in
-either tier (physical/aggregates.py), so its rank-space reduce is absent.
+reference's `bind_runtime_filter`). A min/max over a string column reduces
+in rank space inside the fused aggregate: its rank luts ride as program
+inputs, and bit_and/bit_or/bit_xor run the hand-written bit kernel in the
+program.
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..columnar.batch import EMPTY_DICT, ColumnarBatch, bucket_capacity
+from ..columnar.batch import (
+    EMPTY_DICT, ColumnarBatch, _take_codes, bucket_capacity,
+)
 from ..config import (
     ENCODING_ENABLED, FUSION_DENSE_KEYS, FUSION_EXCHANGE, FUSION_MIN_ROWS,
     SQLConf,
@@ -58,7 +62,7 @@ from .compile import (
 )
 from .operators import (
     ComputeExec, HashAggregateExec, HashJoinExec, LimitExec, PhysicalPlan,
-    _SchemaOnly, _dense_group_kernel, _ungrouped_kernel, attrs_schema,
+    _AggSide, _SchemaOnly, _dense_group_kernel, _ungrouped_kernel, attrs_schema,
     dense_range_stats,
 )
 
@@ -192,34 +196,67 @@ class FusedAggregateExec(HashAggregateExec):
                          self.pipe_outputs, batch, aux)
         opos = {a.expr_id: i for i, a in enumerate(self.pipe_attrs)}
         vals = self._plan_values()
-        ops = tuple(op for op, _ in vals)
+        ops = tuple(op for op, _, _ in vals)
         val_idx = tuple(opos[attr.expr_id] if attr is not None else -1
-                        for _, attr in vals)
+                        for _, attr, _ in vals)
         key_idx = tuple(opos[g.expr_id] for g in self.grouping)
         out_schema = attrs_schema(self.output)
         nv = len(ops)
+        # a min/max over a dictionary-encoded column reduces in rank space
+        # inside the program: its code -> rank and rank -> code luts ride
+        # as inputs of every batch (so a replay reads this batch's), and
+        # their positions enter the key; a first keeps its dictionary
+        side = _AggSide()
+        smm_idx = []
+        for bi, (op, attr, _) in enumerate(vals):
+            if attr is None or not dict_encoded(attr.dtype):
+                continue
+            sd = host_outs[val_idx[bi]].sdict
+            if op in ("min", "max"):
+                smm_idx.append(bi)
+                sd = sd or EMPTY_DICT
+            side.dicts[bi] = sd
+        smm_luts = [lut for bi in smm_idx
+                    for lut in side.dicts[bi].rank_luts()]
+        smm_pos = {bi: 2 * j for j, bi in enumerate(smm_idx)}
         base_key = (self._struct_key, ops, val_idx, key_idx, cap,
-                    pipeline_signature(batch), hctx.signature())
+                    tuple(smm_idx), pipeline_signature(batch),
+                    hctx.signature())
 
-        def pipe_vals(od, ov, mask):
-            return ([od[i] if i >= 0 else mask for i in val_idx],
-                    [ov[i] if i >= 0 else None for i in val_idx])
+        def pipe_vals(od, ov, mask, luts):
+            vd = []
+            for bi, i in enumerate(val_idx):
+                d = od[i] if i >= 0 else mask
+                if bi in smm_pos:
+                    d = _take_codes(luts[smm_pos[bi]], d)
+                vd.append(d)
+            return vd, [ov[i] if i >= 0 else None for i in val_idx]
+
+        def rank_to_code(bufs, luts):
+            """The winning ranks of the rank-space buffers back to codes
+            (an empty group's clamps harmlessly: its validity is False)."""
+            return [(_take_codes(luts[smm_pos[bi] + 1], d), v)
+                    if bi in smm_pos else (d, v)
+                    for bi, (d, v) in enumerate(bufs)]
 
         def finish(bufs_d, bufs_v, fields):
-            return [self._finish_buffer(d, v, f)
-                    for d, v, f in zip(bufs_d, bufs_v, fields)]
+            return [self._finish_buffer(bi, d, v, f, side)
+                    for bi, (d, v, f) in enumerate(
+                        zip(bufs_d, bufs_v, fields))]
 
         # ---- ungrouped -------------------------------------------------
         if not self.grouping:
             def body(ins):
-                od, ov, mask, _ = pipe.run(ins)
-                vd, vv = pipe_vals(od, ov, mask)
+                od, ov, mask, luts = pipe.run(ins)
+                vd, vv = pipe_vals(od, ov, mask, luts)
                 datas, valids, m = _ungrouped_kernel(ops, vd, vv, mask)
-                return datas + valids + [m]
+                bufs = rank_to_code(list(zip(datas, valids)), luts)
+                return [d for d, _ in bufs] + [v for _, v in bufs] + [m]
 
             out = STAGE_CACHE.run("FusedHashAggregate[ungrouped]",
                                   ("fused_agg", "u") + base_key, body,
-                                  stage_inputs(batch, aux, []), batch.device)
+                                  stage_inputs(batch, aux, smm_luts),
+                                  batch.device)
             ctx.launches.add("fused_agg")
             cols = finish(out[:nv], out[nv:2 * nv], out_schema.fields)
             return ColumnarBatch(out_schema, cols, out[2 * nv], num_rows=1)
@@ -232,18 +269,20 @@ class FusedAggregateExec(HashAggregateExec):
             kf = out_schema.fields[0]
 
             def body(ins):
-                od, ov, mask, (kmin_t,) = pipe.run(ins)
-                vd, vv = pipe_vals(od, ov, mask)
+                od, ov, mask, (kmin_t, *luts) = pipe.run(ins)
+                vd, vv = pipe_vals(od, ov, mask, luts)
                 keys, key_validity, bufs, out_mask = _dense_group_kernel(
                     ops, cap, out_cap, od[kpos], ov[kpos], kmin_t, vd, vv,
                     mask)
+                bufs = rank_to_code(bufs, luts)
                 return ([keys, key_validity, out_mask]
                         + [d for d, _ in bufs] + [v for _, v in bufs])
 
             out = STAGE_CACHE.run(
                 "FusedHashAggregate[dense]",
                 ("fused_agg", "d", out_cap) + base_key, body,
-                stage_inputs(batch, aux, [np.array(kmin, dtype=np.int64)]),
+                stage_inputs(batch, aux, [np.array(kmin, dtype=np.int64)]
+                             + smm_luts),
                 batch.device)
             ctx.launches.add("fused_agg")
             ctx.metrics.add("agg.dense_fast_path")
@@ -261,23 +300,27 @@ class FusedAggregateExec(HashAggregateExec):
                                         host_outs)
         nk = len(key_idx)
 
+        nl = len(luts)
+
         def body(ins):
-            od, ov, mask, kl = pipe.run(ins)
+            od, ov, mask, extra = pipe.run(ins)
+            kl, rl = extra[:nl], extra[nl:]
             eqs = key_eqs(od, key_idx, self.pipe_attrs,
                           dict(zip(lut_pos, kl)))
             kvs = [ov[i] for i in key_idx]
             layout = G.group_rows(eqs, kvs, mask)
             keys = [G.scatter_group_keys(layout, od[i], ov[i])
                     for i in key_idx]
-            vd, vv = pipe_vals(od, ov, mask)
-            bufs = G.apply_group_ops(layout, ops, vd, vv)
+            vd, vv = pipe_vals(od, ov, mask, rl)
+            bufs = rank_to_code(G.apply_group_ops(layout, ops, vd, vv), rl)
             return ([d for d, _ in keys] + [v for _, v in keys]
                     + [d for d, _ in bufs] + [v for _, v in bufs]
                     + [G.group_output_mask(layout)])
 
         out = STAGE_CACHE.run("FusedHashAggregate[sorted]",
                               ("fused_agg", "g") + base_key, body,
-                              stage_inputs(batch, aux, luts), batch.device)
+                              stage_inputs(batch, aux, luts + smm_luts),
+                              batch.device)
         ctx.launches.add("fused_agg")
         cols = []
         for j, (ki, f) in enumerate(zip(key_idx, out_schema.fields[:nk])):
@@ -594,7 +637,9 @@ def _aggregate_fusable(agg: HashAggregateExec, compute: ComputeExec) -> bool:
     out_ids = {a.expr_id for a in compute.output}
     if any(g.expr_id not in out_ids for g in agg.grouping):
         return False
-    for op, attr in agg._plan_values():
+    for op, attr, _param in agg._plan_values():
+        # string min/max fuses too: it reduces in rank space with its
+        # rank luts as program inputs
         if op not in FUSABLE_OPS:
             return False
         if attr is not None and attr.expr_id not in out_ids:

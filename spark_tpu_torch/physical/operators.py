@@ -24,7 +24,7 @@ from typing import Sequence
 import torch
 
 from ..columnar.batch import (
-    EMPTY_DICT, Column, ColumnarBatch, bucket_capacity,
+    EMPTY_DICT, Column, ColumnarBatch, _take_codes, bucket_capacity,
 )
 from ..columnar.ops import compact_batch, concat_batches, gather_batch
 from ..config import AGG_BLOCK_ROWS, ENCODING_ENABLED
@@ -40,6 +40,7 @@ from ..ops.sorting import SortKeySpec, limit_mask, sort_permutation
 from ..plan.tree import TreeNode
 from ..types import (
     DateType, IntegralType, StringType, StructField, StructType,
+    dict_encoded,
 )
 from ..utils.device_memo import memo_device_scalars
 from .aggregates import PARTIAL_TO_MERGE, AggSpec
@@ -356,7 +357,7 @@ def _group_kernel(ops: tuple[str, ...], key_eqs, key_outs, key_valids,
     out_keys = [G.scatter_group_keys(layout, ko, kv)
                 for ko, kv in zip(key_outs, key_valids)]
     bufs = G.apply_group_ops(layout, ops, val_datas, val_valids)
-    return out_keys, bufs, G.group_output_mask(layout)
+    return out_keys, bufs, G.group_output_mask(layout), layout
 
 
 def _dense_group_kernel(ops: tuple[str, ...], cap: int, out_cap: int,
@@ -413,6 +414,112 @@ def _ungrouped_kernel(ops: tuple[str, ...], val_datas, val_valids, row_mask,
     return datas, valids, mask
 
 
+class _AggSide:
+    """What an aggregate chunk's buffers need beyond the device reduce
+    (HashAggregateExec._values): percentile and collect columns, the
+    dictionaries of rank-space min/max and of first, and the collects'
+    finished columns."""
+
+    def __init__(self):
+        self.percentiles: dict = {}   # buffer index -> (column, q)
+        self.collects: dict = {}      # buffer index -> (column, dedupe)
+        self.ranks: dict = {}         # buffer index -> StringDict
+        self.dicts: dict = {}         # buffer index -> StringDict | None
+        self.collect_cols: dict = {}  # buffer index -> Column
+
+
+def _ungrouped_percentile(batch: ColumnarBatch, pc: Column, q: float,
+                          out_cap: int):
+    v, has = G.masked_percentile(pc.data, batch.row_mask, pc.validity, q)
+    dev = batch.device
+    arr = torch.zeros(out_cap, dtype=v.dtype, device=dev)
+    arr[:1].copy_(v.reshape(1))
+    hv = torch.zeros(out_cap, dtype=torch.bool, device=dev)
+    hv[:1].copy_(has.reshape(1))
+    return arr, hv
+
+
+def _collected(vals, dedupe: bool, dtype) -> list:
+    """One group's list: its values in row order, each in the form Arrow's
+    ingest gives the element type; collect_set keeps the first of equal
+    values (equal after that form too)."""
+    from .python_eval import conform
+
+    et = dtype.element_type
+    out = [conform(v, et) for v in vals if v is not None]
+    return list(dict.fromkeys(out)) if dedupe else out
+
+
+def _list_column(out_dtype, lists: list, rows, cap: int, device) -> Column:
+    """An ArrayType column of `lists` at output rows `rows`, dictionary
+    encoded by canonical form, as the port's nested columns are."""
+    import numpy as np
+
+    from ..columnar.batch import StringDict, encode_values
+
+    values, codes = encode_values(lists)
+    data = np.zeros(cap, np.int32)
+    data[rows] = codes
+    return Column(out_dtype, torch.from_numpy(data).to(device), None,
+                  StringDict(values or [[]]))
+
+
+def _collect_column(vc: Column, rows: torch.Tensor, gid: torch.Tensor,
+                    num_groups: int, dedupe: bool, out_cap: int,
+                    out_dtype) -> Column:
+    """The lists of a collect: `rows` (the live rows, ordered by group and
+    in input order within one) and their group ids `gid` in [0,
+    num_groups), on the batch's device. NULL values drop; collect_set
+    keeps the first row of each (group, value), found on the device (equal
+    codes of a dictionary column, or equal values). Only the kept rows'
+    values cross to the host, where each group's list is built."""
+    from .python_eval import host_values
+
+    if vc.validity is not None:
+        ok = vc.validity[rows]
+        rows, gid = rows[ok], gid[ok]
+    if dedupe and rows.numel():
+        if dict_encoded(vc.dtype):
+            code = vc.data[rows].to(torch.int64)
+        else:
+            _, code = torch.unique(vc.data[rows], return_inverse=True)
+        _, inv = torch.unique(gid * (int(code.max()) + 1) + code,
+                              return_inverse=True)
+        pos = torch.arange(inv.shape[0], device=inv.device)
+        first = torch.full((int(inv.max()) + 1,), inv.shape[0],
+                           dtype=torch.int64, device=inv.device)
+        first.scatter_reduce_(0, inv, pos, "amin")
+        keep, _ = torch.sort(first)
+        rows, gid = rows[keep], gid[keep]
+    vals = host_values(vc, rows)
+    ends = torch.bincount(gid, minlength=num_groups).cumsum(0).tolist()
+    starts = [0] + ends[:-1]
+    lists = [_collected(vals[lo:hi], dedupe, out_dtype)
+             for lo, hi in zip(starts, ends)]
+    return _list_column(out_dtype, lists, list(range(num_groups)), out_cap,
+                        rows.device)
+
+
+def _ungrouped_collect(batch: ColumnarBatch, vc: Column, dedupe: bool,
+                       out_cap: int, out_dtype) -> Column:
+    """collect_list/set with no grouping: one list over all valid rows
+    (list order = input row order; the reference leaves it unspecified)."""
+    rows = torch.nonzero(batch.row_mask).squeeze(1)
+    return _collect_column(vc, rows, torch.zeros_like(rows), 1, dedupe,
+                           out_cap, out_dtype)
+
+
+def _group_collect(batch: ColumnarBatch, layout, vc: Column, dedupe: bool,
+                   out_dtype) -> Column:
+    """Grouped collect over the device kernel's group layout: its sorted
+    live rows are grouped and, the sort being stable, in input order
+    within a group; group g is output row g."""
+    live = layout.active
+    rows, gid = layout.perm[live], layout.seg_ids[live]
+    return _collect_column(vc, rows, gid, int(layout.num_groups), dedupe,
+                           batch.capacity, out_dtype)
+
+
 class HashAggregateExec(PhysicalPlan):
     """Grouped aggregation (role of the reference's HashAggregateExec).
 
@@ -452,15 +559,16 @@ class HashAggregateExec(PhysicalPlan):
         return self.child.output_partitioning()
 
     def _plan_values(self):
-        """(op, input attr) per buffer column."""
+        """(op, input attr, param) per buffer column."""
         out = []
         for s in self.specs:
             for i, op in enumerate(s.ops):
                 if self.mode == "partial":
                     out.append((op, s.input_expr if op != "countstar"
-                                else None))
+                                else None, s.param))
                 else:
-                    out.append((PARTIAL_TO_MERGE[op], s.buffer_attrs[i]))
+                    out.append((PARTIAL_TO_MERGE[op], s.buffer_attrs[i],
+                                s.param))
         return out
 
     def execute(self, ctx: ExecContext) -> list[Partition]:
@@ -493,39 +601,68 @@ class HashAggregateExec(PhysicalPlan):
         return self._aggregate_chunk(part, ctx)
 
     def _values(self, batch: ColumnarBatch):
-        """(ops, value datas, value validities) of the buffer columns."""
+        """(ops, value datas, value validities, side) of the buffer columns.
+        A percentile or a collect takes a placeholder "first" op, its value
+        column kept in side.percentiles / side.collects (they reduce apart
+        and replace the placeholder); a min/max over a dictionary-encoded
+        column reduces the entries' ranks (side.ranks: the winning rank maps
+        back to a code), and a first over one keeps its dictionary
+        (side.dicts)."""
         pos = {a.expr_id: i for i, a in enumerate(self.child.output)}
-        vals = self._plan_values()
-        val_datas, val_valids = [], []
-        for _, attr in vals:
+        side = _AggSide()
+        ops, val_datas, val_valids = [], [], []
+        for bi, (op, attr, param) in enumerate(self._plan_values()):
             if attr is None:
+                ops.append(op)
                 val_datas.append(batch.row_mask)  # dummy (countstar)
                 val_valids.append(None)
                 continue
             c = batch.columns[pos[attr.expr_id]]
-            val_datas.append(c.data)
+            if op == "percentile":
+                side.percentiles[bi] = (c, param)
+                op = "first"
+            elif op == "collect":
+                side.collects[bi] = (c, param >= 0.5)
+                op = "first"
+            if op in ("min", "max") and dict_encoded(c.dtype):
+                val_datas.append(c.sort_keys())
+                side.ranks[bi] = c.dictionary or EMPTY_DICT
+            else:
+                val_datas.append(c.data)
+                if dict_encoded(c.dtype):
+                    side.dicts[bi] = c.dictionary
+            ops.append(op)
             val_valids.append(c.validity)
-        return tuple(op for op, _ in vals), val_datas, val_valids
+        return tuple(ops), val_datas, val_valids, side
 
     def _aggregate_chunk(self, part: Partition, ctx) -> ColumnarBatch:
         batch = concat_batches(part, attrs_schema(self.child.output))
         pos = {a.expr_id: i for i, a in enumerate(self.child.output)}
-        ops, val_datas, val_valids = self._values(batch)
+        ops, val_datas, val_valids, side = self._values(batch)
         out_schema = attrs_schema(self.output)
 
         if not self.grouping:
             datas, valids, mask = _ungrouped_kernel(
                 ops, val_datas, val_valids, batch.row_mask)
             ctx.launches.add("uagg")
-            cols = [self._finish_buffer(d, v, f) for f, d, v in
-                    zip(out_schema.fields, datas, valids)]
+            for bi, (pc, q) in side.percentiles.items():
+                datas[bi], valids[bi] = _ungrouped_percentile(
+                    batch, pc, q, datas[bi].shape[0])
+            for bi, (vc, dedupe) in side.collects.items():
+                side.collect_cols[bi] = _ungrouped_collect(
+                    batch, vc, dedupe, datas[bi].shape[0],
+                    out_schema.fields[bi].dataType)
+            cols = [self._finish_buffer(bi, d, v, f, side)
+                    for bi, (f, d, v) in enumerate(
+                        zip(out_schema.fields, datas, valids))]
             return ColumnarBatch(out_schema, cols, mask, num_rows=1)
 
         key_cols = [batch.columns[pos[g.expr_id]] for g in self.grouping]
-        dense = self._try_dense(batch, key_cols, ops, val_datas, val_valids,
-                                out_schema, ctx)
-        if dense is not None:
-            return dense
+        if not side.percentiles and not side.collects:
+            dense = self._try_dense(batch, key_cols, ops, val_datas,
+                                    val_valids, out_schema, ctx, side)
+            if dense is not None:
+                return dense
 
         if batch.device.type == "cpu":
             # the CPU's sorts and gathers cost every slot of the tile, and
@@ -541,29 +678,50 @@ class HashAggregateExec(PhysicalPlan):
                 batch = compact
                 key_cols = [batch.columns[pos[g.expr_id]]
                             for g in self.grouping]
-                ops, val_datas, val_valids = self._values(batch)
-        out_keys, bufs, out_mask = _group_kernel(
-            ops, [c.eq_keys() for c in key_cols], [c.data for c in key_cols],
-            [c.validity for c in key_cols], val_datas, val_valids,
-            batch.row_mask)
+                ops, val_datas, val_valids, side = self._values(batch)
+        key_eqs = [c.eq_keys() for c in key_cols]
+        key_valids = [c.validity for c in key_cols]
+        out_keys, bufs, out_mask, layout = _group_kernel(
+            ops, key_eqs, [c.data for c in key_cols], key_valids, val_datas,
+            val_valids, batch.row_mask)
         ctx.launches.add("gagg")
+        for bi, (pc, q) in side.percentiles.items():
+            bufs[bi] = G.group_percentile(key_eqs, key_valids, pc.data,
+                                          pc.validity, batch.row_mask, q)
+        for bi, (vc, dedupe) in side.collects.items():
+            side.collect_cols[bi] = _group_collect(
+                batch, layout, vc, dedupe,
+                out_schema.fields[len(key_cols) + bi].dataType)
         # a string key takes its group's first code and the dictionary
         cols = [Column(f.dataType, kd, kv, kc.dictionary)
                 for (kd, kv), kc, f in
                 zip(out_keys, key_cols, out_schema.fields[: len(key_cols)])]
-        cols += [self._finish_buffer(bd, bv, f) for (bd, bv), f in
-                 zip(bufs, out_schema.fields[len(key_cols):])]
+        cols += [self._finish_buffer(bi, bd, bv, f, side)
+                 for bi, ((bd, bv), f) in enumerate(
+                     zip(bufs, out_schema.fields[len(key_cols):]))]
         return ColumnarBatch(out_schema, cols, out_mask, num_rows=None)
 
     @staticmethod
-    def _finish_buffer(bd, bv, f: StructField) -> Column:
+    def _finish_buffer(bi: int, bd, bv, f: StructField,
+                       side: "_AggSide") -> Column:
+        """Buffer `bi` as an output column: a collect's host-built column;
+        a rank-space min/max mapped back to its dictionary's codes; a first
+        over a dictionary-encoded column with that dictionary (the
+        reference drops it, ROADMAP.md C17); else cast to the field's
+        device dtype."""
+        if bi in side.collect_cols:
+            return side.collect_cols[bi]
+        if bi in side.ranks:
+            sd = side.ranks[bi]
+            codes = _take_codes(sd.device_rank_to_code(bd.device), bd)
+            return Column(f.dataType, codes.to(torch.int32), bv, sd)
         want = f.dataType.device_dtype
         if bd.dtype != want:
             bd = bd.to(want)
-        return Column(f.dataType, bd, bv)
+        return Column(f.dataType, bd, bv, side.dicts.get(bi))
 
     def _try_dense(self, batch: ColumnarBatch, key_cols, ops, val_datas,
-                   val_valids, out_schema, ctx):
+                   val_valids, out_schema, ctx, side):
         """Dense-range fast path dispatch: a single integral key whose value
         span fits a capacity bucket (the host syncs two scalars to decide),
         or a single string key: its int32 codes are a dense domain
@@ -603,8 +761,9 @@ class HashAggregateExec(PhysicalPlan):
         kv = key_validity if kc.validity is not None else None
         cols = [Column(kf.dataType, out_keys.to(kf.dataType.device_dtype), kv,
                        key_dict)]
-        cols += [self._finish_buffer(bd, bv, f)
-                 for (bd, bv), f in zip(bufs, out_schema.fields[1:])]
+        cols += [self._finish_buffer(bi, bd, bv, f, side)
+                 for bi, ((bd, bv), f) in enumerate(
+                     zip(bufs, out_schema.fields[1:]))]
         return ColumnarBatch(out_schema, cols, out_mask, num_rows=None)
 
     def simple_string(self):

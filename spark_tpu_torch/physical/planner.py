@@ -320,6 +320,11 @@ class Planner:
             specs.append(spec)
             func_to_spec.append((f, spec))
 
+        if any(not s.mergeable for s in specs) and \
+                child.output_partitioning().num_partitions != 1:
+            # non-mergeable aggregates (percentile, collect): gather first,
+            # aggregate once (no partial/final split)
+            child = ShuffleExchangeExec(SinglePartition(), child)
         partial = HashAggregateExec(group_keys, specs, "partial", child)
         if child.output_partitioning().num_partitions == 1:
             # single upstream partition: the partial pass is already complete
@@ -655,6 +660,10 @@ class Planner:
             # keeps the one pass and is right only where AQE coalesces the
             # join's partitions into one (spark_tpu/physical/adaptive.py
             # coalesce_join_inputs)
+            if not all(s.mergeable for s in out.specs):
+                # a percentile or collect has no merge: gather its input
+                return out.with_new_children(
+                    [ShuffleExchangeExec(SinglePartition(), out.child)])
             partial = out.copy(single_pass=False)
             dist = HashPartitioning(list(partial.grouping), n_shuffle) \
                 if partial.grouping else SinglePartition()

@@ -6,8 +6,8 @@ no process boundary: device pipelines evaluate the argument expressions,
 the live rows cross to the host once, the UDF runs vectorized over numpy
 arrays, and its results come back as new device columns (strings re-enter
 through a dictionary; an array, map or struct result is dictionary-encoded
-by canonical form). A deterministic UDF over one dictionary-encoded string
-argument runs once per distinct live value instead of once per row.
+by canonical form). A deterministic UDF over one dictionary-encoded
+argument runs once per distinct live entry instead of once per row.
 """
 
 from __future__ import annotations
@@ -169,10 +169,14 @@ class PythonEvalExec(PhysicalPlan):
     def _dict_domain_call(self, udf, arg_batch: ColumnarBatch,
                           sel: torch.Tensor, ctx):
         """Dictionary-domain lane: a deterministic UDF over one
-        dictionary-encoded string column evaluates once per distinct live
-        dictionary value and maps over the codes. Returns the per-row
-        results, or None where the lane does not apply (the per-row path
-        runs). Gated by spark.tpu.encoding.enabled, as in the reference."""
+        dictionary-encoded column (a string, or an array, map, struct or
+        binary value: a higher-order function whose lambda captures no
+        column has just its collection argument) evaluates once per
+        distinct live dictionary entry and maps over the codes; the
+        reference takes the lane for strings only, and the per-row path
+        gives the same values. Returns the per-row results, or None where
+        the lane does not apply (the per-row path runs). Gated by
+        spark.tpu.encoding.enabled, as in the reference."""
         if not ctx.conf.get(ENCODING_ENABLED):
             return None
         if not getattr(udf, "deterministic", True):
@@ -180,7 +184,7 @@ class PythonEvalExec(PhysicalPlan):
         if len(arg_batch.columns) != 1:
             return None
         c = arg_batch.columns[0]
-        if not isinstance(c.dtype, StringType) or c.dictionary is None:
+        if not dict_encoded(c.dtype) or c.dictionary is None:
             return None
         values = c.dictionary.values
         n = int(sel.shape[0])
@@ -195,7 +199,9 @@ class PythonEvalExec(PhysicalPlan):
         live_codes = np.unique(codes if vm is None else codes[vm])
         if live_codes.size:
             dvals = np.empty(live_codes.size, dtype=object)
-            dvals[:] = [str(values[cd]) for cd in live_codes]
+            text = isinstance(c.dtype, StringType)
+            for j, cd in enumerate(live_codes):  # lists stay whole
+                dvals[j] = str(values[cd]) if text else values[cd]
             per_value = np.asarray(self._call(udf, [dvals], live_codes.size))
             pos = np.clip(np.searchsorted(live_codes, codes), 0,
                           live_codes.size - 1)

@@ -198,7 +198,7 @@ def supported_whole_query(plan, conf) -> tuple[bool, str]:
                              ShuffleExchangeExec)):
             continue
         if isinstance(node, O.HashAggregateExec):
-            bad = [op for op, _ in node._plan_values()
+            bad = [op for op, _, _ in node._plan_values()
                    if op not in FUSABLE_OPS]
             if bad:
                 return False, (f"aggregate op {bad[0]} needs host-side "
@@ -646,13 +646,23 @@ class _ProgramBuilder:
         pos = {a.expr_id: i for i, a in enumerate(in_attrs)}
         out_fields = attrs_schema(node.output).fields
         vals = node._plan_values()
-        ops = tuple(op for op, _ in vals)
+        ops = tuple(op for op, _, _ in vals)
         val_idx = tuple(pos[attr.expr_id] if attr is not None else -1
-                        for _, attr in vals)
+                        for _, attr, _ in vals)
         key_idx = tuple(pos[g.expr_id] for g in node.grouping)
         nk = len(key_idx)
+        # a min/max over a dictionary-encoded column reduces in rank space
+        # (as the fused aggregate does): code -> rank lut in, the winning
+        # rank -> code lut out, both program arguments
+        smm = {}
+        for bi, (op, attr, _p) in enumerate(vals):
+            if op in ("min", "max") and attr is not None \
+                    and dict_encoded(attr.dtype):
+                sd = low.metas[val_idx[bi]].sdict or EMPTY_DICT
+                ranks, inv = sd.rank_luts()
+                smm[bi] = (self.arg(ranks), self.arg(inv), len(sd))
         buf_metas = []
-        for bi, (op, _attr) in enumerate(vals):
+        for bi, (op, _attr, _p) in enumerate(vals):
             f = out_fields[nk + bi]
             sdict = None
             if dict_encoded(f.dataType) and val_idx[bi] >= 0:
@@ -661,15 +671,24 @@ class _ProgramBuilder:
                                    op not in ("count", "countstar"), sdict))
         key_luts = [self._eq_lut(low.metas[i]) for i in key_idx]
         self.key.append(("agg", node.mode, ops, key_idx, val_idx,
-                         tuple(x is not None for x in key_luts)))
+                         tuple(x is not None for x in key_luts),
+                         tuple((bi, n) for bi, (_r, _i, n)
+                               in sorted(smm.items()))))
 
-        def pipe_vals(d, v, m):
-            return ([d[i] if i >= 0 else m for i in val_idx],
-                    [v[i] if i >= 0 else None for i in val_idx])
+        def pipe_vals(d, v, m, args):
+            vd = []
+            for bi, i in enumerate(val_idx):
+                dd = d[i] if i >= 0 else m
+                if bi in smm:
+                    dd = _take_codes(args[smm[bi][0]], dd)
+                vd.append(dd)
+            return vd, [v[i] if i >= 0 else None for i in val_idx]
 
-        def finish(bufs):
+        def finish(bufs, args):
             out = []
             for bi, (bd, bv) in enumerate(bufs):
+                if bi in smm:
+                    bd = _take_codes(args[smm[bi][1]], bd)
                 want = out_fields[nk + bi].dataType.device_dtype
                 out.append((bd if bd.dtype == want else bd.to(want), bv))
             return out
@@ -679,9 +698,9 @@ class _ProgramBuilder:
 
             def emit(args, needed, _low=low):
                 d, v, m = _low.emit(args, needed)
-                vd, vv = pipe_vals(d, v, m)
+                vd, vv = pipe_vals(d, v, m, args)
                 datas, valids, mask = _ungrouped_kernel(ops, vd, vv, m)
-                outs = finish(list(zip(datas, valids)))
+                outs = finish(list(zip(datas, valids)), args)
                 return [x for x, _ in outs], [y for _, y in outs], mask
 
             return _Lowered(buf_metas, 8, emit)
@@ -701,8 +720,8 @@ class _ProgramBuilder:
                 want = key_metas[j].torch_dtype
                 out_keys.append((kd if kd.dtype == want else kd.to(want),
                                  kv))
-            vd, vv = pipe_vals(d, v, m)
-            bufs = finish(G.apply_group_ops(layout, ops, vd, vv))
+            vd, vv = pipe_vals(d, v, m, args)
+            bufs = finish(G.apply_group_ops(layout, ops, vd, vv), args)
             datas = [kd for kd, _ in out_keys] + [bd for bd, _ in bufs]
             valids = [kv for _, kv in out_keys] + [bv for _, bv in bufs]
             return datas, valids, G.group_output_mask(layout)

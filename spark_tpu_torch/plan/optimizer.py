@@ -1020,6 +1020,90 @@ class OptimizeSubqueryPlans(Rule):
                                                                  optimize))
 
 
+class RewriteModeAggregate(Rule):
+    """mode(v) [GROUP BY g] -> per-value counts, a max-count self-join,
+    and a min-value tie-break: three plain aggregates and one equi join
+    (the reference's rewrite), so mode runs on the ordinary aggregate and
+    join operators. Deterministic on ties (smallest value wins). A mode
+    beside another aggregate, over an expression, or over two columns is
+    refused, as the reference refuses it."""
+
+    def apply(self, plan):
+        from ..errors import UnsupportedOperationError
+        from ..expr.expressions import Count, EqualNullSafe, Max, Min, Mode
+
+        def rule(node):
+            if not isinstance(node, Aggregate) or not node.resolved:
+                return node
+            modes = [x for e in node.aggregate_exprs
+                     for x in e.iter_nodes() if isinstance(x, Mode)]
+            if not modes:
+                return node
+            grouping = list(node.grouping_exprs)
+            if not all(isinstance(g, AttributeReference)
+                       for g in grouping):
+                raise UnsupportedOperationError(
+                    "mode() requires plain grouping columns")
+            other_aggs = [x for e in node.aggregate_exprs
+                          for x in e.iter_nodes()
+                          if isinstance(x, AggregateFunction)
+                          and not isinstance(x, Mode)]
+            args = {m.child.expr_id for m in modes
+                    if isinstance(m.child, AttributeReference)}
+            if other_aggs or len(args) != 1 or \
+                    not all(isinstance(m.child, AttributeReference)
+                            for m in modes):
+                raise UnsupportedOperationError(
+                    "mode() needs a plain column argument and cannot "
+                    "mix with other aggregates or a second mode column")
+            v = modes[0].child
+
+            # 1. count per (grouping, value); NULL values count 0, so
+            #    they only win when the group is all-NULL: Mode ignores
+            #    nulls, and an all-null group's mode is NULL
+            c_alias = Alias(Count(v), "__mode_c")
+            counts = Aggregate(grouping + [v],
+                               grouping + [v, c_alias], node.child)
+            c_attr = c_alias.to_attribute()
+
+            # 2. max count per grouping, over an id-independent copy of
+            #    the counts subtree (it appears on both join sides)
+            from .subquery import _fresh_plan
+
+            mapping: dict = {}
+            counts2 = _fresh_plan(counts, mapping)
+            g2 = [mapping.get(g.expr_id, g) for g in grouping]
+            c2 = mapping.get(c_attr.expr_id, c_attr)
+            mc_alias = Alias(Max(c2), "__mode_mc")
+            maxc = Aggregate(list(g2), list(g2) + [mc_alias], counts2)
+            mc_attr = mc_alias.to_attribute()
+
+            cond: Expression = EqualTo(c_attr, mc_attr)
+            for g, gg in zip(grouping, g2):
+                # null-safe: a NULL grouping key is a real group and
+                # must survive the self-join
+                cond = And(cond, EqualNullSafe(g, gg))
+            joined = Join(counts, maxc, "inner", cond)
+
+            # 3. tie-break: smallest winning value, then PROJECT the
+            #    original output expressions with every Mode node
+            #    substituted: covers mode() under aliases, arithmetic,
+            #    or scalar functions, with output ids preserved
+            mv_alias = Alias(Min(v), "__mode_val")
+            final = Aggregate(grouping,
+                              grouping + [mv_alias], joined)
+            mv_attr = mv_alias.to_attribute()
+
+            def sub(x):
+                return mv_attr if isinstance(x, Mode) else x
+
+            out_exprs = [e.transform_up(sub)
+                         for e in node.aggregate_exprs]
+            return Project(out_exprs, final)
+
+        return plan.transform_up(rule)
+
+
 class RewriteDistinctAggregates(Rule):
     """count(DISTINCT x) [GROUP BY g] -> two-level aggregation: inner
     Aggregate(g, x) dedups, outer counts. Mixed with plain aggregates, the
@@ -1049,8 +1133,11 @@ class RewriteDistinctAggregates(Rule):
             first_child = distincts[0].child
             if any(not d.child.semantic_equals(first_child)
                    for d in distincts[1:]):
-                raise NotPortedError(
-                    "multiple DISTINCT aggregates on different expressions")
+                from ..errors import UnsupportedOperationError
+
+                raise UnsupportedOperationError(
+                    "multiple DISTINCT aggregates on different expressions "
+                    "are not supported yet")
 
             # inner: dedup (g..., x)
             inner_group: list[Expression] = []
@@ -1279,7 +1366,8 @@ class ExpandGroupingSets(Rule):
 
 def _finish_analysis_rules():
     return [EliminateSubqueryAliases(), ReplaceSetOps(), ExpandGroupingSets(),
-            ReplaceDistinct(), RewriteDistinctAggregates()]
+            ReplaceDistinct(), RewriteModeAggregate(),
+            RewriteDistinctAggregates()]
 
 
 class Optimizer(RuleExecutor):

@@ -25,8 +25,8 @@ VARIABLE, INSERT INTO | OVERWRITE, UPDATE, DELETE, MERGE, SHOW TABLES |
 FUNCTIONS [LIKE], DESCRIBE, EXPLAIN [EXTENDED | FORMATTED | ANALYZE],
 DECLARE, SET [VARIABLE], ANALYZE TABLE and [UN]CACHE TABLE. Every other
 production of the reference's grammar raises `NotPortedError` naming the
-construct: table-valued functions, TABLESAMPLE and lambda functions among
-them.
+construct: table-valued functions and TABLESAMPLE among them. A function
+argument may be a lambda, `x -> e` or `(x, y) -> e`.
 """
 
 from __future__ import annotations
@@ -1137,9 +1137,25 @@ class Parser:
         return E.IntervalLiteral(months, days, micros)
 
     def _parse_arg(self) -> E.Expression:
-        if self.peek(1).value == "->" or self._at_lambda_params():
-            raise NotPortedError("lambda functions (higher-order functions)")
-        return self.parse_expr()
+        """A function argument: `x -> body`, `(x, y) -> body` (a
+        higher-order function's lambda, its parameters marked in the body
+        by lexical scope), or a plain expression."""
+        from ..expr.higher_order import LambdaFunction, mark_lambda_params
+
+        t = self.peek()
+        if t.kind in ("ident", "kw") and self.peek(1).value == "->":
+            names = [self.ident()]
+        elif self._at_lambda_params():
+            self.expect_op("(")
+            names = [self.ident()]
+            while self.eat_op(","):
+                names.append(self.ident())
+            self.expect_op(")")
+        else:
+            return self.parse_expr()
+        self.next()     # ->
+        body = self.parse_expr()
+        return LambdaFunction(names, mark_lambda_params(body, names))
 
     def _at_lambda_params(self) -> bool:
         """At `(x, y, ...) ->`: a lambda's parameter list."""

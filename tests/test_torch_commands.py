@@ -607,8 +607,10 @@ NOT_PORTED_SQL = {
     "SELECT * FROM np_t TABLESAMPLE (50 PERCENT)": "TABLESAMPLE",
     "SELECT /*+ POOL(x) */ 1 AS one": "hints",
     "SET spark.tpu.memory.budget = 10": "spark.tpu.memory.budget",
-    "SELECT first(k) AS f FROM np_t": "function first",
-    "SELECT transform(array(1), x -> x) AS t": "lambda",
+    # first (A3) and the lambdas (A11) run since their slice: None, the
+    # statement gives the reference's rows
+    "SELECT first(k) AS f FROM np_t": None,
+    "SELECT transform(array(1), x -> x) AS t": None,
 }
 
 
@@ -645,6 +647,11 @@ NOT_PORTED_CALLS = {
 def test_unported_statement_raises(pair, stmt):
     t = pair.torch
     _np_frame(t).createOrReplaceTempView("np_t")
+    if NOT_PORTED_SQL[stmt] is None:
+        _np_frame(pair.jax).createOrReplaceTempView("np_t")
+        assert t.sql(stmt).toArrow().to_pylist() == \
+            pair.jax.sql(stmt).toArrow().to_pylist()
+        return
     with pytest.raises(NotPortedError) as err:
         df = t.sql(stmt)
         if df is not None:

@@ -2076,3 +2076,146 @@ def test_explode_several_elements_card_equals_cpu(cuda_device, name, tier):
                 sv[x] += v
         assert sorted(map(repr, got.to_pylist())) == sorted(
             repr({"x": x, "n": n[x], "sv": sv[x]}) for x in n)
+
+
+# --- A3's aggregates and A11's lambdas on the card ---------------------------
+
+BIT_KINDS = ("and", "or", "xor")
+
+
+def _bit_inputs(dev, n, segs, live, dtype=np.int64, off=0, stray=False,
+                seed=19, negative=False):
+    """chip_smoke.py's phase-3 inputs: values of low entropy
+    (`bit_values`), so AND and OR differ from segment to segment."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(seed + segs)
+    seg = rng.integers(0, segs, n).astype(np.int32)
+    vals = cs.bit_values(rng, seg, segs, dtype, negative)
+    mask = rng.random(n) < live
+    if stray:
+        off_ = ~mask & (rng.random(n) < 0.5)
+        seg[off_] = rng.choice(np.array([-7, segs, segs + 100], np.int32),
+                               int(off_.sum()))
+    return (_on_card(vals, off, dev), _on_card(mask, 3 if off else 0, dev),
+            _on_card(seg, off, dev))
+
+
+@pytest.mark.parametrize("kind", BIT_KINDS)
+@pytest.mark.parametrize("n,segs,live,dtype,off,stray,negative", [
+    # chip_smoke.py's phase-3 shapes: 2^22 rows, 58% live
+    (1 << 22, 8, 0.58, np.int64, 0, False, False),
+    (1 << 22, 1024, 0.58, np.int64, 0, False, False),
+    (1 << 22, 1 << 21, 0.58, np.int64, 0, False, False),
+    (1 << 22, 1024, 0.0, np.int64, 0, False, False),     # all masked
+    (1 << 22, 1024, 0.58, np.int32, 0, False, False),    # sign extension
+    (1 << 22, 1024, 0.58, np.int64, 0, True, False),     # stray masked ids
+    (1 << 22, 8, 0.58, np.int64, 1, False, False),       # misaligned views
+    (1 << 22, 1024, 0.58, np.int64, 0, False, True),     # all negative
+    (1_000_003, 4096, 0.9, np.int64, 0, False, False),   # shared-memory limit
+    (1_000_003, 4097, 0.9, np.int64, 0, False, False),   # global atomics
+    (17, 3, 1.0, np.int64, 0, False, False)])
+def test_bit_kernel_equals_plain(cuda_device, kind, n, segs, live, dtype,
+                                 off, stray, negative):
+    v, m, g = _bit_inputs(cuda_device, n, segs, live, dtype, off, stray,
+                          negative=negative)
+    count = SK.partition_histogram(g, m, segs)
+    before = SK.LAUNCHES["segment_bits"]
+    got = SK.segment_bits(v, m, g, segs, kind, count)
+    assert SK.LAUNCHES["segment_bits"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, SK.segment_bits_plain(v, m, g, segs, kind))
+
+
+@pytest.mark.parametrize("kind", BIT_KINDS)
+def test_bit_kernel_in_a_captured_graph(cuda_device, kind):
+    """The kernel inside a CUDA graph capture (no host read, no
+    allocation sized by data): the replay equals the eager call, on new
+    inputs copied into the capture's buffers too."""
+    v, m, g = _bit_inputs(cuda_device, 1 << 20, 1024, 0.58)
+    SK.prepare(cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = SK.segment_bits(v, m, g, 1024, kind,
+                              SK.partition_histogram(g, m, 1024))
+    for seed in (1, 2):
+        v2, m2, g2 = _bit_inputs(cuda_device, 1 << 20, 1024, 0.58,
+                                 seed=seed)
+        v.copy_(v2)
+        m.copy_(m2)
+        g.copy_(g2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, SK.segment_bits_plain(v, m, g, 1024, kind))
+
+
+@pytest.fixture(scope="module")
+def aggregates_leg_pair():
+    """chip_smoke.py's aggregates leg at scale 0.01: a CPU session at the
+    operator tier and a card session, over the tables its statements read
+    and the types leg's item_nested."""
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tables, _ = cs.tpcds_data(scale=0.01)
+    tables = {n: tables[n] for n in ("store_sales", "date_dim", "customer",
+                                     "store", "item", "customer_address")}
+    conf = {"spark.sql.shuffle.partitions": 4,
+            "spark.tpu.fusion.minRows": 0,
+            "spark.tpu.compile.whole.minRows": 0}
+    pair = _session_pair(conf)
+    for s in pair:
+        for name, tb in tables.items():
+            s.createDataFrame(tb).createOrReplaceTempView(name)
+        for text in cs.TYPES_TABLES.values():
+            s.sql(text)
+    yield cs, tables, pair
+    for s in pair:
+        s.stop()
+
+
+def _agg_leg_names():
+    try:
+        import chip_smoke as cs
+    except ImportError:
+        return []
+    return [(name, tier) for name in cs.AGG_QUERIES
+            for tier in ("auto", "stage")
+            + (("whole",) if name in cs.AGG_BITS else ())]
+
+
+@pytest.mark.parametrize("name,tier", _agg_leg_names())
+def test_aggregates_leg_card_equals_cpu(aggregates_leg_pair, name, tier):
+    """Each statement of the aggregates leg on the card at `auto` and at
+    the stage tier, and the bits statements at the whole tier too (the bit
+    kernel inside a captured whole program): equal to the CPU's operator
+    tier (the moments to the leg's relative tolerance, a string first to
+    its group's values) and to the leg's oracle; the bits statements
+    launch the bit kernel."""
+    cs, tables, (cpu, card) = aggregates_leg_pair
+    text = cs.AGG_QUERIES[name]
+    card.conf.set("spark.tpu.compile.tier", tier)
+    before = SK.LAUNCHES["segment_bits"]
+    try:
+        df = card.sql(text)
+        got = df.toArrow()
+    finally:
+        card.conf.set("spark.tpu.compile.tier", "operator")
+    if tier != "auto":
+        p = df.query_execution.physical
+        assert (getattr(p, "decision", None) or p._tier_decision).tier == tier
+    assert (SK.LAUNCHES["segment_bits"] > before) == (name in cs.AGG_BITS)
+    want = cpu.sql(text).toArrow()
+    assert got.schema == want.schema
+    failures = []
+    saved = cs.fail
+    cs.fail = failures.append
+    try:
+        oracle = cs.aggregates_oracle(name, tables)
+        cs.aggregates_check(name, got, oracle)
+        cs.aggregates_check(name, want, oracle)
+    finally:
+        cs.fail = saved
+    assert not failures, failures[:3]

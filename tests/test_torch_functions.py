@@ -21,9 +21,9 @@ compiler compute to different last bits: those to 4 ulp. The queries run
 in a few projections per engine (one column per function); a case that
 fails reruns alone, so its error names it. One test id per name.
 
-Registry: the port's names plus `NOT_PORTED` (each name mapped to its
-ROADMAP.md item) equal the reference's names, and every name in
-`NOT_PORTED` raises NotPortedError naming it."""
+Registry: the port's names equal the reference's names, and each name the
+last slices brought (A3's aggregates, A11's higher-order functions) builds
+the reference's class with the reference's result type."""
 
 import math
 
@@ -37,7 +37,7 @@ pytest.importorskip("jax")
 import spark_tpu.api.functions as JF  # noqa: E402
 import spark_tpu_torch.api.functions as TF  # noqa: E402
 from spark_tpu import TpuSession  # noqa: E402
-from spark_tpu_torch import NotPortedError, TorchSession  # noqa: E402
+from spark_tpu_torch import TorchSession  # noqa: E402
 from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_cuda import LUT_QUERY, lut_tiles  # noqa: E402
 from tests.test_torch_fusion import replay_first, watch_syncs  # noqa: E402
@@ -639,9 +639,10 @@ _A3 = ("first", "any_value", "collect_list", "collect_set", "array_agg",
 _A11 = ("transform", "filter", "exists", "forall", "any_match", "all_match",
         "aggregate", "reduce", "zip_with", "transform_keys",
         "transform_values", "map_filter", "map_zip_with")
-# the reference's function names the port does not build, by the
-# ROADMAP.md item that brings them
-NOT_PORTED = dict([(n, "A3") for n in _A3] + [(n, "A11") for n in _A11])
+# the names the last slices brought (A3 and A11's lambdas): each builds
+# the reference's class; with them the port builds every name the
+# reference does
+LATE_NAMES = _A3 + _A11
 
 
 def test_registry_names_cover_the_reference():
@@ -649,25 +650,87 @@ def test_registry_names_cover_the_reference():
     from spark_tpu_torch.expr import registry as TR
 
     port, ref = set(TR.registered_names()), set(JR.registered_names())
-    assert not port & set(NOT_PORTED)
-    assert port | set(NOT_PORTED) == ref, (
-        sorted(ref - port - set(NOT_PORTED)),
-        sorted((port | set(NOT_PORTED)) - ref))
-    assert set(NOT_PORTED.values()) <= {"A1", "A3", "A11", "A14"}
-    assert TR.function_exists("LOWER") and not TR.function_exists(
-        "transform")
+    assert port == ref, (sorted(ref - port), sorted(port - ref))
+    assert set(LATE_NAMES) <= port
+    assert TR.function_exists("LOWER") and TR.function_exists("transform")
     assert TR.filter_names("log*|sha") == JR.filter_names("log*|sha")
     assert TR.filter_names("lo*") == JR.filter_names("lo*")
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+def _late_args(M, H, name: str) -> list:
+    """Arguments of `name` in module M's expressions (H its higher-order
+    module): bigint columns, a literal fraction, a lambda of the arity the
+    function binds, an array or map column."""
+    from spark_tpu_torch.types import ArrayType, MapType, int64, string
+
+    def col(n, dt=int64):
+        return M.AttributeReference(n, dt, True)
+
+    x, y = col("x"), col("y")
+    arr = col("a", ArrayType(int64))
+    mp = col("m", MapType(string, int64))
+
+    def lam(*ps):
+        return H.LambdaFunction(list(ps), H.mark_lambda_params(
+            M.UnresolvedAttribute([ps[-1]]), list(ps)))
+
+    if name in ("percentile", "percentile_approx"):
+        return [x, M.Literal(0.25)]
+    if name in ("corr", "covar_samp", "covar_pop"):
+        return [x, y]
+    if name in ("transform", "filter", "exists", "forall", "any_match",
+                "all_match"):
+        return [arr, lam("e")]
+    if name in ("aggregate", "reduce"):
+        return [arr, M.Literal(0), lam("acc", "e")]
+    if name == "zip_with":
+        return [arr, arr, lam("p", "q")]
+    if name in ("transform_keys", "transform_values", "map_filter"):
+        return [mp, lam("k", "v")]
+    if name == "map_zip_with":
+        return [mp, mp, lam("k", "v1", "v2")]
+    return [x]
+
+
+def _type_name(dt) -> str:
+    return dt.simple_string()
+
+
+@pytest.mark.parametrize("name", sorted(LATE_NAMES))
 def test_not_ported_names_raise_naming_them(name):
+    """Each name A3 and A11's lambdas brought builds the reference's
+    expression class with the reference's result type (the 30 names once
+    raised NotPortedError naming them)."""
+    import spark_tpu.types as JT
+    from spark_tpu.expr import expressions as JE
+    from spark_tpu.expr import higher_order as JH
+    from spark_tpu.expr import registry as JR
     from spark_tpu_torch.expr import expressions as E
+    from spark_tpu_torch.expr import higher_order as TH
     from spark_tpu_torch.expr import registry as TR
 
-    with pytest.raises(NotPortedError) as err:
-        TR.build_function(name, [E.Literal(1)])
-    assert name in err.value.what
+    got = TR.build_function(name, _late_args(E, TH, name))
+    ref_args = _late_args(E, TH, name)
+    # the reference's args: the same shapes in its own classes
+    import spark_tpu_torch.types as TT
+
+    def conv(e):
+        if isinstance(e, E.AttributeReference):
+            dt = e.dtype
+            jt = {TT.int64: JT.int64}.get(dt)
+            if jt is None and isinstance(dt, TT.ArrayType):
+                jt = JT.ArrayType(JT.int64)
+            if jt is None:
+                jt = JT.MapType(JT.string, JT.int64)
+            return JE.AttributeReference(e.name, jt, True)
+        if isinstance(e, E.Literal):
+            return JE.Literal(e.value)
+        return JH.LambdaFunction(e.params, JH.mark_lambda_params(
+            JE.UnresolvedAttribute([e.params[-1]]), e.params))
+
+    want = JR.build_function(name, [conv(a) for a in ref_args])
+    assert type(got).__name__ == type(want).__name__
+    assert _type_name(got.dtype) == _type_name(want.dtype)
 
 
 @pytest.mark.parametrize("tier", ["stage", "whole"])

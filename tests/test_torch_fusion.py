@@ -426,17 +426,12 @@ def test_dense_range_sync_memoized_across_batches(sessions):
 
 
 def test_string_minmax_not_ported_in_either_tier(sessions):
-    # the reference fuses string MIN/MAX in rank space; the port has no
-    # string MIN/MAX at any tier (physical/aggregates.py), and says so
-    t = sessions[1]
-    q = ("select k, min(s) mn, max(s) mx from ex_t where v > 0 group by k")
-    for tier in ("stage", "operator"):
-        t.conf.set("spark.tpu.compile.tier", tier)
-        try:
-            with pytest.raises(NotPortedError, match="string column"):
-                t.sql(q).toArrow()
-        finally:
-            t.conf.unset("spark.tpu.compile.tier")
+    # string MIN/MAX (A3's) runs at both tiers since its slice: the fused
+    # aggregate reduces in rank space with the rank luts as program
+    # inputs, as the reference's does, equal to the reference and to the
+    # operator tier
+    _three_way(sessions, lambda s: s.sql(
+        "select k, min(s) mn, max(s) mx from ex_t where v > 0 group by k"))
 
 
 # --- tiers ---------------------------------------------------------------------

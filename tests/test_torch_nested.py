@@ -6,8 +6,7 @@ GenerateExec.
 
   * Every case of tests/test_complex_types.py and tests/test_generate.py
     runs in both engines and the port's result equals the reference's
-    (the reference's collect_list, an A3 aggregate, is the one construct
-    the port refuses; its array column comes from Arrow instead).
+    (the array column of its collect_list too, since A3's slice).
   * The nested statements run at the port's operator tier against the
     reference, and at the stage tier (fused bodies watched for host reads
     and replayed) and the forced whole tier against the port's own
@@ -35,7 +34,7 @@ pytest.importorskip("jax")
 import spark_tpu.api.functions as JF  # noqa: E402
 import spark_tpu_torch.api.functions as TF  # noqa: E402
 from spark_tpu import TpuSession  # noqa: E402
-from spark_tpu_torch import NotPortedError, TorchSession  # noqa: E402
+from spark_tpu_torch import TorchSession  # noqa: E402
 from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_types import check_case, run_cases  # noqa: E402
 
@@ -149,16 +148,16 @@ def test_reference_case_matches(engines, name):
 
 def test_explode_of_collect_list_is_a3(engines):
     """test_generate.py's array column comes from collect_list, an A3
-    aggregate the port refuses; the same rows come from an Arrow array
-    column above (`explode_array_column`)."""
+    aggregate the port runs since its slice: the port's rows equal the
+    reference's, and those of the Arrow array column above
+    (`explode_array_column`)."""
     j, t = engines
     text = ("SELECT k, explode(l) AS e FROM (SELECT k, collect_list(v) AS l "
             "FROM cl GROUP BY k) ORDER BY k, e")
-    assert _table_rows(j.sql(text).toArrow()) == \
+    want = _table_rows(j.sql(text).toArrow())
+    assert want == \
         _table_rows(t.sql(REFERENCE_SQL["explode_array_column"]).toArrow())
-    with pytest.raises(NotPortedError) as err:
-        t.sql(text).toArrow()
-    assert "collect_list" in err.value.what
+    assert _table_rows(t.sql(text).toArrow()) == want
 
 
 def _df_case(F, s, name):

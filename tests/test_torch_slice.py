@@ -355,8 +355,14 @@ def test_unported_entry_points_raise_not_ported(sessions, what):
 
             df._with(Repartition(2, False, [], df.plan)).toArrow()
         elif what == "string_filter":
-            # a string condition parses; a lambda in it is A11's
-            df.filter("exists(array(1), x -> x > 0)")
+            # a string condition with a lambda runs since A11's slice
+            # (every row passes); its scan under a repartition without
+            # keys is still refused
+            from spark_tpu_torch.plan.logical import Repartition
+
+            kept = df.filter("exists(array(1), x -> x > 0)")
+            assert kept.toArrow().num_rows == df.toArrow().num_rows
+            kept._with(Repartition(2, False, [], kept.plan)).toArrow()
         else:
             # rows with a schema are ported; a decimal past 18 digits is
             # not

@@ -244,65 +244,87 @@ def test_transformed_keys_group_and_sort_by_value(sessions):
 
 
 # statements of the keys that run since the third SQL slice (CASES holds
-# the earlier statements) name a construct that still raises
+# the earlier statements) name a construct that still raises; those A3's
+# aggregates and A11's lambdas made run give the reference's rows (None),
+# and those the reference refuses too raise its error class (REFUSED)
+REFUSED = "refused by both engines"
 UNPORTED = {
     "with": ("WITH x AS (SELECT k FROM t1 WHERE bit_and(k) > 0) "
-             "SELECT k FROM x", "function bit_and"),
-    "union": ("SELECT k FROM t1 UNION SELECT median(k) FROM t1",
-              "function median"),
+             "SELECT k FROM x", REFUSED),
+    "union": ("SELECT k FROM t1 UNION SELECT median(k) FROM t1", None),
     "from_subquery": ("SELECT k FROM (SELECT sum(DISTINCT k) k FROM t1) q",
-                      "sum(DISTINCT"),
-    "in_list": ("SELECT k FROM t1 WHERE kurtosis(k) IN (0)",
-                "function kurtosis"),
+                      None),
+    "in_list": ("SELECT k FROM t1 WHERE kurtosis(k) IN (0)", REFUSED),
     "in_subquery": ("SELECT * FROM t1 FULL JOIN t2 ON t1.k = t2.k2 "
                     "AND t1.k > 3", "full_outer join with a non-equi"),
     "exists": ("SELECT * FROM t1 FULL JOIN t2 ON t1.k > t2.k2",
                "non-equi full_outer join"),
-    "scalar_subquery": ("SELECT (SELECT max(name) FROM t2) m FROM t1",
-                        "string column"),
+    "scalar_subquery": ("SELECT (SELECT max(name) FROM t2) m FROM t1", None),
     "case": ("SELECT CASE WHEN k > 1 THEN bit_or(k) ELSE 0 END FROM t1",
-             "function bit_or"),
+             REFUSED),
     "between": ("SELECT k FROM t1 WHERE bit_xor(k) BETWEEN 1 AND 2",
-                "function bit_xor"),
-    "like": ("SELECT k FROM t1 WHERE exists(array(s), x -> x LIKE 'a') ",
-             "lambda"),
+                REFUSED),
+    # LIKE inside a lambda body: the scalar interpreter has no LIKE
+    "like": ("SELECT k FROM t1 WHERE exists(array(s), x -> x LIKE 'a%') ",
+             REFUSED),
     "interval": ("SELECT percentile_approx(k, 0.5) + INTERVAL 1 DAY "
-                 "FROM t1", "function percentile_approx"),
+                 "FROM t1", REFUSED),
     # the reference refuses it too
     "window": ("SELECT nth_value(k, 2) OVER (ORDER BY k ROWS BETWEEN 1 "
                "PRECEDING AND 1 FOLLOWING) FROM t1", "bounded frame"),
     "hint": ("SELECT /*+ BROADCAST(t2) */ k FROM t1", "hints"),
     # scripts and commands run since the commands slice; a statement in
     # a script is held to the same rules, and CACHE TABLE is A12's
-    "script": ("BEGIN SELECT corr(k, k) FROM t1; END", "function corr"),
+    "script": ("BEGIN SELECT corr(k, k) FROM t1; END", None),
     "command": ("CACHE TABLE t1", "CACHE TABLE"),
     # the reference refuses it too
     "distinct": ("SELECT count(DISTINCT s), count(DISTINCT k) FROM t1",
-                 "multiple DISTINCT"),
+                 REFUSED),
     # SELECT without FROM runs (OneRowRelation); its expressions are
     # held to the same rules as any other query's
-    "no_from": ("SELECT percentile(1, 0.5)", "function percentile"),
+    "no_from": ("SELECT percentile(1, 0.5)", None),
     "rollup": ("SELECT k, count(DISTINCT s), count(DISTINCT v) FROM t1 "
-               "GROUP BY ROLLUP(k)", "multiple DISTINCT"),
+               "GROUP BY ROLLUP(k)", REFUSED),
     "using": ("SELECT k FROM t1 JOIN t1 x USING (k, s) "
-              "WHERE mode(k) > 0", "function mode"),
+              "WHERE mode(k) > 0", REFUSED),
     "concat": ("SELECT concat_ws('-', array(s, s)) FROM t1",
                "array<string>"),
-    "modulo": ("SELECT filter(array(k), x -> x > 1) FROM t1", "lambda"),
-    "unported_function": ("SELECT collect_list(s) FROM t1",
-                          "function collect_list"),
-    "count_distinct": ("SELECT avg(DISTINCT k) FROM t1", "avg(DISTINCT"),
-    "string_min": ("SELECT min(s) FROM t1", "string column"),
-    "string_cast": ("SELECT min(CAST(k AS STRING)) FROM t1",
-                    "string column"),
-    "timestamp": ("SELECT any_value(k) FROM t1", "function any_value"),
+    "modulo": ("SELECT filter(array(k), x -> x > 1) FROM t1", None),
+    "unported_function": ("SELECT collect_list(s) FROM t1", None),
+    "count_distinct": ("SELECT avg(DISTINCT k) FROM t1", None),
+    "string_min": ("SELECT min(s) FROM t1", None),
+    # a host UDF inside an aggregate's argument (both engines)
+    "string_cast": ("SELECT min(CAST(k AS STRING)) FROM t1", REFUSED),
+    "timestamp": ("SELECT any_value(k) FROM t1", None),
 }
+
+
+def _list_rows(tb) -> list:
+    return sorted((tuple(sorted(v, key=repr) if isinstance(v, list) else v
+                         for v in r)
+                   for r in zip(*[c.to_pylist() for c in tb.columns])),
+                  key=repr)
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_constructs_raise_not_ported(sessions, name):
-    _, t = sessions
+    j, t = sessions
     text, what = UNPORTED[name]
+    if what is None:
+        assert _list_rows(t.sql(text).toArrow()) == \
+            _list_rows(j.sql(text).toArrow())
+        return
+    if what is REFUSED:
+        # an aggregate in a WHERE or outside an aggregation, or DISTINCT
+        # over two expressions: both engines raise the same error class
+        errs = []
+        for s in (j, t):
+            with pytest.raises(Exception) as err:
+                s.sql(text).toArrow()
+            assert not isinstance(err.value, NotPortedError)
+            errs.append(type(err.value).__name__)
+        assert errs[0] == errs[1], errs
+        return
     with pytest.raises(NotPortedError) as err:
         t.sql(text).toArrow()
     assert what.lower() in err.value.what.lower()

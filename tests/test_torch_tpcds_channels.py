@@ -4,7 +4,7 @@ query joins them), held to the goldens, to the JAX reference's results and
 plans, and to `chip_smoke.py`'s SF10 plans exactly as
 `tests/test_torch_tpcds_store.py` holds the store-channel queries; and
 TPC-DS queries rewritten into constructs outside the port's slices
-(TABLESAMPLE, `skewness`, DISTINCT over two expressions) raise NotPortedError
+(TABLESAMPLE, hints) raise NotPortedError
 naming the construct instead of answering."""
 
 import pytest
@@ -68,11 +68,14 @@ UNPORTED = {
     "q84": (("FROM customer\n",
              "FROM customer TABLESAMPLE (10 PERCENT)\n"),
             "TABLESAMPLE"),
-    "q14a": (("ss_quantity * ss_list_price",
-              "skewness(ss_quantity) * ss_list_price"), "function skewness"),
-    "q91": (("sum(cr_net_loss) Returns_Loss",
-             "count(DISTINCT cr_net_loss), count(DISTINCT cr_item_sk)"),
-            "multiple DISTINCT"),
+    # skewness and DISTINCT over two expressions left this list with A3's
+    # slice (the second is refused by both engines alike): their queries
+    # now hold other constructs the port still refuses
+    "q14a": (("FROM store_sales, item iss, date_dim d1",
+              "FROM store_sales TABLESAMPLE (10 PERCENT), item iss, "
+              "date_dim d1"), "TABLESAMPLE"),
+    "q91": (("SELECT\n  cc_call_center_id", "SELECT /*+ BROADCAST(cc) */\n"
+             "  cc_call_center_id"), "hints"),
 }
 
 

@@ -36,30 +36,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RESULTS = os.path.join(HERE, "sql-tests", "results")
 
 # construct named by NotPortedError -> the ROADMAP.md item that ports it
+# (the port builds every function name of the reference's registry since
+# A3 and A11's lambdas)
 OUT_OF_SCOPE = {
-    "lambda functions": "A11",
     "lag with a default value": "A11",
     "lead with a default value": "A11",
-    "min of a string column": "A3",
-    "sum(DISTINCT": "A3",
-    "avg(DISTINCT": "A3",
-    "multiple DISTINCT": "A3",
 }
-# function names outside A2, by item (as tests/test_torch_functions.py's
-# NOT_PORTED)
-FUNCTIONS = {
-    "A3": ("first", "any_value", "collect_list", "collect_set", "array_agg",
-           "median", "percentile", "percentile_approx", "mode", "bit_and",
-           "bit_or", "bit_xor", "corr", "covar_samp", "covar_pop",
-           "skewness", "kurtosis"),
-    "A11": ("transform", "filter", "exists", "forall", "any_match",
-            "all_match", "aggregate", "reduce", "zip_with",
-            "transform_keys", "transform_values", "map_filter",
-            "map_zip_with"),
-}
-for _item, _names in FUNCTIONS.items():
-    for _n in _names:
-        OUT_OF_SCOPE[f"function {_n}"] = _item
 
 _CREATE_VIEW = re.compile(
     r"^\s*CREATE\s+(?:OR\s+REPLACE\s+)?(?:GLOBAL\s+)?TEMP(?:ORARY)?\s+VIEW"
