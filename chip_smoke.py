@@ -2573,6 +2573,22 @@ def bit_values(rng, seg, segs: int, dtype, negative: bool = False):
     return (base[seg] ^ (noise & flip[seg])).view(dtype)
 
 
+def sorted_ids(rng, n: int, segs: int, run: int, jitter: bool = False):
+    """int32 segment ids sorted into runs of `run` equal ids (with
+    `jitter`, of run/2 to 3run/2 at random), as a sorted-segment flow hands
+    them to the bit kernel: the runs' ids spread evenly over [0, segs), and
+    wrap around where there are more runs than segments."""
+    import numpy as np
+
+    lo = max(run // 2, 1) if jitter else run
+    lens = (rng.integers(lo, run + run // 2 + 1, n // lo + 1) if jitter
+            else np.full(n // run + 1, run))
+    k = int(np.searchsorted(np.cumsum(lens), n)) + 1
+    ids = (np.arange(k, dtype=np.int64) * segs // k if k <= segs
+           else np.arange(k, dtype=np.int64) % segs)
+    return np.repeat(ids, lens[:k])[:n].astype(np.int32)
+
+
 def bits_bare_launch(torch, sk, v, m, g, segs: int, kind: str, count):
     """(launch, out): the bit kernel's C entry point on the current stream
     into `out`, allocated here once, with no checks and no launch count;
@@ -2682,8 +2698,11 @@ def bits_row(torch, sk, label: str, v, m, g, segs: int, kind: str) -> dict:
 
 def check_bit_kernel(torch, sk) -> dict:
     """Phase 3 for the bit kernel: each kind against the plain version at
-    2^22 rows and 8, 1,024 and 2^21 segments, 58% live (timed), then
-    all-masked input, all-negative values, int32 values, misaligned views
+    2^22 rows and 8, 1,024 and 2^21 segments, 58% live, and at the two
+    flows of 2^25 rows, 86% live, that the aggregates leg hands it: ids
+    sorted into runs of about 565 over 2^25 segments (a whole program's
+    sorted-segment flow) and one segment (the ungrouped reduce) (timed),
+    then all-masked input, all-negative values, int32 values, misaligned views
     and masked rows whose ids lie outside the segments (checked), and one
     case inside a captured CUDA graph, equal to the eager call. Returns
     the row the kernels line reports (1,024 segments, AND)."""
@@ -2717,6 +2736,18 @@ def check_bit_kernel(torch, sk) -> dict:
             rows.append(row)
             if segs == 1024 and kind == "and":
                 main = row
+    big = 1 << 25
+    for label, seg, segs in (
+            ("2^25 rows sorted into runs of about 565 over 2^25 segments, "
+             "86% live", sorted_ids(rng, big, big, 565, jitter=True), big),
+            ("2^25 rows, 1 segment, 86% live", np.zeros(big, np.int32), 1)):
+        vals = bit_values(rng, seg, segs, np.int64)
+        v = card(vals)
+        m = card(rng.random(big) < 0.86)
+        g = card(seg)
+        for kind in BIT_KINDS:
+            rows.append(bits_row(torch, sk, label, v, m, g, segs, kind))
+        del v, m, g
     checks = 0
     for kind in BIT_KINDS:
         for label, (vals, mask, seg), off in (
@@ -3582,8 +3613,10 @@ def window_leg(torch, sk, card: str, k, v) -> dict:
     """Spark's top-N-per-group idiom (pyspark.sql.Window) over the main
     table in PARTITIONS round-robin partitions, hash-exchanged on k:
     w = Window.partitionBy("k").orderBy(desc("v")); row_number,
-    rank and dense_rank over w, the running sum(v) with peers, lag(v), and
-    max(v) over w.rowsBetween(-2, 0); then row_number <= WINDOW_TOP. Every
+    rank and dense_rank over w, the running sum(v) with peers, lag(v),
+    max(v) over w.rowsBetween(-2, 0), lead(v) and lag(v, 1, -1) (the
+    default where the partition has no row before); then row_number <=
+    WINDOW_TOP. Every
     row is held to a numpy oracle: each column exactly, row_number as a
     permutation within each (k, v) peer group (the rows of a group are
     equal but for it)."""
@@ -3603,7 +3636,9 @@ def window_leg(torch, sk, card: str, k, v) -> dict:
                   F.dense_rank().over(w).alias("dr"),
                   F.sum("v").over(w).alias("run_sum"),
                   F.lag("v").over(w).alias("prev_v"),
-                  F.max("v").over(w.rowsBetween(-2, 0)).alias("max3"))
+                  F.max("v").over(w.rowsBetween(-2, 0)).alias("max3"),
+                  F.lead("v").over(w).alias("next_v"),
+                  F.lag("v", 1, -1).over(w).alias("prev_or"))
           .filter(F.col("rn") <= WINDOW_TOP))
 
     lexsorted = once(lambda: np.lexsort((-v, k)))
@@ -3632,19 +3667,23 @@ def window_leg(torch, sk, card: str, k, v) -> dict:
                "prev_v": vs[np.maximum(idx - 1, 0)],
                "max3": vs[np.maximum(idx - 2, start)]}
         has_prev = idx > start
+        has_next = np.append(~new_part[1:], False)
+        exp["next_v"] = np.where(has_next, vs[np.minimum(idx + 1, n - 1)], 0)
+        exp["prev_or"] = np.where(has_prev, exp["prev_v"], -1)
         keep = idx - start < WINDOW_TOP
         got = out.sort_by([("k", "ascending"), ("rn", "ascending")])
         if got.num_rows != int(keep.sum()):
             fail(f"window: {got.num_rows} rows, not {int(keep.sum())}")
         for name, col in (("k", ks), ("v", vs), *exp.items()):
             g = got.column(name)
-            if name == "prev_v":
+            if name in ("prev_v", "next_v"):
+                has = has_prev if name == "prev_v" else has_next
                 if not np.array_equal(g.is_null().to_numpy(
-                        zero_copy_only=False), ~has_prev[keep]):
-                    fail("window: lag(v) is NULL on other rows than each "
-                         "partition's first")
+                        zero_copy_only=False), ~has[keep]):
+                    fail(f"window: {name} is NULL on other rows than each "
+                         "partition's first (lag) or last (lead)")
                 g = g.fill_null(0)
-                col = np.where(has_prev, col, 0)
+                col = np.where(has, col, 0)
             if not np.array_equal(g.to_numpy(), col[keep]):
                 fail(f"window: column {name} differs from the numpy oracle")
         return (f"{got.num_rows} rows equal to the numpy oracle (the top "
@@ -3652,7 +3691,8 @@ def window_leg(torch, sk, card: str, k, v) -> dict:
 
     launches = drive(torch, sk, card, "window leg", df, ROWS,
                      (f"Exchange[HashPartitioning({PARTITIONS})]",
-                      "Window[rownumber, rank, denserank, sum, lag, max]"),
+                      "Window[rownumber, rank, denserank, sum, lag, max, "
+                      "lead, lag]"),
                      leg_calls("window"), check, operator=leg_calls("window"))
     spark.stop()
     return launches
@@ -7375,12 +7415,13 @@ def dpp_checks(torch, sk, card: str, spark, oracle: dict, timed_shapes,
         return (f"equal to numpy; {pruned} of {splits} splits pruned, "
                 f"{read:,} rows read")
 
-    # no profiler pass: the trace of its 1,824 partitions takes the
-    # profiler 70 s to read (PERF.md section 5)
+    # the cold run only: a warm run and its breakdown took 25 s of the
+    # script's 1,200 (its 1,824 partitions; without a profiler pass, whose
+    # trace took 70 s to read, PERF.md section 5)
     total = oracle["dpp_total_rows"]
     out = {"dpp": drive(torch, sk, card, "parquet dpp", df, total,
                         (), None, check, None, timed_shapes, profile=False,
-                        warm_runs=1)}
+                        warm_runs=0)}
     checks = {"date_dim_write_s": write_s, "dpp_splits": splits}
     spark.conf.set("spark.sql.dynamicPartitionPruning.enabled", "false")
     before = spark.metrics

@@ -317,18 +317,31 @@ def _range_minmax(v, w, lo_idx, hi_idx, empty, kind, max_len=None):
 
 # --- offsets and values --------------------------------------------------
 
-def w_shift(lo: WindowLayout, values, valid, offset: int):
-    """lag (offset > 0) / lead (offset < 0) within the partition."""
+def w_shift(lo: WindowLayout, values, valid, offset: int,
+            default_data=None, default_valid=None):
+    """lag (offset > 0) / lead (offset < 0) within the partition. A row
+    whose source lies outside its partition is NULL, or takes
+    `default_data` (in the layout's sorted order, as the result is; None
+    for no default) where `default_valid` (same order; None: all valid)
+    holds. A source inside the partition that is NULL stays NULL."""
     cap = values.shape[0]
     v = values[lo.perm]
     src = lo.pos - offset
     seg_end = lo.seg_start + lo.seg_size - 1
     in_seg = (src >= lo.seg_start) & (src <= seg_end)
     srcc = torch.clamp(src, 0, cap - 1)
+    out = v[srcc]
     out_valid = in_seg
     if valid is not None:
         out_valid = out_valid & valid[lo.perm][srcc]
-    return v[srcc], out_valid
+    if default_data is None:
+        return out, out_valid
+    out = torch.where(in_seg, out, default_data)
+    if valid is None and default_valid is None:
+        return out, None
+    if default_valid is None:
+        return out, out_valid | ~in_seg
+    return out, out_valid | (~in_seg & default_valid)
 
 
 def w_first_value(lo: WindowLayout, values, valid):

@@ -45,10 +45,10 @@ from ..config import (
 )
 from ..errors import NotPortedError
 from ..expr.expressions import (
-    AggregateFunction, Alias, AttributeReference, EqualTo, Expression,
-    SortOrder,
+    AggregateFunction, Alias, AttributeReference, Cast, EqualTo, Expression,
+    Literal, SortOrder,
 )
-from ..expr.window import WindowExpression
+from ..expr.window import Lag, WindowExpression
 from ..plan import logical as L
 from ..plan.optimizer import join_conjuncts, split_conjuncts
 from ..plan.tree import next_id
@@ -66,6 +66,16 @@ from .partitioning import (
     HashPartitioning, OrderedDistribution, RangePartitioning,
     SinglePartition, UnknownPartitioning,
 )
+
+
+def _shift_default(f: Lag) -> Expression | None:
+    """lag/lead's default as WindowExec evaluates it for the current row
+    (over the child's columns): cast to the function's type, or None for
+    no default or a NULL one."""
+    d = f.default
+    if d is None or (isinstance(d, Literal) and d.value is None):
+        return None
+    return d if d.dtype == f.dtype else Cast(d, f.dtype)
 
 
 def _row_width(attrs: Sequence[AttributeReference]) -> int:
@@ -255,6 +265,8 @@ class Planner:
             f = w.function
             if getattr(f, "child", None) is not None:
                 f = f.copy(child=arg_map[id(f.child)])
+            if isinstance(f, Lag):
+                f = f.copy(default=_shift_default(f))
             nw = WindowExpression(f, list(pkeys), list(orders), w.frame)
             new_wexprs.append(Alias(nw, al.name, al.expr_id))
         wexec = WindowExec(new_wexprs, pkeys, orders, child)

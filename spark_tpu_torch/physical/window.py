@@ -14,10 +14,14 @@ from typing import Sequence
 
 import torch
 
-from ..columnar.batch import Column, ColumnarBatch, bucket_capacity
+from ..columnar.batch import (
+    EMPTY_DICT, Column, ColumnarBatch, _take_codes, bucket_capacity,
+    merge_string_dicts,
+)
 from ..columnar.ops import compact_batch, concat_batches
 from ..errors import NotPortedError
 from ..exec.context import ExecContext
+from ..expr.eval import EvalCtx, Val
 from ..expr.expressions import (
     Alias, AttributeReference, Average, Count, Max, Min, SortOrder, Sum,
 )
@@ -27,7 +31,10 @@ from ..expr.window import (
 )
 from ..ops import window as W
 from ..ops.sorting import SortKeySpec
-from ..types import DateType, DecimalType, IntegralType, StringType
+from ..types import (
+    DateType, DecimalType, IntegralType, StringType, dict_encoded,
+)
+from .compile import broadcast_to_cap
 from .operators import PhysicalPlan, attrs_schema
 from .partitioning import AllTuples, ClusteredDistribution
 
@@ -80,12 +87,11 @@ class WindowExec(PhysicalPlan):
                 out.append(("cume_dist", None, None))
             elif isinstance(f, NTile):
                 out.append(("ntile", f.n, None))
-            elif isinstance(f, (Lag, Lead)):
-                if f.default is not None:
-                    raise NotPortedError(f"{type(f).__name__.lower()} with "
-                                         "a default value")
-                off = f.offset if isinstance(f, Lag) else -f.offset
-                out.append(("shift", off, f.child))
+            elif isinstance(f, Lag):  # and Lead, its subclass
+                # the default: an expression over the child's columns,
+                # cast to the function's type by the planner, or None
+                off = -f.offset if isinstance(f, Lead) else f.offset
+                out.append(("shift", (off, f.default), f.child))
             elif isinstance(f, (NthValue, FirstValue)):
                 # default frame: running to the current peers; explicit
                 # UNBOUNDED..UNBOUNDED: the whole partition
@@ -159,8 +165,17 @@ class WindowExec(PhysicalPlan):
         for (kind, param, arg), al in zip(plans, self.window_exprs):
             vc = None if arg is None else batch.columns[pos[arg.expr_id]]
             vd, vv = (vc.data, vc.validity) if vc is not None else (ones, None)
-            sv, svalid = self._compute(lo, kind, param, vd, vv, ocols,
-                                       kmin, band)
+            # shift and the value functions over strings keep the source
+            # dictionary (shift merges its default's into it)
+            sdict = vc.dictionary if vc is not None else None
+            if kind == "shift":
+                off, dflt = param
+                sv, svalid, sdict = self._shift(
+                    lo, off, vc, None if dflt is None else
+                    self._evaluate(dflt, batch))
+            else:
+                sv, svalid = self._compute(lo, kind, param, vd, vv, ocols,
+                                           kmin, band)
             d, v = W.scatter_back(lo, sv, svalid)
             dt = al.child.dtype
             fn = al.child.function
@@ -173,13 +188,41 @@ class WindowExec(PhysicalPlan):
                 d = torch.round(d * (10.0 ** scale))
             if d.dtype != dt.device_dtype:
                 d = d.to(dt.device_dtype)
-            # shift and the value functions over strings keep the source
-            # dictionary
-            sdict = vc.dictionary if isinstance(dt, StringType) else None
+            if not dict_encoded(dt):
+                sdict = None
             new_cols.append(Column(dt, d, v, sdict))
         ctx.launches.add("window")
         return ColumnarBatch(attrs_schema(self.output), new_cols,
                              batch.row_mask, batch._num_rows)
+
+    def _evaluate(self, expr, batch) -> Column:
+        """expr over the batch's rows (a literal broadcast to them)."""
+        cap = batch.capacity
+        val = EvalCtx({a.expr_id: Val(a.dtype, c.data, c.validity,
+                                      c.dictionary)
+                       for a, c in zip(self.child.output, batch.columns)},
+                      cap, batch.device).eval(expr)
+        return Column(val.dtype, broadcast_to_cap(val.data, cap),
+                      broadcast_to_cap(val.validity, cap), val.sdict)
+
+    @staticmethod
+    def _shift(lo, offset, vc, dc):
+        """lag/lead of column vc: (sorted data, validity, dictionary). A
+        row whose source lies outside its partition takes the default
+        column dc's value for that row (None: NULL); a dictionary-encoded
+        value and default are recoded into one merged dictionary."""
+        vd, sdict = vc.data, vc.dictionary
+        if dc is None:
+            return (*W.w_shift(lo, vd, vc.validity, offset), sdict)
+        dd = dc.data
+        if dict_encoded(vc.dtype):
+            sdict, luts = merge_string_dicts([vc.dictionary or EMPTY_DICT,
+                                              dc.dictionary or EMPTY_DICT])
+            vd, dd = (_take_codes(torch.from_numpy(lut).to(c.device), c)
+                      for lut, c in zip(luts, (vd, dd)))
+        dv = None if dc.validity is None else dc.validity[lo.perm]
+        return (*W.w_shift(lo, vd, vc.validity, offset, dd[lo.perm], dv),
+                sdict)
 
     @staticmethod
     def _compute(lo, kind, param, vd, vv, ocols, kmin, band):
@@ -195,8 +238,6 @@ class WindowExec(PhysicalPlan):
             return W.w_cume_dist(lo), None
         if kind == "ntile":
             return W.w_ntile(lo, param), None
-        if kind == "shift":
-            return W.w_shift(lo, vd, vv, param)
         if kind == "first_value":
             return W.w_first_value(lo, vd, vv)
         if kind == "last_value":

@@ -800,6 +800,40 @@ def window_table():
     })
 
 
+# the lead columns of WINDOW_CONSTRUCTS, where the JAX package computes
+# lag (ROADMAP.md C18): its tests hold them to `shift_oracle` instead;
+# column -> (argument, offset), all over PARTITION BY g ORDER BY k
+LEADS = {"window_shift": {"b": ("o", -2), "d": ("x", -1)}}
+
+
+def shift_oracle(rows, part, order, col, offset, default=None,
+                 default_col=None):
+    """Spark's lag (offset > 0) or lead (offset < 0) of `col` over plain
+    rows, keyed by k: within each partition of `part` ordered by `order`
+    ([(column, descending)]; NULLs first ascending, last descending), the
+    value `offset` rows back (lead: forward); a row whose source lies
+    outside its partition takes `default`, or the current row's
+    `default_col`, else NULL. A NULL source stays NULL."""
+    parts: dict = {}
+    for r in rows:
+        parts.setdefault(r[part], []).append(r)
+    out = {}
+    for members in parts.values():
+        for name, desc in reversed(order):    # stable: least key first
+            live = [r for r in members if r[name] is not None]
+            live.sort(key=lambda r: r[name], reverse=desc)
+            nulls = [r for r in members if r[name] is None]
+            members[:] = live + nulls if desc else nulls + live
+        for i, r in enumerate(members):
+            src = i - offset
+            if 0 <= src < len(members):
+                out[r["k"]] = members[src][col]
+            else:
+                out[r["k"]] = default if default_col is None \
+                    else r[default_col]
+    return out
+
+
 # the fourth SQL slice's cases over t3: name -> (statement, ordered
 # result); tests/test_torch_windows.py and
 # tests/test_torch_grouping_sets.py hold them against the JAX package
@@ -2084,17 +2118,23 @@ BIT_KINDS = ("and", "or", "xor")
 
 
 def _bit_inputs(dev, n, segs, live, dtype=np.int64, off=0, stray=False,
-                seed=19, negative=False):
+                seed=19, negative=False, runs=None):
     """chip_smoke.py's phase-3 inputs: values of low entropy
-    (`bit_values`), so AND and OR differ from segment to segment."""
+    (`bit_values`), so AND and OR differ from segment to segment. `runs`:
+    ids sorted into runs of that many rows (`sorted_ids`), else uniform.
+    `stray`: ids -7, segs and segs + 100 on half the masked rows, and with
+    `runs` on a tenth of the weighted rows too (which add nothing)."""
     import chip_smoke as cs
 
     rng = np.random.default_rng(seed + segs)
-    seg = rng.integers(0, segs, n).astype(np.int32)
+    seg = (rng.integers(0, segs, n).astype(np.int32) if runs is None
+           else cs.sorted_ids(rng, n, segs, runs))
     vals = cs.bit_values(rng, seg, segs, dtype, negative)
     mask = rng.random(n) < live
     if stray:
         off_ = ~mask & (rng.random(n) < 0.5)
+        if runs is not None:
+            off_ |= mask & (rng.random(n) < 0.1)
         seg[off_] = rng.choice(np.array([-7, segs, segs + 100], np.int32),
                                int(off_.sum()))
     return (_on_card(vals, off, dev), _on_card(mask, 3 if off else 0, dev),
@@ -2102,24 +2142,48 @@ def _bit_inputs(dev, n, segs, live, dtype=np.int64, off=0, stray=False,
 
 
 @pytest.mark.parametrize("kind", BIT_KINDS)
-@pytest.mark.parametrize("n,segs,live,dtype,off,stray,negative", [
+@pytest.mark.parametrize("n,segs,live,dtype,off,stray,negative,runs", [
     # chip_smoke.py's phase-3 shapes: 2^22 rows, 58% live
-    (1 << 22, 8, 0.58, np.int64, 0, False, False),
-    (1 << 22, 1024, 0.58, np.int64, 0, False, False),
-    (1 << 22, 1 << 21, 0.58, np.int64, 0, False, False),
-    (1 << 22, 1024, 0.0, np.int64, 0, False, False),     # all masked
-    (1 << 22, 1024, 0.58, np.int32, 0, False, False),    # sign extension
-    (1 << 22, 1024, 0.58, np.int64, 0, True, False),     # stray masked ids
-    (1 << 22, 8, 0.58, np.int64, 1, False, False),       # misaligned views
-    (1 << 22, 1024, 0.58, np.int64, 0, False, True),     # all negative
-    (1_000_003, 4096, 0.9, np.int64, 0, False, False),   # shared-memory limit
-    (1_000_003, 4097, 0.9, np.int64, 0, False, False),   # global atomics
-    (17, 3, 1.0, np.int64, 0, False, False)])
+    (1 << 22, 8, 0.58, np.int64, 0, False, False, None),
+    (1 << 22, 1024, 0.58, np.int64, 0, False, False, None),
+    (1 << 22, 1 << 21, 0.58, np.int64, 0, False, False, None),
+    (1 << 22, 1024, 0.0, np.int64, 0, False, False, None),     # all masked
+    (1 << 22, 1024, 0.58, np.int32, 0, False, False, None),    # sign ext.
+    (1 << 22, 1024, 0.58, np.int64, 0, True, False, None),     # stray ids
+    (1 << 22, 8, 0.58, np.int64, 1, False, False, None),       # misaligned
+    (1 << 22, 1024, 0.58, np.int64, 0, False, True, None),     # negative
+    (1_000_003, 4096, 0.9, np.int64, 0, False, False, None),   # shared limit
+    (1_000_003, 4097, 0.9, np.int64, 0, False, False, None),   # global
+    (17, 3, 1.0, np.int64, 0, False, False, None),
+    # sorted runs (the run pre-reduce and the warp combine), each length
+    # around a lane's 16 rows and a warp's 512, in both target paths
+    (1 << 22, 1 << 21, 0.86, np.int64, 0, False, False, 1),
+    (1 << 22, 1 << 21, 0.86, np.int64, 0, False, False, 31),
+    (1 << 22, 4096, 0.86, np.int64, 0, False, False, 32),
+    (1 << 22, 1 << 21, 0.86, np.int64, 0, False, False, 33),
+    (1 << 22, 1024, 0.86, np.int64, 0, False, False, 255),
+    (1 << 22, 1 << 21, 0.86, np.int64, 0, False, False, 256),
+    (1 << 22, 4096, 0.86, np.int64, 0, False, False, 257),
+    (1 << 22, 1 << 21, 0.86, np.int64, 0, False, False, 565),
+    (1 << 22, 1024, 0.86, np.int64, 0, False, False, 565),
+    (1 << 22, 1 << 21, 1.0, np.int64, 0, False, False, 1 << 22),  # one run
+    (1 << 22, 1024, 1.0, np.int64, 0, False, False, 1 << 22),
+    (1 << 22, 1 << 21, 0.58, np.int64, 0, True, False, 565),   # stray ids
+    (1 << 22, 1024, 0.58, np.int64, 0, True, False, 33),
+    (1 << 22, 1 << 21, 0.86, np.int64, 1, False, False, 565),  # misaligned
+    # one segment (the ungrouped reduce)
+    (1 << 22, 1, 0.0, np.int64, 0, False, False, None),
+    (1 << 22, 1, 0.58, np.int64, 0, False, False, None),
+    (1 << 22, 1, 1.0, np.int64, 0, False, False, None),
+    (1 << 22, 1, 0.58, np.int64, 1, False, False, None),       # misaligned
+    (1_000_003, 1, 0.58, np.int64, 0, True, False, None)])
 def test_bit_kernel_equals_plain(cuda_device, kind, n, segs, live, dtype,
-                                 off, stray, negative):
+                                 off, stray, negative, runs):
     v, m, g = _bit_inputs(cuda_device, n, segs, live, dtype, off, stray,
-                          negative=negative)
-    count = SK.partition_histogram(g, m, segs)
+                          negative=negative, runs=runs)
+    # the kernel's count: the weighted rows of each segment (the histogram
+    # clips an id outside the segments into the first or the last)
+    count = SK.partition_histogram(g, m & (g >= 0) & (g < segs), segs)
     before = SK.LAUNCHES["segment_bits"]
     got = SK.segment_bits(v, m, g, segs, kind, count)
     assert SK.LAUNCHES["segment_bits"] == before + 1
@@ -2148,6 +2212,27 @@ def test_bit_kernel_in_a_captured_graph(cuda_device, kind):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, SK.segment_bits_plain(v, m, g, 1024, kind))
+
+
+@pytest.mark.parametrize("kind", BIT_KINDS)
+@pytest.mark.parametrize("segs", [1024, 1 << 21])
+def test_bit_kernel_sorted_in_a_captured_graph(cuda_device, kind, segs):
+    """Sorted runs of 565 rows (a whole program's flow) inside a CUDA graph
+    capture: the replay equals the eager call on the same inputs."""
+    v, m, g = _bit_inputs(cuda_device, 1 << 22, segs, 0.86, runs=565)
+    SK.prepare(cuda_device)
+    eager = SK.segment_bits(v, m, g, segs, kind,
+                            SK.partition_histogram(g, m, segs))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = SK.segment_bits(v, m, g, segs, kind,
+                              SK.partition_histogram(g, m, segs))
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert torch.equal(out, SK.segment_bits_plain(v, m, g, segs, kind))
 
 
 @pytest.fixture(scope="module")

@@ -3,6 +3,8 @@
 result or to an out-of-scope construct; tests/test_torch_golden_a.py runs
 the rest)."""
 
+import os
+
 import pytest
 
 pytest.importorskip("torch")
@@ -21,3 +23,12 @@ def corpus():
 @pytest.mark.parametrize("path,index", G.cases("j", "z"))
 def test_golden_statement(corpus, path, index):
     corpus.check(path, index)
+
+
+@pytest.mark.parametrize("key", sorted(G.REFERENCE_RESULTS))
+def test_reference_fault_blocks_pinned(key):
+    """The committed blocks that SPARK_RESULTS overrides are still the
+    reference's wrong results: `lead` as `lag`, the default dropped."""
+    path = os.path.join(G.RESULTS, key[0])
+    assert G.blocks(path)[key[1]][1] == G.REFERENCE_RESULTS[key]
+    assert G.SPARK_RESULTS[key] != G.REFERENCE_RESULTS[key]

@@ -209,6 +209,38 @@ def test_shift(offset):
             _same(jd, td, jv, tv)
 
 
+@pytest.mark.parametrize("offset", [1, 2, -1, -3])
+def test_shift_default(offset):
+    """The default of lag/lead (values in the layout's sorted order) against
+    the reference's op, which takes one too: a row whose source lies
+    outside its partition gets the default, a NULL source stays NULL; and
+    the default's own NULLs (which the reference's op does not take)."""
+    rng = np.random.default_rng(31)
+    for seed, kind, asc, nf in CASES[1::3]:
+        jl, tl, values, vv, _ = _layouts(seed, kind, asc, nf)
+        v = values["int32"]
+        dflt = rng.integers(-100, 100, CAP).astype(np.int32)
+        for valid in (None, vv):
+            jd, jv = JW.w_shift(jl, jnp.asarray(v), None if valid is None
+                                else jnp.asarray(valid), offset,
+                                default_data=jnp.asarray(dflt))
+            td, tv = TW.w_shift(tl, torch.from_numpy(v), None
+                                if valid is None else torch.from_numpy(valid),
+                                offset, torch.from_numpy(dflt))
+            _same(jd, td, jv, tv)
+        dv = rng.random(CAP) < 0.7
+        _, plain_v = TW.w_shift(tl, torch.from_numpy(v),
+                                torch.from_numpy(vv), offset)
+        td, tv = TW.w_shift(tl, torch.from_numpy(v), torch.from_numpy(vv),
+                            offset, torch.from_numpy(dflt),
+                            torch.from_numpy(dv))
+        outside = ~((tl.pos - offset >= tl.seg_start) &
+                    (tl.pos - offset <= tl.seg_start + tl.seg_size - 1))
+        assert torch.equal(tv[outside], torch.from_numpy(dv)[outside])
+        assert torch.equal(td[outside], torch.from_numpy(dflt)[outside])
+        assert torch.equal(tv[~outside], plain_v[~outside])
+
+
 @pytest.mark.parametrize("fn", ["first", "last", "last_whole", "nth",
                                 "nth_whole"])
 def test_value_functions(fn):

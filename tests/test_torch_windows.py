@@ -26,9 +26,10 @@ from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import TorchSession  # noqa: E402
 from spark_tpu_torch.api.window import Window  # noqa: E402
 from spark_tpu_torch.errors import NotPortedError  # noqa: E402
-from tests.test_torch_cuda import WINDOW_CONSTRUCTS  # noqa: E402
+from tests.test_torch_cuda import LEADS, WINDOW_CONSTRUCTS  # noqa: E402
 from tests.test_torch_cuda import construct_rows as _rows  # noqa: E402
 from tests.test_torch_cuda import construct_tables  # noqa: E402
+from tests.test_torch_cuda import shift_oracle  # noqa: E402
 from tests.test_torch_tpcds_slice import _ops  # noqa: E402
 from tests.test_torch_tpcds_store import renumber  # noqa: E402
 
@@ -56,7 +57,10 @@ def sessions():
     t.stop()
 
 
-def check_pair(jd, td, ordered: bool) -> None:
+def check_pair(jd, td, ordered: bool, apart=()) -> None:
+    """The two engines' plans and results agree; the columns named in
+    `apart` are left out of the result comparison (their caller holds
+    them to a plain oracle)."""
     for phase in ("analyzed", "optimized"):
         want = getattr(jd.query_execution, phase).tree_string()
         got = getattr(td.query_execution, phase).tree_string()
@@ -64,14 +68,27 @@ def check_pair(jd, td, ordered: bool) -> None:
     assert _ops(td) == _ops(jd)
     want, got = jd.toArrow(), td.toArrow()
     assert got.schema == want.schema
-    assert _rows(got, ordered) == _rows(want, ordered)
+    keep = [c for c in want.column_names if c not in apart]
+    assert _rows(got.select(keep), ordered) == \
+        _rows(want.select(keep), ordered)
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_window_matches_reference(sessions, name):
+    """Each case in both engines; its lead columns are held to Spark's
+    semantics (`shift_oracle`), and the reference's to lag's."""
     j, t = sessions
     text, ordered = WINDOW_CONSTRUCTS[name]
-    check_pair(j.sql(text), t.sql(text), ordered)
+    leads = LEADS.get(name, {})
+    jd, td = j.sql(text), t.sql(text)
+    check_pair(jd, td, ordered, apart=tuple(leads))
+    rows = construct_tables()["t3"].to_pylist()
+    for col, (arg, off) in leads.items():
+        order = [("k", False)]
+        assert _by_k(td.toArrow(), col) == \
+            shift_oracle(rows, "g", order, arg, off)
+        assert _by_k(jd.toArrow(), col) == \
+            shift_oracle(rows, "g", order, arg, -off)
 
 
 def test_window_plans_one_node_per_spec(sessions):
@@ -119,7 +136,15 @@ def test_dataframe_windows_match_reference(sessions):
         s.table_t3 = lambda s=s: s.createDataFrame(construct_tables()["t3"])
     jd = _dataframe(j, (JF, JWindow))
     td = _dataframe(t, (F, Window))
-    check_pair(jd, td, False)
+    check_pair(jd, td, False, apart=("lx",))
+    # lead("x", 2): the port to Spark's semantics, the reference computes
+    # lag("x", 2) (ROADMAP.md C18)
+    rows = construct_tables()["t3"].to_pylist()
+    order = [("o", True), ("k", False)]
+    lead2 = shift_oracle(rows, "g", order, "x", -2)
+    lag2 = shift_oracle(rows, "g", order, "x", 2)
+    assert _by_k(td.toArrow(), "lx") == lead2
+    assert _by_k(jd.toArrow(), "lx") == lag2
 
 
 def test_dataframe_top_n_equals_sql(sessions):
@@ -133,8 +158,6 @@ def test_dataframe_top_n_equals_sql(sessions):
 
 
 UNPORTED = {
-    "lag_default": ("SELECT lag(o, 1, 0) OVER (PARTITION BY g ORDER BY k) "
-                    "FROM t3", "lag with a default value"),
     "string_max": ("SELECT max(c) OVER (PARTITION BY g) FROM t3",
                    "max of a string over a window"),
     "range_two_keys": ("SELECT sum(i) OVER (PARTITION BY g ORDER BY m, k "
@@ -156,3 +179,115 @@ def test_unported_windows_raise(sessions, name):
     with pytest.raises(NotPortedError) as err:
         t.sql(text).toArrow()
     assert what.lower() in err.value.what.lower()
+
+
+# --- lag and lead held to Spark's semantics -------------------------------
+
+def _by_k(table, col) -> dict:
+    return dict(zip(table.column("k").to_pylist(),
+                    table.column(col).to_pylist()))
+
+
+# (output column, SQL text, shift_oracle's column, offset, default and
+# default column)
+SHIFTS = [
+    ("a", "lead(x)", ("x", -1)),
+    ("b", "lag(x, 1, 0)", ("x", 1, 0)),               # decimal, int default
+    ("c", "lead(x, 1, -1)", ("x", -1, -1)),
+    ("d", "lead(i, 2)", ("i", -2)),
+    ("e", "lag(i, 3, -5)", ("i", 3, -5)),
+    ("f", "lead(c, 1, 'none')", ("c", -1, "none")),   # string default
+    ("g2", "lag(o, 500)", ("o", 500)),                # past the partition
+    ("h", "lead(o, 450, 7)", ("o", -450, 7)),
+    ("l", "lead(o, 1, NULL)", ("o", -1)),             # NULL: no default
+    ("q", "lag(o, 1, m)", ("o", 1, None, "m")),       # the current row's m
+    ("u", "lead(i, 1, o)", ("i", -1, None, "o")),     # a nullable default
+    ("r", "lag(dt)", ("dt", 1)),
+]
+
+
+@pytest.fixture(scope="module")
+def tier_sessions():
+    out = {}
+    for tier in ("operator", "stage", "auto"):
+        t = TorchSession(f"shift-{tier}", dict(
+            CONF, **{"spark.tpu.compile.tier": tier,
+                     "spark.tpu.fusion.minRows": 0}), device="cpu")
+        t.createDataFrame(construct_tables()["t3"]) \
+            .createOrReplaceTempView("t3")
+        out[tier] = t
+    yield out
+    for t in out.values():
+        t.stop()
+
+
+@pytest.mark.parametrize("tier", ["operator", "stage", "auto"])
+def test_lead_lag_match_spark_sql(tier_sessions, tier):
+    """lag and lead, with and without a default, through SQL over t3's
+    partitions (NULL keys among them), NULL values, a decimal column
+    with an integer default, a string default, a default read from the
+    current row, and offsets past every partition: each column equals
+    Spark's semantics (`shift_oracle`)."""
+    t = tier_sessions[tier]
+    cols = ", ".join(f"{text} OVER w AS {name}" for name, text, _ in SHIFTS)
+    df = t.sql(f"SELECT k, {cols} FROM t3 "
+               "WINDOW w AS (PARTITION BY g ORDER BY o DESC, k)")
+    got = df.toArrow()
+    rows = construct_tables()["t3"].to_pylist()
+    order = [("o", True), ("k", False)]
+    for name, _, args in SHIFTS:
+        assert _by_k(got, name) == shift_oracle(rows, "g", order, *args), \
+            name
+    plan = df.query_execution.physical.tree_string()
+    assert "lead" in plan and "lag" in plan
+
+
+@pytest.mark.parametrize("tier", ["operator", "stage", "auto"])
+def test_lead_lag_match_spark_dataframe(tier_sessions, tier):
+    """The DataFrame forms (F.lag/F.lead with an offset and a default) over
+    several partitions, equal to Spark's semantics; the three-row case of
+    the issue's oracle too: lead(v) 20, 30, NULL; lead(v, 2) 30, NULL,
+    NULL; lag(v, 1, -1) -1, 10, 20; lead(v, 1, -1) 20, 30, -1."""
+    import pyarrow as pa
+
+    t = tier_sessions[tier]
+    w = Window.partitionBy("g").orderBy("m", "k")
+    got = t.sql("SELECT * FROM t3").select(
+        "k", F.lead("x").over(w).alias("a"),
+        F.lag("x", 2, 0).over(w).alias("b"),
+        F.lead("c", 3, "zz").over(w).alias("c2"),
+        F.lag("i", 1, -1).over(w).alias("d")).toArrow()
+    rows = construct_tables()["t3"].to_pylist()
+    order = [("m", False), ("k", False)]
+    assert _by_k(got, "a") == shift_oracle(rows, "g", order, "x", -1)
+    assert _by_k(got, "b") == shift_oracle(rows, "g", order, "x", 2, 0)
+    assert _by_k(got, "c2") == shift_oracle(rows, "g", order, "c", -3, "zz")
+    assert _by_k(got, "d") == shift_oracle(rows, "g", order, "i", 1, -1)
+    small = t.createDataFrame(pa.table({"k": [1, 2, 3], "v": [10, 20, 30]}))
+    w1 = Window.orderBy("k")
+    res = small.select(
+        "k", F.lead("v").over(w1).alias("ld"),
+        F.lead("v", 2).over(w1).alias("ld2"),
+        F.lag("v", 1, -1).over(w1).alias("lg"),
+        F.lead("v", 1, -1).over(w1).alias("ldd")).orderBy("k").toArrow()
+    assert res.column("ld").to_pylist() == [20, 30, None]
+    assert res.column("ld2").to_pylist() == [30, None, None]
+    assert res.column("lg").to_pylist() == [-1, 10, 20]
+    assert res.column("ldd").to_pylist() == [20, 30, -1]
+
+
+def test_reference_lead_lag_faults_pinned(sessions):
+    """The reference's two faults, pinned as its own: its lead computes lag
+    (ROADMAP.md C18) and it drops lag/lead's default (NULL where Spark
+    gives the default)."""
+    j, _ = sessions
+    got = j.sql("SELECT k, lead(i) OVER w AS a, lag(i, 1, -1) OVER w AS b, "
+                "lead(i, 1, -1) OVER w AS c FROM t3 "
+                "WINDOW w AS (PARTITION BY g ORDER BY m, k)").toArrow()
+    rows = construct_tables()["t3"].to_pylist()
+    order = [("m", False), ("k", False)]
+    lag1 = shift_oracle(rows, "g", order, "i", 1)
+    assert _by_k(got, "a") == lag1
+    assert _by_k(got, "b") == lag1
+    assert _by_k(got, "c") == lag1
+    assert lag1 != shift_oracle(rows, "g", order, "i", -1)
