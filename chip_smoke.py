@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      card (the bit kernel, `check_bit_kernel`: bit_and/bit_or/bit_xor per
      segment at 2^22 rows and 8, 1,024 and 2^21 segments, all-masked,
      negative, int32, stray masked ids, misaligned views and inside a
-     captured graph; no library call computes it), at the main path's
+     captured graph; no library call computes it; the bloom kernel,
+     `check_bloom_kernel`: the runtime join filter's bitset build at
+     131,072 and 2^21 rows and probe at 2^22 and 2^25 rows, 0/58/100%
+     live, duplicate keys, misaligned views and inside a captured graph,
+     exactly; no library call computes it), at the main path's
      shapes, at each switch point of the kernels' paths and on misaligned
      views, with its device time alone (device_ms:
      CUDA events around 100 launches of the C entry point on buffers
@@ -45,7 +49,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      histogram call) or `stage` (physical/fusion.py: a fused stage is a
      CUDA graph captured once and replayed per batch); each fused batch
      and each whole program's attempt must be one replay, and the
-     histogram calls inside replays count. Each prints its report: the
+     histogram calls inside replays count. Every query runs through the
+     stage scheduler with AQE on (spark_tpu_torch/exec/scheduler.py,
+     physical/adaptive.py), as the reference's default does; each run
+     prints its stage count and AQE counters (partitions coalesced, joins
+     demoted, probe shuffles skipped, skew splits) and fails on a stage
+     retry. Each prints its report: the
      decision, whole dispatches, capacity retries and degrades, fused
      stages, captures, replays, cache hits, batches the minRows gate sent
      to the unfused kernels, capture ms, the copies' device ms, graph
@@ -61,13 +70,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    73,049-row date_dim and summed by year (broadcast, dense
                    direct-address build), 1 shuffle partition;
        sort:       bench.py's bench_sort, orderBy over 1e8 int64 keys in one
-                   2^27-row tile;
+                   2^27-row tile; then the budget leg's sort on its
+                   session: the same keys under a 512 MiB device budget,
+                   through the external range-bucketed sort (16 buckets);
        range_sort: the main table, repartition(8).orderBy(k, desc(v))
                    through a range exchange;
        topk:       the main table, orderBy(desc(v), k).limit(100);
        q78:        TPC-DS q78's first CTE shape: 2e7 store_sales LEFT JOIN
                    2e6 store_returns on (ticket, item), rows with no return
                    counted and summed by store (shuffled, sorted probe);
+                   then the budget leg's join on its session: the same
+                   query under a budget that leaves a build partition a
+                   quarter tile, through the grace join (4 fragments a
+                   partition), to the same oracle;
        window:     Spark's top-N-per-group idiom over the main table in 8
                    round-robin partitions: row_number, rank, dense_rank,
                    the running sum with peers, lag and a 3-row max over
@@ -81,7 +96,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    stage tier with spark.tpu.fusion.minRows 0 and at
                    forced `whole`, equal to its committed golden (LIMIT
                    dropped) and to the port on the CPU at the operator
-                   tier; then each but TPCDS_SF10_CUT (q72), at `auto`
+                   tier; then each but TPCDS_SF10_CUT (q72) and
+                   TPCDS_TIME_CUT (q64), at `auto`
                    (TPCDS_CONF; its decision held to TPCDS_TIERS), through
                    session.sql over temp views of the 24 tables they read
                    at SF10 row counts (28,800,991 store_sales and
@@ -112,6 +128,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    TPCDS_SCALAR_SUBQUERIES); last q3, q7 and q19 once
                    more at each of the whole, stage and operator tiers on
                    the same session, each to its oracle; then the
+                   runtime_filters leg: q3, q7 and q19 at forced `stage`
+                   with both runtime join filters on, each equal to its
+                   result above, the bloom kernel launched and held to
+                   its plain version at every input it was given; then the
                    expressions leg on that session and its views: the
                    scalar functions of EXPRESSION_QUERIES at `auto`,
                    stage and forced `whole`, each to numpy/Python oracle
@@ -154,7 +174,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    predicate, spark.range over 2^28 rows and at a negative
                    step, and SELECT without FROM; the files are deleted;
   6. a JSON line with every kernel's numbers (the bit kernel's launches
-     are the aggregates leg's bits statements'), then, last, the result line
+     are the aggregates leg's bits statements', the bloom kernel's the
+     runtime_filters leg's), the stage retries over every session (0),
+     then, last, the result line
      {"ok": true, "device": {...}}.
 """
 
@@ -178,11 +200,19 @@ TILE = 1 << 22
 PARTITIONS = 8
 REG_BUCKETS = 16                # the float32 sums' register-path limit
 SMEM_BUCKETS = 57344            # the kernels' shared-memory bucket limit
-# histogram wrapper calls of one main query: 5 round-robin input tiles + 8
-# hash-exchange inputs + 8 partial tiles x 1 (every partial op weighs rows
-# by the row mask) + 8 final tiles x 5 (the row mask and the validities of
-# sum(v2), min, max and avg's sum); each call issues two CUDA kernels
-MAIN_HISTOGRAMS = 5 + 8 + 8 * 1 + 8 * 5
+# histogram wrapper calls of one main query at the stage and operator
+# tiers: 5 round-robin input tiles + 8 hash-exchange inputs + 8 partial
+# tiles x 1 (every partial op weighs rows by the row mask) + 4 final passes
+# x 5 (the row mask and the validities of sum(v2), min, max and avg's
+# sum); each call issues two CUDA kernels. The 4: AQE merges the final
+# aggregate's 8 partitions in adjacent pairs (MAIN_COALESCED). Each holds
+# 943,630-949,690 partial rows (each round-robin partition's ~2.44M rows
+# keep ~0.945M of the 2^20 keys, an eighth of them hashed to each reducer;
+# counted with numpy from the seeded table) of 7 columns at 8 B
+# (`_row_width`, 56 B), under the 64 MiB advisory size of 1,198,372 rows;
+# two reach it
+MAIN_COALESCED = 4
+MAIN_HISTOGRAMS = 5 + 8 + 8 * 1 + (8 - MAIN_COALESCED) * 5
 # the kernels of spark_tpu_torch/csrc/scatter_kernels.cu, by name
 SOURCE_KERNELS = ("scatter_shared", "sum_registers", "merge_partials",
                   "zero_output", "scatter_global")
@@ -2133,6 +2163,11 @@ TPCDS_QUERIES = tuple(TPCDS_PLAN_OPS)
 # reference's, joins inventory to catalog_sales on the item alone first,
 # 14,401,261 sales lines x 2,610 snapshots of half the items = 1.9e10 rows
 TPCDS_SF10_CUT = ("q72",)
+# cut for time, so the budget and runtime_filters legs fit in the limit:
+# q64's first sql() took 23.5-39.4 s on the card (its CTE body's 17
+# capacity retries); its plan is still held at SF10 by the tests, and its
+# CPU check was already skipped (TPCDS_CPU_SKIP)
+TPCDS_TIME_CUT = ("q64",)
 # the queries held to numpy oracles at SF10 (tpcds_oracle)
 TPCDS_ORACLES = ("q3", "q7", "q19")
 # the query files that return no rows over tpcds_data, held to exactly none
@@ -2196,9 +2231,13 @@ def leg_calls(leg: str) -> int:
         # round-robin input tiles + p hash-exchange inputs for the sales
         # side + 1 returns tile + p partial tiles x 1 (the row mask; the
         # paid column comes from the probe side and has no nulls) + p
-        # hash-exchange inputs + p final tiles x 2 (the row mask and the
-        # sum buffer's validity)
-        "q78": t + p + 1 + p + p + p * 2,
+        # hash-exchange inputs + 1 final pass x 2 (the row mask and the
+        # sum buffer's validity): AQE merges the final aggregate's p
+        # partitions (at most 102 stores of each of p partials) into one.
+        # The join's partitions stay apart: each holds about 2.5M sales
+        # rows of 4 columns (32 B), over the 2,097,152 rows of the 64 MiB
+        # advisory size
+        "q78": t + p + 1 + p + p + 1 * 2,
         # round-robin input tiles + one hash-exchange input per partition;
         # the window's sorts and scans count nothing
         "window": t + p,
@@ -2785,6 +2824,226 @@ def check_bit_kernel(torch, sk) -> dict:
     return main
 
 
+# --- the bloom runtime filter's kernel (csrc/bloom_filter.cu) --------------
+
+BLOOM_LIBRARY = "none: torch has no call that builds or probes a bloom bitset"
+
+
+def bloom_bare(torch, h, m, nbits, off0, off1, bits=None):
+    """(launch, out): `launch()` runs the build (bits None) or the probe
+    entry point once on the current stream into outputs allocated here
+    once, with no checks and no launch count; for timing the kernel alone.
+    Takes a contiguous int64 h and bool m on the current device."""
+    from spark_tpu_torch.ops import bloom as B
+    from spark_tpu_torch.ops.scatter_kernels import _stream
+
+    lib, n = B._lib(), h.shape[0]
+    if bits is None:
+        out = torch.empty(nbits, dtype=torch.uint8, device=h.device)
+
+        def launch():
+            return lib.spark_bloom_build(h.data_ptr(), m.data_ptr(), n,
+                                         nbits, off0, off1, out.data_ptr(),
+                                         _stream(h))
+    else:
+        out = (torch.empty(n, dtype=torch.bool, device=h.device),
+               torch.empty(1, dtype=torch.int64, device=h.device))
+
+        def launch():
+            return lib.spark_bloom_probe(
+                bits.data_ptr(), h.data_ptr(), m.data_ptr(), n, nbits, off0,
+                off1, out[0].data_ptr(), out[1].data_ptr(), _stream(h))
+    if launch() != 0:
+        fail(f"the bloom bare launch at n={n}, nbits={nbits} failed")
+    torch.cuda.synchronize()
+    return launch, out
+
+
+def bloom_check(torch, label: str, h, m, nbits: int, bits=None):
+    """The build (bits None) or the probe on the card tensors held against
+    its plain version exactly: every bit, or every mask byte and the live
+    count. Returns the plain result."""
+    from spark_tpu_torch.ops import bloom as B
+    from spark_tpu_torch.utils.sketch import bloom_position_offsets
+
+    off0, off1 = bloom_position_offsets(2)
+    if bits is None:
+        got = B.bloom_build(h, m, nbits, off0, off1)
+        exp = B.bloom_build_plain(h, m, nbits, off0, off1)
+        torch.cuda.synchronize()
+        if not torch.equal(got, exp):
+            fail(f"bloom_build {label}: {int((got != exp).sum())} of "
+                 f"{nbits} bits differ from the plain version")
+        return exp
+    got, live = B.bloom_probe(bits, h, m, nbits, off0, off1)
+    exp, exp_live = B.bloom_probe_plain(bits, h, m, nbits, off0, off1)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, exp) and torch.equal(live, exp_live)):
+        fail(f"bloom_probe {label}: {int((got != exp).sum())} mask bytes "
+             f"differ, live {int(live)} against {int(exp_live)}")
+    return exp, exp_live
+
+
+def bloom_row(torch, label: str, h, m, nbits: int, bits=None) -> dict:
+    """`bloom_check`, the bare launch too, then its times: device_ms (the
+    entry point alone: its memset and kernel), call_ms (the wrapper),
+    the plain version's device_ms; no library call computes it. The
+    bound: 9 B a row read (hash and mask) plus nbits bytes written for
+    the build, 1 B a row and the count for the probe; the bitset (at most
+    16 MiB) stays in the 50 MB L2, so its scattered stores and gathers
+    are left out."""
+    from spark_tpu_torch.ops import bloom as B
+    from spark_tpu_torch.utils.sketch import bloom_position_offsets
+
+    off0, off1 = bloom_position_offsets(2)
+    exp = bloom_check(torch, label, h, m, nbits, bits)
+    hh, mm = h.to(torch.int64).contiguous(), m.to(torch.bool).contiguous()
+    launch, bare = bloom_bare(torch, hh, mm, nbits, off0, off1, bits)
+    same = torch.equal(bare, exp) if bits is None else (
+        torch.equal(bare[0], exp[0]) and torch.equal(bare[1], exp[1]))
+    if not same:
+        fail(f"bloom {label}: the bare launch differs")
+    n = h.shape[0]
+    build = bits is None
+    row = {"kernel": "bloom_build" if build else "bloom_probe",
+           "shape": label, "rows": n, "nbits": nbits,
+           "live_rows": int(m.sum()), "max_abs_err": 0,
+           "bound_ms": bound_ms(n * 9 + (nbits if build else n + 8)),
+           "bound_note": "bitset gathers and stores in L2, left out",
+           "device_ms": device_ms(launch),
+           "call_ms": call_ms(
+               (lambda: B.bloom_build(h, m, nbits, off0, off1)) if build
+               else (lambda: B.bloom_probe(bits, h, m, nbits, off0, off1))),
+           "plain_ms": device_ms(
+               (lambda: B.bloom_build_plain(h, m, nbits, off0, off1))
+               if build else (lambda: B.bloom_probe_plain(
+                   bits, h, m, nbits, off0, off1)), iters=20),
+           "library_ms": None, "library": BLOOM_LIBRARY}
+    row["ms"] = row["device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    print("kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def check_bloom_kernel(torch, sk) -> dict:
+    """Phase 3 for the bloom kernel: build at 131,072 rows (nbits 2^20) and
+    2^21 rows (nbits 2^24), probe at 2^22 and 2^25 rows against each, at
+    0%, 58% and 100% live (timed at 58%), then duplicate keys, misaligned
+    views and one build and probe inside a captured CUDA graph (checked),
+    each held to the plain version exactly. Returns the rows the kernels
+    line reports (the build and probe at 2^21 rows, 2^24 bits, 2^25
+    probe rows, 58% live)."""
+    import numpy as np
+
+    from spark_tpu_torch.ops import bloom as B
+    from spark_tpu_torch.utils.sketch import bloom_position_offsets
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    off0, off1 = bloom_position_offsets(2)
+
+    def card(arr, off=0):
+        full = np.concatenate([np.zeros(off, arr.dtype), arr])
+        return torch.from_numpy(full).to(dev)[off:]
+
+    def hashes(n, distinct=None):
+        h = rng.integers(-(1 << 63), (1 << 63) - 1, distinct or n,
+                         dtype=np.int64)
+        return h if distinct is None else rng.choice(h, n)
+
+    main, checks = {}, 0
+    for nb, nbits, npr in ((131_072, 1 << 20, 1 << 22),
+                           (1 << 21, 1 << 24, 1 << 25)):
+        bh = hashes(nb)
+        for live in (0.0, 0.58, 1.0):
+            label = f"{nb:,} build rows, nbits {nbits:,}, {live:.0%} live"
+            h, m = card(bh), card(rng.random(nb) < live)
+            if live == 0.58:
+                build_row = bloom_row(torch, label, h, m, nbits)
+            else:
+                bloom_check(torch, label, h, m, nbits)
+                checks += 1
+            bits = B.bloom_build(h, m, nbits, off0, off1)
+            # a quarter of the probe rows are build keys
+            ph = hashes(npr)
+            ph[: npr // 4] = rng.choice(bh, npr // 4)
+            ph_d, pm = card(ph), card(rng.random(npr) < live)
+            plabel = f"{npr:,} probe rows, nbits {nbits:,}, {live:.0%} live"
+            if live == 0.58:
+                probe_row = bloom_row(torch, plabel, ph_d, pm, nbits, bits)
+                if nb == 1 << 21:
+                    main = {"bloom_build": build_row,
+                            "bloom_probe": probe_row}
+            else:
+                bloom_check(torch, plabel, ph_d, pm, nbits, bits)
+                checks += 1
+            del ph_d, pm
+    # duplicate keys, and views off 16-byte alignment
+    for label, bh, off in (("duplicate keys", hashes(1 << 21, 1 << 12), 0),
+                           ("h[1:] mask[1:]", hashes(1 << 21), 1)):
+        h, m = card(bh, off), card(rng.random(1 << 21) < 0.58, off)
+        bits = bloom_check(torch, f"2^21 build rows, {label}", h, m, 1 << 24)
+        ph = card(np.concatenate([bh, hashes(1 << 21)]), off)
+        pm = card(rng.random(1 << 22) < 0.58, off)
+        bloom_check(torch, f"2^22 probe rows, {label}", ph, pm, 1 << 24,
+                    bits)
+        checks += 2
+    # build and probe inside a captured graph: the replay equals the
+    # plain versions
+    h, m = card(hashes(131_072)), card(rng.random(131_072) < 0.58)
+    ph, pm = card(hashes(1 << 22)), card(rng.random(1 << 22) < 0.58)
+    ph[:131_072] = h
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gbits = B.bloom_build(h, m, 1 << 20, off0, off1)
+        gout, glive = B.bloom_probe(gbits, ph, pm, 1 << 20, off0, off1)
+    gout.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    exp_bits = B.bloom_build_plain(h, m, 1 << 20, off0, off1)
+    exp, exp_live = B.bloom_probe_plain(exp_bits, ph, pm, 1 << 20, off0,
+                                        off1)
+    if not (torch.equal(gbits, exp_bits) and torch.equal(gout, exp)
+            and torch.equal(glive, exp_live)):
+        fail("bloom: the graph replay differs from the plain version")
+    print(f"bloom: 4 timed cases and {checks + 1} more equal the plain "
+          "version exactly; a captured graph's replay equals it", flush=True)
+    return main
+
+
+def path_blooms(torch, label: str, runs) -> int:
+    """The bloom kernel at a path's own inputs: one more run of each of
+    `runs` keeps a copy of the inputs of every bloom_build and
+    bloom_probe call, then holds each copy against the plain version
+    exactly. Returns the number of inputs held."""
+    from spark_tpu_torch.ops import bloom as B
+
+    real_build, real_probe = B.bloom_build, B.bloom_probe
+    kept = []
+
+    def build(h, mask, nbits, off0, off1):
+        kept.append(("build", h.clone(), mask.clone(), nbits, None))
+        return real_build(h, mask, nbits, off0, off1)
+
+    def probe(bits, h, mask, nbits, off0, off1):
+        kept.append(("probe", h.clone(), mask.clone(), nbits, bits.clone()))
+        return real_probe(bits, h, mask, nbits, off0, off1)
+
+    B.bloom_build, B.bloom_probe = build, probe
+    try:
+        for run in runs:
+            run()
+    finally:
+        B.bloom_build, B.bloom_probe = real_build, real_probe
+    for kind, h, m, nbits, bits in kept:
+        bloom_check(torch, f"{label} {kind}: {h.shape[0]:,} rows, "
+                    f"nbits {nbits:,}", h, m, nbits, bits)
+    print(f"{label}: the bloom kernel equals its plain version at "
+          f"{len(kept)} path inputs", flush=True)
+    return len(kept)
+
+
 TIER = "spark.tpu.compile.tier"
 
 
@@ -2905,6 +3164,20 @@ def decision_report(df) -> dict:
             "runtime_degraded": d.details.get("runtime_degraded")}
 
 
+# the stage scheduler's and AQE's counters each counted run reports: its
+# stage count, the four AQE decisions, and the stage retries (held to 0)
+SCHED_METRICS = ("scheduler.stages_completed", "scheduler.stage_retries",
+                 "aqe.partitions_coalesced", "aqe.broadcast_demotions",
+                 "aqe.probe_shuffles_elided", "aqe.skew_splits")
+
+
+def sched_report(sched: dict) -> dict:
+    """The stage count and AQE counters of a counted run, short keys."""
+    return {"stages": sched["scheduler.stages_completed"],
+            "stage_retries": sched["scheduler.stage_retries"],
+            **{k.split(".", 1)[1]: sched[k] for k in SCHED_METRICS[2:]}}
+
+
 WHOLE_METRICS = ("whole_query.dispatches", "whole_query.capacity_retries",
                  "whole_query.runtime_degraded")
 
@@ -2949,6 +3222,10 @@ def counted_run(torch, sk, spark, run):
         m0.get("fusion.min_rows_gated", 0)
     whole = {k.split(".")[1]: m1.get(k, 0) - m0.get(k, 0)
              for k in WHOLE_METRICS}
+    sched = {k: m1.get(k, 0) - m0.get(k, 0) for k in SCHED_METRICS}
+    if sched["scheduler.stage_retries"]:
+        fail(f"{sched['scheduler.stage_retries']} stage retries: a retry "
+             "must not hide a fault")
     # a fused batch and a whole program's attempt are one replay each
     fused = sum(n for k, n in dispatches.items()
                 if k.startswith("fused_") or k == "whole_query")
@@ -2961,7 +3238,8 @@ def counted_run(torch, sk, spark, run):
         fail(f"{whole['dispatches']} whole-query dispatches counted, "
              f"{dispatches.get('whole_query', 0)} made")
     return out, secs, launches, {"cache": cache, "dispatches": dispatches,
-                                 "gated_batches": gated, "whole": whole}
+                                 "gated_batches": gated, "whole": whole,
+                                 "sched": sched}
 
 
 def busy_share(torch, run) -> dict:
@@ -3049,7 +3327,7 @@ def tier_run(torch, sk, card: str, label: str, spark, tier: str, run,
             captures=cc.get("stage_cache.captures", 0),
             replays=cc.get("stage_cache.replays", 0),
             capture_ms=cc.get("stage_cache.capture_ms", 0.0),
-            card=card)), flush=True)
+            **sched_report(st["sched"]), card=card)), flush=True)
     return launches
 
 
@@ -3133,7 +3411,8 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     calls = launches["partition_histogram"]
     tiers_out[tier] = launches
     print(f"{label} launches {json.dumps(launches)}; operator dispatches "
-          f"{json.dumps(st['dispatches'])}", flush=True)
+          f"{json.dumps(st['dispatches'])}; stages and AQE "
+          f"{json.dumps(sched_report(st['sched']))}", flush=True)
     if tier == "whole" and not st["whole"]["runtime_degraded"]:
         # a whole program calls neither kernel (materialised CTE bodies
         # and scalar subqueries, which run before it, may: `main_calls`)
@@ -3208,7 +3487,7 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
         "warm_median_s": warm_s,
         "device_idle_share": bd.get("device_idle_share", "not measured"),
         "dispatches": st["dispatches"], "histogram_calls": calls,
-        "card": card})
+        **sched_report(st["sched"]), "card": card})
     print(f"{label} report " + json.dumps(report), flush=True)
 
     if custom:
@@ -3249,10 +3528,18 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     return launches
 
 
+# the metrics of every card session the script makes (not the sessions,
+# which hold their views' tables): the end of the run holds their stage
+# retries, summed over every statement, to 0
+SESSION_METRICS: list = []
+
+
 def session(conf: dict):
     from spark_tpu_torch import TorchSession
 
-    return TorchSession("chip_smoke", dict(conf))
+    s = TorchSession("chip_smoke", dict(conf))
+    SESSION_METRICS.append(s._metrics)
+    return s
 
 
 def main_table():
@@ -3322,7 +3609,12 @@ def main_path(torch, sk, card: str, k, v):
     def dense(metrics):
         if metrics.get("agg.dense_fast_path", 0) <= 0:
             fail("the main path did not take the dense aggregate")
-        return "the dense aggregate taken"
+        if metrics.get("aqe.partitions_coalesced", 0) != MAIN_COALESCED:
+            fail(f"the main path coalesced "
+                 f"{metrics.get('aqe.partitions_coalesced', 0)} partitions, "
+                 f"not {MAIN_COALESCED}")
+        return (f"the dense aggregate taken; {MAIN_COALESCED} partitions "
+                "coalesced")
 
     tiers = {}
     drive(torch, sk, card, "main path", df, ROWS,
@@ -3457,8 +3749,9 @@ def sort_leg(torch, sk, card: str) -> dict:
     launches = drive(torch, sk, card, "sort leg", df, SORT_ROWS,
                      ("Sort[k#",), leg_calls("sort"), check,
                      operator=leg_calls("sort"), whole=True)
+    budget = budget_sort(torch, sk, card, spark, df, check)
     spark.stop()
-    return launches
+    return launches, budget
 
 
 def range_sort_leg(torch, sk, card: str, k, v) -> dict:
@@ -3524,17 +3817,16 @@ def topk_leg(torch, sk, card: str, k, v) -> dict:
     return launches
 
 
-def q78_leg(torch, sk, card: str) -> dict:
-    """TPC-DS q78's first CTE shape: store_sales LEFT JOIN store_returns on
-    (ticket, item) where the return is null, counted and summed by store.
-    The build side (2e6 rows x 16 bytes after pruning) is over the 10 MB
-    broadcast threshold, so both sides are hash-shuffled and the two-key
-    join takes the sorted probe."""
+def q78_shape(spark, label: str = "q78"):
+    """(df, check) of TPC-DS q78's first CTE shape on `spark`: the sales
+    (2e7 rows) and returns (2e6) of numpy seed 11, the sales repartitioned
+    into PARTITIONS, their left outer join on (ticket, item) where the
+    return is null, counted and summed by store; `check(table)` holds a
+    result to the numpy oracle."""
     import numpy as np
     import pyarrow as pa
 
     import spark_tpu_torch.api.functions as F
-    from spark_tpu_torch.api.dataframe import DataFrame
     from spark_tpu_torch.physical.exchange import ShuffleExchangeExec
     from spark_tpu_torch.physical.operators import HashJoinExec
     from spark_tpu_torch.physical.partitioning import HashPartitioning
@@ -3546,8 +3838,6 @@ def q78_leg(torch, sk, card: str) -> dict:
     paid = rng.random(ROWS) * 100
     idx = rng.choice(ROWS, Q78_RETURNS, replace=False)
     amt = rng.random(Q78_RETURNS) * 50
-    spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
-                     "spark.tpu.batch.capacity": TILE})
     s = spark.createDataFrame(pa.table({
         "ss_ticket_number": ticket, "ss_item_sk": item,
         "ss_store_sk": store, "ss_net_paid": paid}))
@@ -3559,11 +3849,6 @@ def q78_leg(torch, sk, card: str) -> dict:
     df = (s.repartition(PARTITIONS).join(r, cond, "left_outer")
           .filter(F.col("sr_ticket_number").isNull())
           .groupBy("ss_store_sk").agg(F.count("*"), F.sum("ss_net_paid")))
-    def sorted_probe(metrics):
-        if metrics.get("join.sorted_probe", 0) <= 0 or \
-                metrics.get("join.dense_fast_path", 0) > 0:
-            fail("q78: the join did not take the sorted probe")
-        return "the sorted probe taken"
 
     @once
     def oracle():
@@ -3580,20 +3865,42 @@ def q78_leg(torch, sk, card: str) -> dict:
                 not (isinstance(c, ShuffleExchangeExec)
                      and isinstance(c.partitioning, HashPartitioning))
                 for c in joins[0].children):
-            fail("q78: the join is not fed by a hash exchange on each side")
+            fail(f"{label}: the join is not fed by a hash exchange on each "
+                 "side")
         kept, cnt, sums, present = oracle()
         got = out.sort_by("ss_store_sk")
         if not np.array_equal(got.column("ss_store_sk").to_numpy(), present):
-            fail("q78: the stores differ from the numpy oracle")
+            fail(f"{label}: the stores differ from the numpy oracle")
         if not np.array_equal(got.column("count(1)").to_numpy(),
                               cnt[present]):
-            fail("q78: the counts differ from the numpy oracle")
+            fail(f"{label}: the counts differ from the numpy oracle")
         rel = rel_err(got.column("sum(ss_net_paid)").to_numpy(),
                       sums[present])
         if not rel <= 1e-9:
-            fail(f"q78: sum relative error {rel}")
+            fail(f"{label}: sum relative error {rel}")
         return (f"{out.num_rows} stores, {int(kept.sum())} rows with no "
                 f"return; counts exact, sum rel err {rel:.3e}")
+
+    return df, check
+
+
+def q78_leg(torch, sk, card: str) -> dict:
+    """TPC-DS q78's first CTE shape: store_sales LEFT JOIN store_returns on
+    (ticket, item) where the return is null, counted and summed by store.
+    The build side (2e6 rows x 16 bytes after pruning) is over the 10 MB
+    broadcast threshold, so both sides are hash-shuffled and the two-key
+    join takes the sorted probe."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+
+    spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
+                     "spark.tpu.batch.capacity": TILE})
+    df, check = q78_shape(spark)
+
+    def sorted_probe(metrics):
+        if metrics.get("join.sorted_probe", 0) <= 0 or \
+                metrics.get("join.dense_fast_path", 0) > 0:
+            fail("q78: the join did not take the sorted probe")
+        return "the sorted probe taken"
 
     launches = drive(torch, sk, card, "q78 leg", df, ROWS + Q78_RETURNS,
                      ("ShuffledHashJoin[left_outer]",),
@@ -3603,8 +3910,131 @@ def q78_leg(torch, sk, card: str) -> dict:
     with tier_set(spark, "stage"):
         replay_equals_eager(torch, "q78 leg stage",
                             DataFrame(spark, df.plan).toArrow)
+    budget = budget_q78(torch, sk, card, spark, df, check)
     spark.stop()
+    return launches, budget
+
+
+# --- the budget leg: the device budget's multi-pass paths ----------------
+
+# the sort's budget: 512 MiB over schema_row_bytes 10 B x 3 is 17,895,697
+# rows a tile, against the sort leg's one 2^27-row tile: external_sort asks
+# for 2 x 8 = 16 buckets (15 sampled bounds)
+BUDGET_SORT_BYTES = 512 << 20
+BUDGET_SORT_BUCKETS = 16
+# q78's reducer tile: 2e6 returns hashed into 8 partitions of 250,000 rows,
+# one tile each of 262,144; the grace budget leaves a quarter of it a tile
+Q78_REDUCER_TILE = 1 << 18
+GRACE_FRAGMENTS = 4
+
+
+def budget_run(torch, sk, card: str, label: str, spark, df, check,
+               histograms: int, counters, at_least: bool = False) -> dict:
+    """One statement of the budget leg: planned at `stage`, run cold with
+    the launch counts set to 0 just before and read just after (the
+    histogram wrapper exactly `histograms`, or at least that many where
+    `at_least`), held to the oracle `check`, the histogram kernel held to
+    its plain version at the inputs of one more run (`path_histograms`),
+    its multi-pass counters to `counters(metrics delta)`, then one warm
+    run; the times, counters and histogram calls printed as the `<label>`
+    line. Returns the cold run's launch counts."""
+    with tier_set(spark, "stage"):
+        show_plan(label, df, ())
+        m0 = spark.metrics
+        out, cold, launches, st = counted_run(torch, sk, spark, df.toArrow)
+        delta = _delta(spark.metrics, m0)
+        calls = launches["partition_histogram"]
+        if calls < histograms if at_least else calls != histograms:
+            fail(f"{label} launched the histogram kernel {calls} times, not "
+                 f"{'at least ' if at_least else ''}{histograms}")
+        msg = check(out) + "; " + counters(delta)
+        print(f"{label}: {msg}", flush=True)
+        warm = _warm(torch, df.toArrow, 1)
+
+        def stage_run():
+            with bodies_on_card(torch, sk):
+                df.toArrow()
+
+        # the histogram kernel at the multi-pass paths' own inputs: the
+        # external sort's bucketing, the grace join's fragmenting
+        path_histograms(torch, sk, label, {"stage": stage_run})
+    print(f"{label} " + json.dumps(dict(
+        cold_s=cold, warm_s=warm[0], histogram_calls=calls,
+        **{k: v for k, v in delta.items()
+           if k.startswith(("sort.external", "join.grace"))},
+        **sched_report(st["sched"]), card=card)), flush=True)
     return launches
+
+
+def budget_sort(torch, sk, card: str, spark, df, check) -> dict:
+    """The budget leg's sort, at the end of the sort leg and on its
+    session, table and oracle (1e8 int64, seed 7, one 2^27-row tile):
+    planned anew under BUDGET_SORT_BYTES, so the external range-bucketed
+    sort takes it in BUDGET_SORT_BUCKETS buckets. Users see this where a
+    card is shared or an operator's slice of memory is capped."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+
+    def sort_counters(delta):
+        passes = delta.get("sort.external.passes", 0)
+        buckets = spark.metrics.get("sort.external.buckets", 0)
+        over = delta.get("sort.external.oversizedBucket", 0)
+        if passes != 1 or buckets != BUDGET_SORT_BUCKETS or over:
+            fail(f"budget sort: {passes} external passes over {buckets} "
+                 f"buckets ({over} oversized), not 1 over "
+                 f"{BUDGET_SORT_BUCKETS} (none oversized)")
+        return (f"the external sort: 1 pass, {buckets} buckets, none "
+                f"oversized; budget {BUDGET_SORT_BYTES:,} B")
+
+    spark.conf.set("spark.tpu.memory.deviceBudgetBytes", BUDGET_SORT_BYTES)
+    try:
+        # the range-bucketing's one histogram call (one input tile)
+        return budget_run(torch, sk, card, "budget sort", spark,
+                          DataFrame(spark, df.plan), check, 1,
+                          sort_counters)
+    finally:
+        spark.conf.unset("spark.tpu.memory.deviceBudgetBytes")
+
+
+def budget_q78(torch, sk, card: str, spark, df, check) -> dict:
+    """The budget leg's join, at the end of the q78 leg and on its
+    session, tables and oracle (sales 2e7, returns 2e6, seed 11, 8
+    partitions, 2^22 tiles): planned anew under a budget that leaves each
+    build partition's reducer tile a quarter tile, so the grace join
+    splits it into GRACE_FRAGMENTS."""
+    from spark_tpu_torch.api.dataframe import DataFrame
+    from spark_tpu_torch.exec.memory import schema_row_bytes
+    from spark_tpu_torch.physical.operators import HashJoinExec, attrs_schema
+
+    join = next(n for n in plan_nodes(df) if isinstance(n, HashJoinExec))
+    row_bytes = schema_row_bytes(attrs_schema(join.right.output))
+    # tile_rows(amplification=4) = budget // (row_bytes * 4) = a quarter
+    # of the reducer tile: ceil(262,144 / 65,536) = 4 fragments
+    budget = Q78_REDUCER_TILE // GRACE_FRAGMENTS * row_bytes * 4
+    print(f"budget q78: the returns side's {row_bytes} B a row x 4 x "
+          f"{Q78_REDUCER_TILE // GRACE_FRAGMENTS:,} rows = a budget of "
+          f"{budget:,} B", flush=True)
+
+    def grace_counters(delta):
+        frags = delta.get("join.grace.fragments", 0)
+        if frags != PARTITIONS * GRACE_FRAGMENTS:
+            fail(f"budget q78: {frags} grace fragments, not "
+                 f"{PARTITIONS * GRACE_FRAGMENTS} ({GRACE_FRAGMENTS} for "
+                 f"each of {PARTITIONS} partitions)")
+        return (f"the grace join: {GRACE_FRAGMENTS} fragments in each of "
+                f"{PARTITIONS} partitions; budget {budget:,} B")
+
+    spark.conf.set("spark.tpu.memory.deviceBudgetBytes", budget)
+    try:
+        # at least the q78 leg's calls + the fragmenting's hash partition
+        # of each partition's one build and one probe tile; on the card
+        # each fragment's probe output is a partial aggregate pass of its
+        # own (4 a partition where there was 1) and their merge 2 more
+        return budget_run(torch, sk, card, "budget q78", spark,
+                          DataFrame(spark, df.plan), check,
+                          leg_calls("q78") + 2 * PARTITIONS,
+                          grace_counters, at_least=True)
+    finally:
+        spark.conf.unset("spark.tpu.memory.deviceBudgetBytes")
 
 
 # --- the tpcds leg ---------------------------------------------------------
@@ -4823,9 +5253,9 @@ def tpcds_leg(torch, sk, card: str, cpu_proc):
     spark = session(TPCDS_CONF)
     for name, table in tables.items():
         spark.createDataFrame(table).createOrReplaceTempView(name)
-    out, results, timed_shapes, peak = {}, {}, set(), {}
+    out, results, timed_shapes, peak, firsts = {}, {}, set(), {}, {}
     for q in TPCDS_QUERIES:
-        if q in TPCDS_SF10_CUT:
+        if q in TPCDS_SF10_CUT or q in TPCDS_TIME_CUT:
             continue
         text = tpcds_text(q)
         scalars = TPCDS_SCALAR_SUBQUERIES.get(q, 0)
@@ -4836,6 +5266,7 @@ def tpcds_leg(torch, sk, card: str, cpu_proc):
                       "Exchange[SinglePartition(1)]")
 
             def check(result, q=q, rows=oracle_rows, key=key):
+                firsts.setdefault(q, result)
                 return _check_topk(f"tpcds {q}", tpcds_rows(q, result), rows,
                                    key)
         else:
@@ -4924,6 +5355,8 @@ def tpcds_leg(torch, sk, card: str, cpu_proc):
                 if scalar_s[1:] else "not measured: no warm run",
                 "card": card}), flush=True)
     tpcds_stage(torch, sk, card, spark, arrays)
+    rf = runtime_filters_leg(torch, sk, card, spark, firsts)
+    out.update({f"runtime_filters {q}": n for q, n in rf.items()})
     print("tpcds peak device memory " + json.dumps({
         "max_memory_allocated_gb": max(peak.values()),
         "by_query_gb": peak, "card": card}), flush=True)
@@ -4945,6 +5378,60 @@ def tpcds_leg(torch, sk, card: str, cpu_proc):
                                   timed_shapes)
     spark.stop()
     return out, results, expressions, types, aggregates, maintenance
+
+
+# the runtime_filters leg: BASELINE.json config 4's queries at `stage` with
+# both runtime join filters on (bench.py:1118)
+RF_QUERIES = ("q3", "q7", "q19")
+RF_CONF = {"spark.tpu.join.runtimeFilter": "true",
+           "spark.tpu.join.runtimeFilter.bloom": "true"}
+RF_METRICS = ("join.bloom_filtered_rows", "join.range_filtered_rows",
+              "join.runtime_filter_compactions")
+
+
+def runtime_filters_leg(torch, sk, card: str, spark, firsts: dict) -> dict:
+    """q3, q7 and q19 on the tpcds leg's SF10 session and views (nothing
+    ingested again) at forced `stage` with spark.tpu.join.runtimeFilter
+    and .bloom on and .minCapacity at its default (1 << 20): each result
+    equal to the same file's result in the tpcds leg (`firsts`), the bloom
+    kernel launched; the rows each filter dropped, the compactions and
+    the kernel's calls printed per statement. One more run of each keeps
+    every bloom call's inputs and holds them to the plain version. Returns
+    the launch counts by query."""
+    out = {}
+    saved = {k: spark.conf.get(k) for k in RF_CONF}
+    for k, v in RF_CONF.items():
+        spark.conf.set(k, v)
+    runs = []
+    try:
+        with tier_set(spark, "stage"):
+            for q in RF_QUERIES:
+                text = tpcds_text(q)
+                m0 = spark.metrics
+                got, cold, launches, st = counted_run(
+                    torch, sk, spark, lambda text=text: spark.sql(text)
+                    .toArrow())
+                delta = _delta(spark.metrics, m0)
+                if not same_result(q, got, firsts[q]):
+                    fail(f"runtime_filters {q}: the result differs from the "
+                         "tpcds leg's")
+                calls = {k: launches[k] for k in ("bloom_build",
+                                                  "bloom_probe")}
+                if not calls["bloom_build"] or not calls["bloom_probe"]:
+                    fail(f"runtime_filters {q}: the bloom kernel launched "
+                         f"{calls}")
+                out[q] = launches
+                print(f"runtime_filters {q} " + json.dumps(dict(
+                    cold_s=cold, rows=got.num_rows, **calls,
+                    histogram_calls=launches["partition_histogram"],
+                    **{k: delta.get(k, 0) for k in RF_METRICS},
+                    **sched_report(st["sched"]), card=card)), flush=True)
+                runs.append(lambda text=text: spark.sql(text).toArrow())
+            path_blooms(torch, "runtime_filters", runs)
+    finally:
+        for k, v in saved.items():
+            spark.conf.set(k, v)
+    return out
 
 
 def tpcds_stage(torch, sk, card: str, spark, arrays) -> None:
@@ -7621,6 +8108,7 @@ def run() -> None:
     try:
         main_hist, main_sum = phase("kernels", check_kernels, torch, sk)
         main_bits = phase("bit_kernel", check_bit_kernel, torch, sk)
+        main_bloom = phase("bloom_kernel", check_bloom_kernel, torch, sk)
         k, v = main_table()
         main_tiers = phase("main", main_path, torch, sk, card, k, v)
         # the main query at `auto` runs as one whole program, which calls
@@ -7637,6 +8125,10 @@ def run() -> None:
             "q78": phase("q78", q78_leg, torch, sk, card),
             "window": phase("window", window_leg, torch, sk, card, k, v),
         }
+        # the budget leg runs at the end of the sort and q78 legs, on
+        # their sessions and oracles
+        for leg in ("sort", "q78"):
+            by_path[leg], by_path[f"budget {leg}"] = by_path[leg]
         phase("tpcds_gate", tpcds_gate, torch)
         # the expressions, types and maintenance legs run at the end of
         # the tpcds leg, over its session and SF10 views
@@ -7700,6 +8192,26 @@ def run() -> None:
                                              for q in AGG_BITS})))
     bits_entry["launches_at_whole"] = bits_at["whole"]
     bits_entry["library"] = BIT_LIBRARY
+    # the bloom kernel's path is this slice's: the runtime_filters leg's
+    # three statements at `stage`, each counted from 0
+    bloom_entries = []
+    for name in ("bloom_build", "bloom_probe"):
+        n = sum(tpcds_launches[f"runtime_filters {q}"][name]
+                for q in RF_QUERIES)
+        e = entry(name, main_bloom[name],
+                  "spark_tpu/physical/operators.py:1486-1570 "
+                  "_bloom_filter_probe (XLA-lowered)", "bloom_filter.cu", n,
+                  n, "runtime_filters", "stage (forced)")
+        e["library"] = BLOOM_LIBRARY
+        e["bound_note"] = main_bloom[name]["bound_note"]
+        bloom_entries.append(e)
+    snaps = [m.snapshot() for m in SESSION_METRICS]
+    retries = sum(m.get("scheduler.stage_retries", 0) for m in snaps)
+    if retries:
+        fail(f"{retries} stage retries over the run's sessions")
+    stages = sum(m.get("scheduler.stages_completed", 0) for m in snaps)
+    print(f"stage retries over {len(snaps)} card sessions: 0; stages run: "
+          f"{stages}", flush=True)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
@@ -7708,6 +8220,7 @@ def run() -> None:
         entry("dense_group_sum_f32", main_sum,
               "spark_tpu/ops/pallas_kernels.py:128"),
         bits_entry,
+        *bloom_entries,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,9 @@ wrapper over a logical plan bound to a session; groupBy, rollup and cube
 hand a GroupedData to `agg`, `pivot` and the shorthand aggregates.
 
 Not ported, each raising NotPortedError naming its ROADMAP.md item:
-`sample` (SampleExec, A15), `coalesce` (CoalescePartitionsExec, A6),
-`cache`, `persist` and `unpersist` (the block store, A12), `mapInPandas`
-and `applyInPandas` (A15), and the streaming surface (`isStreaming`,
-`withWatermark`, `writeStream`: A14)."""
+`sample` (SampleExec, A15), `cache`, `persist` and `unpersist` (the block
+store, A12), `mapInPandas` and `applyInPandas` (A15), and the streaming
+surface (`isStreaming`, `withWatermark`, `writeStream`: A14)."""
 
 from __future__ import annotations
 
@@ -174,7 +173,7 @@ class DataFrame:
             None, True, _to_expr_list((num_or_col,) + cols), self.plan))
 
     def coalesce(self, n: int) -> "DataFrame":
-        raise NotPortedError("coalesce (CoalescePartitionsExec, A6)")
+        return self._with(L.Repartition(n, False, [], self.plan))
 
     def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
         raise NotPortedError("sample (SampleExec, A15)")

@@ -1,8 +1,8 @@
-"""`df.stat` (counterpart of `spark_tpu/api/stat.py`): approxQuantile (the
+"""`df.stat` (counterpart of `spark_tpu/api/stat.py`): corr and cov (one
+aggregate each, `F.corr` and `F.covar_samp`), approxQuantile (the
 reference's exact quantiles: the column collected and sorted), freqItems
-and crosstab, each over the port's queries. `corr` and `cov` raise
-NotPortedError: their aggregates are A3's. `sampleBy` raises too: it
-samples (SampleExec, A15)."""
+and crosstab, each over the port's queries. `sampleBy` raises
+NotPortedError: it samples (SampleExec, A15)."""
 
 from __future__ import annotations
 
@@ -19,10 +19,12 @@ class DataFrameStatFunctions:
         self.df = df
 
     def corr(self, col1: str, col2: str) -> float:
-        raise NotPortedError("stat.corr (the corr aggregate, A3)")
+        out = self.df.agg(F.corr(col1, col2).alias("c")).collect()
+        return float(out[0]["c"])
 
     def cov(self, col1: str, col2: str) -> float:
-        raise NotPortedError("stat.cov (the covar_samp aggregate, A3)")
+        out = self.df.agg(F.covar_samp(col1, col2).alias("c")).collect()
+        return float(out[0]["c"])
 
     def approxQuantile(self, col, probabilities: Sequence[float],
                        relativeError: float = 0.0):

@@ -158,6 +158,42 @@ ADAPTIVE_PARQUET_STATS = _register(ConfigEntry(
     "statistics (row-group row counts) instead of excluding every "
     "external scan.", _bool))
 
+ADAPTIVE_ENABLED = _register(ConfigEntry(
+    "spark.sql.adaptive.enabled", True,
+    "Re-optimize at exchange boundaries from runtime stats: the stage "
+    "scheduler demotes a shuffled join whose materialised build side is "
+    "under the broadcast threshold (exec/scheduler.py, "
+    "physical/adaptive.py).", _bool))
+
+COALESCE_PARTITIONS_ENABLED = _register(ConfigEntry(
+    "spark.sql.adaptive.coalescePartitions.enabled", True,
+    "AQE partition coalescing: blocking consumers of an exchange merge "
+    "adjacent small partitions.", _bool))
+
+ADVISORY_PARTITION_BYTES = _register(ConfigEntry(
+    "spark.sql.adaptive.advisoryPartitionSizeInBytes", 64 * 1024 * 1024,
+    "Target partition size for AQE coalescing.", int))
+
+SKEW_JOIN_ENABLED = _register(ConfigEntry(
+    "spark.sql.adaptive.skewJoin.enabled", True,
+    "Split a shuffled join's probe partitions over 4x the median.", _bool))
+
+BLOOM_JOIN_FILTER = _register(ConfigEntry(
+    "spark.tpu.join.runtimeFilter.bloom", False,
+    "Bloom-filter the probe rows of an inner or semi hash join against a "
+    "bitset of the build keys' hashes before the probe (the hand-written "
+    "kernel of ops/bloom.py).", _bool))
+
+MINMAX_JOIN_FILTER = _register(ConfigEntry(
+    "spark.tpu.join.runtimeFilter", False,
+    "Min-max runtime join filter on a single integral, date or decimal "
+    "key of an inner or semi hash join.", _bool))
+
+JOIN_RF_MIN_CAPACITY = _register(ConfigEntry(
+    "spark.tpu.join.runtimeFilter.minCapacity", 1 << 20,
+    "Probe batches below this capacity skip the runtime min-max join "
+    "filter (the probe is already cheap).", int))
+
 MEMORY_BUDGET = _register(ConfigEntry(
     "spark.tpu.memory.budget", 0,
     "Per-query device-memory admission budget in bytes (0 = unlimited). "
@@ -174,6 +210,17 @@ UNPORTED_KEYS = {
         "model, obs/resources.py MemoryBudgetExceeded)",
 }
 
+# switches of the reference's adaptive family that are off by default and
+# not ported: setting one to true raises, false is the default's behaviour
+UNPORTED_WHEN_TRUE = {
+    "spark.tpu.adaptive.runtimeFilter":
+        "the adaptive runtime filter (physical/adaptive.py "
+        "install_runtime_filters, A6)",
+    "spark.tpu.adaptive.readmission":
+        "stage-boundary tier re-admission (physical/adaptive.py "
+        "maybe_readmit, A6)",
+}
+
 WAREHOUSE_DIR = _register(ConfigEntry(
     "spark.sql.warehouse.dir", "",
     "Directory of the persistent warehouse: saved tables live there as "
@@ -185,8 +232,10 @@ DEVICE = _register(ConfigEntry(
     "card is present) or 'cpu'. There is no fallback between them.", str))
 
 
-def _check_ported(key: str) -> None:
+def _check_ported(key: str, value: Any = None) -> None:
     what = UNPORTED_KEYS.get(key)
+    if what is None and _bool(value):
+        what = UNPORTED_WHEN_TRUE.get(key)
     if what is not None:
         from .errors import NotPortedError
 
@@ -202,8 +251,8 @@ class SQLConf:
     def __init__(self, overrides: dict[str, Any] | None = None):
         self._lock = threading.RLock()
         self._values: dict[str, Any] = dict(overrides or {})
-        for k in self._values:
-            _check_ported(k)
+        for k, v in self._values.items():
+            _check_ported(k, v)
 
     def unset(self, key: str | ConfigEntry) -> "SQLConf":
         k = key.key if isinstance(key, ConfigEntry) else key
@@ -213,7 +262,7 @@ class SQLConf:
 
     def set(self, key: str | ConfigEntry, value: Any) -> "SQLConf":
         k = key.key if isinstance(key, ConfigEntry) else key
-        _check_ported(k)
+        _check_ported(k, value)
         with self._lock:
             self._values[k] = value
         return self

@@ -1,7 +1,8 @@
 """Execution context shared across a query run (counterpart of
 `spark_tpu/exec/context.py`): the session conf, the device the query runs
-on, metric counters and the operator launch counters. Partitions run one
-after another on the device's current stream."""
+on, metric counters, the operator launch counters and the query's device
+budget (`memory`, exec/memory.py). Partitions run one after another on the
+device's current stream."""
 
 from __future__ import annotations
 
@@ -43,3 +44,14 @@ class ExecContext:
     # session-owned cache of ingested local tables: id(table) ->
     # (weakref to the table, {(column names, capacity): batches})
     scan_cache: dict = field(default_factory=dict, repr=False)
+    _memory: object = field(default=None, repr=False)
+
+    @property
+    def memory(self):
+        """The query's MemoryManager (the device budget's policy)."""
+        if self._memory is None:
+            from .memory import MemoryManager
+
+            self._memory = MemoryManager(self.conf, self.metrics,
+                                         self.device)
+        return self._memory

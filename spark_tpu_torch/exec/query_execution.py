@@ -1,6 +1,7 @@
 """Query execution pipeline (counterpart of
 `spark_tpu/exec/query_execution.py`, the subset that plans, executes and
-collects): analyzed -> optimized -> physical -> execute -> Arrow. The
+collects): analyzed -> optimized -> physical -> execute (through the stage
+scheduler, exec/scheduler.py) -> Arrow. The
 optimized plan's uncorrelated scalar subqueries run first, once each, and
 become literals. The compile-tier decision (`TierDecision`, `choose_tier`)
 lives in physical/whole_query.py, as in the reference; the planner makes it
@@ -89,8 +90,12 @@ class QueryExecution:
         return "\n".join(parts)
 
     def execute(self) -> list:
-        """Run the physical plan; returns partitions of device batches."""
-        return self.physical.execute(self.session._exec_context())
+        """Run the physical plan through the stage scheduler (cut at the
+        exchanges, adaptive re-planning between stages); returns
+        partitions of device batches."""
+        from .scheduler import DAGScheduler
+
+        return DAGScheduler(self.session._exec_context()).run(self.physical)
 
     def to_arrow(self) -> pa.Table:
         from ..columnar.arrow import batches_to_table

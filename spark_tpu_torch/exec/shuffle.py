@@ -12,8 +12,12 @@ column's slices carry their map batch's dictionary; a reducer tile unifies
 the dictionaries of its slices (one host merge per distinct set, a device
 recode per slice). A string range key maps each dictionary value to its
 partition on the host (a search among the sampled bounds), and the codes
-take that lut on the device. Spilling to disk and the map-side column
-stats that seed the JAX package's dense-range memo are not ported.
+take that lut on the device. The same per-batch paths serve the external
+sort's bucketing (physical/external_sort.py) and the grace join's
+fragmenting (`shuffle_hash` with its own seed). Not ported: spilling the
+reducer buffers to disk (they stay on the device) and the map-side column
+stats that seed the JAX package's dense-range memo and its adaptive
+runtime filter.
 """
 
 from __future__ import annotations
@@ -41,6 +45,10 @@ class _OutBuffer:
         # per append: [(data, validity, dictionary), ...]
         self.chunks: list[list] = []
         self._chunk_rows: list[int] = []
+
+    @property
+    def rows(self) -> int:
+        return sum(self._chunk_rows)
 
     def append(self, cols: list, n: int):
         if not n:

@@ -35,12 +35,16 @@ from ..utils import cuda_build
 
 SOURCE = "scatter_kernels"
 BITS_SOURCE = "segment_bits"
-SOURCES = (SOURCE, BITS_SOURCE)
+BLOOM_SOURCE = "bloom_filter"   # its wrappers live in ops/bloom.py
+SOURCES = (SOURCE, BITS_SOURCE, BLOOM_SOURCE)
 
-# wrapper calls that launched the kernel (incremented only where it launches)
+# wrapper calls that launched the kernel (incremented only where it
+# launches); bloom_build and bloom_probe count ops/bloom.py's
 LAUNCHES: dict[str, int] = {"partition_histogram": 0,
                             "dense_group_sum_f32": 0,
-                            "segment_bits": 0}
+                            "segment_bits": 0,
+                            "bloom_build": 0,
+                            "bloom_probe": 0}
 BIT_KINDS = ("and", "or", "xor")
 
 

@@ -5,7 +5,7 @@ side into one batch that every probe partition reads. Under the stage tier
 a shuffle exchange may absorb the filter/project pipeline below it
 (`pipe_fusion`, physical/fusion.ExchangeFusion): one program per map batch
 runs the pipeline, the partition ids and the pid-grouped gather. The mesh
-and runtime-filter variants are not ported."""
+variant and the adaptive runtime filter's pruning are not ported."""
 
 from __future__ import annotations
 

@@ -28,11 +28,12 @@ round-robin offset) too, so a new tile range or offset replays the same
 graph. The unfused operator-at-a-time path stays intact behind
 spark.tpu.fusion.enabled=false / spark.tpu.compile.tier=operator as the
 differential-testing oracle, and partitions under spark.tpu.fusion.minRows
-take it at run time. The runtime join filter is not ported (the
-reference's `bind_runtime_filter`). A min/max over a string column reduces
-in rank space inside the fused aggregate: its rank luts ride as program
-inputs, and bit_and/bit_or/bit_xor run the hand-written bit kernel in the
-program.
+take it at run time. The adaptive runtime filter in a fused exchange is
+not ported (the reference's `bind_runtime_filter`); a join under the
+runtime join filters runs its probe pipeline unfused. A min/max over a
+string column reduces in rank space inside the fused aggregate: its rank
+luts ride as program inputs, and bit_and/bit_or/bit_xor run the
+hand-written bit kernel in the program.
 """
 
 from __future__ import annotations

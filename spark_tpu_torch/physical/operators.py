@@ -4,12 +4,15 @@ split; `LocalTableScanExec`; `RangeExec`), the fused filter+project
 `ComputeExec`,
 `HashAggregateExec` in partial and final mode with its three kernels —
 ungrouped, sorted-segment and dense-range (over an integral key's range or
-a string key's dictionary codes) — `SortExec`, `LimitExec`, `HashJoinExec`
-(broadcast or shuffled; a dense direct-address build or the hash-sorted
-build with a searchsorted probe; dynamic partition pruning of probe-side
-scans from the build side's distinct keys), `NestedLoopJoinExec` (cross
-joins and non-equi conditions over a broadcast build side) and
-`UnionExec`.
+a string key's dictionary codes) — `SortExec` (the external sort past the
+device budget), `LimitExec`, `HashJoinExec` (broadcast or shuffled; a
+dense direct-address build or the hash-sorted build with a searchsorted
+probe; the grace join past the device budget; the range and bloom runtime
+filters; dynamic partition pruning of probe-side scans from the build
+side's distinct keys), `NestedLoopJoinExec` (cross joins and non-equi
+conditions over a broadcast build side), `UnionExec` and
+`CoalescePartitionsExec`. The final aggregate, the sort and the shuffled
+join merge small exchange partitions first (physical/adaptive.py).
 `execute()` returns a list of partitions, each a list of device
 ColumnarBatches; blocking operators concatenate their partition's batches
 and run one kernel per chunk.
@@ -39,8 +42,8 @@ from ..ops.scatter_kernels import partition_histogram
 from ..ops.sorting import SortKeySpec, limit_mask, sort_permutation
 from ..plan.tree import TreeNode
 from ..types import (
-    DateType, IntegralType, StringType, StructField, StructType,
-    dict_encoded,
+    DateType, DecimalType, IntegralType, StringType, StructField,
+    StructType, dict_encoded,
 )
 from ..utils.device_memo import memo_device_scalars
 from .aggregates import PARTIAL_TO_MERGE, AggSpec
@@ -52,6 +55,9 @@ from .partitioning import (
 )
 
 Partition = list  # list[ColumnarBatch]
+
+# the grace join's fragmenting hash seed (distinct from the exchange's 42)
+GRACE_SEED = 0x9E3779B9
 
 
 def attrs_schema(attrs: Sequence[AttributeReference]) -> StructType:
@@ -572,9 +578,12 @@ class HashAggregateExec(PhysicalPlan):
         return out
 
     def execute(self, ctx: ExecContext) -> list[Partition]:
-        # AQE partition coalescing is not ported: each partition of the
-        # exchange aggregates on its own (results do not depend on it)
+        from .adaptive import coalesce_after_exchange
+
         parts = self.child.execute(ctx)
+        if self.mode == "final":
+            parts = coalesce_after_exchange(self.child, parts, ctx,
+                                            self.child.output)
         return [[self._aggregate_partition(part, ctx)] for part in parts]
 
     def _aggregate_partition(self, part: Partition, ctx) -> ColumnarBatch:
@@ -777,13 +786,13 @@ class HashAggregateExec(PhysicalPlan):
 # ---------------------------------------------------------------------------
 
 class SortExec(PhysicalPlan):
-    """In-partition sort: each partition concatenates into one tile and
-    sorts there (the reference's external range-bucketed sort for
-    partitions over the device budget is not ported: the port keeps no
-    budget). Orders are over child output attributes (the planner
-    pre-projects complex keys). A global sort (`is_global`) gets a range
-    exchange below it from EnsureRequirements when its child has more than
-    one partition."""
+    """In-partition sort: a partition within the device budget
+    (exec/memory.py) concatenates into one tile and sorts there; a larger
+    one takes the external range-bucketed sort (physical/external_sort.py).
+    Orders are over child output attributes (the planner pre-projects
+    complex keys). A global sort (`is_global`) gets a range exchange below
+    it from EnsureRequirements when its child has more than one
+    partition; AQE merges that exchange's small adjacent partitions."""
 
     child_fields = ("child",)
 
@@ -801,9 +810,24 @@ class SortExec(PhysicalPlan):
         return self.child.output
 
     def execute(self, ctx: ExecContext) -> list[Partition]:
-        # AQE coalescing is not ported: each partition sorts on its own
-        return [[self._sort_single(p, ctx)] if p else []
-                for p in self.child.execute(ctx)]
+        from .adaptive import coalesce_after_exchange
+
+        parts = coalesce_after_exchange(self.child, self.child.execute(ctx),
+                                        ctx, self.child.output)
+        return [self._sort_partition(p, ctx) if p else [] for p in parts]
+
+    def _sort_partition(self, part: Partition, ctx) -> Partition:
+        """Budget dispatch: a partition that fits the device budget sorts
+        as one tile; a larger one takes the external multi-pass."""
+        schema = attrs_schema(self.child.output)
+        budget = ctx.memory.tile_rows(schema, amplification=3)
+        if sum(b.capacity for b in part) <= budget:
+            return [self._sort_single(part, ctx)]
+        from .external_sort import external_sort
+
+        return external_sort(part, self.orders, schema, self.child.output,
+                             ctx, budget,
+                             lambda p: self._sort_single(p, ctx))
 
     def _sort_single(self, part: Partition, ctx) -> ColumnarBatch:
         batch = concat_batches(part, attrs_schema(self.child.output))
@@ -870,10 +894,6 @@ class LimitExec(PhysicalPlan):
 # ---------------------------------------------------------------------------
 # Joins
 # ---------------------------------------------------------------------------
-
-RUNTIME_FILTER_KEYS = ("spark.tpu.join.runtimeFilter",
-                       "spark.tpu.join.runtimeFilter.bloom")
-
 
 class HashJoinExec(PhysicalPlan):
     """Equi-join (role of ShuffledHashJoinExec / BroadcastHashJoinExec).
@@ -948,9 +968,9 @@ class HashJoinExec(PhysicalPlan):
         return self.left.output_partitioning()
 
     def execute(self, ctx: ExecContext) -> list[Partition]:
-        for key in RUNTIME_FILTER_KEYS:
-            if str(ctx.conf.get(key, False)).lower() == "true":
-                raise NotPortedError(f"the runtime join filter ({key})")
+        from ..config import BLOOM_JOIN_FILTER, MINMAX_JOIN_FILTER
+        from .adaptive import coalesce_join_inputs, split_skewed_join_inputs
+
         if self.dpp_targets:
             right_parts = self.right.execute(ctx)
             self._install_dpp_filters(right_parts, ctx)
@@ -962,16 +982,23 @@ class HashJoinExec(PhysicalPlan):
             # the broadcast exchange made one partition: every probe
             # partition reads it
             right_parts = [right_parts[0] for _ in left_parts]
-        # AQE coalescing and skew splitting are not ported (results do not
-        # depend on them)
+        else:
+            left_parts, right_parts = coalesce_join_inputs(
+                self.left, self.right, left_parts, right_parts, ctx,
+                self.left.output, self.right.output)
+            left_parts, right_parts = split_skewed_join_inputs(
+                left_parts, right_parts, ctx, self.join_type)
         if len(left_parts) != len(right_parts):
             raise ExecutionError(
                 f"join children partition counts differ: "
                 f"{len(left_parts)} vs {len(right_parts)}")
         fused = self.probe_fusion is not None
-        if fused and self.join_type == "full_outer":
-            # the unmatched-build pass reads the probe keys outside the
-            # probe program: materialize the pipeline up front
+        if fused and (self.join_type == "full_outer"
+                      or ctx.conf.get(MINMAX_JOIN_FILTER)
+                      or ctx.conf.get(BLOOM_JOIN_FILTER)):
+            # the unmatched-build pass and the runtime filters read the
+            # probe keys outside the probe program: materialize the
+            # pipeline up front
             pipe = self._probe_pipeline()[0]
             left_parts = [[pipe.run(b, ctx.launches) for b in p]
                           for p in left_parts]
@@ -1014,22 +1041,42 @@ class HashJoinExec(PhysicalPlan):
         raise KeyError(target)
 
     def _join_partition(self, lp: Partition, rp: Partition, lschema,
-                        rschema, ctx, fused: bool = False) -> Partition:
+                        rschema, ctx, fused: bool = False,
+                        _depth: int = 0) -> Partition:
+        # the grace hash join: a build side over the device budget
+        # (exec/memory.py) is hash-fragmented with its probe side and each
+        # fragment joins on its own; one level deep, since re-hashing with
+        # the same function cannot split further
+        if rp and _depth == 0:
+            budget = ctx.memory.tile_rows(rschema, amplification=4)
+            build_cap = sum(b.capacity for b in rp)
+            if build_cap > budget:
+                if fused:
+                    # fragments split by the computed key columns
+                    pipe = self._probe_pipeline()[0]
+                    lp = [pipe.run(b, ctx.launches) for b in lp]
+                    lschema = attrs_schema(self._left_attrs)
+                    fused = False
+                return self._grace_join(lp, rp, lschema, rschema, ctx,
+                                        budget, build_cap)
         build = concat_batches(rp, rschema) if rp \
             else ColumnarBatch.empty(rschema, ctx.device)
         rpos = {a.expr_id: i for i, a in enumerate(self.right.output)}
         lpos = {a.expr_id: i for i, a in enumerate(self._left_attrs)}
         bkeys = [build.columns[rpos[k.expr_id]] for k in self.right_keys]
-        probes = lp or [ColumnarBatch.empty(lschema, ctx.device)]
 
         dense = self._try_dense_build(build, bkeys, ctx)
         if dense is not None:
+            probes = lp or [ColumnarBatch.empty(lschema, ctx.device)]
             out = [self._dense_probe_batch(pb, build, dense, lpos, ctx,
                                            fused)
                    for pb in probes]
         else:
             bkey_eqs = [c.eq_keys() for c in bkeys]
             bkey_valids = [c.validity for c in bkeys]
+            lp = self._runtime_filters(lp, build, bkeys, bkey_eqs,
+                                       bkey_valids, lpos, ctx)
+            probes = lp or [ColumnarBatch.empty(lschema, ctx.device)]
             bindex = J.build_index(bkey_eqs, bkey_valids, build.row_mask)
             if self.join_type in ("left_semi", "left_anti"):
                 bindex = J.dedup_build(bindex, bkey_eqs, bkey_valids)
@@ -1039,6 +1086,131 @@ class HashJoinExec(PhysicalPlan):
                    for pb in probes]
         if self.join_type == "full_outer":
             out.append(self._unmatched_build_rows(lp, build, lschema, ctx))
+        return out
+
+    def _grace_join(self, lp: Partition, rp: Partition, lschema, rschema,
+                    ctx, budget_rows: int, build_cap: int) -> Partition:
+        """Fragment both sides by a hash of the join key and join fragment
+        by fragment. Equal keys share a fragment, so every join type
+        distributes over the fragments (full_outer's unmatched build rows
+        come from each fragment against its own probe rows)."""
+        from ..exec import shuffle as S
+
+        nfrag = -(-build_cap // max(budget_rows, 1))
+        nfrag = min(256, 1 << max(1, (nfrag - 1).bit_length()))
+        rpos = {a.expr_id: i for i, a in enumerate(self.right.output)}
+        lpos = {a.expr_id: i for i, a in enumerate(self._left_attrs)}
+        rk = [rpos[k.expr_id] for k in self.right_keys]
+        lk = [lpos[k.expr_id] for k in self.left_keys]
+        # a seed of its own: the inputs are already hash-partitioned on
+        # these keys with the exchange's seed, which would send a whole
+        # partition to one fragment
+        r_frags = S.shuffle_hash([rp], rk, nfrag, rschema, ctx,
+                                 seed=GRACE_SEED)
+        l_frags = S.shuffle_hash([lp], lk, nfrag, lschema, ctx,
+                                 seed=GRACE_SEED)
+        ctx.memory.count("join.grace.fragments", nfrag)
+        out: Partition = []
+        for lf, rf in zip(l_frags, r_frags):
+            out.extend(self._join_partition(lf, rf, lschema, rschema, ctx,
+                                            _depth=1))
+        return out
+
+    def _runtime_filters(self, lp: Partition, build: ColumnarBatch, bkeys,
+                         bkey_eqs, bkey_valids, lpos, ctx) -> Partition:
+        """The probe batches after the runtime join filters an inner or
+        semi join takes on its sorted-probe path: the min-max range of a
+        single integral, date or decimal key
+        (spark.tpu.join.runtimeFilter), then the bloom bitset of the build
+        keys' hashes (spark.tpu.join.runtimeFilter.bloom)."""
+        from ..config import BLOOM_JOIN_FILTER, MINMAX_JOIN_FILTER
+
+        if self.join_type not in ("inner", "left_semi") or not lp:
+            return lp
+        if len(bkeys) == 1 and isinstance(
+                bkeys[0].dtype, (IntegralType, DateType, DecimalType)) \
+                and ctx.conf.get(MINMAX_JOIN_FILTER):
+            lp = self._range_filter_probe(lp, build, bkeys[0], lpos, ctx)
+        if ctx.conf.get(BLOOM_JOIN_FILTER):
+            lp = self._bloom_filter_probe(lp, build, bkeys, bkey_eqs,
+                                          bkey_valids, lpos, ctx)
+        return lp
+
+    @staticmethod
+    def _filtered(pb: ColumnarBatch, nm: torch.Tensor, live: int,
+                  ctx) -> ColumnarBatch:
+        """`pb` under its filtered mask, compacted to a smaller capacity
+        bucket where the filter kept at most a sixteenth."""
+        nb = ColumnarBatch(pb.schema, pb.columns, nm, num_rows=live)
+        if bucket_capacity(max(live, 1)) <= pb.capacity // 16:
+            nb = compact_batch(nb)
+            ctx.metrics.add("join.runtime_filter_compactions")
+        return nb
+
+    def _range_filter_probe(self, lp: Partition, build: ColumnarBatch,
+                            bc: Column, lpos, ctx) -> Partition:
+        """Runtime min-max join filter: probe rows outside the build keys'
+        range cannot match an inner or semi join, so they drop before the
+        sort-probe. Probe batches under
+        spark.tpu.join.runtimeFilter.minCapacity pass unfiltered. Counts
+        the rows dropped as `join.range_filtered_rows`."""
+        from ..config import JOIN_RF_MIN_CAPACITY
+
+        blive = build.row_mask if bc.validity is None \
+            else build.row_mask & bc.validity
+        bk = bc.data.to(torch.int64)
+        bmin = torch.where(blive, bk, torch.iinfo(torch.int64).max).min()
+        bmax = torch.where(blive, bk, torch.iinfo(torch.int64).min).max()
+        min_cap = int(ctx.conf.get(JOIN_RF_MIN_CAPACITY))
+        out = []
+        for pb in lp:
+            if pb.capacity < min_cap:
+                out.append(pb)  # a small batch: the sort-probe is cheap
+                continue
+            pc = pb.columns[lpos[self.left_keys[0].expr_id]]
+            k = pc.data.to(torch.int64)
+            keep = (k >= bmin) & (k <= bmax)
+            if pc.validity is not None:
+                keep = keep & pc.validity
+            nm = pb.row_mask & keep
+            live = int(nm.sum())
+            ctx.metrics.add("join.range_filtered_rows",
+                            pb.num_rows() - live)
+            out.append(self._filtered(pb, nm, live, ctx))
+        return out
+
+    def _bloom_filter_probe(self, lp: Partition, build: ColumnarBatch, bkeys,
+                            bkey_eqs, bkey_valids, lpos, ctx) -> Partition:
+        """Runtime bloom join filter: a bitset of the build keys' hashes
+        (two positions a key, at least 8 bits a build slot) drops probe
+        rows that cannot match an inner or semi join before the
+        sort-probe, for any key arity and type. The bitset is built once
+        per build batch (memoised by its tensors: a broadcast build
+        probed from every partition builds it once); the hand-written
+        kernel (ops/bloom.py) builds and probes it. Counts the rows
+        dropped as `join.bloom_filtered_rows`."""
+        from ..ops.bloom import bloom_build, bloom_probe
+        from ..ops.hashing import hash_columns
+        from ..utils.sketch import bloom_position_offsets
+
+        nbits = min(1 << 24, bucket_capacity(max(build.capacity, 1) * 8))
+        off0, off1 = bloom_position_offsets(2)
+        bits = memo_device_scalars(
+            ("bloom_bits", nbits, tuple(k.expr_id for k in self.right_keys)),
+            (build.row_mask, *[c.data for c in bkeys],
+             *[c.validity for c in bkeys]),
+            lambda: bloom_build(hash_columns(bkey_eqs, list(bkey_valids)),
+                                build.row_mask, nbits, off0, off1))
+        out = []
+        for pb in lp:
+            pkeys = [pb.columns[lpos[k.expr_id]] for k in self.left_keys]
+            h = hash_columns([c.eq_keys() for c in pkeys],
+                             [c.validity for c in pkeys])
+            nm, live = bloom_probe(bits, h, pb.row_mask, nbits, off0, off1)
+            before = pb.num_rows()
+            live = int(live)
+            ctx.metrics.add("join.bloom_filtered_rows", before - live)
+            out.append(self._filtered(pb, nm, live, ctx))
         return out
 
     @staticmethod
@@ -1541,6 +1713,37 @@ class UnionExec(PhysicalPlan):
                 out.append([ColumnarBatch(schema, b.columns, b.row_mask,
                                           b._num_rows) for b in part])
         return out
+
+
+class CoalescePartitionsExec(PhysicalPlan):
+    """Narrow the child's partitions to at most `num_partitions` with no
+    shuffle (`df.coalesce`): partition i joins output i mod n."""
+
+    child_fields = ("child",)
+
+    def __init__(self, num_partitions: int, child: PhysicalPlan):
+        self.num_partitions = max(1, num_partitions)
+        self.child = child
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def output_partitioning(self):
+        if self.num_partitions == 1:
+            return SinglePartition()
+        return UnknownPartitioning(self.num_partitions)
+
+    def execute(self, ctx: ExecContext) -> list[Partition]:
+        parts = self.child.execute(ctx)
+        out: list[Partition] = [
+            [] for _ in range(min(self.num_partitions, max(len(parts), 1)))]
+        for i, p in enumerate(parts):
+            out[i % len(out)].extend(p)
+        return out
+
+    def simple_string(self):
+        return f"CoalescePartitions({self.num_partitions})"
 
 
 class _SchemaOnly(PhysicalPlan):

@@ -56,7 +56,8 @@ from .aggregates import AggSpec, lower_aggregate_function
 from .exchange import BroadcastExchangeExec, ShuffleExchangeExec
 from .fusion import collapse_computes, fuse_stages, merge_into_compute
 from .operators import (
-    ComputeExec, HashAggregateExec, HashJoinExec, LimitExec,
+    CoalescePartitionsExec, ComputeExec, HashAggregateExec, HashJoinExec,
+    LimitExec,
     LocalTableScanExec, NestedLoopJoinExec, PhysicalPlan, RangeExec,
     ScanExec, SortExec, UnionExec,
 )
@@ -204,7 +205,7 @@ class Planner:
             child = self._convert(node.child)
             n = node.num_partitions or self.conf.shuffle_partitions
             if not node.shuffle:
-                raise NotPortedError("coalesce (CoalescePartitionsExec)")
+                return CoalescePartitionsExec(n, child)
             if node.partition_exprs:
                 keys, child = self._bind_keys(list(node.partition_exprs),
                                               child, "__repart")

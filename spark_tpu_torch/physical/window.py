@@ -134,8 +134,11 @@ class WindowExec(PhysicalPlan):
         return out
 
     def execute(self, ctx: ExecContext):
-        return [[self._run_partition(p, ctx)] if p else []
-                for p in self.child.execute(ctx)]
+        from .adaptive import coalesce_after_exchange
+
+        parts = coalesce_after_exchange(self.child, self.child.execute(ctx),
+                                        ctx, self.child.output)
+        return [[self._run_partition(p, ctx)] if p else [] for p in parts]
 
     def _run_partition(self, part, ctx) -> ColumnarBatch:
         batch = concat_batches(part, attrs_schema(self.child.output))

@@ -621,7 +621,6 @@ def _np_frame(t):
 # DataFrame / catalog call -> what its NotPortedError names
 NOT_PORTED_CALLS = {
     "sample": (lambda t, df: df.sample(0.5), "sample"),
-    "coalesce": (lambda t, df: df.coalesce(1), "coalesce"),
     "cache": (lambda t, df: df.cache(), "cache"),
     "persist": (lambda t, df: df.persist(), "cache"),
     "unpersist": (lambda t, df: df.unpersist(), "unpersist"),
@@ -633,8 +632,6 @@ NOT_PORTED_CALLS = {
                       "streaming"),
     "writeStream": (lambda t, df: df.writeStream, "streaming"),
     "isStreaming": (lambda t, df: df.isStreaming, "streaming"),
-    "corr": (lambda t, df: df.stat.corr("k", "g"), "corr"),
-    "cov": (lambda t, df: df.stat.cov("k", "g"), "cov"),
     "sampleBy": (lambda t, df: df.stat.sampleBy("g", {1: 0.5}), "sampleBy"),
     "cacheTable": (lambda t, df: t.catalog.cacheTable("np_t"),
                    "cacheTable"),
@@ -660,6 +657,57 @@ def test_unported_statement_raises(pair, stmt):
     item = err.value.what
     assert any(f"A{n}" in item for n in range(1, 20)) or \
         stmt.startswith(("SELECT", "SET")), item
+
+
+def _stat_frame(s):
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=500)
+    return s.createDataFrame(pa.table({
+        "x": x, "y": 0.5 * x + rng.normal(size=500),
+        "k": rng.integers(0, 40, 500),
+        "n": pa.array(rng.normal(size=500), mask=rng.random(500) < 0.2)}))
+
+
+# DataFrame calls ported with A6 (coalesce) and A3 (stat.corr, stat.cov):
+# call -> its value on one engine's frame
+PORTED_CALLS = {
+    "corr": lambda df: df.stat.corr("x", "y"),
+    "corr_int": lambda df: df.stat.corr("k", "x"),
+    "corr_nulls": lambda df: df.stat.corr("x", "n"),
+    "cov": lambda df: df.stat.cov("x", "y"),
+    "cov_int": lambda df: df.stat.cov("k", "y"),
+    "coalesce_1": lambda df: sorted(
+        tuple(r.values()) for r in df.repartition(4).coalesce(1)
+        .toArrow().to_pylist()),
+    "coalesce_3": lambda df: sorted(
+        tuple(r.values()) for r in df.repartition(8, "k").coalesce(3)
+        .groupBy("k").count().toArrow().to_pylist()),
+    "coalesce_wider": lambda df: df.repartition(2).coalesce(6)
+    .toArrow().num_rows,
+}
+
+
+@pytest.mark.parametrize("call", list(PORTED_CALLS))
+def test_ported_call_matches_reference(pair, call):
+    """stat.corr/cov (one corr or covar_samp aggregate) and coalesce(n)
+    (CoalescePartitionsExec) equal the reference's: floats to relative
+    1e-12, rows exactly; a coalesce keeps every row."""
+    import math
+
+    fn = PORTED_CALLS[call]
+    got = fn(_stat_frame(pair.torch))
+    want = fn(_stat_frame(pair.jax))
+    if isinstance(want, float):
+        assert math.isclose(got, want, rel_tol=1e-12), (got, want)
+    else:
+        assert got == want
+    if call.startswith("coalesce"):
+        df = _stat_frame(pair.torch).repartition(4).coalesce(2)
+        parts = df.query_execution.execute()
+        assert len(parts) == 2
+        assert sum(b.num_rows() for p in parts for b in p) == 500
 
 
 @pytest.mark.parametrize("call", list(NOT_PORTED_CALLS))

@@ -142,9 +142,11 @@ def test_slice_query_on_the_card(cuda_device):
     before = SK.LAUNCHES["partition_histogram"]
     out = df.toArrow().sort_by("k")
     # 4 round-robin input tiles + 8 hash-exchange inputs + 8 partial tiles
-    # x 1 count + 4 final tiles x 4 distinct weight tensors; the CPU run of
-    # this query makes as many calls (tests/test_torch_dense_counts.py)
-    assert SK.LAUNCHES["partition_histogram"] - before == 36
+    # x 1 count + 1 final tile x 4 distinct weight tensors (AQE merges the
+    # final aggregate's 4 partitions, about 20,000 partial rows of 40 B,
+    # into one under the 64 MiB advisory size); the CPU run of this query
+    # makes as many calls (tests/test_torch_dense_counts.py)
+    assert SK.LAUNCHES["partition_histogram"] - before == 24
     live = v > 25
     cnt = np.bincount(k[live], minlength=5000)
     present = np.nonzero(cnt)[0]
@@ -2304,3 +2306,187 @@ def test_aggregates_leg_card_equals_cpu(aggregates_leg_pair, name, tier):
     finally:
         cs.fail = saved
     assert not failures, failures[:3]
+
+
+# --- the bloom runtime filter's kernel (csrc/bloom_filter.cu) ---------------
+
+def _bloom_inputs(dev, n, live, seed=21, off=0, dup=False):
+    """(hashes, mask) on the card: int64 hashes (a few distinct values
+    repeated when `dup`), a mask `live` true, both `off` elements into
+    their storage."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    if dup:
+        h = rng.choice(h[:max(n // 64, 1)], n)
+    return _on_card(h, off, dev), _on_card(rng.random(n) < live, off, dev)
+
+
+def _bloom_offsets():
+    from spark_tpu_torch.utils.sketch import bloom_position_offsets
+
+    return bloom_position_offsets(2)
+
+
+# (build rows, nbits, probe rows): the phase-3 shapes of chip_smoke.py
+BLOOM_SHAPES = [(131_072, 1 << 20, 1 << 22), (1 << 21, 1 << 24, 1 << 25)]
+
+
+@pytest.mark.parametrize("live", [0.0, 0.58, 1.0])
+@pytest.mark.parametrize("shape", BLOOM_SHAPES)
+@pytest.mark.parametrize("dup,off", [(False, 0), (True, 0), (False, 1)])
+def test_bloom_kernel_equals_plain(cuda_device, shape, live, dup, off):
+    """Build and probe against their plain versions exactly: every bit,
+    every mask byte and the live count."""
+    from spark_tpu_torch.ops import bloom as B
+
+    nb, nbits, npr = shape
+    off0, off1 = _bloom_offsets()
+    h, m = _bloom_inputs(cuda_device, nb, live, off=off, dup=dup)
+    before = dict(SK.LAUNCHES)
+    bits = B.bloom_build(h, m, nbits, off0, off1)
+    assert SK.LAUNCHES["bloom_build"] == before["bloom_build"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(bits, B.bloom_build_plain(h, m, nbits, off0, off1))
+    # probe rows: a quarter are build hashes, so some stay
+    ph, pm = _bloom_inputs(cuda_device, npr, live, seed=22, off=off)
+    ph[: npr // 4] = h.repeat(npr // 4 // nb + 1)[: npr // 4]
+    got, live_n = B.bloom_probe(bits, ph, pm, nbits, off0, off1)
+    assert SK.LAUNCHES["bloom_probe"] == before["bloom_probe"] + 1
+    torch.cuda.synchronize()
+    want, want_n = B.bloom_probe_plain(bits, ph, pm, nbits, off0, off1)
+    assert torch.equal(got, want)
+    assert torch.equal(live_n, want_n)
+
+
+def test_bloom_kernel_in_a_captured_graph(cuda_device):
+    """Build and probe inside one CUDA graph capture (no host read, no
+    allocation sized by data): each replay over new inputs copied into the
+    capture's buffers equals the plain versions."""
+    from spark_tpu_torch.ops import bloom as B
+
+    nb, nbits, npr = BLOOM_SHAPES[0]
+    off0, off1 = _bloom_offsets()
+    h, m = _bloom_inputs(cuda_device, nb, 0.58)
+    ph, pm = _bloom_inputs(cuda_device, npr, 0.58, seed=22)
+    B.bloom_build(h, m, nbits, off0, off1)  # load the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bits = B.bloom_build(h, m, nbits, off0, off1)
+        out, live = B.bloom_probe(bits, ph, pm, nbits, off0, off1)
+    for seed in (1, 2):
+        h2, m2 = _bloom_inputs(cuda_device, nb, 0.58, seed=seed)
+        ph2, pm2 = _bloom_inputs(cuda_device, npr, 0.58, seed=seed + 10)
+        ph2[: nb] = h2
+        for dst, src in ((h, h2), (m, m2), (ph, ph2), (pm, pm2)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_bits = B.bloom_build_plain(h, m, nbits, off0, off1)
+        assert torch.equal(bits, want_bits)
+        want, want_n = B.bloom_probe_plain(want_bits, ph, pm, nbits, off0,
+                                           off1)
+        assert torch.equal(out, want) and torch.equal(live, want_n)
+
+
+def _card_cpu_sessions(conf):
+    from spark_tpu_torch import TorchSession
+
+    return (TorchSession("card", dict(conf)),
+            TorchSession("cpu", dict(conf, **{"spark.torch.device": "cpu"})))
+
+
+def _same_rows(a, b):
+    key = repr
+    assert sorted((tuple(r.values()) for r in a.to_pylist()), key=key) == \
+        sorted((tuple(r.values()) for r in b.to_pylist()), key=key)
+
+
+def test_budget_statements_card_equals_cpu(cuda_device):
+    """The budget leg's two statements at a small size under a tiny
+    budget: the external sort (16 buckets asked) and q78's shuffled left
+    outer join through the grace join, on the card equal to the CPU, with
+    the same counts of passes and fragments."""
+    import pyarrow as pa
+
+    import spark_tpu_torch.api.functions as F
+
+    rng = np.random.default_rng(7)
+    k = rng.integers(-(1 << 40), 1 << 40, 1 << 20)
+    n = 200_000
+    ticket = np.arange(n) // 10
+    item = rng.integers(1, 2001, n)
+    store = rng.integers(1, 51, n)
+    paid = rng.random(n) * 100
+    idx = rng.choice(n, n // 10, replace=False)
+    conf = {"spark.sql.shuffle.partitions": 8,
+            "spark.tpu.batch.capacity": 1 << 20,
+            "spark.tpu.compile.tier": "stage"}
+    card, cpu = _card_cpu_sessions(conf)
+    metrics = []
+    for s in (card, cpu):
+        # the sort: 4 MiB over 30 B a row is 139,810 rows a tile, against
+        # one partition of 2^20 (AQE merges the range exchange's eight):
+        # 2 * 8 = 16 buckets asked
+        s.conf.set("spark.tpu.memory.deviceBudgetBytes", 1 << 22)
+        sort = s.createDataFrame(pa.table({"k": k})).orderBy("k").toArrow()
+        # the join: 64 KiB gives the floor of 1,024 rows a build tile
+        ss = s.createDataFrame(pa.table({
+            "ss_ticket_number": ticket, "ss_item_sk": item,
+            "ss_store_sk": store, "ss_net_paid": paid}))
+        sr = s.createDataFrame(pa.table({
+            "sr_ticket_number": ticket[idx], "sr_item_sk": item[idx],
+            "sr_return_amt": np.ones(len(idx))}))
+        s.conf.set("spark.tpu.memory.deviceBudgetBytes", 1 << 16)
+        cond = (ss["ss_ticket_number"] == sr["sr_ticket_number"]) & \
+            (ss["ss_item_sk"] == sr["sr_item_sk"])
+        q78 = (ss.repartition(8).join(sr.repartition(8), cond, "left_outer")
+               .filter(F.col("sr_ticket_number").isNull())
+               .groupBy("ss_store_sk").agg(F.count("*").alias("c"))
+               .toArrow())
+        metrics.append((sort, q78, {m: s.metrics.get(m, 0) for m in (
+            "sort.external.passes", "join.grace.fragments")}))
+    (csort, cq, cm), (psort, pq, pm) = metrics
+    assert np.array_equal(csort.column("k").to_numpy(), np.sort(k))
+    assert csort.equals(psort)
+    _same_rows(cq, pq)
+    assert cm == pm
+    assert cm["sort.external.passes"] >= 1 and cm["join.grace.fragments"] >= 4
+
+
+def test_adaptive_demoted_join_and_coalesced_aggregate_card_equals_cpu(
+        cuda_device):
+    """A shuffled join demoted to broadcast at run time (its filtered build
+    side is small), with its probe shuffle skipped, and an aggregate whose
+    exchange partitions coalesce: on the card equal to the CPU, with the
+    same AQE decisions."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(5)
+    a = pa.table({"k": np.arange(200_000), "v": rng.integers(0, 100, 200_000)})
+    b = pa.table({"k": np.arange(0, 400_000, 2), "w": np.arange(200_000)})
+    # at the stage tier: `auto` runs this as one whole program, one stage
+    conf = {"spark.sql.shuffle.partitions": 8,
+            "spark.tpu.batch.capacity": 1 << 16,
+            "spark.tpu.compile.tier": "stage",
+            "spark.sql.autoBroadcastJoinThreshold": 4096}
+    card, cpu = _card_cpu_sessions(conf)
+    outs = []
+    for s in (card, cpu):
+        s.createDataFrame(a).repartition(8).createOrReplaceTempView("da")
+        s.createDataFrame(b).repartition(8).createOrReplaceTempView("db")
+        j = s.sql("SELECT count(*) c, sum(v) s FROM da JOIN "
+                  "(SELECT k, w FROM db WHERE w < 100) sb ON da.k = sb.k")
+        g = s.sql("SELECT k % 1000 m, count(*) c FROM da GROUP BY k % 1000")
+        outs.append((j.toArrow(), g.toArrow(), {
+            k: s.metrics.get(k, 0) for k in (
+                "aqe.broadcast_demotions", "aqe.probe_shuffles_elided",
+                "aqe.partitions_coalesced", "scheduler.stage_retries")}))
+    (cj, cg, cm), (pj, pg, pm) = outs
+    assert cj.equals(pj)
+    _same_rows(cg, pg)
+    assert cm == pm
+    assert cm["aqe.broadcast_demotions"] >= 1
+    assert cm["aqe.probe_shuffles_elided"] >= 1
+    assert cm["aqe.partitions_coalesced"] >= 1
+    assert cm["scheduler.stage_retries"] == 0

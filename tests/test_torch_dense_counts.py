@@ -35,9 +35,11 @@ JAX_CONF = dict(CONF, **{"spark.tpu.fusion.enabled": "false",
 N = 6000
 # tests/test_torch_cuda.py's slice query launches the histogram kernel
 # this many times: 4 round-robin input tiles + 8 hash-exchange inputs + 8
-# partial tiles x 1 (the row mask) + 4 final tiles x 4 (the row mask and
-# the validities of sum, min and max)
-CARD_QUERY_HISTOGRAMS = 36
+# partial tiles x 1 (the row mask) + 1 final tile x 4 (the row mask and
+# the validities of sum, min and max): AQE merges the final aggregate's 4
+# partitions (about 20,000 partial rows of 40 B) into one under the
+# 64 MiB advisory partition size
+CARD_QUERY_HISTOGRAMS = 24
 
 
 @pytest.fixture()

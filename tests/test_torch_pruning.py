@@ -4,8 +4,8 @@ Parquet row-group statistics), IN pruning and dynamic partition pruning
 from a join's build side, on and off. Each case runs in a fresh session of
 each engine (TpuSession operator-at-a-time, fusion off; TorchSession on
 the CPU) over the same files; the results and every `scan.*` metric (rows
-read per scan, splits pruned) must be equal. The bloom runtime filter is
-not ported: the port raises NotPortedError naming it."""
+read per scan, splits pruned) must be equal. The bloom runtime filter's
+case holds its count of filtered rows to the reference's."""
 
 import os
 
@@ -153,20 +153,36 @@ def test_dpp_with_string_partitions(tmp_path):
 
 
 def test_bloom_runtime_filter_is_not_ported(part_dir):
-    s = TorchSession("pruning", dict(CONF), device="cpu")
-    try:
-        s.conf.set("spark.tpu.join.runtimeFilter.bloom", "true")
-        s.conf.set("spark.sql.dynamicPartitionPruning.enabled", "false")
-        rng = np.random.default_rng(5)
-        fact = pa.table({"k": rng.integers(0, 1000, 4000) * 999_999_937,
-                         "v": rng.standard_normal(4000)})
-        dim = pa.table({"k": np.arange(0, 10) * 999_999_937,
-                        "nm": [str(i) for i in range(10)]})
-        s.createDataFrame(fact).createOrReplaceTempView("f")
-        s.createDataFrame(dim).createOrReplaceTempView("d")
-        with pytest.raises(NotPortedError) as err:
-            s.sql("SELECT count(*) c FROM f JOIN d ON f.k = d.k").toArrow()
-        assert "runtime join filter" in err.value.what
-        assert "bloom" in err.value.what
-    finally:
-        s.stop()
+    """The bloom runtime join filter, ported with A7's slice, as the
+    reference's test_bloom_runtime_filter_reduces_probe holds it: the
+    count equals numpy's and the reference's, and the filter drops most
+    probe rows (the same count of them as the reference's)."""
+    counts = {}
+    for name, make in (("torch", lambda: TorchSession(
+            "pruning", dict(CONF), device="cpu")),
+            ("jax", lambda: TpuSession("pruning-reference", dict(CONF)))):
+        s = make()
+        try:
+            s.conf.set("spark.tpu.join.runtimeFilter.bloom", "true")
+            s.conf.set("spark.sql.dynamicPartitionPruning.enabled", "false")
+            rng = np.random.default_rng(5)
+            # sparse keys: a dense build takes the direct-address probe,
+            # which needs no filter
+            fact = pa.table({"k": rng.integers(0, 1000, 4000) * 999_999_937,
+                             "v": rng.standard_normal(4000)})
+            dim = pa.table({"k": np.arange(0, 10) * 999_999_937,
+                            "nm": [str(i) for i in range(10)]})
+            s.createDataFrame(fact).createOrReplaceTempView("f")
+            s.createDataFrame(dim).createOrReplaceTempView("d")
+            out = s.sql("SELECT count(*) c FROM f JOIN d ON f.k = d.k") \
+                .toArrow().to_pylist()
+            want = int(np.isin(fact["k"].to_numpy(),
+                               dim["k"].to_numpy()).sum())
+            assert out == [{"c": want}]
+            m = s.metrics if name == "torch" \
+                else s._metrics.snapshot()["counters"]
+            counts[name] = m.get("join.bloom_filtered_rows", 0)
+        finally:
+            s.stop()
+    assert counts["torch"] > 4000 // 2, counts
+    assert counts["torch"] == counts["jax"]

@@ -338,7 +338,27 @@ def test_no_device_given_raises_without_a_card():
 @pytest.mark.parametrize("what", ["sql", "binary_column", "coalesce",
                                   "string_filter", "explicit_schema"])
 def test_unported_entry_points_raise_not_ported(sessions, what):
-    _, t = sessions
+    """The entry points the port refuses raise NotPortedError. Two cases
+    run since A6's slice and are held to the reference instead: a
+    Repartition without shuffle (CoalescePartitionsExec), over a plain
+    scan and over a string condition with a lambda."""
+    j, t = sessions
+    if what in ("coalesce", "string_filter"):
+        from spark_tpu.plan.logical import Repartition as JRepartition
+        from spark_tpu_torch.plan.logical import Repartition
+
+        out = []
+        for s, rep in ((t, Repartition), (j, JRepartition)):
+            df = s.createDataFrame(_table())
+            if what == "string_filter":
+                kept = df.filter("exists(array(1), x -> x > 0)")
+                assert kept.toArrow().num_rows == df.toArrow().num_rows
+                df = kept
+            out.append(sorted(
+                tuple(r.values()) for r in
+                df._with(rep(2, False, [], df.plan)).toArrow().to_pylist()))
+        assert out[0] == out[1] and len(out[0]) == _table().num_rows
+        return
     df = t.createDataFrame(_table())
     with pytest.raises(NotPortedError):
         if what == "sql":
@@ -350,19 +370,6 @@ def test_unported_entry_points_raise_not_ported(sessions, what):
 
             t.createDataFrame(pa.table({"b": pa.array(
                 [decimal.Decimal(1)], pa.decimal128(30, 2))}))
-        elif what == "coalesce":
-            from spark_tpu_torch.plan.logical import Repartition
-
-            df._with(Repartition(2, False, [], df.plan)).toArrow()
-        elif what == "string_filter":
-            # a string condition with a lambda runs since A11's slice
-            # (every row passes); its scan under a repartition without
-            # keys is still refused
-            from spark_tpu_torch.plan.logical import Repartition
-
-            kept = df.filter("exists(array(1), x -> x > 0)")
-            assert kept.toArrow().num_rows == df.toArrow().num_rows
-            kept._with(Repartition(2, False, [], kept.plan)).toArrow()
         else:
             # rows with a schema are ported; a decimal past 18 digits is
             # not
