@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `check_bloom_kernel`: the runtime join filter's bitset build at
      131,072 and 2^21 rows and probe at 2^22 and 2^25 rows, 0/58/100%
      live, duplicate keys, misaligned views and inside a captured graph,
-     exactly; no library call computes it), at the main path's
+     exactly; no library call computes it; the run-layout kernel,
+     `check_run_layout`: the sorted-run aggregate's group layout at 2^22
+     and 2^25 rows of sorted runs, int32 and int64 keys, one run, every
+     row masked, masked rows and whole masked runs, ragged ends, an
+     unsorted key, misaligned views and inside a captured graph, exactly;
+     no library call computes it), at the main path's
      shapes, at each switch point of the kernels' paths and on misaligned
      views, with its device time alone (device_ms:
      CUDA events around 100 launches of the C entry point on buffers
@@ -63,7 +68,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      their exact histogram calls and dense-path checks are held, sort
      (staged) at forced `whole`, and these and window at the `operator`
      tier, in the same session (the oracle, equal to the first tier's
-     result, warm median and idle share), and main's and q78's programs
+     result, warm median and idle share; window's and range_sort's
+     untimed, cut for the script's time), and main's and q78's programs
      are held replay against the same body run eagerly on the card at
      both fused tiers (`replay_equals_eager`):
        join:       bench.py's bench_join, 2e7 store_sales rows joined to the
@@ -83,6 +89,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    query under a budget that leaves a build partition a
                    quarter tile, through the grace join (4 fragments a
                    partition), to the same oracle;
+       sorted_runs: order lines clustered by order id (2e7 lines, 1-20 an
+                   order, numpy seed 29) in 8 in-memory partitions of one
+                   2^22-row tile each, grouped by order id with count,
+                   sum, min, max and bit_or over WHERE qty > 1: at the
+                   operator tier every partial aggregate takes the
+                   sorted-run path (the run-layout kernel), at stage the
+                   fused aggregate, at `auto` its tier; each to a numpy
+                   oracle, once more with spark.tpu.debug.validateBatches
+                   set, the run-layout kernel held at the leg's inputs;
        window:     Spark's top-N-per-group idiom over the main table in 8
                    round-robin partitions: row_number, rank, dense_rank,
                    the running sum with peers, lag and a 3-row max over
@@ -175,7 +190,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
                    step, and SELECT without FROM; the files are deleted;
   6. a JSON line with every kernel's numbers (the bit kernel's launches
      are the aggregates leg's bits statements', the bloom kernel's the
-     runtime_filters leg's), the stage retries over every session (0),
+     runtime_filters leg's, the run-layout kernel's the sorted_runs leg's
+     at the operator tier), the stage retries over every session (0),
      then, last, the result line
      {"ok": true, "device": {...}}.
 """
@@ -3016,7 +3032,8 @@ def path_blooms(torch, label: str, runs) -> int:
     """The bloom kernel at a path's own inputs: one more run of each of
     `runs` keeps a copy of the inputs of every bloom_build and
     bloom_probe call, then holds each copy against the plain version
-    exactly. Returns the number of inputs held."""
+    exactly and times its bare launch beside its bound (`bloom_row`'s).
+    Returns the number of inputs held."""
     from spark_tpu_torch.ops import bloom as B
 
     real_build, real_probe = B.bloom_build, B.bloom_probe
@@ -3036,12 +3053,206 @@ def path_blooms(torch, label: str, runs) -> int:
             run()
     finally:
         B.bloom_build, B.bloom_probe = real_build, real_probe
+    from spark_tpu_torch.utils.sketch import bloom_position_offsets
+
+    off0, off1 = bloom_position_offsets(2)
+    timed = []
     for kind, h, m, nbits, bits in kept:
         bloom_check(torch, f"{label} {kind}: {h.shape[0]:,} rows, "
                     f"nbits {nbits:,}", h, m, nbits, bits)
+        hh, mm = h.to(torch.int64).contiguous(), m.contiguous()
+        launch, _ = bloom_bare(torch, hh, mm, nbits, off0, off1, bits)
+        n = h.shape[0]
+        timed.append({"kind": kind, "rows": n, "nbits": nbits,
+                      "live_rows": int(m.sum()),
+                      "device_ms": device_ms(launch),
+                      "bound_ms": bound_ms(n * 9 + (
+                          nbits if bits is None else n + 8))})
     print(f"{label}: the bloom kernel equals its plain version at "
-          f"{len(kept)} path inputs", flush=True)
+          f"{len(kept)} path inputs " + json.dumps(timed), flush=True)
     return len(kept)
+
+
+RUN_LIBRARY = "none: no torch call computes run starts"
+
+
+def run_bare(torch, sk, k, m):
+    """(launch, (start, seg, groups)): `launch()` runs the run-layout C
+    entry point once on the current stream into outputs and scratch
+    allocated here once, with no checks and no launch count; for timing
+    the kernel alone. Takes a contiguous int32 or int64 key and bool mask
+    on the current device."""
+    lib, n = sk._run_lib(), k.shape[0]
+    start = torch.empty(n, dtype=torch.bool, device=k.device)
+    seg = torch.empty(n, dtype=torch.int64, device=k.device)
+    groups = torch.empty(1, dtype=torch.int64, device=k.device)
+    scratch = torch.empty(max(lib.spark_run_layout_scratch_bytes(n), 1),
+                          dtype=torch.uint8, device=k.device)
+    fn = lib.spark_run_layout_i64 if k.dtype == torch.int64 \
+        else lib.spark_run_layout_i32
+
+    def launch():
+        return fn(k.data_ptr(), m.data_ptr(), n, start.data_ptr(),
+                  seg.data_ptr(), groups.data_ptr(), scratch.data_ptr(),
+                  sk._stream(k))
+    if launch() != 0:
+        fail(f"the run_layout bare launch at n={n} failed")
+    torch.cuda.synchronize()
+    return launch, (start, seg, groups.reshape(()))
+
+
+def run_check(torch, sk, label: str, k, m):
+    """run_layout on the card tensors held against its plain version
+    exactly: every start flag, every group id and the group count.
+    Returns the plain result."""
+    got = sk.run_layout(k, m)
+    exp = sk.run_layout_plain(k, m)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, exp)):
+        fail(f"run_layout {label}: {int((got[0] != exp[0]).sum())} start "
+             f"flags and {int((got[1] != exp[1]).sum())} ids differ, "
+             f"{int(got[2])} groups against {int(exp[2])}")
+    return exp
+
+
+def run_row(torch, sk, card: str, label: str, k, m) -> dict:
+    """`run_check`, the bare launch too, then its times: device_ms (the
+    entry point alone: its three kernels), call_ms (the wrapper), the
+    plain version's device_ms; no library call computes it. The bound:
+    each row's key and mask byte read once, its start byte and 8-byte id
+    written once, over 3.35 TB/s."""
+    exp = run_check(torch, sk, label, k, m)
+    kk = k.contiguous()
+    launch, bare = run_bare(torch, sk, kk, m.contiguous())
+    if not all(torch.equal(a, b) for a, b in zip(bare, exp)):
+        fail(f"run_layout {label}: the bare launch differs")
+    n = k.shape[0]
+    row = {"kernel": "run_layout", "shape": label, "rows": n,
+           "key_bytes": kk.element_size(), "live_rows": int(m.sum()),
+           "groups": int(exp[2]), "max_abs_err": 0,
+           "bound_ms": bound_ms(n * (kk.element_size() + 1) + n * 9 + 8),
+           "device_ms": device_ms(launch),
+           "call_ms": call_ms(lambda: sk.run_layout(k, m)),
+           "plain_ms": device_ms(lambda: sk.run_layout_plain(k, m),
+                                 iters=20),
+           "library_ms": None, "library": RUN_LIBRARY, "card": card}
+    row["ms"] = row["device_ms"]
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    print("kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def sorted_run_keys(rng, n: int, lo: int = 1, hi: int = 21):
+    """n int64 keys in sorted runs of lo..hi-1 rows, the gaps between run
+    keys uniform in [16, 112), as the sorted_runs leg's order ids."""
+    import numpy as np
+
+    lens = rng.integers(lo, hi, n // lo + 1)
+    return np.repeat(np.cumsum(rng.integers(16, 112, len(lens))), lens)[:n]
+
+
+def check_run_layout(torch, sk, card: str) -> dict:
+    """The run-layout kernel's phase: sorted runs of 1-20 rows at 2^22
+    and 2^25 rows, 99% live (timed, int64 keys; 2^22 int32 too), then one
+    run of every row, every row masked, masked rows inside runs, runs
+    whose rows are all masked, ragged ends, an unsorted key, misaligned
+    views and one layout inside a captured CUDA graph, each equal to the
+    plain version exactly. Returns the row the kernels line reports (2^22
+    rows, the sorted_runs leg's tile)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+
+    def on_card(arr, off=0):
+        full = np.concatenate([np.zeros(off, arr.dtype), arr])
+        return torch.from_numpy(full).to(dev)[off:]
+
+    rows = {}
+    for n in (1 << 22, 1 << 25):
+        key = sorted_run_keys(rng, n)
+        live = rng.random(n) < 0.99
+        rows[n] = run_row(torch, sk, card, f"{n:,} rows, sorted runs of "
+                          "1-20, 99% live, int64", on_card(key),
+                          on_card(live))
+        if n == 1 << 22:
+            run_row(torch, sk, card, f"{n:,} rows, sorted runs of 1-20, "
+                    "99% live, int32", on_card(key.astype(np.int32)),
+                    on_card(live))
+    checks = 0
+    for n in (1, 1023, 1024, 1025, 1_000_003, 1 << 22):
+        key = sorted_run_keys(rng, n)
+        whole_runs = np.isin(key, np.unique(key)[::3])
+        cases = {
+            "one run": (np.full(n, 7, np.int64), rng.random(n) < 0.5),
+            "every row masked": (key, np.zeros(n, bool)),
+            "masked rows inside runs": (key, rng.random(n) < 0.6),
+            "runs all masked": (key, ~whole_runs & (rng.random(n) < 0.9)),
+            "int32": (key.astype(np.int32), rng.random(n) < 0.7),
+            "unsorted": (rng.integers(0, 4, n), rng.random(n) < 0.6),
+            "negative": (key - (1 << 40), rng.random(n) < 0.8),
+        }
+        for label, (k, m) in cases.items():
+            run_check(torch, sk, f"{n:,} rows, {label}", on_card(k),
+                      on_card(m))
+            checks += 1
+        run_check(torch, sk, f"{n:,} rows, key[1:] mask[3:]",
+                  on_card(key, 1), on_card(rng.random(n) < 0.7, 3))
+        checks += 1
+    # a layout inside a captured graph: the replay equals the plain version
+    n = 1 << 22
+    k = on_card(sorted_run_keys(rng, n))
+    m = on_card(rng.random(n) < 0.8)
+    sk.run_layout(k, m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = sk.run_layout(k, m)
+    for t in gout:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    exp = sk.run_layout_plain(k, m)
+    if not all(torch.equal(a, b) for a, b in zip(gout, exp)):
+        fail("run_layout: the graph replay differs from the plain version")
+    print(f"run_layout: 3 timed cases and {checks} more equal the plain "
+          "version exactly; a captured graph's replay equals it "
+          f"({card})", flush=True)
+    return rows[1 << 22]
+
+
+def path_runs(torch, sk, label: str, run) -> list:
+    """The run-layout kernel at a path's own inputs: one more `run()`
+    keeps a copy of the inputs of every run_layout call, then holds each
+    against the plain version exactly and times the first's bare launch.
+    Returns the rows (rows, live rows, groups, bound_ms; device_ms of the
+    first)."""
+    import spark_tpu_torch.ops.grouping as G
+
+    real, kept = G.run_layout, []
+
+    def record(key, row_mask):
+        kept.append((key.clone(), row_mask.clone()))
+        return real(key, row_mask)
+
+    G.run_layout = record
+    try:
+        run()
+    finally:
+        G.run_layout = real
+    out = []
+    for i, (k, m) in enumerate(kept):
+        exp = run_check(torch, sk, f"{label}: {k.shape[0]:,} rows", k, m)
+        n = k.shape[0]
+        row = {"rows": n, "live_rows": int(m.sum()), "groups": int(exp[2]),
+               "bound_ms": bound_ms(n * (k.element_size() + 1) + n * 9 + 8)}
+        if i == 0:  # the inputs share one shape: the first is timed
+            launch, _ = run_bare(torch, sk, k.contiguous(), m.contiguous())
+            row["device_ms"] = device_ms(launch)
+        out.append(row)
+    print(f"{label}: the run-layout kernel equals its plain version at "
+          f"{len(kept)} path inputs " + json.dumps(out), flush=True)
+    return out
 
 
 TIER = "spark.tpu.compile.tier"
@@ -3298,12 +3509,14 @@ def _warm(torch, run, n: int = 3) -> list:
 
 
 def tier_run(torch, sk, card: str, label: str, spark, tier: str, run,
-             histograms, check, first, post_check=None) -> dict:
+             histograms, check, first, post_check=None,
+             timed: bool = True) -> dict:
     """The same query once more at `tier` in the same session (planned
     anew there): its histogram calls exactly `histograms`, its result to
     the oracle `check`, to `post_check(metrics delta)` where given and to
-    the first tier's result `first`; 3 warm runs and a profiled one,
-    printed as the `<label> <tier>` line. Returns the launch counts."""
+    the first tier's result `first`; 3 warm runs and a profiled one (none
+    where not `timed`: the counted cold run and its checks only), printed
+    as the `<label> <tier>` line. Returns the launch counts."""
     with tier_set(spark, tier):
         m0 = spark.metrics
         out, cold, launches, st = counted_run(torch, sk, spark, run)
@@ -3318,11 +3531,16 @@ def tier_run(torch, sk, card: str, label: str, spark, tier: str, run,
             msg += "; " + post_check(_delta(spark.metrics, m0))
         print(f"{label} {tier} tier: {msg}", flush=True)
         same_tables(label, first, out)
-        warm = _warm(torch, run)
+        if timed:
+            warm = _warm(torch, run)
+            busy, median = busy_share(torch, run), statistics.median(warm)
+        else:
+            cut = "not measured: cut for the script's time"
+            warm, busy, median = [], {"device_idle_share": cut}, cut
         cc = st["cache"]
         print(f"{label} {tier} " + json.dumps(dict(
-            busy_share(torch, run), tier=tier, cold_s=cold,
-            warm_median_s=statistics.median(warm), warm_s=warm,
+            busy, tier=tier, cold_s=cold,
+            warm_median_s=median, warm_s=warm,
             dispatches=st["dispatches"], histogram_calls=calls,
             captures=cc.get("stage_cache.captures", 0),
             replays=cc.get("stage_cache.replays", 0),
@@ -3349,7 +3567,8 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
           profile: bool = True, operator=None, stage=None,
           stage_check=None, tiers_out=None, main_calls=None,
           warm_runs: int = 3, record_operator: bool = False,
-          whole: bool = False, session=None) -> dict:
+          whole: bool = False, session=None,
+          operator_timed: bool = True) -> dict:
     """One path through the DataFrame API at the session's tier (the
     default: `auto`, whose cost model picks whole, stage or operator per
     plan, printed with its reason): assert the physical plan holds each of
@@ -3374,7 +3593,8 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     exactly `stage`, `stage_check(metrics delta)` for the stage tier's own
     paths); where `whole` is set and the plan is not whole, once more at
     forced `whole` (no histogram call); where `operator` is given, once
-    more at the operator tier.
+    more at the operator tier (untimed where not `operator_timed`: its
+    counted cold run and checks only).
     `run()` runs the path and returns its Arrow table (default:
     `df.toArrow`, over the plan made once; `main_calls()` then gives the
     histogram calls of the main plan alone in its last run). The SF10
@@ -3505,7 +3725,7 @@ def drive(torch, sk, card: str, label: str, df, rows: int, plan_parts,
     if operator is not None:
         tiers_out["operator"] = tier_run(torch, sk, card, label, spark,
                                          "operator", again, operator,
-                                         check, out)
+                                         check, out, timed=operator_timed)
 
     if tier == "stage" or stage is not None:
         def stage_run():
@@ -3777,10 +3997,12 @@ def range_sort_leg(torch, sk, card: str, k, v) -> dict:
                      f"np.lexsort order")
         return f"{out.num_rows} rows in the np.lexsort order"
 
+    # the operator tier's rerun is untimed (cut for the script's time):
+    # its counted cold run, histogram calls and oracle stay
     launches = drive(torch, sk, card, "range_sort leg", df, ROWS,
                      (f"Exchange[RangePartitioning({PARTITIONS})]",
                       "Sort[k#"), leg_calls("range_sort"), check,
-                     operator=leg_calls("range_sort"),
+                     operator=leg_calls("range_sort"), operator_timed=False,
                      stage=leg_calls("range_sort"))
     spark.stop()
     return launches
@@ -4039,6 +4261,175 @@ def budget_q78(torch, sk, card: str, spark, df, check) -> dict:
 
 # --- the tpcds leg ---------------------------------------------------------
 
+# --- the sorted_runs leg: the sorted-run aggregate ------------------------
+
+SORTED_ROWS = ROWS              # order lines
+SORTED_SEED = 29
+SORTED_QUERY = ("SELECT order_id, count(*) n, sum(qty) q, min(price) lo, "
+                "max(price) hi, bit_or(flags) f FROM order_lines "
+                "WHERE qty > 1 GROUP BY order_id")
+
+
+def sorted_runs_table(rows: int = SORTED_ROWS, seed: int = SORTED_SEED):
+    """Order lines clustered by order id, as a table written sorted by its
+    key: 1-20 lines an order (uniform), order ids sorted with gaps uniform
+    in [16, 112), qty in 1-100, price int64 cents in [100, 100000), flags
+    in [0, 2^16); numpy seed 29. Returns the columns as numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 21, rows // 10 + 1)
+    if int(lens.sum()) < rows:
+        fail("sorted_runs: too few orders for the lines")
+    ids = np.cumsum(rng.integers(16, 112, len(lens)))
+    return {"order_id": np.repeat(ids, lens)[:rows],
+            "qty": rng.integers(1, 101, rows),
+            "price": rng.integers(100, 100_000, rows),
+            "flags": rng.integers(0, 1 << 16, rows)}
+
+
+def sorted_runs_oracle(a: dict) -> dict:
+    """The query's groups from numpy: the live lines' runs of equal ids
+    reduced with reduceat."""
+    import numpy as np
+
+    live = a["qty"] > 1
+    oid = a["order_id"][live]
+    starts = np.flatnonzero(np.r_[True, oid[1:] != oid[:-1]])
+    return {"order_id": oid[starts],
+            "n": np.diff(np.r_[starts, len(oid)]),
+            "q": np.add.reduceat(a["qty"][live], starts),
+            "lo": np.minimum.reduceat(a["price"][live], starts),
+            "hi": np.maximum.reduceat(a["price"][live], starts),
+            "f": np.bitwise_or.reduceat(a["flags"][live], starts)}
+
+
+def sorted_runs_leg(torch, sk, card: str) -> dict:
+    """Spark users group by the clustering key of a table written sorted
+    by it (order lines clustered by order id; a sortBy / SORT BY write):
+    SORTED_QUERY over 2e7 lines (`sorted_runs_table`) ingested from Arrow
+    into 8 partitions, each one 2^22-row tile of 2.5M lines whose key span
+    (about 1.5e7) is over the dense path's 2^23, so the partial aggregate
+    takes the sorted-run path where it runs unfused. The query runs at the
+    operator tier (every partial aggregate takes ragg: the sorted-run
+    count, ragg dispatches and run-layout launches each equal the tiles,
+    and the sorted path runs only for the final aggregate's partitions),
+    at stage (the fused aggregate, no ragg) and at `auto` (its tier
+    printed), each cold and 3 warm, held to the numpy oracle; then once
+    more at the operator tier with spark.tpu.debug.validateBatches set,
+    to the same result, and once more to hold the run-layout kernel at
+    the leg's own inputs. A cold dense decision over the ingested tiles
+    reads nothing from the device (their ranges were seeded at ingest).
+    Returns the launch counts of the operator tier's run (the kernels
+    line's run-layout launches) and of each tier."""
+    import numpy as np
+    import pyarrow as pa
+
+    from spark_tpu_torch.api.dataframe import DataFrame
+    from spark_tpu_torch.expr.expressions import AttributeReference
+    from spark_tpu_torch.io.sources import InMemorySource
+    from spark_tpu_torch.physical.operators import dense_range_stats
+    from spark_tpu_torch.plan.logical import LogicalRelation
+
+    t0 = time.perf_counter()
+    a = sorted_runs_table()
+    per = -(-SORTED_ROWS // PARTITIONS)
+    spans = [int(a["order_id"][min(lo + per, SORTED_ROWS) - 1]
+                 - a["order_id"][lo]) + 1
+             for lo in range(0, SORTED_ROWS, per)]
+    if min(spans) + 1 <= min(4 * TILE, 1 << 23):
+        fail(f"sorted_runs: a partition's key span {min(spans)} would take "
+             "the dense path")
+    spark = session({"spark.sql.shuffle.partitions": PARTITIONS,
+                     "spark.tpu.batch.capacity": TILE})
+    # the table in PARTITIONS splits, its ingested tiles kept on the card
+    # as an in-memory view's are
+    src = InMemorySource(pa.table(a), PARTITIONS)
+    src.cache_device_batches = True
+    attrs = [AttributeReference(f.name, f.dataType, f.nullable)
+             for f in src.schema.fields]
+    DataFrame(spark, LogicalRelation(src, attrs, "order_lines")) \
+        .createOrReplaceTempView("order_lines")
+    want = once(lambda: sorted_runs_oracle(a))
+
+    def check(out):
+        exp = want()
+        got = out.sort_by("order_id")
+        if got.num_rows != len(exp["order_id"]):
+            fail(f"sorted_runs: {got.num_rows} groups, not "
+                 f"{len(exp['order_id'])}")
+        for name, col in exp.items():
+            if not np.array_equal(got.column(name).to_numpy(), col):
+                fail(f"sorted_runs: column {name} differs from the numpy "
+                     "oracle")
+        return f"{got.num_rows} groups equal to the numpy oracle"
+
+    tiers = {}
+    for tier in ("operator", "stage", "auto"):
+        with tier_set(spark, tier):
+            df = spark.sql(SORTED_QUERY)
+            m0 = spark.metrics
+            out, cold, launches, st = counted_run(torch, sk, spark,
+                                                  df.toArrow)
+            delta = _delta(spark.metrics, m0)
+            msg = check(out)
+            warm = _warm(torch, df.toArrow)
+            disp = st["dispatches"]
+            ragg = disp.get("ragg", 0)
+            if tier == "operator":
+                finals = PARTITIONS - delta.get("aqe.partitions_coalesced",
+                                                0)
+                if not (ragg == launches["run_layout"] == PARTITIONS
+                        == delta.get("agg.run_sorted_fast_path", 0)):
+                    fail(f"sorted_runs at operator: {ragg} ragg, "
+                         f"{launches['run_layout']} run-layout launches, "
+                         f"{delta.get('agg.run_sorted_fast_path', 0)} "
+                         f"sorted-run partials for {PARTITIONS} tiles")
+                if disp.get("gagg", 0) != finals or disp.get("dagg", 0):
+                    fail(f"sorted_runs at operator: {disp.get('gagg', 0)} "
+                         f"sorted and {disp.get('dagg', 0)} dense "
+                         f"aggregates for {finals} final partitions")
+            elif tier == "stage" and (ragg or launches["run_layout"] or
+                                      not disp.get("fused_agg", 0)):
+                fail(f"sorted_runs at stage: {ragg} ragg and "
+                     f"{disp.get('fused_agg', 0)} fused aggregate "
+                     "dispatches")
+            tiers[tier] = launches
+            print(f"sorted_runs {tier}: {msg}", flush=True)
+            print(f"sorted_runs {tier} " + json.dumps(dict(
+                decision_report(df), cold_s=cold,
+                warm_median_s=statistics.median(warm), warm_s=warm,
+                histogram_calls=launches["partition_histogram"],
+                bits_calls=launches["segment_bits"],
+                run_layout_calls=launches["run_layout"],
+                dispatches=disp,
+                cold_dense_range_syncs=delta.get("dense_range.syncs", 0),
+                run_sorted_partials=delta.get("agg.run_sorted_fast_path",
+                                              0),
+                **sched_report(st["sched"]), card=card)), flush=True)
+    # a cold dense decision over the ingested tiles: seeded at ingest
+    m0 = spark.metrics
+    tiles = [b for part in src._device_cache.values() for b in part]
+    for b in tiles:
+        dense_range_stats(b.columns[0], b.row_mask, spark._metrics)
+    syncs = _delta(spark.metrics, m0).get("dense_range.syncs", 0)
+    if len(tiles) != PARTITIONS or syncs:
+        fail(f"sorted_runs: {syncs} dense-range reads over {len(tiles)} "
+             "ingested tiles")
+    spark.conf.set("spark.tpu.debug.validateBatches", "true")
+    with tier_set(spark, "operator"):
+        check(spark.sql(SORTED_QUERY).toArrow())
+    spark.conf.unset("spark.tpu.debug.validateBatches")
+    with tier_set(spark, "operator"):
+        path = path_runs(torch, sk, "sorted_runs",
+                         spark.sql(SORTED_QUERY).toArrow)
+    print(f"sorted_runs: {len(tiles)} ingested tiles, 0 dense-range reads "
+          "over them; the validated run equals the oracle too; leg "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    spark.stop()
+    return tiers, path
+
+
 def window_leg(torch, sk, card: str, k, v) -> dict:
     """Spark's top-N-per-group idiom (pyspark.sql.Window) over the main
     table in PARTITIONS round-robin partitions, hash-exchanged on k:
@@ -4119,11 +4510,14 @@ def window_leg(torch, sk, card: str, k, v) -> dict:
         return (f"{got.num_rows} rows equal to the numpy oracle (the top "
                 f"{WINDOW_TOP} of {len(np.unique(ks))} partitions)")
 
+    # the operator tier's rerun is untimed (cut for the script's time):
+    # its counted cold run, histogram calls and oracle stay
     launches = drive(torch, sk, card, "window leg", df, ROWS,
                      (f"Exchange[HashPartitioning({PARTITIONS})]",
                       "Window[rownumber, rank, denserank, sum, lag, max, "
                       "lead, lag]"),
-                     leg_calls("window"), check, operator=leg_calls("window"))
+                     leg_calls("window"), check,
+                     operator=leg_calls("window"), operator_timed=False)
     spark.stop()
     return launches
 
@@ -7807,6 +8201,8 @@ def parquet_leg(torch, sk, card: str, proc: subprocess.Popen,
             out[q] = drive(torch, sk, card, f"parquet {q}", df, fact_rows,
                            (), calls, check, None, timed_shapes,
                            warm_runs=1, record_operator=True)
+            print(f"parquet {q} ingest split " + json.dumps(dict(
+                ingest_split(torch, df.toArrow), card=card)), flush=True)
             print(f"parquet {q} done at {time.perf_counter() - t_start:.1f}"
                   " s", flush=True)
             summary[q] = {"splits": splits, "fact_tiles": fact_tiles,
@@ -7830,6 +8226,46 @@ def parquet_leg(torch, sk, card: str, proc: subprocess.Popen,
             proc.kill()
             proc.wait()
         shutil.rmtree(PARQUET_DIR, ignore_errors=True)
+
+
+def ingest_split(torch, run) -> dict:
+    """One more warm run of a file query with the scan's host work timed
+    by wrappers, in host s summed over the calls: the files' read and
+    decode to Arrow (`ParquetSource.read_partition`), each tile's ingest
+    (`arrow.record_batch_to_columnar`: Arrow to numpy, the padded plane,
+    the harvest, the copy to the card), and inside the ingest the harvest:
+    the RunInfo (`arrow.harvest_runs`) and the live range that seeds the
+    dense-range memo (`arrow._live_range`)."""
+    import spark_tpu_torch.columnar.arrow as A
+    from spark_tpu_torch.io.sources import ParquetSource
+
+    spent = dict.fromkeys(("read_s", "ingest_s", "runs_s", "range_s"), 0.0)
+    targets = {"read_s": (ParquetSource, "read_partition"),
+               "ingest_s": (A, "record_batch_to_columnar"),
+               "runs_s": (A, "harvest_runs"), "range_s": (A, "_live_range")}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    saved = {key: getattr(*target) for key, target in targets.items()}
+    for key, (owner, name) in targets.items():
+        setattr(owner, name, timed(key, saved[key]))
+    try:
+        _, wall = _timed_once(torch, run)
+    finally:
+        for key, (owner, name) in targets.items():
+            setattr(owner, name, saved[key])
+    harvest = spent["runs_s"] + spent["range_s"]
+    return dict(spent, wall_s=wall, harvest_s=harvest,
+                harvest_share_of_ingest=harvest / spent["ingest_s"]
+                if spent["ingest_s"] else None,
+                harvest_share_of_wall=harvest / wall)
 
 
 def _timed_once(torch, fn):
@@ -8109,6 +8545,8 @@ def run() -> None:
         main_hist, main_sum = phase("kernels", check_kernels, torch, sk)
         main_bits = phase("bit_kernel", check_bit_kernel, torch, sk)
         main_bloom = phase("bloom_kernel", check_bloom_kernel, torch, sk)
+        main_runs = phase("run_layout_kernel", check_run_layout, torch, sk,
+                          card)
         k, v = main_table()
         main_tiers = phase("main", main_path, torch, sk, card, k, v)
         # the main query at `auto` runs as one whole program, which calls
@@ -8123,8 +8561,12 @@ def run() -> None:
                                 card, k, v),
             "topk": phase("topk", topk_leg, torch, sk, card, k, v),
             "q78": phase("q78", q78_leg, torch, sk, card),
-            "window": phase("window", window_leg, torch, sk, card, k, v),
         }
+        sorted_tiers, sorted_path = phase("sorted_runs", sorted_runs_leg,
+                                          torch, sk, card)
+        by_path["sorted_runs"] = sorted_tiers["operator"]
+        by_path["window"] = phase("window", window_leg, torch, sk, card, k,
+                                  v)
         # the budget leg runs at the end of the sort and q78 legs, on
         # their sessions and oracles
         for leg in ("sort", "q78"):
@@ -8205,6 +8647,18 @@ def run() -> None:
         e["library"] = BLOOM_LIBRARY
         e["bound_note"] = main_bloom[name]["bound_note"]
         bloom_entries.append(e)
+    # the run-layout kernel's path is this slice's: the sorted_runs leg's
+    # partial aggregates at the operator tier (the sorted-run path lives
+    # in the unfused aggregate, as the reference's does)
+    run_entry = entry(
+        "run_layout", main_runs,
+        "spark_tpu/ops/grouping.py:63 group_rows_presorted (XLA-lowered)",
+        "run_layout.cu", sorted_tiers["operator"]["run_layout"],
+        sorted_tiers["stage"]["run_layout"], "sorted_runs",
+        "operator (forced: the unfused aggregate)")
+    run_entry["launches_at_auto"] = sorted_tiers["auto"]["run_layout"]
+    run_entry["library"] = RUN_LIBRARY
+    run_entry["path_inputs"] = sorted_path
     snaps = [m.snapshot() for m in SESSION_METRICS]
     retries = sum(m.get("scheduler.stage_retries", 0) for m in snaps)
     if retries:
@@ -8221,6 +8675,7 @@ def run() -> None:
               "spark_tpu/ops/pallas_kernels.py:128"),
         bits_entry,
         *bloom_entries,
+        run_entry,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

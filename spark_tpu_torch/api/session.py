@@ -29,6 +29,7 @@ from typing import Any
 import pyarrow as pa
 import torch
 
+from ..columnar.encoding import configure as configure_encoding
 from ..config import DEFAULT_PARALLELISM, DEVICE, WAREHOUSE_DIR, SQLConf
 from ..errors import DeviceUnavailableError, NotPortedError
 from ..exec.context import ExecContext, Metrics
@@ -109,6 +110,9 @@ class TorchSession:
         self.appName = appName
         self.conf = SQLConf(conf)
         self.device = resolve_device(device, self.conf)
+        # the ingest-time RunInfo harvest follows this session's
+        # spark.tpu.encoding.enabled, as the reference's session sets it
+        configure_encoding(self.conf)
         self.catalog_ = Catalog()
         wh_dir = self.conf.get(WAREHOUSE_DIR)
         if wh_dir:

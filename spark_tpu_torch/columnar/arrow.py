@@ -26,9 +26,10 @@ from ..types import (
     ArrayType, BooleanType, DataType, DateType, DecimalType, MapType,
     StringType, StructField, StructType, TimestampType, from_arrow_type,
 )
+from ..utils.device_memo import seed_dense_range_memo
 from .batch import (
     Column, ColumnarBatch, StringDict, bucket_capacity, empty_entry,
-    encode_values,
+    encode_values, harvest_runs,
 )
 
 __all__ = ["schema_from_arrow", "table_to_batches", "batches_to_table",
@@ -86,26 +87,59 @@ def _chunked_to_numpy(arr: pa.ChunkedArray | pa.Array, dt: DataType):
     return data, validity, None
 
 
+def _live_range(data: np.ndarray, validity, runs) -> tuple:
+    """(min, max, any_live) of an integral host plane's live rows: the
+    ends of a sorted column's runs, else one null-aware pass of Arrow's
+    min_max over the plane itself, its validity packed as Arrow's bitmap
+    (no copy of the valid values)."""
+    if runs is not None and runs.is_sorted:
+        return runs.first, runs.last, True
+    bits = None if validity is None else pa.py_buffer(
+        np.packbits(validity, bitorder="little"))
+    mm = pc.min_max(pa.Array.from_buffers(
+        pa.from_numpy_dtype(data.dtype), len(data),
+        [bits, pa.py_buffer(np.ascontiguousarray(data))]))
+    lo = mm["min"].as_py()
+    return (0, 0, False) if lo is None else (lo, mm["max"].as_py(), True)
+
+
 def record_batch_to_columnar(rb: pa.RecordBatch | pa.Table,
                              schema: StructType, capacity: int,
                              device: torch.device | str,
                              num_rows: int | None = None) -> ColumnarBatch:
-    """Ingest one Arrow slice into a device tile of `capacity` rows."""
+    """Ingest one Arrow slice into a device tile of `capacity` rows.
+
+    While each plane is still host numpy, an integral column with no
+    validity plane gets its RunInfo (`harvest_runs`, as the reference's
+    ingest), and the dense-range memo is seeded for the tile's tensors:
+    an integral column's live (min, max, any_live), a dictionary column's
+    code span (0, len(dict) - 1, any_live), so a dense decision over the
+    tile reads nothing from the device."""
     n = num_rows if num_rows is not None else rb.num_rows
-    cols = []
+    cols, ranges = [], {}
     for i, f in enumerate(schema.fields):
         data, validity, sd = _chunked_to_numpy(rb.column(i), f.dataType)
         pad = np.zeros(capacity, dtype=f.dataType.numpy_dtype)
         pad[:n] = data[:capacity]
-        v = None
+        v, runs = None, None
         if validity is not None:
             vm = np.zeros(capacity, dtype=bool)
             vm[:n] = validity[:capacity]
             v = torch.from_numpy(vm).to(device)
+        else:
+            runs = harvest_runs(f.dataType, pad, min(n, capacity))
         cols.append(Column(f.dataType, torch.from_numpy(pad).to(device), v,
-                           sd))
+                           sd, runs))
+        if sd is not None:
+            ranges[i] = (0, max(len(sd) - 1, 0), n > 0 and (
+                validity is None or bool(validity[:n].any())))
+        elif pad.dtype.kind == "i":
+            ranges[i] = _live_range(data[:capacity], None if validity is None
+                                    else validity[:capacity], runs)
     mask = torch.zeros(capacity, dtype=torch.bool, device=device)
     mask[:n] = True
+    for i, rng in ranges.items():
+        seed_dense_range_memo(cols[i], mask, rng)
     return ColumnarBatch(schema, cols, mask, num_rows=n)
 
 

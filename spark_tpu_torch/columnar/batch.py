@@ -381,6 +381,19 @@ def _take_codes(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return torch.take(lut, codes.clamp(0, lut.shape[0] - 1).to(torch.int64))
 
 
+def harvest_runs(dtype, pad: np.ndarray, n: int):
+    """The RunInfo of a host plane's first `n` rows, harvested at ingest
+    under the reference's conditions: a signed integral plane, not
+    dictionary-encoded, and the harvest switch on (the caller checks that
+    there is no validity plane). None otherwise."""
+    from .encoding import column_runs, runs_harvest_enabled
+
+    if pad.dtype.kind != "i" or dict_encoded(dtype) or \
+            not runs_harvest_enabled():
+        return None
+    return column_runs(pad, n)
+
+
 @dataclass(frozen=True)
 class Column:
     """One column of a batch: device data + optional validity plane.
@@ -389,12 +402,18 @@ class Column:
     validity: bool tensor [capacity] or None (= no nulls)
     dictionary: the StringDict of a dictionary-encoded column (string,
         binary, array, map, struct; codes index it)
+    runs: the host-side RunInfo (columnar/encoding.py) harvested at ingest
+        from an integral plane with no validity; it describes `data`, so a
+        column built over a new plane starts with None, and only an
+        operator that passes this data through row for row (a mask-only
+        filter, a pass-through projection) keeps it
     """
 
     dtype: Any
     data: torch.Tensor
     validity: torch.Tensor | None = None
     dictionary: StringDict | None = None
+    runs: Any = None
 
     @property
     def is_string(self) -> bool:
@@ -479,9 +498,12 @@ class ColumnarBatch:
                 vm = np.zeros(cap, dtype=bool)
                 vm[:n] = np.asarray(v, dtype=bool)[:cap]
                 vv = torch.from_numpy(vm).to(device)
+            runs = None
+            if v is None and row_mask is None:
+                runs = harvest_runs(f.dataType, pad, min(n, cap))
             cols.append(Column(f.dataType, torch.from_numpy(pad).to(device),
                                vv, EMPTY_DICT if dict_encoded(f.dataType)
-                               else None))
+                               else None, runs))
         mask = np.zeros(cap, dtype=bool)
         if row_mask is not None:
             mask[:n] = np.asarray(row_mask, dtype=bool)[:cap]

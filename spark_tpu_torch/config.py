@@ -50,12 +50,21 @@ AUTO_BROADCAST_THRESHOLD = _register(ConfigEntry(
 ENCODING_ENABLED = _register(ConfigEntry(
     "spark.tpu.encoding.enabled", True,
     "Compressed execution: a single dictionary-encoded (string) grouping "
-    "key aggregates by direct scatter over its dense code domain.",
+    "key aggregates by direct scatter over its dense code domain, and a "
+    "single sorted integral key (its ingest RunInfo, "
+    "columnar/encoding.py) reduces per run without sorting.",
     lambda s: str(s).lower() == "true"))
 
 
 def _bool(s) -> bool:
     return str(s).lower() == "true"
+
+
+VALIDATE_BATCHES = _register(ConfigEntry(
+    "spark.tpu.debug.validateBatches", False,
+    "Validate every operator's output batches (shape/dtype/mask "
+    "invariants; columnar/validate.py). Debug only — syncs per batch.",
+    _bool))
 
 
 DPP_ENABLED = _register(ConfigEntry(

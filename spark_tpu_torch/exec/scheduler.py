@@ -13,7 +13,9 @@ re-plans the stages not yet run with the sizes it observed
 threshold demotes its join). A failed stage is re-run once
 (`max_attempts=2`; deterministic re-execution replays its subtree), and
 the metrics count `scheduler.stages_completed` and
-`scheduler.stage_retries`.
+`scheduler.stage_retries`. With spark.tpu.debug.validateBatches set, each
+stage's result is checked by `columnar/validate.maybe_validate` before the
+stage counts as completed, as the reference does.
 
 A whole-tier program (physical/whole_query.WholeQueryExec) holds its plan
 as no child, so it is one stage. Stages run one after another, and a
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..columnar.validate import maybe_validate
 from ..physical.operators import PhysicalPlan
 from .context import ExecContext
 
@@ -225,6 +228,8 @@ class DAGScheduler:
             stage.attempts = attempt + 1
             try:
                 stage.result = stage.root.execute(self.ctx)
+                maybe_validate(stage.result, self.ctx,
+                               f"stage-{stage.stage_id}")
                 self.ctx.metrics.add("scheduler.stages_completed")
                 return
             except Exception as e:  # deterministic retry (lineage)

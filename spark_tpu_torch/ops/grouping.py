@@ -7,7 +7,10 @@ segment with `index_add_` / `scatter_reduce_`. The dense-range path
 scatters by precomputed segment ids; its counts go through the
 hand-written histogram kernel. Output capacity equals input capacity with a
 row mask for live groups; empty segments hold the same identities the JAX
-package's segment reductions give them. bit_and, bit_or and bit_xor reduce
+package's segment reductions give them. A single key already sorted (its
+ingest RunInfo) skips the sort: `group_rows_presorted` takes groups from
+run boundaries, through the hand-written run-layout kernel
+(`scatter_kernels.run_layout`) on the card. bit_and, bit_or and bit_xor reduce
 through the hand-written bit kernel (`scatter_kernels.segment_bits`) on the
 card and its bit-plane twin on the CPU; percentiles take the lower nearest
 rank of one multi-key sort, as the reference's do.
@@ -20,7 +23,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..errors import NotPortedError
-from .scatter_kernels import partition_histogram, segment_bits
+from .scatter_kernels import partition_histogram, run_layout, segment_bits
 
 
 class GroupLayout(NamedTuple):
@@ -69,6 +72,23 @@ def group_rows(key_cols: Sequence[torch.Tensor],
     seg_ids = (torch.cumsum(start_flag.to(torch.int64), 0) - 1).clamp_min(0)
     num_groups = start_flag.sum()
     return GroupLayout(perm, seg_ids, start_flag, active, num_groups)
+
+
+def group_rows_presorted(key: torch.Tensor, row_mask: torch.Tensor
+                         ) -> GroupLayout:
+    """GroupLayout of a single key column whose values are already
+    non-decreasing (ingest RunInfo.is_sorted, no validity plane): the
+    sorted-run aggregate. Equal keys are adjacent, so groups come from run
+    boundaries and the grouping sort is skipped: `perm` is the identity
+    and `active` the row mask. A row opens a group iff it is live and no
+    live row precedes it in its run (a run: a maximal stretch of equal
+    keys over all rows, masked and padding rows included), so a masked row
+    inside a run does not split its group and a run with no live row makes
+    none. The layout comes from the run-layout kernel on the card
+    (`scatter_kernels.run_layout`) and from its plain twin on the CPU."""
+    start, seg_ids, num_groups = run_layout(key, row_mask)
+    pos = torch.arange(row_mask.shape[0], device=row_mask.device)
+    return GroupLayout(pos, seg_ids, start, row_mask, num_groups)
 
 
 def scatter_group_keys(layout: GroupLayout, key_col: torch.Tensor,

@@ -14,14 +14,19 @@
     segment (`spark_tpu_torch/csrc/segment_bits.cu`), the hand-written
     kernel of the reference's XLA-lowered `bitplane_reduce`
     (`spark_tpu/ops/grouping.py:159`), behind bit_and, bit_or and bit_xor.
+  * `run_layout`: the group layout of a presorted key
+    (`spark_tpu_torch/csrc/run_layout.cu`), the hand-written kernel of the
+    reference's XLA-lowered `group_rows_presorted`
+    (`spark_tpu/ops/grouping.py:63`), behind the sorted-run aggregate.
 
 Each wrapper takes its plain PyTorch version (`*_plain`, `index_add_` at the
 clipped keys) only for tensors on the CPU. Given CUDA tensors it launches
 the kernel or raises; it never drops to the plain version. `LAUNCHES`
-counts the wrapper calls that launched the kernel, one per call. Each such
-call issues two CUDA kernels of the source: the scatter kernel and either
-the merge of its block partials or, ahead of it, the kernel that zeroes
-the output (see the source's note).
+counts the wrapper calls that launched the kernel, one per call. Each
+histogram or float32-sum call issues two CUDA kernels of its source: the
+scatter kernel and either the merge of its block partials or, ahead of it,
+the kernel that zeroes the output (see the source's note); a run-layout
+call issues three (tile summaries, the carry across tiles, the writes).
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from ..utils import cuda_build
 SOURCE = "scatter_kernels"
 BITS_SOURCE = "segment_bits"
 BLOOM_SOURCE = "bloom_filter"   # its wrappers live in ops/bloom.py
-SOURCES = (SOURCE, BITS_SOURCE, BLOOM_SOURCE)
+RUN_SOURCE = "run_layout"
+SOURCES = (SOURCE, BITS_SOURCE, BLOOM_SOURCE, RUN_SOURCE)
 
 # wrapper calls that launched the kernel (incremented only where it
 # launches); bloom_build and bloom_probe count ops/bloom.py's
@@ -44,7 +50,8 @@ LAUNCHES: dict[str, int] = {"partition_histogram": 0,
                             "dense_group_sum_f32": 0,
                             "segment_bits": 0,
                             "bloom_build": 0,
-                            "bloom_probe": 0}
+                            "bloom_probe": 0,
+                            "run_layout": 0}
 BIT_KINDS = ("and", "or", "xor")
 
 
@@ -116,6 +123,25 @@ def segment_bits_plain(values: torch.Tensor, weights: torch.Tensor,
     return (plane.to(torch.int64) << shifts[None, :]).sum(dim=1)
 
 
+def run_layout_plain(key: torch.Tensor, row_mask: torch.Tensor):
+    """The reference's group_rows_presorted layout: a run is a maximal
+    stretch of equal keys over all rows (masked and padding rows
+    included); a row opens a group iff it is live and no live row precedes
+    it in its run. Returns (start bool[n], seg_ids int64[n] = max(starts
+    so far - 1, 0), num_groups int64 0-dim)."""
+    n, dev = row_mask.shape[0], row_mask.device
+    pos = torch.arange(n, device=dev)
+    changed = torch.ones(n, dtype=torch.bool, device=dev)
+    changed[1:] = key[1:] != key[:-1]
+    run_id = torch.cumsum(changed.to(torch.int64), 0) - 1
+    first_live = torch.full((n,), n, dtype=torch.int64, device=dev)
+    first_live.scatter_reduce_(0, run_id, torch.where(row_mask, pos, n),
+                               "amin")
+    start = row_mask & (pos == first_live[run_id])
+    seg = (torch.cumsum(start.to(torch.int64), 0) - 1).clamp_min(0)
+    return start, seg, start.sum()
+
+
 # --- CUDA launch ---------------------------------------------------------------
 
 _bound = None
@@ -155,12 +181,30 @@ def _bits_lib():
     return _bits_bound
 
 
+_run_bound = None
+
+
+def _run_lib():
+    global _run_bound
+    if _run_bound is None:
+        lib = cuda_build.load(RUN_SOURCE)
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.spark_run_layout_scratch_bytes.argtypes = [i64]
+        lib.spark_run_layout_scratch_bytes.restype = ctypes.c_int64
+        for fn in (lib.spark_run_layout_i32, lib.spark_run_layout_i64):
+            fn.argtypes = [p, p, i64, p, p, p, p, p]
+            fn.restype = ctypes.c_int
+        _run_bound = lib
+    return _run_bound
+
+
 def prepare(device: torch.device) -> None:
-    """Load the library and read the card's SM count for `device`: what
+    """Load the libraries and read the card's SM count for `device`: what
     the first launch does, done ahead of a CUDA graph capture."""
     _on_device(device, lambda: _scratch_rows(False, 1 << 20, 64,
                                              device.index))
     _on_device(device, lambda: _bits_lib().spark_segment_bits_prepare())
+    _run_lib()
 
 
 def _check_inputs(keys: torch.Tensor, mask: torch.Tensor,
@@ -321,3 +365,40 @@ def segment_bits(values: torch.Tensor, weights: torch.Tensor,
     _raise_on(_on_device(v.device, launch), "segment_bits")
     LAUNCHES["segment_bits"] += 1
     return out
+
+
+_RUN_KEYS = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def run_layout(key: torch.Tensor, row_mask: torch.Tensor):
+    """The group layout of a single key column whose equal values are
+    adjacent (`run_layout_plain`'s definition, which holds for any key
+    order): (start bool[n], seg_ids int64[n], num_groups int64 0-dim). The
+    key is a signed integer of at most 64 bits (compared as int32 or
+    int64). On the card it launches the kernel: no host read and a scratch
+    sized by n alone, so it runs inside a CUDA graph capture."""
+    if _check_inputs(key, row_mask) == "cpu":
+        return run_layout_plain(key, row_mask)
+    if key.dtype not in _RUN_KEYS:
+        raise ValueError(f"run_layout takes a signed integer key, not "
+                         f"{key.dtype}")
+    wide = key.dtype == torch.int64
+    k = _as(key, torch.int64 if wide else torch.int32)
+    m = _as(row_mask, torch.bool)
+    n, dev = k.shape[0], k.device
+    start = torch.empty(n, dtype=torch.bool, device=dev)
+    seg = torch.empty(n, dtype=torch.int64, device=dev)
+    groups = torch.empty(1, dtype=torch.int64, device=dev)
+    lib = _run_lib()
+    scratch = torch.empty(max(lib.spark_run_layout_scratch_bytes(n), 1),
+                          dtype=torch.uint8, device=dev)
+    fn = lib.spark_run_layout_i64 if wide else lib.spark_run_layout_i32
+
+    def launch():
+        return fn(k.data_ptr(), m.data_ptr(), n, start.data_ptr(),
+                  seg.data_ptr(), groups.data_ptr(), scratch.data_ptr(),
+                  _stream(k))
+
+    _raise_on(_on_device(dev, launch), "run_layout")
+    LAUNCHES["run_layout"] += 1
+    return start, seg, groups.reshape(())

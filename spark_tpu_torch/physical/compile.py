@@ -427,6 +427,15 @@ class ExprPipeline:
         self.filters = list(filters)
         self.outputs = list(outputs)
         self.out_schema = out_schema
+        # each output's input column where it passes one through (bare or
+        # aliased): it carries the same values row for row, and a filter
+        # only masks rows, so it keeps that column's RunInfo (the
+        # reference's `_propagate_runs`); None for a computed output
+        pos = {a.expr_id: i for i, a in enumerate(self.input_attrs)}
+        targets = [o.child if isinstance(o, Alias) else o for o in outputs]
+        self._passed = [pos.get(t.expr_id)
+                        if isinstance(t, AttributeReference) else None
+                        for t in targets]
 
     def run(self, batch: ColumnarBatch,
             counters: LaunchCounters | None = None) -> ColumnarBatch:
@@ -437,8 +446,10 @@ class ExprPipeline:
                                     self.filters, self.outputs,
                                     batch.row_mask, cap)
         cols = [Column(f.dataType, broadcast_to_cap(ov.data, cap),
-                       broadcast_to_cap(ov.validity, cap), ov.sdict)
-                for f, ov in zip(self.out_schema.fields, vals)]
+                       broadcast_to_cap(ov.validity, cap), ov.sdict,
+                       None if i is None else batch.columns[i].runs)
+                for f, ov, i in zip(self.out_schema.fields, vals,
+                                    self._passed)]
         if counters is not None:
             counters.add("pipeline")
         return ColumnarBatch(self.out_schema, cols, mask, num_rows=None)

@@ -45,7 +45,7 @@ from ..types import (
     DateType, DecimalType, IntegralType, StringType, StructField,
     StructType, dict_encoded,
 )
-from ..utils.device_memo import memo_device_scalars
+from ..utils.device_memo import DENSE_RANGE_KIND, memo_device_scalars
 from .aggregates import PARTIAL_TO_MERGE, AggSpec
 from .compile import ExprPipeline
 from .partitioning import (
@@ -352,7 +352,7 @@ def dense_range_stats(kc: Column, row_mask: torch.Tensor, metrics=None):
             m.any().to(torch.int64)]).tolist()
         return int(stats[0]), int(stats[1]), bool(stats[2])
 
-    return memo_device_scalars(("dense_range",),
+    return memo_device_scalars(DENSE_RANGE_KIND,
                                (kc.data, kc.validity, row_mask), compute)
 
 
@@ -364,6 +364,18 @@ def _group_kernel(ops: tuple[str, ...], key_eqs, key_outs, key_valids,
                 for ko, kv in zip(key_outs, key_valids)]
     bufs = G.apply_group_ops(layout, ops, val_datas, val_valids)
     return out_keys, bufs, G.group_output_mask(layout), layout
+
+
+def _run_group_kernel(ops: tuple[str, ...], key, val_datas, val_valids,
+                      row_mask):
+    """Sorted-run grouped aggregation: the key column is already sorted
+    (its ingest RunInfo), so groups come from run boundaries
+    (`G.group_rows_presorted`, the run-layout kernel on the card) and the
+    grouping sort is skipped."""
+    layout = G.group_rows_presorted(key, row_mask)
+    out_key, _ = G.scatter_group_keys(layout, key, None)
+    bufs = G.apply_group_ops(layout, ops, val_datas, val_valids)
+    return out_key, bufs, G.group_output_mask(layout)
 
 
 def _dense_group_kernel(ops: tuple[str, ...], cap: int, out_cap: int,
@@ -672,6 +684,10 @@ class HashAggregateExec(PhysicalPlan):
                                     val_valids, out_schema, ctx, side)
             if dense is not None:
                 return dense
+            rle = self._try_run_sorted(batch, key_cols, ops, val_datas,
+                                       val_valids, out_schema, ctx, side)
+            if rle is not None:
+                return rle
 
         if batch.device.type == "cpu":
             # the CPU's sorts and gathers cost every slot of the tile, and
@@ -770,6 +786,32 @@ class HashAggregateExec(PhysicalPlan):
         kv = key_validity if kc.validity is not None else None
         cols = [Column(kf.dataType, out_keys.to(kf.dataType.device_dtype), kv,
                        key_dict)]
+        cols += [self._finish_buffer(bi, bd, bv, f, side)
+                 for bi, ((bd, bv), f) in enumerate(
+                     zip(bufs, out_schema.fields[1:]))]
+        return ColumnarBatch(out_schema, cols, out_mask, num_rows=None)
+
+    def _try_run_sorted(self, batch: ColumnarBatch, key_cols, ops,
+                        val_datas, val_valids, out_schema, ctx, side):
+        """Sorted-run path, tried where the dense path declined (a sparse
+        span): a single integral key whose ingest RunInfo says its rows are
+        sorted, with no validity plane, reduces per run boundary, with no
+        grouping sort and no dense table (the reference's
+        `_try_run_sorted`; spark.tpu.encoding.enabled, read from this
+        session's conf, turns it off). The decision reads metadata only."""
+        if len(key_cols) != 1:
+            return None
+        kc = key_cols[0]
+        if kc.runs is None or not kc.runs.is_sorted or \
+                kc.validity is not None or \
+                not ctx.conf.get(ENCODING_ENABLED):
+            return None
+        out_key, bufs, out_mask = _run_group_kernel(
+            ops, kc.data, val_datas, val_valids, batch.row_mask)
+        ctx.launches.add("ragg")
+        ctx.metrics.add("agg.run_sorted_fast_path")
+        cols = [Column(out_schema.fields[0].dataType, out_key, None,
+                       kc.dictionary)]
         cols += [self._finish_buffer(bi, bd, bv, f, side)
                  for bi, ((bd, bv), f) in enumerate(
                      zip(bufs, out_schema.fields[1:]))]

@@ -32,7 +32,7 @@ from ..expr.window import (
 from ..ops import window as W
 from ..ops.sorting import SortKeySpec
 from ..types import (
-    DateType, DecimalType, IntegralType, StringType, dict_encoded,
+    DateType, DecimalType, IntegralType, dict_encoded,
 )
 from .compile import broadcast_to_cap
 from .operators import PhysicalPlan, attrs_schema
@@ -111,9 +111,6 @@ class WindowExec(PhysicalPlan):
                     out.append(("first_value", scope, f.child))
             elif type(f) in _AGGS:
                 kind = _AGGS[type(f)]
-                if kind in ("min", "max") and \
-                        isinstance(f.child.dtype, StringType):
-                    raise NotPortedError(f"{kind} of a string over a window")
                 frame = w.frame
                 if frame is None:
                     mode = "running" if has_order else "unbounded"
@@ -176,6 +173,15 @@ class WindowExec(PhysicalPlan):
                 sv, svalid, sdict = self._shift(
                     lo, off, vc, None if dflt is None else
                     self._evaluate(dflt, batch))
+            elif kind.endswith(("_min", "_max")) and \
+                    dict_encoded(vc.dtype):
+                # a dictionary-encoded min/max reduces the entries' ranks
+                # (codes follow first appearance, not order: C19) and
+                # maps the winning rank back to its code
+                sd = vc.dictionary or EMPTY_DICT
+                sv, svalid = self._compute(lo, kind, param, vc.sort_keys(),
+                                           vv, ocols, kmin, band)
+                sv = _take_codes(sd.device_rank_to_code(sv.device), sv)
             else:
                 sv, svalid = self._compute(lo, kind, param, vd, vv, ocols,
                                            kmin, band)

@@ -1,6 +1,6 @@
 """Process-global memo of host-synced scalars derived from device tensors
-(the port's copy of `spark_tpu/utils/device_memo.py`, `memo_device_scalars`
-only).
+(the port's copy of `spark_tpu/utils/device_memo.py`: `memo_device_scalars`
+and `seed_dense_range_memo`).
 
 A read of a device value stalls the host until the card catches up. The
 memo, keyed by the IDENTITY of the source tensors, makes such reads once per
@@ -18,7 +18,12 @@ import collections
 import threading
 import weakref
 
-__all__ = ["memo_device_scalars"]
+__all__ = ["DENSE_RANGE_KIND", "memo_device_scalars",
+           "seed_dense_range_memo"]
+
+# the memo kind of physical/operators.dense_range_stats: (kmin, kmax,
+# any_live) of a column under a row mask
+DENSE_RANGE_KIND = ("dense_range",)
 
 _MEMO: "collections.OrderedDict" = collections.OrderedDict()
 _LOCK = threading.Lock()
@@ -65,3 +70,15 @@ def memo_device_scalars(kind: tuple, arrays: tuple, compute):
         while len(_MEMO) > _MAX:
             _MEMO.popitem(last=False)
     return value
+
+
+def seed_dense_range_memo(col, row_mask, value: tuple) -> None:
+    """Pre-populate the dense-range memo from stats computed on the host
+    while the column was still a numpy array (the Arrow ingest,
+    columnar/arrow.record_batch_to_columnar): the dense aggregate's and
+    dense join's decision over that tile then reads nothing from the
+    device, even on a cold first run. `value` = (kmin, kmax, any_live)
+    under the tile's row mask and validity, the dense_range_stats
+    contract."""
+    memo_device_scalars(DENSE_RANGE_KIND,
+                        (col.data, col.validity, row_mask), lambda: value)

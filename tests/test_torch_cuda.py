@@ -836,6 +836,54 @@ def shift_oracle(rows, part, order, col, offset, default=None,
     return out
 
 
+# the string min/max columns of WINDOW_CONSTRUCTS, where the JAX package
+# reduces dictionary codes, which follow first appearance and not order
+# (ROADMAP.md C19): its tests hold them to `minmax_oracle` instead;
+# column -> (function, frame) over PARTITION BY g (frames as
+# minmax_oracle takes them)
+RANKED = {"window_string_minmax": {
+    "lo": ("min", ("partition",)), "hi": ("max", ("peers", "o")),
+    "r": ("min", ("rows", "k", -2, 0)), "v": ("max", ("range", "m", -3, 2))}}
+
+
+def minmax_oracle(rows, part, fn, frame, col="c"):
+    """Spark's min or max of the strings `col` over a window frame of plain
+    rows, keyed by k: within each partition of `part`, the frame is the
+    whole partition ("partition",), the rows up to the current row's peers
+    in ascending order of a column, NULLs first ("peers", column), a ROWS
+    frame of offsets over a column without NULLs ("rows", column, lo, hi),
+    or a value RANGE over an integral column without NULLs ("range",
+    column, lo, hi). NULL values are skipped; an all-NULL frame gives
+    NULL."""
+    parts: dict = {}
+    for r in rows:
+        parts.setdefault(r[part], []).append(r)
+    pick = min if fn == "min" else max
+
+    def rank(v):  # ascending, NULLs first
+        return (v is not None, v if v is not None else 0)
+
+    out = {}
+    for members in parts.values():
+        kind = frame[0]
+        if kind == "rows":
+            members = sorted(members, key=lambda r: r[frame[1]])
+        for i, r in enumerate(members):
+            if kind == "partition":
+                window = members
+            elif kind == "peers":
+                window = [x for x in members
+                          if rank(x[frame[1]]) <= rank(r[frame[1]])]
+            elif kind == "rows":
+                window = members[max(i + frame[2], 0): i + frame[3] + 1]
+            else:
+                lo, hi = r[frame[1]] + frame[2], r[frame[1]] + frame[3]
+                window = [x for x in members if lo <= x[frame[1]] <= hi]
+            vals = [x[col] for x in window if x[col] is not None]
+            out[r["k"]] = pick(vals) if vals else None
+    return out
+
+
 # the fourth SQL slice's cases over t3: name -> (statement, ordered
 # result); tests/test_torch_windows.py and
 # tests/test_torch_grouping_sets.py hold them against the JAX package
@@ -901,6 +949,12 @@ WINDOW_CONSTRUCTS = {
     "window_case_partition": (
         "SELECT k, rank() OVER (PARTITION BY CASE WHEN g > 2 THEN 'hi' "
         "ELSE c END ORDER BY i) r FROM t3", False),
+    "window_string_minmax": (
+        "SELECT k, min(c) OVER (PARTITION BY g) lo, max(c) OVER "
+        "(PARTITION BY g ORDER BY o) hi, min(c) OVER (PARTITION BY g "
+        "ORDER BY k ROWS BETWEEN 2 PRECEDING AND CURRENT ROW) r, max(c) "
+        "OVER (PARTITION BY g ORDER BY m RANGE BETWEEN 3 PRECEDING AND 2 "
+        "FOLLOWING) v FROM t3", False),
     "rollup": (
         "SELECT g, c, sum(i) s, count(*) n, grouping(g) gg, grouping(c) gc, "
         "grouping_id() gid FROM t3 GROUP BY ROLLUP(g, c) "
@@ -2490,3 +2544,120 @@ def test_adaptive_demoted_join_and_coalesced_aggregate_card_equals_cpu(
     assert cm["aqe.probe_shuffles_elided"] >= 1
     assert cm["aqe.partitions_coalesced"] >= 1
     assert cm["scheduler.stage_retries"] == 0
+
+
+# --- the run-layout kernel (csrc/run_layout.cu) and the sorted_runs leg ------
+
+def _run_keys(rng, n, kind):
+    """n keys of one kind: sorted runs of 1-20 rows (the sorted_runs leg's
+    order ids), one run, an unsorted key, or sorted runs far below zero."""
+    lens = rng.integers(1, 21, n + 1)
+    runs = np.repeat(np.cumsum(rng.integers(16, 112, len(lens))), lens)[:n]
+    return {"runs": runs, "one_run": np.full(n, 7, np.int64),
+            "unsorted": rng.integers(0, 4, n),
+            "negative": runs - (1 << 40)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["runs", "one_run", "unsorted", "negative"])
+@pytest.mark.parametrize("dtype", [np.int64, np.int32, np.int16])
+@pytest.mark.parametrize("n,live", [
+    (1, 1.0), (1023, 0.6), (1024, 0.6), (1025, 0.6), (1_000_003, 0.6),
+    (1 << 22, 0.99), (1 << 22, 0.0), (1 << 22, 1.0)])
+def test_run_layout_kernel_equals_plain(cuda_device, kind, dtype, n, live):
+    """Start flags, group ids and the group count against the plain version
+    exactly, over any key order: masked rows inside runs, every row masked
+    or live, ragged ends past the 1,024-row tiles."""
+    rng = np.random.default_rng(n + int(live * 100))
+    key = _run_keys(rng, n, kind)
+    if dtype != np.int64 and kind == "negative":
+        key = key + (1 << 40) - 20_000
+    k = _on_card(key.astype(dtype), 0, cuda_device)
+    m = _on_card(rng.random(n) < live, 0, cuda_device)
+    before = SK.LAUNCHES["run_layout"]
+    got = SK.run_layout(k, m)
+    assert SK.LAUNCHES["run_layout"] == before + 1
+    torch.cuda.synchronize()
+    want = SK.run_layout_plain(k, m)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("key_off,mask_off", [(1, 1), (1, 0), (0, 3)])
+def test_run_layout_misaligned_views_and_masked_runs(cuda_device, key_off,
+                                                     mask_off):
+    """Views off 16-byte alignment, and runs whose rows are all masked
+    (they make no group) among runs with masked rows inside them."""
+    rng = np.random.default_rng(7)
+    n = (1 << 20) + 5
+    key = _run_keys(rng, n, "runs")
+    mask = (rng.random(n) < 0.7) & ~np.isin(key, np.unique(key)[::3])
+    k = _on_card(key, key_off, cuda_device)
+    m = _on_card(mask, mask_off, cuda_device)
+    got = SK.run_layout(k, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, SK.run_layout_plain(k, m)):
+        assert torch.equal(g, w)
+
+
+def test_run_layout_in_a_captured_graph(cuda_device):
+    """The layout inside a CUDA graph capture (no host read, scratch sized
+    by rows alone): each replay over new inputs copied into the capture's
+    buffers equals the plain version."""
+    rng = np.random.default_rng(9)
+    n = 1 << 21
+    k = _on_card(_run_keys(rng, n, "runs"), 0, cuda_device)
+    m = _on_card(rng.random(n) < 0.8, 0, cuda_device)
+    SK.prepare(cuda_device)
+    SK.run_layout(k, m)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = SK.run_layout(k, m)
+    for seed in (1, 2):
+        r = np.random.default_rng(seed)
+        k.copy_(torch.from_numpy(_run_keys(r, n, "runs")))
+        m.copy_(torch.from_numpy(r.random(n) < 0.5))
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(out, SK.run_layout_plain(k, m)):
+            assert torch.equal(g, w)
+
+
+def test_sorted_runs_statement_card_equals_cpu(cuda_device):
+    """chip_smoke.py's sorted_runs statement at 1/64 of its rows at the
+    operator tier: order lines clustered by order id in 8 partitions of
+    two tiles each (2^15 rows a tile, one tile a partial chunk), so each
+    tile's partial aggregate takes the sorted-run path through the
+    run-layout kernel; equal to the CPU and to the numpy oracle."""
+    import pyarrow as pa
+
+    import chip_smoke as cs
+    from spark_tpu_torch.api.dataframe import DataFrame
+    from spark_tpu_torch.expr.expressions import AttributeReference
+    from spark_tpu_torch.io.sources import InMemorySource
+    from spark_tpu_torch.plan.logical import LogicalRelation
+
+    a = cs.sorted_runs_table(cs.SORTED_ROWS // 64)
+    conf = {"spark.sql.shuffle.partitions": 8,
+            "spark.tpu.batch.capacity": 1 << 15,
+            "spark.tpu.agg.blockRows": 1 << 15,
+            "spark.tpu.compile.tier": "operator"}
+    out = []
+    for s in _card_cpu_sessions(conf):
+        src = InMemorySource(pa.table(a), 8)
+        attrs = [AttributeReference(f.name, f.dataType, f.nullable)
+                 for f in src.schema.fields]
+        DataFrame(s, LogicalRelation(src, attrs, "order_lines")) \
+            .createOrReplaceTempView("order_lines")
+        before, l0 = SK.LAUNCHES["run_layout"], s.launches.snapshot()
+        got = s.sql(cs.SORTED_QUERY).toArrow().sort_by("order_id")
+        ragg = s.launches.snapshot().get("ragg", 0) - l0.get("ragg", 0)
+        assert ragg == 16
+        out.append((got, SK.LAUNCHES["run_layout"] - before))
+        s.stop()
+    (card, launched), (cpu, _) = out
+    assert launched == 16
+    assert card.equals(cpu)
+    want = cs.sorted_runs_oracle(a)
+    for name, col in want.items():
+        assert np.array_equal(card.column(name).to_numpy(), col), name

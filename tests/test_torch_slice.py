@@ -293,6 +293,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import spark_tpu_torch.plan.commands, spark_tpu_torch.plan.stats\n"
         "import spark_tpu_torch.plan.warehouse, spark_tpu_torch.api.na\n"
         "import spark_tpu_torch.api.stat, spark_tpu_torch.sql.scripting\n"
+        "import spark_tpu_torch.utils.variant\n"
+        "import spark_tpu_torch.columnar.encoding\n"
+        "import spark_tpu_torch.columnar.validate\n"
         "s.sql('CREATE TABLE ct AS SELECT k, v FROM fact WHERE k < 10')\n"
         "s.sql('DELETE FROM ct WHERE k = 0')\n"
         "s.sql('INSERT INTO ct VALUES (99, 1)')\n"

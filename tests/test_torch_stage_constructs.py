@@ -15,10 +15,10 @@ pytest.importorskip("jax")
 
 from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import TorchSession  # noqa: E402
-from tests.test_torch_cuda import LEADS, SQL_CONSTRUCTS  # noqa: E402
+from tests.test_torch_cuda import LEADS, RANKED, SQL_CONSTRUCTS  # noqa: E402
 from tests.test_torch_cuda import WINDOW_CONSTRUCTS  # noqa: E402
 from tests.test_torch_cuda import construct_rows, construct_tables  # noqa: E402,E501
-from tests.test_torch_cuda import shift_oracle  # noqa: E402
+from tests.test_torch_cuda import minmax_oracle, shift_oracle  # noqa: E402
 from tests.test_torch_fusion import one_torch_thread  # noqa: E402,F401
 from tests.test_torch_fusion import replayed  # noqa: E402,F401
 
@@ -64,13 +64,18 @@ def test_construct_at_fused_tier_matches_reference(engines, replayed, name,
     got = ports[(tier, cap)].sql(text).toArrow()
     assert got.schema == want[name].schema
     # a lead column is held to Spark's semantics, not to the reference's
-    # (which computes lag there, ROADMAP.md C18)
+    # (which computes lag there, ROADMAP.md C18), and a string min/max to
+    # the plain oracle (the reference reduces codes there, C19)
     leads = LEADS.get(name, {})
-    keep = [c for c in got.column_names if c not in leads]
+    ranked = RANKED.get(name, {})
+    keep = [c for c in got.column_names if c not in leads and c not in ranked]
     assert construct_rows(got.select(keep), ordered) == \
         construct_rows(want[name].select(keep), ordered)
+    rows = construct_tables()["t3"].to_pylist()
+    by_k = {col: dict(zip(got.column("k").to_pylist(),
+                          got.column(col).to_pylist()))
+            for col in (*leads, *ranked)}
     for col, (arg, off) in leads.items():
-        assert dict(zip(got.column("k").to_pylist(),
-                        got.column(col).to_pylist())) == shift_oracle(
-            construct_tables()["t3"].to_pylist(), "g", [("k", False)], arg,
-            off)
+        assert by_k[col] == shift_oracle(rows, "g", [("k", False)], arg, off)
+    for col, (fn, frame) in ranked.items():
+        assert by_k[col] == minmax_oracle(rows, "g", fn, frame)

@@ -26,10 +26,11 @@ from spark_tpu import TpuSession  # noqa: E402
 from spark_tpu_torch import TorchSession  # noqa: E402
 from spark_tpu_torch.api.window import Window  # noqa: E402
 from spark_tpu_torch.errors import NotPortedError  # noqa: E402
-from tests.test_torch_cuda import LEADS, WINDOW_CONSTRUCTS  # noqa: E402
+from tests.test_torch_cuda import LEADS, RANKED, WINDOW_CONSTRUCTS  # noqa: E402,E501
 from tests.test_torch_cuda import construct_rows as _rows  # noqa: E402
 from tests.test_torch_cuda import construct_tables  # noqa: E402
-from tests.test_torch_cuda import shift_oracle  # noqa: E402
+from tests.test_torch_cuda import minmax_oracle, shift_oracle  # noqa: E402
+from tests.test_torch_fusion import replayed  # noqa: E402,F401
 from tests.test_torch_tpcds_slice import _ops  # noqa: E402
 from tests.test_torch_tpcds_store import renumber  # noqa: E402
 
@@ -76,12 +77,15 @@ def check_pair(jd, td, ordered: bool, apart=()) -> None:
 @pytest.mark.parametrize("name", CASES)
 def test_window_matches_reference(sessions, name):
     """Each case in both engines; its lead columns are held to Spark's
-    semantics (`shift_oracle`), and the reference's to lag's."""
+    semantics (`shift_oracle`), and the reference's to lag's; its string
+    min/max columns to `minmax_oracle` (the reference's reduce codes,
+    C19, pinned below)."""
     j, t = sessions
     text, ordered = WINDOW_CONSTRUCTS[name]
     leads = LEADS.get(name, {})
+    ranked = RANKED.get(name, {})
     jd, td = j.sql(text), t.sql(text)
-    check_pair(jd, td, ordered, apart=tuple(leads))
+    check_pair(jd, td, ordered, apart=tuple(leads) + tuple(ranked))
     rows = construct_tables()["t3"].to_pylist()
     for col, (arg, off) in leads.items():
         order = [("k", False)]
@@ -89,6 +93,9 @@ def test_window_matches_reference(sessions, name):
             shift_oracle(rows, "g", order, arg, off)
         assert _by_k(jd.toArrow(), col) == \
             shift_oracle(rows, "g", order, arg, -off)
+    for col, (fn, frame) in ranked.items():
+        assert _by_k(td.toArrow(), col) == \
+            minmax_oracle(rows, "g", fn, frame), col
 
 
 def test_window_plans_one_node_per_spec(sessions):
@@ -158,8 +165,12 @@ def test_dataframe_top_n_equals_sql(sessions):
 
 
 UNPORTED = {
-    "string_max": ("SELECT max(c) OVER (PARTITION BY g) FROM t3",
-                   "max of a string over a window"),
+    # a string max over a window runs since string min/max were ported;
+    # a value RANGE frame ordered by the string is still refused, as the
+    # reference refuses it
+    "string_max": ("SELECT max(c) OVER (PARTITION BY g ORDER BY c RANGE "
+                   "BETWEEN 1 PRECEDING AND CURRENT ROW) FROM t3",
+                   "RANGE value frames"),
     "range_two_keys": ("SELECT sum(i) OVER (PARTITION BY g ORDER BY m, k "
                        "RANGE BETWEEN 1 PRECEDING AND CURRENT ROW) FROM t3",
                        "RANGE value frames"),
@@ -291,3 +302,81 @@ def test_reference_lead_lag_faults_pinned(sessions):
     assert _by_k(got, "b") == lag1
     assert _by_k(got, "c") == lag1
     assert lag1 != shift_oracle(rows, "g", order, "i", -1)
+
+
+# --- string min/max over a window, held to a plain oracle (C19) -----------
+
+# (output column, SQL text, minmax_oracle's function and frame)
+STRING_MINMAX = [
+    ("a", "min(c) OVER (PARTITION BY g)", ("min", ("partition",))),
+    ("b", "max(c) OVER (PARTITION BY g)", ("max", ("partition",))),
+    ("c2", "min(c) OVER (PARTITION BY g ORDER BY o)", ("min", ("peers", "o"))),
+    ("d", "max(c) OVER (PARTITION BY g ORDER BY o)", ("max", ("peers", "o"))),
+    ("e", "min(c) OVER (PARTITION BY g ORDER BY k ROWS BETWEEN 3 PRECEDING "
+          "AND 1 FOLLOWING)", ("min", ("rows", "k", -3, 1))),
+    ("f", "max(c) OVER (PARTITION BY g ORDER BY k ROWS BETWEEN CURRENT ROW "
+          "AND 4 FOLLOWING)", ("max", ("rows", "k", 0, 4))),
+    ("h", "min(c) OVER (PARTITION BY g ORDER BY m RANGE BETWEEN 2 PRECEDING "
+          "AND 2 FOLLOWING)", ("min", ("range", "m", -2, 2))),
+    ("l", "max(c) OVER (PARTITION BY g ORDER BY m RANGE BETWEEN 5 PRECEDING "
+          "AND CURRENT ROW)", ("max", ("range", "m", -5, 0))),
+    # a one-row frame: NULL wherever c is
+    ("n", "min(c) OVER (PARTITION BY g ORDER BY k ROWS BETWEEN CURRENT ROW "
+          "AND CURRENT ROW)", ("min", ("rows", "k", 0, 0))),
+]
+
+
+@pytest.mark.parametrize("tier", ["operator", "stage", "auto"])
+def test_string_minmax_match_oracle(tier_sessions, replayed, tier):
+    """min and max of a nullable string over every frame the port runs
+    (the whole partition, running with peers over a key with NULLs and
+    ties, ROWS frames, value RANGE frames), in SQL and through F.min and
+    F.max over a Window, each equal to the plain oracle: NULLs are
+    skipped and an all-NULL frame gives NULL."""
+    t = tier_sessions[tier]
+    cols = ", ".join(f"{text} AS {name}" for name, text, _ in STRING_MINMAX)
+    got = t.sql(f"SELECT k, {cols} FROM t3").toArrow()
+    rows = construct_tables()["t3"].to_pylist()
+    for name, _, (fn, frame) in STRING_MINMAX:
+        want = minmax_oracle(rows, "g", fn, frame)
+        assert _by_k(got, name) == want, name
+    assert any(v is None for v in _by_k(got, "n").values())
+    w = Window.partitionBy("g").orderBy("o")
+    df = t.sql("SELECT * FROM t3").select(
+        "k", F.min("c").over(w).alias("lo"),
+        F.max("c").over(Window.partitionBy("g").orderBy("k")
+                        .rowsBetween(-1, 1)).alias("hi"))
+    out = df.toArrow()
+    assert _by_k(out, "lo") == minmax_oracle(rows, "g", "min",
+                                             ("peers", "o"))
+    assert _by_k(out, "hi") == minmax_oracle(rows, "g", "max",
+                                             ("rows", "k", -1, 1))
+
+
+def test_reference_string_minmax_fault_pinned(sessions):
+    """The reference's min/max of a string over a window reduces the
+    dictionary codes, which follow first appearance (ROADMAP.md C19): over
+    (g, s) = (1, 'b'), (1, 'a'), (2, 'c') its min(s) OVER (PARTITION BY g)
+    is 'b' for group 1 and max(s) OVER (PARTITION BY g ORDER BY s) 'a' on
+    the row 'b'; the port gives 'a' and 'b', as Spark does."""
+    import pyarrow as pa
+
+    j, t = sessions
+    tbl = pa.table({"i": [1, 2, 3], "g": [1, 1, 2], "s": ["b", "a", "c"]})
+    q = ("SELECT i, min(s) OVER (PARTITION BY g) mn, max(s) OVER "
+         "(PARTITION BY g ORDER BY s) mx FROM c19")
+    out = {}
+    for name, s in (("reference", j), ("port", t)):
+        s.createDataFrame(tbl).createOrReplaceTempView("c19")
+        rows = sorted(s.sql(q).toArrow().to_pylist(), key=lambda r: r["i"])
+        out[name] = [(r["mn"], r["mx"]) for r in rows]
+    assert out["reference"] == [("b", "a"), ("b", "a"), ("c", "c")]
+    assert out["port"] == [("a", "b"), ("a", "a"), ("c", "c")]
+    # over t3's construct the reference's columns differ from the oracle
+    text, _ = WINDOW_CONSTRUCTS["window_string_minmax"]
+    got = j.sql(text).toArrow()
+    rows = construct_tables()["t3"].to_pylist()
+    wrong = [col for col, (fn, frame) in
+             RANKED["window_string_minmax"].items()
+             if _by_k(got, col) != minmax_oracle(rows, "g", fn, frame)]
+    assert wrong, "the reference now agrees with the oracle"
